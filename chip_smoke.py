@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero and no phase's exception is
-caught:
+Phases, in order (1, 2, 2b, 3, 3b, 4, 5); any failure exits non-zero and
+no phase's exception is caught:
 
 1. build: compile every CUDA source of the port with nvcc (one process per
    source, all started together) and print the build time and the ptxas
@@ -17,20 +17,48 @@ caught:
 3. reference: a small float32 Llama served on the card (kernel path) and
    on the CPU (plain path) gives the same prefill logits and the same
    greedy tokens;
-4. main path: a random-init Mistral-7B artifact at full width, made by the
-   port's tool, served through ``GenerationService``, the ``generate`` CLI
-   and ``engine.generate.generate``: (a) a 1024-token prompt, 32 greedy
-   tokens, twice, identical; (b) a 6144-token prompt, past the 4096-token
-   window (rolling cache, banded kernel); (c) a sampled request with a stop
-   id; (d) a batch of 4 x 2048-token prompts. The flash launch count is set
-   to 0 before each request and must read exactly ``n_layer`` per prefill
-   after it. Then request (a) runs under ``torch.profiler`` (prefill alone,
-   then the whole request) for the device's busy time and top kernels.
+4. main path of slice 1: a random-init Mistral-7B artifact at full
+   width, made by the port's tool, served through ``GenerationService``,
+   the ``generate`` CLI and ``engine.generate.generate``: (a) a 1024-token
+   prompt, 32 greedy tokens, twice, identical; (b) a 6144-token prompt,
+   past the 4096-token window (rolling cache, banded kernel); (c) a
+   sampled request with a stop id; (d) a batch of 4 x 2048-token prompts.
+   The flash launch count is set to 0 before each request and must read
+   exactly ``n_layer`` per prefill after it. Then request (a) runs under
+   ``torch.profiler`` (prefill alone, then the whole request) for the
+   device's busy time and top kernels.
+
+Slice 2 (continuous paged serving, kernel B4) adds:
+
+2b. the paged-attention kernel against its plain version at the main
+    path's shapes (decode over the 145-page ring, bf16 and int8 pools,
+    flat decode with shuffled tables, a 512-lane prefill chunk, a
+    64-lane admission feed with pad lanes, an f32 case at D 64), with
+    kernel / plain / library (SDPA on K/V gathered in advance) times and
+    the card's bound;
+3b. the small f32 Llama served by the continuous engine over the paged
+    pool on the card and on the CPU: same greedy tokens for 6 concurrent
+    requests, with the f32 and the int8 pool;
+5.  main path of slice 2: the same artifact served by the port's
+    ``serve.py`` (in this process, a free port) with
+    ``configs/mistral_7b_serve_paged.json``, driven over HTTP with
+    streamed responses: (e) 8 concurrent greedy requests of 256-2048
+    tokens, half sharing a 1024-token prefix, 64 new tokens each; one of
+    them alone, twice, identical; (f) a 6144-token prompt streamed in
+    512-token chunks while 4 short requests decode; (g) the mix of (e)
+    again over an int8 pool. Before each wave both launch counts are set
+    to 0; after it the paged kernel's count must equal ``n_layer`` x the
+    engine's model calls and the flash kernel's must be 0, every id in
+    range, warm admits copying nothing, and prefix hits > 0 after (e).
+    The paged batch-1 prefill's last logits are held against slice 1's
+    flash prefill on a 1024-token prompt, and one request of (e) runs
+    alone under ``torch.profiler`` (outside the counted waves).
 
 The last three lines of standard output are the card's name and power
-limit as nvidia-smi gives them, the ``kernels`` JSON line and the device
-line ``{"ok": true, "device": {...}}``. The script needs a CUDA device and
-the repository beside it; it imports nothing of JAX.
+limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
+slice 1's launches, paged_attn with slice 2's) and the device line
+``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
+repository beside it; it imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -112,7 +140,7 @@ def phase_build() -> None:
     # importing a kernel's module registers its library for build_all
     from pytorch_distributed_template_tpu_torch.ops import build, flash
 
-    assert flash.FLASH_FWD in build.LIBRARIES
+    assert {flash.FLASH_FWD, flash.PAGED_ATTN} <= set(build.LIBRARIES)
     t0 = time.perf_counter()
     built = build.build_all()
     log(f"[build] {len(build.LIBRARIES)} libraries in "
@@ -355,9 +383,12 @@ def _check_ids(ids, vocab: int, n: int, what: str) -> None:
 
 
 def phase_main(card: str, device="cuda", arch=MAIN_ARCH, arch_args=None,
-               sizes=None, work=WORK, seed: int = 0) -> int:
+               sizes=None, work=WORK, seed: int = 0,
+               keep_artifact: bool = False) -> int:
     """Make the artifact with the port's tool, serve requests (a)-(d) and
-    the CLI on it; returns the flash launches of the whole path."""
+    the CLI on it; returns the flash launches of the whole path. The work
+    directory is removed at the end unless ``keep_artifact`` (slice 2's
+    phase serves the same artifact)."""
     from pytorch_distributed_template_tpu_torch import generate as gen_cli
     from pytorch_distributed_template_tpu_torch.config import ConfigParser
     from pytorch_distributed_template_tpu_torch.engine import generate as eg
@@ -480,8 +511,587 @@ def phase_main(card: str, device="cuda", arch=MAIN_ARCH, arch_args=None,
     profile_request(service, a, new, "a_request", card)
     del service, model
     gc.collect()
-    shutil.rmtree(work)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    if not keep_artifact:
+        shutil.rmtree(work)
     return run.launches
+
+# ---------------------------------------------------------------------------
+# slice 2: continuous paged serving, kernel B4
+# ---------------------------------------------------------------------------
+
+PAGED_SOURCE = "pytorch_distributed_template_tpu_torch/csrc/paged_attn.cu"
+PAGED_REPLACES = "pytorch_distributed_template_tpu/ops/flash.py:620"
+# (name, B, T, Hq, KVH, D, bt, NB, window, layout, dtype, quant): the main
+# path's launches (Mistral-7B: 32/8 heads, D 128, bt 32, the 145-page ring
+# of window 4096 + 1 + 512/32 slack) and one f32 case at D 64
+PAGED_SHAPES = [
+    ("decode_ring", 8, 1, 32, 8, 128, 32, 145, 4096, "ring",
+     torch.bfloat16, False),
+    ("decode_ring_int8", 8, 1, 32, 8, 128, 32, 145, 4096, "ring",
+     torch.bfloat16, True),
+    ("decode_flat", 8, 1, 32, 8, 128, 32, 64, 0, "flat",
+     torch.bfloat16, False),
+    ("prefill_chunk", 1, 512, 32, 8, 128, 32, 145, 4096, "chunk",
+     torch.bfloat16, False),
+    ("admit_feed", 8, 64, 32, 8, 128, 32, 145, 4096, "feed",
+     torch.bfloat16, False),
+    ("f32_d64", 4, 16, 16, 4, 64, 16, 40, 0, "flat", torch.float32, False),
+]
+PAGED_POOL_PAGES = 1280
+# slice 2's main path: Mistral at full width served by the port's serve.py
+# over configs/mistral_7b_serve_paged.json (32-token blocks, 1280 pages,
+# 512-token prefill chunks)
+SERVE_CONFIG = REPO / "pytorch_distributed_template_tpu_torch" / "configs" \
+    / "mistral_7b_serve_paged.json"
+SERVE_SIZES = {"prefix": 1024, "shared_suffix": [128, 384, 640, 1024],
+               "alone": [256, 512, 1024, 1536], "new": 64, "long": 6144,
+               "long_new": 64, "short": 128, "short_new": 128,
+               "logit_prompt": 1024, "slots": 8, "chunk": 8}
+# last-position logits of the paged batch-1 prefill against slice 1's
+# flash prefill, bf16 at 32 layers: the two paths round K/V, P and the
+# residual stream at different places, so they agree to a few bf16 ulps
+# of the logits' scale: max |diff| <= 5% of max |logit|
+SERVE_LOGIT_RTOL = 0.05
+# phase 3b: the small f32 model with block 8 and 16-token prefill chunks
+PAGED_REF_POOL = {"enabled": True, "block_tokens": 8, "pool_blocks": 96,
+                  "paged": True}
+
+
+def _paged_case(name, b, t, hq, kvh, d, bt, nb, window, layout, dtype,
+                quant, gen):
+    """Inputs of one B4 shape on the card: random pools of
+    ``PAGED_POOL_PAGES`` pages and each row's table as the engine lays it
+    (distinct random pages; ``-1`` past a row's allocation)."""
+    from pytorch_distributed_template_tpu_torch.models.quant import (
+        quantize_kv,
+    )
+
+    dev = "cuda"
+    pages = PAGED_POOL_PAGES
+    q = torch.randn((b, t, hq, d), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((pages, bt, kvh, d), generator=gen, device=dev)
+    vp = torch.randn((pages, bt, kvh, d), generator=gen, device=dev)
+    ks = vs = None
+    if quant:
+        kp, ks = quantize_kv(kp)
+        vp, vs = quantize_kv(vp)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    cpu = torch.Generator().manual_seed(b * 1000 + t)
+    tables = torch.full((b, nb), -1, dtype=torch.int32)
+    pads = torch.zeros((b,), dtype=torch.int32)
+    if layout == "chunk":
+        starts = torch.tensor([5120], dtype=torch.int32)
+    elif layout == "flat":
+        lens = torch.randint(500, 2001, (b,), generator=cpu)
+        lens = lens.clamp(max=nb * bt)
+        starts = (lens - t).int()
+    elif layout == "feed":
+        starts = torch.randint(64, 2000, (b,), generator=cpu).int()
+        pads = torch.randint(0, t, (b,), generator=cpu).int()
+    else:                                         # decode ring
+        starts = torch.randint(300, 6001, (b,), generator=cpu).int()
+    for i in range(b):
+        end = int(starts[i]) + t                  # tokens written so far
+        n = min(nb, -(-end // bt))
+        perm = torch.randperm(pages - 1, generator=cpu)[:n] + 1
+        if layout == "flat" or end <= nb * bt:
+            tables[i, :n] = perm.int()
+        else:
+            tables[i] = perm.int()                # a full (wrapped) ring
+    if layout != "chunk":
+        tables[0, -1] = -1                        # one unallocated lane
+    to = [x.to(dev) for x in (tables, starts, pads)]
+    return q, kp, vp, ks, vs, *to
+
+
+def _sdpa_paged_ms(q, kp, vp, ks, vs, tables, starts, pads, window, reps):
+    """``scaled_dot_product_attention`` on K/V gathered contiguously in
+    advance (the gather is not timed), with the same boolean mask: the
+    yardstick, since no single PyTorch call reads a block table."""
+    import torch.nn.functional as F
+
+    from pytorch_distributed_template_tpu_torch.ops.flash import (
+        paged_gather, paged_visible,
+    )
+
+    k_all = paged_gather(kp, tables, ks, q.dtype).transpose(1, 2)
+    v_all = paged_gather(vp, tables, vs, q.dtype).transpose(1, 2)
+    k_all, v_all = k_all.contiguous(), v_all.contiguous()
+    mask = paged_visible(tables, starts, pads, q.shape[1], kp.shape[1],
+                         window)[:, None]
+    qt = q.transpose(1, 2).contiguous()
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, k_all, v_all, attn_mask=mask, enable_gqa=True), reps)
+
+
+def phase_paged_kernel() -> list:
+    """B4 against its plain version on the card at the main path's
+    shapes: max error over valid lanes (pad lanes must be exactly 0),
+    kernel / plain / SDPA times and the card's bound."""
+    from pytorch_distributed_template_tpu_torch.ops.flash import (
+        PAGED_ATTN, paged_attention, paged_attention_ref,
+        paged_bound_seconds,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for shape in PAGED_SHAPES:
+        (name, b, t, hq, kvh, d, bt, nb, window, layout, dtype,
+         quant) = shape
+        q, kp, vp, ks, vs, tables, starts, pads = _paged_case(*shape, gen)
+        args = (q, kp, vp, tables, starts, pads)
+        kw = dict(window=window, k_scale=ks, v_scale=vs)
+        out = paged_attention(*args, **kw)
+        torch.cuda.synchronize()
+        f32 = (lambda x: x) if quant else (lambda x: x.float())
+        ref = paged_attention_ref(q.float(), f32(kp), f32(vp), tables,
+                                  starts, pads, **kw)
+        atol, rtol, _ = TOL[dtype]
+        err, excess = 0.0, 0.0
+        for i, p in enumerate(pads.tolist()):
+            diff = (out[i, p:].float() - ref[i, p:]).abs()
+            err = max(err, diff.max().item())
+            excess = max(excess,
+                         (diff - rtol * ref[i, p:].abs()).max().item())
+            if p and out[i, :p].float().abs().max().item() != 0.0:
+                raise AssertionError(f"B4 {name}: pad lanes not zero")
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"B4 {name}: non-finite output")
+        if excess > atol:
+            raise AssertionError(
+                f"paged_attn disagrees with its plain version at {name}: "
+                f"max err {err:.3e}, max(err - {rtol}|ref|) {excess:.3e} "
+                f"(atol {atol})")
+        del ref
+        reps = 20 if t > 64 else 50
+        kernel_ms = cuda_ms(lambda: paged_attention(*args, **kw), reps)
+        ref_ms = cuda_ms(lambda: paged_attention_ref(*args, **kw),
+                         max(2, reps // 10), warmup=1)
+        library_ms = _sdpa_paged_ms(q, kp, vp, ks, vs, tables, starts, pads,
+                                    window, reps)
+        bound_s, bound_by = paged_bound_seconds(
+            q, kp, tables, starts, pads, window, quant, PEAK_FLOPS[dtype],
+            PEAK_BYTES)
+        row = {"shape": name, "B": b, "T": t, "Hq": hq, "KVH": kvh, "D": d,
+               "bt": bt, "NB": nb, "window": window,
+               "dtype": str(dtype).replace("torch.", ""),
+               "kv": "int8" if quant else str(dtype).replace("torch.", ""),
+               "max_abs_err": err, "atol_rtol": [atol, rtol],
+               "kernel_ms": kernel_ms, "ref_ms": ref_ms,
+               "library_ms": library_ms, "bound_ms": bound_s * 1e3,
+               "bound_by": bound_by,
+               "library": "scaled_dot_product_attention on K/V gathered "
+                          "in advance (gather not timed), same mask"}
+        rows.append(row)
+        log("[paged] " + json.dumps(row))
+        del q, kp, vp, ks, vs, out
+        torch.cuda.empty_cache()
+    PAGED_ATTN.launches = 0
+    return rows
+
+
+def _concurrent(fn, items, timeout=600.0):
+    """``fn(item)`` for every item in its own thread; results in order.
+    Raises the first error; fails when a thread is still running at the
+    timeout."""
+    import threading
+
+    out, errs = [None] * len(items), []
+
+    def call(i):
+        try:
+            out[i] = fn(items[i])
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=call, args=(i,), daemon=True)
+               for i in range(len(items))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("requests still running after the timeout")
+    if errs:
+        raise errs[0]
+    return out
+
+
+def phase_paged_reference(device="cuda") -> None:
+    """The small f32 Llama (D 64, window 16, block 8) served by the
+    continuous engine over the paged pool on ``device`` (B4) and on the
+    CPU (plain version): 6 concurrent greedy requests, some streamed and
+    some wrapping the ring, give the same tokens; also with the int8
+    pool."""
+    import numpy as np
+
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.config.registry import MODELS
+    from pytorch_distributed_template_tpu_torch.engine.continuous import (
+        ContinuousBatchingService,
+    )
+
+    rng = np.random.default_rng(9)
+    reqs = [{"prompt_ids": [int(x) for x in rng.integers(
+        0, REF_ARCH["vocab_size"], n)], "max_new_tokens": 24}
+        for n in (5, 12, 20, 33, 47, 70)]
+    for kv_quant in ("", "int8"):
+        results = []
+        cpu_model = MODELS.get("Llama")(**REF_ARCH, kv_quant=kv_quant,
+                                        device="cpu")
+        cpu_model.init_weights(torch.Generator().manual_seed(2))
+        for dev in (device, "cpu"):
+            model = MODELS.get("Llama")(**REF_ARCH, kv_quant=kv_quant,
+                                        device=dev)
+            model.load_state_dict(cpu_model.state_dict())
+            svc = ContinuousBatchingService.from_model(
+                model, device=dev, slots=4, chunk=4, window_ms=20.0,
+                prefix_cache=PAGED_REF_POOL, prefill_chunk_tokens=16)
+            try:
+                results.append([r["ids"] for r in _concurrent(
+                    lambda r: svc.generate(**r), reqs)])
+            finally:
+                svc.close()
+        if results[0] != results[1]:
+            raise AssertionError(f"paged reference ({kv_quant or 'f32'} "
+                                 f"pool): {device} {results[0]} vs cpu "
+                                 f"{results[1]}")
+        log(f"[paged-reference] small f32 Llama (D=64, window 16, block 8, "
+            f"{kv_quant or 'f32'} pool), 6 concurrent requests of 5-70 "
+            f"tokens + 24: greedy tokens identical on {device} and cpu")
+
+
+class ServeRun:
+    """The port's ``serve.py`` running in this process: ``main`` in a
+    thread on a free port, stopped by :meth:`close`."""
+
+    def __init__(self, argv, timeout=900.0):
+        import threading
+
+        from pytorch_distributed_template_tpu_torch import serve
+
+        ready, self.errors, box = threading.Event(), [], {}
+
+        def on_ready(server, service):
+            box.update(server=server, service=service)
+            ready.set()
+
+        def target():
+            try:
+                serve.main(argv, on_ready)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                self.errors.append(e)
+                ready.set()
+
+        self.thread = threading.Thread(target=target, daemon=True,
+                                       name="serve-main")
+        self.thread.start()
+        if not ready.wait(timeout):
+            raise AssertionError("serve.py did not become ready")
+        if self.errors:
+            raise self.errors[0]
+        self.server, self.service = box["server"], box["service"]
+        host, port = self.server.server_address[:2]
+        self.host, self.port = host, port
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.thread.join(300)
+        if self.thread.is_alive():
+            raise AssertionError("serve.py did not stop")
+        if self.errors:
+            raise self.errors[0]
+        self.server = self.service = None
+
+
+def stream_request(run: ServeRun, body: dict) -> dict:
+    """One ``POST /generate`` with ``"stream": true`` over HTTP: the ids,
+    the time to the first delta (TTFT) and to the last event, and the
+    size of the first delta. The deltas must concatenate to the final
+    ids."""
+    import http.client
+
+    conn = http.client.HTTPConnection(run.host, run.port, timeout=1200)
+    t0 = time.perf_counter()
+    conn.request("POST", "/generate", body=json.dumps(dict(body,
+                                                           stream=True)),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise AssertionError(f"POST /generate: {resp.status} "
+                             f"{resp.read()[:500]!r}")
+    ttft, first_n, deltas, final = None, 0, [], None
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        line = line.strip()
+        if not line.startswith(b"data: "):
+            continue
+        event = json.loads(line[len(b"data: "):])
+        if event.get("done"):
+            final = event
+            break
+        if ttft is None:
+            ttft, first_n = time.perf_counter() - t0, len(event["ids"])
+        deltas.extend(event["ids"])
+    total = time.perf_counter() - t0
+    conn.close()
+    if final is None or "error" in final:
+        raise AssertionError(f"stream ended without a result: {final}")
+    if deltas != final["ids"]:
+        raise AssertionError("SSE deltas do not concatenate to the ids")
+    return {"ids": final["ids"], "ttft_s": ttft, "total_s": total,
+            "first_delta": first_n, "prompt_len": len(body["prompt_ids"])}
+
+
+class ServeWave:
+    """Counts and checks one wave of requests on slice 2's path: B4 and
+    B1 launch counts set to 0 before, B4 launches == n_layer x the
+    engine's model calls and B1 == 0 after, every id in range, warm admits
+    copying nothing."""
+
+    def __init__(self, card: str, device):
+        self.card, self.device = card, device
+        self.b4_launches = 0
+
+    def run(self, label, service, drive, n_new: int):
+        from pytorch_distributed_template_tpu_torch.ops.flash import (
+            FLASH_FWD, PAGED_ATTN,
+        )
+
+        is_cuda = torch.device(self.device).type == "cuda"
+        _sync(self.device)
+        if is_cuda:
+            torch.cuda.reset_peak_memory_stats()
+        FLASH_FWD.launches = PAGED_ATTN.launches = 0
+        calls0 = service.stats["model_calls"]
+        t0 = time.perf_counter()
+        results = drive()
+        wall = time.perf_counter() - t0
+        _sync(self.device)
+        calls = service.stats["model_calls"] - calls0
+        n_layer = service.model.n_layer
+        if PAGED_ATTN.launches != n_layer * calls or calls == 0:
+            raise AssertionError(
+                f"({label}) paged_attn launched {PAGED_ATTN.launches} times "
+                f"for {calls} model calls of {n_layer} layers")
+        if FLASH_FWD.launches:
+            raise AssertionError(f"({label}) flash_fwd launched "
+                                 f"{FLASH_FWD.launches} times on the paged "
+                                 "path")
+        self.b4_launches += PAGED_ATTN.launches
+        vocab = service.model.vocab_size
+        for r in results:
+            _check_ids(r["ids"], vocab, r.get("new", n_new), f"({label})")
+        pool = service.prefix_cache_stats()
+        if pool["warm_admit_copy_bytes"] != 0:
+            raise AssertionError(f"({label}) warm admits copied "
+                                 f"{pool['warm_admit_copy_bytes']} bytes")
+        peak = torch.cuda.max_memory_allocated() if is_cuda else 0
+        for i, r in enumerate(results):
+            n = len(r["ids"])
+            decode = ((r["total_s"] - r["ttft_s"]) * 1e3
+                      / (n - r["first_delta"])
+                      if n > r["first_delta"] else "not measured")
+            log("[serve] " + json.dumps({
+                "wave": label, "request": i, "prompt_len": r["prompt_len"],
+                "new_tokens": n, "ttft_ms": r["ttft_s"] * 1e3,
+                "decode_ms_per_token": decode,
+                "request_s": r["total_s"]}))
+        log("[serve] " + json.dumps({
+            "wave": label, "requests": len(results),
+            "new_tokens": sum(len(r["ids"]) for r in results),
+            "wall_s": wall,
+            "tokens_per_s": sum(len(r["ids"]) for r in results) / wall,
+            "model_calls": calls, "paged_attn_launches": PAGED_ATTN.launches,
+            "flash_fwd_launches": FLASH_FWD.launches,
+            "peak_mem_gib": peak / 2 ** 30,
+            "pool_blocks": pool["prefix_pool_blocks"],
+            "pool_blocks_used": pool["prefix_pool_blocks_used"],
+            "pool_blocks_resident": pool["prefix_pool_blocks_resident"],
+            "pool_blocks_referenced": pool["prefix_pool_blocks_referenced"],
+            "prefix_hit_tokens": pool["prefix_hit_tokens"],
+            "warm_admit_copy_bytes": pool["warm_admit_copy_bytes"],
+            "engine": {k: service.stats[k] for k in (
+                "admissions", "chunks", "paged_chunks", "prefill_chunks",
+                "deferred_admissions")},
+            "card": self.card}))
+        return results
+
+
+def _wait_for(cond, what: str, timeout: float = 600.0) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def _mix_e(run: ServeRun, waves: ServeWave, label: str, sizes, prompts):
+    """(e): 8 concurrent greedy requests, half sharing a prefix. The first
+    sharing request goes first; the other 7 are sent once its streamed
+    prefix has been adopted into the radix index, so they can hit it."""
+    import threading
+
+    svc = run.service
+    pf = svc._prefix
+    need = pf.counter("prefix_adopted_blocks") + sizes["prefix"] // pf.block
+    bodies = [{"prompt_ids": p, "max_new_tokens": sizes["new"]}
+              for p in prompts]
+
+    def drive():
+        first = {}
+        th = threading.Thread(target=lambda: first.update(
+            r=stream_request(run, bodies[0])), daemon=True)
+        th.start()
+        _wait_for(lambda: pf.counter("prefix_adopted_blocks") >= need
+                  or not th.is_alive(), "the shared prefix's adoption")
+        rest = _concurrent(lambda b: stream_request(run, b), bodies[1:])
+        th.join(1200)
+        if "r" not in first:
+            raise AssertionError(f"({label}) first request failed")
+        return [first["r"]] + rest
+
+    out = waves.run(label, svc, drive, sizes["new"])
+    hit = svc.prefix_cache_stats()["prefix_hit_tokens"]
+    if hit <= 0:
+        raise AssertionError(f"({label}) no prefix hit tokens after the "
+                             "shared-prefix wave")
+    return out
+
+
+def _logit_check(service, n: int, seed: int) -> dict:
+    """Last-position logits of an ``n``-token prompt through the paged
+    batch-1 prefill (its own small pool; B4) against slice 1's fresh-cache
+    flash prefill (B1), within ``SERVE_LOGIT_RTOL`` of the logits'
+    scale."""
+    from pytorch_distributed_template_tpu_torch.engine.kvcache import (
+        PrefixCache,
+    )
+
+    model = service.model
+    block = service._prefix.block
+    ids = torch.randint(0, model.vocab_size, (n,),
+                        generator=torch.Generator().manual_seed(seed))
+    pc = PrefixCache(model, block_tokens=block,
+                     pool_blocks=service._prefix.nb_max + 2,
+                     ring_slack_tokens=service._prefix.ring_slack_tokens
+                     or 512)
+    with torch.no_grad():
+        paged, _, plan = pc.paged_prefill(ids.tolist(), 1)
+        pc.paged_finish(plan, [], 0)
+        cache = model.new_cache(1, n + 1)
+        flash = model(ids[None].to(model.device), cache=cache,
+                      prefill=True)[:, -1]
+    _sync(model.device)
+    err = (paged - flash).abs().max().item()
+    scale = flash.abs().max().item()
+    row = {"prompt_len": n, "logits_max_abs_diff": err,
+           "logits_mean_abs_diff": (paged - flash).abs().mean().item(),
+           "logits_max_abs": scale, "rtol": SERVE_LOGIT_RTOL,
+           "same_argmax": bool(paged.argmax() == flash.argmax())}
+    if not (torch.isfinite(paged).all() and err <= SERVE_LOGIT_RTOL * scale):
+        raise AssertionError(f"paged prefill logits differ from the flash "
+                             f"prefill: {row}")
+    del pc, cache
+    return row
+
+
+def phase_serve(card: str, model_path, config=SERVE_CONFIG, device="cuda",
+                sizes=None, work=WORK, seed: int = 0) -> int:
+    """Slice 2's main path: the port's ``serve.py`` on the artifact with
+    the paged config, driven over HTTP. (e) 8 concurrent greedy requests
+    of 256-2048 tokens, half sharing a 1024-token prefix; one of them
+    alone, twice; (f) a 6144-token prompt streamed in 512-token chunks
+    while 4 short requests decode; (g) the mix of (e) again with an int8
+    pool. Returns B4's launches on the path."""
+    sizes = dict(SERVE_SIZES, **(sizes or {}))
+    run_dir = work / "serve_run"
+    base = ["-r", str(model_path), "-c", str(config), "-s", str(run_dir),
+            "--port", "0", "--max-batch", str(sizes["slots"]),
+            "--decode-chunk", str(sizes["chunk"]), "--device", str(device)]
+    gen = torch.Generator().manual_seed(seed + 7)
+    t0 = time.perf_counter()
+    run = ServeRun(base)
+    svc = run.service
+    vocab = svc.model.vocab_size
+
+    def rand(n):
+        return torch.randint(0, vocab, (n,), generator=gen).tolist()
+
+    prefix = rand(sizes["prefix"])
+    prompts = ([prefix + rand(n) for n in sizes["shared_suffix"]]
+               + [rand(n) for n in sizes["alone"]])
+    log(f"[serve] serve.py up in {time.perf_counter() - t0:.1f} s: "
+        f"{type(svc).__name__} on {svc.device}, {svc.model.n_layer} layers, "
+        f"pool {svc._prefix.pool_blocks} x {svc._prefix.block} tokens "
+        f"({svc._prefix.page_bytes / 2 ** 20:.2f} MiB/page), ring "
+        f"{svc._prefix.nb_max} pages, prefill chunk {svc._prefill_chunk}")
+    waves = ServeWave(card, device)
+    try:
+        e_out = _mix_e(run, waves, "e", sizes, prompts)
+        solo = [waves.run(f"e_alone_{i}", svc, lambda: [stream_request(
+            run, {"prompt_ids": prompts[-1],
+                  "max_new_tokens": sizes["new"]})], sizes["new"])[0]
+            for i in range(2)]
+        if solo[0]["ids"] != solo[1]["ids"]:
+            raise AssertionError("a request served alone twice gave "
+                                 f"{solo[0]['ids']} then {solo[1]['ids']}")
+        log(f"[serve] (e) request served alone twice: identical ids; equal "
+            f"to its batched run: {solo[0]['ids'] == e_out[-1]['ids']}")
+        # where a decode step's time goes on this path (outside the
+        # counted waves)
+        profile_request(svc, prompts[-1], sizes["new"], "serve_alone", card)
+
+        def drive_f():
+            import threading
+
+            shorts = [{"prompt_ids": rand(sizes["short"]),
+                       "max_new_tokens": sizes["short_new"]}
+                      for _ in range(4)]
+            box = {}
+            th = threading.Thread(target=lambda: box.update(r=_concurrent(
+                lambda b: stream_request(run, b), shorts)), daemon=True)
+            th.start()
+            _wait_for(lambda: svc.live_slots() >= 4 or not th.is_alive(),
+                      "the short requests to decode")
+            long = stream_request(run, {"prompt_ids": rand(sizes["long"]),
+                                        "max_new_tokens": sizes["long_new"]})
+            long["new"] = sizes["long_new"]
+            th.join(1200)
+            if "r" not in box:
+                raise AssertionError("(f) short requests failed")
+            return box["r"] + [long]
+
+        chunks0 = svc.stats["prefill_chunks"]
+        waves.run("f", svc, drive_f, sizes["short_new"])
+        if svc.stats["prefill_chunks"] - chunks0 < \
+                sizes["long"] // max(svc._prefill_chunk, 1) - 1:
+            raise AssertionError("(f) the long prompt did not stream")
+        logits = _logit_check(svc, sizes["logit_prompt"], seed + 11)
+        log("[serve] logits " + json.dumps(dict(logits, card=card)))
+    finally:
+        run.close()
+    del run, svc
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    run = ServeRun(base + ["--set", "serving;kv_quant", "int8"])
+    try:
+        if run.service.model.kv_quant != "int8":
+            raise AssertionError("(g) the int8 pool was not configured")
+        _mix_e(run, waves, "g_int8", sizes, prompts)
+    finally:
+        run.close()
+    del run
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return waves.b4_launches
 
 
 def main() -> int:
@@ -492,21 +1102,32 @@ def main() -> int:
     card = card_line()
     name = torch.cuda.get_device_name(0)
     log(f"[device] {name} | nvidia-smi: {card}")
+    t_start = time.perf_counter()
     phase_build()
     rows = phase_kernel()
+    paged_rows = phase_paged_kernel()
     phase_reference()
-    launches = phase_main(card)
-    head = rows[0]
-    kernel = {
-        "name": "flash_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": head["kernel_ms"], "plain_ms": head["ref_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"], "shapes": rows,
-    }
+    phase_paged_reference()
+    flash_launches = phase_main(card, keep_artifact=True)
+    paged_launches = phase_serve(card, WORK / "art" / "model")
+    shutil.rmtree(WORK)
+    log(f"[device] all phases in {time.perf_counter() - t_start:.1f} s")
+    kernels = []
+    for kernel, source, replaces, launches, shapes in (
+            ("flash_fwd", KERNEL_SOURCE, KERNEL_REPLACES, flash_launches,
+             rows),
+            ("paged_attn", PAGED_SOURCE, PAGED_REPLACES, paged_launches,
+             paged_rows)):
+        head = shapes[0]
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": head["kernel_ms"], "plain_ms": head["ref_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shapes": shapes})
     print(card, flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

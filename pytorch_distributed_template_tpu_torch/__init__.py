@@ -7,5 +7,9 @@ unless the caller passes ``device="cpu"`` (``--device cpu``).
 
 Ported so far: one-shot generation (``generate.py`` ->
 ``engine.serving.GenerationService``) for the Llama family, with prefill
-attention on the hand-written CUDA kernel ``csrc/flash_fwd.cu``.
+attention on the hand-written CUDA kernel ``csrc/flash_fwd.cu``; and
+continuous serving over HTTP (``serve.py`` ->
+``engine.continuous.ContinuousBatchingService``) over the paged KV block
+pool (``engine.kvcache``), whose attention runs on the hand-written CUDA
+kernel ``csrc/paged_attn.cu``.
 """

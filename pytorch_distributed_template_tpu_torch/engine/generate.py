@@ -61,6 +61,32 @@ def sample_logits(logits, temperature: float = 1.0, top_k: int = 0,
                       for i, g in enumerate(generators)])
 
 
+def isin_stops(x, stops):
+    """Per-element membership of ``x`` in the id set ``stops`` (``[..., S]``
+    padded with -1, which never matches a token id): the JAX package's
+    ``_isin``."""
+    return (x[..., None] == stops).any(dim=-1)
+
+
+def sample_rows(logits, temps, top_ks, top_ps, generators):
+    """Per-row sampling with per-row (temperature, top_k, top_p): the
+    mixed-sampling batch path (the JAX package's ``_sample_rows_traced``).
+
+    Rows with ``temps[b] <= 0`` take the greedy argmax; every other row
+    runs exactly :func:`sample_logits`'s ops on its own ``[1, V]`` slice
+    with ``generators[b]``, so a row sampled in a batch draws what the
+    same request draws served alone. ``temps``/``top_ks``/``top_ps`` and
+    ``generators`` are host sequences (``None`` generators for rows that
+    need none)."""
+    out = torch.argmax(logits, dim=-1)
+    for i, temp in enumerate(temps):
+        if temp > 0:
+            out[i] = sample_logits(logits[i:i + 1], float(temp),
+                                   int(top_ks[i]), float(top_ps[i]),
+                                   [generators[i]])[0]
+    return out
+
+
 def row_generators(batch: int, device, seed: int = 0):
     """One generator per row, row ``b`` seeded ``seed + b``."""
     return [torch.Generator(device=device).manual_seed(seed + b)

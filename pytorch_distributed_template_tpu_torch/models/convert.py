@@ -11,6 +11,12 @@ kernel``); the port's modules name the same weights
 
 Both directions take and give plain containers: nested dicts of numpy
 arrays on the flax side, a flat dict of CPU tensors on the torch side.
+
+The KV block pool crosses the same way (:func:`pool_from_flax`,
+:func:`flax_from_pool`): the JAX pool's cache leaves
+``layers_i/self_attn/cached_key`` / ``cached_value`` ``[P, bt, KVH, D]``
+(and ``cached_key_scale`` / ``cached_value_scale`` ``[P, bt, KVH]`` for the
+int8 layout) are the port's ``PagedLayer`` tensors, byte for byte.
 """
 from __future__ import annotations
 
@@ -75,4 +81,42 @@ def flax_from_params(state_dict) -> dict:
         for m in mods:
             node = node.setdefault(m, {})
         node[leaf] = np.ascontiguousarray(arr)
+    return tree
+
+
+_POOL_LEAVES = {"cached_key": "k", "cached_value": "v",
+                "cached_key_scale": "k_scale",
+                "cached_value_scale": "v_scale"}
+
+
+def pool_from_flax(tree):
+    """JAX pool leaves (a nested cache tree, or ``PrefixCache.pool``'s
+    flat ``{"layers_0/self_attn/cached_key": ...}`` dict) -> the port's
+    ``PagedCache`` of CPU tensors, bytes unchanged."""
+    from .llama import PagedCache, PagedLayer
+
+    layers: dict = {}
+    for path, leaf in _flatten(tree):
+        parts = "/".join(path).split("/")
+        m = _LAYER.match(parts[0])
+        if m is None or parts[-1] not in _POOL_LEAVES:
+            continue
+        layers.setdefault(int(m.group(1)), {})[_POOL_LEAVES[parts[-1]]] = \
+            torch.from_numpy(np.ascontiguousarray(np.asarray(leaf)))
+    if sorted(layers) != list(range(len(layers))):
+        raise KeyError(f"pool layers {sorted(layers)} are not 0..n-1")
+    return PagedCache([PagedLayer(**layers[i]) for i in range(len(layers))])
+
+
+def flax_from_pool(pool) -> dict:
+    """Inverse of :func:`pool_from_flax`: ``PagedCache`` -> nested JAX
+    cache tree of numpy arrays (``layers_i/self_attn/<leaf>``)."""
+    tree: dict = {}
+    for i, layer in enumerate(pool.layers):
+        attn = tree.setdefault(f"layers_{i}", {}).setdefault(
+            "self_attn", {})
+        for name, attr in _POOL_LEAVES.items():
+            t = getattr(layer, attr)
+            if t is not None:
+                attn[name] = t.detach().cpu().numpy().copy()
     return tree

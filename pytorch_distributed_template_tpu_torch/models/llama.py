@@ -16,10 +16,20 @@ the plain forward and the decode forward over a KV cache, registered as
 - ``window > 0`` (Mistral): sliding-window attention; the decode cache is a
   rolling ring buffer of ``window`` slots once the budget exceeds the
   window.
+- Paged decode (``forward(..., cache=PagedCache, block_tables=...,
+  row_starts=...)``): the cache leaves ARE the KV block pool's pages
+  ``[P, bt, KVH, D]``; each row's positions are row-local and map to pages
+  through its block table (a ring of pages when ``window > 0``), new rows
+  are written into their pages in place, and attention reads the pool
+  through the paged kernel (B4, ops/flash.py). engine/kvcache.py owns the
+  tables.
+- ``kv_quant="int8"``: K/V stored int8 with an f32 scale per (token, kv
+  head) (models/quant.py). Paged: the call's own tokens round-trip through
+  int8 too; contiguous and rolling caches: only history rows do.
 
-Left to later slices, each refused with a message naming it: the paged
-KV pool, sequence-parallel attention (ring, Ulysses), MoE, w8a16 weights,
-the int8 KV cache, LoRA and the fused training head.
+Left to later slices, each refused with a message naming it:
+sequence-parallel attention (ring, Ulysses), MoE, w8a16 weights, LoRA and
+the fused training head.
 """
 from __future__ import annotations
 
@@ -31,11 +41,16 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..config.registry import MODELS
-from ..ops.attention import grouped_query_attention, multihead_attention
+from ..ops.attention import (
+    grouped_query_attention, multihead_attention, paged_gqa_attention,
+)
 from ..ops.flash import flash_attention
+from .quant import dequantize_kv, quantize_kv
 
 _SLICE_TRAINING = "the training slice (flash backward kernels B2/B3)"
-_SLICE_PAGED = "slice 2 (continuous engine + paged KV pool, kernel B4)"
+
+#: reserved pool page: pad lanes and unallocated table lanes write here
+SCRATCH_BLOCK = 0
 
 
 class RMSNorm(nn.Module):
@@ -74,14 +89,88 @@ def apply_rope(x, cos, sin):
     return out.to(x.dtype)
 
 
+def apply_rope_rows(x, cos, sin):
+    """Rotate ``[B, T, H, D]`` by PER-ROW tables ``[B, T, D]`` (the paged
+    path, where each row carries its own row-local positions)."""
+    d = x.shape[-1]
+    xf = x.float()
+    rot = torch.cat([-xf[..., d // 2:], xf[..., : d // 2]], dim=-1)
+    out = xf * cos[:, :, None, :] + rot * sin[:, :, None, :]
+    return out.to(x.dtype)
+
+
 @dataclass
 class LayerCache:
-    """One layer's decode cache. ``k``/``v``: ``[B, L, KVH, D]``;
-    ``slot_pos`` (windowed models): ``[L]`` int32, the position each slot
-    holds plus one, 0 meaning empty."""
+    """One layer's decode cache. ``k``/``v``: ``[B, L, KVH, D]`` (int8
+    under ``kv_quant``, with ``k_scale``/``v_scale`` ``[B, L, KVH]``
+    f32); ``slot_pos`` (windowed models): ``[L]`` int32, the position each
+    slot holds plus one, 0 meaning empty."""
     k: torch.Tensor
     v: torch.Tensor
     slot_pos: Optional[torch.Tensor] = None
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+
+@dataclass
+class PagedLayer:
+    """One layer's leaves of the KV block pool: ``k``/``v`` pages
+    ``[P, bt, KVH, D]`` (int8 under ``kv_quant``, with f32 ``k_scale``/
+    ``v_scale`` ``[P, bt, KVH]``). Page ``SCRATCH_BLOCK`` is never
+    allocated to a request."""
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+
+@dataclass
+class PagedCache:
+    """The KV block pool as the model reads it: one ``PagedLayer`` per
+    layer. Forward calls write into these tensors in place."""
+    layers: List[PagedLayer]
+
+
+@dataclass
+class PagedPlacement:
+    """Where one model call's lanes sit, the same for every layer:
+    the block table and row placement the kernel reads, the per-row RoPE
+    tables ``cos``/``sin`` ``[B, T, D]`` and the flat pool row ``flat``
+    ``[B*T]`` each lane's K/V is written to."""
+    tables: torch.Tensor
+    row_starts: torch.Tensor
+    pad_lens: torch.Tensor
+    cos: torch.Tensor
+    sin: torch.Tensor
+    flat: torch.Tensor
+
+
+def paged_placement(tables, row_starts, pad_lens, t: int, bt: int,
+                    window: int, head_dim: int,
+                    rope_base: float) -> PagedPlacement:
+    """Row ``b``'s lane ``i`` sits at the row-local position
+    ``row_starts[b] + i`` (its RoPE angle); the page for position p is
+    ``tables[b, p // bt]``, or ``tables[b, (p // bt) % NB]`` in ring mode
+    (``window > 0``; flat mode clips positions to ``NB*bt - 1``), at
+    offset ``p % bt``. Pad lanes (``i < pad_lens[b]``) and ``-1`` table
+    lanes write to the scratch page."""
+    b, nb = tables.shape
+    lane = torch.arange(t, device=tables.device)
+    pos = row_starts.long()[:, None] + lane[None, :]              # [B, T]
+    if window > 0:
+        safe = pos.clamp_min(0)
+        blk = torch.remainder(torch.div(safe, bt, rounding_mode="floor"),
+                              nb)
+    else:
+        safe = pos.clamp(0, nb * bt - 1)
+        blk = torch.div(safe, bt, rounding_mode="floor")
+    cos, sin = rope_tables(safe.reshape(-1), head_dim, rope_base)
+    page = tables.long().gather(1, blk)
+    ok = (lane[None, :] >= pad_lens.long()[:, None]) & (page >= 0)
+    flat = torch.where(ok, page, SCRATCH_BLOCK) * bt + safe % bt
+    return PagedPlacement(tables, row_starts, pad_lens,
+                          cos.view(b, t, head_dim), sin.view(b, t, head_dim),
+                          flat.reshape(-1))
 
 
 @dataclass
@@ -95,13 +184,15 @@ class DecodeCache:
 class LlamaAttention(nn.Module):
     def __init__(self, d_model: int, n_head: int, n_kv_head: int,
                  attn_impl: str = "xla", rope_base: float = 10000.0,
-                 window: int = 0, dtype=torch.float32, device=None):
+                 window: int = 0, dtype=torch.float32, device=None,
+                 kv_quant: str = ""):
         super().__init__()
         self.n_head, self.n_kv_head = n_head, n_kv_head
         self.head_dim = d_model // n_head
         self.attn_impl = attn_impl
         self.rope_base = rope_base
         self.window = window
+        self.kv_quant = kv_quant
         hd = self.head_dim
         lin = dict(bias=False, dtype=dtype, device=device)
         self.q_proj = nn.Linear(d_model, n_head * hd, **lin)
@@ -109,14 +200,16 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(d_model, n_kv_head * hd, **lin)
         self.o_proj = nn.Linear(n_head * hd, d_model, **lin)
 
-    def forward(self, x, cache: Optional[LayerCache] = None, start: int = 0,
-                prefill: bool = False):
+    def forward(self, x, cache=None, start: int = 0,
+                prefill: bool = False, paged=None):
         b, t, _ = x.shape
         hd = self.head_dim
         q = self.q_proj(x).view(b, t, self.n_head, hd)
         k = self.k_proj(x).view(b, t, self.n_kv_head, hd)
         v = self.v_proj(x).view(b, t, self.n_kv_head, hd)
-        if cache is not None:
+        if isinstance(cache, PagedLayer):
+            ctx = self._paged_attention(q, k, v, cache, paged)
+        elif cache is not None:
             ctx = self._cached_attention(q, k, v, cache, start, prefill)
         else:
             pos = torch.arange(t, device=x.device)
@@ -133,6 +226,43 @@ class LlamaAttention(nn.Module):
                     window=self.window)
         return self.o_proj(ctx.reshape(b, t, self.n_head * hd))
 
+    def _paged_attention(self, q, k, v, layer: PagedLayer,
+                         at: PagedPlacement):
+        """Attention over the KV block pool (the JAX package's
+        ``_paged_attention``), with the call's lanes placed by ``at``
+        (:func:`paged_placement`).
+
+        The call's new K/V rows are written into their pages IN PLACE
+        (flat pool row ``page*bt + p % bt``) before attending: the pool
+        tensors are the decode state, and the engine only ever feeds
+        positions covered by the row's private pages, so a write never
+        touches a page another row reads. Under ``kv_quant="int8"`` the
+        rows are quantized at the write and the call's own tokens are
+        read back through int8 like history."""
+        b, t = q.shape[:2]
+        q = apply_rope_rows(q, at.cos, at.sin)
+        k = apply_rope_rows(k, at.cos, at.sin)
+
+        def put(pool, new):
+            pool.view(-1, *pool.shape[2:])[at.flat] = new.reshape(
+                b * t, *new.shape[2:]).to(pool.dtype)
+
+        if layer.k_scale is not None:
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            put(layer.k, kq)
+            put(layer.v, vq)
+            put(layer.k_scale, ks)
+            put(layer.v_scale, vs)
+        else:
+            put(layer.k, k)
+            put(layer.v, v)
+        return paged_gqa_attention(q, layer.k, layer.v, at.tables,
+                                   at.row_starts, at.pad_lens,
+                                   window=self.window,
+                                   k_scale=layer.k_scale,
+                                   v_scale=layer.v_scale)
+
     def _cached_attention(self, q, k, v, cache: LayerCache, cur: int,
                           prefill: bool):
         """Decode against the layer cache, writing this call's K/V rows
@@ -143,7 +273,9 @@ class LlamaAttention(nn.Module):
         ``cur .. cur + t - 1``. ``prefill`` asserts a fresh cache
         (``cur == 0``): the call's own tokens are the whole context, so
         attention goes through the flash kernel. Otherwise the grouped GQA
-        read attends over the cache with the visibility mask."""
+        read attends over the cache with the visibility mask. An int8
+        cache (``k_scale`` set) stores quantized rows; history is read
+        dequantized and the call's own rows at full precision."""
         b, t, _, d = q.shape
         cache_len = cache.k.shape[1]
         window = self.window
@@ -155,13 +287,31 @@ class LlamaAttention(nn.Module):
         cos, sin = rope_tables(pos, d, self.rope_base)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         fresh = prefill and t > 1
+        kvq = cache.k_scale is not None
+        if kvq:
+            hist_k = dequantize_kv(cache.k, cache.k_scale, k.dtype)
+            hist_v = dequantize_kv(cache.v, cache.v_scale, v.dtype)
+        else:
+            hist_k, hist_v = cache.k, cache.v
+
+        def write(dst_slice, rows_k, rows_v):
+            """Store rows into cache slots (quantized under int8)."""
+            if kvq:
+                (kq, ks), (vq, vs) = quantize_kv(rows_k), quantize_kv(rows_v)
+                pairs = ((cache.k, kq), (cache.v, vq),
+                         (cache.k_scale, ks), (cache.v_scale, vs))
+            else:
+                pairs = ((cache.k, rows_k), (cache.v, rows_v))
+            for dst, src in pairs:
+                dst_slice(dst, src.to(dst.dtype))
+
         if rolling:
             if not fresh:
                 # history (the ring, before this call's write) + the
                 # call's own tokens, with the band mask
                 hist_pos = cache.slot_pos.long() - 1          # -1 = empty
-                k_all = torch.cat([cache.k, k.to(cache.k.dtype)], dim=1)
-                v_all = torch.cat([cache.v, v.to(cache.v.dtype)], dim=1)
+                k_all = torch.cat([hist_k, k.to(hist_k.dtype)], dim=1)
+                v_all = torch.cat([hist_v, v.to(hist_v.dtype)], dim=1)
                 k_pos = torch.cat([hist_pos, pos])[None, :]
                 visible = ((k_pos >= 0) & (k_pos <= pos[:, None])
                            & (pos[:, None] - k_pos < window))
@@ -172,9 +322,12 @@ class LlamaAttention(nn.Module):
             first = cur + t - n_new
             start = first % cache_len
             n1 = min(n_new, cache_len - start)
-            for dst, src in ((cache.k, kw), (cache.v, vw)):
+
+            def ring_slice(dst, src):
                 dst[:, start:start + n1] = src[:, :n1]
                 dst[:, :n_new - n1] = src[:, n1:]
+
+            write(ring_slice, kw, vw)
             new_pos = torch.arange(first + 1, first + n_new + 1,
                                    dtype=cache.slot_pos.dtype,
                                    device=q.device)
@@ -184,15 +337,26 @@ class LlamaAttention(nn.Module):
                 return flash_attention(q, k, v, causal=True, window=window)
             return grouped_query_attention(q, k_all, v_all,
                                            mask=visible[None, None])
-        cache.k[:, cur:cur + t] = k
-        cache.v[:, cur:cur + t] = v
+        if kvq and not fresh:
+            # attention reads the dequantized history with the call's own
+            # rows exact; the write below stores them quantized
+            k_all, v_all = hist_k.clone(), hist_v.clone()
+            k_all[:, cur:cur + t] = k
+            v_all[:, cur:cur + t] = v
+
+        def span(dst, src):
+            dst[:, cur:cur + t] = src
+
+        write(span, k, v)
         if fresh:
             return flash_attention(q, k, v, causal=True, window=window)
+        if not kvq:
+            k_all, v_all = cache.k, cache.v
         k_pos = torch.arange(cache_len, device=q.device)[None, :]
         visible = k_pos <= pos[:, None]
         if window > 0:
             visible = visible & (pos[:, None] - k_pos < window)
-        return grouped_query_attention(q, cache.k, cache.v,
+        return grouped_query_attention(q, k_all, v_all,
                                        mask=visible[None, None])
 
 
@@ -211,19 +375,21 @@ class SwiGLU(nn.Module):
 
 class LlamaBlock(nn.Module):
     def __init__(self, d_model, n_head, n_kv_head, d_ff, attn_impl,
-                 rope_base, rms_eps, window, dtype, device):
+                 rope_base, rms_eps, window, dtype, device, kv_quant=""):
         super().__init__()
         self.input_layernorm = RMSNorm(d_model, rms_eps, device=device)
         self.self_attn = LlamaAttention(d_model, n_head, n_kv_head,
                                         attn_impl, rope_base, window,
-                                        dtype=dtype, device=device)
+                                        dtype=dtype, device=device,
+                                        kv_quant=kv_quant)
         self.post_attention_layernorm = RMSNorm(d_model, rms_eps,
                                                 device=device)
         self.mlp = SwiGLU(d_model, d_ff, dtype=dtype, device=device)
 
-    def forward(self, x, cache=None, start: int = 0, prefill: bool = False):
+    def forward(self, x, cache=None, start: int = 0, prefill: bool = False,
+                paged=None):
         x = x + self.self_attn(self.input_layernorm(x), cache, start,
-                               prefill)
+                               prefill, paged)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -235,9 +401,12 @@ class LlamaLM(nn.Module):
                  d_ff: int = 0, max_len: int = 2048,
                  dtype=torch.float32, attn_impl: str = "xla",
                  rope_base: float = 10000.0, rms_eps: float = 1e-6,
-                 window: int = 0, device=None):
+                 window: int = 0, device=None, kv_quant: str = ""):
         super().__init__()
         n_kv = n_kv_head or n_head
+        if kv_quant not in ("", "int8"):
+            raise ValueError(f"unknown kv_quant {kv_quant!r} (int8 is the "
+                             "only quantized KV layout)")
         if n_head % n_kv:
             raise ValueError(
                 f"n_head {n_head} not divisible by n_kv_head {n_kv}")
@@ -252,12 +421,13 @@ class LlamaLM(nn.Module):
             n_head
         self.n_kv_head, self.d_model, self.d_ff = n_kv, d_model, d_ff
         self.max_len, self.window, self.dtype = max_len, window, dtype
+        self.rope_base, self.kv_quant = rope_base, kv_quant
         self.head_dim = d_model // n_head
         self.embed_tokens = nn.Embedding(vocab_size, d_model, dtype=dtype,
                                          device=device)
         self.layers = nn.ModuleList(
             LlamaBlock(d_model, n_head, n_kv, d_ff, attn_impl, rope_base,
-                       rms_eps, window, dtype, device)
+                       rms_eps, window, dtype, device, kv_quant)
             for _ in range(n_layer))
         self.norm = RMSNorm(d_model, rms_eps, device=device)
         self.lm_head = nn.Linear(d_model, vocab_size, bias=False,
@@ -283,32 +453,76 @@ class LlamaLM(nn.Module):
         ``min(window, total)`` when windowed."""
         return min(self.window, total) if self.window > 0 else total
 
+    def _kv_leaves(self, lead: tuple):
+        """Zeroed ``(k, v, k_scale, v_scale)`` of shape ``lead + (KVH,
+        D)``; int8 with f32 scales under ``kv_quant`` (zero rows decode
+        to zeros, as in the JAX package's zeroed caches)."""
+        shape = lead + (self.n_kv_head, self.head_dim)
+        dev = self.device
+        if not self.kv_quant:
+            return (torch.zeros(shape, dtype=self.dtype, device=dev),
+                    torch.zeros(shape, dtype=self.dtype, device=dev),
+                    None, None)
+        return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=dev))
+
     def new_cache(self, batch: int, total: int) -> DecodeCache:
         """Zeroed decode cache for a ``[batch, total]`` budget."""
         n = self.cache_len(total)
-        shape = (batch, n, self.n_kv_head, self.head_dim)
-        dev = self.device
         layers = []
         for _ in range(self.n_layer):
-            slot_pos = (torch.zeros(n, dtype=torch.int32, device=dev)
+            slot_pos = (torch.zeros(n, dtype=torch.int32, device=self.device)
                         if self.window > 0 else None)
-            layers.append(LayerCache(
-                torch.zeros(shape, dtype=self.dtype, device=dev),
-                torch.zeros(shape, dtype=self.dtype, device=dev),
-                slot_pos))
+            k, v, ks, vs = self._kv_leaves((batch, n))
+            layers.append(LayerCache(k, v, slot_pos, ks, vs))
         return DecodeCache(layers)
 
-    def forward(self, tokens, cache: Optional[DecodeCache] = None,
-                prefill: bool = False):
+    def new_paged_cache(self, pool_blocks: int,
+                        block_tokens: int) -> PagedCache:
+        """Zeroed KV block pool: ``pool_blocks`` pages of
+        ``block_tokens`` tokens per layer."""
+        return PagedCache([PagedLayer(*self._kv_leaves(
+            (int(pool_blocks), int(block_tokens))))
+            for _ in range(self.n_layer)])
+
+    def kv_cache_spec(self) -> dict:
+        """The decode-cache layout contract engine/kvcache.py reads (the
+        JAX package's ``kv_cache_spec``): RoPE family, ``paged`` call path
+        implemented for every layout (int8 pages + scales, ring tables
+        when windowed), K/V at ``kv_heads`` heads."""
+        return {"rotary": True, "rope_base": float(self.rope_base),
+                "window": int(self.window), "kv_quant": self.kv_quant,
+                "paged": True, "kv_heads": int(self.n_kv_head)}
+
+    def forward(self, tokens, cache=None, prefill: bool = False,
+                block_tables=None, row_starts=None, pad_lens=None):
         """tokens ``[B, T]`` -> f32 logits ``[B, T, V]``.
 
-        With ``cache``: decode forward from ``cache.pos_index``, which
-        advances by ``T``. ``prefill=True`` asserts the cache is fresh and
-        returns the last position's logits only (``[B, 1, V]``)."""
+        With a ``DecodeCache``: decode forward from ``cache.pos_index``,
+        which advances by ``T``. ``prefill=True`` asserts the cache is
+        fresh and returns the last position's logits only (``[B, 1, V]``).
+
+        With a ``PagedCache`` (the pool): ``block_tables`` ``[B, NB]``,
+        ``row_starts`` ``[B]`` and ``pad_lens`` ``[B]`` (int32, on the
+        model's device) place each row's lanes; ``prefill=True`` keeps the
+        last position's logits only."""
         b, t = tokens.shape
         x = self.embed_tokens(tokens)
-        start = 0
-        if cache is not None:
+        start, paged = 0, None
+        if isinstance(cache, PagedCache):
+            if block_tables is None or row_starts is None:
+                raise ValueError("a paged cache needs block_tables and "
+                                 "row_starts")
+            if pad_lens is None:
+                pad_lens = torch.zeros((b,), dtype=torch.int32,
+                                       device=tokens.device)
+            # the lanes' placement is the same for every layer: once here
+            paged = paged_placement(block_tables, row_starts, pad_lens, t,
+                                    cache.layers[0].k.shape[1], self.window,
+                                    self.head_dim, self.rope_base)
+        elif cache is not None:
             start = cache.pos_index
             if prefill and start != 0:
                 raise ValueError("prefill=True needs a fresh cache "
@@ -316,21 +530,18 @@ class LlamaLM(nn.Module):
             cache.pos_index = start + t
         for i, block in enumerate(self.layers):
             layer_cache = cache.layers[i] if cache is not None else None
-            x = block(x, layer_cache, start, prefill)
+            x = block(x, layer_cache, start, prefill, paged)
         x = self.norm(x)
         if cache is not None and prefill and t > 1:
             x = x[:, -1:]
         return self.lm_head(x).float()
 
 
-def _refuse_later(quant="", kv_quant="", lora_rank=0, fused_head=False,
+def _refuse_later(quant="", lora_rank=0, fused_head=False,
                   mesh=None, seq_layout="natural") -> None:
     if quant:
         raise NotImplementedError(
             f"quant={quant!r} (w8a16 serving weights) is a later slice")
-    if kv_quant:
-        raise NotImplementedError(
-            f"kv_quant={kv_quant!r} (int8 KV cache) is {_SLICE_PAGED}")
     if lora_rank:
         raise NotImplementedError(f"LoRA is {_SLICE_TRAINING}")
     if fused_head:
@@ -355,10 +566,10 @@ def llama(vocab_size: int = 32000, n_layer: int = 12, n_head: int = 12,
           lora_alpha: float = 16.0, device=None):
     """``remat`` and ``lora_alpha`` are training options: accepted so the
     JAX package's configs load, without effect on serving."""
-    _refuse_later(quant, kv_quant, lora_rank, fused_head, mesh, seq_layout)
+    _refuse_later(quant, lora_rank, fused_head, mesh, seq_layout)
     return LlamaLM(vocab_size, n_layer, n_head, n_kv_head, d_model, d_ff,
                    max_len, _dtype(bfloat16), attn_impl, rope_base, rms_eps,
-                   window, device)
+                   window, device, kv_quant)
 
 
 @MODELS.register("Mistral")
@@ -372,10 +583,10 @@ def mistral(vocab_size: int = 32000, n_layer: int = 32, n_head: int = 32,
             lora_alpha: float = 16.0, device=None):
     """Mistral-7B-v0.1 shape: the Llama architecture with 4:1 GQA and a
     4096-token sliding window."""
-    _refuse_later(quant, kv_quant, lora_rank, fused_head, mesh)
+    _refuse_later(quant, lora_rank, fused_head, mesh)
     return LlamaLM(vocab_size, n_layer, n_head, n_kv_head, d_model, d_ff,
                    max_len, _dtype(bfloat16), attn_impl, rope_base, rms_eps,
-                   window, device)
+                   window, device, kv_quant)
 
 
 @MODELS.register("TinyLlama")
@@ -388,7 +599,7 @@ def tiny_llama(vocab_size: int = 256, n_layer: int = 2, n_head: int = 4,
                kv_quant: str = "", lora_rank: int = 0,
                lora_alpha: float = 16.0, device=None):
     """Small GQA config for tests and dry runs."""
-    _refuse_later(quant, kv_quant, lora_rank, fused_head, mesh, seq_layout)
+    _refuse_later(quant, lora_rank, fused_head, mesh, seq_layout)
     return LlamaLM(vocab_size, n_layer, n_head, n_kv_head, d_model, d_ff,
                    max_len, _dtype(bfloat16), attn_impl, 10000.0, 1e-6,
-                   window, device)
+                   window, device, kv_quant)

@@ -7,6 +7,8 @@ K/V heads. Both take and return ``[B, T, H, D]``, compute scores and
 probabilities in float32 for every input dtype, and mask with
 ``NEG_INF = -1e30`` exactly like the JAX functions. The JAX package leaves
 these to XLA, so the port leaves them to PyTorch: no kernel of their own.
+``paged_gqa_attention`` is the entry to the paged kernel (B4,
+ops/flash.py).
 """
 from __future__ import annotations
 
@@ -76,3 +78,24 @@ def grouped_query_attention(q, k, v, mask=None):
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgtl,blkd->btkgd", probs, v.float())
     return out.reshape(b, t, h, d).to(dtype)
+
+
+def paged_gqa_attention(q, k_pool, v_pool, tables, row_starts, pad_lens,
+                        mesh=None, window: int = 0, k_scale=None,
+                        v_scale=None):
+    """Attention straight from the paged KV block pool (the JAX
+    package's ``paged_gqa_attention``, single device): q ``[B, T, Hq,
+    D]`` over pools ``[P, bt, KVH, D]`` through ``[B, NB]`` block tables,
+    query head ``i`` reading kv head ``i // (Hq / KVH)``. Runs
+    ``ops.flash.paged_attention`` (the B4 kernel on CUDA, its plain
+    version on the CPU). Head-sharded meshes are a later slice (parallel
+    axes)."""
+    from .flash import paged_attention
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "paged attention over a mesh (head-sharded TP serving) is a "
+            "later slice (parallel axes)")
+    return paged_attention(q, k_pool, v_pool, tables, row_starts,
+                           pad_lens, window=window, k_scale=k_scale,
+                           v_scale=v_scale)

@@ -1,5 +1,5 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain
-version.
+"""Flash-attention forward and paged attention: the hand-written CUDA
+kernels and their plain versions.
 
 Counterpart of ``pytorch_distributed_template_tpu/ops/flash.py``
 (``flash_attention``, ``flash_attention_lse``), forward only. The kernel
@@ -8,6 +8,11 @@ tensor cores, float32 on the CUDA cores) runs for tensors on a CUDA
 device; ``flash_attention_ref`` computes the same function in plain
 PyTorch and is used for CPU tensors and as the kernel's oracle. There is no fallback: on a CUDA tensor the wrapper launches the
 kernel or raises.
+
+The paged half (``paged_attention``, ``paged_attention_ref``,
+``csrc/paged_attn.cu`` replacing the Pallas ``_paged_kernel``) reads K/V in
+place from the KV block pool through per-row block tables; see
+:func:`paged_attention`.
 
 Layout is the JAX package's: q ``[B, T, H, D]``, k/v ``[B, T, KVH, D]``
 with ``KVH`` dividing ``H`` (query head ``h`` reads kv head
@@ -178,6 +183,271 @@ def flash_bound_seconds(b: int, t: int, h: int, kvh: int, d: int,
     flops = 4.0 * b * h * d * visible_keys(t, causal, window)
     nbytes = itemsize * (2 * b * t * h * d + 2 * b * t * kvh * d) \
         + 4 * b * h * t
+    by_ops, by_bytes = flops / peak_flops, nbytes / peak_bytes
+    if by_ops >= by_bytes:
+        return by_ops, "operations"
+    return by_bytes, "bytes"
+
+
+# ---------------------------------------------------------------------------
+# Paged attention (kernel B4): decode and prefill straight from the KV pool
+# ---------------------------------------------------------------------------
+
+PAGED_HEAD_DIMS = (64, 128)
+PAGED_BLOCK_TOKENS = (8, 16, 32)
+PAGED_MAX_GROUP = 32       # query heads per kv head one block can serve
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def _declare_paged(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.pdt_paged_attn.argtypes = [ptr] * 10 + [i32] * 12 + [
+        ctypes.c_float, ptr]
+    lib.pdt_paged_attn.restype = i32
+    lib.pdt_paged_lanes.argtypes = [i32, i32]
+    lib.pdt_paged_lanes.restype = i32
+    lib.pdt_paged_error_string.argtypes = [i32]
+    lib.pdt_paged_error_string.restype = ctypes.c_char_p
+
+
+#: the B4 kernel library; ``PAGED_ATTN.launches`` counts its launches
+PAGED_ATTN = CudaLibrary("paged_attn", _declare_paged)
+
+
+def _check_paged(q, k_pool, v_pool, tables, row_starts, pad_lens,
+                 k_scale, v_scale):
+    if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"paged attention takes q [B, T, Hq, D] and "
+                         f"pools [P, bt, KVH, D]; got {tuple(q.shape)}, "
+                         f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
+    b, _, hq, d = q.shape
+    kvh = k_pool.shape[2]
+    if k_pool.shape[3] != d or hq % kvh:
+        raise ValueError(f"q {tuple(q.shape)} does not fit pools "
+                         f"{tuple(k_pool.shape)} (head_dim, or query "
+                         f"heads not a multiple of kv heads)")
+    if tables.dim() != 2 or tables.shape[0] != b:
+        raise ValueError(f"tables must be [B, NB]; got "
+                         f"{tuple(tables.shape)} for B={b}")
+    if tuple(row_starts.shape) != (b,) or tuple(pad_lens.shape) != (b,):
+        raise ValueError("row_starts and pad_lens must be [B]")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    if k_scale is not None and (
+            tuple(k_scale.shape) != tuple(k_pool.shape[:3])
+            or tuple(v_scale.shape) != tuple(k_pool.shape[:3])):
+        raise ValueError(f"scales must be [P, bt, KVH] = "
+                         f"{tuple(k_pool.shape[:3])}")
+
+
+def paged_visible(tables, row_starts, pad_lens, t: int, bt: int,
+                  window: int = 0):
+    """``[B, T, NB*bt]`` bool: key lane ``j*bt + o`` of row ``b``'s table
+    is visible from query lane ``i`` (the kernel's mask, written out).
+
+    Flat tables: ``k_pos = j*bt + o <= q_pos``. Ring tables (``window >
+    0``): slot ``j`` holds the newest logical block congruent to ``j``
+    mod NB at or below the query's own block, ``j_log = jq - (jq - j) mod
+    NB``, and the key is visible iff ``0 <= k_pos <= q_pos`` and
+    ``q_pos - k_pos < window``. Pad lanes (``i < pad_lens[b]``) and
+    ``-1`` table lanes see nothing."""
+    dev = tables.device
+    b, nb = tables.shape
+    lane = torch.arange(t, device=dev)
+    q_pos = row_starts.long()[:, None] + lane[None, :]            # [B, T]
+    used = (tables >= 0).repeat_interleave(bt, dim=1)[:, None, :]
+    valid = (lane[None, :] >= pad_lens.long()[:, None])[:, :, None]
+    qp = q_pos[:, :, None]
+    if window > 0:
+        jq = torch.div(q_pos, bt, rounding_mode="floor")[:, :, None]
+        slot = torch.arange(nb, device=dev)[None, None, :]
+        j_log = jq - torch.remainder(jq - slot, nb)               # [B,T,NB]
+        k_pos = (j_log[..., None] * bt + torch.arange(bt, device=dev)
+                 ).reshape(b, t, nb * bt)
+        ok = (k_pos >= 0) & (k_pos <= qp) & (qp - k_pos < window)
+    else:
+        ok = torch.arange(nb * bt, device=dev)[None, None, :] <= qp
+    return ok & valid & used
+
+
+def paged_gather(pool, tables, scale=None, dtype=None):
+    """Row ``b``'s pages laid end to end: ``[B, NB*bt, ...]`` (``-1``
+    lanes read page 0, the scratch page). With ``scale`` (int8 pools) the
+    rows are dequantized to ``dtype``."""
+    b, nb = tables.shape
+    safe = tables.long().clamp_min(0)
+    arr = pool[safe].reshape(b, nb * pool.shape[1], *pool.shape[2:])
+    if scale is not None:
+        s = scale[safe].reshape(b, nb * pool.shape[1], *scale.shape[2:])
+        arr = (arr.float() * s[..., None]).to(dtype)
+    return arr
+
+
+def paged_attention_ref(q, k_pool, v_pool, tables, row_starts, pad_lens,
+                        window: int = 0, k_scale=None, v_scale=None):
+    """Plain PyTorch version of the B4 kernel (the JAX package's
+    ``paged_attention_ref``): gather every row's pages, mask, and run the
+    grouped-query einsum in f32. Invalid lanes (``i < pad_lens[b]``) give
+    garbage the callers ignore, as in the JAX oracle."""
+    from .attention import grouped_query_attention
+
+    _check_paged(q, k_pool, v_pool, tables, row_starts, pad_lens,
+                 k_scale, v_scale)
+    k_all = paged_gather(k_pool, tables, k_scale, q.dtype)
+    v_all = paged_gather(v_pool, tables, v_scale, q.dtype)
+    ok = paged_visible(tables, row_starts, pad_lens, q.shape[1],
+                       k_pool.shape[1], window)
+    return grouped_query_attention(q, k_all, v_all, mask=ok[:, None])
+
+
+def paged_splits(blocks: int, nb: int, sms: int) -> int:
+    """How many blocks share one row's table: 1 when the grid already has
+    ``blocks >= 2 x sms``; else enough splits for ~4 blocks per SM, at
+    most 16 and at least 8 table slots per split (a decode launch has
+    only B x KVH blocks)."""
+    if blocks >= 2 * sms:
+        return 1
+    return max(1, min(16, (4 * sms) // max(blocks, 1), nb // 8))
+
+
+def paged_tensor_cores(q, block_tokens: int) -> bool:
+    """Whether a call runs B4's tensor-core arm: bf16 queries and pages of
+    16 or 32 tokens (the P.V k-step takes 16 keys); the CUDA-core arm
+    serves the rest (f32, 8-token pages)."""
+    return q.dtype == torch.bfloat16 and block_tokens % 16 == 0
+
+
+def _paged_cuda(q, k_pool, v_pool, tables, row_starts, pad_lens,
+                window: int, k_scale, v_scale, splits=None,
+                tensor_cores=None):
+    """Launch the B4 kernel on PyTorch's current stream. ``splits`` and
+    ``tensor_cores`` (tests only) override :func:`paged_splits` and
+    :func:`paged_tensor_cores`."""
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"paged_attn kernel takes float32 or bfloat16 "
+                        f"queries, got {q.dtype}")
+    quant = k_scale is not None
+    if quant:
+        if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+            raise TypeError("scales are given: pools must be int8")
+        if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+            raise TypeError("int8 pool scales must be float32")
+    elif k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError(f"pools ({k_pool.dtype}) must match q ({q.dtype}) "
+                        f"or be int8 with scales")
+    for name, x in (("tables", tables), ("row_starts", row_starts),
+                    ("pad_lens", pad_lens)):
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+    tensors = [q, k_pool, v_pool, tables, row_starts, pad_lens]
+    if quant:
+        tensors += [k_scale, v_scale]
+    if any(x.device != q.device for x in tensors):
+        raise ValueError("paged attention inputs must be on one device")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("paged_attn kernel needs contiguous inputs")
+    b, t, hq, d = q.shape
+    bt, kvh = k_pool.shape[1], k_pool.shape[2]
+    if d not in PAGED_HEAD_DIMS:
+        raise ValueError(f"paged_attn kernel takes head_dim in "
+                         f"{PAGED_HEAD_DIMS}, got {d}")
+    if bt not in PAGED_BLOCK_TOKENS:
+        raise ValueError(f"paged_attn kernel takes block_tokens in "
+                         f"{PAGED_BLOCK_TOKENS}, got {bt}")
+    if hq // kvh > PAGED_MAX_GROUP:
+        raise ValueError(f"paged_attn kernel serves at most "
+                         f"{PAGED_MAX_GROUP} query heads per kv head")
+    if int(window) < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged_attn reads 16-byte vectors: the pools "
+                         "must start 16-byte aligned")
+    lib = PAGED_ATTN.load()
+    nb = tables.shape[1]
+    if tensor_cores is None:
+        tensor_cores = paged_tensor_cores(q, bt)
+    if splits is None:
+        lanes = lib.pdt_paged_lanes(int(tensor_cores), hq // kvh)
+        blocks = -(-t // lanes) * kvh * b
+        splits = paged_splits(blocks, nb, torch.cuda.get_device_properties(
+            q.device).multi_processor_count)
+    splits = max(1, min(int(splits), nb))
+    out = torch.empty_like(q)
+    # the split partials: [B, T, Hq, splits, D + 2] (acc, m, l)
+    part = (torch.empty((b, t, hq, splits, d + 2), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        PAGED_ATTN.launches += 1
+        err = lib.pdt_paged_attn(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None,
+            tables.data_ptr(), row_starts.data_ptr(), pad_lens.data_ptr(),
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            b, t, hq, kvh, d, nb, bt, _DTYPE_CODES[q.dtype],
+            _KV_CODES[k_pool.dtype], int(window), splits,
+            int(bool(tensor_cores)), float(d ** -0.5), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"paged_attn launch failed: CUDA error {err} "
+            f"({lib.pdt_paged_error_string(err).decode()})")
+    return out
+
+
+def paged_attention(q, k_pool, v_pool, tables, row_starts, pad_lens,
+                    window: int = 0, k_scale=None, v_scale=None):
+    """Attention of a query window over the KV block pool, in place.
+
+    :param q: ``[B, T, Hq, D]`` query rows, RoPE already applied at their
+        row-local positions.
+    :param k_pool / v_pool: ``[P, bt, KVH, D]`` pool leaves (page 0 is
+        the scratch page); int8 with ``k_scale``/``v_scale``
+        ``[P, bt, KVH]`` f32 for the int8-KV layout.
+    :param tables: ``[B, NB]`` int32 block table, ``-1`` = unallocated.
+    :param row_starts: ``[B]`` int32 position of query lane 0.
+    :param pad_lens: ``[B]`` int32 leading invalid lanes.
+    :param window: ``> 0`` switches the table to ring semantics with the
+        sliding band (see :func:`paged_visible`).
+    :returns: ``[B, T, Hq, D]`` in q's dtype; the call's own K/V must
+        already be written into the pool.
+
+    CPU tensors take :func:`paged_attention_ref`; CUDA tensors launch the
+    B4 kernel or raise."""
+    _check_paged(q, k_pool, v_pool, tables, row_starts, pad_lens,
+                 k_scale, v_scale)
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pool, v_pool, tables, row_starts,
+                                   pad_lens, window=window,
+                                   k_scale=k_scale, v_scale=v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    return _paged_cuda(q, k_pool, v_pool, tables, row_starts, pad_lens,
+                       window, k_scale, v_scale)
+
+
+def paged_bound_seconds(q, k_pool, tables, row_starts, pad_lens,
+                        window: int, quant: bool, peak_flops: float,
+                        peak_bytes: float):
+    """The least time the card could take for one paged-attention call
+    on these inputs: ``(seconds, "operations" | "bytes")``.
+
+    FLOPs = 4·Hq·D·Σ(visible keys per valid query lane), from this
+    call's tables and positions; bytes = the distinct pages any lane can
+    see (K and V at every kv head, plus their scales when int8), q and
+    out, each read or written once."""
+    b, t, hq, d = q.shape
+    bt, kvh = k_pool.shape[1], k_pool.shape[2]
+    tables, row_starts, pad_lens = (x.cpu() for x in
+                                    (tables, row_starts, pad_lens))
+    ok = paged_visible(tables, row_starts, pad_lens, t, bt, window)
+    flops = 4.0 * hq * d * int(ok.sum())
+    seen = ok.any(dim=1).reshape(b, tables.shape[1], bt).any(dim=-1)
+    pages = int(torch.unique(tables[seen]).numel())
+    page_bytes = 2 * bt * kvh * (d * k_pool.element_size()
+                                 + (4 if quant else 0))
+    nbytes = pages * page_bytes + 2 * q.numel() * q.element_size()
     by_ops, by_bytes = flops / peak_flops, nbytes / peak_bytes
     if by_ops >= by_bytes:
         return by_ops, "operations"

@@ -43,3 +43,70 @@ def test_main_path_fails_when_flash_is_skipped(tmp_path):
     with pytest.raises(AssertionError, match="launched 0 times"):
         chip_smoke.phase_main("cpu", device="cpu", arch_args=TINY,
                               sizes=SIZES, work=tmp_path / "smoke")
+
+
+# slice 2 at a tiny size: window 64 (an 11-page ring of 8-token blocks with
+# 16-token prefill chunks), so the shared prefix stays inside the ring and
+# the 120-token prompt of (f) wraps it
+TINY_RING = dict(TINY, window=64)
+SERVE = dict(prefix=32, shared_suffix=[4, 8, 12, 16],
+             alone=[8, 16, 24, 40], new=6, long=120, long_new=6, short=10,
+             short_new=12, logit_prompt=30, slots=8, chunk=4)
+
+
+@pytest.fixture()
+def counted_paged(monkeypatch):
+    ref = flash.paged_attention_ref
+
+    def counted(*args, **kw):
+        flash.PAGED_ATTN.launches += 1
+        return ref(*args, **kw)
+
+    monkeypatch.setattr(flash, "paged_attention_ref", counted)
+
+
+@pytest.fixture()
+def tiny_serving(tmp_path):
+    import json
+
+    from pytorch_distributed_template_tpu_torch.tools import (
+        make_serving_artifact as tool,
+    )
+
+    args = ["-o", str(tmp_path / "art"), "--arch", "Llama", "--device",
+            "cpu", "--seed", "1"]
+    for key, val in TINY_RING.items():
+        args += ["--" + key.replace("_", "-"),
+                 json.dumps(val) if isinstance(val, bool) else str(val)]
+    tool.main(args)
+    cfg = json.loads(chip_smoke.SERVE_CONFIG.read_text())
+    cfg["arch"] = {"type": "Llama", "args": TINY_RING}
+    cfg["serving"]["prefix_cache"].update(block_tokens=8, pool_blocks=160)
+    cfg["serving"]["prefill_chunk_tokens"] = 16
+    path = tmp_path / "tiny_paged.json"
+    path.write_text(json.dumps(cfg))
+    return tmp_path / "art" / "model", path
+
+
+def test_paged_reference_phase_on_cpu():
+    chip_smoke.phase_paged_reference(device="cpu")
+
+
+def test_serve_phase_on_cpu(counted_paged, counted_plain, tiny_serving,
+                            tmp_path):
+    model_path, config = tiny_serving
+    launches = chip_smoke.phase_serve("cpu", model_path, config=config,
+                                      device="cpu", sizes=SERVE,
+                                      work=tmp_path / "work")
+    assert launches > 0 and launches % TINY["n_layer"] == 0
+    # the logit check and the (e)-(g) waves left B1 out of the counted
+    # windows: the waves assert it launched 0 times
+
+
+def test_serve_phase_fails_when_paged_attention_is_skipped(tiny_serving,
+                                                           tmp_path):
+    model_path, config = tiny_serving
+    with pytest.raises(AssertionError, match="paged_attn launched 0"):
+        chip_smoke.phase_serve("cpu", model_path, config=config,
+                               device="cpu", sizes=SERVE,
+                               work=tmp_path / "work")

@@ -22,6 +22,11 @@ ENTRY_MODULES = [
     "pytorch_distributed_template_tpu_torch.tools.make_serving_artifact",
     "pytorch_distributed_template_tpu_torch.ops.flash",
     "pytorch_distributed_template_tpu_torch.models.convert",
+    "pytorch_distributed_template_tpu_torch.models.quant",
+    "pytorch_distributed_template_tpu_torch.engine.kvcache",
+    "pytorch_distributed_template_tpu_torch.engine.continuous",
+    "pytorch_distributed_template_tpu_torch.serve",
+    "pytorch_distributed_template_tpu_torch.utils.promtext",
 ]
 
 

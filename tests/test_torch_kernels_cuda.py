@@ -6,6 +6,11 @@ it runs on its own:
     python -m pytest --noconftest -p no:cacheprovider -q \\
         tests/test_torch_kernels_cuda.py
 
+B1 (``csrc/flash_fwd.cu``) is held against ``flash_attention_ref`` and B4
+(``csrc/paged_attn.cu``, both its single-block and its split-over-pages
+arms) against ``paged_attention_ref``, valid query lanes only (pad lanes
+must be exactly 0).
+
 Tolerances: against the plain version computed in float32 from the same
 inputs. bfloat16: ``|out - ref| <= 1e-2 + 1.6e-2 |ref|`` (torch.testing's
 bf16 rtol): the output is rounded to bf16 once (2^-8 relative) and the
@@ -82,3 +87,113 @@ def test_flash_fwd_refuses_what_it_does_not_take(cuda):
     assert q.is_contiguous() and q.data_ptr() % 16
     with pytest.raises(ValueError, match="aligned"):
         flash.flash_attention(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# B4: paged attention (csrc/paged_attn.cu) against paged_attention_ref
+# ---------------------------------------------------------------------------
+
+
+def _paged_inputs(device, *, b, t, hq, kvh, d, bt, nb, window, dtype,
+                  quant, seed, pads=None):
+    """Random pools, shuffled tables and positions. Flat tables hold
+    ``lens[i] = starts[i] + t`` tokens (trailing lanes -1); ring tables
+    are full rings at deep positions (row 0 leaves its last slot
+    unallocated)."""
+    from pytorch_distributed_template_tpu_torch.models.quant import (
+        quantize_kv,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    pool = b * nb + 2
+    q = torch.randn(b, t, hq, d, generator=gen)
+    kp = torch.randn(pool, bt, kvh, d, generator=gen)
+    vp = torch.randn(pool, bt, kvh, d, generator=gen)
+    ks = vs = None
+    if quant:
+        kp, ks = quantize_kv(kp)
+        vp, vs = quantize_kv(vp)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    tables = (torch.randperm(pool - 1, generator=gen)[:b * nb] + 1).view(
+        b, nb).int()
+    if window > 0:
+        starts = torch.randint(300, 6000, (b,), generator=gen).int()
+        tables[0, -1] = -1
+    else:
+        lens = torch.randint(t, nb * bt + 1, (b,), generator=gen)
+        starts = (lens - t).int()
+        for i in range(b):
+            tables[i, -(-int(lens[i]) // bt):] = -1
+    pads = (torch.zeros(b, dtype=torch.int32) if pads is None
+            else torch.tensor(pads, dtype=torch.int32))
+    out = [q.to(dtype), kp, vp, tables, starts, pads]
+    out = [x.to(device).contiguous() for x in out]
+    if quant:
+        ks, vs = ks.to(device), vs.to(device)
+    return out, ks, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("d,bt", [(64, 8), (128, 16), (128, 32)])
+@pytest.mark.parametrize("t,window,pads", [
+    (1, 0, None), (1, 64, None), (8, 0, [0, 3, 7]), (8, 48, [2, 0, 0]),
+    (37, 0, [5, 0, 36]), (37, 64, [0, 1, 0]),
+])
+@pytest.mark.parametrize("splits", [None, 1, 3], ids=["auto", "s1", "s3"])
+@pytest.mark.parametrize("arm", ["auto", "cuda_cores"])
+def test_paged_attn_matches_plain(cuda, dtype, quant, d, bt, t, window,
+                                  pads, splits, arm):
+    (q, kp, vp, tables, starts, pad_lens), ks, vs = _paged_inputs(
+        cuda, b=3, t=t, hq=8, kvh=2, d=d, bt=bt, nb=64 // bt + 3,
+        window=window, dtype=dtype, quant=quant, seed=d + t + bt + window)
+    if pads is not None:
+        pad_lens = torch.tensor(pads, dtype=torch.int32, device=cuda)
+    before = flash.PAGED_ATTN.launches
+    if splits is None and arm == "auto":
+        out = flash.paged_attention(q, kp, vp, tables, starts, pad_lens,
+                                    window=window, k_scale=ks, v_scale=vs)
+    else:
+        # force the split count and/or the CUDA-core arm (bf16 with 16- or
+        # 32-token pages otherwise runs on the tensor cores)
+        out = flash._paged_cuda(
+            q, kp, vp, tables, starts, pad_lens, window, ks, vs,
+            splits=splits, tensor_cores=False if arm == "cuda_cores"
+            else None)
+    torch.cuda.synchronize()
+    assert flash.PAGED_ATTN.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    f32 = (lambda x: x) if quant else (lambda x: x.float())
+    ref = flash.paged_attention_ref(q.float(), f32(kp), f32(vp), tables,
+                                    starts, pad_lens, window=window,
+                                    k_scale=ks, v_scale=vs)
+    atol, rtol = TOL_OUT[dtype]
+    for i, p in enumerate(pad_lens.tolist()):
+        torch.testing.assert_close(out[i, p:].float(), ref[i, p:],
+                                   atol=atol, rtol=rtol)
+        # a lane that sees no key (a pad lane) gives exactly 0
+        assert not out[i, :p].float().abs().any()
+
+
+def test_paged_attn_refuses_what_it_does_not_take(cuda):
+    (q, kp, vp, tables, starts, pads), _, _ = _paged_inputs(
+        cuda, b=2, t=1, hq=4, kvh=2, d=64, bt=8, nb=4, window=0,
+        dtype=torch.float32, quant=False, seed=0)
+    with pytest.raises(TypeError, match="int32"):
+        flash.paged_attention(q, kp, vp, tables.long(), starts, pads)
+    with pytest.raises(TypeError):
+        flash.paged_attention(q.half(), kp.half(), vp.half(), tables,
+                              starts, pads)
+    with pytest.raises(TypeError):
+        flash.paged_attention(q, kp.bfloat16(), vp.bfloat16(), tables,
+                              starts, pads)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.paged_attention(q[..., :32].contiguous(),
+                              kp[..., :32].contiguous(),
+                              vp[..., :32].contiguous(), tables, starts,
+                              pads)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.paged_attention(q, kp, vp, tables.t().contiguous().t(),
+                              starts, pads)
