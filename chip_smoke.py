@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order (1, 2, 2b, 3, 3b, 4, 5); any failure exits non-zero and
-no phase's exception is caught:
+Phases, in order (1, 2, 2b, 2c, 3, 3b, 3c, 4, 5, 6); any failure exits
+non-zero and no phase's exception is caught:
 
 1. build: compile every CUDA source of the port with nvcc (one process per
    source, all started together) and print the build time and the ptxas
@@ -54,11 +54,34 @@ Slice 2 (continuous paged serving, kernel B4) adds:
     flash prefill on a 1024-token prompt, and one request of (e) runs
     alone under ``torch.profiler`` (outside the counted waves).
 
+Slice 3 (LM training, kernels B2 and B3) adds:
+
+2c. the flash backward kernels (B2 dK/dV, B3 dQ) against the plain
+    backward at the training main path's shape (GPT-2 small: 8 x 12 heads
+    x 1024, D 64), a Mistral-width GQA shape, a banded, a ragged f32 and a
+    non-causal banded case, and an lse-cotangent case, with kernel / plain
+    / library (the backward of ``scaled_dot_product_attention``, timed
+    only) times and the card's bound;
+3c. a small f32 GPT2 (flash, fused head, remat) and a small windowed GQA
+    Llama (flash) train 5 steps on the card (kernels) and on the CPU
+    (plain versions) from the same weights and batches: the same per-step
+    losses and final params;
+6.  main path of slice 3: the port's ``train.py`` with
+    ``configs/gpt2_small_train.json`` at full width (GPT-2 small: 12
+    layers, d_model 768, vocab 50257, seq 1024, batch 8, bf16, remat,
+    flash, fused head chunk 256, dropout 0.1), cut to 256 training and 64
+    validation sequences and 2 epochs (``--set``): every train step must
+    launch B1 2 x 12 times and B2, B3 12 times each, every eval step B1 12
+    times and no B2/B3; losses finite and falling; checkpoints and
+    ``summary.json`` written; a run resumed from ``checkpoint-epoch1``
+    reproduces epoch 2. Then 5 train steps run under ``torch.profiler``.
+
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
-slice 1's launches, paged_attn with slice 2's) and the device line
-``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
-repository beside it; it imports nothing of JAX.
+the launches of slices 1 and 3, paged_attn with slice 2's, flash_bwd_dkv
+and flash_bwd_dq with slice 3's) and the device line ``{"ok": true,
+"device": {...}}``. The script needs a CUDA device and the repository
+beside it; it imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -70,6 +93,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
@@ -140,7 +164,8 @@ def phase_build() -> None:
     # importing a kernel's module registers its library for build_all
     from pytorch_distributed_template_tpu_torch.ops import build, flash
 
-    assert {flash.FLASH_FWD, flash.PAGED_ATTN} <= set(build.LIBRARIES)
+    assert {flash.FLASH_FWD, flash.PAGED_ATTN, flash.FLASH_BWD} <= set(
+        build.LIBRARIES)
     t0 = time.perf_counter()
     built = build.build_all()
     log(f"[build] {len(build.LIBRARIES)} libraries in "
@@ -239,8 +264,6 @@ def phase_reference(device="cuda") -> None:
     """A small f32 Llama on ``device`` (kernel path) against the same
     weights on the CPU (plain path): prefill logits within
     ``REF_LOGIT_ATOL``, greedy tokens identical."""
-    import numpy as np
-
     import pytorch_distributed_template_tpu_torch.models  # noqa: F401
     from pytorch_distributed_template_tpu_torch.config.registry import MODELS
     from pytorch_distributed_template_tpu_torch.engine import (
@@ -334,17 +357,31 @@ def profile_request(service, ids, new: int, label: str, card: str) -> None:
     intervals), its idle share, the device ops per generated token and the
     kernels that take most of the time. Launches here are outside the main
     path's counts."""
+    device = service.device
+    row = _profiled(lambda: service.generate(prompt_ids=ids,
+                                             max_new_tokens=new), device)
+    row = {"profile": label, "prompt_len": len(ids), "new_tokens": new,
+           **row, "device_ops_per_token": row["device_ops"] / new,
+           "card": card}
+    log("[profile] " + json.dumps(row))
+
+
+def _profiled(fn, device, top_n: int = 8) -> dict:
+    """Run ``fn`` under ``torch.profiler``: wall time (host clock to
+    ``cuda.synchronize``), the device's busy time (union of kernel and copy
+    intervals), its idle share, the device op count and the kernels that
+    take most of the time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
-    if service.device.type == "cuda":
+    if torch.device(device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    _sync(service.device)
+    _sync(device)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        service.generate(prompt_ids=ids, max_new_tokens=new)
-        _sync(service.device)
+        fn()
+        _sync(device)
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
     for e in prof.events():
@@ -362,18 +399,14 @@ def profile_request(service, ids, new: int, label: str, card: str) -> None:
         elif b > end:
             busy += b - end
             end = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    row = {"profile": label, "prompt_len": len(ids), "new_tokens": new,
-           "wall_ms": wall_us / 1e3,
-           "device_busy_ms": busy / 1e3 if spans else "not measured",
-           "device_idle_share": 1 - busy / wall_us if spans
-           else "not measured",
-           "device_ops": len(spans),
-           "device_ops_per_token": len(spans) / new,
-           "top": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
-                   for k, (us, n) in top],
-           "card": card}
-    log("[profile] " + json.dumps(row))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
+    return {"wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy / 1e3 if spans else "not measured",
+            "device_idle_share": 1 - busy / wall_us if spans
+            else "not measured",
+            "device_ops": len(spans),
+            "top": [{"kernel": k[:90], "ms": us / 1e3, "count": n}
+                    for k, (us, n) in top]}
 
 
 def _check_ids(ids, vocab: int, n: int, what: str) -> None:
@@ -726,8 +759,6 @@ def phase_paged_reference(device="cuda") -> None:
     CPU (plain version): 6 concurrent greedy requests, some streamed and
     some wrapping the ring, give the same tokens; also with the int8
     pool."""
-    import numpy as np
-
     import pytorch_distributed_template_tpu_torch.models  # noqa: F401
     from pytorch_distributed_template_tpu_torch.config.registry import MODELS
     from pytorch_distributed_template_tpu_torch.engine.continuous import (
@@ -1094,6 +1125,444 @@ def phase_serve(card: str, model_path, config=SERVE_CONFIG, device="cuda",
     return waves.b4_launches
 
 
+# ---------------------------------------------------------------------------
+# slice 3: LM training, kernels B2 and B3
+# ---------------------------------------------------------------------------
+
+BWD_SOURCE = "pytorch_distributed_template_tpu_torch/csrc/flash_bwd.cu"
+BWD_REPLACES = {"flash_bwd_dkv":
+                "pytorch_distributed_template_tpu/ops/flash.py:280",
+                "flash_bwd_dq":
+                "pytorch_distributed_template_tpu/ops/flash.py:365"}
+# (name, B, H, KVH, T, D, causal, window, dtype, lse cotangent): the
+# training main path's shape first (GPT-2 small: 12 heads, D 64, T 1024,
+# batch 8), Mistral's head shape with GQA, a banded, a ragged f32 and a
+# non-causal banded case, and one case through both outputs of
+# flash_attention_lse
+BWD_SHAPES = [
+    ("gpt2_small", 8, 12, 12, 1024, 64, True, 0, torch.bfloat16, False),
+    ("mistral_gqa", 1, 32, 8, 2048, 128, True, 0, torch.bfloat16, False),
+    ("banded", 2, 16, 4, 2048, 128, True, 512, torch.bfloat16, False),
+    ("ragged_f32", 1, 16, 4, 1000, 64, True, 0, torch.float32, False),
+    ("noncausal_banded", 2, 8, 8, 512, 32, False, 128, torch.bfloat16,
+     False),
+    ("lse_cotangent", 2, 12, 12, 512, 64, True, 0, torch.bfloat16, True),
+]
+# |got - ref| <= a * max|ref| + r * |ref| + 1e-5 against the plain backward
+# in f32 on the same inputs. bf16 (1e-2, 1.6e-2): the kernels round P and dS
+# to bf16 as operands (2^-9 relative each) and the gradients to bf16 once
+# (2^-8). f32 (1e-5, 1e-4): summation order only. The 1e-5 floor covers
+# gradients that are 0 in exact arithmetic.
+BWD_TOL = {torch.bfloat16: (1e-2, 1.6e-2), torch.float32: (1e-5, 1e-4)}
+# phase 3c: small f32 models, head_dim 64 so the kernels take them
+TRAIN_REF = {
+    "GPT2": {"size": "gpt2-small", "vocab_size": 512, "max_len": 64,
+             "n_layer": 2, "n_head": 2, "d_model": 128, "dropout": 0.0,
+             "attn_impl": "flash", "fused_head": True, "remat": True},
+    "Llama": {"vocab_size": 512, "n_layer": 2, "n_head": 4, "n_kv_head": 2,
+              "d_model": 256, "max_len": 64, "window": 16,
+              "attn_impl": "flash"},
+}
+TRAIN_REF_STEPS = 5
+# per-step losses rtol 1e-5; final params atol 1e-4: float32 on both sides
+# (cuBLAS f32 GEMMs without TF32, the kernels' f32 arms), so the runs
+# differ by summation order, which Adam's normalised updates keep small
+TRAIN_REF_TOL = {"loss_rtol": 1e-5, "param_atol": 1e-4}
+# slice 3's main path: GPT-2 small at full width through the port's
+# train.py; only the sample counts and the epochs are cut
+TRAIN_CONFIG = REPO / "pytorch_distributed_template_tpu_torch" / "configs" \
+    / "gpt2_small_train.json"
+TRAIN_SETS = [("train_loader;args;n", 256), ("valid_loader;args;n", 64),
+              ("trainer;epochs", 2), ("trainer;save_period", 1)]
+# resumed epoch 2 against the uninterrupted one, bf16: the same batches,
+# dropout masks and updates; the embedding gradient's scatter-add may sum
+# in another order, which the relative 1e-3 covers
+RESUME_RTOL = 1e-3
+
+
+def _grad_error(got, ref, dtype):
+    """(max abs err, max(err - limit)): the check passes when the second
+    is <= 0."""
+    a, r = BWD_TOL[dtype]
+    ref = ref.float()
+    err = (got.float() - ref).abs()
+    limit = a * ref.abs().max() + r * ref.abs() + 1e-5
+    return err.max().item(), (err - limit).max().item()
+
+
+def _sdpa_bwd_ms(q, k, v, g, causal: bool, window: int, reps: int):
+    """Time of the backward of one ``scaled_dot_product_attention`` call on
+    the same inputs (yardstick only; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from pytorch_distributed_template_tpu_torch.ops.flash import (
+        visible_mask,
+    )
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    t = q.shape[1]
+    kw = {"enable_gqa": True} if k.shape[2] != q.shape[2] else {}
+    if 0 < window < t:
+        kw["attn_mask"] = visible_mask(t, t, causal, window, q.device)
+    else:
+        kw["is_causal"] = causal
+    out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    gt = g.transpose(1, 2).contiguous()
+    ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                             retain_graph=True), reps)
+    del out
+    return ms
+
+
+def phase_bwd_kernel() -> list:
+    """B2 and B3 against the plain backward on the card: max errors,
+    kernel / plain / SDPA-backward times and the card's bound per kernel,
+    one row per shape."""
+    from pytorch_distributed_template_tpu_torch.ops import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for (name, b, h, kvh, t, d, causal, window, dtype,
+         with_lse) in BWD_SHAPES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda",
+                               dtype=torch.float32)
+
+        q = rnd(b, t, h, d).to(dtype)
+        k, v = rnd(b, t, kvh, d).to(dtype), rnd(b, t, kvh, d).to(dtype)
+        g = rnd(b, t, h, d).to(dtype)
+        g_lse = rnd(b, h, t) if with_lse else None
+        out, lse = flash.flash_attention_lse(q, k, v, causal=causal,
+                                             window=window)
+        got = flash.flash_attention_bwd(q, k, v, out, lse, g, causal,
+                                        window, g_lse)
+        torch.cuda.synchronize()
+        ref = flash.flash_attention_bwd_ref(
+            q.float(), k.float(), v.float(), out.float(), lse, g.float(),
+            causal=causal, window=window, g_lse=g_lse)
+        errs = {}
+        for gname, x, want in zip(("dq", "dk", "dv"), got, ref):
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"B2/B3 {name}: non-finite {gname}")
+            err, excess = _grad_error(x, want, dtype)
+            if excess > 0:
+                raise AssertionError(
+                    f"flash backward disagrees with its plain version at "
+                    f"{name}: {gname} max err {err:.3e} exceeds the limit "
+                    f"by {excess:.3e} (tol {BWD_TOL[dtype]} + 1e-5)")
+            errs[gname] = err
+        del got, ref
+        reps = 20
+        delta = flash._delta(g, out, g_lse)
+        args = (q, k, v, g, lse, delta, causal, window)
+        ms = {kern: cuda_ms(lambda kern=kern: flash._flash_bwd_cuda(
+            *args, kernels=(kern,)), reps) for kern in flash.BWD_KERNELS}
+        plain_ms = cuda_ms(lambda: flash.flash_attention_bwd_ref(
+            q, k, v, out, lse, g, causal, window, g_lse), 3, warmup=1)
+        library_ms = _sdpa_bwd_ms(q, k, v, g, causal, window, reps)
+        for kern, gnames in (("flash_bwd_dkv", ("dk", "dv")),
+                             ("flash_bwd_dq", ("dq",))):
+            bound_s, bound_by = flash.flash_bwd_bound_seconds(
+                kern, b, t, h, kvh, d, causal, window, q.element_size(),
+                PEAK_FLOPS[dtype], PEAK_BYTES)
+            row = {"kernel": kern, "shape": name, "B": b, "H": h, "KVH": kvh,
+                   "T": t, "D": d, "causal": causal, "window": window,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "lse_cotangent": with_lse,
+                   "max_abs_err": max(errs[n] for n in gnames),
+                   "tol": list(BWD_TOL[dtype]), "kernel_ms": ms[kern],
+                   "ref_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+                   "plain": "flash_attention_bwd_ref (dq, dk, dv together)",
+                   "library": "backward of scaled_dot_product_attention "
+                              "(dq, dk, dv together)"}
+            rows.append(row)
+            log("[bwd] " + json.dumps(row))
+        del q, k, v, g, out, lse, delta
+        torch.cuda.empty_cache()
+    flash.FLASH_BWD_DKV.launches = flash.FLASH_BWD_DQ.launches = 0
+    flash.FLASH_FWD.launches = 0
+    return rows
+
+
+def _train_ref_run(name, args, state, batches, device):
+    """``TRAIN_REF_STEPS`` AdamW steps of a ``name`` model on ``device``
+    from ``state``: (per-step losses, final params on the CPU)."""
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.config.registry import (
+        MODELS,
+    )
+    from pytorch_distributed_template_tpu_torch.engine import (
+        losses, optim, steps,
+    )
+
+    model = MODELS.get(name)(**args, device=device,
+                             param_dtype=torch.float32)
+    model.load_state_dict(state)
+    opt = optim.OPTIMIZERS.get("AdamW")(
+        model, lr=1e-3, betas=(0.9, 0.95), weight_decay=0.1,
+        weight_decay_exclude=["bias$", "ln_", "wpe", "norm"])
+    crit = (losses.fused_lm_cross_entropy(16) if args.get("fused_head")
+            else losses.lm_cross_entropy)
+    step = steps.make_train_step(model, opt, crit, input_key="tokens",
+                                 target_key="tokens", grad_clip_norm=1.0)
+    out = []
+    for batch in batches:
+        m = step({k: torch.from_numpy(v).to(device)
+                  for k, v in batch.items()})
+        out.append(float(m["loss_sum"]) / float(m["count"]))
+    return out, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def phase_train_reference(device="cuda") -> None:
+    """Small f32 GPT2 (flash, fused head, remat) and windowed GQA Llama
+    (flash) trained ``TRAIN_REF_STEPS`` steps on ``device`` (kernels) and on
+    the CPU (plain versions) from the same converted weights and batches:
+    per-step losses and final params within ``TRAIN_REF_TOL``."""
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.config.registry import (
+        MODELS,
+    )
+    from pytorch_distributed_template_tpu_torch.data.datasets import (
+        synthetic_lm,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, args in TRAIN_REF.items():
+        cpu = MODELS.get(name)(**args, device="cpu")
+        cpu.init_weights(torch.Generator().manual_seed(7))
+        state = cpu.state_dict()
+        toks = synthetic_lm(n=4 * TRAIN_REF_STEPS, seq_len=args["max_len"],
+                            vocab_size=args["vocab_size"], seed=1)["tokens"]
+        batches = [{"tokens": toks[4 * i:4 * i + 4],
+                    "mask": np.ones(4, bool)}
+                   for i in range(TRAIN_REF_STEPS)]
+        dev_loss, dev_p = _train_ref_run(name, args, state, batches, device)
+        cpu_loss, cpu_p = _train_ref_run(name, args, state, batches, "cpu")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(dev_loss,
+                                                           cpu_loss))
+        param_err = max((dev_p[k] - cpu_p[k]).abs().max().item()
+                        for k in cpu_p)
+        row = {"model": name, "steps": TRAIN_REF_STEPS,
+               "losses_device": dev_loss, "losses_cpu": cpu_loss,
+               "loss_max_rel_err": loss_err, "param_max_abs_err": param_err,
+               "tol": TRAIN_REF_TOL, "device": str(device)}
+        log("[train-reference] " + json.dumps(row))
+        if not (loss_err <= TRAIN_REF_TOL["loss_rtol"]
+                and param_err <= TRAIN_REF_TOL["param_atol"]):
+            raise AssertionError(f"small f32 {name} training on {device} "
+                                 f"differs from the CPU: {row}")
+
+
+def train_step_flops(model, batch: int, t: int) -> float:
+    """Model FLOPs of one train step (forward + backward, no remat
+    recompute): 6 x params x tokens for the dense work (the tied head
+    included once, the position table excluded) plus 12 x d_model x
+    Σ(visible keys) x batch per layer for causal attention (two matmuls,
+    forward and twice that backward)."""
+    from pytorch_distributed_template_tpu_torch.ops.flash import (
+        visible_keys,
+    )
+
+    n = sum(p.numel() for name, p in model.named_parameters()
+            if name != "wpe")
+    attn = 12.0 * model.d_model * visible_keys(t, True, 0) * batch \
+        * model.n_layer
+    return 6.0 * n * batch * t + attn
+
+
+class TrainRun:
+    """Wraps a trainer's train and eval steps: counts the flash kernels'
+    launches of each step from 0 and checks them exactly (a train step
+    with remat: B1 2 x n_layer, B2 and B3 n_layer each; an eval step: B1
+    n_layer, no B2/B3), times each step (host clock to
+    ``cuda.synchronize``) and keeps its loss."""
+
+    def __init__(self, trainer, device, card: str, label: str):
+        from pytorch_distributed_template_tpu_torch.ops import flash
+
+        self.counters = (flash.FLASH_FWD, flash.FLASH_BWD_DKV,
+                         flash.FLASH_BWD_DQ)
+        self.device, self.card, self.label = device, card, label
+        self.launches = [0, 0, 0]
+        self.steps, self.epoch_logs = [], []
+        model = trainer.model
+        layers = model.n_layer
+        self.want = {"train": (2 * layers if model.remat else layers,
+                               layers, layers),
+                     "eval": (layers, 0, 0)}
+        loader = trainer.train_loader
+        tokens = loader.arrays["tokens"].shape[1]
+        self.tokens = loader.batch_size * tokens
+        self.flops = train_step_flops(model, loader.batch_size, tokens)
+        trainer.train_step = self._wrap(trainer.train_step, "train")
+        trainer.eval_step = self._wrap(trainer.eval_step, "eval")
+        real_epoch = trainer._train_epoch
+
+        def epoch(e):
+            out = real_epoch(e)
+            self.epoch_logs.append(dict(out, epoch=e))
+            log(f"[train] ({self.label}) epoch " + json.dumps(
+                dict(out, epoch=e, card=card)))
+            return out
+
+        trainer._train_epoch = epoch
+
+    def _wrap(self, fn, kind):
+        """``fn`` counted and timed; other attributes (the train step's
+        ``state_dict`` for checkpoints) pass through."""
+        is_cuda = torch.device(self.device).type == "cuda"
+
+        def call(batch):
+            _sync(self.device)
+            for c in self.counters:
+                c.launches = 0
+            if is_cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = fn(batch)
+            _sync(self.device)
+            secs = time.perf_counter() - t0
+            got = tuple(c.launches for c in self.counters)
+            if got != self.want[kind]:
+                raise AssertionError(
+                    f"({self.label}) a {kind} step launched (flash_fwd, "
+                    f"flash_bwd_dkv, flash_bwd_dq) = {got}, not "
+                    f"{self.want[kind]}")
+            self.launches = [a + b for a, b in zip(self.launches, got)]
+            if kind == "train":
+                loss = float(m["loss_sum"]) / max(float(m["count"]), 1.0)
+                peak = torch.cuda.max_memory_allocated() if is_cuda else 0
+                row = {"step": len(self.steps), "loss": loss,
+                       "ms": secs * 1e3, "tokens_per_s": self.tokens / secs,
+                       "mfu": self.flops / secs / PEAK_FLOPS[torch.bfloat16],
+                       "peak_mem_gib": peak / 2 ** 30}
+                self.steps.append(row)
+                log(f"[train] ({self.label}) step " + json.dumps(row))
+            return m
+
+        return _Wrapped(fn, call)
+
+
+class _Wrapped:
+    def __init__(self, inner, call):
+        self._inner, self._call = inner, call
+
+    def __call__(self, batch):
+        return self._call(batch)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def phase_train(card: str, device="cuda", config=TRAIN_CONFIG,
+                sets=TRAIN_SETS, work=WORK, seed: int = 0) -> dict:
+    """Slice 3's main path: the port's ``train.py`` with the GPT-2 small
+    config at full width (only sample counts and epochs cut), exact launch
+    counts per step, losses finite and falling, checkpoints and summary
+    written, a resume from ``checkpoint-epoch1`` reproducing epoch 2, then
+    a profile of 5 train steps. Returns the path's launches per kernel."""
+    from pytorch_distributed_template_tpu_torch import train as train_cli
+
+    run_root = work / "train"
+    if run_root.exists():
+        shutil.rmtree(run_root)
+    argv = ["-c", str(config), "-s", str(run_root / "main"), "--device",
+            str(device), "--seed", str(seed)]
+    for chain, value in sets:
+        argv += ["--set", chain, json.dumps(value)]
+    box = {}
+
+    def hook(trainer):
+        box["trainer"] = trainer
+        box["run"] = TrainRun(trainer, device, card, "main")
+        m = trainer.model
+        log(f"[train] {type(m).__name__} on {trainer.device}: "
+            f"{m.n_layer} layers, {m.n_head} heads, d_model {m.d_model}, "
+            f"vocab {m.vocab_size}, seq {m.max_len}, batch "
+            f"{trainer.train_loader.batch_size}, {m.dtype}, remat "
+            f"{m.remat}, {m.attn_impl}, fused head {m.fused_head}, dropout "
+            f"{m.rate}, {sum(p.numel() for p in m.parameters()) / 1e6:.2f} "
+            f"M params; {len(trainer.train_loader)} steps per epoch; cuts: "
+            f"{sets}")
+
+    t0 = time.perf_counter()
+    train_cli.main(argv, on_trainer=hook)
+    wall = time.perf_counter() - t0
+    trainer, run = box["trainer"], box["run"]
+    losses = [r["loss"] for r in run.steps]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training losses: {losses}")
+    head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not tail < head:
+        raise AssertionError(f"the loss did not fall: first 5 steps "
+                             f"{head:.4f}, last 5 {tail:.4f}")
+    run_dir = trainer.config.save_dir
+    epochs = trainer.epochs
+    for path in ([run_dir / f"checkpoint-epoch{e}" / "model.pt"
+                  for e in range(1, epochs + 1)]
+                 + [run_dir / "model_best" / "model.pt",
+                    run_dir / "summary.json"]):
+        if not path.is_file():
+            raise AssertionError(f"{path} was not written")
+    summary = json.loads((run_dir / "summary.json").read_text())
+    steady = run.steps[1:] or run.steps
+    log("[train] " + json.dumps({
+        "run": "main", "steps": len(run.steps), "epochs": epochs,
+        "wall_s": wall, "loss_first5": head, "loss_last5": tail,
+        "ms_per_step_median": float(np.median([r["ms"] for r in steady])),
+        "tokens_per_s_median": float(np.median(
+            [r["tokens_per_s"] for r in steady])),
+        "mfu_median": float(np.median([r["mfu"] for r in steady])),
+        "peak_mem_gib_max": max(r["peak_mem_gib"] for r in run.steps),
+        "model_flops_per_step": run.flops,
+        "launches": dict(zip(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+                             run.launches)),
+        "summary": summary, "card": card}))
+
+    # resume from the first epoch's checkpoint: epoch 2 again
+    resume_box = {}
+
+    def resume_hook(trainer):
+        resume_box["run"] = TrainRun(trainer, device, card, "resume")
+
+    train_cli.main(["-r", str(run_dir / "checkpoint-epoch1"), "-s",
+                    str(run_root / "resume"), "--device", str(device)],
+                   on_trainer=resume_hook)
+    resumed = resume_box["run"]
+    if [e["epoch"] for e in resumed.epoch_logs] != list(
+            range(2, epochs + 1)):
+        raise AssertionError(f"the resumed run ran epochs "
+                             f"{[e['epoch'] for e in resumed.epoch_logs]}")
+    again, first = resumed.epoch_logs[0], run.epoch_logs[1]
+    diffs = {k: abs(again[k] - first[k]) / abs(first[k])
+             for k in ("loss", "val_loss")}
+    log("[train] resume " + json.dumps({
+        "epoch": 2, "uninterrupted": {k: first[k] for k in diffs},
+        "resumed": {k: again[k] for k in diffs}, "rel_diff": diffs,
+        "rtol": RESUME_RTOL}))
+    if max(diffs.values()) > RESUME_RTOL:
+        raise AssertionError(f"resume does not reproduce epoch 2: {diffs}")
+    launches = [a + b for a, b in zip(run.launches, resumed.launches)]
+
+    # where a train step's time goes (outside the counted runs)
+    batches = [trainer._to_device(b) for b, _ in zip(
+        trainer.train_loader, range(5))]
+    row = _profiled(lambda: [trainer.train_step(b) for b in batches],
+                    device, top_n=12)
+    log("[profile] " + json.dumps({"profile": "train_steps", "steps": 5,
+                                   **row, "card": card}))
+    del trainer, box, resume_box, batches
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(run_root)
+    return dict(zip(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+                    launches))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1106,18 +1575,25 @@ def main() -> int:
     phase_build()
     rows = phase_kernel()
     paged_rows = phase_paged_kernel()
+    bwd_rows = phase_bwd_kernel()
     phase_reference()
     phase_paged_reference()
+    phase_train_reference()
     flash_launches = phase_main(card, keep_artifact=True)
     paged_launches = phase_serve(card, WORK / "art" / "model")
+    train_launches = phase_train(card)
     shutil.rmtree(WORK)
     log(f"[device] all phases in {time.perf_counter() - t_start:.1f} s")
     kernels = []
+    flash_launches += train_launches["flash_fwd"]
     for kernel, source, replaces, launches, shapes in (
             ("flash_fwd", KERNEL_SOURCE, KERNEL_REPLACES, flash_launches,
              rows),
             ("paged_attn", PAGED_SOURCE, PAGED_REPLACES, paged_launches,
-             paged_rows)):
+             paged_rows),
+            *((kern, BWD_SOURCE, BWD_REPLACES[kern], train_launches[kern],
+               [r for r in bwd_rows if r["kernel"] == kern])
+              for kern in ("flash_bwd_dkv", "flash_bwd_dq"))):
         head = shapes[0]
         kernels.append({
             "name": kernel, "route": "cuda", "source": source,

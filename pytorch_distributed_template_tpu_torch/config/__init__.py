@@ -1,5 +1,9 @@
 """Config layer: the JSON config parser and the component registries."""
 from .parser import ConfigParser
-from .registry import MODELS, Registry, resolve
+from .registry import (
+    LOADERS, LOSSES, METRICS, MODELS, OPTIMIZERS, SCHEDULERS, Registry,
+    resolve,
+)
 
-__all__ = ["ConfigParser", "MODELS", "Registry", "resolve"]
+__all__ = ["ConfigParser", "LOADERS", "LOSSES", "METRICS", "MODELS",
+           "OPTIMIZERS", "SCHEDULERS", "Registry", "resolve"]

@@ -1,6 +1,6 @@
 """Decorator-based component registries (the port's copy of the JAX
-package's ``config/registry.py``, holding only the registry this slice
-fills).
+package's ``config/registry.py``, holding the registries the ported slices
+fill).
 
 A config block names a component (``"type"``) plus its kwargs (``"args"``)
 and ``ConfigParser.init_obj`` builds it. Names resolve through explicit
@@ -65,5 +65,11 @@ def resolve(namespace: Any, key: str) -> Callable:
 
 
 # The port's registries. Components self-register at import time from their
-# defining modules (models/llama.py).
+# defining modules (models/, data/datasets.py, engine/{losses,metrics,
+# optim}.py).
 MODELS = Registry("models")
+LOADERS = Registry("loaders")
+LOSSES = Registry("losses")
+METRICS = Registry("metrics")
+OPTIMIZERS = Registry("optimizers")
+SCHEDULERS = Registry("schedulers")

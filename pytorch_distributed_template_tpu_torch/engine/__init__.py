@@ -1,1 +1,2 @@
-"""Generation engine: KV-cached decoding and the request-level service."""
+"""Engines: KV-cached decoding and the request-level services (serving),
+and the train/eval steps and the trainer (training)."""

@@ -1,16 +1,22 @@
-"""Flax param tree <-> the port's state dict, for the Llama family.
+"""Flax param tree <-> the port's state dict, for the Llama and GPT-2
+families.
 
 The JAX package's params are nested dicts (``layers_0/self_attn/q_proj/
-kernel``); the port's modules name the same weights
-``layers.0.self_attn.q_proj.weight``. The translation:
+kernel``, ``h_0/attn/qkv/bias``); the port's modules name the same weights
+``layers.0.self_attn.q_proj.weight``, ``h.0.attn.qkv.bias``. The
+translation:
 
-- ``embed_tokens/embedding`` ``[V, D]`` -> ``embed_tokens.weight``, as is;
+- ``layers_i`` / ``h_i`` <-> ``layers.i`` / ``h.i``;
 - every ``*/kernel`` ``[in, out]`` -> ``*.weight`` ``[out, in]`` (the
   ``nn.Linear`` layout), transposed — ``lm_head/kernel`` included;
-- RMSNorm ``weight`` leaves go across as they are.
+- ``embed_tokens/embedding``, ``wte/embedding`` -> ``*.weight`` as is;
+- LayerNorm ``scale`` -> ``weight``; ``bias`` and RMSNorm ``weight``
+  leaves as they are; the bare ``wpe`` param as it is.
 
 Both directions take and give plain containers: nested dicts of numpy
 arrays on the flax side, a flat dict of CPU tensors on the torch side.
+:func:`flax_path` gives the JAX path string of a port parameter (what the
+optimizer's ``weight_decay_exclude`` regexes are matched against).
 
 The KV block pool crosses the same way (:func:`pool_from_flax`,
 :func:`flax_from_pool`): the JAX pool's cache leaves
@@ -26,6 +32,9 @@ import numpy as np
 import torch
 
 _LAYER = re.compile(r"^layers_(\d+)$")
+_INDEXED = re.compile(r"^(layers|h)_(\d+)$")
+_INDEXED_PARENTS = ("layers", "h")
+_EMBEDDINGS = ("wte", "embed_tokens")
 
 
 def _flatten(tree, prefix=()):
@@ -37,18 +46,61 @@ def _flatten(tree, prefix=()):
             yield path, val
 
 
+def _is_layer_norm(module: str) -> bool:
+    return module.startswith("ln_")
+
+
+def flax_path(name: str) -> str:
+    """The JAX param path of port parameter ``name``:
+    ``h.0.attn.qkv.weight`` -> ``h_0/attn/qkv/kernel``,
+    ``h.0.ln_1.weight`` -> ``h_0/ln_1/scale``, ``wte.weight`` ->
+    ``wte/embedding``, ``layers.1.input_layernorm.weight`` ->
+    ``layers_1/input_layernorm/weight``, ``wpe`` -> ``wpe``."""
+    parts = name.split(".")
+    mods, i = [], 0
+    while i < len(parts) - 1:
+        if parts[i] in _INDEXED_PARENTS and parts[i + 1].isdigit():
+            mods.append(f"{parts[i]}_{parts[i + 1]}")
+            i += 2
+        else:
+            mods.append(parts[i])
+            i += 1
+    leaf = parts[-1]
+    if not mods:
+        return leaf
+    if leaf == "weight":
+        owner = mods[-1]
+        if owner in _EMBEDDINGS:
+            leaf = "embedding"
+        elif _is_layer_norm(owner):
+            leaf = "scale"
+        elif not (owner.endswith("layernorm") or owner == "norm"):
+            leaf = "kernel"
+    elif leaf != "bias":
+        raise KeyError(f"unexpected state-dict entry {name}")
+    return "/".join(mods + [leaf])
+
+
 def params_from_flax(tree) -> dict:
     """Flax param tree (nested dicts of arrays) -> torch state dict."""
     out = {}
     for path, leaf in _flatten(tree):
         arr = np.asarray(leaf)
-        parts = [_LAYER.sub(r"layers.\1", p) for p in path[:-1]]
+        parts = [_INDEXED.sub(r"\1.\2", p) for p in path[:-1]]
         last = path[-1]
-        if last == "kernel":
-            arr = arr.T
-        elif last not in ("embedding", "weight"):
+        if not parts:
+            if last != "wpe":
+                raise KeyError(f"unexpected flax leaf {last}")
+            name = last
+        elif last == "kernel":
+            arr, name = arr.T, "weight"
+        elif last in ("embedding", "weight", "scale"):
+            name = "weight"
+        elif last == "bias":
+            name = "bias"
+        else:
             raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
-        out[".".join(parts + ["weight"])] = torch.tensor(
+        out[".".join(parts + [name])] = torch.tensor(
             np.ascontiguousarray(arr))
     return out
 
@@ -58,29 +110,14 @@ def flax_from_params(state_dict) -> dict:
     of float32 numpy arrays."""
     tree: dict = {}
     for name, tensor in state_dict.items():
-        parts = name.split(".")
-        if parts[-1] != "weight":
-            raise KeyError(f"unexpected state-dict entry {name}")
-        mods = []
-        i = 0
-        while i < len(parts) - 1:
-            if parts[i] == "layers":
-                mods.append(f"layers_{parts[i + 1]}")
-                i += 2
-            else:
-                mods.append(parts[i])
-                i += 1
+        path = flax_path(name).split("/")
         arr = tensor.detach().to("cpu", torch.float32).numpy()
-        if mods[-1] == "embed_tokens":
-            leaf = "embedding"
-        elif mods[-1].endswith("layernorm") or mods[-1] == "norm":
-            leaf = "weight"
-        else:
-            leaf, arr = "kernel", arr.T
+        if path[-1] == "kernel":
+            arr = arr.T
         node = tree
-        for m in mods:
+        for m in path[:-1]:
             node = node.setdefault(m, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[path[-1]] = np.ascontiguousarray(arr)
     return tree
 
 

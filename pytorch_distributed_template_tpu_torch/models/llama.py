@@ -4,8 +4,11 @@ Port of ``pytorch_distributed_template_tpu/models/llama.py`` for serving:
 the plain forward and the decode forward over a KV cache, registered as
 ``Llama``, ``Mistral`` and ``TinyLlama`` with the JAX registry's defaults.
 
-- Weights live in the compute dtype on the model's device (``bfloat16:
-  true`` stores bf16); RMSNorm weights stay float32 and normalise in
+- Serving stores the weights in the compute dtype on the model's device
+  (``bfloat16: true`` stores bf16). Training builds the model with
+  ``param_dtype=torch.float32``: float32 master weights, cast to the
+  compute dtype at use (models/layers.py), as flax keeps float32 params
+  under ``dtype=bfloat16``. RMSNorm weights stay float32 and normalise in
   float32, like the flax module; logits come back float32.
 - RoPE is the HF rotate-half convention (``concat(freqs, freqs)``), so
   state dicts converted from the flax tree (models/convert.py) reproduce
@@ -16,6 +19,11 @@ the plain forward and the decode forward over a KV cache, registered as
 - ``window > 0`` (Mistral): sliding-window attention; the decode cache is a
   rolling ring buffer of ``window`` slots once the budget exceeds the
   window.
+- Training (no cache): the flash path is differentiable (ops/flash.py:
+  B2/B3 on the card, with K/V gradients at ``n_kv_head`` heads, summed
+  over each group as ``jnp.repeat``'s VJP sums them); ``remat`` runs each
+  block under ``torch.utils.checkpoint``; ``fused_head`` returns
+  ``(hidden, head_w [D, V])`` for the chunked loss (engine/losses.py).
 - Paged decode (``forward(..., cache=PagedCache, block_tables=...,
   row_starts=...)``): the cache leaves ARE the KV block pool's pages
   ``[P, bt, KVH, D]``; each row's positions are row-local and map to pages
@@ -28,8 +36,7 @@ the plain forward and the decode forward over a KV cache, registered as
   int8 too; contiguous and rolling caches: only history rows do.
 
 Left to later slices, each refused with a message naming it:
-sequence-parallel attention (ring, Ulysses), MoE, w8a16 weights, LoRA and
-the fused training head.
+sequence-parallel attention (ring, Ulysses), MoE, w8a16 weights, LoRA.
 """
 from __future__ import annotations
 
@@ -39,15 +46,15 @@ from typing import List, Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config.registry import MODELS
 from ..ops.attention import (
     grouped_query_attention, multihead_attention, paged_gqa_attention,
 )
 from ..ops.flash import flash_attention
+from .layers import Dense, embed
 from .quant import dequantize_kv, quantize_kv
-
-_SLICE_TRAINING = "the training slice (flash backward kernels B2/B3)"
 
 #: reserved pool page: pad lanes and unallocated table lanes write here
 SCRATCH_BLOCK = 0
@@ -185,7 +192,7 @@ class LlamaAttention(nn.Module):
     def __init__(self, d_model: int, n_head: int, n_kv_head: int,
                  attn_impl: str = "xla", rope_base: float = 10000.0,
                  window: int = 0, dtype=torch.float32, device=None,
-                 kv_quant: str = ""):
+                 kv_quant: str = "", param_dtype=None):
         super().__init__()
         self.n_head, self.n_kv_head = n_head, n_kv_head
         self.head_dim = d_model // n_head
@@ -194,11 +201,12 @@ class LlamaAttention(nn.Module):
         self.window = window
         self.kv_quant = kv_quant
         hd = self.head_dim
-        lin = dict(bias=False, dtype=dtype, device=device)
-        self.q_proj = nn.Linear(d_model, n_head * hd, **lin)
-        self.k_proj = nn.Linear(d_model, n_kv_head * hd, **lin)
-        self.v_proj = nn.Linear(d_model, n_kv_head * hd, **lin)
-        self.o_proj = nn.Linear(n_head * hd, d_model, **lin)
+        lin = dict(bias=False, compute_dtype=dtype, param_dtype=param_dtype,
+                   device=device)
+        self.q_proj = Dense(d_model, n_head * hd, **lin)
+        self.k_proj = Dense(d_model, n_kv_head * hd, **lin)
+        self.v_proj = Dense(d_model, n_kv_head * hd, **lin)
+        self.o_proj = Dense(n_head * hd, d_model, **lin)
 
     def forward(self, x, cache=None, start: int = 0,
                 prefill: bool = False, paged=None):
@@ -362,12 +370,13 @@ class LlamaAttention(nn.Module):
 
 class SwiGLU(nn.Module):
     def __init__(self, d_model: int, d_ff: int, dtype=torch.float32,
-                 device=None):
+                 device=None, param_dtype=None):
         super().__init__()
-        lin = dict(bias=False, dtype=dtype, device=device)
-        self.gate_proj = nn.Linear(d_model, d_ff, **lin)
-        self.up_proj = nn.Linear(d_model, d_ff, **lin)
-        self.down_proj = nn.Linear(d_ff, d_model, **lin)
+        lin = dict(bias=False, compute_dtype=dtype, param_dtype=param_dtype,
+                   device=device)
+        self.gate_proj = Dense(d_model, d_ff, **lin)
+        self.up_proj = Dense(d_model, d_ff, **lin)
+        self.down_proj = Dense(d_ff, d_model, **lin)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -375,16 +384,19 @@ class SwiGLU(nn.Module):
 
 class LlamaBlock(nn.Module):
     def __init__(self, d_model, n_head, n_kv_head, d_ff, attn_impl,
-                 rope_base, rms_eps, window, dtype, device, kv_quant=""):
+                 rope_base, rms_eps, window, dtype, device, kv_quant="",
+                 param_dtype=None):
         super().__init__()
         self.input_layernorm = RMSNorm(d_model, rms_eps, device=device)
         self.self_attn = LlamaAttention(d_model, n_head, n_kv_head,
                                         attn_impl, rope_base, window,
                                         dtype=dtype, device=device,
-                                        kv_quant=kv_quant)
+                                        kv_quant=kv_quant,
+                                        param_dtype=param_dtype)
         self.post_attention_layernorm = RMSNorm(d_model, rms_eps,
                                                 device=device)
-        self.mlp = SwiGLU(d_model, d_ff, dtype=dtype, device=device)
+        self.mlp = SwiGLU(d_model, d_ff, dtype=dtype, device=device,
+                          param_dtype=param_dtype)
 
     def forward(self, x, cache=None, start: int = 0, prefill: bool = False,
                 paged=None):
@@ -401,7 +413,9 @@ class LlamaLM(nn.Module):
                  d_ff: int = 0, max_len: int = 2048,
                  dtype=torch.float32, attn_impl: str = "xla",
                  rope_base: float = 10000.0, rms_eps: float = 1e-6,
-                 window: int = 0, device=None, kv_quant: str = ""):
+                 window: int = 0, device=None, kv_quant: str = "",
+                 remat: bool = False, fused_head: bool = False,
+                 param_dtype=None):
         super().__init__()
         n_kv = n_kv_head or n_head
         if kv_quant not in ("", "int8"):
@@ -422,16 +436,19 @@ class LlamaLM(nn.Module):
         self.n_kv_head, self.d_model, self.d_ff = n_kv, d_model, d_ff
         self.max_len, self.window, self.dtype = max_len, window, dtype
         self.rope_base, self.kv_quant = rope_base, kv_quant
+        self.remat, self.fused_head = remat, fused_head
         self.head_dim = d_model // n_head
-        self.embed_tokens = nn.Embedding(vocab_size, d_model, dtype=dtype,
+        self.embed_tokens = nn.Embedding(vocab_size, d_model,
+                                         dtype=param_dtype or dtype,
                                          device=device)
         self.layers = nn.ModuleList(
             LlamaBlock(d_model, n_head, n_kv, d_ff, attn_impl, rope_base,
-                       rms_eps, window, dtype, device, kv_quant)
+                       rms_eps, window, dtype, device, kv_quant, param_dtype)
             for _ in range(n_layer))
         self.norm = RMSNorm(d_model, rms_eps, device=device)
-        self.lm_head = nn.Linear(d_model, vocab_size, bias=False,
-                                 dtype=dtype, device=device)
+        self.lm_head = Dense(d_model, vocab_size, bias=False,
+                             compute_dtype=dtype, param_dtype=param_dtype,
+                             device=device)
 
     @property
     def device(self) -> torch.device:
@@ -498,7 +515,9 @@ class LlamaLM(nn.Module):
 
     def forward(self, tokens, cache=None, prefill: bool = False,
                 block_tables=None, row_starts=None, pad_lens=None):
-        """tokens ``[B, T]`` -> f32 logits ``[B, T, V]``.
+        """tokens ``[B, T]`` -> f32 logits ``[B, T, V]`` (or, with no
+        cache and ``fused_head``, ``(hidden, head_w [D, V])`` in the
+        compute dtype).
 
         With a ``DecodeCache``: decode forward from ``cache.pos_index``,
         which advances by ``T``. ``prefill=True`` asserts the cache is
@@ -509,7 +528,7 @@ class LlamaLM(nn.Module):
         model's device) place each row's lanes; ``prefill=True`` keeps the
         last position's logits only."""
         b, t = tokens.shape
-        x = self.embed_tokens(tokens)
+        x = embed(self.embed_tokens.weight, tokens, self.dtype)
         start, paged = 0, None
         if isinstance(cache, PagedCache):
             if block_tables is None or row_starts is None:
@@ -528,24 +547,29 @@ class LlamaLM(nn.Module):
                 raise ValueError("prefill=True needs a fresh cache "
                                  f"(pos_index is {start})")
             cache.pos_index = start + t
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
+            if remat:
+                x = checkpoint(block, x, use_reentrant=False)
+                continue
             layer_cache = cache.layers[i] if cache is not None else None
             x = block(x, layer_cache, start, prefill, paged)
         x = self.norm(x)
+        if cache is None and self.fused_head:
+            return x.to(self.dtype), self.lm_head.weight.t().to(self.dtype)
         if cache is not None and prefill and t > 1:
             x = x[:, -1:]
         return self.lm_head(x).float()
 
 
-def _refuse_later(quant="", lora_rank=0, fused_head=False,
-                  mesh=None, seq_layout="natural") -> None:
+def _refuse_later(quant="", lora_rank=0, mesh=None,
+                  seq_layout="natural") -> None:
     if quant:
         raise NotImplementedError(
             f"quant={quant!r} (w8a16 serving weights) is a later slice")
     if lora_rank:
-        raise NotImplementedError(f"LoRA is {_SLICE_TRAINING}")
-    if fused_head:
-        raise NotImplementedError(f"fused_head is {_SLICE_TRAINING}")
+        raise NotImplementedError("LoRA is a later slice (other model "
+                                  "families)")
     if mesh is not None or seq_layout != "natural":
         raise NotImplementedError(
             "meshes and sequence layouts are a later slice (parallel axes)")
@@ -563,13 +587,13 @@ def llama(vocab_size: int = 32000, n_layer: int = 12, n_head: int = 12,
           seq_layout: str = "natural", rope_base: float = 10000.0,
           rms_eps: float = 1e-6, window: int = 0, fused_head: bool = False,
           quant: str = "", kv_quant: str = "", lora_rank: int = 0,
-          lora_alpha: float = 16.0, device=None):
-    """``remat`` and ``lora_alpha`` are training options: accepted so the
-    JAX package's configs load, without effect on serving."""
-    _refuse_later(quant, lora_rank, fused_head, mesh, seq_layout)
+          lora_alpha: float = 16.0, device=None, param_dtype=None):
+    """``param_dtype`` (default: the compute dtype) stores the weights
+    wider than they compute: training passes float32."""
+    _refuse_later(quant, lora_rank, mesh, seq_layout)
     return LlamaLM(vocab_size, n_layer, n_head, n_kv_head, d_model, d_ff,
                    max_len, _dtype(bfloat16), attn_impl, rope_base, rms_eps,
-                   window, device, kv_quant)
+                   window, device, kv_quant, remat, fused_head, param_dtype)
 
 
 @MODELS.register("Mistral")
@@ -580,13 +604,13 @@ def mistral(vocab_size: int = 32000, n_layer: int = 32, n_head: int = 32,
             bfloat16: bool = True, attn_impl: str = "flash",
             remat: bool = True, mesh=None, fused_head: bool = False,
             quant: str = "", kv_quant: str = "", lora_rank: int = 0,
-            lora_alpha: float = 16.0, device=None):
+            lora_alpha: float = 16.0, device=None, param_dtype=None):
     """Mistral-7B-v0.1 shape: the Llama architecture with 4:1 GQA and a
     4096-token sliding window."""
-    _refuse_later(quant, lora_rank, fused_head, mesh)
+    _refuse_later(quant, lora_rank, mesh)
     return LlamaLM(vocab_size, n_layer, n_head, n_kv_head, d_model, d_ff,
                    max_len, _dtype(bfloat16), attn_impl, rope_base, rms_eps,
-                   window, device, kv_quant)
+                   window, device, kv_quant, remat, fused_head, param_dtype)
 
 
 @MODELS.register("TinyLlama")
@@ -597,9 +621,9 @@ def tiny_llama(vocab_size: int = 256, n_layer: int = 2, n_head: int = 4,
                seq_layout: str = "natural", window: int = 0,
                fused_head: bool = False, quant: str = "",
                kv_quant: str = "", lora_rank: int = 0,
-               lora_alpha: float = 16.0, device=None):
+               lora_alpha: float = 16.0, device=None, param_dtype=None):
     """Small GQA config for tests and dry runs."""
-    _refuse_later(quant, lora_rank, fused_head, mesh, seq_layout)
+    _refuse_later(quant, lora_rank, mesh, seq_layout)
     return LlamaLM(vocab_size, n_layer, n_head, n_kv_head, d_model, d_ff,
                    max_len, _dtype(bfloat16), attn_impl, 10000.0, 1e-6,
-                   window, device, kv_quant)
+                   window, device, kv_quant, remat, fused_head, param_dtype)

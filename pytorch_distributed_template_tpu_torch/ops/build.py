@@ -10,7 +10,9 @@ first launch builds, or a caller builds every library at once with
 
 Each :class:`CudaLibrary` also carries the launch count of its kernel: the
 wrapper that launches it adds one per launch, so a run can show that its
-main path really went through the kernel.
+main path really went through the kernel. A source that exports several
+kernels names them (``kernels=``) and each gets a :class:`Kernel` with its
+own count.
 """
 from __future__ import annotations
 
@@ -48,18 +50,30 @@ def nvcc_path() -> str:
     return found
 
 
+class Kernel:
+    """One kernel of a multi-kernel library and its own launch count."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+
 class CudaLibrary:
     """One ``csrc/<name>.cu`` source, its built library and launch count.
 
     ``declare(lib)`` sets ``argtypes``/``restype`` of every exported
-    function once the library is loaded."""
+    function once the library is loaded. ``kernels`` names the kernels of
+    a source that exports several; their counts live in ``self.kernels``
+    (``launches`` then stays 0)."""
 
-    def __init__(self, name: str, declare: Callable[[ctypes.CDLL], None]):
+    def __init__(self, name: str, declare: Callable[[ctypes.CDLL], None],
+                 kernels: Iterable[str] = ()):
         self.name = name
         self.source = CSRC / f"{name}.cu"
         self._declare = declare
         self._lib = None
         self.launches = 0
+        self.kernels = {k: Kernel(k) for k in kernels}
         self.build_log = ""
         self.build_seconds = 0.0
         LIBRARIES.append(self)

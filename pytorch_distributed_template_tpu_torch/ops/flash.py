@@ -1,13 +1,24 @@
-"""Flash-attention forward and paged attention: the hand-written CUDA
-kernels and their plain versions.
+"""Flash attention (forward and backward) and paged attention: the
+hand-written CUDA kernels and their plain versions.
 
 Counterpart of ``pytorch_distributed_template_tpu/ops/flash.py``
-(``flash_attention``, ``flash_attention_lse``), forward only. The kernel
-(``csrc/flash_fwd.cu``, replacing the Pallas ``_fwd_kernel``: bf16 on the
-tensor cores, float32 on the CUDA cores) runs for tensors on a CUDA
-device; ``flash_attention_ref`` computes the same function in plain
-PyTorch and is used for CPU tensors and as the kernel's oracle. There is no fallback: on a CUDA tensor the wrapper launches the
-kernel or raises.
+(``flash_attention``, ``flash_attention_lse`` and their ``custom_vjp``).
+The forward kernel (``csrc/flash_fwd.cu``, replacing the Pallas
+``_fwd_kernel``) and the two backward kernels (``csrc/flash_bwd.cu``:
+``flash_bwd_dkv`` replacing ``_bwd_dkv_kernel``, ``flash_bwd_dq`` replacing
+``_bwd_dq_kernel``; bf16 on the tensor cores, float32 on the CUDA cores)
+run for tensors on a CUDA device; ``flash_attention_ref`` and
+``flash_attention_bwd_ref`` compute the same functions in plain PyTorch
+and are used for CPU tensors and as the kernels' oracles. There is no
+fallback: on a CUDA tensor a wrapper launches its kernel or raises.
+
+``flash_attention`` and ``flash_attention_lse`` are differentiable through
+one ``torch.autograd.Function`` (:class:`FlashAttention`): it saves
+``(q, k, v, out, lse)``, and its backward computes ``delta = rowsum(dO *
+out)`` (minus the lse cotangent when the caller used lse) in plain torch,
+then runs the backward kernels (or the plain backward on the CPU). dK and
+dV come back at the stored kv-head width, summed over each group's query
+heads.
 
 The paged half (``paged_attention``, ``paged_attention_ref``,
 ``csrc/paged_attn.cu`` replacing the Pallas ``_paged_kernel``) reads K/V in
@@ -94,8 +105,8 @@ def flash_attention_ref(q, k, v, causal: bool = True, window: int = 0):
     ok = visible_mask(t, t, causal, window, q.device)
     s = s.masked_fill(~ok, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m).masked_fill_(~ok, 0.0)
-    l = p.sum(dim=-1, keepdim=True).clamp_min_(1e-30)
+    p = torch.exp(s - m).masked_fill(~ok, 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     out = out / l.permute(0, 2, 1, 3)
     lse = (m + torch.log(l)).squeeze(-1)
@@ -142,24 +153,195 @@ def _flash_fwd_cuda(q, k, v, causal: bool, window: int):
     return out, lse
 
 
-def flash_attention_lse(q, k, v, causal: bool = False, window: int = 0):
-    """Fused attention returning ``(out [B, T, H, D], lse [B, H, T] f32)``.
-
-    CPU tensors take :func:`flash_attention_ref`; CUDA tensors take the
-    kernel (or raise)."""
-    _check_gqa(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+def _device_kind(q) -> str:
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cpu or cuda, not "
                          f"{q.device}")
+    return q.device.type
+
+
+def _flash_forward(q, k, v, causal: bool, window: int):
+    if _device_kind(q) == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
     return _flash_fwd_cuda(q, k, v, causal, window)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``(q, k, v) -> (out, lse)`` with the flash backward (the JAX
+    package's ``_flash_3d_lse`` and its ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _flash_forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = bool(causal), int(window)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g is None:
+            g = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.causal,
+                                         ctx.window, g_lse)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_lse(q, k, v, causal: bool = False, window: int = 0):
+    """Fused attention returning ``(out [B, T, H, D], lse [B, H, T] f32)``,
+    differentiable in both outputs.
+
+    CPU tensors take the plain versions; CUDA tensors take the kernels (or
+    raise)."""
+    _check_gqa(q, k, v)
+    _device_kind(q)
+    return FlashAttention.apply(q, k, v, causal, window)
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     """Fused attention ``[B, T, H, D] -> [B, T, H, D]`` (k/v may carry
     fewer heads: GQA at stored width)."""
     return flash_attention_lse(q, k, v, causal=causal, window=window)[0]
+
+
+# ---------------------------------------------------------------------------
+# Backward (kernels B2, B3)
+# ---------------------------------------------------------------------------
+
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    tail = [i32] * 8 + [ctypes.c_float, ptr]
+    lib.pdt_flash_bwd_dkv.argtypes = [ptr] * 8 + tail
+    lib.pdt_flash_bwd_dkv.restype = i32
+    lib.pdt_flash_bwd_dq.argtypes = [ptr] * 7 + tail
+    lib.pdt_flash_bwd_dq.restype = i32
+    lib.pdt_flash_bwd_error_string.argtypes = [i32]
+    lib.pdt_flash_bwd_error_string.restype = ctypes.c_char_p
+
+
+BWD_KERNELS = ("flash_bwd_dkv", "flash_bwd_dq")
+#: the B2/B3 kernel library; each kernel counts its own launches
+FLASH_BWD = CudaLibrary("flash_bwd", _declare_bwd, kernels=BWD_KERNELS)
+FLASH_BWD_DKV = FLASH_BWD.kernels["flash_bwd_dkv"]
+FLASH_BWD_DQ = FLASH_BWD.kernels["flash_bwd_dq"]
+
+
+def _delta(g, out, g_lse=None):
+    """``[B, H, T]`` f32: ``rowsum(g * out)``, minus the lse cotangent
+    (``d lse / d s = p`` folds into the backward as ``delta - g_lse``)."""
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta.contiguous()
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, g, causal: bool = True,
+                            window: int = 0, g_lse=None,
+                            block_k: int = 512):
+    """Plain PyTorch backward of :func:`flash_attention_lse`: ``(dq, dk,
+    dv)`` in the input dtypes, dk/dv at the kv-head width.
+
+    The JAX package's ``_bwd_3d`` blockwise over key blocks of
+    ``block_k``: per block, ``P = exp(q k^T * scale - lse)`` (0 where
+    masked), ``dV = P^T g``, ``dP = g v^T``, ``dS = P (dP - delta) *
+    scale``, ``dQ += dS k``, ``dK = dS^T q``; all in float32."""
+    _check_gqa(q, k, v)
+    b, t, h, d = q.shape
+    kvh = k.shape[2]
+    groups = h // kvh
+    scale = d ** -0.5
+    qf, gf = q.float(), g.float()
+    kf = k.float().repeat_interleave(groups, dim=2)
+    vf = v.float().repeat_interleave(groups, dim=2)
+    delta = _delta(g, out, g_lse)                          # [B, H, T]
+    lse = lse.float()
+    ok_all = visible_mask(t, t, causal, window, q.device)
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+    for k0 in range(0, t, block_k):
+        sl = slice(k0, min(t, k0 + block_k))
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, sl]) * scale
+        ok = ok_all[:, sl]
+        p = torch.exp(s - lse[..., None]).masked_fill_(~ok, 0.0)
+        dv[:, sl] = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+        dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf[:, sl])
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.einsum("bhqk,bkhd->bqhd", ds, kf[:, sl])
+        dk[:, sl] = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    if groups > 1:
+        dk = dk.view(b, t, kvh, groups, d).sum(3)
+        dv = dv.view(b, t, kvh, groups, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_bwd_cuda(q, k, v, g, lse, delta, causal: bool, window: int,
+                    kernels=BWD_KERNELS):
+    """Launch B2 (dK, dV) then B3 (dQ) on PyTorch's current stream.
+    ``kernels`` (timing only) launches a subset; the gradients it skips
+    come back uninitialised."""
+    dtype = q.dtype
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash_bwd kernels take float32 or bfloat16, got "
+                        f"{dtype}")
+    if any(x.dtype != dtype for x in (k, v, g)):
+        raise TypeError("q, k, v and the output gradient must share one "
+                        "dtype")
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise TypeError("lse and delta must be float32")
+    tensors = (q, k, v, g, lse, delta)
+    if any(x.device != q.device for x in tensors):
+        raise ValueError("flash backward inputs must be on one device")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("flash_bwd kernels need contiguous inputs")
+    b, t, h, d = q.shape
+    kvh = k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_bwd kernels take head_dim in {HEAD_DIMS}, "
+                         f"got {d}")
+    if tuple(lse.shape) != (b, h, t) or tuple(delta.shape) != (b, h, t):
+        raise ValueError(f"lse and delta must be [B, H, T] = {(b, h, t)}")
+    if int(window) < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if dtype == torch.bfloat16 and any(x.data_ptr() % 16
+                                       for x in (q, k, v, g)):
+        raise ValueError("flash_bwd's bf16 kernels read 16-byte vectors: "
+                         "q, k, v and the gradient must start 16-byte "
+                         "aligned")
+    lib = FLASH_BWD.load()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    shape = (b, t, h, kvh, d, _DTYPE_CODES[dtype], int(bool(causal)),
+             int(window), float(d ** -0.5))
+    ptrs = [x.data_ptr() for x in (q, k, v, g, lse, delta)]
+    err = 0
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if "flash_bwd_dkv" in kernels:
+            FLASH_BWD_DKV.launches += 1
+            err = lib.pdt_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
+                                        *shape, stream)
+        if err == 0 and "flash_bwd_dq" in kernels:
+            FLASH_BWD_DQ.launches += 1
+            err = lib.pdt_flash_bwd_dq(*ptrs, dq.data_ptr(), *shape, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_bwd launch failed: CUDA error {err} "
+            f"({lib.pdt_flash_bwd_error_string(err).decode()})")
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, causal: bool = True,
+                        window: int = 0, g_lse=None):
+    """``(dq, dk, dv)`` of :func:`flash_attention_lse` for the output
+    cotangent ``g`` (and ``g_lse``, or None): the plain backward for CPU
+    tensors, kernels B2 and B3 for CUDA tensors (or raise)."""
+    if _device_kind(q) == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, g, causal=causal,
+                                       window=window, g_lse=g_lse)
+    return _flash_bwd_cuda(q, k, v, g.contiguous(), lse.contiguous(),
+                           _delta(g, out, g_lse), causal, window)
 
 
 def visible_keys(t: int, causal: bool, window: int) -> int:
@@ -183,6 +365,29 @@ def flash_bound_seconds(b: int, t: int, h: int, kvh: int, d: int,
     flops = 4.0 * b * h * d * visible_keys(t, causal, window)
     nbytes = itemsize * (2 * b * t * h * d + 2 * b * t * kvh * d) \
         + 4 * b * h * t
+    by_ops, by_bytes = flops / peak_flops, nbytes / peak_bytes
+    if by_ops >= by_bytes:
+        return by_ops, "operations"
+    return by_bytes, "bytes"
+
+
+def flash_bwd_bound_seconds(kernel: str, b: int, t: int, h: int, kvh: int,
+                            d: int, causal: bool, window: int,
+                            itemsize: int, peak_flops: float,
+                            peak_bytes: float):
+    """The least time the card could take for one backward kernel call:
+    ``(seconds, "operations" | "bytes")``.
+
+    ``flash_bwd_dkv`` (B2): FLOPs = 8·B·H·D·Σvisible (S recompute, dV, dP,
+    dK); bytes = q, g, k, v, lse, delta read and dk, dv written, once.
+    ``flash_bwd_dq`` (B3): FLOPs = 6·B·H·D·Σvisible (S recompute, dP, dQ);
+    bytes = the same inputs read and dq written, once."""
+    per = {"flash_bwd_dkv": 8.0, "flash_bwd_dq": 6.0}[kernel]
+    flops = per * b * h * d * visible_keys(t, causal, window)
+    q_bytes = itemsize * b * t * h * d
+    kv_bytes = itemsize * b * t * kvh * d
+    nbytes = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * b * h * t
+    nbytes += 2 * kv_bytes if kernel == "flash_bwd_dkv" else q_bytes
     by_ops, by_bytes = flops / peak_flops, nbytes / peak_bytes
     if by_ops >= by_bytes:
         return by_ops, "operations"

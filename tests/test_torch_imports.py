@@ -27,6 +27,18 @@ ENTRY_MODULES = [
     "pytorch_distributed_template_tpu_torch.engine.continuous",
     "pytorch_distributed_template_tpu_torch.serve",
     "pytorch_distributed_template_tpu_torch.utils.promtext",
+    "pytorch_distributed_template_tpu_torch.train",
+    "pytorch_distributed_template_tpu_torch.engine.trainer",
+    "pytorch_distributed_template_tpu_torch.engine.steps",
+    "pytorch_distributed_template_tpu_torch.engine.losses",
+    "pytorch_distributed_template_tpu_torch.engine.metrics",
+    "pytorch_distributed_template_tpu_torch.engine.optim",
+    "pytorch_distributed_template_tpu_torch.checkpoint.manager",
+    "pytorch_distributed_template_tpu_torch.data.datasets",
+    "pytorch_distributed_template_tpu_torch.data.loader",
+    "pytorch_distributed_template_tpu_torch.data.sampler",
+    "pytorch_distributed_template_tpu_torch.models.transformer",
+    "pytorch_distributed_template_tpu_torch.models.layers",
 ]
 
 

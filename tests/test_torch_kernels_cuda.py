@@ -197,3 +197,88 @@ def test_paged_attn_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         flash.paged_attention(q, kp, vp, tables.t().contiguous().t(),
                               starts, pads)
+
+
+# ---------------------------------------------------------------------------
+# B2/B3: the flash backward (csrc/flash_bwd.cu) against flash_attention_bwd_ref
+# ---------------------------------------------------------------------------
+# Tolerances, against the plain backward in float32 on the same inputs
+# (lse and out from the kernel's forward): |got - ref| <= a * max|ref| +
+# r * |ref| + 1e-5. bf16 (a, r) = (1e-2, 1.6e-2): the kernels round P and dS
+# to bf16 as operands of their products (2^-9 relative each) and the
+# gradients to bf16 once (2^-8). float32 (1e-5, 1e-4): summation order
+# only. The 1e-5 floor covers gradients that are exactly 0 in exact
+# arithmetic (T = 1: dS = P (dP - delta) with dP = delta), where both sides
+# hold f32 rounding noise of ~1e-7.
+TOL_BWD = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 1.6e-2)}
+
+
+def _assert_grad_close(got, ref, dtype, what):
+    a, r = TOL_BWD[dtype]
+    ref = ref.float()
+    err = (got.float() - ref).abs()
+    limit = a * ref.abs().max() + r * ref.abs() + 1e-5
+    assert bool((err <= limit).all()), (
+        f"{what}: max err {err.max().item():.3e} (max |ref| "
+        f"{ref.abs().max().item():.3e})")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("b, h, kvh, t, causal, window", [
+    (2, 4, 4, 200, True, 0), (1, 8, 2, 200, True, 64),
+    (2, 4, 1, 77, False, 0), (1, 4, 2, 130, False, 32),
+    (1, 2, 2, 1, True, 0), (1, 6, 3, 257, True, 0),
+])
+def test_flash_bwd_matches_plain(cuda, d, dtype, b, h, kvh, t, causal,
+                                 window):
+    q, k, v = _qkv(cuda, b, t, h, kvh, d, dtype, seed=3 * d + t)
+    out, lse = flash.flash_attention_lse(q, k, v, causal=causal,
+                                         window=window)
+    g = torch.randn(out.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(t)
+                    ).to(dtype)
+    dkv0, dq0 = flash.FLASH_BWD_DKV.launches, flash.FLASH_BWD_DQ.launches
+    dq, dk, dv = flash.flash_attention_bwd(q, k, v, out, lse, g,
+                                           causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash.FLASH_BWD_DKV.launches == dkv0 + 1
+    assert flash.FLASH_BWD_DQ.launches == dq0 + 1
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    ref = flash.flash_attention_bwd_ref(
+        q.float(), k.float(), v.float(), out.float(), lse, g.float(),
+        causal=causal, window=window)
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        _assert_grad_close(got, want, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_autograd_with_lse_cotangent(cuda, dtype):
+    """Gradients through both outputs: autograd over FlashAttention (B1,
+    B2, B3) against the plain backward with the same cotangents."""
+    q, k, v = _qkv(cuda, 2, 96, 8, 2, 64, dtype, seed=11)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out, lse = flash.flash_attention_lse(q, k, v, causal=True, window=40)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    g = torch.randn(out.shape, device=cuda, generator=gen).to(dtype)
+    g_lse = torch.randn(lse.shape, device=cuda, generator=gen)
+    torch.autograd.backward((out, lse), (g, g_lse))
+    ref = flash.flash_attention_bwd_ref(
+        q.detach().float(), k.detach().float(), v.detach().float(),
+        out.detach().float(), lse.detach(), g.float(), causal=True,
+        window=40, g_lse=g_lse)
+    for name, x, want in zip(("dq", "dk", "dv"), (q, k, v), ref):
+        _assert_grad_close(x.grad, want, dtype, name)
+
+
+def test_flash_bwd_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 1, 16, 4, 4, 64, torch.float32, seed=0)
+    out, lse = flash.flash_attention_lse(q, k, v)
+    with pytest.raises(TypeError):
+        flash.flash_attention_bwd(q, k, v, out, lse, out.bfloat16())
+    q16 = q[..., :16].contiguous()
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.flash_attention_bwd(q16, q16, q16, q16, lse, q16)
