@@ -3,17 +3,18 @@
 
     python3 chip_smoke.py
 
-Phases, in order (1, 2, 2b, 2c, 3, 3b, 3c, 4, 5, 6); any failure exits
-non-zero and no phase's exception is caught:
+Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 4, 5, 6, 7); any
+failure exits non-zero and no phase's exception is caught:
 
 1. build: compile every CUDA source of the port with nvcc (one process per
    source, all started together) and print the build time and the ptxas
    register report;
 2. kernel against plain: the flash-attention forward kernel against its
-   plain PyTorch version on the card, at the main path's prefill shapes
-   and at a ragged f32 and a non-causal case, with kernel / plain /
-   library (``scaled_dot_product_attention``, timed only) times and the
-   card's bound;
+   plain PyTorch version on the card, at the main path's prefill shapes,
+   a ragged f32 and a non-causal case, and the training paths' shapes
+   (GPT-2 small and the MoE LM), with kernel / plain / library
+   (``scaled_dot_product_attention``, timed only) times and the card's
+   bound;
 3. reference: a small float32 Llama served on the card (kernel path) and
    on the CPU (plain path) gives the same prefill logits and the same
    greedy tokens;
@@ -76,12 +77,36 @@ Slice 3 (LM training, kernels B2 and B3) adds:
     ``summary.json`` written; a run resumed from ``checkpoint-epoch1``
     reproduces epoch 2. Then 5 train steps run under ``torch.profiler``.
 
+Slice 4 (MoE LM training, kernel B5) adds:
+
+2d. the fused expert FFN kernel B5 against its plain version at the MoE
+    main path's shape (E 8, C 5120, D 512, F 1024, with biases), the TPU
+    probe's shape (E 8, C 2560, D 768, F 1536, no biases), a ragged
+    capacity and a small f32 case, with kernel / plain / library (the
+    three cuBLAS calls bmm -> gelu -> bmm, timed only) times and the
+    card's bound;
+3d. a small f32 TinyMoeLM (flash, D 64, fused head, top-2, a capacity that
+    drops tokens, one padded example per batch) trains 5 steps on the card
+    and on the CPU from the same weights and batches: the same per-step
+    losses (the aux loss included) and final params;
+7.  main path of slice 4: a corpus built by the port's
+    ``tools/make_text_corpus.py``, then the port's ``train.py`` with
+    ``configs/moelm_stdlib.json`` at full width (8 layers, d_model 512,
+    d_ff 1024, 8 heads, 8 experts top-2, seq 512, batch 32, bf16, flash,
+    fused head), cut to a 2 MB corpus and 2 epochs: every train step must
+    launch B5, B1, B2 and B3 8 times each, every eval step B5 and B1 8
+    times and no B2/B3; losses finite and falling; ``val_lm_bits_per_
+    byte`` logged; checkpoints and ``summary.json`` written; a resume from
+    ``checkpoint-epoch1`` reproduces epoch 2. Then 5 steps under the
+    profiler.
+
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
-the launches of slices 1 and 3, paged_attn with slice 2's, flash_bwd_dkv
-and flash_bwd_dq with slice 3's) and the device line ``{"ok": true,
-"device": {...}}``. The script needs a CUDA device and the repository
-beside it; it imports nothing of JAX.
+the launches of slices 1, 3 and 4, paged_attn with slice 2's,
+flash_bwd_dkv and flash_bwd_dq with slices 3 and 4, expert_ffn with slice
+4's) and the device line ``{"ok": true, "device": {...}}``. The script
+needs a CUDA device and the repository beside it; it imports nothing of
+JAX.
 """
 from __future__ import annotations
 
@@ -105,13 +130,16 @@ KERNEL_SOURCE = "pytorch_distributed_template_tpu_torch/csrc/flash_fwd.cu"
 KERNEL_REPLACES = "pytorch_distributed_template_tpu/ops/flash.py:109"
 # (B, H, KVH, T, D, causal, window, dtype): the main path's prefill shapes
 # (Mistral-7B: 32/8 heads, D 128, window 4096: requests a, b and d), a
-# ragged f32 case and a non-causal banded case
+# ragged f32 case, a non-causal banded case, and the training paths'
+# shapes (GPT-2 small: 8 x 12 heads x 1024; the MoE LM: 32 x 8 x 512)
 KERNEL_SHAPES = [
     (1, 32, 8, 1024, 128, True, 4096, torch.bfloat16),
     (1, 32, 8, 6144, 128, True, 4096, torch.bfloat16),
     (4, 32, 8, 2048, 128, True, 4096, torch.bfloat16),
     (1, 16, 4, 1000, 64, True, 0, torch.float32),
     (2, 8, 8, 512, 32, False, 128, torch.bfloat16),
+    (8, 12, 12, 1024, 64, True, 0, torch.bfloat16),
+    (32, 8, 8, 512, 64, True, 0, torch.bfloat16),
 ]
 # (atol, rtol, lse atol) against the plain version computed in f32 from the
 # same inputs, |out - ref| <= atol + rtol |ref|. bf16: the output is rounded
@@ -162,10 +190,12 @@ def card_line() -> str:
 
 def phase_build() -> None:
     # importing a kernel's module registers its library for build_all
-    from pytorch_distributed_template_tpu_torch.ops import build, flash
+    from pytorch_distributed_template_tpu_torch.ops import (
+        build, expert_ffn, flash,
+    )
 
-    assert {flash.FLASH_FWD, flash.PAGED_ATTN, flash.FLASH_BWD} <= set(
-        build.LIBRARIES)
+    assert {flash.FLASH_FWD, flash.PAGED_ATTN, flash.FLASH_BWD,
+            expert_ffn.EXPERT_FFN} <= set(build.LIBRARIES)
     t0 = time.perf_counter()
     built = build.build_all()
     log(f"[build] {len(build.LIBRARIES)} libraries in "
@@ -1358,41 +1388,57 @@ def phase_train_reference(device="cuda") -> None:
 
 def train_step_flops(model, batch: int, t: int) -> float:
     """Model FLOPs of one train step (forward + backward, no remat
-    recompute): 6 x params x tokens for the dense work (the tied head
-    included once, the position table excluded) plus 12 x d_model x
-    Σ(visible keys) x batch per layer for causal attention (two matmuls,
-    forward and twice that backward)."""
+    recompute): 6 x active params x tokens for the dense work (the tied
+    head included once, the position table excluded; an MoE layer's
+    stacked expert weights count top_k / E of their size, what one token
+    uses, not the capacity padding) plus 12 x d_model x Σ(visible keys) x
+    batch per layer for causal attention (two matmuls, forward and twice
+    that backward)."""
+    from pytorch_distributed_template_tpu_torch.models.moe import MoeMlp
     from pytorch_distributed_template_tpu_torch.ops.flash import (
         visible_keys,
     )
 
     n = sum(p.numel() for name, p in model.named_parameters()
             if name != "wpe")
+    for mod in model.modules():
+        if isinstance(mod, MoeMlp):
+            idle = 1 - min(mod.top_k, mod.num_experts) / mod.num_experts
+            n -= idle * sum(getattr(mod, leaf).numel()
+                            for leaf in ("wi", "wo", "bi", "bo"))
     attn = 12.0 * model.d_model * visible_keys(t, True, 0) * batch \
         * model.n_layer
     return 6.0 * n * batch * t + attn
 
 
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                 "expert_ffn")
+
+
 class TrainRun:
-    """Wraps a trainer's train and eval steps: counts the flash kernels'
-    launches of each step from 0 and checks them exactly (a train step
-    with remat: B1 2 x n_layer, B2 and B3 n_layer each; an eval step: B1
-    n_layer, no B2/B3), times each step (host clock to
-    ``cuda.synchronize``) and keeps its loss."""
+    """Wraps a trainer's train and eval steps: counts the kernels'
+    launches of each step from 0 and checks them exactly (a train step: B1
+    n_layer, twice that with remat, B2 and B3 n_layer each, B5 once per
+    MoE layer; an eval step: B1 n_layer, B5 once per MoE layer, no B2/B3),
+    times each step (host clock to ``cuda.synchronize``) and keeps its
+    loss."""
 
     def __init__(self, trainer, device, card: str, label: str):
-        from pytorch_distributed_template_tpu_torch.ops import flash
+        from pytorch_distributed_template_tpu_torch.ops import (
+            expert_ffn, flash,
+        )
 
         self.counters = (flash.FLASH_FWD, flash.FLASH_BWD_DKV,
-                         flash.FLASH_BWD_DQ)
+                         flash.FLASH_BWD_DQ, expert_ffn.EXPERT_FFN)
         self.device, self.card, self.label = device, card, label
-        self.launches = [0, 0, 0]
+        self.launches = [0] * len(self.counters)
         self.steps, self.epoch_logs = [], []
         model = trainer.model
         layers = model.n_layer
-        self.want = {"train": (2 * layers if model.remat else layers,
-                               layers, layers),
-                     "eval": (layers, 0, 0)}
+        moe = sum(hasattr(block, "moe") for block in model.h)
+        fwd = 2 if model.remat else 1     # remat recomputes each forward
+        self.want = {"train": (fwd * layers, layers, layers, fwd * moe),
+                     "eval": (layers, 0, 0, moe)}
         loader = trainer.train_loader
         tokens = loader.arrays["tokens"].shape[1]
         self.tokens = loader.batch_size * tokens
@@ -1428,9 +1474,8 @@ class TrainRun:
             got = tuple(c.launches for c in self.counters)
             if got != self.want[kind]:
                 raise AssertionError(
-                    f"({self.label}) a {kind} step launched (flash_fwd, "
-                    f"flash_bwd_dkv, flash_bwd_dq) = {got}, not "
-                    f"{self.want[kind]}")
+                    f"({self.label}) a {kind} step launched "
+                    f"{TRAIN_KERNELS} = {got}, not {self.want[kind]}")
             self.launches = [a + b for a, b in zip(self.launches, got)]
             if kind == "train":
                 loss = float(m["loss_sum"]) / max(float(m["count"]), 1.0)
@@ -1464,9 +1509,15 @@ def phase_train(card: str, device="cuda", config=TRAIN_CONFIG,
     counts per step, losses finite and falling, checkpoints and summary
     written, a resume from ``checkpoint-epoch1`` reproducing epoch 2, then
     a profile of 5 train steps. Returns the path's launches per kernel."""
+    return _train_path(card, device, config, sets, work / "train", seed)
+
+
+def _train_path(card: str, device, config, sets, run_root, seed: int,
+                label: str = "train") -> dict:
+    """One training main path through the port's ``train.py`` (see
+    :func:`phase_train`); ``run_root`` is removed at the end."""
     from pytorch_distributed_template_tpu_torch import train as train_cli
 
-    run_root = work / "train"
     if run_root.exists():
         shutil.rmtree(run_root)
     argv = ["-c", str(config), "-s", str(run_root / "main"), "--device",
@@ -1479,14 +1530,20 @@ def phase_train(card: str, device="cuda", config=TRAIN_CONFIG,
         box["trainer"] = trainer
         box["run"] = TrainRun(trainer, device, card, "main")
         m = trainer.model
-        log(f"[train] {type(m).__name__} on {trainer.device}: "
+        moe = ""
+        if m.moe_experts:
+            mlp = next(b.moe for b in m.h if hasattr(b, "moe"))
+            moe = (f", {m.moe_experts} experts top-{mlp.top_k} in every "
+                   f"{m.moe_every}. block (capacity factor "
+                   f"{mlp.capacity_factor})")
+        log(f"[{label}] {type(m).__name__} on {trainer.device}: "
             f"{m.n_layer} layers, {m.n_head} heads, d_model {m.d_model}, "
-            f"vocab {m.vocab_size}, seq {m.max_len}, batch "
+            f"d_ff {m.d_ff}, vocab {m.vocab_size}, seq {m.max_len}, batch "
             f"{trainer.train_loader.batch_size}, {m.dtype}, remat "
             f"{m.remat}, {m.attn_impl}, fused head {m.fused_head}, dropout "
-            f"{m.rate}, {sum(p.numel() for p in m.parameters()) / 1e6:.2f} "
-            f"M params; {len(trainer.train_loader)} steps per epoch; cuts: "
-            f"{sets}")
+            f"{m.rate}{moe}, "
+            f"{sum(p.numel() for p in m.parameters()) / 1e6:.2f} M params; "
+            f"{len(trainer.train_loader)} steps per epoch; cuts: {sets}")
 
     t0 = time.perf_counter()
     train_cli.main(argv, on_trainer=hook)
@@ -1499,6 +1556,11 @@ def phase_train(card: str, device="cuda", config=TRAIN_CONFIG,
     if not tail < head:
         raise AssertionError(f"the loss did not fall: first 5 steps "
                              f"{head:.4f}, last 5 {tail:.4f}")
+    monitored = trainer.mnt_metric if trainer.mnt_mode != "off" else "loss"
+    for e in run.epoch_logs:
+        if not np.isfinite(e.get(monitored, np.nan)):
+            raise AssertionError(f"epoch {e['epoch']} logged no finite "
+                                 f"{monitored}: {e}")
     run_dir = trainer.config.save_dir
     epochs = trainer.epochs
     for path in ([run_dir / f"checkpoint-epoch{e}" / "model.pt"
@@ -1509,7 +1571,7 @@ def phase_train(card: str, device="cuda", config=TRAIN_CONFIG,
             raise AssertionError(f"{path} was not written")
     summary = json.loads((run_dir / "summary.json").read_text())
     steady = run.steps[1:] or run.steps
-    log("[train] " + json.dumps({
+    log(f"[{label}] " + json.dumps({
         "run": "main", "steps": len(run.steps), "epochs": epochs,
         "wall_s": wall, "loss_first5": head, "loss_last5": tail,
         "ms_per_step_median": float(np.median([r["ms"] for r in steady])),
@@ -1518,8 +1580,7 @@ def phase_train(card: str, device="cuda", config=TRAIN_CONFIG,
         "mfu_median": float(np.median([r["mfu"] for r in steady])),
         "peak_mem_gib_max": max(r["peak_mem_gib"] for r in run.steps),
         "model_flops_per_step": run.flops,
-        "launches": dict(zip(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
-                             run.launches)),
+        "launches": dict(zip(TRAIN_KERNELS, run.launches)),
         "summary": summary, "card": card}))
 
     # resume from the first epoch's checkpoint: epoch 2 again
@@ -1537,9 +1598,9 @@ def phase_train(card: str, device="cuda", config=TRAIN_CONFIG,
         raise AssertionError(f"the resumed run ran epochs "
                              f"{[e['epoch'] for e in resumed.epoch_logs]}")
     again, first = resumed.epoch_logs[0], run.epoch_logs[1]
-    diffs = {k: abs(again[k] - first[k]) / abs(first[k])
-             for k in ("loss", "val_loss")}
-    log("[train] resume " + json.dumps({
+    keys = sorted({"loss", "val_loss", monitored})
+    diffs = {k: abs(again[k] - first[k]) / abs(first[k]) for k in keys}
+    log(f"[{label}] resume " + json.dumps({
         "epoch": 2, "uninterrupted": {k: first[k] for k in diffs},
         "resumed": {k: again[k] for k in diffs}, "rel_diff": diffs,
         "rtol": RESUME_RTOL}))
@@ -1552,15 +1613,186 @@ def phase_train(card: str, device="cuda", config=TRAIN_CONFIG,
         trainer.train_loader, range(5))]
     row = _profiled(lambda: [trainer.train_step(b) for b in batches],
                     device, top_n=12)
-    log("[profile] " + json.dumps({"profile": "train_steps", "steps": 5,
+    log("[profile] " + json.dumps({"profile": f"{label}_steps", "steps": 5,
                                    **row, "card": card}))
     del trainer, box, resume_box, batches
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     shutil.rmtree(run_root)
-    return dict(zip(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
-                    launches))
+    return dict(zip(TRAIN_KERNELS, launches))
+
+
+# ---------------------------------------------------------------------------
+# slice 4: MoE LM training, kernel B5
+# ---------------------------------------------------------------------------
+
+FFN_SOURCE = "pytorch_distributed_template_tpu_torch/csrc/expert_ffn.cu"
+FFN_REPLACES = "scripts/debug_moe_pallas_ffn.py:46"
+# (name, E, C, D, F, biases, dtype): the MoE main path's shape (E 8, C =
+# ceil(2 x 16384 x 1.25 / 8) = 5120, D 512, F 1024, MoeMlp's biases), the
+# TPU probe's own shape (scripts/debug_moe_pallas_ffn.py, no biases), a
+# ragged capacity (C not a multiple of the kernel's row tile) and a small
+# f32 case (the CUDA-core arm)
+FFN_SHAPES = [
+    ("moelm_main", 8, 5120, 512, 1024, True, torch.bfloat16),
+    ("probe", 8, 2560, 768, 1536, False, torch.bfloat16),
+    ("ragged", 4, 1000, 256, 512, True, torch.bfloat16),
+    ("f32", 4, 77, 64, 128, True, torch.float32),
+]
+# |got - ref| <= a max|ref| + b against the plain version on the same
+# inputs. bf16 (0.01, 1e-4): the probe's own gate; both sides round the
+# hidden and the output to bf16, and a hidden value whose f32 sum lands on
+# the other side of a rounding boundary moves the output by ~2^-8 of one
+# term. f32 (1e-4, 1e-5): summation order only.
+FFN_TOL = {torch.bfloat16: (0.01, 1e-4), torch.float32: (1e-4, 1e-5)}
+# phase 3d: a small f32 TinyMoeLM, head_dim 64 so the flash kernels take
+# it; capacity factor 0.5 drops tokens; the last example of every batch
+# is padding
+MOE_REF = {"vocab_size": 256, "n_layer": 2, "n_head": 2, "d_model": 128,
+           "d_ff": 256, "max_len": 64, "num_experts": 4, "top_k": 2,
+           "capacity_factor": 0.5, "aux_loss_weight": 0.01,
+           "attn_impl": "flash", "fused_head": True}
+# slice 4's main path: the repository's MoE config at full width through the
+# port's train.py; only the corpus size (a few MB of the standard library),
+# the epochs and the checkpoint period are cut
+MOE_CONFIG = REPO / "configs" / "moelm_stdlib.json"
+MOE_CORPUS_MB = 2.0
+MOE_SETS = [("trainer;epochs", 2), ("trainer;save_period", 1)]
+
+
+def _ffn_library(x, wi, wo, bi, bo):
+    """The cuBLAS yardstick, three PyTorch calls: bmm (baddbmm with the
+    bias) -> tanh-gelu -> bmm (baddbmm). Timed only; the port never calls
+    it."""
+    import torch.nn.functional as F
+
+    h = torch.bmm(x, wi) if bi is None else torch.baddbmm(bi[:, None], x, wi)
+    h = F.gelu(h, approximate="tanh")
+    return torch.bmm(h, wo) if bo is None else torch.baddbmm(bo[:, None], h,
+                                                             wo)
+
+
+def phase_expert_ffn_kernel() -> list:
+    """B5 against its plain version on the card: max error, kernel /
+    plain / library times and the card's bound, one row per shape."""
+    from pytorch_distributed_template_tpu_torch.ops import expert_ffn as ffn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    lib = ffn.EXPERT_FFN.load()
+    rows = []
+    for name, e, c, d, f, bias, dtype in FFN_SHAPES:
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * scale).to(dtype)
+
+        # the probe's inputs: x ~ N(0, 1), weights ~ N(0, 0.02^2)
+        x, wi, wo = rnd(e, c, d), rnd(e, d, f, scale=0.02), rnd(
+            e, f, d, scale=0.02)
+        bi = rnd(e, f, scale=0.1) if bias else None
+        bo = rnd(e, d, scale=0.1) if bias else None
+        args = (x, wi, wo, bi, bo)
+        out = ffn.expert_ffn(*args)
+        torch.cuda.synchronize()
+        ref = ffn.expert_ffn_ref(*args).float()
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"B5 {name}: non-finite output")
+        err = (out.float() - ref).abs().max().item()
+        a, b = FFN_TOL[dtype]
+        limit = a * ref.abs().max().item() + b
+        if err > limit:
+            raise AssertionError(
+                f"expert_ffn disagrees with its plain version at {name}: "
+                f"max err {err:.3e} > {limit:.3e}")
+        del out, ref
+        kernel_ms = cuda_ms(lambda: ffn._expert_ffn_cuda(*args), 20)
+        ref_ms = cuda_ms(lambda: ffn.expert_ffn_ref(*args), 5, warmup=1)
+        library_ms = cuda_ms(lambda: _ffn_library(*args), 20)
+        bound_s, bound_by = ffn.expert_ffn_bound_seconds(
+            e, c, d, f, x.element_size(), bias, PEAK_FLOPS[dtype],
+            PEAK_BYTES)
+        row = {"shape": name, "E": e, "C": c, "D": d, "F": f,
+               "biases": bias, "dtype": str(dtype).replace("torch.", ""),
+               "rows_per_block": lib.pdt_expert_ffn_rows(
+                   d, ffn._DTYPE_CODES[dtype]),
+               "max_abs_err": err, "limit": limit,
+               "kernel_ms": kernel_ms, "ref_ms": ref_ms,
+               "library_ms": library_ms, "bound_ms": bound_s * 1e3,
+               "bound_by": bound_by,
+               "plain": "expert_ffn_ref (f32 bmm, gelu, f32 bmm)",
+               "library": "3 calls: bmm/baddbmm -> gelu(tanh) -> "
+                          "bmm/baddbmm (cuBLAS, same dtype)"}
+        rows.append(row)
+        log("[ffn] " + json.dumps(row))
+        del x, wi, wo, bi, bo, args
+        torch.cuda.empty_cache()
+    ffn.EXPERT_FFN.launches = 0
+    return rows
+
+
+def phase_moe_train_reference(device="cuda") -> None:
+    """A small f32 TinyMoeLM (``MOE_REF``) trained ``TRAIN_REF_STEPS``
+    steps on ``device`` (kernels B1-B3, B5) and on the CPU (plain
+    versions) from the same weights and batches, one padded example in
+    each: per-step losses (the aux loss included) and final params within
+    ``TRAIN_REF_TOL``."""
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.config.registry import (
+        MODELS,
+    )
+    from pytorch_distributed_template_tpu_torch.data.datasets import (
+        synthetic_lm,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = MODELS.get("TinyMoeLM")(**MOE_REF, device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(8))
+    state = {k: v.clone() for k, v in cpu.state_dict().items()}
+    toks = synthetic_lm(n=4 * TRAIN_REF_STEPS, seq_len=MOE_REF["max_len"],
+                        vocab_size=MOE_REF["vocab_size"], seed=2)["tokens"]
+    mask = np.array([True, True, True, False])
+    batches = [{"tokens": toks[4 * i:4 * i + 4], "mask": mask}
+               for i in range(TRAIN_REF_STEPS)]
+    dev_loss, dev_p = _train_ref_run("TinyMoeLM", MOE_REF, state, batches,
+                                     device)
+    cpu_loss, cpu_p = _train_ref_run("TinyMoeLM", MOE_REF, state, batches,
+                                     "cpu")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(dev_loss, cpu_loss))
+    param_err = max((dev_p[k] - cpu_p[k]).abs().max().item() for k in cpu_p)
+    row = {"model": "TinyMoeLM", "steps": TRAIN_REF_STEPS,
+           "losses_device": dev_loss, "losses_cpu": cpu_loss,
+           "loss_max_rel_err": loss_err, "param_max_abs_err": param_err,
+           "tol": TRAIN_REF_TOL, "device": str(device)}
+    log("[moe-reference] " + json.dumps(row))
+    if not (loss_err <= TRAIN_REF_TOL["loss_rtol"]
+            and param_err <= TRAIN_REF_TOL["param_atol"]):
+        raise AssertionError(f"small f32 TinyMoeLM training on {device} "
+                             f"differs from the CPU: {row}")
+
+
+def phase_moe_train(card: str, device="cuda", config=MOE_CONFIG,
+                    sets=MOE_SETS, corpus_mb: float = MOE_CORPUS_MB,
+                    work=WORK, seed: int = 0) -> dict:
+    """Slice 4's main path: a corpus of ``corpus_mb`` MB from the port's
+    ``tools/make_text_corpus.py``, then :func:`_train_path` with the MoE
+    config reading it. Returns the path's launches per kernel."""
+    from pytorch_distributed_template_tpu_torch.tools import (
+        make_text_corpus,
+    )
+
+    data_dir = work / "moe_data"
+    info = make_text_corpus.build(data_dir / "pystdlib.txt",
+                                  int(corpus_mb * 1e6))
+    log(f"[moe] corpus: {info['files']} files, {info['bytes']} bytes from "
+        f"{info['source']}")
+    sets = list(sets) + [(f"{split};args;data_dir", str(data_dir))
+                         for split in ("train_loader", "valid_loader")]
+    launches = _train_path(card, device, config, sets, work / "moe_train",
+                           seed, label="moe")
+    shutil.rmtree(data_dir)
+    return launches
 
 
 def main() -> int:
@@ -1576,24 +1808,30 @@ def main() -> int:
     rows = phase_kernel()
     paged_rows = phase_paged_kernel()
     bwd_rows = phase_bwd_kernel()
+    ffn_rows = phase_expert_ffn_kernel()
     phase_reference()
     phase_paged_reference()
     phase_train_reference()
+    phase_moe_train_reference()
     flash_launches = phase_main(card, keep_artifact=True)
     paged_launches = phase_serve(card, WORK / "art" / "model")
     train_launches = phase_train(card)
+    moe_launches = phase_moe_train(card)
     shutil.rmtree(WORK)
     log(f"[device] all phases in {time.perf_counter() - t_start:.1f} s")
     kernels = []
-    flash_launches += train_launches["flash_fwd"]
+    flash_launches += train_launches["flash_fwd"] + moe_launches["flash_fwd"]
     for kernel, source, replaces, launches, shapes in (
             ("flash_fwd", KERNEL_SOURCE, KERNEL_REPLACES, flash_launches,
              rows),
             ("paged_attn", PAGED_SOURCE, PAGED_REPLACES, paged_launches,
              paged_rows),
-            *((kern, BWD_SOURCE, BWD_REPLACES[kern], train_launches[kern],
+            *((kern, BWD_SOURCE, BWD_REPLACES[kern],
+               train_launches[kern] + moe_launches[kern],
                [r for r in bwd_rows if r["kernel"] == kern])
-              for kern in ("flash_bwd_dkv", "flash_bwd_dq"))):
+              for kern in ("flash_bwd_dkv", "flash_bwd_dq")),
+            ("expert_ffn", FFN_SOURCE, FFN_REPLACES,
+             moe_launches["expert_ffn"], ffn_rows)):
         head = shapes[0]
         kernels.append({
             "name": kernel, "route": "cuda", "source": source,

@@ -13,7 +13,7 @@ when the architecture differs, the optimizer state dropped when the
 optimizer type changed. The port does not read the JAX package's orbax
 checkpoints.
 
-Left to slice 4 (the training main path with DP): the ``data_state``
+Left to slice 5 (the training main path with DP): the ``data_state``
 sidecar and mid-epoch resume, interval and emergency saves, ``keep_last``
 pruning.
 """

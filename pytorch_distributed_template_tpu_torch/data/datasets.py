@@ -1,19 +1,26 @@
 """LM training datasets and their loaders, registered in
 ``config.LOADERS``: the port of the JAX package's ``data/datasets.py``
-``synthetic_lm`` and ``SyntheticLMLoader``.
+``synthetic_lm``, ``SyntheticLMLoader`` and ``ByteLMLoader``.
 
 The token arrays are byte-identical to the JAX package's (same numpy
-Philox generators, same seeds). ``ByteLMLoader`` and ``BpeLMLoader`` are
-registered so a config naming them fails with the slice they wait for.
+Philox generators, same seeds, the same memory-mapped bytes).
+``BpeLMLoader`` is registered so a config naming it fails with the slice
+it waits for.
 """
 from __future__ import annotations
+
+import logging
+from pathlib import Path
 
 import numpy as np
 
 from ..config.registry import LOADERS
 from .loader import ArrayDataLoader
 
-_SLICE4 = "slice 4 (the training main path with DP)"
+_SLICE5 = "slice 5 (the training main path with DP)"
+_SLICE_BPE = ("BpeLMLoader (its tokenizer cache) is a later slice (the "
+              "data layer)")
+logger = logging.getLogger(__name__)
 
 
 def synthetic_lm(n: int = 2048, seq_len: int = 128, vocab_size: int = 50257,
@@ -46,7 +53,7 @@ def _single_process() -> None:
     if tdist.is_available() and tdist.is_initialized() \
             and tdist.get_world_size() > 1:
         raise NotImplementedError(f"multi-process data sharding is "
-                                  f"{_SLICE4}")
+                                  f"{_SLICE5}")
 
 
 @LOADERS.register("SyntheticLMLoader")
@@ -63,10 +70,42 @@ def lm_loader(data_dir: str = "data/", batch_size: int = 8,
 
 
 @LOADERS.register("ByteLMLoader")
-def byte_lm_loader(**kwargs):
-    raise NotImplementedError(f"ByteLMLoader is {_SLICE4}")
+def byte_lm_loader(data_dir: str = "data/", batch_size: int = 8,
+                   shuffle: bool = True, num_workers: int = 0,
+                   training: bool = True, file: str = "input.txt",
+                   seq_len: int = 256, val_fraction: float = 0.1,
+                   seed: int = 0):
+    """Byte-level LM over any local file (vocab 256).
+
+    The file is memory-mapped as uint8 and split by ``val_fraction`` (the
+    tail is the validation text), then cut into non-overlapping
+    ``seq_len`` windows; the tokens stay uint8 (the embedding lookup
+    widens them). When the file is absent it falls back to the synthetic
+    bigram stream (vocab 256), as the JAX loader does."""
+    del num_workers
+    _single_process()
+    path = Path(data_dir) / file
+    if not path.exists():
+        logger.warning(
+            "ByteLMLoader: %s not found; using synthetic byte-LM data.",
+            path)
+        data = synthetic_lm(n=2048, seq_len=seq_len, vocab_size=256,
+                            seed=seed, training=training)
+        return ArrayDataLoader(data, batch_size=batch_size, shuffle=shuffle,
+                               seed=seed)
+    raw = np.memmap(path, dtype=np.uint8, mode="r")
+    split = int(len(raw) * (1.0 - val_fraction))
+    part = raw[:split] if training else raw[split:]
+    n_chunks = len(part) // seq_len
+    if n_chunks == 0:
+        raise ValueError(
+            f"ByteLMLoader: {path} too small for one {seq_len}-byte "
+            f"{'train' if training else 'val'} sequence")
+    tokens = part[: n_chunks * seq_len].reshape(n_chunks, seq_len)
+    return ArrayDataLoader({"tokens": tokens}, batch_size=batch_size,
+                           shuffle=shuffle, seed=seed)
 
 
 @LOADERS.register("BpeLMLoader")
 def bpe_lm_loader(**kwargs):
-    raise NotImplementedError(f"BpeLMLoader is {_SLICE4}")
+    raise NotImplementedError(_SLICE_BPE)

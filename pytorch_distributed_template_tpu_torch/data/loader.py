@@ -8,7 +8,7 @@ static batch size by wraparound duplication and ``batch["mask"]`` marks
 the real rows, so losses and metrics stay exact. Same indices, same
 padding, same masks as the JAX loader.
 
-Left to slice 4 (the training main path with DP): a sampler (the
+Left to slice 5 (the training main path with DP): a sampler (the
 multi-process ``ShardedSampler``), ``normalize`` (uint8 image datasets), the
 native multithreaded gather and host->device prefetch.
 """

@@ -2,7 +2,7 @@
 ``data/sampler.py::epoch_permutation``.
 
 The multi-process ``ShardedSampler`` (DistributedSampler semantics over
-``torch.distributed`` ranks) is slice 4's (the training main path with
+``torch.distributed`` ranks) is slice 5's (the training main path with
 DP).
 """
 from __future__ import annotations

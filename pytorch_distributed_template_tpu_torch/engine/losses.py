@@ -8,7 +8,7 @@ names a loss, a ``{"type", "args"}`` dict calls a registered factory.
 
 ``mlm_cross_entropy`` waits for BERT (other model families); the image
 losses (``nll_loss``, ``cross_entropy``, ``smooth_cross_entropy``,
-``mse_loss``) for slice 4 (LeNet/MNIST).
+``mse_loss``) for slice 5 (LeNet/MNIST).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """LM metrics: the port of the JAX package's
-``engine/metrics.py::lm_token_accuracy``.
+``engine/metrics.py::lm_token_accuracy`` and ``lm_bits_per_byte``.
 
 Metrics are per-example functions ``(output, target) -> [B]`` computed
 without gradients; the steps reduce them with the padding mask as
@@ -10,7 +10,11 @@ from __future__ import annotations
 import torch
 
 from ..config.registry import METRICS
-from .losses import chunk_shifted_sequence
+from .losses import (
+    chunk_shifted_sequence, fused_lm_cross_entropy, lm_cross_entropy,
+)
+
+_LN2 = 0.6931471805599453
 
 
 @METRICS.register("lm_token_accuracy")
@@ -33,3 +37,15 @@ def lm_token_accuracy(output, target):
         return hits / tm1
     pred = output[:, :-1].argmax(-1)
     return (pred == target[:, 1:].long()).float().mean(-1)
+
+
+@METRICS.register("lm_bits_per_byte")
+@torch.no_grad()
+def lm_bits_per_byte(output, target):
+    """Per-example next-token cross entropy in bits (the byte-LM quality
+    number when tokens are bytes, vocab 256: 8.0 is uniform). Plain
+    ``[B, T, V]`` logits or the fused head's ``(hidden, head_w)``, through
+    the loss implementations (fused: chunk 256), divided by ln 2."""
+    if isinstance(output, tuple):
+        return fused_lm_cross_entropy(chunk=256)(output, target) / _LN2
+    return lm_cross_entropy(output, target) / _LN2

@@ -31,7 +31,7 @@ import torch
 
 from ..config.registry import OPTIMIZERS, SCHEDULERS
 
-_SLICE4 = "slice 4 (the training main path on LeNet/MNIST)"
+_SLICE5 = "slice 5 (the training main path on LeNet/MNIST)"
 
 
 def decay_groups(model, weight_decay: float, exclude=None) -> list:
@@ -56,7 +56,7 @@ def decay_groups(model, weight_decay: float, exclude=None) -> list:
 def _common(lr, learning_rate, mu_dtype):
     if mu_dtype:
         raise NotImplementedError(f"mu_dtype (a reduced-precision first "
-                                  f"moment) is {_SLICE4}")
+                                  f"moment) is {_SLICE5}")
     return learning_rate if learning_rate is not None else lr
 
 
@@ -75,7 +75,7 @@ def adam(model, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
          mu_dtype=None):
     lr = _common(lr, learning_rate, mu_dtype)
     if amsgrad:
-        raise NotImplementedError(f"amsgrad is {_SLICE4}")
+        raise NotImplementedError(f"amsgrad is {_SLICE5}")
     return torch.optim.Adam(
         decay_groups(model, weight_decay, weight_decay_exclude), lr=lr,
         betas=tuple(betas), eps=eps)
@@ -83,7 +83,7 @@ def adam(model, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
 
 def _later(registry, name: str) -> None:
     def refuse(*args, **kwargs):
-        raise NotImplementedError(f"{name} is {_SLICE4}")
+        raise NotImplementedError(f"{name} is {_SLICE5}")
 
     registry.register(name)(refuse)
 
@@ -123,7 +123,7 @@ def build_optimizer(config, steps_per_epoch: int, model):
     opt_args = dict(opt_cfg.get("args", {}))
     if opt_args.get("trainable"):
         raise NotImplementedError(f"optimizer.args.trainable (freezing "
-                                  f"params) is {_SLICE4}")
+                                  f"params) is {_SLICE5}")
     opt_args.pop("trainable", None)
     base_lr = opt_args.get("learning_rate", opt_args.get("lr", 1e-3))
     if base_lr is None:

@@ -21,7 +21,15 @@ Dropout draws from ``fold_in(seed, step)`` (the JAX step's
 ``fold_in(state.rng, state.step)``), folded further per layer and site by
 the model (models/layers.py).
 
-Refused by name (slice 4 or later): ``grad_accum_steps > 1``,
+Models with cross-example coupling (MoE capacity routing) take the batch
+mask inside the forward: a model whose ``forward`` accepts
+``example_mask`` gets ``batch["mask"]`` in both steps. Auxiliary
+objectives (the MoE load-balancing loss) come back as ``model.aux_loss``
+after the forward, a scalar or None; the train step adds ``aux *
+valid_count`` to ``loss_sum``, so the logged ``loss`` and the gradient
+include it as in the JAX step (which collects flax's ``losses``).
+
+Refused by name (slice 5 or later): ``grad_accum_steps > 1``,
 ``ema_decay``, ``augment``, ``mixup_alpha``, ``log_grad_norm``,
 ``trainable_patterns``, ``health`` and ``inject_nan_grad_step``.
 """
@@ -34,12 +42,12 @@ import torch
 
 from ..models.layers import fold_in
 
-_SLICE4 = "slice 4 (the training main path on LeNet/MNIST)"
+_SLICE5 = "slice 5 (the training main path on LeNet/MNIST)"
 
 
-def _takes_dropout_seed(model) -> bool:
+def _forward_takes(model, name: str) -> bool:
     try:
-        return "dropout_seed" in inspect.signature(model.forward).parameters
+        return name in inspect.signature(model.forward).parameters
     except (TypeError, ValueError):
         return False
 
@@ -62,7 +70,7 @@ def _refuse(grad_accum_steps=1, ema_decay=0.0, augment=None,
              "inject_nan_grad_step": inject_nan_grad_step is not None}
     for name, on in later.items():
         if on:
-            raise NotImplementedError(f"{name} is {_SLICE4}")
+            raise NotImplementedError(f"{name} is {_SLICE5}")
 
 
 class TrainStep:
@@ -81,7 +89,8 @@ class TrainStep:
         self.grad_clip_norm = float(grad_clip_norm or 0.0)
         self.skip_nonfinite = skip_nonfinite
         self.lr_fn, self.seed = lr_fn, int(seed)
-        self._seeded = _takes_dropout_seed(model)
+        self._seeded = _forward_takes(model, "dropout_seed")
+        self._masked = _forward_takes(model, "example_mask")
         self.step = 0       # steps taken (the dropout key's counter)
         self.applied = 0    # optimizer updates applied (the schedule's)
 
@@ -102,10 +111,15 @@ class TrainStep:
         mask = batch["mask"].float()
         kw = ({"dropout_seed": fold_in(self.seed, self.step)}
               if self._seeded else {})
+        if self._masked:
+            kw["example_mask"] = batch["mask"]
         output = model(batch[self.input_key], **kw)
         per_ex = self.criterion(output, target)
         loss_sum = (per_ex * mask).sum()
         count = mask.sum()
+        aux = getattr(model, "aux_loss", None)
+        if aux is not None:
+            loss_sum = loss_sum + aux * count
         denom = count.clamp_min(1.0)
         opt.zero_grad(set_to_none=True)
         (loss_sum / denom).backward()
@@ -173,10 +187,13 @@ def make_eval_step(model, criterion: Callable,
     """``eval_step(batch) -> metrics`` (sufficient statistics), the model
     in eval mode and no gradients."""
 
+    masked = _forward_takes(model, "example_mask")
+
     @torch.no_grad()
     def eval_step(batch):
         model.eval()
-        output = model(batch[input_key])
+        kw = {"example_mask": batch["mask"]} if masked else {}
+        output = model(batch[input_key], **kw)
         target = batch[target_key]
         per_ex = criterion(output, target)
         mask = batch["mask"].float()

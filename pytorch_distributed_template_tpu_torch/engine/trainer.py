@@ -13,7 +13,7 @@ the epoch with the JAX package's names (``loss``, ``lm_token_accuracy``,
 
 Refused by name: TensorBoard, the health monitor, telemetry, the profiler,
 the watchdog, fault injection, iteration-based epochs (``len_epoch``),
-interval saves, ``keep_last``, ``init_from`` (slice 4's observability and
+interval saves, ``keep_last``, ``init_from`` (slice 5's observability and
 resilience layers), the XLA ``compile_cache``, and any mesh other than
 ``{"data": -1}`` on one device (parallel axes).
 """
@@ -30,7 +30,7 @@ from ..checkpoint import CheckpointManager
 from .optim import build_optimizer
 from .steps import finalize_metrics, make_eval_step, make_train_step
 
-_SLICE4 = "slice 4 (the training main path on LeNet/MNIST)"
+_SLICE5 = "slice 5 (the training main path on LeNet/MNIST)"
 
 
 def _enabled(block) -> bool:
@@ -59,7 +59,7 @@ def refuse_later_keys(config) -> None:
     }
     for key, on in later.items():
         if on:
-            raise NotImplementedError(f"{key} is {_SLICE4}")
+            raise NotImplementedError(f"{key} is {_SLICE5}")
     if "compile_cache" in config:
         raise NotImplementedError(
             "compile_cache (the XLA compilation cache) has no counterpart "

@@ -11,7 +11,10 @@ translation:
   ``nn.Linear`` layout), transposed — ``lm_head/kernel`` included;
 - ``embed_tokens/embedding``, ``wte/embedding`` -> ``*.weight`` as is;
 - LayerNorm ``scale`` -> ``weight``; ``bias`` and RMSNorm ``weight``
-  leaves as they are; the bare ``wpe`` param as it is.
+  leaves as they are; the bare ``wpe`` param as it is;
+- the MoE block's stacked expert leaves ``h_i/moe/{wi, wo, bi, bo}``
+  (``[E, D, F]``, ``[E, F, D]``, ``[E, F]``, ``[E, D]``) as they are, and
+  its router ``h_i/moe/router/{kernel, bias}`` like any dense layer.
 
 Both directions take and give plain containers: nested dicts of numpy
 arrays on the flax side, a flat dict of CPU tensors on the torch side.
@@ -35,6 +38,7 @@ _LAYER = re.compile(r"^layers_(\d+)$")
 _INDEXED = re.compile(r"^(layers|h)_(\d+)$")
 _INDEXED_PARENTS = ("layers", "h")
 _EMBEDDINGS = ("wte", "embed_tokens")
+_EXPERT_LEAVES = ("wi", "wo", "bi", "bo")   # MoeMlp's stacked expert params
 
 
 def _flatten(tree, prefix=()):
@@ -55,7 +59,8 @@ def flax_path(name: str) -> str:
     ``h.0.attn.qkv.weight`` -> ``h_0/attn/qkv/kernel``,
     ``h.0.ln_1.weight`` -> ``h_0/ln_1/scale``, ``wte.weight`` ->
     ``wte/embedding``, ``layers.1.input_layernorm.weight`` ->
-    ``layers_1/input_layernorm/weight``, ``wpe`` -> ``wpe``."""
+    ``layers_1/input_layernorm/weight``, ``h.1.moe.wi`` ->
+    ``h_1/moe/wi``, ``wpe`` -> ``wpe``."""
     parts = name.split(".")
     mods, i = [], 0
     while i < len(parts) - 1:
@@ -76,7 +81,8 @@ def flax_path(name: str) -> str:
             leaf = "scale"
         elif not (owner.endswith("layernorm") or owner == "norm"):
             leaf = "kernel"
-    elif leaf != "bias":
+    elif leaf != "bias" and not (mods[-1] == "moe"
+                                 and leaf in _EXPERT_LEAVES):
         raise KeyError(f"unexpected state-dict entry {name}")
     return "/".join(mods + [leaf])
 
@@ -96,8 +102,9 @@ def params_from_flax(tree) -> dict:
             arr, name = arr.T, "weight"
         elif last in ("embedding", "weight", "scale"):
             name = "weight"
-        elif last == "bias":
-            name = "bias"
+        elif last == "bias" or (parts[-1] == "moe"
+                                and last in _EXPERT_LEAVES):
+            name = last
         else:
             raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
         out[".".join(parts + [name])] = torch.tensor(

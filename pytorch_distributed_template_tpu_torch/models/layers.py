@@ -78,8 +78,13 @@ class Dense(nn.Linear):
 
 
 def embed(weight, tokens, dtype):
-    """Rows of ``weight`` for ``tokens``, in ``dtype``."""
-    return F.embedding(tokens, weight).to(dtype)
+    """Rows of ``weight`` for ``tokens`` (any integer dtype; byte tokens
+    arrive as uint8), in ``dtype``. An index rather than ``F.embedding``:
+    the index's backward sums repeated rows in a fixed (sorted) order,
+    which a resumed training run needs to reproduce the uninterrupted one;
+    ``F.embedding``'s backward on CUDA does not fix that order at a small
+    vocabulary with many repeated rows (256 bytes, thousands of tokens)."""
+    return weight[tokens.long()].to(dtype)
 
 
 def layer_norm_f32(x, weight, bias, eps: float):

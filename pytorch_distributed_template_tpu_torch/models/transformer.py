@@ -24,9 +24,20 @@ as ``GPT2`` and ``TinyLM`` with the JAX registry's defaults.
   and ``down`` projections N(0, 0.02/sqrt(2 n_layer)), ``wpe`` N(0, 0.01),
   LayerNorm ones and zeros, biases zero.
 
+- MoE (``moe_experts > 0``, the ``MoeLM``/``TinyMoeLM`` family of
+  models/moe.py): every ``moe_every``-th block takes a top-k routed expert
+  FFN (``MoeMlp`` with gelu experts, parameter name ``moe`` as in the flax
+  tree) in place of the dense MLP. ``forward(..., example_mask=...)``
+  keeps padded examples out of expert capacity. In training mode each MoE
+  block returns its weighted load-balancing loss beside its output and
+  the forward sets ``model.aux_loss`` to their sum (None when there is
+  none), once per call: a block recomputed under remat returns its value
+  again but adds nothing twice.
+
 Left to later slices, each refused with a message naming it: decode
-caches (serving the GPT-2 family), MoE blocks, ring/Ulysses attention and
-zigzag layouts (parallel axes), w8a16 weights and int8 KV (serving), LoRA.
+caches (serving the GPT-2 family), swiglu experts (other model families)
+and expert parallelism, ring/Ulysses attention and zigzag layouts
+(parallel axes), w8a16 weights and int8 KV (serving), LoRA.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ from ..config.registry import MODELS
 from ..ops.attention import multihead_attention
 from ..ops.flash import flash_attention
 from .layers import Dense, dropout, embed, fold_in, layer_norm_f32
+from .moe import MoeMlp
 
 _SLICE_PARALLEL = "a later slice (parallel axes)"
 _SLICE_GPT2_SERVING = ("serving the GPT-2 family (its decode caches) is a "
@@ -102,18 +114,30 @@ class SelfAttention(nn.Module):
 
 
 class Block(nn.Module):
+    """Pre-LN block: attention, then the dense MLP or, with ``moe`` (the
+    ``MoeMlp`` kwargs), the routed expert FFN. ``forward`` returns ``(x,
+    aux)``: the MoE load-balancing loss in training mode, else None."""
+
     def __init__(self, d_model: int, n_head: int, d_ff: int, rate: float,
-                 dtype, attn_impl: str, ln_eps: float, device=None):
+                 dtype, attn_impl: str, ln_eps: float, n_layer: int = 1,
+                 moe: dict = None, device=None):
         super().__init__()
         self.ln_1 = LayerNorm(d_model, ln_eps, device=device)
         self.attn = SelfAttention(d_model, n_head, rate, dtype, attn_impl,
                                   device=device)
         self.ln_2 = LayerNorm(d_model, ln_eps, device=device)
-        self.mlp = MlpBlock(d_model, d_ff, rate, dtype, device=device)
+        if moe:
+            self.moe = MoeMlp(d_model, d_ff, dropout=rate, n_layer=n_layer,
+                              dtype=dtype, device=device, **moe)
+        else:
+            self.mlp = MlpBlock(d_model, d_ff, rate, dtype, device=device)
 
-    def forward(self, x, seed=None):
+    def forward(self, x, seed=None, example_mask=None):
         x = x + self.attn(self.ln_1(x), _site(seed, 1))
-        return x + self.mlp(self.ln_2(x), _site(seed, 2))
+        if hasattr(self, "moe"):
+            y, aux = self.moe(self.ln_2(x), example_mask, _site(seed, 2))
+            return x + y, aux
+        return x + self.mlp(self.ln_2(x), _site(seed, 2)), None
 
 
 class TransformerLM(nn.Module):
@@ -125,7 +149,9 @@ class TransformerLM(nn.Module):
                  dtype=torch.float32, attn_impl: str = "xla",
                  remat: bool = False, fused_head: bool = False,
                  tie_embeddings: bool = True, ln_eps: float = 1e-5,
-                 device=None):
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_every: int = 2, moe_capacity_factor: float = 1.25,
+                 moe_aux_loss_weight: float = 0.01, device=None):
         super().__init__()
         if attn_impl not in ("xla", "flash"):
             raise NotImplementedError(
@@ -144,14 +170,25 @@ class TransformerLM(nn.Module):
         self.head_dim = d_model // n_head
         self.wte = nn.Embedding(vocab_size, d_model, device=device)
         self.wpe = nn.Parameter(torch.zeros(max_len, d_model, device=device))
+        self.moe_experts, self.moe_every = moe_experts, moe_every
+        moe = dict(num_experts=moe_experts, top_k=moe_top_k,
+                   capacity_factor=moe_capacity_factor,
+                   aux_loss_weight=moe_aux_loss_weight)
         self.h = nn.ModuleList(
             Block(d_model, n_head, d_ff, dropout, dtype, attn_impl, ln_eps,
-                  device=device) for _ in range(n_layer))
+                  n_layer=n_layer,
+                  moe=moe if self._is_moe_layer(i) else None, device=device)
+            for i in range(n_layer))
+        self.aux_loss = None
         self.ln_f = LayerNorm(d_model, ln_eps, device=device)
         if not tie_embeddings:
             self.lm_head = Dense(d_model, vocab_size, bias=False,
                                  compute_dtype=dtype,
                                  param_dtype=torch.float32, device=device)
+
+    def _is_moe_layer(self, i: int) -> bool:
+        """The JAX ``_moe_kwargs`` rule: every ``moe_every``-th block."""
+        return self.moe_experts > 0 and (i + 1) % self.moe_every == 0
 
     @property
     def device(self) -> torch.device:
@@ -166,9 +203,10 @@ class TransformerLM(nn.Module):
                 p.normal_(0.0, 0.01, generator=generator)
             elif ".ln_" in name or name.startswith("ln_f."):
                 p.fill_(1.0 if name.endswith("weight") else 0.0)
-            elif name.endswith("bias"):
+            elif name.endswith(("bias", "moe.bi", "moe.bo")):
                 p.zero_()
-            elif name.endswith(("attn.out.weight", "mlp.down.weight")):
+            elif name.endswith(("attn.out.weight", "mlp.down.weight",
+                                "moe.wo")):
                 p.normal_(0.0, resid, generator=generator)
             else:
                 p.normal_(0.0, 0.02, generator=generator)
@@ -179,23 +217,30 @@ class TransformerLM(nn.Module):
     def kv_cache_spec(self) -> dict:
         raise NotImplementedError(_SLICE_GPT2_SERVING)
 
-    def forward(self, tokens, dropout_seed=None):
+    def forward(self, tokens, dropout_seed=None, example_mask=None):
         """tokens ``[B, T]`` -> f32 logits ``[B, T, V]``, or ``(hidden,
         head_w)`` in the compute dtype with ``fused_head``.
         ``dropout_seed`` seeds every dropout mask of the call (needed in
-        training mode when dropout > 0)."""
+        training mode when dropout > 0). ``example_mask`` ([B] bool) marks
+        the real rows of a padded batch for the MoE blocks (dense blocks
+        are per token and ignore it). Sets ``self.aux_loss``."""
         b, t = tokens.shape
         if t > self.max_len:
             raise ValueError(f"sequence {t} exceeds max_len {self.max_len}")
         dt = self.dtype
         x = embed(self.wte.weight, tokens, dt) + self.wpe[:t].to(dt)[None]
         x = dropout(x, self.rate, _site(dropout_seed, 0), self.training)
+        aux_total = None
         for i, block in enumerate(self.h):
             seed = _site(dropout_seed, i + 1)
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, seed, use_reentrant=False)
+                x, aux = checkpoint(block, x, seed, example_mask,
+                                    use_reentrant=False)
             else:
-                x = block(x, seed)
+                x, aux = block(x, seed, example_mask)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+        self.aux_loss = aux_total
         x = self.ln_f(x)
         if self.fused_head:
             w = self.wte.weight if self.tie_embeddings \
@@ -206,8 +251,8 @@ class TransformerLM(nn.Module):
         return self.lm_head(x).float()
 
 
-def _refuse_later(quant="", kv_quant="", lora_rank=0, moe_experts=0,
-                  mesh=None, seq_layout="natural") -> None:
+def _refuse_later(quant="", kv_quant="", lora_rank=0, mesh=None,
+                  seq_layout="natural") -> None:
     if quant or kv_quant:
         raise NotImplementedError(
             f"quant={quant!r} / kv_quant={kv_quant!r}: "
@@ -215,9 +260,6 @@ def _refuse_later(quant="", kv_quant="", lora_rank=0, moe_experts=0,
     if lora_rank:
         raise NotImplementedError("LoRA fine-tuning is a later slice "
                                   "(other model families)")
-    if moe_experts:
-        raise NotImplementedError(f"MoE blocks are {_SLICE_PARALLEL} "
-                                  "(expert parallelism)")
     if mesh is not None or seq_layout != "natural":
         raise NotImplementedError(
             f"meshes and sequence layouts are {_SLICE_PARALLEL}")
@@ -253,11 +295,8 @@ def gpt2(size: str = "gpt2-small", vocab_size: int = 50257,
     cfg = dict(_GPT2_SIZES[size])
     cfg.update(overrides)
     _refuse_later(cfg.pop("quant", ""), cfg.pop("kv_quant", ""),
-                  cfg.pop("lora_rank", 0), cfg.pop("moe_experts", 0), mesh,
-                  seq_layout)
-    for key in ("lora_alpha", "moe_top_k", "moe_every",
-                "moe_capacity_factor", "moe_aux_loss_weight"):
-        cfg.pop(key, None)
+                  cfg.pop("lora_rank", 0), mesh, seq_layout)
+    cfg.pop("lora_alpha", None)
     return TransformerLM(vocab_size=vocab_size, max_len=max_len,
                          dropout=dropout, dtype=_dtype(bfloat16),
                          attn_impl=attn_impl, remat=remat,
@@ -274,7 +313,7 @@ def tiny_lm(vocab_size: int = 256, n_layer: int = 2, n_head: int = 4,
             lora_alpha: float = 16.0, device=None, param_dtype=None):
     """Small config for tests and dry runs."""
     _check_param_dtype(param_dtype)
-    _refuse_later(quant, kv_quant, lora_rank, 0, mesh, seq_layout)
+    _refuse_later(quant, kv_quant, lora_rank, mesh, seq_layout)
     return TransformerLM(vocab_size=vocab_size, n_layer=n_layer,
                          n_head=n_head, d_model=d_model, max_len=max_len,
                          dropout=dropout, dtype=_dtype(bfloat16),

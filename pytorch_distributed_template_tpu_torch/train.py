@@ -10,7 +10,7 @@ Flags as in the JAX ``train.py``: ``-c``, ``-r``, ``-s``, ``--seed``,
 ``--no-validate``, ``--lr``, ``--bs``, ``--set KEYCHAIN VALUE``, plus
 ``--device`` (default ``cuda``; raises without a CUDA device). ``-l`` and
 ``--deterministic`` are accepted as the JAX CLI accepts them;
-``--auto-resume`` is slice 4's and refuses. The model is built with
+``--auto-resume`` is slice 5's and refuses. The model is built with
 float32 master weights (``param_dtype``); its compute dtype is the
 config's (``bfloat16: true``), and the model's weights are drawn from
 ``--seed`` (default 0) with the family's init law.
@@ -44,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-validate", action="store_true",
                         help="skip validation during training")
     parser.add_argument("--auto-resume", action="store_true",
-                        help="resume from the newest checkpoint (slice 4)")
+                        help="resume from the newest checkpoint (slice 5)")
     parser.add_argument("--seed", type=int, default=None,
                         help="Random seed (weights and dropout).")
     parser.add_argument("--deterministic", action="store_true",
@@ -64,7 +64,7 @@ OPTIONS = [
 def build_trainer(args, config) -> Trainer:
     """Model, loss, metrics, loaders and the trainer, from the config."""
     if args.auto_resume:
-        raise NotImplementedError("--auto-resume is slice 4 (the training "
+        raise NotImplementedError("--auto-resume is slice 5 (the training "
                                   "main path on LeNet/MNIST)")
     device = resolve_device(args.device)
     seed = args.seed if args.seed is not None else 0

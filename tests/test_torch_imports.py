@@ -1,6 +1,7 @@
-"""The port stands alone: importing it pulls in no JAX and nothing of the
-JAX package, no source file of it (nor ``chip_smoke.py``) imports either,
-and ``chip_smoke.py`` refuses to run without a CUDA device.
+"""The port stands alone: importing it pulls in no JAX, nothing of the
+JAX package and nothing of ``scripts/``, no source file of it (nor
+``chip_smoke.py``) imports any of them, and ``chip_smoke.py`` refuses to
+run without a CUDA device.
 """
 import ast
 import json
@@ -13,7 +14,7 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "pytorch_distributed_template_tpu_torch"
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "orbax",
-                   "pytorch_distributed_template_tpu"}
+                   "pytorch_distributed_template_tpu", "scripts"}
 ENTRY_MODULES = [
     "pytorch_distributed_template_tpu_torch",
     "pytorch_distributed_template_tpu_torch.generate",
@@ -39,6 +40,9 @@ ENTRY_MODULES = [
     "pytorch_distributed_template_tpu_torch.data.sampler",
     "pytorch_distributed_template_tpu_torch.models.transformer",
     "pytorch_distributed_template_tpu_torch.models.layers",
+    "pytorch_distributed_template_tpu_torch.models.moe",
+    "pytorch_distributed_template_tpu_torch.ops.expert_ffn",
+    "pytorch_distributed_template_tpu_torch.tools.make_text_corpus",
 ]
 
 

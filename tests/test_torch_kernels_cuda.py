@@ -6,7 +6,8 @@ it runs on its own:
     python -m pytest --noconftest -p no:cacheprovider -q \\
         tests/test_torch_kernels_cuda.py
 
-B1 (``csrc/flash_fwd.cu``) is held against ``flash_attention_ref`` and B4
+B1 (``csrc/flash_fwd.cu``) is held against ``flash_attention_ref``, B5
+(``csrc/expert_ffn.cu``) against ``expert_ffn_ref`` and B4
 (``csrc/paged_attn.cu``, both its single-block and its split-over-pages
 arms) against ``paged_attention_ref``, valid query lanes only (pad lanes
 must be exactly 0).
@@ -282,3 +283,124 @@ def test_flash_bwd_refuses_what_it_does_not_take(cuda):
     q16 = q[..., :16].contiguous()
     with pytest.raises(ValueError, match="head_dim"):
         flash.flash_attention_bwd(q16, q16, q16, q16, lse, q16)
+
+
+# ---------------------------------------------------------------------------
+# B5: the fused expert FFN (csrc/expert_ffn.cu) against expert_ffn_ref
+# ---------------------------------------------------------------------------
+# Tolerances, against the plain version on the same inputs on the card:
+# bf16 |got - ref| <= 0.01 max|ref| + 1e-4 (the TPU probe's own gate,
+# scripts/debug_moe_pallas_ffn.py: both sides round the hidden and the
+# output to bf16, so a hidden value whose f32 sum lands on the other side
+# of a bf16 rounding boundary moves the output by ~2^-8 of one term);
+# float32 <= 1e-4 max|ref| + 1e-5 (summation order only).
+
+
+def _ffn_inputs(device, e, c, d, f, dtype, bias, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    x = rnd(e, c, d)
+    wi, wo = rnd(e, d, f, scale=d ** -0.5), rnd(e, f, d, scale=f ** -0.5)
+    bi = rnd(e, f, scale=0.1) if bias else None
+    bo = rnd(e, d, scale=0.1) if bias else None
+    return x, wi, wo, bi, bo
+
+
+def _assert_ffn_close(got, ref, dtype):
+    ref = ref.float()
+    err = (got.float() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    limit = (0.01 * scale + 1e-4 if dtype == torch.bfloat16
+             else 1e-4 * scale + 1e-5)
+    assert err <= limit, f"max err {err:.3e} > {limit:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("e, c, d, f", [
+    (2, 64, 64, 128), (3, 77, 128, 48), (2, 100, 256, 272),
+    (2, 33, 512, 1024), (1, 19, 768, 1536), (2, 40, 1024, 64),
+    (1, 1, 16, 16),
+])
+def test_expert_ffn_matches_plain(cuda, dtype, bias, e, c, d, f):
+    from pytorch_distributed_template_tpu_torch.ops import expert_ffn as ffn
+
+    x, wi, wo, bi, bo = _ffn_inputs(cuda, e, c, d, f, dtype, bias,
+                                    seed=e + c + d + f)
+    before = ffn.EXPERT_FFN.launches
+    out = ffn.expert_ffn(x, wi, wo, bi, bo)
+    torch.cuda.synchronize()
+    assert ffn.EXPERT_FFN.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    assert bool(torch.isfinite(out).all())
+    _assert_ffn_close(out, ffn.expert_ffn_ref(x, wi, wo, bi, bo), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_expert_ffn_autograd_on_the_card(cuda, dtype):
+    """Gradients of ExpertFFN (forward B5, backward bmm) against autograd
+    of the plain version in float32 on the same inputs."""
+    from pytorch_distributed_template_tpu_torch.ops import expert_ffn as ffn
+
+    inputs = _ffn_inputs(cuda, 2, 45, 64, 96, dtype, True, seed=5)
+    got = [t.clone().requires_grad_() for t in inputs]
+    want = [t.float().requires_grad_() for t in inputs]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    g = torch.randn((2, 45, 64), generator=gen, device=cuda)
+    ffn.expert_ffn(*got).backward(g.to(dtype))
+    ffn.expert_ffn_ref(*want).backward(g)
+    a = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    for name, x, w in zip(("x", "wi", "wo", "bi", "bo"), got, want):
+        err = (x.grad.float() - w.grad).abs().max().item()
+        assert err <= a * w.grad.abs().max().item() + 1e-5, (name, err)
+
+
+def test_expert_ffn_refuses_what_it_does_not_take(cuda):
+    from pytorch_distributed_template_tpu_torch.ops import expert_ffn as ffn
+
+    x, wi, wo, _, _ = _ffn_inputs(cuda, 2, 8, 64, 64, torch.float32, False,
+                                  seed=0)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ffn.expert_ffn(x[..., :40].contiguous(), wi[:, :40].contiguous(),
+                       wo[..., :40].contiguous())
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ffn.expert_ffn(x, wi[..., :24].contiguous(),
+                       wo[:, :24].contiguous())
+    with pytest.raises(ValueError, match="D <="):
+        big = _ffn_inputs(cuda, 1, 4, 1040, 16, torch.float32, False, 0)
+        ffn.expert_ffn(*big[:3])
+    with pytest.raises(TypeError):
+        ffn.expert_ffn(x.half(), wi.half(), wo.half())
+    with pytest.raises(TypeError):
+        ffn.expert_ffn(x, wi.bfloat16(), wo)
+    with pytest.raises(ValueError, match="contiguous"):
+        ffn.expert_ffn(x, wi.transpose(1, 2).contiguous().transpose(1, 2),
+                       wo)
+
+
+def test_embedding_lookup_backward_is_deterministic(cuda):
+    """The models' embedding lookup (models/layers.py::embed, an index) at
+    the byte LM's shape, 32 x 512 tokens over 256 rows: two backward
+    passes give bit-identical gradients, which an exact resume of a
+    training run needs (F.embedding's backward does not guarantee it at a
+    small vocabulary with many repeated rows)."""
+    from pytorch_distributed_template_tpu_torch.models.layers import embed
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = torch.randn(256, 512, generator=gen, device=cuda,
+                    requires_grad=True)
+    toks = torch.randint(0, 256, (32, 512), generator=gen,
+                         device=cuda).to(torch.uint8)
+    g = torch.randn(32, 512, 512, generator=gen, device=cuda).bfloat16()
+    grads = []
+    for _ in range(2):
+        w.grad = None
+        embed(w, toks, torch.bfloat16).backward(g)
+        grads.append(w.grad.clone())
+    assert torch.equal(grads[0], grads[1])

@@ -236,5 +236,5 @@ def test_later_optimizers_and_schedules_refuse(kind, name):
     cfg = {"optimizer": {"type": "AdamW", "args": {"lr": 0.1}}}
     cfg[kind] = {"type": name, "args": {}}
     model = TM.get("TinyLM")(**MODEL, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 5"):
         toptim.build_optimizer(cfg, 4, model)
