@@ -104,14 +104,17 @@ The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
 the launches of slices 1, 3 and 4, paged_attn with slice 2's,
 flash_bwd_dkv and flash_bwd_dq with slices 3 and 4, expert_ffn with slice
-4's) and the device line ``{"ok": true, "device": {...}}``. The script
-needs a CUDA device and the repository beside it; it imports nothing of
-JAX.
+4's) and the device line ``{"ok": true, "device": {...}}``. Every kernel
+row also carries ``pct_of_bound`` (100 x bound / kernel time) and
+``x_library`` (kernel time / library time); kernel times are device times
+(:func:`cuda_ms`). The script needs a CUDA device and the repository
+beside it; it imports nothing of JAX.
 """
 from __future__ import annotations
 
 import gc
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -166,18 +169,39 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls.
+
+    The stream first spins on the card (``torch.cuda._sleep``) for longer
+    than the host takes to enqueue all the calls, so the calls run back to
+    back and the host's time between launches is not counted (a small
+    kernel's wrapper can take longer on the host than the kernel on the
+    card). A ``fn`` that synchronises is timed with its host gaps."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    enqueue_s = min(1.0, 1.5 * reps * (time.perf_counter() - t0))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * enqueue_s))   # cycles, at <= 2 GHz
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def with_ratios(row: dict) -> dict:
+    """``row`` with ``pct_of_bound`` (100 x bound / kernel time) and
+    ``x_library`` (kernel time / library time, None without a library
+    call) added."""
+    lib = row.get("library_ms")
+    row["pct_of_bound"] = 100.0 * row["bound_ms"] / row["kernel_ms"]
+    row["x_library"] = None if lib is None else row["kernel_ms"] / lib
+    return row
 
 
 def card_line() -> str:
@@ -202,10 +226,27 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.2f} s (built now: {built})")
     for lib in build.LIBRARIES:
         lib.load()
-        for line in lib.build_log.splitlines():
-            if "ptxas" in line and ("registers" in line or "spill" in line
-                                    or "smem" in line):
-                log(f"[build] {lib.name}: {line.strip()}")
+        for line in ptxas_report(lib.build_log):
+            log(f"[build] {lib.name}: {line}")
+
+
+def ptxas_report(build_log: str) -> list:
+    """The lines of an ``nvcc -Xptxas -v`` log worth printing: each
+    kernel's stack and spills and its registers, after the kernel's name,
+    and ptxas's notes on shared memory, performance and warnings."""
+    lines, kernel = [], ""
+    for line in build_log.splitlines():
+        props = re.search(r"Function properties for (\S+)", line)
+        if props:
+            # the mangled name less its anonymous namespace and arguments
+            kernel = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
+                            props.group(1)).split("Ev", 1)[0]
+        elif "bytes spill" in line or "Used" in line and "registers" in line:
+            lines.append(f"{kernel}: {line.strip()}")
+        elif "ptxas" in line and ("smem" in line or "Performance" in line
+                                  or "warning" in line or "C75" in line):
+            lines.append(line.strip())
+    return lines
 
 
 def _sdpa_ms(q, k, v, causal: bool, window: int, reps: int):
@@ -282,7 +323,7 @@ def phase_kernel() -> list:
                "kernel_ms": kernel_ms, "ref_ms": ref_ms,
                "library_ms": library_ms, "bound_ms": bound_s * 1e3,
                "bound_by": bound_by}
-        rows.append(row)
+        rows.append(with_ratios(row))
         log("[kernel] " + json.dumps(row))
         del q, k, v, out, lse
         torch.cuda.empty_cache()
@@ -748,7 +789,7 @@ def phase_paged_kernel() -> list:
                "bound_by": bound_by,
                "library": "scaled_dot_product_attention on K/V gathered "
                           "in advance (gather not timed), same mask"}
-        rows.append(row)
+        rows.append(with_ratios(row))
         log("[paged] " + json.dumps(row))
         del q, kp, vp, ks, vs, out
         torch.cuda.empty_cache()
@@ -1307,7 +1348,7 @@ def phase_bwd_kernel() -> list:
                    "plain": "flash_attention_bwd_ref (dq, dk, dv together)",
                    "library": "backward of scaled_dot_product_attention "
                               "(dq, dk, dv together)"}
-            rows.append(row)
+            rows.append(with_ratios(row))
             log("[bwd] " + json.dumps(row))
         del q, k, v, g, out, lse, delta
         torch.cuda.empty_cache()
@@ -1714,7 +1755,7 @@ def phase_expert_ffn_kernel() -> list:
             PEAK_BYTES)
         row = {"shape": name, "E": e, "C": c, "D": d, "F": f,
                "biases": bias, "dtype": str(dtype).replace("torch.", ""),
-               "rows_per_block": lib.pdt_expert_ffn_rows(
+               "rows_per_tile": lib.pdt_expert_ffn_rows(
                    d, ffn._DTYPE_CODES[dtype]),
                "max_abs_err": err, "limit": limit,
                "kernel_ms": kernel_ms, "ref_ms": ref_ms,
@@ -1723,7 +1764,7 @@ def phase_expert_ffn_kernel() -> list:
                "plain": "expert_ffn_ref (f32 bmm, gelu, f32 bmm)",
                "library": "3 calls: bmm/baddbmm -> gelu(tanh) -> "
                           "bmm/baddbmm (cuBLAS, same dtype)"}
-        rows.append(row)
+        rows.append(with_ratios(row))
         log("[ffn] " + json.dumps(row))
         del x, wi, wo, bi, bo, args
         torch.cuda.empty_cache()
@@ -1839,7 +1880,9 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in shapes),
             "ms": head["kernel_ms"], "plain_ms": head["ref_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "shapes": shapes})
+            "library_ms": head["library_ms"],
+            "pct_of_bound": head["pct_of_bound"],
+            "x_library": head["x_library"], "shapes": shapes})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

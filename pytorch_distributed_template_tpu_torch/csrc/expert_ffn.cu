@@ -1,4 +1,4 @@
-// Fused expert FFN for Hopper (sm_90a), plain C interface for ctypes.
+// Expert FFN for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces the Pallas TPU kernel `_ffn_kernel` of
 // scripts/debug_moe_pallas_ffn.py (launched by `pallas_expert_ffn`). It
@@ -10,51 +10,59 @@
 // for x [E, C, D], wi [E, D, F], wo [E, F, D], optional bi [E, F] and
 // bo [E, D] (no biases is the TPU kernel's own contract), out [E, C, D].
 // Products accumulate in f32; the bias, the tanh-gelu and the output bias
-// are f32; the hidden is rounded to the input type before the second
-// product (as the TPU kernel does) and the result once to the output type.
-//
-// The point of the kernel: the [C, F] hidden never goes to device memory.
-// A block owns one (expert, tile of BM capacity rows) and walks the hidden
-// dimension F in chunks of BF columns. For each chunk it computes the
-// [BM, BF] hidden slice into shared memory (bf16) and adds its product with
-// the matching BF rows of wo into the block's [BM, D] output accumulator.
-//
-// What differs from the TPU kernel, and why:
-// - The TPU keeps a whole [D, F] and [F, D] weight pair of one expert in
-//   VMEM and runs a 512-row capacity block against it. No Hopper block can
-//   hold that (227 KB of shared memory), so the weights stream through
-//   shared memory chunk by chunk, once per block, and are re-read from L2
-//   by every capacity tile of the expert.
-// - The output accumulator [BM, D] f32 lives in registers. At BM = 64 it
-//   would be 128 KB at D = 512 and 192 KB at D = 768, more than a block's
-//   register file. So the capacity tile shrinks as D grows: BM = 64 for
-//   D <= 256, 32 for D <= 512, 16 for D <= 1024, which keeps the
-//   accumulator at 64 f32 registers per thread (8 warps, each owning an
-//   interleaved set of the output's n8 column tiles). The cost is weight
-//   traffic from L2: each expert's weights are read C / BM times.
-// - The capacity dimension need not divide BM: rows past C load as zeros
-//   and are not stored.
-// - wi's chunk and wo's chunk share one shared-memory buffer, in turn.
+// are f32; the hidden is rounded to the input type once, after the gelu,
+// before the second product (as the TPU kernel does) and the result once
+// to the output type.
 //
 // What bounds it: at the MoE main path's shape (E 8, C 5120, D 512, F 1024)
 // the function does 4 E C D F = 86 GFLOP on 101 MB, ~850 FLOP per byte, so
-// the card's bound is the arithmetic (0.087 ms at 989 TFLOP/s). Two
-// kernels, one per input type:
-// - bf16: both products on the tensor cores with warp-level mma.sync
-//   m16n8k16 (bf16 in, f32 accumulate); A fragments through ldmatrix, B
-//   fragments from row-major shared memory through ldmatrix.trans. Tile
-//   loads are synchronous 16-byte copies (no cp.async/TMA pipeline, no
-//   wgmma): later work.
-// - f32: the same arithmetic on the CUDA cores (16-row tiles, 16-column
-//   hidden chunks), for the card-vs-CPU parity runs.
+// the card's bound is the arithmetic (0.087 ms at 989 TFLOP/s).
+//
+// Design (bf16): two launches of one hand-written grouped GEMM, each with a
+// fused epilogue,
+//   1. hidden[e] = bf16(gelu_tanh(x[e] . wi[e] + bi[e]))  into [E, C, F],
+//   2. out[e]    = bf16(hidden[e] . wo[e] + bo[e]),
+// where the TPU kernel keeps the [C, F] hidden on chip. Why the hidden goes
+// through device memory here: the TPU holds a whole expert's weights in
+// VMEM and a 512-row block's [512, D] accumulator beside them. On Hopper a
+// [BM, D] f32 accumulator big enough to stop the weights being re-read
+// does not fit a block's registers (128 rows x 512 = 256 KB, the whole
+// register file), and shrinking the row tile to fit (as the first version
+// did: 32 rows at D 512, 16 at D 768) makes every tile re-read its
+// expert's weights from L2: 2.7 GB at the main shape, 6 GB at the probe's.
+// The hidden's round trip costs 2 x 84 MB at the main shape, ~0.05 ms at
+// 3.35 TB/s, far less.
+//
+// The GEMM, C[e] (M x N) = A[e] (M x K, K contiguous) . B[e] (K x N, N
+// contiguous), in 128 x 128 output tiles of one expert each, walked by
+// persistent blocks (one per SM):
+// - a producer warpgroup (one thread issues TMA loads; the warpgroup gives
+//   its registers away with setmaxnreg) and two consumer warpgroups of 64
+//   rows each;
+// - a ring of 4 shared-memory stages of 64-deep k-steps, loaded by TMA from
+//   3-D tensor maps (inner, rows, expert), so that no tile crosses an
+//   expert and ragged edges (C, or F and D not multiples of the tile) load
+//   as zeros; completion and release through mbarriers;
+// - wgmma m64n128k16 from shared memory: A K-major, B (wi and wo are both
+//   N-contiguous) MN-major, 128-byte swizzle; one k-step's products stay in
+//   flight while the next is issued, and a stage goes back to the producer
+//   once the products reading it have retired;
+// - the epilogue adds the bias in f32 (and the tanh-gelu for the hidden),
+//   rounds once to bf16 and stores rows below C and columns below N only.
+//
+// f32: the fused arithmetic on the CUDA cores (16-row tiles, 16-column
+// hidden chunks, the hidden in shared memory), for the card-vs-CPU parity
+// runs.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libexpert_ffn.so expert_ffn.cu
+//        -Xcompiler -fPIC -o libexpert_ffn.so expert_ffn.cu -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -68,281 +76,190 @@ __device__ __forceinline__ float gelu_tanh(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16)
+// bf16: grouped GEMM with TMA, mbarriers and wgmma
 // ---------------------------------------------------------------------------
 namespace tc {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int BM = 128;          // rows per tile: 64 per consumer
+constexpr int BN = 128;          // output columns per tile
+constexpr int BK = 64;           // k per stage: one 128-byte atom of A
+constexpr int STAGES = 4;
+constexpr int GTHREADS = 384;    // producer warpgroup + two consumers
+constexpr uint32_t A_BYTES = BM * BK * 2;  // [BM][64]
+constexpr uint32_t B_BYTES = BK * BN * 2;  // two boxes of [64 k][64 n]
+constexpr size_t SMEM = 1024 + STAGES * (size_t)(A_BYTES + B_BYTES) + 64;
 
-__device__ __forceinline__ uint32_t smem_addr(const bf16* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+enum Epilogue { GELU_HIDDEN = 0, BIAS_OUT = 1 };
 
-// A fragment of a 16 x 16 tile of a row-major [m][k] array: lane l gives
-// the address of row (l & 15), column 8 (l >> 4)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const bf16* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(row)));
-}
+// Persistent: block g takes output tiles g, g + G, ... (G blocks, at most
+// one per SM), numbered n-tile fastest, then row tile, then expert, so
+// neighbouring blocks share an x (or hidden) row tile and every tile of an
+// expert reads the same weights from L2. The producer runs ahead across
+// tiles: the next tile's first k-steps load during this tile's epilogue.
+template <int EPI>
+__global__ void __launch_bounds__(GTHREADS, 1)
+    grouped_gemm(const __grid_constant__ CUtensorMap a_map,
+                 const __grid_constant__ CUtensorMap b_map,
+                 const bf16* __restrict__ bias, bf16* __restrict__ c,
+                 int experts, int m, int n, int k) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_1024(smem_raw);
+  bf16* a_s = reinterpret_cast<bf16*>(base);  // STAGES x [BM][BK]
+  bf16* b_s = a_s + STAGES * BM * BK;         // STAGES x 2 x [BK][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_s + STAGES * BK * BN);
+  uint64_t* empty = full + STAGES;
 
-// B fragment (k16 x n8) of a row-major [k][n] array: lanes 0-15 give the
-// addresses of rows k0 .. k0 + 15 at column n0
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const bf16* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r0), "=r"(r1)
-      : "r"(smem_addr(row)));
-}
+  const int n_tiles = (n + BN - 1) / BN;
+  const int m_tiles = (m + BM - 1) / BM;
+  const int tiles = n_tiles * m_tiles * experts;
+  const int k_steps = (k + BK - 1) / BK;
 
-// B fragments of two neighbouring n8 tiles (n0, n0 + 8): lane l gives the
-// address of row k0 + (l & 15), column n0 + 8 (l >> 4); r[0], r[1] belong to
-// the first tile, r[2], r[3] to the second
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(row)));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// MT: m16 tiles of capacity rows per block (BM = 16 MT); NTW: n8 tiles of
-// the output per warp (D <= 64 NTW); BF: hidden columns per chunk.
-template <int MT, int NTW, int BF>
-struct Cfg {
-  static constexpr int BM = 16 * MT;
-  static constexpr int H_TILES = MT * (BF / 8);  // m16n8 tiles of a chunk
-  static constexpr int TPW = H_TILES / WARPS;    // of them per warp
-  static constexpr int HS = BF + 8;              // row stride of h
-  static constexpr int WIS = BF + 8;             // row stride of wi's chunk
-  static_assert(H_TILES % WARPS == 0, "hidden tiles must split over warps");
-  static_assert(NTW % 2 == 0, "output tiles go in pairs");
-  static_assert(BF % 16 == 0, "a chunk is whole k16 steps");
-
-  // Row strides of D + 8 (and BF + 8) elements: rows start 16-byte aligned,
-  // and with D a multiple of 16 consecutive rows fall 16 bytes apart modulo
-  // 128, so ldmatrix's eight row reads hit distinct banks.
-  __host__ __device__ static size_t w_elems(int d) {
-    const size_t wi = (size_t)d * WIS;
-    const size_t wo = (size_t)BF * (d + 8);
-    return wi > wo ? wi : wo;
-  }
-  static size_t smem_bytes(int d) {
-    return ((size_t)BM * (d + 8) + w_elems(d) + (size_t)BM * HS) *
-           sizeof(bf16);
-  }
-};
-
-template <int MT, int NTW, int BF>
-__global__ void __launch_bounds__(THREADS)
-    expert_ffn_tc(const bf16* __restrict__ x, const bf16* __restrict__ wi,
-                  const bf16* __restrict__ wo, const bf16* __restrict__ bi,
-                  const bf16* __restrict__ bo, bf16* __restrict__ out,
-                  int cap, int d, int f) {
-  using C = Cfg<MT, NTW, BF>;
-  constexpr int BM = C::BM;
-  constexpr int HS = C::HS;
-  constexpr int WIS = C::WIS;
-  constexpr int BV = BF / 8;  // 16-byte vectors per row of wi's chunk
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int xs = d + 8;   // row stride of the x tile
-  const int wos = d + 8;  // row stride of wo's chunk
-  bf16* x_s = reinterpret_cast<bf16*>(smem_raw);  // [BM][xs]
-  bf16* w_s = x_s + (size_t)BM * xs;  // wi chunk [d][WIS] / wo chunk [BF][wos]
-  bf16* h_s = w_s + C::w_elems(d);    // [BM][HS]
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, tg = lane & 3;  // mma group and thread-in-group
-  const int e = blockIdx.y;
-  const int c0 = blockIdx.x * BM;
-  const bf16* xe = x + (size_t)e * cap * d;
-  const bf16* wie = wi + (size_t)e * d * f;
-  const bf16* woe = wo + (size_t)e * f * d;
-  const bf16* bie = bi == nullptr ? nullptr : bi + (size_t)e * f;
-  const bf16* boe = bo == nullptr ? nullptr : bo + (size_t)e * d;
-  const int dv = d / 8;           // 16-byte vectors per row of x / wo
-  const int n_tiles = d / 8;      // n8 tiles of the output
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  // the x tile, once; rows past the capacity are zeros
-  for (int i = tid; i < BM * dv; i += THREADS) {
-    const int r = i / dv, c = (i % dv) * 8;
-    uint4 v = zero;
-    if (c0 + r < cap)
-      v = *reinterpret_cast<const uint4*>(xe + (size_t)(c0 + r) * d + c);
-    *reinterpret_cast<uint4*>(x_s + r * xs + c) = v;
-  }
-
-  float acc[MT][NTW][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < NTW; ++n)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[m][n][q] = 0.f;
-
-  for (int f0 = 0; f0 < f; f0 += BF) {
-    __syncthreads();  // x_s written; the last chunk's products are done
-    // wi[:, f0 : f0 + BF] (columns past F are zeros)
-    for (int i = tid; i < d * BV; i += THREADS) {
-      const int r = i / BV, c = (i % BV) * 8;
-      uint4 v = zero;
-      if (f0 + c < f)
-        v = *reinterpret_cast<const uint4*>(wie + (size_t)r * f + f0 + c);
-      *reinterpret_cast<uint4*>(w_s + r * WIS + c) = v;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);
     }
-    __syncthreads();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // h = gelu(x . wi + bi) for this chunk, into shared memory as bf16
-#pragma unroll
-    for (int i = 0; i < C::TPW; ++i) {
-      const int t = warp + WARPS * i;
-      const int mt = t / (BF / 8), nt = t % (BF / 8);
-      float hacc[4] = {0.f, 0.f, 0.f, 0.f};
-      const bf16* arow = x_s + (mt * 16 + (lane & 15)) * xs + (lane >> 4) * 8;
-      const bf16* brow = w_s + (lane & 15) * WIS + nt * 8;
-      for (int kk = 0; kk < d / 16; ++kk) {
-        uint32_t a[4], b0, b1;
-        ldmatrix_x4(a, arow + kk * 16);
-        ldmatrix_x2_trans(b0, b1, brow + kk * 16 * WIS);
-        mma(hacc, a, b0, b1);
+  if (threadIdx.x < 128) {
+    // ---- producer ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;  // k-steps loaded so far: stage it % STAGES
+      for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
+        const int n0 = (w % n_tiles) * BN;
+        const int m0 = (w / n_tiles % m_tiles) * BM;
+        const int e = w / (n_tiles * m_tiles);
+        for (int i = 0; i < k_steps; ++i, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], A_BYTES + B_BYTES);
+          bf16* bs = b_s + s * BK * BN;
+          tma_load_3d(a_s + s * BM * BK, &a_map, &full[s], i * BK, m0, e);
+          tma_load_3d(bs, &b_map, &full[s], n0, i * BK, e);
+          tma_load_3d(bs + BK * 64, &b_map, &full[s], n0 + 64, i * BK, e);
+        }
       }
-      const int col = nt * 8 + tg * 2;  // column within the chunk
-      float blo = 0.f, bhi = 0.f;
-      if (bie != nullptr && f0 + col < f) {
-        blo = __bfloat162float(bie[f0 + col]);
-        bhi = __bfloat162float(bie[f0 + col + 1]);
+    }
+  } else {
+    // ---- consumers: 64 rows x 128 columns each ----
+    setmaxnreg_inc<232>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    int it = 0;  // k-steps consumed so far
+    for (int w = blockIdx.x; w < tiles; w += gridDim.x) {
+      const int n0 = (w % n_tiles) * BN;
+      const int m0 = (w / n_tiles % m_tiles) * BM;
+      const int e = w / (n_tiles * m_tiles);
+      float acc[BN / 2];
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+
+      for (int i = 0; i < k_steps; ++i, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const bf16* as = a_s + s * BM * BK + cw * 64 * BK;
+        const bf16* bs = b_s + s * BK * BN;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_ss<BN, 1>(acc, desc_k_major<128>(as + kk * 16),
+                          desc_mn_major<128>(bs + kk * 16 * 64,
+                                             BK * 64 * 2),
+                          1);
+        wgmma_commit();
+        // the previous k-step's products have retired: release its stage
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if (i > 0) mbar_arrive(&empty[(it - 1) % STAGES]);
       }
-      const int r0 = mt * 16 + g;
-      *reinterpret_cast<uint32_t*>(h_s + r0 * HS + col) =
-          pack(gelu_tanh(hacc[0] + blo), gelu_tanh(hacc[1] + bhi));
-      *reinterpret_cast<uint32_t*>(h_s + (r0 + 8) * HS + col) =
-          pack(gelu_tanh(hacc[2] + blo), gelu_tanh(hacc[3] + bhi));
-    }
-    __syncthreads();  // h written; every warp is done with wi's chunk
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[(it - 1) % STAGES]);
 
-    // wo[f0 : f0 + BF, :] (rows past F are zeros)
-    for (int i = tid; i < BF * dv; i += THREADS) {
-      const int r = i / dv, c = (i % dv) * 8;
-      uint4 v = zero;
-      if (f0 + r < f)
-        v = *reinterpret_cast<const uint4*>(woe + (size_t)(f0 + r) * d + c);
-      *reinterpret_cast<uint4*>(w_s + r * wos + c) = v;
-    }
-    __syncthreads();
-
-    // acc += h . wo[f0 : f0 + BF, :]; this warp's output column tiles are
-    // the pairs (2 pp, 2 pp + 1) with pp = p WARPS + warp
+      // epilogue: f32 bias (+ gelu), one rounding to bf16, ragged edges cut
+      const int row0 = m0 + cw * 64 + warp * 16 + (lane >> 2);
+      const bf16* be = bias == nullptr ? nullptr : bias + (size_t)e * n;
+      bf16* ce = c + (size_t)e * m * n;
 #pragma unroll
-    for (int kk = 0; kk < BF / 16; ++kk) {
-      uint32_t a[MT][4];
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + j * 8 + (lane & 3) * 2;  // n even: col + 1 too
+        if (col >= n) continue;
+        float b0 = 0.f, b1 = 0.f;
+        if (be != nullptr) {
+          b0 = __bfloat162float(be[col]);
+          b1 = __bfloat162float(be[col + 1]);
+        }
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
-        ldmatrix_x4(a[m], h_s + (m * 16 + (lane & 15)) * HS + kk * 16 +
-                              (lane >> 4) * 8);
-#pragma unroll
-      for (int p = 0; p < NTW / 2; ++p) {
-        const int pp = p * WARPS + warp;
-        if (2 * pp < n_tiles) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, w_s + (kk * 16 + (lane & 15)) * wos + pp * 16 +
-                                   (lane >> 4) * 8);
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            mma(acc[m][2 * p], a[m], b[0], b[1]);
-            mma(acc[m][2 * p + 1], a[m], b[2], b[3]);
+        for (int half = 0; half < 2; ++half) {
+          const int row = row0 + 8 * half;
+          if (row >= m) continue;
+          float v0 = acc[4 * j + 2 * half] + b0;
+          float v1 = acc[4 * j + 2 * half + 1] + b1;
+          if (EPI == GELU_HIDDEN) {
+            v0 = gelu_tanh(v0);
+            v1 = gelu_tanh(v1);
           }
+          *reinterpret_cast<uint32_t*>(ce + (size_t)row * n + col) =
+              pack_bf16(v0, v1);
         }
       }
     }
   }
-
-  // out = acc + bo, rows below the capacity only
-  bf16* oe = out + (size_t)e * cap * d;
-#pragma unroll
-  for (int p = 0; p < NTW / 2; ++p) {
-    const int pp = p * WARPS + warp;
-    if (2 * pp >= n_tiles) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int col = (2 * pp + half) * 8 + tg * 2;
-      float blo = 0.f, bhi = 0.f;
-      if (boe != nullptr) {
-        blo = __bfloat162float(boe[col]);
-        bhi = __bfloat162float(boe[col + 1]);
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const int n = 2 * p + half;
-        const int r0 = c0 + m * 16 + g;
-        if (r0 < cap)
-          *reinterpret_cast<uint32_t*>(oe + (size_t)r0 * d + col) =
-              pack(acc[m][n][0] + blo, acc[m][n][1] + bhi);
-        if (r0 + 8 < cap)
-          *reinterpret_cast<uint32_t*>(oe + (size_t)(r0 + 8) * d + col) =
-              pack(acc[m][n][2] + blo, acc[m][n][3] + bhi);
-      }
-    }
-  }
 }
 
-template <int MT, int NTW, int BF>
-cudaError_t launch(const void* x, const void* wi, const void* wo,
-                   const void* bi, const void* bo, void* out, int experts,
-                   int cap, int d, int f, cudaStream_t stream) {
-  using C = Cfg<MT, NTW, BF>;
-  const size_t smem = C::smem_bytes(d);
+// a 3-D map over [experts, rows, inner] bf16 with boxes of
+// [box_rows][64] (one 128-byte atom of the inner dimension)
+bool map_3d(CUtensorMap* map, const void* p, int experts, int rows,
+            int inner, int box_rows) {
+  const uint64_t dims[3] = {(uint64_t)inner, (uint64_t)rows,
+                            (uint64_t)experts};
+  const uint64_t strides[2] = {(uint64_t)inner * 2,
+                               (uint64_t)rows * inner * 2};
+  const uint32_t box[3] = {64u, (uint32_t)box_rows, 1u};
+  return encode_map(map, p, 3, dims, strides, box, 128);
+}
+
+template <int EPI>
+cudaError_t gemm(const CUtensorMap& a_map, const CUtensorMap& b_map,
+                 const void* bias, void* c, int experts, int m, int n, int k,
+                 cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      expert_ffn_tc<MT, NTW, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      grouped_gemm<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((cap + C::BM - 1) / C::BM, experts);
-  expert_ffn_tc<MT, NTW, BF><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wi),
-      static_cast<const bf16*>(wo), static_cast<const bf16*>(bi),
-      static_cast<const bf16*>(bo), static_cast<bf16*>(out), cap, d, f);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((n + BN - 1) / BN) * ((m + BM - 1) / BM) * experts;
+  grouped_gemm<EPI><<<min(tiles, sms), GTHREADS, SMEM, stream>>>(
+      a_map, b_map, static_cast<const bf16*>(bias), static_cast<bf16*>(c),
+      experts, m, n, k);
   return cudaGetLastError();
 }
 
-// the capacity rows per block at model width d (0: d not taken)
-int rows(int d) {
-  if (d <= 256) return Cfg<4, 4, 32>::BM;
-  if (d <= 512) return Cfg<2, 8, 32>::BM;
-  if (d <= D_MAX) return Cfg<1, 16, 64>::BM;
-  return 0;
-}
-
-cudaError_t launch_for(int d, const void* x, const void* wi, const void* wo,
-                       const void* bi, const void* bo, void* out, int experts,
-                       int cap, int f, cudaStream_t s) {
-  if (d <= 256) return launch<4, 4, 32>(x, wi, wo, bi, bo, out, experts, cap,
-                                        d, f, s);
-  if (d <= 512) return launch<2, 8, 32>(x, wi, wo, bi, bo, out, experts, cap,
-                                        d, f, s);
-  if (d <= D_MAX) return launch<1, 16, 64>(x, wi, wo, bi, bo, out, experts,
-                                           cap, d, f, s);
-  return cudaErrorInvalidValue;
+cudaError_t launch(const void* x, const void* wi, const void* wo,
+                   const void* bi, const void* bo, void* hidden, void* out,
+                   int experts, int cap, int d, int f, cudaStream_t stream) {
+  CUtensorMap x_map, wi_map, h_map, wo_map;
+  if (!map_3d(&x_map, x, experts, cap, d, BM) ||
+      !map_3d(&wi_map, wi, experts, d, f, BK) ||
+      !map_3d(&h_map, hidden, experts, cap, f, BM) ||
+      !map_3d(&wo_map, wo, experts, f, d, BK))
+    return cudaErrorInvalidValue;
+  cudaError_t err = gemm<GELU_HIDDEN>(x_map, wi_map, bi, hidden, experts,
+                                      cap, f, d, stream);
+  if (err != cudaSuccess) return err;
+  return gemm<BIAS_OUT>(h_map, wo_map, bo, out, experts, cap, d, f, stream);
 }
 
 }  // namespace tc
@@ -463,27 +380,32 @@ cudaError_t launch(const void* x, const void* wi, const void* wo,
 extern "C" {
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores; x, wi, wo
-// and out 16-byte aligned). bi / bo may be null. D and F multiples of 16,
-// D <= 1024. Returns the cudaError_t of the launch (0 on success).
-// Launches on `stream`, allocates nothing, does not sync.
+// and hidden 16-byte aligned). bi / bo may be null. `hidden` is the bf16
+// arm's [E, C, F] scratch for the hidden (the caller allocates it; the f32
+// arm ignores it). D and F multiples of 16, D <= 1024. Returns the
+// cudaError_t of the first launch that fails (0 on success). Launches on
+// `stream`, allocates nothing, does not sync.
 int pdt_expert_ffn(const void* x, const void* wi, const void* wo,
-                   const void* bi, const void* bo, void* out, int experts,
-                   int cap, int d, int f, int dtype, void* stream) {
+                   const void* bi, const void* bo, void* hidden, void* out,
+                   int experts, int cap, int d, int f, int dtype,
+                   void* stream) {
   if (experts <= 0 || cap <= 0 || d <= 0 || f <= 0 || d % 16 != 0 ||
       f % 16 != 0 || d > D_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)f32::launch(x, wi, wo, bi, bo, out, experts, cap, d, f, s);
-  if (dtype == 1)
-    return (int)tc::launch_for(d, x, wi, wo, bi, bo, out, experts, cap, f, s);
+  if (dtype == 1 && hidden != nullptr)
+    return (int)tc::launch(x, wi, wo, bi, bo, hidden, out, experts, cap, d,
+                           f, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// capacity rows per block of the kernel for (d, dtype); 0 if not taken
+// capacity rows per block (per tile) of the kernel for (d, dtype); 0 if
+// not taken
 int pdt_expert_ffn_rows(int d, int dtype) {
   if (d <= 0 || d % 16 != 0 || d > D_MAX) return 0;
-  return dtype == 1 ? tc::rows(d) : f32::BM;
+  return dtype == 1 ? tc::BM : f32::BM;
 }
 
 const char* pdt_expert_ffn_error_string(int err) {

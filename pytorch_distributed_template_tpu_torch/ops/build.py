@@ -3,10 +3,14 @@ with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exports a plain C interface and becomes one shared
 library ``build/kernels/lib<name>-<digest>.so`` beside the package (the
-digest is the source's sha256, so an edited source is rebuilt and a stale
-library is never loaded). Nothing is built when a module is imported: the
-first launch builds, or a caller builds every library at once with
-:func:`build_all`, which starts one ``nvcc`` per source in parallel.
+digest is the sha256 of the source and of every ``csrc`` header it
+includes, directly or through another header, so an edited source or
+header is rebuilt and a stale library is never loaded). The libraries link
+the driver library (``-lcuda``) for ``cuTensorMapEncodeTiled``, which
+builds the TMA tensor maps of the Hopper kernels. Nothing is built when a
+module is imported: the first launch builds, or a caller builds every
+library at once with :func:`build_all`, which starts one ``nvcc`` per
+source in parallel.
 
 Each :class:`CudaLibrary` also carries the launch count of its kernel: the
 wrapper that launches it adds one per launch, so a run can show that its
@@ -19,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -31,6 +36,9 @@ BUILD_DIR = PACKAGE.parent / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v"]
+# after the source: the linker drops a library named before its users
+LINK_FLAGS = ["-lcuda"]
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 #: every library the package defines, in definition order
 LIBRARIES: list["CudaLibrary"] = []
@@ -48,6 +56,30 @@ def nvcc_path() -> str:
             "nvcc not found: the port's CUDA kernels are built on the "
             "machine with the card (set CUDA_HOME to the toolkit)")
     return found
+
+
+def local_includes(source: Path) -> list[Path]:
+    """The headers that ``source`` includes with quotes (resolved against
+    the including file's directory), directly or through each other,
+    sorted, each once."""
+    seen, todo = set(), [source]
+    while todo:
+        including = todo.pop()
+        for name in _INCLUDE.findall(including.read_text(errors="replace")):
+            path = (including.parent / name).resolve()
+            if path.is_file() and path not in seen:
+                seen.add(path)
+                todo.append(path)
+    return sorted(seen)
+
+
+def source_digest(source: Path) -> str:
+    """sha256 (16 hex digits) of ``source`` and its local headers."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in local_includes(source):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return h.hexdigest()[:16]
 
 
 class Kernel:
@@ -80,8 +112,7 @@ class CudaLibrary:
 
     @property
     def path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+        return BUILD_DIR / f"lib{self.name}-{source_digest(self.source)}.so"
 
     def _start_build(self):
         """Start ``nvcc`` for this source; None when already built."""
@@ -90,7 +121,8 @@ class CudaLibrary:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source),
+               *LINK_FLAGS]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         return proc, tmp, out, time.perf_counter()

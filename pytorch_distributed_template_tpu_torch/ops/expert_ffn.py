@@ -14,10 +14,15 @@ contract exactly). Products accumulate in float32, the biases and the
 tanh-gelu are float32, the hidden is rounded to the input dtype before the
 second product and the result once to the input dtype.
 
-For a CUDA tensor :func:`expert_ffn` launches the kernel
-(``csrc/expert_ffn.cu``: bf16 on the tensor cores, float32 on the CUDA
-cores; the ``[C, F]`` hidden never goes to device memory) or raises; for a
-CPU tensor it runs :func:`expert_ffn_ref`. There is no fallback.
+For a CUDA tensor :func:`expert_ffn` launches the kernel or raises; for a
+CPU tensor it runs :func:`expert_ffn_ref`. There is no fallback. The kernel
+(``csrc/expert_ffn.cu``) is, in bf16, two launches of one hand-written
+grouped GEMM for Hopper (TMA, mbarriers, wgmma): the first writes the
+hidden ``bf16(gelu(x wi + bi))`` into an ``[E, C, F]`` scratch that the
+wrapper allocates, the second ``hidden wo + bo``. Unlike the TPU kernel the
+hidden goes through device memory: an accumulator big enough to stop the
+weights being re-read per row tile does not fit a block's registers (see
+the source note). In float32 it is one fused launch on the CUDA cores.
 
 It is differentiable through :class:`ExpertFFN`: the forward is the kernel
 (or the plain version), the backward recomputes the hidden and takes the
@@ -41,7 +46,7 @@ _GELU_C = math.sqrt(2.0 / math.pi)
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pdt_expert_ffn.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.pdt_expert_ffn.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
     lib.pdt_expert_ffn.restype = i32
     lib.pdt_expert_ffn_rows.argtypes = [i32, i32]
     lib.pdt_expert_ffn_rows.restype = i32
@@ -49,7 +54,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pdt_expert_ffn_error_string.restype = ctypes.c_char_p
 
 
-#: the B5 kernel library; ``EXPERT_FFN.launches`` counts its launches
+#: the B5 kernel library; ``EXPERT_FFN.launches`` counts its calls, one
+#: per forward (the bf16 arm's two GEMM launches count once)
 EXPERT_FFN = CudaLibrary("expert_ffn", _declare)
 
 
@@ -86,7 +92,8 @@ def expert_ffn_ref(x, wi, wo, bi=None, bo=None):
 
 
 def _expert_ffn_cuda(x, wi, wo, bi, bo):
-    """Launch the B5 kernel on PyTorch's current stream."""
+    """Launch the B5 kernel on PyTorch's current stream (bf16: its two
+    GEMMs, through a hidden scratch allocated here)."""
     dtype = x.dtype
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"expert_ffn kernel takes float32 or bfloat16, got "
@@ -110,17 +117,20 @@ def _expert_ffn_cuda(x, wi, wo, bi, bo):
                          f"{tuple(x.shape)}")
     if dtype == torch.bfloat16 and any(t.data_ptr() % 16
                                        for t in (x, wi, wo)):
-        raise ValueError("expert_ffn's bf16 kernel reads 16-byte vectors: "
-                         "x, wi and wo must start 16-byte aligned")
+        raise ValueError("expert_ffn's bf16 kernel loads x, wi and wo by "
+                         "TMA: they must start 16-byte aligned")
     lib = EXPERT_FFN.load()
     out = torch.empty_like(x)
+    hidden = (torch.empty((e, c, f), dtype=dtype, device=x.device)
+              if dtype == torch.bfloat16 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         EXPERT_FFN.launches += 1
         err = lib.pdt_expert_ffn(
             x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
             None if bi is None else bi.data_ptr(),
-            None if bo is None else bo.data_ptr(), out.data_ptr(),
+            None if bo is None else bo.data_ptr(),
+            None if hidden is None else hidden.data_ptr(), out.data_ptr(),
             e, c, d, f, _DTYPE_CODES[dtype], stream)
     if err != 0:
         raise RuntimeError(

@@ -4,7 +4,10 @@ hand-written CUDA kernels and their plain versions.
 Counterpart of ``pytorch_distributed_template_tpu/ops/flash.py``
 (``flash_attention``, ``flash_attention_lse`` and their ``custom_vjp``).
 The forward kernel (``csrc/flash_fwd.cu``, replacing the Pallas
-``_fwd_kernel``) and the two backward kernels (``csrc/flash_bwd.cu``:
+``_fwd_kernel``; in bf16 a Hopper kernel with TMA loads into a ring of
+shared-memory stages, mbarriers, wgmma and a producer warpgroup feeding two
+consumer warpgroups, in float32 a CUDA-core kernel) and the two backward
+kernels (``csrc/flash_bwd.cu``:
 ``flash_bwd_dkv`` replacing ``_bwd_dkv_kernel``, ``flash_bwd_dq`` replacing
 ``_bwd_dq_kernel``; bf16 on the tensor cores, float32 on the CUDA cores)
 run for tensors on a CUDA device; ``flash_attention_ref`` and
@@ -134,8 +137,8 @@ def _flash_fwd_cuda(q, k, v, causal: bool, window: int):
         raise ValueError(f"window must be >= 0, got {window}")
     if dtype == torch.bfloat16 and any(x.data_ptr() % 16
                                        for x in (q, k, v)):
-        raise ValueError("flash_fwd's bf16 kernel reads 16-byte vectors: "
-                         "q, k, v must start 16-byte aligned")
+        raise ValueError("flash_fwd's bf16 kernel loads q, k, v by TMA: "
+                         "they must start 16-byte aligned")
     lib = FLASH_FWD.load()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)

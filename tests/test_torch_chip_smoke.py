@@ -244,3 +244,27 @@ def test_moe_config_is_the_repositorys_own():
         "moelm_stdlib.json"
     assert dict(chip_smoke.MOE_SETS) == {"trainer;epochs": 2,
                                          "trainer;save_period": 1}
+
+
+def test_ptxas_report_names_each_kernels_spills_and_registers():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__b96386b7"
+        "_12_flash_fwd_cu_ccad3abb2tc15flash_fwd_wgmmaILi128EEEv14CUtensor"
+        "Map_st' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN45_GLOBAL__N__b96386b7_"
+        "12_flash_fwd_cu_ccad3abb2tc15flash_fwd_wgmmaILi128EEEv14CUtensorM"
+        "ap_st",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 16 barriers",
+        "ptxas info    : (C7514) Potential Performance Loss: wgmma.mma_async"
+        " instructions are serialized",
+        "ptxas info    : Compile time = 812.345 ms",
+    ])
+    assert chip_smoke.ptxas_report(log) == [
+        "2tc15flash_fwd_wgmmaILi128EE: 0 bytes stack frame, 0 bytes spill "
+        "stores, 0 bytes spill loads",
+        "2tc15flash_fwd_wgmmaILi128EE: ptxas info    : Used 168 registers, "
+        "used 16 barriers",
+        "ptxas info    : (C7514) Potential Performance Loss: wgmma.mma_async"
+        " instructions are serialized",
+    ]

@@ -88,3 +88,22 @@ def test_bound_counts_visible_keys():
                                           2, 989e12, 3.35e12)
     assert by == "operations"
     assert secs == pytest.approx(4 * 32 * 128 * (1024 * 1025 // 2) / 989e12)
+
+
+@pytest.mark.parametrize("t, causal, window", [
+    (1, True, 0), (1024, True, 0), (1000, True, 100), (6144, True, 4096),
+    (300, False, 77), (257, False, 0),
+])
+def test_phase_profile_counts_the_tiles_the_kernel_walks(t, causal,
+                                                         window):
+    """The B1 phase tool's per-tile normalisation: the kernel walks, per
+    (batch, head), exactly the 128 x 128 blocks of the score matrix that
+    hold a visible key."""
+    from pytorch_distributed_template_tpu_torch.tools import flash_fwd_phases
+
+    tile = flash_fwd_phases.BQ
+    n = -(-t // tile)
+    mask = tflash.visible_mask(t, t, causal, window)
+    mask = torch.nn.functional.pad(mask, (0, n * tile - t, 0, n * tile - t))
+    blocks = mask.reshape(n, tile, n, tile).any(dim=3).any(dim=1)
+    assert flash_fwd_phases.kv_tiles(t, causal, window) == int(blocks.sum())

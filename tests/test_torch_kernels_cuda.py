@@ -10,7 +10,10 @@ B1 (``csrc/flash_fwd.cu``) is held against ``flash_attention_ref``, B5
 (``csrc/expert_ffn.cu``) against ``expert_ffn_ref`` and B4
 (``csrc/paged_attn.cu``, both its single-block and its split-over-pages
 arms) against ``paged_attention_ref``, valid query lanes only (pad lanes
-must be exactly 0).
+must be exactly 0). Before them, one-tile probes (``csrc/wgmma_probe.cu``)
+hold each wgmma operand layout that B1 and B5 use (K-major and MN-major,
+64- and 128-byte swizzle, A from shared memory or registers) against
+``torch.matmul``.
 
 Tolerances: against the plain version computed in float32 from the same
 inputs. bfloat16: ``|out - ref| <= 1e-2 + 1.6e-2 |ref|`` (torch.testing's
@@ -19,10 +22,12 @@ tensor-core kernel rounds the probabilities to bf16 for P.V (2^-9
 relative each). float32 outputs (CUDA cores) and lse (f32 sums of exact
 bf16 products) differ by summation order only.
 """
+import ctypes
+
 import pytest
 import torch
 
-from pytorch_distributed_template_tpu_torch.ops import flash
+from pytorch_distributed_template_tpu_torch.ops import build, flash
 
 pytestmark = pytest.mark.cuda
 TOL_OUT = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-2, 1.6e-2)}
@@ -47,6 +52,48 @@ def _qkv(device, b, t, h, kvh, d, dtype, seed):
     return rnd(h), rnd(kvh), rnd(kvh)
 
 
+# ---------------------------------------------------------------------------
+# wgmma operand layouts: one tile through the kernels' descriptors
+# ---------------------------------------------------------------------------
+
+
+def _declare_probe(lib):
+    ptr = ctypes.c_void_p
+    lib.pdt_wgmma_probe.argtypes = [ctypes.c_int, ptr, ptr, ptr, ptr]
+    lib.pdt_wgmma_probe.restype = ctypes.c_int
+
+
+#: the probe library (tests only; not a kernel of any path)
+WGMMA_PROBE = build.CudaLibrary("wgmma_probe", _declare_probe)
+# id: (N, K, B MN-major): the table of csrc/wgmma_probe.cu
+PROBES = {0: (128, 128, False), 1: (128, 64, False), 2: (128, 32, False),
+          3: (128, 64, True), 4: (128, 128, True), 5: (64, 128, True),
+          6: (32, 128, True)}
+PROBE_IDS = ["scores_d128", "scores_d64", "scores_d32_sw64", "ffn_kstep",
+             "pv_d128_rs", "pv_d64_rs", "pv_d32_rs_sw64"]
+
+
+@pytest.mark.parametrize("probe", sorted(PROBES), ids=PROBE_IDS)
+def test_wgmma_descriptor_probe_matches_matmul(cuda, probe):
+    """C = A B on one 64-row tile through TMA, the shared-memory
+    descriptors and the wgmma wrappers of csrc/hopper.cuh. bf16 products
+    are exact in f32, so only the summation order differs."""
+    n, k, b_mn = PROBES[probe]
+    gen = torch.Generator(device=cuda).manual_seed(probe)
+    a = torch.randn(64, k, generator=gen, device=cuda).bfloat16()
+    b = torch.randn(k, n, generator=gen, device=cuda).bfloat16()
+    b_stored = b.contiguous() if b_mn else b.t().contiguous()
+    c = torch.full((64, n), float("nan"), device=cuda)
+    lib = WGMMA_PROBE.load()
+    err = lib.pdt_wgmma_probe(probe, a.data_ptr(), b_stored.data_ptr(),
+                              c.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"probe launch failed: CUDA error {err}"
+    torch.cuda.synchronize()
+    torch.testing.assert_close(c, a.float() @ b.float(), atol=1e-3,
+                               rtol=1e-4)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -66,6 +113,30 @@ def test_flash_fwd_matches_plain(cuda, d, dtype, t, causal, window):
     ref_out, ref_lse = flash.flash_attention_ref(
         q.float(), k.float(), v.float(), causal=causal, window=window)
     atol, rtol = TOL_OUT[dtype]
+    torch.testing.assert_close(out.float(), ref_out, atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=TOL_LSE, rtol=0.0)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("h, kvh", [(4, 4), (8, 2), (12, 2)],
+                         ids=["gqa1", "gqa4", "gqa6"])
+@pytest.mark.parametrize("t, causal, window", [
+    (1, True, 0), (127, True, 0), (129, True, 0), (1000, True, 0),
+    (1000, True, 100), (300, True, 200), (129, False, 0),
+    (1000, False, 300),
+])
+def test_flash_fwd_bf16_tile_edges(cuda, d, h, kvh, t, causal, window):
+    """The bf16 kernel's edges: T of 1, one short of and one past a
+    128-row tile, ragged 1000; band lower edges inside a K tile (window
+    100, 200, 300); GQA ratios 1, 4 and 6."""
+    q, k, v = _qkv(cuda, 2, t, h, kvh, d, torch.bfloat16,
+                   seed=d + t + h + window)
+    out, lse = flash.flash_attention_lse(q, k, v, causal=causal,
+                                         window=window)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash.flash_attention_ref(
+        q.float(), k.float(), v.float(), causal=causal, window=window)
+    atol, rtol = TOL_OUT[torch.bfloat16]
     torch.testing.assert_close(out.float(), ref_out, atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, ref_lse, atol=TOL_LSE, rtol=0.0)
 
@@ -339,6 +410,27 @@ def test_expert_ffn_matches_plain(cuda, dtype, bias, e, c, d, f):
     assert out.dtype == dtype and out.shape == x.shape
     assert bool(torch.isfinite(out).all())
     _assert_ffn_close(out, ffn.expert_ffn_ref(x, wi, wo, bi, bo), dtype)
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("e, c, d, f", [
+    (2, 1, 256, 528), (2, 77, 512, 528), (2, 1000, 768, 528),
+    (1, 5120, 512, 1024), (3, 77, 768, 1536), (2, 1000, 256, 1024),
+])
+def test_expert_ffn_bf16_tile_edges(cuda, bias, e, c, d, f):
+    """The bf16 grouped GEMMs' edges: capacities of 1, 77, 1000 and 5120
+    rows (ragged against the 128-row tile), F 528 (not a multiple of the
+    128-column tile or the 64-deep k-step), D 256, 512 and 768."""
+    from pytorch_distributed_template_tpu_torch.ops import expert_ffn as ffn
+
+    x, wi, wo, bi, bo = _ffn_inputs(cuda, e, c, d, f, torch.bfloat16, bias,
+                                    seed=7 * e + c + d + f)
+    out = ffn.expert_ffn(x, wi, wo, bi, bo)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    assert bool(torch.isfinite(out).all())
+    _assert_ffn_close(out, ffn.expert_ffn_ref(x, wi, wo, bi, bo),
+                      torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
