@@ -8,7 +8,7 @@ failure exits non-zero and no phase's exception is caught:
 
 1. build: compile every CUDA source of the port with nvcc (one process per
    source, all started together) and print the build time and the ptxas
-   register report;
+   register report; B4's Hopper arms must use 0 bytes of stack and spills;
 2. kernel against plain: the flash-attention forward kernel against its
    plain PyTorch version on the card, at the main path's prefill shapes,
    a ragged f32 and a non-causal case, and the training paths' shapes
@@ -33,10 +33,12 @@ Slice 2 (continuous paged serving, kernel B4) adds:
 
 2b. the paged-attention kernel against its plain version at the main
     path's shapes (decode over the 145-page ring, bf16 and int8 pools,
-    flat decode with shuffled tables, a 512-lane prefill chunk, a
-    64-lane admission feed with pad lanes, an f32 case at D 64), with
-    kernel / plain / library (SDPA on K/V gathered in advance) times and
-    the card's bound;
+    flat decode with shuffled tables, a 512-lane prefill chunk deep in
+    the ring and a long prompt's first chunk at position 0, a 64-lane
+    admission feed with pad lanes, an f32 case at D 64), with the arm
+    each takes, kernel / plain / library (SDPA on K/V gathered in
+    advance) times, the card's bound and the wrapper's host time per
+    call;
 3b. the small f32 Llama served by the continuous engine over the paged
     pool on the card and on the CPU: same greedy tokens for 6 concurrent
     requests, with the f32 and the int8 pool;
@@ -49,7 +51,9 @@ Slice 2 (continuous paged serving, kernel B4) adds:
     512-token chunks while 4 short requests decode; (g) the mix of (e)
     again over an int8 pool. Before each wave both launch counts are set
     to 0; after it the paged kernel's count must equal ``n_layer`` x the
-    engine's model calls and the flash kernel's must be 0, every id in
+    engine's model calls and the flash kernel's must be 0, B4's wgmma arm
+    must have taken ``n_layer`` x (prefill chunks + admission calls) of
+    them and its decode arm ``n_layer`` x the decode calls, every id in
     range, warm admits copying nothing, and prefix hits > 0 after (e).
     The paged batch-1 prefill's last logits are held against slice 1's
     flash prefill on a 1024-token prompt, and one request of (e) runs
@@ -58,8 +62,9 @@ Slice 2 (continuous paged serving, kernel B4) adds:
 Slice 3 (LM training, kernels B2 and B3) adds:
 
 2c. the flash backward kernels (B2 dK/dV, B3 dQ) against the plain
-    backward at the training main path's shape (GPT-2 small: 8 x 12 heads
-    x 1024, D 64), a Mistral-width GQA shape, a banded, a ragged f32 and a
+    backward at the training main paths' shapes (GPT-2 small: 8 x 12
+    heads x 1024, D 64; the MoE LM: 32 x 8 x 512, D 64), a Mistral-width
+    GQA shape, a banded, a ragged f32 and a
     non-causal banded case, and an lse-cotangent case, with kernel / plain
     / library (the backward of ``scaled_dot_product_attention``, timed
     only) times and the card's bound;
@@ -228,6 +233,23 @@ def phase_build() -> None:
         lib.load()
         for line in ptxas_report(lib.build_log):
             log(f"[build] {lib.name}: {line}")
+    if flash.PAGED_ATTN.build_log:
+        check_no_spills(flash.PAGED_ATTN.build_log,
+                        ("paged_attn_wgmma", "paged_attn_decode"))
+
+
+def check_no_spills(build_log: str, kernels) -> None:
+    """Fail when ptxas gave a kernel whose name holds one of ``kernels``
+    a stack frame or spills, or reported none of them."""
+    seen = 0
+    for line in ptxas_report(build_log):
+        if not any(k in line for k in kernels) or "spill" not in line:
+            continue
+        seen += 1
+        if any(int(n) for n in re.findall(r"(\d+) bytes", line)):
+            raise AssertionError(f"stack or spills: {line}")
+    if not seen:
+        raise AssertionError(f"ptxas reported none of {kernels}")
 
 
 def ptxas_report(build_log: str) -> list:
@@ -471,7 +493,12 @@ def _profiled(fn, device, top_n: int = 8) -> dict:
             busy += b - end
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
+    b4_us = sum(us for k, (us, _) in by_name.items()
+                if "paged_attn" in k or "paged_combine" in k)
     return {"wall_ms": wall_us / 1e3,
+            "paged_attn_ms": b4_us / 1e3,
+            "paged_attn_share_of_busy": b4_us / busy if busy else
+            "not measured",
             "device_busy_ms": busy / 1e3 if spans else "not measured",
             "device_idle_share": 1 - busy / wall_us if spans
             else "not measured",
@@ -629,7 +656,8 @@ PAGED_SOURCE = "pytorch_distributed_template_tpu_torch/csrc/paged_attn.cu"
 PAGED_REPLACES = "pytorch_distributed_template_tpu/ops/flash.py:620"
 # (name, B, T, Hq, KVH, D, bt, NB, window, layout, dtype, quant): the main
 # path's launches (Mistral-7B: 32/8 heads, D 128, bt 32, the 145-page ring
-# of window 4096 + 1 + 512/32 slack) and one f32 case at D 64
+# of window 4096 + 1 + 512/32 slack; a long prompt's first chunk sees a flat
+# table of 16 pages) and one f32 case at D 64
 PAGED_SHAPES = [
     ("decode_ring", 8, 1, 32, 8, 128, 32, 145, 4096, "ring",
      torch.bfloat16, False),
@@ -638,6 +666,8 @@ PAGED_SHAPES = [
     ("decode_flat", 8, 1, 32, 8, 128, 32, 64, 0, "flat",
      torch.bfloat16, False),
     ("prefill_chunk", 1, 512, 32, 8, 128, 32, 145, 4096, "chunk",
+     torch.bfloat16, False),
+    ("prefill_first", 1, 512, 32, 8, 128, 32, 145, 0, "first",
      torch.bfloat16, False),
     ("admit_feed", 8, 64, 32, 8, 128, 32, 145, 4096, "feed",
      torch.bfloat16, False),
@@ -688,6 +718,8 @@ def _paged_case(name, b, t, hq, kvh, d, bt, nb, window, layout, dtype,
     pads = torch.zeros((b,), dtype=torch.int32)
     if layout == "chunk":
         starts = torch.tensor([5120], dtype=torch.int32)
+    elif layout == "first":
+        starts = torch.tensor([0], dtype=torch.int32)
     elif layout == "flat":
         lens = torch.randint(500, 2001, (b,), generator=cpu)
         lens = lens.clamp(max=nb * bt)
@@ -701,11 +733,11 @@ def _paged_case(name, b, t, hq, kvh, d, bt, nb, window, layout, dtype,
         end = int(starts[i]) + t                  # tokens written so far
         n = min(nb, -(-end // bt))
         perm = torch.randperm(pages - 1, generator=cpu)[:n] + 1
-        if layout == "flat" or end <= nb * bt:
+        if layout in ("flat", "first") or end <= nb * bt:
             tables[i, :n] = perm.int()
         else:
             tables[i] = perm.int()                # a full (wrapped) ring
-    if layout != "chunk":
+    if layout not in ("chunk", "first"):
         tables[0, -1] = -1                        # one unallocated lane
     to = [x.to(dev) for x in (tables, starts, pads)]
     return q, kp, vp, ks, vs, *to
@@ -731,13 +763,30 @@ def _sdpa_paged_ms(q, kp, vp, ks, vs, tables, starts, pads, window, reps):
         qt, k_all, v_all, attn_mask=mask, enable_gqa=True), reps)
 
 
+def _host_ms(fn, calls: int = 100, batches: int = 7) -> float:
+    """Host time of one call of ``fn``: the median over ``batches`` of the
+    mean enqueue time of ``calls`` back-to-back calls, the card idle when
+    each batch starts (the median, since the host is shared)."""
+    fn()
+    means = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        means.append((time.perf_counter() - t0) * 1e3 / calls)
+    torch.cuda.synchronize()
+    return sorted(means)[batches // 2]
+
+
 def phase_paged_kernel() -> list:
     """B4 against its plain version on the card at the main path's
-    shapes: max error over valid lanes (pad lanes must be exactly 0),
-    kernel / plain / SDPA times and the card's bound."""
+    shapes: the arm each takes, max error over valid lanes (pad lanes must
+    be exactly 0), kernel / plain / SDPA times, the card's bound and the
+    wrapper's host time per call (the enqueue of back-to-back calls)."""
     from pytorch_distributed_template_tpu_torch.ops.flash import (
-        PAGED_ATTN, paged_attention, paged_attention_ref,
-        paged_bound_seconds,
+        PAGED_ARM_LAUNCHES, PAGED_ATTN, paged_arm, paged_attention,
+        paged_attention_ref, paged_bound_seconds,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -748,8 +797,12 @@ def phase_paged_kernel() -> list:
         q, kp, vp, ks, vs, tables, starts, pads = _paged_case(*shape, gen)
         args = (q, kp, vp, tables, starts, pads)
         kw = dict(window=window, k_scale=ks, v_scale=vs)
+        arm = paged_arm(dtype, bt, t * (hq // kvh))
+        before = PAGED_ARM_LAUNCHES[arm]
         out = paged_attention(*args, **kw)
         torch.cuda.synchronize()
+        if PAGED_ARM_LAUNCHES[arm] != before + 1:
+            raise AssertionError(f"B4 {name}: the {arm} arm did not launch")
         f32 = (lambda x: x) if quant else (lambda x: x.float())
         ref = paged_attention_ref(q.float(), f32(kp), f32(vp), tables,
                                   starts, pads, **kw)
@@ -776,17 +829,18 @@ def phase_paged_kernel() -> list:
                          max(2, reps // 10), warmup=1)
         library_ms = _sdpa_paged_ms(q, kp, vp, ks, vs, tables, starts, pads,
                                     window, reps)
+        host_ms = _host_ms(lambda: paged_attention(*args, **kw))
         bound_s, bound_by = paged_bound_seconds(
             q, kp, tables, starts, pads, window, quant, PEAK_FLOPS[dtype],
             PEAK_BYTES)
-        row = {"shape": name, "B": b, "T": t, "Hq": hq, "KVH": kvh, "D": d,
-               "bt": bt, "NB": nb, "window": window,
+        row = {"shape": name, "arm": arm, "B": b, "T": t, "Hq": hq,
+               "KVH": kvh, "D": d, "bt": bt, "NB": nb, "window": window,
                "dtype": str(dtype).replace("torch.", ""),
                "kv": "int8" if quant else str(dtype).replace("torch.", ""),
                "max_abs_err": err, "atol_rtol": [atol, rtol],
                "kernel_ms": kernel_ms, "ref_ms": ref_ms,
                "library_ms": library_ms, "bound_ms": bound_s * 1e3,
-               "bound_by": bound_by,
+               "bound_by": bound_by, "host_ms_per_call": host_ms,
                "library": "scaled_dot_product_attention on K/V gathered "
                           "in advance (gather not timed), same mask"}
         rows.append(with_ratios(row))
@@ -962,7 +1016,7 @@ class ServeWave:
 
     def run(self, label, service, drive, n_new: int):
         from pytorch_distributed_template_tpu_torch.ops.flash import (
-            FLASH_FWD, PAGED_ATTN,
+            FLASH_FWD, PAGED_ARM_LAUNCHES, PAGED_ATTN,
         )
 
         is_cuda = torch.device(self.device).type == "cuda"
@@ -970,7 +1024,11 @@ class ServeWave:
         if is_cuda:
             torch.cuda.reset_peak_memory_stats()
         FLASH_FWD.launches = PAGED_ATTN.launches = 0
+        for arm in PAGED_ARM_LAUNCHES:
+            PAGED_ARM_LAUNCHES[arm] = 0
         calls0 = service.stats["model_calls"]
+        kinds = ("prefill_chunks", "admit_calls", "decode_calls")
+        kinds0 = {k: service.stats[k] for k in kinds}
         t0 = time.perf_counter()
         results = drive()
         wall = time.perf_counter() - t0
@@ -986,6 +1044,18 @@ class ServeWave:
                                  f"{FLASH_FWD.launches} times on the paged "
                                  "path")
         self.b4_launches += PAGED_ATTN.launches
+        kind = {k: service.stats[k] - kinds0[k] for k in kinds}
+        arms = dict(PAGED_ARM_LAUNCHES)
+        if is_cuda:
+            want = {"wgmma": n_layer * (kind["prefill_chunks"]
+                                        + kind["admit_calls"]),
+                    "decode": n_layer * kind["decode_calls"],
+                    "cuda_cores": 0}
+        else:
+            want = {"wgmma": 0, "decode": 0, "cuda_cores": 0}
+        if arms != want:
+            raise AssertionError(f"({label}) B4 arms {arms} for engine "
+                                 f"calls {kind}: expected {want}")
         vocab = service.model.vocab_size
         for r in results:
             _check_ids(r["ids"], vocab, r.get("new", n_new), f"({label})")
@@ -1010,6 +1080,7 @@ class ServeWave:
             "wall_s": wall,
             "tokens_per_s": sum(len(r["ids"]) for r in results) / wall,
             "model_calls": calls, "paged_attn_launches": PAGED_ATTN.launches,
+            "paged_attn_arms": arms, "engine_calls": kind,
             "flash_fwd_launches": FLASH_FWD.launches,
             "peak_mem_gib": peak / 2 ** 30,
             "pool_blocks": pool["prefix_pool_blocks"],
@@ -1212,6 +1283,7 @@ BWD_REPLACES = {"flash_bwd_dkv":
 # flash_attention_lse
 BWD_SHAPES = [
     ("gpt2_small", 8, 12, 12, 1024, 64, True, 0, torch.bfloat16, False),
+    ("moe_lm", 32, 8, 8, 512, 64, True, 0, torch.bfloat16, False),
     ("mistral_gqa", 1, 32, 8, 2048, 128, True, 0, torch.bfloat16, False),
     ("banded", 2, 16, 4, 2048, 128, True, 512, torch.bfloat16, False),
     ("ragged_f32", 1, 16, 4, 1000, 64, True, 0, torch.float32, False),

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA/wgmma kernels
-// (flash_fwd.cu, expert_ffn.cu and the descriptor probe wgmma_probe.cu):
+// (flash_fwd.cu, paged_attn.cu, expert_ffn.cu and the descriptor probe
+// wgmma_probe.cu):
 // mbarriers, TMA tile loads, warpgroup matrix multiplies (wgmma) and their
 // shared-memory descriptors, named barriers, register reallocation, the
 // special-function unit's 2^x, and the host-side tensor maps. Everything
@@ -92,6 +93,31 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
     if (++tries == (1u << 28)) __trap();
   } while (!done);
+}
+
+// ---------------------------------------------------------------------------
+// cp.async (4 bytes) with completion on an mbarrier
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread issued before has
+// landed (the barrier's count must include it: .noinc)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// order this thread's shared-memory writes before later reads and writes
+// of the async proxy (wgmma operands, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -415,19 +441,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // host: tensor maps (driver API, linked with -lcuda)
 // ---------------------------------------------------------------------------
 
-// A tiled tensor map over a bf16 array of `rank` dimensions, innermost
-// first: `dims` in elements, `strides` in bytes for dims 1 .. rank - 1,
-// `box` in elements (box[0] x 2 bytes == the swizzle span). Out-of-bounds
-// elements load as 0. Returns false when the driver refuses it.
-inline bool encode_map(CUtensorMap* map, const void* base, int rank,
-                       const uint64_t* dims, const uint64_t* strides,
-                       const uint32_t* box, int swizzle_bytes) {
+// A tiled tensor map over an array of `rank` dimensions (bf16 unless
+// `type` says otherwise), innermost first: `dims` in elements, `strides` in
+// bytes for dims 1 .. rank - 1, `box` in elements (box[0] x the element
+// size == the swizzle span; swizzle 0: none, rows land unswizzled).
+// Out-of-bounds elements load as 0. Returns false when the driver refuses
+// it.
+inline bool encode_map(
+    CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+    const uint64_t* strides, const uint32_t* box, int swizzle_bytes,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const uint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = swizzle_bytes == 128
-                                    ? CU_TENSOR_MAP_SWIZZLE_128B
-                                    : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUtensorMapSwizzle sw =
+      swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_NONE;
   const CUresult r = cuTensorMapEncodeTiled(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      map, type, rank, const_cast<void*>(base),
       dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS;

@@ -104,7 +104,8 @@ class ContinuousBatchingService(GenerationService):
                       "paged_chunks": 0, "paged_admissions": 0,
                       "deferred_admissions": 0, "model_calls": 0,
                       "prefill_chunks": 0, "streamed_prefill_tokens": 0,
-                      "streamed_requests": 0}
+                      "streamed_requests": 0, "admit_calls": 0,
+                      "decode_calls": 0}
         self._worker_thread = threading.Thread(
             target=self._worker, daemon=True, name="gen-continuous")
         self._worker_thread.start()
@@ -301,6 +302,7 @@ class ContinuousBatchingService(GenerationService):
                 prefill=True, block_tables=tables_k, row_starts=starts_k,
                 pad_lens=torch.from_numpy(pads).to(dev))[:, -1]
             self.stats["model_calls"] += 1
+            self.stats["admit_calls"] += 1
             tok0 = sample_rows(logits, [r["temperature"] for r in reqs],
                                [r["top_k"] for r in reqs],
                                [r["top_p"] for r in reqs], gens)
@@ -364,6 +366,7 @@ class ContinuousBatchingService(GenerationService):
                                 row_starts=starts,
                                 pad_lens=done.to(torch.int32))
             self.stats["model_calls"] += 1
+            self.stats["decode_calls"] += 1
             lg = logits[:, -1]
             nxt = (sample_rows(lg, temps, top_ks, top_ps, gens) if sampled
                    else torch.argmax(lg, dim=-1))

@@ -409,7 +409,7 @@ _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 def _declare_paged(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.pdt_paged_attn.argtypes = [ptr] * 10 + [i32] * 12 + [
+    lib.pdt_paged_attn.argtypes = [ptr] * 10 + [i32] * 13 + [
         ctypes.c_float, ptr]
     lib.pdt_paged_attn.restype = i32
     lib.pdt_paged_lanes.argtypes = [i32, i32]
@@ -508,29 +508,67 @@ def paged_attention_ref(q, k_pool, v_pool, tables, row_starts, pad_lens,
     return grouped_query_attention(q, k_all, v_all, mask=ok[:, None])
 
 
-def paged_splits(blocks: int, nb: int, sms: int) -> int:
-    """How many blocks share one row's table: 1 when the grid already has
-    ``blocks >= 2 x sms``; else enough splits for ~4 blocks per SM, at
-    most 16 and at least 8 table slots per split (a decode launch has
-    only B x KVH blocks)."""
-    if blocks >= 2 * sms:
+#: B4's arms (``csrc/paged_attn.cu``): the query rows one block (or
+#: wgmma item) serves, over the query heads of its kv head
+PAGED_ARM_ROWS = {"cuda_cores": 32, "decode": 16, "wgmma": 128}
+_ARM_CODES = {"cuda_cores": 0, "decode": 1, "wgmma": 2}
+#: launches of each arm (the path's count is ``PAGED_ATTN.launches``)
+PAGED_ARM_LAUNCHES = {arm: 0 for arm in PAGED_ARM_ROWS}
+
+
+def paged_arm(dtype, block_tokens: int, rows: int) -> str:
+    """Which arm of B4 serves a call: ``rows`` is T x (Hq / KVH), the
+    query rows of one kv head. bf16 queries over 16- or 32-token pages
+    run on the Hopper arms: ``"decode"`` (TMA page ring, mma.sync, a
+    block's 16 rows) up to 16 rows, ``"wgmma"`` (TMA + wgmma, 128-row
+    items: prefill chunks and admission feeds) above; f32 queries and
+    8-token pages on ``"cuda_cores"``."""
+    if dtype != torch.bfloat16 or block_tokens % 16:
+        return "cuda_cores"
+    return "decode" if rows <= PAGED_ARM_ROWS["decode"] else "wgmma"
+
+
+def paged_lanes(arm: str, group: int) -> int:
+    """Query lanes one block (or wgmma item) of ``arm`` serves at
+    ``group`` query heads per kv head (0: the group is too wide)."""
+    return PAGED_ARM_ROWS[arm] // group
+
+
+#: blocks per SM a split aims at, by arm: a wgmma item fills an SM, a
+#: decode block half of one (two are resident), a CUDA-core block a quarter
+PAGED_ARM_BLOCKS = {"cuda_cores": 4, "decode": 2, "wgmma": 1}
+
+
+def paged_splits(arm: str, units: int, nb: int, sms: int) -> int:
+    """How many blocks or items share one row's table, from the ``units``
+    (lane tiles x rows x kv heads) of an unsplit call: 1 once the units
+    fill half of the ``PAGED_ARM_BLOCKS[arm] x sms`` the arm aims at, else
+    enough to reach it; at most 16, and at least 8 table slots per
+    split."""
+    per_sm = PAGED_ARM_BLOCKS[arm]
+    if 2 * units >= per_sm * sms:
         return 1
-    return max(1, min(16, (4 * sms) // max(blocks, 1), nb // 8))
+    return max(1, min(16, per_sm * sms // max(units, 1), nb // 8))
 
 
-def paged_tensor_cores(q, block_tokens: int) -> bool:
-    """Whether a call runs B4's tensor-core arm: bf16 queries and pages of
-    16 or 32 tokens (the P.V k-step takes 16 keys); the CUDA-core arm
-    serves the rest (f32, 8-token pages)."""
-    return q.dtype == torch.bfloat16 and block_tokens % 16 == 0
+_SMS = {}
+
+
+def _sm_count(device) -> int:
+    """The device's SM count, read once per device."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SMS[idx]
 
 
 def _paged_cuda(q, k_pool, v_pool, tables, row_starts, pad_lens,
-                window: int, k_scale, v_scale, splits=None,
-                tensor_cores=None):
+                window: int, k_scale, v_scale, splits=None, arm=None):
     """Launch the B4 kernel on PyTorch's current stream. ``splits`` and
-    ``tensor_cores`` (tests only) override :func:`paged_splits` and
-    :func:`paged_tensor_cores`."""
+    ``arm`` (tests only) override :func:`paged_splits` and
+    :func:`paged_arm`."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"paged_attn kernel takes float32 or bfloat16 "
                         f"queries, got {q.dtype}")
@@ -556,13 +594,14 @@ def _paged_cuda(q, k_pool, v_pool, tables, row_starts, pad_lens,
         raise ValueError("paged_attn kernel needs contiguous inputs")
     b, t, hq, d = q.shape
     bt, kvh = k_pool.shape[1], k_pool.shape[2]
+    group = hq // kvh
     if d not in PAGED_HEAD_DIMS:
         raise ValueError(f"paged_attn kernel takes head_dim in "
                          f"{PAGED_HEAD_DIMS}, got {d}")
     if bt not in PAGED_BLOCK_TOKENS:
         raise ValueError(f"paged_attn kernel takes block_tokens in "
                          f"{PAGED_BLOCK_TOKENS}, got {bt}")
-    if hq // kvh > PAGED_MAX_GROUP:
+    if group > PAGED_MAX_GROUP:
         raise ValueError(f"paged_attn kernel serves at most "
                          f"{PAGED_MAX_GROUP} query heads per kv head")
     if int(window) < 0:
@@ -570,15 +609,17 @@ def _paged_cuda(q, k_pool, v_pool, tables, row_starts, pad_lens,
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("paged_attn reads 16-byte vectors: the pools "
                          "must start 16-byte aligned")
+    if arm is None:
+        arm = paged_arm(q.dtype, bt, t * group)
+    lanes = paged_lanes(arm, group)
+    if lanes < 1:
+        raise ValueError(f"the {arm} arm serves at most "
+                         f"{PAGED_ARM_ROWS[arm]} query heads per kv head")
     lib = PAGED_ATTN.load()
     nb = tables.shape[1]
-    if tensor_cores is None:
-        tensor_cores = paged_tensor_cores(q, bt)
     if splits is None:
-        lanes = lib.pdt_paged_lanes(int(tensor_cores), hq // kvh)
-        blocks = -(-t // lanes) * kvh * b
-        splits = paged_splits(blocks, nb, torch.cuda.get_device_properties(
-            q.device).multi_processor_count)
+        splits = paged_splits(arm, -(-t // lanes) * kvh * b, nb,
+                              _sm_count(q.device))
     splits = max(1, min(int(splits), nb))
     out = torch.empty_like(q)
     # the split partials: [B, T, Hq, splits, D + 2] (acc, m, l)
@@ -587,15 +628,16 @@ def _paged_cuda(q, k_pool, v_pool, tables, row_starts, pad_lens,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         PAGED_ATTN.launches += 1
+        PAGED_ARM_LAUNCHES[arm] += 1
         err = lib.pdt_paged_attn(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None,
             tables.data_ptr(), row_starts.data_ptr(), pad_lens.data_ptr(),
             out.data_ptr(), None if part is None else part.data_ptr(),
-            b, t, hq, kvh, d, nb, bt, _DTYPE_CODES[q.dtype],
-            _KV_CODES[k_pool.dtype], int(window), splits,
-            int(bool(tensor_cores)), float(d ** -0.5), stream)
+            b, t, hq, kvh, d, nb, bt, k_pool.shape[0],
+            _DTYPE_CODES[q.dtype], _KV_CODES[k_pool.dtype], int(window),
+            splits, _ARM_CODES[arm], float(d ** -0.5), stream)
     if err != 0:
         raise RuntimeError(
             f"paged_attn launch failed: CUDA error {err} "

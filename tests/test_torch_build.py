@@ -47,11 +47,11 @@ def test_digest_changes_with_the_source(csrc):
 
 
 def test_the_library_path_carries_the_digest_of_its_headers():
-    """The port's Hopper kernels include csrc/hopper.cuh: their library
-    names carry the digest of source and header together."""
+    """The port's Hopper kernels (B1, B4, B5) include csrc/hopper.cuh:
+    their library names carry the digest of source and header together."""
     from pytorch_distributed_template_tpu_torch.ops import expert_ffn, flash
 
-    for lib in (flash.FLASH_FWD, expert_ffn.EXPERT_FFN):
+    for lib in (flash.FLASH_FWD, flash.PAGED_ATTN, expert_ffn.EXPERT_FFN):
         assert [p.name for p in build.local_includes(lib.source)] == [
             "hopper.cuh"]
         assert lib.path.name == (

@@ -8,9 +8,12 @@ it runs on its own:
 
 B1 (``csrc/flash_fwd.cu``) is held against ``flash_attention_ref``, B5
 (``csrc/expert_ffn.cu``) against ``expert_ffn_ref`` and B4
-(``csrc/paged_attn.cu``, both its single-block and its split-over-pages
-arms) against ``paged_attention_ref``, valid query lanes only (pad lanes
-must be exactly 0). Before them, one-tile probes (``csrc/wgmma_probe.cu``)
+(``csrc/paged_attn.cu``: its wgmma, decode and CUDA-core arms, each
+single-block and split over pages) against ``paged_attention_ref``, valid
+query lanes only (pad lanes must be exactly 0). B4 alone:
+
+    python -m pytest --noconftest -p no:cacheprovider -q \\
+        tests/test_torch_kernels_cuda.py -k paged Before them, one-tile probes (``csrc/wgmma_probe.cu``)
 hold each wgmma operand layout that B1 and B5 use (K-major and MN-major,
 64- and 128-byte swizzle, A from shared memory or registers) against
 ``torch.matmul``.
@@ -229,10 +232,10 @@ def test_paged_attn_matches_plain(cuda, dtype, quant, d, bt, t, window,
                                     window=window, k_scale=ks, v_scale=vs)
     else:
         # force the split count and/or the CUDA-core arm (bf16 with 16- or
-        # 32-token pages otherwise runs on the tensor cores)
+        # 32-token pages otherwise runs on a Hopper arm)
         out = flash._paged_cuda(
             q, kp, vp, tables, starts, pad_lens, window, ks, vs,
-            splits=splits, tensor_cores=False if arm == "cuda_cores"
+            splits=splits, arm="cuda_cores" if arm == "cuda_cores"
             else None)
     torch.cuda.synchronize()
     assert flash.PAGED_ATTN.launches == before + 1
@@ -247,6 +250,112 @@ def test_paged_attn_matches_plain(cuda, dtype, quant, d, bt, t, window,
                                    atol=atol, rtol=rtol)
         # a lane that sees no key (a pad lane) gives exactly 0
         assert not out[i, :p].float().abs().any()
+
+
+def _ring_or_flat(device, *, b, t, group, kvh, d, bt, layout, quant,
+                  seed, pads):
+    """Inputs for windows of many lanes, as the engine lays them out.
+    ``ring``: a full ring of window 256 at deep positions (wrapped many
+    times); ``ring_edge``: the same with every row starting 5 tokens
+    before a page edge, so lane tiles straddle page edges; ``ring_fill``:
+    a ring not yet wrapped (its last slots -1); ``flat``: shuffled pages,
+    each row's unallocated last slots -1."""
+    from pytorch_distributed_template_tpu_torch.models.quant import (
+        quantize_kv,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    window = 256 if layout.startswith("ring") else 0
+    nb = (window + t) // bt + 2 if window else (3 * t) // bt + 4
+    pool = b * nb + 2
+    q = torch.randn(b, t, group * kvh, d, generator=gen)
+    kp = torch.randn(pool, bt, kvh, d, generator=gen)
+    vp = torch.randn(pool, bt, kvh, d, generator=gen)
+    ks = vs = None
+    if quant:
+        kp, ks = quantize_kv(kp)
+        vp, vs = quantize_kv(vp)
+    else:
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    tables = (torch.randperm(pool - 1, generator=gen)[:b * nb] + 1).view(
+        b, nb).int()
+    if layout in ("ring", "ring_edge"):
+        starts = torch.randint(3000, 6000, (b,), generator=gen)
+        if layout == "ring_edge":
+            starts = starts // bt * bt + bt - 5
+    elif layout == "ring_fill":
+        starts = torch.randint(0, nb * bt - t - bt, (b,), generator=gen)
+    else:
+        starts = torch.randint(0, nb * bt - t + 1, (b,), generator=gen)
+    if layout in ("ring_fill", "flat"):
+        for i in range(b):
+            tables[i, -(-(int(starts[i]) + t) // bt):] = -1
+    pads = torch.tensor(pads or [0] * b, dtype=torch.int32)
+    out = [q.bfloat16(), kp, vp, tables, starts.int(), pads]
+    out = [x.to(device).contiguous() for x in out]
+    if quant:
+        ks, vs = ks.to(device), vs.to(device)
+    return out, ks, vs, window
+
+
+# (group, D, bt, int8, T, layout, pads): windows of many lanes (prefill
+# chunks, admission feeds) and two decode-sized ones, at groups 1, 4, 8
+PAGED_WIDE = [
+    (4, 128, 32, False, 64, "ring", None),
+    (4, 128, 32, True, 64, "ring", [0, 17, 63]),
+    (4, 128, 16, False, 200, "ring_edge", [3, 0, 0]),
+    (1, 128, 32, False, 200, "flat", [0, 0, 199]),
+    (8, 128, 16, True, 200, "ring_fill", None),
+    (4, 128, 32, False, 512, "ring", None),
+    (4, 128, 32, True, 512, "flat", None),
+    (8, 128, 32, False, 64, "flat", [5, 0, 63]),
+    (1, 128, 16, True, 64, "ring_edge", None),
+    (4, 64, 32, False, 64, "flat", [0, 9, 0]),
+    (4, 64, 16, True, 200, "ring", None),
+    (4, 128, 32, False, 1, "ring", None),
+    (8, 128, 16, True, 2, "flat", [0, 1, 0]),
+]
+
+
+@pytest.mark.parametrize("case", PAGED_WIDE, ids=[
+    f"g{c[0]}-d{c[1]}-bt{c[2]}-{'int8' if c[3] else 'bf16'}-t{c[4]}-{c[5]}"
+    for c in PAGED_WIDE])
+@pytest.mark.parametrize("splits", [None, 1, 3], ids=["auto", "s1", "s3"])
+@pytest.mark.parametrize("arm", ["auto", "wgmma", "decode"])
+def test_paged_attn_matches_plain_many_lanes(cuda, case, splits, arm):
+    """test_paged_attn_matches_plain at the widths of prefill chunks and
+    admission feeds, with the arm and the split count forced both ways."""
+    group, d, bt, quant, t, layout, pads = case
+    (q, kp, vp, tables, starts, pad_lens), ks, vs, window = _ring_or_flat(
+        cuda, b=3, t=t, group=group, kvh=2, d=d, bt=bt, layout=layout,
+        quant=quant, seed=group + d + bt + t, pads=pads)
+    before = flash.PAGED_ATTN.launches
+    chosen = flash.paged_arm(q.dtype, bt, t * group) if arm == "auto" \
+        else arm
+    arm_before = flash.PAGED_ARM_LAUNCHES[chosen]
+    out = flash._paged_cuda(q, kp, vp, tables, starts, pad_lens, window,
+                            ks, vs, splits=splits,
+                            arm=None if arm == "auto" else arm)
+    torch.cuda.synchronize()
+    assert flash.PAGED_ATTN.launches == before + 1
+    assert flash.PAGED_ARM_LAUNCHES[chosen] == arm_before + 1
+    f32 = (lambda x: x) if quant else (lambda x: x.float())
+    ref = flash.paged_attention_ref(q.float(), f32(kp), f32(vp), tables,
+                                    starts, pad_lens, window=window,
+                                    k_scale=ks, v_scale=vs)
+    atol, rtol = TOL_OUT[torch.bfloat16]
+    for i, p in enumerate(pad_lens.tolist()):
+        torch.testing.assert_close(out[i, p:].float(), ref[i, p:],
+                                   atol=atol, rtol=rtol)
+        assert not out[i, :p].float().abs().any()
+
+
+def test_paged_lanes_match_the_kernel(cuda):
+    lib = flash.PAGED_ATTN.load()
+    for arm, code in flash._ARM_CODES.items():
+        for group in (1, 2, 3, 4, 8, 16, 32):
+            assert lib.pdt_paged_lanes(code, group) == \
+                flash.paged_lanes(arm, group), (arm, group)
 
 
 def test_paged_attn_refuses_what_it_does_not_take(cuda):

@@ -253,3 +253,52 @@ def test_paged_bound_counts_visible_keys_and_pages():
                                           0, False, 1e30, 1.0)
     assert by == "bytes"
     assert secs == 3 * 2 * 8 * 2 * 64 * 4 + 2 * q.numel() * 4
+
+
+@pytest.mark.parametrize("dtype,bt,rows,arm", [
+    (torch.bfloat16, 32, 4, "decode"),        # Mistral decode: T 1 x 4
+    (torch.bfloat16, 32, 16, "decode"),
+    (torch.bfloat16, 32, 17, "wgmma"),
+    (torch.bfloat16, 16, 256, "wgmma"),       # 64-lane admission feed
+    (torch.bfloat16, 32, 2048, "wgmma"),      # 512-lane prefill chunk
+    (torch.bfloat16, 32, 32, "wgmma"),        # group 32 decode
+    (torch.bfloat16, 8, 4, "cuda_cores"),     # 8-token pages
+    (torch.bfloat16, 8, 2048, "cuda_cores"),
+    (torch.float32, 32, 4, "cuda_cores"),     # f32 queries
+    (torch.float32, 16, 2048, "cuda_cores"),
+])
+def test_paged_arm_choice(dtype, bt, rows, arm):
+    """B4's arm is a function of (query dtype, page tokens, rows per kv
+    head): bf16 over 16/32-token pages takes the decode arm up to one
+    block's 16 rows and the wgmma arm above; the rest the CUDA cores."""
+    assert tflash.paged_arm(dtype, bt, rows) == arm
+
+
+@pytest.mark.parametrize("arm,group,lanes", [
+    ("wgmma", 4, 32), ("wgmma", 1, 128), ("wgmma", 8, 16),
+    ("wgmma", 32, 4), ("wgmma", 3, 42), ("decode", 4, 4),
+    ("decode", 1, 16), ("decode", 16, 1), ("decode", 32, 0),
+    ("cuda_cores", 4, 8), ("cuda_cores", 32, 1),
+])
+def test_paged_lanes_per_block(arm, group, lanes):
+    """Lanes per block (or wgmma item): the arm's rows (128 / 16 / 32)
+    over the query heads of a kv head; 0 = the group does not fit."""
+    assert tflash.paged_lanes(arm, group) == lanes
+
+
+@pytest.mark.parametrize("arm,units,nb,sms,splits", [
+    ("wgmma", 16 * 8, 145, 132, 1),     # 1 x 512 chunk: 128 items
+    ("wgmma", 2 * 8 * 8, 145, 132, 1),  # 8 x 64 feed: 128 items
+    ("wgmma", 66, 145, 132, 1),
+    ("wgmma", 65, 145, 132, 2),
+    ("wgmma", 8, 145, 132, 16),         # one 32-lane admission
+    ("wgmma", 8, 40, 132, 5),           # at least 8 slots per split
+    ("decode", 8 * 8, 145, 132, 4),     # 8-row decode: ~2 blocks per SM
+    ("decode", 132, 145, 132, 1),
+    ("decode", 131, 145, 132, 2),
+    ("decode", 8, 145, 132, 16),
+    ("cuda_cores", 8 * 8, 145, 132, 8),  # ~4 blocks per SM
+    ("cuda_cores", 100, 12, 132, 1),
+])
+def test_paged_splits(arm, units, nb, sms, splits):
+    assert tflash.paged_splits(arm, units, nb, sms) == splits
