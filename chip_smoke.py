@@ -8,7 +8,8 @@ failure exits non-zero and no phase's exception is caught:
 
 1. build: compile every CUDA source of the port with nvcc (one process per
    source, all started together) and print the build time and the ptxas
-   register report; B4's Hopper arms must use 0 bytes of stack and spills;
+   register report; B4's Hopper arms and B2's and B3's must use 0 bytes of
+   stack and spills;
 2. kernel against plain: the flash-attention forward kernel against its
    plain PyTorch version on the card, at the main path's prefill shapes,
    a ragged f32 and a non-causal case, and the training paths' shapes
@@ -61,13 +62,17 @@ Slice 2 (continuous paged serving, kernel B4) adds:
 
 Slice 3 (LM training, kernels B2 and B3) adds:
 
-2c. the flash backward kernels (B2 dK/dV, B3 dQ) against the plain
-    backward at the training main paths' shapes (GPT-2 small: 8 x 12
-    heads x 1024, D 64; the MoE LM: 32 x 8 x 512, D 64), a Mistral-width
-    GQA shape, a banded, a ragged f32 and a
-    non-causal banded case, and an lse-cotangent case, with kernel / plain
-    / library (the backward of ``scaled_dot_product_attention``, timed
-    only) times and the card's bound;
+2c. the flash backward kernels (B3 dQ and delta, then B2 dK/dV) against
+    the plain backward at the training main paths' shapes (GPT-2 small: 8
+    x 12 heads x 1024, D 64; the MoE LM: 32 x 8 x 512, D 64), a
+    Mistral-width GQA shape, a banded, a ragged f32 and a non-causal
+    banded case, and an lse-cotangent case, with the arm each takes,
+    kernel / plain / library (the backward of
+    ``scaled_dot_product_attention``, timed only) times and the card's
+    bound per kernel, and a ``flash_bwd_pair`` row per shape: the whole
+    ``flash_attention_bwd`` (B3 with delta, then B2) against the SDPA
+    backward, with the whole backward's own bound (10 FLOPs per visible
+    pair and head dim, each array moved once);
 3c. a small f32 GPT2 (flash, fused head, remat) and a small windowed GQA
     Llama (flash) train 5 steps on the card (kernels) and on the CPU
     (plain versions) from the same weights and batches: the same per-step
@@ -80,7 +85,8 @@ Slice 3 (LM training, kernels B2 and B3) adds:
     launch B1 2 x 12 times and B2, B3 12 times each, every eval step B1 12
     times and no B2/B3; losses finite and falling; checkpoints and
     ``summary.json`` written; a run resumed from ``checkpoint-epoch1``
-    reproduces epoch 2. Then 5 train steps run under ``torch.profiler``.
+    reproduces epoch 2. Then 5 train steps run under ``torch.profiler``
+    (with B2's and B3's device ms per step).
 
 Slice 4 (MoE LM training, kernel B5) adds:
 
@@ -103,7 +109,7 @@ Slice 4 (MoE LM training, kernel B5) adds:
     times and no B2/B3; losses finite and falling; ``val_lm_bits_per_
     byte`` logged; checkpoints and ``summary.json`` written; a resume from
     ``checkpoint-epoch1`` reproduces epoch 2. Then 5 steps under the
-    profiler.
+    profiler (with B2's and B3's device ms per step).
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
@@ -236,6 +242,9 @@ def phase_build() -> None:
     if flash.PAGED_ATTN.build_log:
         check_no_spills(flash.PAGED_ATTN.build_log,
                         ("paged_attn_wgmma", "paged_attn_decode"))
+    if flash.FLASH_BWD.build_log:
+        check_no_spills(flash.FLASH_BWD.build_log,
+                        ("flash_bwd_dkv_wgmma", "flash_bwd_dq_wgmma"))
 
 
 def check_no_spills(build_log: str, kernels) -> None:
@@ -459,11 +468,12 @@ def profile_request(service, ids, new: int, label: str, card: str) -> None:
     log("[profile] " + json.dumps(row))
 
 
-def _profiled(fn, device, top_n: int = 8) -> dict:
+def _profiled(fn, device, top_n: int = 8, sums=()) -> dict:
     """Run ``fn`` under ``torch.profiler``: wall time (host clock to
     ``cuda.synchronize``), the device's busy time (union of kernel and copy
     intervals), its idle share, the device op count and the kernels that
-    take most of the time."""
+    take most of the time; ``<name>_ms`` for each name of ``sums``: the
+    device time of the kernels whose names hold it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -495,7 +505,9 @@ def _profiled(fn, device, top_n: int = 8) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
     b4_us = sum(us for k, (us, _) in by_name.items()
                 if "paged_attn" in k or "paged_combine" in k)
-    return {"wall_ms": wall_us / 1e3,
+    named = {f"{name}_ms": sum(us for k, (us, _) in by_name.items()
+                               if name in k) / 1e3 for name in sums}
+    return {"wall_ms": wall_us / 1e3, **named,
             "paged_attn_ms": b4_us / 1e3,
             "paged_attn_share_of_busy": b4_us / busy if busy else
             "not measured",
@@ -1359,13 +1371,17 @@ def _sdpa_bwd_ms(q, k, v, g, causal: bool, window: int, reps: int):
 
 
 def phase_bwd_kernel() -> list:
-    """B2 and B3 against the plain backward on the card: max errors,
-    kernel / plain / SDPA-backward times and the card's bound per kernel,
-    one row per shape."""
+    """B2 and B3 against the plain backward on the card: max errors, the
+    arm, kernel / plain / SDPA-backward times and the card's bound per
+    kernel, one row each per shape, and a ``flash_bwd_pair`` row per shape
+    (``flash_attention_bwd`` whole: B3 with delta, then B2) whose bound is
+    the whole backward's, each product and array counted once. Returns
+    the kernels' rows, then the pairs'."""
     from pytorch_distributed_template_tpu_torch.ops import flash
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, pairs = [], []
     for (name, b, h, kvh, t, d, causal, window, dtype,
          with_lse) in BWD_SHAPES:
         def rnd(*shape):
@@ -1397,36 +1413,58 @@ def phase_bwd_kernel() -> list:
             errs[gname] = err
         del got, ref
         reps = 20
-        delta = flash._delta(g, out, g_lse)
-        args = (q, k, v, g, lse, delta, causal, window)
+        arm = "wgmma" if dtype == torch.bfloat16 else "cuda_cores"
+        splits = 1 if arm == "cuda_cores" else flash.bwd_splits(
+            b, t, h, kvh, causal, window, sms)
+        # B3 alone writes delta, which B2 alone then reads
+        delta = torch.empty((b, h, t), dtype=torch.float32, device="cuda")
+        args = (q, k, v, out, g, lse, g_lse, causal, window)
         ms = {kern: cuda_ms(lambda kern=kern: flash._flash_bwd_cuda(
-            *args, kernels=(kern,)), reps) for kern in flash.BWD_KERNELS}
+            *args, kernels=(kern,), delta=delta), reps)
+            for kern in flash.BWD_KERNELS}
+        pair_ms = cuda_ms(lambda: flash.flash_attention_bwd(
+            q, k, v, out, lse, g, causal, window, g_lse), reps)
         plain_ms = cuda_ms(lambda: flash.flash_attention_bwd_ref(
             q, k, v, out, lse, g, causal, window, g_lse), 3, warmup=1)
         library_ms = _sdpa_bwd_ms(q, k, v, g, causal, window, reps)
+        head = {"shape": name, "B": b, "H": h, "KVH": kvh, "T": t, "D": d,
+                "causal": causal, "window": window,
+                "dtype": str(dtype).replace("torch.", ""),
+                "lse_cotangent": with_lse, "arm": arm,
+                "tol": list(BWD_TOL[dtype]), "ref_ms": plain_ms,
+                "library_ms": library_ms,
+                "plain": "flash_attention_bwd_ref (dq, dk, dv together)",
+                "library": "backward of scaled_dot_product_attention "
+                           "(dq, dk, dv together)"}
+        bounds = {}
         for kern, gnames in (("flash_bwd_dkv", ("dk", "dv")),
                              ("flash_bwd_dq", ("dq",))):
-            bound_s, bound_by = flash.flash_bwd_bound_seconds(
+            bounds[kern] = flash.flash_bwd_bound_seconds(
                 kern, b, t, h, kvh, d, causal, window, q.element_size(),
-                PEAK_FLOPS[dtype], PEAK_BYTES)
-            row = {"kernel": kern, "shape": name, "B": b, "H": h, "KVH": kvh,
-                   "T": t, "D": d, "causal": causal, "window": window,
-                   "dtype": str(dtype).replace("torch.", ""),
-                   "lse_cotangent": with_lse,
+                PEAK_FLOPS[dtype], PEAK_BYTES, lse_cotangent=with_lse)
+            row = {"kernel": kern, **head,
                    "max_abs_err": max(errs[n] for n in gnames),
-                   "tol": list(BWD_TOL[dtype]), "kernel_ms": ms[kern],
-                   "ref_ms": plain_ms, "library_ms": library_ms,
-                   "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-                   "plain": "flash_attention_bwd_ref (dq, dk, dv together)",
-                   "library": "backward of scaled_dot_product_attention "
-                              "(dq, dk, dv together)"}
+                   "kernel_ms": ms[kern], "bound_ms": bounds[kern][0] * 1e3,
+                   "bound_by": bounds[kern][1]}
+            if kern == "flash_bwd_dkv":
+                row["splits"] = splits
             rows.append(with_ratios(row))
             log("[bwd] " + json.dumps(row))
+        pair_bound = flash.flash_bwd_bound_seconds(
+            "flash_bwd_pair", b, t, h, kvh, d, causal, window,
+            q.element_size(), PEAK_FLOPS[dtype], PEAK_BYTES,
+            lse_cotangent=with_lse)
+        pair = {"kernel": "flash_bwd_pair", **head,
+                "max_abs_err": max(errs.values()), "kernel_ms": pair_ms,
+                "bound_ms": pair_bound[0] * 1e3, "bound_by": pair_bound[1],
+                "splits": splits}
+        pairs.append(with_ratios(pair))
+        log("[bwd] " + json.dumps(pair))
         del q, k, v, g, out, lse, delta
         torch.cuda.empty_cache()
     flash.FLASH_BWD_DKV.launches = flash.FLASH_BWD_DQ.launches = 0
     flash.FLASH_FWD.launches = 0
-    return rows
+    return rows + pairs
 
 
 def _train_ref_run(name, args, state, batches, device):
@@ -1725,9 +1763,11 @@ def _train_path(card: str, device, config, sets, run_root, seed: int,
     batches = [trainer._to_device(b) for b, _ in zip(
         trainer.train_loader, range(5))]
     row = _profiled(lambda: [trainer.train_step(b) for b in batches],
-                    device, top_n=12)
+                    device, top_n=12, sums=("flash_bwd_dkv", "flash_bwd_dq"))
+    per_step = {f"{k}_per_step": row[f"{k}_ms"] / len(batches)
+                for k in ("flash_bwd_dkv", "flash_bwd_dq")}
     log("[profile] " + json.dumps({"profile": f"{label}_steps", "steps": 5,
-                                   **row, "card": card}))
+                                   **row, **per_step, "card": card}))
     del trainer, box, resume_box, batches
     gc.collect()
     if torch.device(device).type == "cuda":

@@ -9,19 +9,21 @@ shared-memory stages, mbarriers, wgmma and a producer warpgroup feeding two
 consumer warpgroups, in float32 a CUDA-core kernel) and the two backward
 kernels (``csrc/flash_bwd.cu``:
 ``flash_bwd_dkv`` replacing ``_bwd_dkv_kernel``, ``flash_bwd_dq`` replacing
-``_bwd_dq_kernel``; bf16 on the tensor cores, float32 on the CUDA cores)
-run for tensors on a CUDA device; ``flash_attention_ref`` and
+``_bwd_dq_kernel``; in bf16 Hopper kernels of the same design, in float32
+CUDA-core kernels) run for tensors on a CUDA device;
+``flash_attention_ref`` and
 ``flash_attention_bwd_ref`` compute the same functions in plain PyTorch
 and are used for CPU tensors and as the kernels' oracles. There is no
 fallback: on a CUDA tensor a wrapper launches its kernel or raises.
 
 ``flash_attention`` and ``flash_attention_lse`` are differentiable through
 one ``torch.autograd.Function`` (:class:`FlashAttention`): it saves
-``(q, k, v, out, lse)``, and its backward computes ``delta = rowsum(dO *
-out)`` (minus the lse cotangent when the caller used lse) in plain torch,
-then runs the backward kernels (or the plain backward on the CPU). dK and
-dV come back at the stored kv-head width, summed over each group's query
-heads.
+``(q, k, v, out, lse)``, and its backward runs the backward kernels (or the
+plain backward on the CPU). ``delta = rowsum(dO * out)`` (minus the lse
+cotangent when the caller used lse) is computed by the dQ kernel, which
+therefore runs before the dK/dV kernel; the plain backward computes it in
+plain torch. dK and dV come back at the stored kv-head width, summed over
+each group's query heads in a fixed order (bitwise repeatable).
 
 The paged half (``paged_attention``, ``paged_attention_ref``,
 ``csrc/paged_attn.cu`` replacing the Pallas ``_paged_kernel``) reads K/V in
@@ -215,25 +217,55 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    tail = [i32] * 8 + [ctypes.c_float, ptr]
-    lib.pdt_flash_bwd_dkv.argtypes = [ptr] * 8 + tail
-    lib.pdt_flash_bwd_dkv.restype = i32
-    lib.pdt_flash_bwd_dq.argtypes = [ptr] * 7 + tail
+    lib.pdt_flash_bwd_dq.argtypes = [ptr] * 9 + [i32] * 8 + [
+        ctypes.c_float, ptr]
     lib.pdt_flash_bwd_dq.restype = i32
+    lib.pdt_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 9 + [
+        ctypes.c_float, ptr]
+    lib.pdt_flash_bwd_dkv.restype = i32
     lib.pdt_flash_bwd_error_string.argtypes = [i32]
     lib.pdt_flash_bwd_error_string.restype = ctypes.c_char_p
 
 
-BWD_KERNELS = ("flash_bwd_dkv", "flash_bwd_dq")
+#: launch order: B3 (dQ) computes delta, which B2 (dK, dV) reads
+BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 #: the B2/B3 kernel library; each kernel counts its own launches
 FLASH_BWD = CudaLibrary("flash_bwd", _declare_bwd, kernels=BWD_KERNELS)
 FLASH_BWD_DKV = FLASH_BWD.kernels["flash_bwd_dkv"]
 FLASH_BWD_DQ = FLASH_BWD.kernels["flash_bwd_dq"]
+#: rows one item of the bf16 kernels owns (queries in B3, keys in B2), 64
+#: per consumer warpgroup; it streams tiles of 64 rows of the other side
+BWD_ITEM_ROWS = 128
+
+
+def bwd_splits(b: int, t: int, h: int, kvh: int, causal: bool, window: int,
+               sms: int) -> int:
+    """How many of B2's bf16 items share one (batch, kv head, 128-key
+    tile)'s query heads. A split pays only where the unsplit items are
+    fewer than ``sms`` and uneven: under a causal mask with no band
+    narrower than T, the first key tile's item walks every query tile and
+    the last one a single tile, so the longest item sets the time. Then
+    the smallest divisor of the group that brings the items to ``sms``
+    (the whole group when none does); else 1. Split items write f32
+    partials that a second launch adds in a fixed order, which costs more
+    than it gains once every SM has an item or the items are even (B2's
+    times per split count on an H100, ``tools/kernel_ab.py --phase
+    bwd``)."""
+    groups = h // kvh
+    items = -(-t // BWD_ITEM_ROWS) * b * kvh
+    uneven = causal and not 0 < window < t
+    if groups == 1 or items >= sms or not uneven:
+        return 1
+    for s in range(2, groups + 1):
+        if groups % s == 0 and items * s >= sms:
+            return s
+    return groups
 
 
 def _delta(g, out, g_lse=None):
     """``[B, H, T]`` f32: ``rowsum(g * out)``, minus the lse cotangent
-    (``d lse / d s = p`` folds into the backward as ``delta - g_lse``)."""
+    (``d lse / d s = p`` folds into the backward as ``delta - g_lse``).
+    The plain backward's; on the card B3 computes it."""
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2)
     if g_lse is not None:
         delta = delta - g_lse.float()
@@ -279,72 +311,98 @@ def flash_attention_bwd_ref(q, k, v, out, lse, g, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _flash_bwd_cuda(q, k, v, g, lse, delta, causal: bool, window: int,
-                    kernels=BWD_KERNELS):
-    """Launch B2 (dK, dV) then B3 (dQ) on PyTorch's current stream.
-    ``kernels`` (timing only) launches a subset; the gradients it skips
-    come back uninitialised."""
+def _flash_bwd_cuda(q, k, v, out, g, lse, g_lse, causal: bool, window: int,
+                    kernels=BWD_KERNELS, delta=None, splits=None):
+    """Launch B3 (dQ and delta) then B2 (dK, dV) on PyTorch's current
+    stream: ``(dq, dk, dv, delta)``. ``kernels``, ``delta`` and ``splits``
+    are for timing and tests: ``kernels`` launches a subset (the gradients
+    it skips come back uninitialised; B2 alone reads ``delta`` as B3 wrote
+    it), ``delta`` is the ``[B, H, T]`` f32 buffer B3 writes, and
+    ``splits`` overrides :func:`bwd_splits`."""
     dtype = q.dtype
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_bwd kernels take float32 or bfloat16, got "
                         f"{dtype}")
-    if any(x.dtype != dtype for x in (k, v, g)):
-        raise TypeError("q, k, v and the output gradient must share one "
-                        "dtype")
-    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
-        raise TypeError("lse and delta must be float32")
-    tensors = (q, k, v, g, lse, delta)
-    if any(x.device != q.device for x in tensors):
-        raise ValueError("flash backward inputs must be on one device")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("flash_bwd kernels need contiguous inputs")
+    if any(x.dtype != dtype for x in (k, v, out, g)):
+        raise TypeError("q, k, v, the output and its gradient must share "
+                        "one dtype")
     b, t, h, d = q.shape
     kvh = k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_bwd kernels take head_dim in {HEAD_DIMS}, "
                          f"got {d}")
-    if tuple(lse.shape) != (b, h, t) or tuple(delta.shape) != (b, h, t):
-        raise ValueError(f"lse and delta must be [B, H, T] = {(b, h, t)}")
+    if delta is None:
+        delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    tensors = [q, k, v, out, g, lse, delta]
+    if g_lse is not None:
+        tensors.append(g_lse)
+    if any(x.dtype != torch.float32 for x in tensors[5:]):
+        raise TypeError("lse, delta and the lse cotangent must be float32")
+    if any(x.device != q.device for x in tensors):
+        raise ValueError("flash backward inputs must be on one device")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("flash_bwd kernels need contiguous inputs")
+    if out.shape != q.shape or g.shape != q.shape:
+        raise ValueError(f"out and its gradient must be {tuple(q.shape)}")
+    if any(tuple(x.shape) != (b, h, t) for x in tensors[5:]):
+        raise ValueError(f"lse, delta and the lse cotangent must be "
+                         f"[B, H, T] = {(b, h, t)}")
     if int(window) < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if dtype == torch.bfloat16 and any(x.data_ptr() % 16
-                                       for x in (q, k, v, g)):
-        raise ValueError("flash_bwd's bf16 kernels read 16-byte vectors: "
-                         "q, k, v and the gradient must start 16-byte "
-                         "aligned")
+                                       for x in (q, k, v, out, g)):
+        raise ValueError("flash_bwd's bf16 kernels load by TMA and read "
+                         "16-byte vectors: q, k, v, the output and its "
+                         "gradient must start 16-byte aligned")
     lib = FLASH_BWD.load()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
-    shape = (b, t, h, kvh, d, _DTYPE_CODES[dtype], int(bool(causal)),
-             int(window), float(d ** -0.5))
-    ptrs = [x.data_ptr() for x in (q, k, v, g, lse, delta)]
+    if dtype == torch.float32:
+        splits = 1
+    elif splits is None:
+        splits = bwd_splits(b, t, h, kvh, causal, window,
+                            _sm_count(q.device))
+    part = (torch.empty((2, splits, b, t, kvh, d), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
+    tail = (b, t, h, kvh, d, _DTYPE_CODES[dtype], int(bool(causal)),
+            int(window))
     err = 0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if "flash_bwd_dkv" in kernels:
-            FLASH_BWD_DKV.launches += 1
-            err = lib.pdt_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
-                                        *shape, stream)
-        if err == 0 and "flash_bwd_dq" in kernels:
+        if "flash_bwd_dq" in kernels:
             FLASH_BWD_DQ.launches += 1
-            err = lib.pdt_flash_bwd_dq(*ptrs, dq.data_ptr(), *shape, stream)
+            err = lib.pdt_flash_bwd_dq(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                out.data_ptr(), lse.data_ptr(),
+                None if g_lse is None else g_lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), *tail, float(d ** -0.5),
+                stream)
+        if err == 0 and "flash_bwd_dkv" in kernels:
+            FLASH_BWD_DKV.launches += 1
+            err = lib.pdt_flash_bwd_dkv(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), None if part is None else part.data_ptr(),
+                *tail, int(splits), float(d ** -0.5), stream)
     if err != 0:
         raise RuntimeError(
             f"flash_bwd launch failed: CUDA error {err} "
             f"({lib.pdt_flash_bwd_error_string(err).decode()})")
-    return dq, dk, dv
+    return dq, dk, dv, delta
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, causal: bool = True,
                         window: int = 0, g_lse=None):
     """``(dq, dk, dv)`` of :func:`flash_attention_lse` for the output
     cotangent ``g`` (and ``g_lse``, or None): the plain backward for CPU
-    tensors, kernels B2 and B3 for CUDA tensors (or raise)."""
+    tensors, kernels B3 then B2 for CUDA tensors (or raise)."""
     if _device_kind(q) == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, g, causal=causal,
                                        window=window, g_lse=g_lse)
-    return _flash_bwd_cuda(q, k, v, g.contiguous(), lse.contiguous(),
-                           _delta(g, out, g_lse), causal, window)
+    if g_lse is not None:
+        g_lse = g_lse.float().contiguous()
+    return _flash_bwd_cuda(q, k, v, out.contiguous(), g.contiguous(),
+                           lse.contiguous(), g_lse, causal, window)[:3]
 
 
 def visible_keys(t: int, causal: bool, window: int) -> int:
@@ -377,20 +435,32 @@ def flash_bound_seconds(b: int, t: int, h: int, kvh: int, d: int,
 def flash_bwd_bound_seconds(kernel: str, b: int, t: int, h: int, kvh: int,
                             d: int, causal: bool, window: int,
                             itemsize: int, peak_flops: float,
-                            peak_bytes: float):
-    """The least time the card could take for one backward kernel call:
+                            peak_bytes: float, lse_cotangent: bool = False):
+    """The least time the card could take for one backward call:
     ``(seconds, "operations" | "bytes")``.
 
     ``flash_bwd_dkv`` (B2): FLOPs = 8·B·H·D·Σvisible (S recompute, dV, dP,
     dK); bytes = q, g, k, v, lse, delta read and dk, dv written, once.
-    ``flash_bwd_dq`` (B3): FLOPs = 6·B·H·D·Σvisible (S recompute, dP, dQ);
-    bytes = the same inputs read and dq written, once."""
-    per = {"flash_bwd_dkv": 8.0, "flash_bwd_dq": 6.0}[kernel]
+    ``flash_bwd_dq`` (B3): FLOPs = 6·B·H·D·Σvisible (S recompute, dP, dQ;
+    delta's 2·B·H·T·D is left out); bytes = q, g, out, k, v, lse (and the
+    lse cotangent with ``lse_cotangent``) read, dq and delta written,
+    once. ``flash_bwd_pair`` (the whole backward, whatever its kernels
+    recompute or pass between them): FLOPs = 10·B·H·D·Σvisible (S, dV, dP,
+    dK, dQ once each); bytes = q, g, out, k, v, lse (and the lse
+    cotangent) read and dq, dk, dv written, once."""
+    per = {"flash_bwd_dkv": 8.0, "flash_bwd_dq": 6.0,
+           "flash_bwd_pair": 10.0}[kernel]
     flops = per * b * h * d * visible_keys(t, causal, window)
     q_bytes = itemsize * b * t * h * d
     kv_bytes = itemsize * b * t * kvh * d
-    nbytes = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * b * h * t
-    nbytes += 2 * kv_bytes if kernel == "flash_bwd_dkv" else q_bytes
+    row_bytes = 4 * b * h * t   # one [B, H, T] f32 array
+    lse_bytes = row_bytes if lse_cotangent else 0
+    if kernel == "flash_bwd_dkv":
+        nbytes = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
+    elif kernel == "flash_bwd_dq":
+        nbytes = 4 * q_bytes + 2 * kv_bytes + 2 * row_bytes + lse_bytes
+    else:
+        nbytes = 4 * q_bytes + 4 * kv_bytes + row_bytes + lse_bytes
     by_ops, by_bytes = flops / peak_flops, nbytes / peak_bytes
     if by_ops >= by_bytes:
         return by_ops, "operations"

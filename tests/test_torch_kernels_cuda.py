@@ -6,7 +6,10 @@ it runs on its own:
     python -m pytest --noconftest -p no:cacheprovider -q \\
         tests/test_torch_kernels_cuda.py
 
-B1 (``csrc/flash_fwd.cu``) is held against ``flash_attention_ref``, B5
+B1 (``csrc/flash_fwd.cu``) is held against ``flash_attention_ref``, B2
+and B3 (``csrc/flash_bwd.cu``: bf16 TMA/wgmma arms, split GQA items,
+bitwise repeatability; f32 CUDA-core arms) against
+``flash_attention_bwd_ref``, B5
 (``csrc/expert_ffn.cu``) against ``expert_ffn_ref`` and B4
 (``csrc/paged_attn.cu``: its wgmma, decode and CUDA-core arms, each
 single-block and split over pages) against ``paged_attention_ref``, valid
@@ -411,6 +414,15 @@ def _assert_grad_close(got, ref, dtype, what):
     (2, 4, 4, 200, True, 0), (1, 8, 2, 200, True, 64),
     (2, 4, 1, 77, False, 0), (1, 4, 2, 130, False, 32),
     (1, 2, 2, 1, True, 0), (1, 6, 3, 257, True, 0),
+    # T at and around the 64- and 128-row tiles, and under one tile
+    (2, 4, 4, 63, True, 0), (2, 4, 4, 64, True, 0), (1, 4, 2, 65, True, 0),
+    (1, 4, 4, 127, True, 0), (2, 2, 2, 128, False, 0),
+    (1, 4, 2, 129, True, 0), (1, 2, 1, 20, True, 0),
+    # windows narrower than a tile
+    (1, 8, 2, 200, True, 17), (1, 4, 4, 130, False, 5),
+    (2, 4, 4, 300, True, 1),
+    # a group of 8 (split over items: few items)
+    (1, 8, 1, 150, True, 0),
 ])
 def test_flash_bwd_matches_plain(cuda, d, dtype, b, h, kvh, t, causal,
                                  window):
@@ -437,10 +449,11 @@ def test_flash_bwd_matches_plain(cuda, d, dtype, b, h, kvh, t, causal,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_flash_autograd_with_lse_cotangent(cuda, dtype):
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_autograd_with_lse_cotangent(cuda, dtype, d):
     """Gradients through both outputs: autograd over FlashAttention (B1,
     B2, B3) against the plain backward with the same cotangents."""
-    q, k, v = _qkv(cuda, 2, 96, 8, 2, 64, dtype, seed=11)
+    q, k, v = _qkv(cuda, 2, 96, 8, 2, d, dtype, seed=11)
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     out, lse = flash.flash_attention_lse(q, k, v, causal=True, window=40)
     gen = torch.Generator(device=cuda).manual_seed(5)
@@ -453,6 +466,31 @@ def test_flash_autograd_with_lse_cotangent(cuda, dtype):
         window=40, g_lse=g_lse)
     for name, x, want in zip(("dq", "dk", "dv"), (q, k, v), ref):
         _assert_grad_close(x.grad, want, dtype, name)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("splits", [1, 2, None], ids=["s1", "s2", "auto"])
+def test_flash_bwd_gqa_splits_match_plain_and_repeat_bitwise(cuda, d,
+                                                             splits):
+    """bf16 GQA: dK/dV summed over the group inside one item, or split
+    over items whose f32 partials a second launch adds in a fixed order
+    (auto: 3 key tiles x 2 kv heads are few items, so 4 splits), within
+    tolerance of the plain backward; two runs are bitwise equal."""
+    b, h, kvh, t = 1, 8, 2, 300
+    q, k, v = _qkv(cuda, b, t, h, kvh, d, torch.bfloat16, seed=d + 7)
+    out, lse = flash.flash_attention_lse(q, k, v, causal=True)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    g = torch.randn(out.shape, device=cuda, generator=gen).bfloat16()
+    runs = [flash._flash_bwd_cuda(q, k, v, out, g, lse, None, True, 0,
+                                  splits=splits)[:3] for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(x, y), f"{name} differs between two runs"
+    ref = flash.flash_attention_bwd_ref(
+        q.float(), k.float(), v.float(), out.float(), lse, g.float(),
+        causal=True)
+    for name, got, want in zip(("dq", "dk", "dv"), runs[0], ref):
+        _assert_grad_close(got, want, torch.bfloat16, name)
 
 
 def test_flash_bwd_refuses_what_it_does_not_take(cuda):
