@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 4, 5, 6, 7); any
+Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 4, 5, 6, 7, 8, 9); any
 failure exits non-zero and no phase's exception is caught:
 
 1. build: compile every CUDA source of the port with nvcc (one process per
@@ -110,6 +110,32 @@ Slice 4 (MoE LM training, kernel B5) adds:
     byte`` logged; checkpoints and ``summary.json`` written; a resume from
     ``checkpoint-epoch1`` reproduces epoch 2. Then 5 steps under the
     profiler (with B2's and B3's device ms per step).
+
+Slice 5 (the source paper's main path: LeNet/MNIST with DDP; no TPU
+kernel, the convs, pools and dense layers run on cuDNN/cuBLAS) adds:
+
+8.  ``configs/mnist_debug.json`` trains one epoch in f32 through the
+    port's ``train.py`` on the card and on the CPU from the same weights,
+    dropout off: the same per-step losses and final params, with TF32 off
+    on the card for this comparison only (each run's setting printed);
+9.  main path of slice 5: the port's ``train.py`` with
+    ``configs/mnist.json`` (LeNet at full width, batch 128, 10 epochs,
+    synthetic MNIST without idx files; one cut: ``trainer.tensorboard``
+    false, A10) in this process with the launcher's environment set for
+    one rank: the process group must be NCCL, the model must train
+    wrapped in ``DistributedDataParallel``, and a communication hook on
+    the wrapper must count a gradient all-reduce in every train step;
+    losses finite and falling; the final validation accuracy above 0.5
+    (chance 0.1); checkpoints, ``model_best`` and ``summary.json``
+    written; a resume from ``checkpoint-epoch1`` reproduces epoch 2
+    exactly; the port's ``test.py`` on ``model_best`` gives the best
+    epoch's validation loss and metrics (rtol 1e-6) and ``--save-outputs``
+    writes one row per validation sample; then ``torchrun --standalone
+    --nproc_per_node=1 -m pytorch_distributed_template_tpu_torch.train -c
+    configs/mnist_debug.json`` (one epoch) exits 0 and writes its
+    checkpoint. Prints ms/step, examples/s, a 5-step profile (device busy
+    and idle share, top ops), peak memory and the all-reduce calls and
+    bytes per step, each beside the card line.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
@@ -471,7 +497,7 @@ def profile_request(service, ids, new: int, label: str, card: str) -> None:
 def _profiled(fn, device, top_n: int = 8, sums=()) -> dict:
     """Run ``fn`` under ``torch.profiler``: wall time (host clock to
     ``cuda.synchronize``), the device's busy time (union of kernel and copy
-    intervals), its idle share, the device op count and the kernels that
+    intervals; user annotations left out), its idle share, the device op count and the kernels that
     take most of the time; ``<name>_ms`` for each name of ``sums``: the
     device time of the kernels whose names hold it."""
     from torch.autograd import DeviceType
@@ -488,7 +514,11 @@ def _profiled(fn, device, top_n: int = 8, sums=()) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # user annotations (the optimizer's and DDP's record_function
+        # ranges) sit on the device timeline but span the gaps between
+        # kernels: only kernels and copies count as busy
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
             continue
         spans.append((e.time_range.start, e.time_range.end))
         us, n = by_name.get(e.name, (0.0, 0))
@@ -1948,6 +1978,391 @@ def phase_moe_train(card: str, device="cuda", config=MOE_CONFIG,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 5: the source paper's main path (LeNet/MNIST, DDP over NCCL); no TPU
+# kernel runs on it (convs, pools and dense layers are cuDNN/cuBLAS)
+# ---------------------------------------------------------------------------
+
+# PyTorch's own TF32 settings, read before any phase changes them: the main
+# path runs with these; phase 8 turns TF32 off for its comparison only
+TF32_DEFAULTS = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                 "cudnn": torch.backends.cudnn.allow_tf32}
+MNIST_DEBUG = REPO / "configs" / "mnist_debug.json"
+MNIST_CONFIG = REPO / "configs" / "mnist.json"
+# phase 8: one epoch of mnist_debug (8 steps of 64) in f32 on the card and
+# on the CPU from the same weights, dropout off: per-step losses rtol 1e-5
+# and final params atol 1e-4, as TRAIN_REF_TOL (summation order only,
+# with TF32 off: cuDNN's TF32 convs would move the losses by ~1e-3)
+LENET_REF_SETS = [("trainer;epochs", 1), ("trainer;save_period", 10)]
+# phase 9: configs/mnist.json at LeNet's full width, batch 128, 10 epochs;
+# the one cut: TensorBoard is A10 (PERF.md cell (j))
+MNIST_SETS = [("trainer;tensorboard", False)]
+# the torchrun launch: mnist_debug for one epoch
+TORCHRUN_SETS = [("trainer;epochs", 1)]
+MNIST_MIN_VAL_ACC = 0.5          # chance is 0.1
+MNIST_KEYS = ("loss", "accuracy", "top_k_acc", "val_loss", "val_accuracy",
+              "val_top_k_acc")
+TEST_RTOL = 1e-6
+
+
+class _TF32:
+    """Set cuBLAS's and cuDNN's TF32 switches for a block; restore after."""
+
+    def __init__(self, matmul: bool, cudnn: bool):
+        self.want = (matmul, cudnn)
+
+    def __enter__(self):
+        self.saved = (torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32)
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self.want
+        return {"matmul_tf32": self.want[0], "cudnn_tf32": self.want[1]}
+
+    def __exit__(self, *exc):
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self.saved
+
+
+def _lenet_run(device, state, work, sets=LENET_REF_SETS):
+    """One epoch of mnist_debug through the port's ``train.py`` on
+    ``device`` from ``state``, dropout off: (per-step losses, final params
+    on the CPU)."""
+    from pytorch_distributed_template_tpu_torch import train as train_cli
+
+    losses, box = [], {}
+
+    def hook(trainer):
+        box["trainer"] = trainer
+        for mod in (trainer.model.Dropout_0, trainer.model.Dropout_1):
+            mod.p = 0.0
+        trainer.model.load_state_dict(state)
+        inner = trainer.train_step
+
+        def step(batch):
+            m = inner(batch)
+            losses.append(float(m["loss_sum"]) / float(m["count"]))
+            return m
+
+        trainer.train_step = _Wrapped(inner, step)
+
+    argv = ["-c", str(MNIST_DEBUG), "-s", str(work), "--device",
+            str(device), "--no-validate"]
+    for chain, value in sets:
+        argv += ["--set", chain, json.dumps(value)]
+    train_cli.main(argv, on_trainer=hook)
+    params = {k: v.detach().cpu()
+              for k, v in box["trainer"].model.state_dict().items()}
+    return losses, params
+
+
+def phase_lenet_reference(device="cuda", work=WORK) -> None:
+    """Phase 8: one epoch of ``configs/mnist_debug.json`` in f32 on
+    ``device`` and on the CPU through the port's ``train.py``, from the
+    same weights (a CPU LeNet drawn from seed 0) with dropout off: the
+    per-step losses and final params within ``TRAIN_REF_TOL``, TF32 off
+    on the card for this comparison only."""
+    from pytorch_distributed_template_tpu_torch.models.lenet import LeNet
+
+    cpu = LeNet(device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    state = {k: v.clone() for k, v in cpu.state_dict().items()}
+    root = work / "lenet_ref"
+    with _TF32(False, False) as tf32:
+        dev_loss, dev_p = _lenet_run(device, state, root / "device")
+    cpu_loss, cpu_p = _lenet_run("cpu", state, root / "cpu")
+    shutil.rmtree(root)
+    if len(dev_loss) != len(cpu_loss) or not dev_loss:
+        raise AssertionError(f"step counts differ: {len(dev_loss)} on "
+                             f"{device}, {len(cpu_loss)} on the CPU")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(dev_loss, cpu_loss))
+    param_err = max((dev_p[k] - cpu_p[k]).abs().max().item() for k in cpu_p)
+    row = {"model": "LeNet", "config": "mnist_debug", "steps": len(dev_loss),
+           "losses_device": dev_loss, "losses_cpu": cpu_loss,
+           "loss_max_rel_err": loss_err, "param_max_abs_err": param_err,
+           "tol": TRAIN_REF_TOL, "device": str(device),
+           "device_run": tf32, "cpu_run": "float32 (no TF32 on the CPU)"}
+    log("[lenet-reference] " + json.dumps(row))
+    if not (loss_err <= TRAIN_REF_TOL["loss_rtol"]
+            and param_err <= TRAIN_REF_TOL["param_atol"]):
+        raise AssertionError(f"LeNet training on {device} differs from the "
+                             f"CPU: {row}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class MnistRun:
+    """Hooks one run of the port's trainer: checks that it trains under
+    ``DistributedDataParallel`` on a process group of ``backend``, counts
+    DDP's gradient all-reduces with a communication hook (calls and bytes,
+    per train step), and times each train step (host clock to
+    ``cuda.synchronize``)."""
+
+    def __init__(self, trainer, device, backend: str, label: str, card: str):
+        import torch.distributed as tdist
+        from torch.distributed.algorithms.ddp_comm_hooks import (
+            default_hooks,
+        )
+
+        self.device, self.label, self.card = device, label, card
+        self.backend = tdist.get_backend()
+        if self.backend != backend:
+            raise AssertionError(f"({label}) the process group runs "
+                                 f"{self.backend}, not {backend}")
+        ddp = trainer.ddp
+        if not isinstance(ddp, torch.nn.parallel.DistributedDataParallel):
+            raise AssertionError(f"({label}) the model is not wrapped in "
+                                 f"DistributedDataParallel")
+        self.allreduce = {"calls": 0, "bytes": 0}
+
+        def counted(state, bucket):
+            buf = bucket.buffer()
+            state["calls"] += 1
+            state["bytes"] += buf.numel() * buf.element_size()
+            return default_hooks.allreduce_hook(None, bucket)
+
+        ddp.register_comm_hook(self.allreduce, counted)
+        self.steps, self.epoch_logs = [], []
+        self.batch = trainer.train_loader.batch_size
+        inner = trainer.train_step
+        trainer.train_step = _Wrapped(inner, self._step(inner))
+        real_epoch = trainer._train_epoch
+
+        def epoch(e):
+            out = real_epoch(e)
+            self.epoch_logs.append(dict(out, epoch=e))
+            log(f"[mnist] ({label}) epoch " + json.dumps(
+                dict(out, epoch=e, card=card)))
+            return out
+
+        trainer._train_epoch = epoch
+
+    def _step(self, inner):
+        is_cuda = torch.device(self.device).type == "cuda"
+
+        def call(batch):
+            calls = self.allreduce["calls"]
+            _sync(self.device)
+            t0 = time.perf_counter()
+            m = inner(batch)
+            _sync(self.device)
+            secs = time.perf_counter() - t0
+            if self.allreduce["calls"] == calls:
+                raise AssertionError(
+                    f"({self.label}) a train step ran no gradient "
+                    f"all-reduce through the DDP hook")
+            self.steps.append({
+                "loss": float(m["loss_sum"]) / max(float(m["count"]), 1.0),
+                "ms": secs * 1e3, "examples_per_s": self.batch / secs,
+                "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                 if is_cuda else 0.0)})
+            return m
+
+        return call
+
+
+def phase_mnist(card: str, device="cuda", config=MNIST_CONFIG,
+                sets=MNIST_SETS, work=WORK, seed: int = 0,
+                torchrun_sets=TORCHRUN_SETS) -> dict:
+    """Phase 9, slice 5's main path: the port's ``train.py`` with
+    ``configs/mnist.json`` (LeNet, Adam amsgrad, StepLR, batch 128, 10
+    epochs; synthetic MNIST without idx files) in this process with the
+    launcher's environment set for one rank, so ``dist.initialize`` builds
+    an NCCL group (gloo on the CPU) and the trainer runs DDP. Checks the
+    backend, the DDP wrapper and a gradient all-reduce in every step (a
+    communication hook), finite and falling losses, validation accuracy
+    well above chance, the checkpoints and summary, a resume from
+    ``checkpoint-epoch1`` reproducing epoch 2 exactly, the port's
+    ``test.py`` on ``model_best`` equal to the best epoch's validation
+    (rtol ``TEST_RTOL``) with ``--save-outputs``; then ``torchrun``
+    launches ``train.py`` on ``configs/mnist_debug.json`` for one epoch.
+    Prints step time, examples/s, a 5-step profile, peak memory and the
+    all-reduce calls and bytes per step. Returns the run's numbers."""
+    import os
+
+    from pytorch_distributed_template_tpu_torch import test as test_cli
+    from pytorch_distributed_template_tpu_torch import train as train_cli
+    from pytorch_distributed_template_tpu_torch.parallel import dist
+
+    is_cuda = torch.device(device).type == "cuda"
+    backend = "nccl" if is_cuda else "gloo"
+    root = work / "mnist"
+    if root.exists():
+        shutil.rmtree(root)
+    launch = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+              "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    saved_env = {k: os.environ.get(k) for k in launch}
+    os.environ.update(launch)
+    if is_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        with _TF32(TF32_DEFAULTS["matmul"], TF32_DEFAULTS["cudnn"]) as tf32:
+            out = _mnist_path(card, device, config, sets, root, seed,
+                              backend, tf32, train_cli, test_cli)
+    finally:
+        dist.shutdown()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["torchrun"] = _torchrun(device, root / "torchrun", torchrun_sets)
+    shutil.rmtree(root)
+    log("[mnist] torchrun " + json.dumps(out["torchrun"]))
+    return out
+
+
+def _mnist_path(card, device, config, sets, root, seed, backend, tf32,
+                train_cli, test_cli) -> dict:
+    from pytorch_distributed_template_tpu_torch.parallel import dist
+
+    argv = ["-c", str(config), "-s", str(root / "main"), "--device",
+            str(device), "--seed", str(seed)]
+    for chain, value in sets:
+        argv += ["--set", chain, json.dumps(value)]
+    box = {}
+
+    def hook(trainer):
+        box["trainer"] = trainer
+        box["run"] = MnistRun(trainer, device, backend, "main", card)
+        log(f"[mnist] {type(trainer.model).__name__} on {trainer.device} "
+            f"under DDP ({box['run'].backend}, world "
+            f"{dist.process_count()}): batch {trainer.train_loader.batch_size}, "
+            f"{len(trainer.train_loader)} steps per epoch, "
+            f"{trainer.train_loader.n_samples} training and "
+            f"{trainer.valid_loader.n_samples} validation samples, "
+            f"{trainer.epochs} epochs, optimizer "
+            f"{type(trainer.optimizer).__name__}, TF32 {tf32}; cuts: {sets}")
+
+    t0 = time.perf_counter()
+    train_cli.main(argv, on_trainer=hook)
+    wall = time.perf_counter() - t0
+    trainer, run = box["trainer"], box["run"]
+    losses = [r["loss"] for r in run.steps]
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training losses: {losses}")
+    head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not tail < head:
+        raise AssertionError(f"the loss did not fall: first 5 steps "
+                             f"{head:.4f}, last 5 {tail:.4f}")
+    final = run.epoch_logs[-1]
+    for e in run.epoch_logs:
+        if not all(np.isfinite(e[k]) for k in MNIST_KEYS):
+            raise AssertionError(f"epoch {e['epoch']} logged a non-finite "
+                                 f"value: {e}")
+    if not final["val_accuracy"] > MNIST_MIN_VAL_ACC:
+        raise AssertionError(f"val_accuracy {final['val_accuracy']} is not "
+                             f"above {MNIST_MIN_VAL_ACC}")
+    run_dir = trainer.config.save_dir
+    epochs = trainer.epochs
+    for path in ([run_dir / f"checkpoint-epoch{e}" / "model.pt"
+                  for e in range(1, epochs + 1)]
+                 + [run_dir / "model_best" / "model.pt",
+                    run_dir / "summary.json"]):
+        if not path.is_file():
+            raise AssertionError(f"{path} was not written")
+    steady = run.steps[1:] or run.steps
+    ms = float(np.median([r["ms"] for r in steady]))
+    per_step = {"calls": run.allreduce["calls"] / len(run.steps),
+                "bytes": run.allreduce["bytes"] / len(run.steps)}
+    row = {"run": "main", "config": str(config.relative_to(REPO)),
+           "backend": run.backend, "ddp": True, "steps": len(run.steps),
+           "epochs": epochs, "wall_s": wall, "loss_first5": head,
+           "loss_last5": tail, "final": final,
+           "ms_per_step_median": ms,
+           "examples_per_s_median": run.batch * 1e3 / ms,
+           "peak_mem_gib_max": max(r["peak_mem_gib"] for r in run.steps),
+           "allreduce_per_step": per_step, "tf32": tf32, "card": card}
+    log("[mnist] " + json.dumps(row))
+
+    # resume from the first epoch's checkpoint: epoch 2 again, exactly
+    resume_box = {}
+
+    def resume_hook(trainer):
+        resume_box["run"] = MnistRun(trainer, device, backend, "resume",
+                                     card)
+
+    train_cli.main(["-r", str(run_dir / "checkpoint-epoch1"), "-s",
+                    str(root / "resume"), "--device", str(device), "--set",
+                    "trainer;epochs", "2"], on_trainer=resume_hook)
+    again = resume_box["run"].epoch_logs
+    if [e["epoch"] for e in again] != [2]:
+        raise AssertionError(f"the resumed run ran epochs "
+                             f"{[e['epoch'] for e in again]}")
+    first = run.epoch_logs[1]
+    diffs = {k: abs(again[0][k] - first[k]) for k in MNIST_KEYS}
+    log("[mnist] resume " + json.dumps({
+        "epoch": 2, "uninterrupted": {k: first[k] for k in MNIST_KEYS},
+        "resumed": {k: again[0][k] for k in MNIST_KEYS},
+        "abs_diff": diffs}))
+    if max(diffs.values()) > 0:
+        raise AssertionError(f"resume does not reproduce epoch 2: {diffs}")
+
+    # the port's test.py on model_best: the best epoch's validation
+    best = min(run.epoch_logs, key=lambda e: e["val_loss"])
+    dump = root / "outputs"
+    result = test_cli.main(["-r", str(run_dir / "model_best"), "-s",
+                            str(root / "test"), "--device", str(device),
+                            "--save-outputs", str(dump)])
+    errs = {k: abs(result[k] - best[f"val_{k}"]) / abs(best[f"val_{k}"])
+            for k in ("loss", "accuracy", "top_k_acc")}
+    rows = {name: np.load(dump / f"{name}_p0.npy").shape
+            for name in ("outputs", "targets")}
+    n_test = trainer.valid_loader.n_samples
+    log("[mnist] test.py " + json.dumps({
+        "best_epoch": best["epoch"], "test": result,
+        "rel_err_vs_best_val": errs, "rtol": TEST_RTOL,
+        "saved_rows": {k: list(v) for k, v in rows.items()}}))
+    if max(errs.values()) > TEST_RTOL:
+        raise AssertionError(f"test.py differs from the best epoch's "
+                             f"validation: {errs}")
+    if rows["outputs"] != (n_test, 10) or rows["targets"] != (n_test,):
+        raise AssertionError(f"--save-outputs wrote {rows}, not {n_test} "
+                             f"rows")
+
+    # where a train step's time goes (outside the checked runs)
+    batches = [trainer._to_device(b) for b, _ in zip(trainer.train_loader,
+                                                     range(5))]
+    inner = trainer.train_step._inner
+    prof = _profiled(lambda: [inner(b) for b in batches], device, top_n=8)
+    log("[profile] " + json.dumps({"profile": "mnist_steps", "steps": 5,
+                                   **prof, "card": card}))
+    row.update(profile=prof, resume_abs_diff=diffs, test=result)
+    return row
+
+
+def _torchrun(device, save_dir, sets, timeout: float = 600.0) -> dict:
+    """``torchrun --standalone --nproc_per_node=1 -m
+    pytorch_distributed_template_tpu_torch.train -c
+    configs/mnist_debug.json`` (``torch.distributed.run``, the program
+    behind ``torchrun``) in a subprocess: it must exit 0 and write its
+    checkpoint."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", "-m",
+           "pytorch_distributed_template_tpu_torch.train", "-c",
+           str(MNIST_DEBUG), "-s", str(save_dir), "--device", str(device)]
+    for chain, value in sets:
+        cmd += ["--set", chain, json.dumps(value)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                       timeout=timeout)
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"torchrun exited {r.returncode}: "
+                             f"{r.stdout[-2000:]}{r.stderr[-3000:]}")
+    ckpts = sorted(save_dir.rglob("checkpoint-epoch1/model.pt"))
+    if not ckpts:
+        raise AssertionError(f"torchrun wrote no checkpoint under "
+                             f"{save_dir}")
+    return {"cmd": " ".join(cmd[1:]), "exit": r.returncode, "wall_s": secs,
+            "checkpoint": str(ckpts[0].relative_to(save_dir))}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1970,6 +2385,8 @@ def main() -> int:
     paged_launches = phase_serve(card, WORK / "art" / "model")
     train_launches = phase_train(card)
     moe_launches = phase_moe_train(card)
+    phase_lenet_reference()
+    phase_mnist(card)
     shutil.rmtree(WORK)
     log(f"[device] all phases in {time.perf_counter() - t_start:.1f} s")
     kernels = []

@@ -1,11 +1,12 @@
 """Checkpoints: serving artifacts (params-only state dicts with checksum
 manifests) and training checkpoints (model, optimizer, counters)."""
-from .manager import CheckpointManager
+from .manager import CheckpointManager, load_model
 from .serving import (
     ArtifactCorrupt, load_serving_meta, restore_serving_params,
     save_serving_params, verify_artifact_manifest, write_artifact_manifest,
 )
 
-__all__ = ["ArtifactCorrupt", "CheckpointManager", "load_serving_meta",
+__all__ = ["ArtifactCorrupt", "CheckpointManager", "load_model",
+           "load_serving_meta",
            "restore_serving_params", "save_serving_params",
            "verify_artifact_manifest", "write_artifact_manifest"]

@@ -13,9 +13,15 @@ when the architecture differs, the optimizer state dropped when the
 optimizer type changed. The port does not read the JAX package's orbax
 checkpoints.
 
-Left to slice 5 (the training main path with DP): the ``data_state``
-sidecar and mid-epoch resume, interval and emergency saves, ``keep_last``
-pruning.
+Under DDP the trainer calls :meth:`CheckpointManager.save` on rank 0 only.
+The model's state dict is always the bare module's (a
+``DistributedDataParallel`` wrapper is unwrapped, and a ``module.`` prefix
+is stripped on load), so a checkpoint written under DDP loads in one
+process and the other way round. Every rank loads with ``map_location``
+set to its own device (:meth:`restore`, :func:`load_model`).
+
+Left to ROADMAP A17: the ``data_state`` sidecar and mid-epoch resume,
+interval and emergency saves, ``keep_last`` pruning.
 """
 from __future__ import annotations
 
@@ -40,6 +46,19 @@ def _json_safe_best(monitor_best) -> Optional[float]:
     return v if math.isfinite(v) else None
 
 
+def _bare(model):
+    return getattr(model, "module", model)
+
+
+def load_model(path, model, map_location="cpu") -> None:
+    """Load ``<path>/model.pt`` into ``model`` (or a DDP wrapper's module),
+    read onto ``map_location``."""
+    state = torch.load(Path(path) / "model.pt", map_location=map_location)
+    state = {(k[len("module."):] if k.startswith("module.") else k): v
+             for k, v in state.items()}
+    _bare(model).load_state_dict(state)
+
+
 class CheckpointManager:
     def __init__(self, checkpoint_dir):
         self.checkpoint_dir = Path(checkpoint_dir)
@@ -47,7 +66,7 @@ class CheckpointManager:
     def _write(self, path: Path, model, optimizer, train_state: dict,
                meta: dict) -> None:
         path.mkdir(parents=True, exist_ok=True)
-        torch.save(model.state_dict(), path / "model.pt")
+        torch.save(_bare(model).state_dict(), path / "model.pt")
         torch.save(optimizer.state_dict(), path / "optimizer.pt")
         (path / "train_state.json").write_text(json.dumps(train_state))
         (path.parent / f"{path.name}.meta.json").write_text(
@@ -83,9 +102,11 @@ class CheckpointManager:
         return None
 
     def restore(self, resume_path, model, optimizer, current_config: dict,
-                current_arch: str) -> Tuple[dict, int, Optional[float]]:
-        """Load a checkpoint into ``model`` and ``optimizer`` in place.
-        Returns ``(train_state, start_epoch, monitor_best)``."""
+                current_arch: str, map_location="cpu"
+                ) -> Tuple[dict, int, Optional[float]]:
+        """Load a checkpoint into ``model`` and ``optimizer`` in place,
+        reading the tensors onto ``map_location``. Returns
+        ``(train_state, start_epoch, monitor_best)``."""
         resume_path = Path(resume_path)
         logger.info("Loading checkpoint: %s ...", resume_path)
         meta = self.load_meta(resume_path)
@@ -106,8 +127,7 @@ class CheckpointManager:
                 "Warning: Architecture configuration given in config file "
                 "is different from that of checkpoint. This may yield an "
                 "exception while state is being loaded.")
-        model.load_state_dict(torch.load(resume_path / "model.pt",
-                                         map_location="cpu"))
+        load_model(resume_path, model, map_location)
         opt_changed = ckpt_config is not None and (
             ckpt_config.get("optimizer", {}).get("type")
             != current_config.get("optimizer", {}).get("type"))
@@ -118,7 +138,7 @@ class CheckpointManager:
                 "resumed.")
         else:
             optimizer.load_state_dict(torch.load(
-                resume_path / "optimizer.pt", map_location="cpu"))
+                resume_path / "optimizer.pt", map_location=map_location))
         train_state = json.loads((resume_path / "train_state.json")
                                  .read_text())
         start_epoch = int(meta.get("epoch", 0)) + 1

@@ -12,9 +12,10 @@ Same behaviour as the reference parser:
   artifact; ``-c`` together with ``-r`` overlays the new config's top-level
   keys; ``-s`` overrides ``trainer.save_dir``;
 - the run directory ``save_dir/name/{train,test}/<MMDD_HHMMSS>`` receives
-  the merged config and the ``info.log``.
+  the merged config and the ``info.log``; under a process group rank 0
+  writes them, and its run id is every rank's.
 
-Left to the training slice: ``--auto-resume`` and ``init_ftn``.
+Left to ROADMAP A17: ``--auto-resume`` and ``init_ftn``.
 """
 from __future__ import annotations
 
@@ -24,15 +25,9 @@ from datetime import datetime
 from pathlib import Path
 
 from ..observability.logging import setup_logging
+from ..parallel import dist
 from ..utils.util import read_json, write_json
 from .registry import resolve
-
-
-def _is_main_process() -> bool:
-    import torch.distributed as tdist
-
-    return (not tdist.is_available() or not tdist.is_initialized()
-            or tdist.get_rank() == 0)
 
 
 class ConfigParser:
@@ -52,12 +47,13 @@ class ConfigParser:
         save_dir = Path(self.config["trainer"]["save_dir"])
         exper_name = self.config["name"]
         if run_id is None:
-            run_id = datetime.now().strftime(r"%m%d_%H%M%S")
+            run_id = dist.broadcast_object(
+                datetime.now().strftime(r"%m%d_%H%M%S"))
         self._run_id = run_id
         traindir = "train" if training else "test"
         self._save_dir = (save_dir / exper_name / traindir / run_id).resolve()
 
-        if _is_main_process():
+        if dist.is_main_process():
             self.save_dir.mkdir(parents=True, exist_ok=True)
             write_json(self.config, self.save_dir / "config.json")
             setup_logging(self.save_dir)
@@ -65,22 +61,29 @@ class ConfigParser:
         self.log_levels = {0: logging.WARNING, 1: logging.INFO,
                            2: logging.DEBUG}
 
+    @staticmethod
+    def parse_args(parser, options=(), argv=None):
+        """``parser`` with the ``options`` flags and ``--set`` added, parsed
+        from ``argv`` (default ``sys.argv``)."""
+        for opt in options:
+            parser.add_argument(*opt.flags, default=None, type=opt.type)
+        parser.add_argument(
+            "--set", action="append", nargs=2, default=None,
+            metavar=("KEYCHAIN", "VALUE"),
+            help="Override a ;-separated config keychain "
+                 "(repeatable; VALUE parsed as JSON when possible).",
+        )
+        return parser.parse_args(argv)
+
     @classmethod
     def from_args(cls, args, options=(), training=True, argv=None):
         """Build from argparse. Returns ``(parsed_args, config_parser)``.
 
         ``args`` is an ``ArgumentParser`` (parsed here, from ``argv`` or
-        ``sys.argv``) or an already parsed namespace."""
-        for opt in options:
-            args.add_argument(*opt.flags, default=None, type=opt.type)
+        ``sys.argv``, by :meth:`parse_args`) or a namespace that
+        :meth:`parse_args` gave with the same ``options``."""
         if hasattr(args, "add_argument"):
-            args.add_argument(
-                "--set", action="append", nargs=2, default=None,
-                metavar=("KEYCHAIN", "VALUE"),
-                help="Override a ;-separated config keychain "
-                     "(repeatable; VALUE parsed as JSON when possible).",
-            )
-            args = args.parse_args(argv)
+            args = cls.parse_args(args, options, argv)
 
         if args.resume is not None:
             resume = Path(args.resume)

@@ -1,14 +1,13 @@
-"""LM losses: the port of the JAX package's ``engine/losses.py`` for the
-language-model family.
+"""Losses: the port of the JAX package's ``engine/losses.py`` for the
+language-model family and the image losses (``nll_loss``,
+``cross_entropy``, ``mse_loss``, ``smooth_cross_entropy``).
 
 Losses are per-example functions ``(output, target) -> [B]``; the train
 and eval steps apply the padding mask and reduce (engine/steps.py).
 ``resolve_loss`` keeps the JAX package's config contract: a plain string
 names a loss, a ``{"type", "args"}`` dict calls a registered factory.
 
-``mlm_cross_entropy`` waits for BERT (other model families); the image
-losses (``nll_loss``, ``cross_entropy``, ``smooth_cross_entropy``,
-``mse_loss``) for slice 5 (LeNet/MNIST).
+``mlm_cross_entropy`` waits for BERT (other model families).
 """
 from __future__ import annotations
 
@@ -17,6 +16,44 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config.registry import LOSSES
+
+
+@LOSSES.register("nll_loss")
+def nll_loss(output, target):
+    """Negative log-likelihood of log-probability outputs ``[B, C]`` (the
+    model ends in log-softmax)."""
+    return -output.gather(1, target.long()[:, None])[:, 0]
+
+
+@LOSSES.register("cross_entropy")
+def cross_entropy(output, target):
+    """Softmax cross entropy of raw logits ``[B, C]``."""
+    return F.cross_entropy(output.float(), target.long(), reduction="none")
+
+
+@LOSSES.register("mse_loss")
+def mse_loss(output, target):
+    """Mean squared error over every axis but the batch."""
+    return ((output - target) ** 2).mean(dim=tuple(range(1, output.ndim)))
+
+
+@LOSSES.register("smooth_cross_entropy")
+def smooth_cross_entropy(smoothing: float = 0.1):
+    """FACTORY loss (dict-form config): softmax cross entropy against the
+    label-smoothed target ``onehot (1 - s) + s / C``."""
+    if not 0.0 <= smoothing < 1.0:
+        raise ValueError(f"smoothing must be in [0, 1), got {smoothing}")
+
+    def loss(output, target):
+        n = output.shape[-1]
+        soft = F.one_hot(target.long(), n).to(output.dtype) \
+            * (1.0 - smoothing) + smoothing / n
+        return -(soft * F.log_softmax(output, dim=-1)).sum(-1)
+
+    return loss
+
+
+smooth_cross_entropy._loss_factory = True
 
 
 def _token_ce(logits, labels):

@@ -1,5 +1,5 @@
-"""LM metrics: the port of the JAX package's
-``engine/metrics.py::lm_token_accuracy`` and ``lm_bits_per_byte``.
+"""Metrics: the port of the JAX package's ``engine/metrics.py``
+(``accuracy``, ``top_k_acc``, ``lm_token_accuracy``, ``lm_bits_per_byte``).
 
 Metrics are per-example functions ``(output, target) -> [B]`` computed
 without gradients; the steps reduce them with the padding mask as
@@ -15,6 +15,25 @@ from .losses import (
 )
 
 _LN2 = 0.6931471805599453
+
+
+@METRICS.register("accuracy")
+@torch.no_grad()
+def accuracy(output, target):
+    """1 where the argmax (the first, on a tie) is the label."""
+    return (output.argmax(-1) == target.long()).float()
+
+
+@METRICS.register("top_k_acc")
+@torch.no_grad()
+def top_k_acc(output, target, k: int = 3):
+    """1 where the label is among the ``k`` largest outputs. Ties at the
+    k-th place go to the lower index, as ``jax.lax.top_k`` orders them
+    (``models.moe.top_k``; ``torch.topk`` does not fix that order)."""
+    from ..models.moe import top_k
+
+    _, idx = top_k(output, k)
+    return (idx == target.long()[:, None]).any(-1).float()
 
 
 @METRICS.register("lm_token_accuracy")

@@ -1,6 +1,6 @@
 """Train and eval steps: the port of the JAX package's
 ``engine/steps.py`` (``make_train_step``, ``make_eval_step``,
-``finalize_metrics``) for the options the LM configs use.
+``finalize_metrics``) for the options the LM and image configs use.
 
 A train step: forward, per-example loss, the masked loss sum divided by
 the valid count (``batch["mask"]`` marks real rows of a padded batch),
@@ -9,6 +9,17 @@ then the optimizer update at ``lr_fn(applied updates)``. Metrics come back
 as sufficient statistics (``loss_sum``, ``count``, ``<metric>_sum``) in
 device tensors, summed over an epoch and divided once
 (:func:`finalize_metrics`).
+
+Under DDP (a process group, the model wrapped in
+``DistributedDataParallel``) the step keeps the JAX step's *global* masked
+mean: the count and the statistics are summed over the ranks with one
+``all_reduce`` before the backward, and each rank's loss for the backward
+is its local masked sum x world size / the global count, so DDP's
+averaging of the gradients gives sum over all real rows / global count.
+(A textbook DDP loop, each rank's mean averaged, would weigh a rank whose
+last batch is mostly padding as much as a full one.) Every rank holds the
+global statistics, so every rank takes the same monitor and early-stop
+decisions. Clipping runs after DDP's gradient all-reduce.
 
 ``skip_nonfinite``: when the loss or any gradient is non-finite the update
 is skipped (params and optimizer moments untouched, the schedule and
@@ -29,9 +40,10 @@ after the forward, a scalar or None; the train step adds ``aux *
 valid_count`` to ``loss_sum``, so the logged ``loss`` and the gradient
 include it as in the JAX step (which collects flax's ``losses``).
 
-Refused by name (slice 5 or later): ``grad_accum_steps > 1``,
-``ema_decay``, ``augment``, ``mixup_alpha``, ``log_grad_norm``,
-``trainable_patterns``, ``health`` and ``inject_nan_grad_step``.
+Refused by name, each naming its slice: ``grad_accum_steps > 1``,
+``ema_decay``, ``trainable_patterns`` (ROADMAP A17), ``log_grad_norm``,
+``health``, ``inject_nan_grad_step`` (A10), ``augment``, ``mixup_alpha``
+(A12).
 """
 from __future__ import annotations
 
@@ -41,8 +53,10 @@ from typing import Callable, Dict, Sequence
 import torch
 
 from ..models.layers import fold_in
+from ..parallel import dist
+from ..utils.util import LATER_OBSERVABILITY, LATER_RESUME
 
-_SLICE5 = "slice 5 (the training main path on LeNet/MNIST)"
+_LATER_AUGMENT = "ROADMAP A12 (ops/augment.py, with the other model families)"
 
 
 def _forward_takes(model, name: str) -> bool:
@@ -61,22 +75,36 @@ def _detached(output):
 def _refuse(grad_accum_steps=1, ema_decay=0.0, augment=None,
             mixup_alpha=0.0, log_grad_norm=False, trainable_patterns=None,
             health=False, inject_nan_grad_step=None) -> None:
-    later = {"grad_accum_steps > 1": grad_accum_steps > 1,
-             "ema_decay": ema_decay > 0, "augment": augment is not None,
-             "mixup_alpha": mixup_alpha > 0,
-             "log_grad_norm": bool(log_grad_norm),
-             "trainable": bool(trainable_patterns),
-             "health": bool(health),
-             "inject_nan_grad_step": inject_nan_grad_step is not None}
-    for name, on in later.items():
+    later = {"grad_accum_steps > 1": (grad_accum_steps > 1, LATER_RESUME),
+             "ema_decay": (ema_decay > 0, LATER_RESUME),
+             "trainable": (bool(trainable_patterns), LATER_RESUME),
+             "augment": (augment is not None, _LATER_AUGMENT),
+             "mixup_alpha": (mixup_alpha > 0, _LATER_AUGMENT),
+             "log_grad_norm": (bool(log_grad_norm), LATER_OBSERVABILITY),
+             "health": (bool(health), LATER_OBSERVABILITY),
+             "inject_nan_grad_step": (inject_nan_grad_step is not None,
+                                      LATER_OBSERVABILITY)}
+    for name, (on, where) in later.items():
         if on:
-            raise NotImplementedError(f"{name} is {_SLICE5}")
+            raise NotImplementedError(f"{name} is {where}")
+
+
+def _global(stats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``stats`` summed over the process group with one ``all_reduce``;
+    unchanged without a group."""
+    if not dist.in_group():
+        return stats
+    vec = dist.all_reduce_sum(torch.stack([v.float() for v in
+                                           stats.values()]))
+    return dict(zip(stats, vec.unbind()))
 
 
 class TrainStep:
     """``step(batch) -> metrics``; owns the step and update counters (the
     JAX ``TrainState.step`` and the optimizer's count), which checkpoints
-    save and restore (:meth:`state_dict`)."""
+    save and restore (:meth:`state_dict`). ``model`` may be a
+    ``DistributedDataParallel`` wrapper: the forward goes through it, and
+    its ``module`` answers for the model (forward arguments, ``aux_loss``)."""
 
     def __init__(self, model, optimizer, criterion: Callable,
                  metric_fns: Sequence[Callable], input_key: str,
@@ -84,13 +112,14 @@ class TrainStep:
                  skip_nonfinite: bool, lr_fn: Callable[[int], float],
                  seed: int):
         self.model, self.optimizer = model, optimizer
+        self.module = getattr(model, "module", model)
         self.criterion, self.metric_fns = criterion, list(metric_fns)
         self.input_key, self.target_key = input_key, target_key
         self.grad_clip_norm = float(grad_clip_norm or 0.0)
         self.skip_nonfinite = skip_nonfinite
         self.lr_fn, self.seed = lr_fn, int(seed)
-        self._seeded = _forward_takes(model, "dropout_seed")
-        self._masked = _forward_takes(model, "example_mask")
+        self._seeded = _forward_takes(self.module, "dropout_seed")
+        self._masked = _forward_takes(self.module, "example_mask")
         self.step = 0       # steps taken (the dropout key's counter)
         self.applied = 0    # optimizer updates applied (the schedule's)
 
@@ -117,17 +146,19 @@ class TrainStep:
         per_ex = self.criterion(output, target)
         loss_sum = (per_ex * mask).sum()
         count = mask.sum()
-        aux = getattr(model, "aux_loss", None)
+        aux = getattr(self.module, "aux_loss", None)
         if aux is not None:
             loss_sum = loss_sum + aux * count
-        denom = count.clamp_min(1.0)
-        opt.zero_grad(set_to_none=True)
-        (loss_sum / denom).backward()
-        metrics = {"loss_sum": loss_sum.detach(), "count": count}
+        stats = {"loss_sum": loss_sum.detach(), "count": count}
         out = _detached(output)
         for fn in self.metric_fns:
-            metrics[f"{fn.__name__}_sum"] = (fn(out, target) * mask).sum()
-        del output, out
+            stats[f"{fn.__name__}_sum"] = (fn(out, target) * mask).sum()
+        del out
+        metrics = _global(stats)
+        denom = metrics["count"].clamp_min(1.0)
+        opt.zero_grad(set_to_none=True)
+        (loss_sum * dist.process_count() / denom).backward()
+        del output
 
         params = self._params()
         gnorm = None
@@ -137,7 +168,7 @@ class TrainStep:
                                                    self.grad_clip_norm)
         ok = True
         if self.skip_nonfinite:
-            finite = torch.isfinite(loss_sum)
+            finite = torch.isfinite(metrics["loss_sum"])
             if gnorm is not None:
                 finite = finite & torch.isfinite(gnorm)
             else:
@@ -184,9 +215,11 @@ def make_train_step(model, optimizer, criterion: Callable,
 def make_eval_step(model, criterion: Callable,
                    metric_fns: Sequence[Callable] = (),
                    input_key: str = "image", target_key: str = "label"):
-    """``eval_step(batch) -> metrics`` (sufficient statistics), the model
-    in eval mode and no gradients."""
+    """``eval_step(batch) -> metrics`` (sufficient statistics, summed over
+    the process group's ranks), the model in eval mode and no gradients.
+    A DDP wrapper is evaluated through its ``module``."""
 
+    model = getattr(model, "module", model)
     masked = _forward_takes(model, "example_mask")
 
     @torch.no_grad()
@@ -200,7 +233,7 @@ def make_eval_step(model, criterion: Callable,
         metrics = {"loss_sum": (per_ex * mask).sum(), "count": mask.sum()}
         for fn in metric_fns:
             metrics[f"{fn.__name__}_sum"] = (fn(output, target) * mask).sum()
-        return metrics
+        return _global(metrics)
 
     return eval_step
 

@@ -8,14 +8,25 @@ The base class owns the epoch loop: the monitor (``"min val_loss"``,
 ``save_period`` epochs (plus ``model_best``) and ``summary.json`` in the
 run directory. The concrete :class:`Trainer` runs an epoch of train steps
 (engine/steps.py) on the explicit device and a validation pass, and logs
-the epoch with the JAX package's names (``loss``, ``lm_token_accuracy``,
+the epoch with the JAX package's names (``loss``, ``accuracy``,
 ``examples_per_sec``, ``val_loss``, ...).
 
-Refused by name: TensorBoard, the health monitor, telemetry, the profiler,
-the watchdog, fault injection, iteration-based epochs (``len_epoch``),
-interval saves, ``keep_last``, ``init_from`` (slice 5's observability and
-resilience layers), the XLA ``compile_cache``, and any mesh other than
-``{"data": -1}`` on one device (parallel axes).
+Data parallelism: when a process group exists (``parallel.dist``) the
+model is wrapped in ``DistributedDataParallel`` and every loader shards
+over the ranks; the steps reduce the statistics over the ranks, so every
+rank logs the same global numbers and takes the same monitor and
+early-stop decisions. Rank 0 alone writes checkpoints and
+``summary.json``; the other ranks wait for it at a barrier. Batches reach
+the device through ``data.loader.prefetch_to_device`` (a side-stream copy
+pipeline on CUDA). ``trainer.len_epoch`` switches to iteration-based
+epochs of that many steps over an endless loader that reshuffles on each
+pass. On CUDA the trainer asks cuDNN for deterministic algorithms, so a
+resumed run repeats the uninterrupted one.
+
+Refused by name, each naming its slice: TensorBoard, the health monitor,
+telemetry, the profiler, the watchdog, fault injection (ROADMAP A10),
+interval saves, ``keep_last``, ``init_from`` (A17), the XLA
+``compile_cache``, and any mesh axis but ``data`` (A11).
 """
 from __future__ import annotations
 
@@ -27,10 +38,12 @@ import numpy as np
 import torch
 
 from ..checkpoint import CheckpointManager
+from ..data.loader import prefetch_to_device, to_tensors
+from ..models.base import describe
+from ..parallel import dist, mesh_from_config
+from ..utils.util import LATER_OBSERVABILITY, LATER_RESUME
 from .optim import build_optimizer
 from .steps import finalize_metrics, make_eval_step, make_train_step
-
-_SLICE5 = "slice 5 (the training main path on LeNet/MNIST)"
 
 
 def _enabled(block) -> bool:
@@ -42,33 +55,44 @@ def _enabled(block) -> bool:
 
 def refuse_later_keys(config) -> None:
     """Raise NotImplementedError naming the slice for every config key
-    this slice does not run."""
+    the port does not run yet."""
     trainer = config["trainer"]
     later = {
-        "trainer.tensorboard": bool(trainer.get("tensorboard", False)),
-        "trainer.health": _enabled(trainer.get("health")),
-        "trainer.telemetry": _enabled(trainer.get("telemetry")),
-        "trainer.profiler": _enabled(trainer.get("profiler")),
-        "trainer.watchdog_secs": float(trainer.get("watchdog_secs", 0)) > 0,
-        "trainer.faults": bool(trainer.get("faults")),
-        "trainer.len_epoch": trainer.get("len_epoch") is not None,
-        "trainer.save_interval_steps":
-            int(trainer.get("save_interval_steps", 0)) > 0,
-        "trainer.keep_last": int(trainer.get("keep_last", 0)) > 0,
-        "trainer.init_from": bool(trainer.get("init_from")),
+        "trainer.tensorboard": (bool(trainer.get("tensorboard", False)),
+                                LATER_OBSERVABILITY),
+        "trainer.health": (_enabled(trainer.get("health")),
+                           LATER_OBSERVABILITY),
+        "trainer.telemetry": (_enabled(trainer.get("telemetry")),
+                              LATER_OBSERVABILITY),
+        "trainer.profiler": (_enabled(trainer.get("profiler")),
+                             LATER_OBSERVABILITY),
+        "trainer.watchdog_secs": (
+            float(trainer.get("watchdog_secs", 0)) > 0, LATER_OBSERVABILITY),
+        "trainer.faults": (bool(trainer.get("faults")), LATER_OBSERVABILITY),
+        "trainer.save_interval_steps": (
+            int(trainer.get("save_interval_steps", 0)) > 0, LATER_RESUME),
+        "trainer.keep_last": (int(trainer.get("keep_last", 0)) > 0,
+                              LATER_RESUME),
+        "trainer.init_from": (bool(trainer.get("init_from")), LATER_RESUME),
     }
-    for key, on in later.items():
+    for key, (on, where) in later.items():
         if on:
-            raise NotImplementedError(f"{key} is {_SLICE5}")
+            raise NotImplementedError(f"{key} is {where}")
     if "compile_cache" in config:
         raise NotImplementedError(
             "compile_cache (the XLA compilation cache) has no counterpart "
             "in the port yet (a later slice)")
-    axes = (config.get("mesh") or {}).get("axes", {"data": -1})
-    if dict(axes) not in ({"data": -1}, {"data": 1}):
-        raise NotImplementedError(
-            f"mesh {dict(axes)}: meshes other than {{'data': -1}} on one "
-            "device are a later slice (parallel axes)")
+    mesh_from_config(config)
+
+
+def _endless_reshuffling(loader):
+    """An endless loader for iteration-based training that reshuffles on
+    every full pass (pass ``i`` runs at loader epoch ``i``)."""
+    pass_idx = 0
+    while True:
+        loader.set_epoch(pass_idx)
+        yield from loader
+        pass_idx += 1
 
 
 class BaseTrainer:
@@ -147,9 +171,9 @@ class BaseTrainer:
         return log
 
     def _write_summary(self, log: dict) -> None:
-        """``summary.json`` in the run dir: the last epoch's metrics, the
-        monitor and its best value, the run dir."""
-        if not log:
+        """``summary.json`` in the run dir (rank 0): the last epoch's
+        metrics, the monitor and its best value, the run dir."""
+        if not log or not dist.is_main_process():
             return
         summary = {
             **{k: (v if isinstance(v, int) else
@@ -168,9 +192,11 @@ class BaseTrainer:
 
 
 class Trainer(BaseTrainer):
-    """Concrete trainer (the JAX package's ``Trainer``) on one device.
+    """Concrete trainer (the JAX package's ``Trainer``).
 
-    :param model: a module from the MODELS registry, already on ``device``.
+    :param model: a module from the MODELS registry, already on ``device``;
+        wrapped in ``DistributedDataParallel`` (``self.ddp``) when a
+        process group exists. ``self.model`` stays the bare module.
     :param criterion: per-example loss ``(output, target) -> [B]``.
     :param metric_ftns: per-example metric functions.
     :param config: ConfigParser.
@@ -186,14 +212,30 @@ class Trainer(BaseTrainer):
         cfg = config["trainer"]
         self.device = torch.device(device) if device is not None \
             else model_device(model)
+        if self.device.type == "cuda":
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
         self.model = model
+        self.ddp = None
+        if dist.in_group():
+            self.ddp = torch.nn.parallel.DistributedDataParallel(
+                model, device_ids=([self.device]
+                                   if self.device.type == "cuda" else None))
+        net = self.ddp if self.ddp is not None else model
         self.criterion = criterion
         self.metric_ftns = list(metric_ftns)
         self.train_loader = train_loader
         self.valid_loader = valid_loader
         self.do_validation = valid_loader is not None
-        self.len_epoch = len(train_loader)
+        len_epoch = cfg.get("len_epoch")
+        self._train_iter = None
+        if len_epoch is None:
+            self.len_epoch = len(train_loader)
+        else:
+            self.len_epoch = int(len_epoch)
+            self._train_iter = iter(_endless_reshuffling(train_loader))
         self.log_step = max(int(np.sqrt(train_loader.batch_size)), 1)
+        self.prefetch_depth = max(int(cfg.get("prefetch_depth", 2)), 1)
         dk = config.get("data_keys", {}) or {}
         self.input_key = dk.get("input", "image")
         self.target_key = dk.get("target", "label")
@@ -201,7 +243,7 @@ class Trainer(BaseTrainer):
         self.optimizer, self.lr_fn = build_optimizer(config, self.len_epoch,
                                                      model)
         self.train_step = make_train_step(
-            model, self.optimizer, criterion, self.metric_ftns,
+            net, self.optimizer, criterion, self.metric_ftns,
             input_key=self.input_key, target_key=self.target_key,
             grad_clip_norm=cfg.get("grad_clip_norm", 0.0),
             grad_accum_steps=int(cfg.get("grad_accum_steps", 1)),
@@ -212,34 +254,45 @@ class Trainer(BaseTrainer):
             log_grad_norm=bool(cfg.get("log_grad_norm", False)),
             lr_fn=self.lr_fn, seed=seed)
         self.eval_step = make_eval_step(
-            model, criterion, self.metric_ftns, input_key=self.input_key,
+            net, criterion, self.metric_ftns, input_key=self.input_key,
             target_key=self.target_key)
-        n = sum(p.numel() for p in model.parameters())
-        self.logger.info("%s: %d parameters on %s", type(model).__name__,
-                         n, self.device)
+        if dist.is_main_process():
+            self.logger.info(describe(model))
+            self.logger.info("on %s, %d process(es)%s", self.device,
+                             dist.process_count(),
+                             ", DistributedDataParallel" if self.ddp
+                             else "")
         if config.resume is not None:
             state, self.start_epoch, best = self.ckpt_manager.restore(
                 config.resume, model, self.optimizer, config.config,
-                type(model).__name__)
+                type(model).__name__, map_location=self.device)
             self.train_step.load_state_dict(state)
             if best is not None:
                 self.mnt_best = best
         self._first_step_done = False
 
     def _to_device(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device)
-                for k, v in batch.items()}
+        return to_tensors(batch, self.device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _batches(self, epoch: int):
+        if self._train_iter is not None:
+            for _ in range(self.len_epoch):
+                yield next(self._train_iter)
+        else:
+            self.train_loader.set_epoch(epoch)
+            yield from self.train_loader
+
     def _train_epoch(self, epoch: int) -> dict:
-        self.train_loader.set_epoch(epoch)
         accum = None
         steps, t0 = 0, time.perf_counter()
-        for batch_idx, batch in enumerate(self.train_loader):
-            m = self.train_step(self._to_device(batch))
+        batches = prefetch_to_device(self._batches(epoch), self.device,
+                                     self.prefetch_depth)
+        for batch_idx, batch in enumerate(batches):
+            m = self.train_step(batch)
             accum = m if accum is None else {k: accum[k] + v
                                              for k, v in m.items()}
             if not self._first_step_done:
@@ -270,26 +323,33 @@ class Trainer(BaseTrainer):
     def _valid_epoch(self, epoch: int) -> dict:
         self.valid_loader.set_epoch(epoch)
         accum = None
-        for batch in self.valid_loader:
-            m = self.eval_step(self._to_device(batch))
+        for batch in prefetch_to_device(self.valid_loader, self.device,
+                                        self.prefetch_depth):
+            m = self.eval_step(batch)
             accum = m if accum is None else {k: accum[k] + v
                                              for k, v in m.items()}
         return finalize_metrics({k: float(v) for k, v in accum.items()}) \
             if accum else {}
 
     def _save_checkpoint(self, epoch: int, save_best: bool = False) -> None:
-        self.ckpt_manager.save(
-            epoch=epoch, model=self.model, optimizer=self.optimizer,
-            train_state=self.train_step.state_dict(),
-            arch=type(self.model).__name__, config=dict(self.config.config),
-            monitor_best=(self.mnt_best
-                          if isinstance(self.mnt_best, (int, float))
-                          else 0.0),
-            save_best=save_best)
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        if dist.is_main_process():
+            self.ckpt_manager.save(
+                epoch=epoch, model=self.model, optimizer=self.optimizer,
+                train_state=self.train_step.state_dict(),
+                arch=type(self.model).__name__,
+                config=dict(self.config.config),
+                monitor_best=(self.mnt_best
+                              if isinstance(self.mnt_best, (int, float))
+                              else 0.0),
+                save_best=save_best)
+        dist.synchronize()
 
     def _progress(self, batch_idx: int) -> str:
         current = batch_idx * self.train_loader.batch_size
         total = self.train_loader.n_samples
+        if self._train_iter is not None:
+            current, total = batch_idx, self.len_epoch
         return f"[{current}/{total} ({100.0 * current / total:.0f}%)]"
 
 

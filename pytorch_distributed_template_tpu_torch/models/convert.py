@@ -1,5 +1,5 @@
-"""Flax param tree <-> the port's state dict, for the Llama and GPT-2
-families.
+"""Flax param tree <-> the port's state dict, for the Llama, GPT-2 and
+LeNet families.
 
 The JAX package's params are nested dicts (``layers_0/self_attn/q_proj/
 kernel``, ``h_0/attn/qkv/bias``); the port's modules name the same weights
@@ -8,7 +8,11 @@ translation:
 
 - ``layers_i`` / ``h_i`` <-> ``layers.i`` / ``h.i``;
 - every ``*/kernel`` ``[in, out]`` -> ``*.weight`` ``[out, in]`` (the
-  ``nn.Linear`` layout), transposed — ``lm_head/kernel`` included;
+  ``nn.Linear`` layout), transposed — ``lm_head/kernel`` included; a conv
+  kernel (4-D, ``HWIO``) -> ``OIHW`` (the ``nn.Conv2d`` layout). LeNet's
+  modules keep the flax names (``Conv_0``, ``Dense_0``, ...), and its
+  forward flattens the conv features in the JAX module's ``(h, w, c)``
+  order, so ``Dense_0``'s rows need no permutation;
 - ``embed_tokens/embedding``, ``wte/embedding`` -> ``*.weight`` as is;
 - LayerNorm ``scale`` -> ``weight``; ``bias`` and RMSNorm ``weight``
   leaves as they are; the bare ``wpe`` param as it is;
@@ -99,7 +103,8 @@ def params_from_flax(tree) -> dict:
                 raise KeyError(f"unexpected flax leaf {last}")
             name = last
         elif last == "kernel":
-            arr, name = arr.T, "weight"
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            name = "weight"
         elif last in ("embedding", "weight", "scale"):
             name = "weight"
         elif last == "bias" or (parts[-1] == "moe"
@@ -120,7 +125,7 @@ def flax_from_params(state_dict) -> dict:
         path = flax_path(name).split("/")
         arr = tensor.detach().to("cpu", torch.float32).numpy()
         if path[-1] == "kernel":
-            arr = arr.T
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         node = tree
         for m in path[:-1]:
             node = node.setdefault(m, {})

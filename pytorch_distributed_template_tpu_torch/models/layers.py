@@ -8,9 +8,9 @@
   ``Embed(dtype=...)``).
 - :func:`layer_norm_f32`: LayerNorm in float32 with float32 scale and bias
   (flax's ``LayerNorm(dtype=float32)``).
-- :func:`dropout` with :func:`fold_in` seeds: every mask is drawn from a
-  ``torch.Generator`` seeded by ``(seed, step, layer, site)`` inside the
-  module that uses it, so a block recomputed by ``torch.utils.checkpoint``
+- :func:`dropout` with :func:`fold_in` seeds (and :class:`Dropout`, its
+  module form): every mask is drawn from a ``torch.Generator`` seeded by
+  ``(seed, step, layer, site)`` inside the module that uses it, so a block recomputed by ``torch.utils.checkpoint``
   redraws the very same mask. (Checkpointing replays only the global RNG
   state; a mask drawn from a generator handed in from outside would differ
   in the recompute and the gradients would be silently wrong.)
@@ -56,6 +56,21 @@ def dropout(x, rate: float, seed, training: bool):
     gen.manual_seed(int(seed))
     keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    """:func:`dropout` as a module: rate ``p`` (0 turns it off), the mask
+    seeded by the ``seed`` of each call."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x, seed):
+        return dropout(x, self.p, seed, self.training)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
 
 
 class Dense(nn.Linear):

@@ -76,17 +76,20 @@ class RowGather(torch.autograd.Function):
 
 def top_k(probs, k: int):
     """``(values, indices)`` of the ``k`` largest entries of each row of
-    ``probs`` ``[S, E]``, largest first; a tie goes to the lower index,
-    as ``jax.lax.top_k`` orders it. Built from ``argmax`` (which returns
-    the first maximum): ``torch.topk`` on CUDA may resolve a tie at the
-    k-th place differently from run to run, and one flipped route makes a
-    training run irreproducible. Values stay differentiable."""
-    p = probs.detach()
+    ``probs`` ``[S, E]``, largest first, in ``jax.lax.top_k``'s order: a
+    tie goes to the lower index, and ``-0.0`` ranks below ``+0.0`` (the
+    float32 bits are compared as a total order). Built from ``argmax``
+    (which returns the first maximum): ``torch.topk`` on CUDA may resolve
+    a tie at the k-th place differently from run to run, and one flipped
+    route makes a training run irreproducible. Values stay
+    differentiable."""
+    bits = probs.detach().float().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
     idx = []
     for _ in range(k):
-        i = p.argmax(dim=-1)
+        i = key.argmax(dim=-1)
         idx.append(i)
-        p = p.scatter(1, i[:, None], float("-inf"))
+        key = key.scatter(1, i[:, None], torch.iinfo(torch.int32).min)
     idx = torch.stack(idx, dim=1)
     return probs.gather(1, idx), idx
 

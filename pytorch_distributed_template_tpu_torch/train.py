@@ -5,15 +5,20 @@ root ``train.py``.
         -c configs/lm_debug.json [--device cpu] [-s SAVE_DIR]
     python -m pytorch_distributed_template_tpu_torch.train \\
         -r <run_dir>/checkpoint-epochN            # resume at epoch N + 1
+    torchrun --standalone --nproc_per_node=N \\
+        -m pytorch_distributed_template_tpu_torch.train -c configs/mnist.json
 
 Flags as in the JAX ``train.py``: ``-c``, ``-r``, ``-s``, ``--seed``,
 ``--no-validate``, ``--lr``, ``--bs``, ``--set KEYCHAIN VALUE``, plus
 ``--device`` (default ``cuda``; raises without a CUDA device). ``-l`` and
 ``--deterministic`` are accepted as the JAX CLI accepts them;
-``--auto-resume`` is slice 5's and refuses. The model is built with
-float32 master weights (``param_dtype``); its compute dtype is the
-config's (``bfloat16: true``), and the model's weights are drawn from
-``--seed`` (default 0) with the family's init law.
+``--auto-resume`` refuses (ROADMAP A17). Under a launcher (``torchrun``)
+the process joins the group first (``parallel.dist.initialize``: NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``) and trains with DDP;
+``--bs`` is then the per-process batch. The model is built with float32
+master weights (``param_dtype``); its compute dtype is the config's
+(``bfloat16: true``), and the model's weights are drawn from ``--seed``
+(default 0) with the family's init law.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ from .data import datasets  # noqa: F401  (registers the loaders)
 from .engine import metrics  # noqa: F401  (registers the metrics)
 from .engine.losses import resolve_loss
 from .engine.trainer import Trainer
-from .utils.util import resolve_device
+from .parallel import dist
+from .utils.util import LATER_RESUME
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -44,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-validate", action="store_true",
                         help="skip validation during training")
     parser.add_argument("--auto-resume", action="store_true",
-                        help="resume from the newest checkpoint (slice 5)")
+                        help="resume from the newest checkpoint (refused: "
+                             "ROADMAP A17)")
     parser.add_argument("--seed", type=int, default=None,
                         help="Random seed (weights and dropout).")
     parser.add_argument("--deterministic", action="store_true",
@@ -61,12 +68,10 @@ OPTIONS = [
 ]
 
 
-def build_trainer(args, config) -> Trainer:
+def build_trainer(args, config, device) -> Trainer:
     """Model, loss, metrics, loaders and the trainer, from the config."""
     if args.auto_resume:
-        raise NotImplementedError("--auto-resume is slice 5 (the training "
-                                  "main path on LeNet/MNIST)")
-    device = resolve_device(args.device)
+        raise NotImplementedError(f"--auto-resume is {LATER_RESUME}")
     seed = args.seed if args.seed is not None else 0
     model = config.init_obj("arch", MODELS, device=device,
                             param_dtype=torch.float32)
@@ -82,16 +87,21 @@ def build_trainer(args, config) -> Trainer:
 
 
 def main(argv=None, on_trainer=None) -> dict:
-    """Parse ``argv`` (default ``sys.argv``), build the trainer, call
-    ``on_trainer(trainer)`` when given (before the first epoch), train, and
-    return the last epoch's log."""
-    args, config = ConfigParser.from_args(build_parser(), OPTIONS,
-                                          training=True, argv=argv)
-    trainer = build_trainer(args, config)
+    """Parse ``argv`` (default ``sys.argv``), join the launcher's process
+    group if there is one, build the trainer, call ``on_trainer(trainer)``
+    when given (before the first epoch), train, and return the last
+    epoch's log."""
+    args = ConfigParser.parse_args(build_parser(), OPTIONS, argv)
+    device = dist.initialize(args.device)
+    _, config = ConfigParser.from_args(args, OPTIONS, training=True)
+    trainer = build_trainer(args, config, device)
     if on_trainer is not None:
         on_trainer(trainer)
     return trainer.train()
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        dist.shutdown()

@@ -43,6 +43,12 @@ ENTRY_MODULES = [
     "pytorch_distributed_template_tpu_torch.models.moe",
     "pytorch_distributed_template_tpu_torch.ops.expert_ffn",
     "pytorch_distributed_template_tpu_torch.tools.make_text_corpus",
+    "pytorch_distributed_template_tpu_torch.test",
+    "pytorch_distributed_template_tpu_torch.engine.evaluator",
+    "pytorch_distributed_template_tpu_torch.parallel.dist",
+    "pytorch_distributed_template_tpu_torch.parallel.mesh",
+    "pytorch_distributed_template_tpu_torch.models.base",
+    "pytorch_distributed_template_tpu_torch.models.lenet",
 ]
 
 

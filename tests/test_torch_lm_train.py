@@ -230,11 +230,11 @@ def test_schedule_is_epoch_indexed_from_zero():
 
 
 @pytest.mark.parametrize("kind, name", [
-    ("optimizer", "SGD"), ("optimizer", "Lion"),
-    ("lr_scheduler", "ReduceLROnPlateau"), ("lr_scheduler", "StepLR")])
+    ("optimizer", "RMSprop"), ("optimizer", "Lion"),
+    ("lr_scheduler", "ReduceLROnPlateau"), ("optimizer", "Adafactor")])
 def test_later_optimizers_and_schedules_refuse(kind, name):
     cfg = {"optimizer": {"type": "AdamW", "args": {"lr": 0.1}}}
     cfg[kind] = {"type": name, "args": {}}
     model = TM.get("TinyLM")(**MODEL, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="A17"):
         toptim.build_optimizer(cfg, 4, model)
