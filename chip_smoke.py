@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 4, 5, 6, 7, 8, 9); any
-failure exits non-zero and no phase's exception is caught:
+Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 4, 5, 6, 7, 8, 9, 10);
+any failure exits non-zero and no phase's exception is caught:
 
 1. build: compile every CUDA source of the port with nvcc (one process per
    source, all started together) and print the build time and the ptxas
@@ -78,7 +78,9 @@ Slice 3 (LM training, kernels B2 and B3) adds:
     (plain versions) from the same weights and batches: the same per-step
     losses and final params;
 6.  main path of slice 3: the port's ``train.py`` with
-    ``configs/gpt2_small_train.json`` at full width (GPT-2 small: 12
+    ``configs/gpt2_small_train.json`` (the repository's
+    ``configs/gpt2_small.json`` with every observability key off) at full
+    width (GPT-2 small: 12
     layers, d_model 768, vocab 50257, seq 1024, batch 8, bf16, remat,
     flash, fused head chunk 256, dropout 0.1), cut to 256 training and 64
     validation sequences and 2 epochs (``--set``): every train step must
@@ -104,7 +106,9 @@ Slice 4 (MoE LM training, kernel B5) adds:
     ``tools/make_text_corpus.py``, then the port's ``train.py`` with
     ``configs/moelm_stdlib.json`` at full width (8 layers, d_model 512,
     d_ff 1024, 8 heads, 8 experts top-2, seq 512, batch 32, bf16, flash,
-    fused head), cut to a 2 MB corpus and 2 epochs: every train step must
+    fused head), cut to a 2 MB corpus and 2 epochs, with the health
+    summary and the flight recorder off (on by default since slice 6; off,
+    the step is the one slice 4 ran): every train step must
     launch B5, B1, B2 and B3 8 times each, every eval step B5 and B1 8
     times and no B2/B3; losses finite and falling; ``val_lm_bits_per_
     byte`` logged; checkpoints and ``summary.json`` written; a resume from
@@ -119,9 +123,9 @@ kernel, the convs, pools and dense layers run on cuDNN/cuBLAS) adds:
     dropout off: the same per-step losses and final params, with TF32 off
     on the card for this comparison only (each run's setting printed);
 9.  main path of slice 5: the port's ``train.py`` with
-    ``configs/mnist.json`` (LeNet at full width, batch 128, 10 epochs,
-    synthetic MNIST without idx files; one cut: ``trainer.tensorboard``
-    false, A10) in this process with the launcher's environment set for
+    ``configs/mnist.json`` as it is (LeNet at full width, batch 128, 10
+    epochs, TensorBoard on, synthetic MNIST without idx files) in this
+    process with the launcher's environment set for
     one rank: the process group must be NCCL, the model must train
     wrapped in ``DistributedDataParallel``, and a communication hook on
     the wrapper must count a gradient all-reduce in every train step;
@@ -137,11 +141,32 @@ kernel, the convs, pools and dense layers run on cuDNN/cuBLAS) adds:
     and idle share, top ops), peak memory and the all-reduce calls and
     bytes per step, each beside the card line.
 
+Slice 6 (training observability; no TPU kernel, the health summary's
+reductions are plain PyTorch) adds:
+
+10. main path of slice 6: the port's ``train.py`` with the repository's
+    ``configs/gpt2_small.json`` as it is (``compile_cache``, TensorBoard,
+    health with ``pause_best_promotion``, telemetry, ``skip_nonfinite``),
+    cut only by ``--set``: train ``n`` 256, valid ``n`` 64, 2 epochs,
+    ``save_period`` 1, a profiler window of 3 steps, ``watchdog_secs``
+    600, ``log_grad_norm``. Phase 6's checks (exact launches per step,
+    losses, checkpoints, summary, resume, profile) and: one flight record
+    per step, ``trace.json``, a ``torch.profiler`` trace in ``profile/``,
+    TB events (or the backend's absence printed), ``grad_norm`` and
+    ``mfu`` in the epoch logs; phase 6's and phase 10's train step timed
+    in turns on one model;
+    the median ms/step, iteration ms, span breakdown and synchronising
+    calls per non-log step (``torch.cuda.set_sync_debug_mode``) beside
+    phase 6's, failing if phase 10 makes more. Then one epoch with
+    ``trainer.faults "nan_grad@step:24"``: ``anomaly_24.json`` written,
+    the step skipped, the params finite, the per-group counts summing to
+    the number of gradient elements, no ``model_best``.
+
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
-the launches of slices 1, 3 and 4, paged_attn with slice 2's,
-flash_bwd_dkv and flash_bwd_dq with slices 3 and 4, expert_ffn with slice
-4's) and the device line ``{"ok": true, "device": {...}}``. Every kernel
+the launches of slices 1, 3, 4 and 6, paged_attn with slice 2's,
+flash_bwd_dkv and flash_bwd_dq with slices 3, 4 and 6, expert_ffn with
+slice 4's) and the device line ``{"ok": true, "device": {...}}``. Every kernel
 row also carries ``pct_of_bound`` (100 x bound / kernel time) and
 ``x_library`` (kernel time / library time); kernel times are device times
 (:func:`cuda_ms`). The script needs a CUDA device and the repository
@@ -1567,31 +1592,6 @@ def phase_train_reference(device="cuda") -> None:
                                  f"differs from the CPU: {row}")
 
 
-def train_step_flops(model, batch: int, t: int) -> float:
-    """Model FLOPs of one train step (forward + backward, no remat
-    recompute): 6 x active params x tokens for the dense work (the tied
-    head included once, the position table excluded; an MoE layer's
-    stacked expert weights count top_k / E of their size, what one token
-    uses, not the capacity padding) plus 12 x d_model x Σ(visible keys) x
-    batch per layer for causal attention (two matmuls, forward and twice
-    that backward)."""
-    from pytorch_distributed_template_tpu_torch.models.moe import MoeMlp
-    from pytorch_distributed_template_tpu_torch.ops.flash import (
-        visible_keys,
-    )
-
-    n = sum(p.numel() for name, p in model.named_parameters()
-            if name != "wpe")
-    for mod in model.modules():
-        if isinstance(mod, MoeMlp):
-            idle = 1 - min(mod.top_k, mod.num_experts) / mod.num_experts
-            n -= idle * sum(getattr(mod, leaf).numel()
-                            for leaf in ("wi", "wo", "bi", "bo"))
-    attn = 12.0 * model.d_model * visible_keys(t, True, 0) * batch \
-        * model.n_layer
-    return 6.0 * n * batch * t + attn
-
-
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
                  "expert_ffn")
 
@@ -1602,9 +1602,20 @@ class TrainRun:
     n_layer, twice that with remat, B2 and B3 n_layer each, B5 once per
     MoE layer; an eval step: B1 n_layer, B5 once per MoE layer, no B2/B3),
     times each step (host clock to ``cuda.synchronize``) and keeps its
-    loss."""
+    loss.
 
-    def __init__(self, trainer, device, card: str, label: str):
+    With ``warns`` (the list of a ``warnings.catch_warnings(record=True)``
+    around the run) it also counts the synchronising calls of each train
+    step with ``torch.cuda.set_sync_debug_mode("warn")`` on everywhere but
+    in its own ``cuda.synchronize`` calls: a step's count covers the step
+    and the trainer's loop work up to the next step (flight record, spans,
+    health, logging), and so does its iteration time (from one step's
+    start to the next's). :meth:`steady` reads both over the steady-state
+    non-log steps (not the run's first step, not an epoch's last)."""
+
+    def __init__(self, trainer, device, card: str, label: str, warns=None):
+        from pytorch_distributed_template_tpu_torch.observability.profiler \
+            import train_step_flops
         from pytorch_distributed_template_tpu_torch.ops import (
             expert_ffn, flash,
         )
@@ -1624,11 +1635,15 @@ class TrainRun:
         tokens = loader.arrays["tokens"].shape[1]
         self.tokens = loader.batch_size * tokens
         self.flops = train_step_flops(model, loader.batch_size, tokens)
+        self.warns, self.log_step = warns, trainer.log_step
+        self.marks = []   # per train step: (epoch, batch, start s, warns)
+        self._epoch, self._batch = 0, 0
         trainer.train_step = self._wrap(trainer.train_step, "train")
         trainer.eval_step = self._wrap(trainer.eval_step, "eval")
         real_epoch = trainer._train_epoch
 
         def epoch(e):
+            self._epoch, self._batch = e, 0
             out = real_epoch(e)
             self.epoch_logs.append(dict(out, epoch=e))
             log(f"[train] ({self.label}) epoch " + json.dumps(
@@ -1642,14 +1657,27 @@ class TrainRun:
         ``state_dict`` for checkpoints) pass through."""
         is_cuda = torch.device(self.device).type == "cuda"
 
+        def mode(on: bool) -> None:
+            # counting ends with the run (``warns`` set to None after it)
+            if is_cuda and self.warns is not None:
+                torch.cuda.set_sync_debug_mode("warn" if on else 0)
+
         def call(batch):
+            mode(False)
+            if kind == "train":
+                self.marks.append((self._epoch, self._batch,
+                                   time.perf_counter(),
+                                   len(self.warns or ())))
+                self._batch += 1
             _sync(self.device)
             for c in self.counters:
                 c.launches = 0
             if is_cuda:
                 torch.cuda.reset_peak_memory_stats()
+            mode(True)
             t0 = time.perf_counter()
             m = fn(batch)
+            mode(False)
             _sync(self.device)
             secs = time.perf_counter() - t0
             got = tuple(c.launches for c in self.counters)
@@ -1667,9 +1695,61 @@ class TrainRun:
                        "peak_mem_gib": peak / 2 ** 30}
                 self.steps.append(row)
                 log(f"[train] ({self.label}) step " + json.dumps(row))
+            mode(True)
             return m
 
         return _Wrapped(fn, call)
+
+    def steady(self) -> dict:
+        """Over the steady-state non-log train steps: the median
+        iteration ms (a step's start to the next step's, the loop's work
+        included) and the synchronising calls per step (mean and max);
+        the first step of the run and each epoch's last have no window."""
+        iters, syncs = [], []
+        for (e0, b0, t0, n0), (e1, _, t1, n1) in zip(self.marks[1:],
+                                                      self.marks[2:]):
+            if e0 == e1 and b0 % self.log_step != 0:
+                iters.append((t1 - t0) * 1e3)
+                syncs.append(n1 - n0)
+        return {"steps": len(iters),
+                "iter_ms_median": float(np.median(iters)) if iters else None,
+                "syncs_per_step_mean": (float(np.mean(syncs)) if syncs
+                                        else None),
+                "syncs_per_step_max": max(syncs) if syncs else None}
+
+
+def _loop_spans(trainer) -> dict:
+    """Medians over the steady non-log train steps of ``trace.json``'s
+    spans: ``data/next_batch`` (waiting for the batch), ``train/step``
+    (the step, with :class:`TrainRun`'s syncs) and the loop's own work from
+    a step's end to the next batch's wait (records, health, spans), per
+    step of one epoch."""
+    path = trainer.config.log_dir / "trace.json"
+    if not path.is_file():
+        return {}
+    events = json.loads(path.read_text())["traceEvents"]
+    steps = sorted((e for e in events if e["name"] == "train/step"),
+                   key=lambda e: e["ts"])
+    waits = sorted((e for e in events if e["name"] == "data/next_batch"),
+                   key=lambda e: e["ts"])
+    parts = {"wait": [], "step": [], "loop": []}
+    for e, nxt in zip(steps, steps[1:]):
+        batch = e["args"]["step"] % trainer.len_epoch
+        if (nxt["args"]["step"] != e["args"]["step"] + 1 or batch == 0
+                or batch % trainer.log_step == 0):
+            continue
+        end = e["ts"] + e["dur"]
+        wait = next((w for w in waits if end <= w["ts"] < nxt["ts"]), None)
+        if wait is None:
+            continue
+        before = [w for w in waits if w["ts"] < e["ts"]]
+        parts["wait"].append(before[-1]["dur"] / 1e3 if before else 0.0)
+        parts["step"].append(e["dur"] / 1e3)
+        parts["loop"].append((wait["ts"] - end) / 1e3)
+    if not parts["step"]:
+        return {}
+    return {f"span_{k}_ms_median": float(np.median(v))
+            for k, v in parts.items()}
 
 
 class _Wrapped:
@@ -1693,14 +1773,27 @@ def phase_train(card: str, device="cuda", config=TRAIN_CONFIG,
     return _train_path(card, device, config, sets, work / "train", seed)
 
 
+#: the steady-state numbers of each training path's main run, by label
+PATH_STATS: dict = {}
+
+
 def _train_path(card: str, device, config, sets, run_root, seed: int,
-                label: str = "train") -> dict:
+                label: str = "train", check=None) -> dict:
     """One training main path through the port's ``train.py`` (see
-    :func:`phase_train`); ``run_root`` is removed at the end."""
+    :func:`phase_train`); ``check(trainer, run)`` runs after the main run,
+    before the resume; ``run_root`` is removed at the end. The main run's
+    steady-state step numbers (:meth:`TrainRun.steady`) land in
+    ``PATH_STATS[label]``."""
+    import warnings
+
     from pytorch_distributed_template_tpu_torch import train as train_cli
+    from pytorch_distributed_template_tpu_torch.observability.trace import (
+        get_recorder,
+    )
 
     if run_root.exists():
         shutil.rmtree(run_root)
+    get_recorder().clear()   # this run's trace.json: this run's spans
     argv = ["-c", str(config), "-s", str(run_root / "main"), "--device",
             str(device), "--seed", str(seed)]
     for chain, value in sets:
@@ -1709,7 +1802,7 @@ def _train_path(card: str, device, config, sets, run_root, seed: int,
 
     def hook(trainer):
         box["trainer"] = trainer
-        box["run"] = TrainRun(trainer, device, card, "main")
+        box["run"] = TrainRun(trainer, device, card, "main", warns=warns)
         m = trainer.model
         moe = ""
         if m.moe_experts:
@@ -1727,9 +1820,17 @@ def _train_path(card: str, device, config, sets, run_root, seed: int,
             f"{len(trainer.train_loader)} steps per epoch; cuts: {sets}")
 
     t0 = time.perf_counter()
-    train_cli.main(argv, on_trainer=hook)
+    with warnings.catch_warnings(record=True) as warns:
+        warnings.simplefilter("always")
+        try:
+            train_cli.main(argv, on_trainer=hook)
+        finally:
+            if torch.device(device).type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
     wall = time.perf_counter() - t0
     trainer, run = box["trainer"], box["run"]
+    steady_stats = run.steady()
+    run.warns = None
     losses = [r["loss"] for r in run.steps]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training losses: {losses}")
@@ -1752,6 +1853,13 @@ def _train_path(card: str, device, config, sets, run_root, seed: int,
             raise AssertionError(f"{path} was not written")
     summary = json.loads((run_dir / "summary.json").read_text())
     steady = run.steps[1:] or run.steps
+    PATH_STATS[label] = {
+        "ms_per_step_median": float(np.median([r["ms"] for r in steady])),
+        **steady_stats, **_loop_spans(trainer)}
+    log(f"[{label}] steady " + json.dumps(dict(PATH_STATS[label],
+                                               card=card)))
+    if check is not None:
+        check(trainer, run)
     log(f"[{label}] " + json.dumps({
         "run": "main", "steps": len(run.steps), "epochs": epochs,
         "wall_s": wall, "loss_first5": head, "loss_last5": tail,
@@ -1841,7 +1949,11 @@ MOE_REF = {"vocab_size": 256, "n_layer": 2, "n_head": 2, "d_model": 128,
 # the epochs and the checkpoint period are cut
 MOE_CONFIG = REPO / "configs" / "moelm_stdlib.json"
 MOE_CORPUS_MB = 2.0
-MOE_SETS = [("trainer;epochs", 2), ("trainer;save_period", 1)]
+# the health summary and the flight recorder, on by default, turned off as
+# in phase 6's config: slice 4's path runs the step it ran before slice 6
+MOE_SETS = [("trainer;epochs", 2), ("trainer;save_period", 1),
+            ("trainer;health", {"enabled": False}),
+            ("trainer;telemetry", {"enabled": False})]
 
 
 def _ffn_library(x, wi, wo, bi, bo):
@@ -1994,9 +2106,9 @@ MNIST_CONFIG = REPO / "configs" / "mnist.json"
 # and final params atol 1e-4, as TRAIN_REF_TOL (summation order only,
 # with TF32 off: cuDNN's TF32 convs would move the losses by ~1e-3)
 LENET_REF_SETS = [("trainer;epochs", 1), ("trainer;save_period", 10)]
-# phase 9: configs/mnist.json at LeNet's full width, batch 128, 10 epochs;
-# the one cut: TensorBoard is A10 (PERF.md cell (j))
-MNIST_SETS = [("trainer;tensorboard", False)]
+# phase 9: configs/mnist.json as it is (LeNet's full width, batch 128, 10
+# epochs, TensorBoard on)
+MNIST_SETS = []
 # the torchrun launch: mnist_debug for one epoch
 TORCHRUN_SETS = [("trainer;epochs", 1)]
 MNIST_MIN_VAL_ACC = 0.5          # chance is 0.1
@@ -2363,6 +2475,221 @@ def _torchrun(device, save_dir, sets, timeout: float = 600.0) -> dict:
             "checkpoint": str(ckpts[0].relative_to(save_dir))}
 
 
+# ---------------------------------------------------------------------------
+# slice 6: training observability, configs/gpt2_small.json as it is
+# ---------------------------------------------------------------------------
+
+# phase 10: the repository's GPT-2 small config with every key it has
+# (compile_cache, TensorBoard, health, telemetry); the cuts, all by --set:
+# the sample counts, the epochs and the checkpoint period as phase 6's, and
+# the observability extras the config leaves at their defaults
+OBS_CONFIG = REPO / "configs" / "gpt2_small.json"
+OBS_SETS = [("train_loader;args;n", 256), ("valid_loader;args;n", 64),
+            ("trainer;epochs", 2), ("trainer;save_period", 1),
+            ("trainer;profiler", {"enabled": True, "trace_steps": 3}),
+            ("trainer;watchdog_secs", 600),
+            ("trainer;log_grad_norm", True)]
+# the second run: one epoch with every gradient element NaN at step 24
+NAN_STEP = 24
+NAN_SETS = [("train_loader;args;n", 256), ("valid_loader;args;n", 64),
+            ("trainer;epochs", 1), ("trainer;save_period", 1)]
+# the train step's variants on the run's model, timed in turns: phase 6's
+# (skip_nonfinite, clip, no health) against phase 10's (with the health
+# summary and log_grad_norm)
+STEP_VARIANTS = {
+    "phase6": dict(skip_nonfinite=True),
+    "phase10": dict(skip_nonfinite=True, health=True, log_grad_norm=True),
+}
+STEP_TURNS = ("phase6", "phase10", "phase10", "phase6")
+STEP_TURN_STEPS = 8
+
+
+def phase_observe(card: str, device="cuda", config=OBS_CONFIG,
+                  sets=OBS_SETS, nan_sets=NAN_SETS, nan_step=NAN_STEP,
+                  work=WORK, seed: int = 0) -> dict:
+    """Phase 10, slice 6's main path: the port's ``train.py`` with
+    ``configs/gpt2_small.json`` as it is, cut only by ``sets``. The checks
+    of :func:`_train_path` (exact launch counts per step, losses finite
+    and falling, checkpoints, summary, the resume reproducing epoch 2, a
+    5-step profile), then: one flight record per train step in
+    ``telemetry.jsonl`` (``loss``, ``lr``, ``grad_norm`` on log steps),
+    ``trace.json``, a ``torch.profiler`` trace in ``profile/``, TB events
+    or the backend's absence printed, ``grad_norm`` and ``mfu`` in the
+    epoch logs; phase 6's and phase 10's train step timed in turns on the
+    run's model (:func:`_step_variants`); the median ms/step, iteration ms and
+    synchronising calls per non-log step beside phase 6's when phase 6 ran
+    in this process, failing when phase 10 makes more; then the
+    ``nan_grad`` run (:func:`_nan_run`). Returns the kernels' launches of
+    both runs."""
+
+    def check(trainer, run):
+        _check_observability(trainer, run, device)
+        _step_variants(trainer, device, card)
+
+    launches = _train_path(card, device, config, sets, work / "observe",
+                           seed, label="observe", check=check)
+    six, ten = PATH_STATS.get("train"), PATH_STATS.get("observe")
+    if six is not None:
+        row = {"phase6": six, "phase10": ten,
+               "overhead_ms": ten["ms_per_step_median"]
+               - six["ms_per_step_median"],
+               "overhead_pct": 100.0 * (ten["ms_per_step_median"]
+                                        / six["ms_per_step_median"] - 1)}
+        if six["iter_ms_median"] and ten["iter_ms_median"]:
+            row["iter_overhead_ms"] = (ten["iter_ms_median"]
+                                       - six["iter_ms_median"])
+            row["iter_overhead_pct"] = 100.0 * (
+                ten["iter_ms_median"] / six["iter_ms_median"] - 1)
+        log("[observe] overhead " + json.dumps(dict(row, card=card)))
+        if (six["syncs_per_step_mean"] is not None
+                and ten["syncs_per_step_mean"]
+                > six["syncs_per_step_mean"]):
+            raise AssertionError(
+                f"phase 10 makes more synchronising calls per non-log "
+                f"train step than phase 6: {ten} against {six}")
+    nan = _nan_run(card, device, config, nan_sets, nan_step,
+                   work / "observe_nan", seed)
+    return {k: launches[k] + nan[k] for k in launches}
+
+
+def _check_observability(trainer, run, device) -> None:
+    """The run directory's observability artifacts (see
+    :func:`phase_observe`)."""
+    run_dir = trainer.config.save_dir
+    records = [json.loads(line) for line in
+               (run_dir / "telemetry.jsonl").read_text().splitlines()]
+    steps = sorted(r["step"] for r in records if "event" not in r)
+    if steps != list(range(len(run.steps))):
+        raise AssertionError(f"telemetry.jsonl has step records "
+                             f"{steps}, not one per step of "
+                             f"{len(run.steps)}")
+    logged = [r for r in records if "loss" in r]
+    if not logged or not all(
+            {"loss", "lr", "grad_norm", "steps_per_sec"} <= set(r)
+            for r in logged if r["step"] > 0):
+        raise AssertionError(f"log-step records lack fields: {logged}")
+    spans = {e["name"] for e in json.loads(
+        (run_dir / "trace.json").read_text())["traceEvents"]}
+    if not {"data/next_batch", "train/step", "train/log"} <= spans:
+        raise AssertionError(f"trace.json spans: {sorted(spans)}")
+    traces = sorted((run_dir / "profile").glob("*.pt.trace.json"))
+    if not traces:
+        raise AssertionError("no torch.profiler trace in profile/")
+    events = sorted(run_dir.glob("events.out.tfevents.*"))
+    backend = trainer.writer.selected_module
+    if backend and not events:
+        raise AssertionError(f"TensorBoard ({backend}) wrote no events")
+    for e in run.epoch_logs:
+        if not np.isfinite(e.get("grad_norm", np.nan)):
+            raise AssertionError(f"epoch {e['epoch']} logged no finite "
+                                 f"grad_norm: {e}")
+        if torch.device(device).type == "cuda" and "mfu" not in e:
+            raise AssertionError(f"epoch {e['epoch']} logged no mfu: {e}")
+    memory = [r["devices"] for r in records if "devices" in r]
+    log("[observe] artifacts " + json.dumps({
+        "records": len(records), "step_records": len(steps),
+        "log_records": len(logged), "events": sorted(
+            {r["event"] for r in records if "event" in r}),
+        "spans": sorted(spans), "profile_traces": len(traces),
+        "profile_bytes": sum(t.stat().st_size for t in traces),
+        "tensorboard": backend or "no backend (torch.utils.tensorboard "
+                                  "and tensorboardX do not import)",
+        "tb_event_files": len(events),
+        "memory_record": memory[-1] if memory else None,
+        "epoch_mfu": [e.get("mfu") for e in run.epoch_logs],
+        "epoch_grad_norm": [e["grad_norm"] for e in run.epoch_logs]}))
+
+
+def _step_variants(trainer, device, card: str) -> dict:
+    """ms per train step of :data:`STEP_VARIANTS` on the run's model and
+    optimizer, in :data:`STEP_TURNS`, each turn
+    :data:`STEP_TURN_STEPS` steps issued back to back after a warm step,
+    with one ``cuda.synchronize`` at the end (the clip of the config in
+    every variant)."""
+    from pytorch_distributed_template_tpu_torch.engine.steps import (
+        make_train_step,
+    )
+
+    batches = [trainer._to_device(b) for b, _ in zip(
+        trainer.train_loader, range(STEP_TURN_STEPS))]
+    net = trainer.ddp if trainer.ddp is not None else trainer.model
+    clip = trainer.config["trainer"].get("grad_clip_norm", 0.0)
+    times = {}
+    for name in STEP_TURNS:
+        step = make_train_step(
+            net, trainer.optimizer, trainer.criterion, trainer.metric_ftns,
+            input_key=trainer.input_key, target_key=trainer.target_key,
+            grad_clip_norm=clip, lr_fn=trainer.lr_fn,
+            **STEP_VARIANTS[name])
+        step(batches[0])
+        _sync(device)
+        t0 = time.perf_counter()
+        for b in batches:
+            step(b)
+        _sync(device)
+        times.setdefault(name, []).append(
+            (time.perf_counter() - t0) * 1e3 / len(batches))
+    row = {f"{k}_ms": float(np.mean(v)) for k, v in times.items()}
+    row["turns"] = times
+    log("[observe] step variants " + json.dumps(dict(row, card=card)))
+    return row
+
+
+def _nan_run(card: str, device, config, sets, nan_step: int, root,
+             seed: int) -> dict:
+    """One epoch of the config with ``nan_grad@step:<nan_step>``:
+    ``anomaly_<step>.json`` written, the step skipped, the params finite,
+    the per-group counts summing to the number of gradient elements, no
+    ``model_best`` from the poisoned epoch. Returns the launches."""
+    from pytorch_distributed_template_tpu_torch import train as train_cli
+
+    if root.exists():
+        shutil.rmtree(root)
+    argv = ["-c", str(config), "-s", str(root), "--device", str(device),
+            "--seed", str(seed)]
+    for chain, value in [*sets, ("trainer;faults",
+                                 f"nan_grad@step:{nan_step}")]:
+        argv += ["--set", chain, json.dumps(value)]
+    box = {}
+
+    def hook(trainer):
+        box["trainer"] = trainer
+        box["run"] = TrainRun(trainer, device, card, "nan_grad")
+
+    train_cli.main(argv, on_trainer=hook)
+    trainer, run = box["trainer"], box["run"]
+    run_dir = trainer.config.save_dir
+    dump = run_dir / f"anomaly_{nan_step}.json"
+    if not dump.is_file():
+        raise AssertionError(f"{dump.name} was not written: "
+                             f"{sorted(p.name for p in run_dir.iterdir())}")
+    anomaly = json.loads(dump.read_text())
+    summary = anomaly["summary"]
+    groups = {k: v for k, v in summary.items() if k.startswith("nonfinite/")}
+    elements = sum(p.numel() for p in trainer.model.parameters())
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in trainer.model.parameters())
+    skipped = run.epoch_logs[0].get("skipped", 0.0)
+    row = {"anomaly": dump.name, "reasons": [r["kind"] for r in
+                                             anomaly["reasons"]],
+           "skipped": skipped, "params_finite": finite,
+           "nonfinite_grads": summary["nonfinite_grads"],
+           "gradient_elements": elements, "groups": len(groups),
+           "update_norm": summary["update_norm"],
+           "model_best": (run_dir / "model_best").exists(), "card": card}
+    log("[observe] nan_grad " + json.dumps(row))
+    if not (skipped > 0 and finite and sum(groups.values()) == elements
+            == summary["nonfinite_grads"] and not row["model_best"]):
+        raise AssertionError(f"the nan_grad run: {row}")
+    launches = dict(zip(TRAIN_KERNELS, run.launches))
+    del trainer, box
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2387,9 +2714,12 @@ def main() -> int:
     moe_launches = phase_moe_train(card)
     phase_lenet_reference()
     phase_mnist(card)
+    obs_launches = phase_observe(card)
     shutil.rmtree(WORK)
     log(f"[device] all phases in {time.perf_counter() - t_start:.1f} s")
     kernels = []
+    for kern in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        train_launches[kern] += obs_launches[kern]
     flash_launches += train_launches["flash_fwd"] + moe_launches["flash_fwd"]
     for kernel, source, replaces, launches, shapes in (
             ("flash_fwd", KERNEL_SOURCE, KERNEL_REPLACES, flash_launches,

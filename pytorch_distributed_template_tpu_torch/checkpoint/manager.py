@@ -35,6 +35,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..observability.trace import span
+from ..resilience import faults
+
 logger = logging.getLogger(__name__)
 
 _FILES = ("model.pt", "optimizer.pt", "train_state.json")
@@ -76,20 +79,24 @@ class CheckpointManager:
              arch: str, config: dict, monitor_best: float,
              save_best: bool = False) -> Path:
         """Save ``checkpoint-epoch{epoch}`` (+ ``model_best`` when
-        ``save_best``)."""
+        ``save_best``). The fault hook ``on_checkpoint_save``
+        (``ckpt_write_fail@epoch:N``) runs first."""
+        faults.on_checkpoint_save(epoch)
         path = self.checkpoint_dir / f"checkpoint-epoch{epoch}"
         meta = {"arch": arch, "epoch": epoch,
                 "monitor_best": _json_safe_best(monitor_best),
                 "config": config}
-        self._write(path, model, optimizer, train_state, meta)
+        with span("checkpoint/save", epoch=epoch):
+            self._write(path, model, optimizer, train_state, meta)
         logger.info("Saving checkpoint: %s ...", path)
         if save_best:
-            best = self.checkpoint_dir / "model_best"
-            best.mkdir(exist_ok=True)
-            for name in _FILES:
-                shutil.copyfile(path / name, best / name)
-            (self.checkpoint_dir / "model_best.meta.json").write_text(
-                json.dumps(meta, indent=2))
+            with span("checkpoint/save_best", epoch=epoch):
+                best = self.checkpoint_dir / "model_best"
+                best.mkdir(exist_ok=True)
+                for name in _FILES:
+                    shutil.copyfile(path / name, best / name)
+                (self.checkpoint_dir / "model_best.meta.json").write_text(
+                    json.dumps(meta, indent=2))
             logger.info("Saving current best: model_best ...")
         return path
 

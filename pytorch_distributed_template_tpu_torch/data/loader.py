@@ -8,7 +8,10 @@ Batches are dicts of numpy arrays. Without a sampler the order is
 as in the reference). When ``drop_last`` is False the last batch is padded
 to the static batch size by wraparound duplication, and ``batch["mask"]``
 marks the real rows: the sampler's pad mask and the batch's padding
-combined. Same indices, same padding, same masks as the JAX loader.
+combined. Same indices, same padding, same masks as the JAX loader. Each
+batch passes the fault hook ``faults.on_loader_batch`` (``loader_raise``)
+before its gather, as in the JAX loader, and the gather and the copy to
+the device run in the spans ``data/host_gather`` and ``data/device_put``.
 
 :func:`prefetch_to_device` moves batches to a CUDA device ahead of use:
 pinned host copies, ``non_blocking`` transfers on a side stream, and the
@@ -28,6 +31,8 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..observability.trace import span
+from ..resilience import faults
 from .sampler import ShardedSampler, epoch_permutation
 
 
@@ -82,7 +87,8 @@ class ArrayDataLoader:
         n = len(idx)
         end = (n // self.batch_size) * self.batch_size if self.drop_last \
             else n
-        for start in range(0, end, self.batch_size):
+        for bi, start in enumerate(range(0, end, self.batch_size)):
+            faults.on_loader_batch(bi, loader=self)
             stop = min(start + self.batch_size, end)
             batch_idx, mask = idx[start:stop], real[start:stop]
             if len(batch_idx) < self.batch_size:
@@ -90,7 +96,8 @@ class ArrayDataLoader:
                 pad = self.batch_size - len(batch_idx)
                 batch_idx = np.concatenate([batch_idx, np.resize(idx, pad)])
                 mask = np.concatenate([mask, np.zeros(pad, dtype=bool)])
-            batch = {k: v[batch_idx] for k, v in self.arrays.items()}
+            with span("data/host_gather"):
+                batch = {k: v[batch_idx] for k, v in self.arrays.items()}
             batch["mask"] = mask
             yield batch
 
@@ -116,13 +123,15 @@ def prefetch_to_device(batches: Iterable[dict], device,
     device = torch.device(device)
     if device.type != "cuda":
         for batch in batches:
-            yield to_tensors(batch, device)
+            with span("data/device_put"):
+                out = to_tensors(batch, device)
+            yield out
         return
     copy_stream = torch.cuda.Stream(device)
     in_flight = collections.deque()
 
     def put(batch):
-        with torch.cuda.stream(copy_stream):
+        with span("data/device_put"), torch.cuda.stream(copy_stream):
             out = {k: torch.from_numpy(np.ascontiguousarray(v))
                    .pin_memory().to(device, non_blocking=True)
                    for k, v in batch.items()}

@@ -40,10 +40,35 @@ after the forward, a scalar or None; the train step adds ``aux *
 valid_count`` to ``loss_sum``, so the logged ``loss`` and the gradient
 include it as in the JAX step (which collects flax's ``losses``).
 
+Observability (the JAX step's options at its points in the dataflow):
+``log_grad_norm`` adds ``grad_norm_sum`` (the pre-clip global norm x the
+valid count, so the epoch's ``finalize_metrics`` gives the mean per-step
+norm); ``health`` adds the packed summary vector ``metrics["health"]``
+(observability/health.py: loss, pre-clip grad norm, update norm,
+non-finite counts), which callers strip out of the epoch accumulator;
+``inject_nan_grad_step`` (``nan_grad@step:N``) adds NaN to every gradient
+element at step N, before clipping and the health capture, keyed on the
+host's step counter (no device read).
+
+The update norm is the global norm of ``p_new - p_old`` over every
+parameter, against a copy taken before ``opt.step()`` (foreach copies and
+norms, a few launches): the torch optimizers expose no update, and the
+difference in float32 carries rounding against the exact update. On a
+step that ``skip_nonfinite`` skips, the JAX step still computes an update
+from the zeroed gradients and discards it; the port does the same (an
+optimizer step on zero gradients, measured, then params and optimizer
+state restored), so both report the same finite norm there.
+
+The per-group non-finite counts of the gradients are taken before
+clipping (a NaN global norm makes the clip scale NaN and would smear one
+bad group over all of them). With ``skip_nonfinite`` the host reads the
+step's finiteness anyway and counts only on a non-finite step (exact:
+on a finite step every count is 0); without it the counts are taken on
+the device every step, which costs no read.
+
 Refused by name, each naming its slice: ``grad_accum_steps > 1``,
-``ema_decay``, ``trainable_patterns`` (ROADMAP A17), ``log_grad_norm``,
-``health``, ``inject_nan_grad_step`` (A10), ``augment``, ``mixup_alpha``
-(A12).
+``ema_decay``, ``trainable_patterns`` (ROADMAP A17), ``augment``,
+``mixup_alpha`` (A12).
 """
 from __future__ import annotations
 
@@ -53,8 +78,11 @@ from typing import Callable, Dict, Sequence
 import torch
 
 from ..models.layers import fold_in
+from ..observability.health import (
+    nonfinite_by_group, pack_health_summary, parameter_groups,
+)
 from ..parallel import dist
-from ..utils.util import LATER_OBSERVABILITY, LATER_RESUME
+from ..utils.util import LATER_RESUME
 
 _LATER_AUGMENT = "ROADMAP A12 (ops/augment.py, with the other model families)"
 
@@ -73,17 +101,12 @@ def _detached(output):
 
 
 def _refuse(grad_accum_steps=1, ema_decay=0.0, augment=None,
-            mixup_alpha=0.0, log_grad_norm=False, trainable_patterns=None,
-            health=False, inject_nan_grad_step=None) -> None:
+            mixup_alpha=0.0, trainable_patterns=None) -> None:
     later = {"grad_accum_steps > 1": (grad_accum_steps > 1, LATER_RESUME),
              "ema_decay": (ema_decay > 0, LATER_RESUME),
              "trainable": (bool(trainable_patterns), LATER_RESUME),
              "augment": (augment is not None, _LATER_AUGMENT),
-             "mixup_alpha": (mixup_alpha > 0, _LATER_AUGMENT),
-             "log_grad_norm": (bool(log_grad_norm), LATER_OBSERVABILITY),
-             "health": (bool(health), LATER_OBSERVABILITY),
-             "inject_nan_grad_step": (inject_nan_grad_step is not None,
-                                      LATER_OBSERVABILITY)}
+             "mixup_alpha": (mixup_alpha > 0, _LATER_AUGMENT)}
     for name, (on, where) in later.items():
         if on:
             raise NotImplementedError(f"{name} is {where}")
@@ -104,13 +127,15 @@ class TrainStep:
     JAX ``TrainState.step`` and the optimizer's count), which checkpoints
     save and restore (:meth:`state_dict`). ``model`` may be a
     ``DistributedDataParallel`` wrapper: the forward goes through it, and
-    its ``module`` answers for the model (forward arguments, ``aux_loss``)."""
+    its ``module`` answers for the model (forward arguments, ``aux_loss``,
+    the parameter groups of the health summary)."""
 
     def __init__(self, model, optimizer, criterion: Callable,
                  metric_fns: Sequence[Callable], input_key: str,
                  target_key: str, grad_clip_norm: float,
                  skip_nonfinite: bool, lr_fn: Callable[[int], float],
-                 seed: int):
+                 seed: int, log_grad_norm: bool = False,
+                 health: bool = False, inject_nan_grad_step=None):
         self.model, self.optimizer = model, optimizer
         self.module = getattr(model, "module", model)
         self.criterion, self.metric_fns = criterion, list(metric_fns)
@@ -118,8 +143,14 @@ class TrainStep:
         self.grad_clip_norm = float(grad_clip_norm or 0.0)
         self.skip_nonfinite = skip_nonfinite
         self.lr_fn, self.seed = lr_fn, int(seed)
+        self.log_grad_norm, self.health = bool(log_grad_norm), bool(health)
+        self.nan_step = (None if inject_nan_grad_step is None
+                         else int(inject_nan_grad_step))
         self._seeded = _forward_takes(self.module, "dropout_seed")
         self._masked = _forward_takes(self.module, "example_mask")
+        self._all = [p for g in optimizer.param_groups for p in g["params"]]
+        self._groups = parameter_groups(self.module) if health else {}
+        self._before = None  # the params before the update (health)
         self.step = 0       # steps taken (the dropout key's counter)
         self.applied = 0    # optimizer updates applied (the schedule's)
 
@@ -130,8 +161,46 @@ class TrainStep:
         self.step, self.applied = int(state["step"]), int(state["applied"])
 
     def _params(self):
-        return [p for g in self.optimizer.param_groups for p in g["params"]
-                if p.grad is not None]
+        return [p for p in self._all if p.grad is not None]
+
+    def _poison(self) -> None:
+        """``nan_grad``: every gradient element NaN (a missing gradient
+        becomes a NaN one, as the JAX step's zero leaves do)."""
+        for p in self._all:
+            if p.grad is None:
+                p.grad = torch.full_like(p, float("nan"))
+            else:
+                p.grad.add_(float("nan"))
+
+    def _update(self) -> None:
+        lr = self.lr_fn(self.applied)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+
+    @torch.no_grad()
+    def _discarded_update_norm(self) -> torch.Tensor:
+        """The norm of the update the JAX step computes from zeroed
+        gradients on a skipped step and throws away: one optimizer step
+        on zero gradients, measured, then params and state restored."""
+        opt = self.optimizer
+        saved = {p: {k: (v.clone() if torch.is_tensor(v) else v)
+                     for k, v in st.items()} for p, st in opt.state.items()}
+        for p in self._all:
+            p.grad = torch.zeros_like(p)
+        self._update()
+        delta = torch._foreach_sub(self._all, self._before)
+        torch._foreach_copy_(self._all, self._before)
+        for p in list(opt.state):
+            if p not in saved:
+                del opt.state[p]
+        for p, st in saved.items():
+            for k, v in st.items():
+                if torch.is_tensor(v):
+                    opt.state[p][k].copy_(v)
+                else:
+                    opt.state[p][k] = v
+        return torch.nn.utils.get_total_norm(delta)
 
     def __call__(self, batch) -> Dict[str, torch.Tensor]:
         model, opt = self.model, self.optimizer
@@ -156,16 +225,18 @@ class TrainStep:
         del out
         metrics = _global(stats)
         denom = metrics["count"].clamp_min(1.0)
+        health_loss = metrics["loss_sum"] / denom
         opt.zero_grad(set_to_none=True)
         (loss_sum * dist.process_count() / denom).backward()
         del output
+        if self.nan_step is not None and self.step == self.nan_step:
+            self._poison()
 
         params = self._params()
         gnorm = None
-        if self.grad_clip_norm > 0:
-            # pre-clip global norm; grads scaled by min(1, c / (norm + 1e-6))
-            gnorm = torch.nn.utils.clip_grad_norm_(params,
-                                                   self.grad_clip_norm)
+        if self.grad_clip_norm > 0 or self.log_grad_norm or self.health:
+            # the pre-clip global norm of the mean gradient
+            gnorm = torch.nn.utils.get_total_norm([p.grad for p in params])
         ok = True
         if self.skip_nonfinite:
             finite = torch.isfinite(metrics["loss_sum"])
@@ -174,17 +245,41 @@ class TrainStep:
             else:
                 for p in params:
                     finite = finite & torch.isfinite(p.grad).all()
-            ok = bool(finite)
+            ok = bool(finite)   # the step's one read
+        grad_counts = None
+        if self.health:
+            if not (self.skip_nonfinite and ok):
+                # before the clip: clipping by a NaN norm would smear one
+                # bad group over all of them
+                grad_counts = nonfinite_by_group(
+                    {g: [p.grad for p in ps if p.grad is not None]
+                     for g, ps in self._groups.items()})
+            if self._before is None:
+                self._before = [torch.empty_like(p) for p in self._all]
+            torch._foreach_copy_(self._before, self._all)
+        if self.log_grad_norm:
+            metrics["grad_norm_sum"] = gnorm * denom
+        if self.grad_clip_norm > 0 and ok:
+            # g * min(1, c / (|g| + 1e-6)), clip_grad_norm_'s scaling
+            torch.nn.utils.clip_grads_with_norm_(params, self.grad_clip_norm,
+                                                 gnorm)
+        update_norm = None
         if ok:
-            lr = self.lr_fn(self.applied)
-            for group in opt.param_groups:
-                group["lr"] = lr
-            opt.step()
+            self._update()
             self.applied += 1
+            if self.health:
+                torch._foreach_sub_(self._before, self._all)  # -update
+                update_norm = torch.nn.utils.get_total_norm(self._before)
         else:
             metrics = {k: torch.zeros_like(v) for k, v in metrics.items()}
+            if self.health:
+                update_norm = self._discarded_update_norm()
         if self.skip_nonfinite:
             metrics["skipped_sum"] = denom * (0.0 if ok else 1.0)
+        if self.health:
+            metrics["health"] = pack_health_summary(
+                health_loss, gnorm, update_norm, grad_counts, self._all,
+                groups=len(self._groups))
         self.step += 1
         return metrics
 
@@ -202,14 +297,16 @@ def make_train_step(model, optimizer, criterion: Callable,
     """Build the train step (the JAX ``make_train_step`` signature, plus
     the torch optimizer, ``lr_fn`` and the dropout ``seed``)."""
     _refuse(grad_accum_steps, ema_decay, augment, mixup_alpha,
-            log_grad_norm, trainable_patterns, health, inject_nan_grad_step)
+            trainable_patterns)
     if lr_fn is None:
         base = optimizer.param_groups[0]["lr"]
 
         def lr_fn(step):
             return base
     return TrainStep(model, optimizer, criterion, metric_fns, input_key,
-                     target_key, grad_clip_norm, skip_nonfinite, lr_fn, seed)
+                     target_key, grad_clip_norm, skip_nonfinite, lr_fn, seed,
+                     log_grad_norm=log_grad_norm, health=health,
+                     inject_nan_grad_step=inject_nan_grad_step)
 
 
 def make_eval_step(model, criterion: Callable,

@@ -23,15 +23,33 @@ epochs of that many steps over an endless loader that reshuffles on each
 pass. On CUDA the trainer asks cuDNN for deterministic algorithms, so a
 resumed run repeats the uninterrupted one.
 
-Refused by name, each naming its slice: TensorBoard, the health monitor,
-telemetry, the profiler, the watchdog, fault injection (ROADMAP A10),
-interval saves, ``keep_last``, ``init_from`` (A17), the XLA
-``compile_cache``, and any mesh axis but ``data`` (A11).
+Observability, as in the JAX trainer (``engine/trainer.py:776-1075``):
+spans ``data/next_batch``, ``train/step``, ``train/log`` and
+``train/validate`` (``log_dir/trace.json`` at the end of the run, rank 0);
+one flight record per step in ``telemetry.jsonl`` (``wall_ms``,
+``data_wait_ms``, ``examples``, ``tokens``; on log steps ``loss``, ``lr``,
+``grad_norm``, the rates and ``anomaly_total``); TensorBoard scalars (and
+the input-image grid for image batches, from the host-side batch) on rank
+0; the health monitor over the per-step summary, read one step late, with
+``model_best`` withheld in an epoch that fired when
+``pause_best_promotion`` is set; a ``torch.profiler`` window and ``mfu`` in
+the epoch log when the profiler is on; the step watchdog; the cross-rank
+stats exchange; the fault plan (``trainer.faults`` or ``PDT_FAULTS``);
+preemption: on SIGTERM every rank breaks at the same batch, the epoch is
+checkpointed and training stops. No log-step metric is read on the step
+that made it: the log window's metrics and the health summary are copied
+into pinned host memory without blocking and read one window (one step)
+later (``observability.health.DeferredFetch``).
+
+Refused by name, each naming its slice: interval saves, ``keep_last``,
+``init_from`` (A17), and any mesh axis but ``data`` (A11).
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
+import os
 import time
 
 import numpy as np
@@ -40,17 +58,25 @@ import torch
 from ..checkpoint import CheckpointManager
 from ..data.loader import prefetch_to_device, to_tensors
 from ..models.base import describe
+from ..observability.crosshost import CrossHostAggregator
+from ..observability.health import (
+    DeferredFetch, HealthMonitor, health_counters, health_layout,
+)
+from ..observability.profiler import (
+    ThroughputMeter, TraceCapture, mfu, train_step_flops,
+)
+from ..observability.tb import TensorboardWriter
+from ..observability.telemetry import FlightRecorder, drain_compile_events
+from ..observability.trace import get_recorder as get_span_recorder
+from ..observability.trace import span
+from ..observability.tracker import MetricTracker
 from ..parallel import dist, mesh_from_config
-from ..utils.util import LATER_OBSERVABILITY, LATER_RESUME
+from ..resilience import faults
+from ..utils import preemption
+from ..utils.util import LATER_RESUME
+from ..utils.watchdog import StepWatchdog
 from .optim import build_optimizer
 from .steps import finalize_metrics, make_eval_step, make_train_step
-
-
-def _enabled(block) -> bool:
-    """A config block is on when it is truthy and not ``enabled: false``."""
-    if isinstance(block, dict):
-        return bool(block) and bool(block.get("enabled", True))
-    return bool(block)
 
 
 def refuse_later_keys(config) -> None:
@@ -58,17 +84,6 @@ def refuse_later_keys(config) -> None:
     the port does not run yet."""
     trainer = config["trainer"]
     later = {
-        "trainer.tensorboard": (bool(trainer.get("tensorboard", False)),
-                                LATER_OBSERVABILITY),
-        "trainer.health": (_enabled(trainer.get("health")),
-                           LATER_OBSERVABILITY),
-        "trainer.telemetry": (_enabled(trainer.get("telemetry")),
-                              LATER_OBSERVABILITY),
-        "trainer.profiler": (_enabled(trainer.get("profiler")),
-                             LATER_OBSERVABILITY),
-        "trainer.watchdog_secs": (
-            float(trainer.get("watchdog_secs", 0)) > 0, LATER_OBSERVABILITY),
-        "trainer.faults": (bool(trainer.get("faults")), LATER_OBSERVABILITY),
         "trainer.save_interval_steps": (
             int(trainer.get("save_interval_steps", 0)) > 0, LATER_RESUME),
         "trainer.keep_last": (int(trainer.get("keep_last", 0)) > 0,
@@ -78,10 +93,6 @@ def refuse_later_keys(config) -> None:
     for key, (on, where) in later.items():
         if on:
             raise NotImplementedError(f"{key} is {where}")
-    if "compile_cache" in config:
-        raise NotImplementedError(
-            "compile_cache (the XLA compilation cache) has no counterpart "
-            "in the port yet (a later slice)")
     mesh_from_config(config)
 
 
@@ -119,6 +130,11 @@ class BaseTrainer:
         self.start_epoch = 1
         self.checkpoint_dir = config.save_dir
         self.ckpt_manager = CheckpointManager(self.checkpoint_dir)
+        # rank 0 writes the events (the ranks share the run directory)
+        self.writer = TensorboardWriter(
+            config.log_dir, self.logger,
+            bool(cfg_trainer.get("tensorboard", False))
+            and dist.is_main_process())
 
     def _train_epoch(self, epoch: int) -> dict:
         raise NotImplementedError
@@ -128,14 +144,16 @@ class BaseTrainer:
 
     def train(self) -> dict:
         """The epoch loop; returns the last epoch's log."""
+        preemption.install()
         not_improved_count = 0
         log: dict = {}
         try:
             for epoch in range(self.start_epoch, self.epochs + 1):
                 log = {"epoch": epoch}
                 log.update(self._train_epoch(epoch))
-                for key, value in log.items():
-                    self.logger.info("    %-15s: %s", str(key), value)
+                if dist.is_main_process():
+                    for key, value in log.items():
+                        self.logger.info("    %-15s: %s", str(key), value)
                 best = False
                 if self.mnt_mode != "off":
                     try:
@@ -158,6 +176,15 @@ class BaseTrainer:
                         best = True
                     else:
                         not_improved_count += 1
+                if preemption.sync_requested():
+                    # any rank got SIGTERM: checkpoint now (whatever the
+                    # save_period) and stop everywhere together
+                    if dist.is_main_process():
+                        self.logger.warning(
+                            "Preemption signal received; saving checkpoint "
+                            "at epoch %d and stopping.", epoch)
+                    self._save_checkpoint(epoch, save_best=best)
+                    break
                 if epoch % self.save_period == 0:
                     self._save_checkpoint(epoch, save_best=best)
                 if (self.mnt_mode != "off"
@@ -167,8 +194,24 @@ class BaseTrainer:
                         "epochs. Training stops.", self.early_stop)
                     break
         finally:
+            self._close()
             self._write_summary(log)
         return log
+
+    def _close(self) -> None:
+        """End of the run: stop the watchdog, close the profiler window,
+        the recorder and the TB writer, and write ``trace.json`` (rank
+        0)."""
+        for name in ("watchdog", "trace", "recorder", "writer"):
+            part = getattr(self, name, None)
+            if part is not None:
+                (part.stop if name == "watchdog" else part.close)()
+        if dist.is_main_process():
+            try:
+                get_span_recorder().dump(self.config.log_dir / "trace.json")
+            except Exception:  # noqa: BLE001 — teardown diagnostics must
+                self.logger.warning("could not write trace.json",
+                                    exc_info=True)  # not crash the run
 
     def _write_summary(self, log: dict) -> None:
         """``summary.json`` in the run dir (rank 0): the last epoch's
@@ -210,6 +253,10 @@ class Trainer(BaseTrainer):
         refuse_later_keys(config)
         super().__init__(config)
         cfg = config["trainer"]
+        # the fault plan: PDT_FAULTS wins over trainer.faults; installed
+        # per trainer so one-shot faults re-arm for each fresh run
+        faults.install_from_env_or_config(cfg.get("faults"))
+        faults.watch_loader(train_loader)
         self.device = torch.device(device) if device is not None \
             else model_device(model)
         if self.device.type == "cuda":
@@ -242,16 +289,24 @@ class Trainer(BaseTrainer):
 
         self.optimizer, self.lr_fn = build_optimizer(config, self.len_epoch,
                                                      model)
+        self.skip_nonfinite = bool(cfg.get("skip_nonfinite", False))
+        self.log_grad_norm = bool(cfg.get("log_grad_norm", False))
+        # the health summary rides the step; on unless enabled is false
+        # (the JAX trainer's default)
+        health_cfg = cfg.get("health", {}) or {}
+        self._health_enabled = bool(health_cfg.get("enabled", True))
         self.train_step = make_train_step(
             net, self.optimizer, criterion, self.metric_ftns,
             input_key=self.input_key, target_key=self.target_key,
             grad_clip_norm=cfg.get("grad_clip_norm", 0.0),
             grad_accum_steps=int(cfg.get("grad_accum_steps", 1)),
             ema_decay=float(cfg.get("ema_decay", 0.0)),
-            skip_nonfinite=bool(cfg.get("skip_nonfinite", False)),
+            skip_nonfinite=self.skip_nonfinite,
             augment=cfg.get("augment"),
             mixup_alpha=float(cfg.get("mixup_alpha", 0.0)),
-            log_grad_norm=bool(cfg.get("log_grad_norm", False)),
+            log_grad_norm=self.log_grad_norm,
+            health=self._health_enabled,
+            inject_nan_grad_step=faults.nan_grad_step(),
             lr_fn=self.lr_fn, seed=seed)
         self.eval_step = make_eval_step(
             net, criterion, self.metric_ftns, input_key=self.input_key,
@@ -269,7 +324,54 @@ class Trainer(BaseTrainer):
             self.train_step.load_state_dict(state)
             if best is not None:
                 self.mnt_best = best
-        self._first_step_done = False
+
+        self.train_metrics = MetricTracker("loss", writer=self.writer)
+        self.valid_metrics = MetricTracker(
+            "loss", *[m.__name__ for m in self.metric_ftns],
+            writer=self.writer)
+        prof_cfg = cfg.get("profiler", {}) or {}
+        self.profile_enabled = bool(prof_cfg.get("enabled", False))
+        self.throughput = ThroughputMeter()     # log_step windows (TB)
+        self.epoch_meter = ThroughputMeter()    # whole-epoch averages
+        self.trace = TraceCapture(
+            config.log_dir, start_step=prof_cfg.get("trace_start_step", 10),
+            num_steps=prof_cfg.get("trace_steps", 0))
+        self._peak_flops = prof_cfg.get("peak_flops_per_device")
+        self._flops_per_step = None     # counted on the first step
+        self._first_step_timed = False  # the first-step meter reset latch
+
+        main = dist.is_main_process()
+        tel_cfg = cfg.get("telemetry", {}) or {}
+        self.recorder = FlightRecorder(
+            run_dir=(self.checkpoint_dir
+                     if main and bool(tel_cfg.get("enabled", True))
+                     else None),
+            capacity=int(tel_cfg.get("capacity", 512)),
+            memory_every=int(tel_cfg.get("memory_every", 16)))
+        self.health = HealthMonitor(
+            health_cfg, recorder=self.recorder, spans=get_span_recorder(),
+            log_dir=(config.log_dir if main else None),
+            layout=(health_layout(self.train_step._groups)
+                    if self._health_enabled else None))
+        self.crosshost = CrossHostAggregator(tel_cfg.get("crosshost"),
+                                             is_main=main)
+        self.trace.attach_recorder(self.recorder)
+        # tokens per example for LM data (integer [B, T] inputs)
+        arr = train_loader.arrays.get(self.input_key)
+        dtype, shape = getattr(arr, "dtype", None), getattr(arr, "shape", ())
+        self._tokens_per_example = (
+            int(shape[1]) if dtype is not None
+            and np.issubdtype(dtype, np.integer) and len(shape) == 2
+            else None)
+        # watchdog_secs must exceed the first step, which builds the
+        # CUDA kernels when they are not built yet
+        self.watchdog = StepWatchdog(
+            timeout_s=float(cfg.get("watchdog_secs", 0)),
+            recorder=self.recorder, spans=get_span_recorder(),
+            dump_path=(config.log_dir / "stall_dump.json" if main
+                       else None),
+            heartbeat_path=(os.environ.get("PDT_HEARTBEAT_FILE")
+                            or cfg.get("heartbeat_file")))
 
     def _to_device(self, batch: dict) -> dict:
         return to_tensors(batch, self.device)
@@ -287,40 +389,185 @@ class Trainer(BaseTrainer):
             yield from self.train_loader
 
     def _train_epoch(self, epoch: int) -> dict:
+        self.train_metrics.reset()
+        self.health.epoch_start()   # the promotion pause is epoch-scoped
+        self.throughput.reset()
+        self.epoch_meter.reset()
         accum = None
-        steps, t0 = 0, time.perf_counter()
-        batches = prefetch_to_device(self._batches(epoch), self.device,
-                                     self.prefetch_depth)
-        for batch_idx, batch in enumerate(batches):
-            m = self.train_step(batch)
+        # the host batches, in step order, for the TB image grid
+        host = collections.deque()
+
+        def kept(batches):
+            for b in batches:
+                host.append(b)
+                yield b
+
+        batches_it = iter(prefetch_to_device(kept(self._batches(epoch)),
+                                             self.device,
+                                             self.prefetch_depth))
+        main = dist.is_main_process()
+        # preemption: one rank polls its flag every batch; several reach
+        # consensus every preempt_check_steps batches, all at the same one
+        check_every = max(int(self.config["trainer"].get(
+            "preempt_check_steps", 100)), 1)
+        single = dist.process_count() == 1
+        preempted = False
+        self.watchdog.start()
+        batch_idx = -1
+        # log-step metrics are read one log window late (never on the step
+        # that made them); holds at most one entry
+        pending_log = collections.deque()
+        t_iter = time.perf_counter()
+        while True:
+            t_wait = time.perf_counter()
+            with span("data/next_batch"):
+                try:
+                    batch = next(batches_it)
+                except StopIteration:
+                    break
+            host_batch = host.popleft()
+            data_wait_ms = (time.perf_counter() - t_wait) * 1e3
+            batch_idx += 1
+            step = (epoch - 1) * self.len_epoch + batch_idx
+            # slow_host / crash / kill fire before the step runs
+            faults.on_step(step)
+            self.trace.before_step(step)
+            with span("train/step", step=step):
+                m = self.train_step(batch)
+            self.trace.after_step(step)
+            self.watchdog.beat()
+            if "health" in m:
+                # a per-step signal, not a sufficient statistic: to the
+                # monitor, which reads it one step later
+                self.health.enqueue(
+                    step, DeferredFetch({"health": m.pop("health")}),
+                    meta={"epoch": epoch, "batch_idx": batch_idx})
+            bs = self.train_loader.batch_size
+            self.throughput.update(bs)
+            self.epoch_meter.update(bs)
+            rec = {"wall_ms": round((time.perf_counter() - t_iter) * 1e3, 3),
+                   "data_wait_ms": round(data_wait_ms, 3),
+                   "examples": bs}
+            t_iter = time.perf_counter()
+            if self._tokens_per_example:
+                rec["tokens"] = self._tokens_per_example * bs
+            if not self._first_step_timed:
+                # the run's first step carries one-time set-up (kernel
+                # builds, allocator warm-up): keep it out of the rates
+                self._first_step_timed = True
+                if self.profile_enabled:
+                    self._flops_per_step = train_step_flops(
+                        self.model, bs, self._seq_len(batch))
+                self._sync()
+                self.throughput.reset()
+                self.epoch_meter.reset()
             accum = m if accum is None else {k: accum[k] + v
                                              for k, v in m.items()}
-            if not self._first_step_done:
-                # the run's first step carries one-time set-up (kernel
-                # builds, allocator warm-up): keep it out of the rate
-                self._first_step_done = True
-                self._sync()
-                steps, t0 = 0, time.perf_counter()
+            if self.crosshost.should_exchange(batch_idx, self.log_step):
+                # every rank reaches the gather at the same batch; rank 0
+                # attaches the aggregate
+                agg = self.crosshost.exchange(
+                    self.recorder.last(self.log_step))
+                if agg is not None and main:
+                    rec["hosts"] = agg["hosts"]
+                    if "wall_spread" in agg:
+                        rec["wall_spread"] = agg["wall_spread"]
+                    if agg.get("straggler"):
+                        rec["straggler"] = True
+                        rec["straggler_hosts"] = agg["straggler_hosts"]
+            if main and batch_idx % self.log_step == 0:
+                # complete the previous window's entry, start this one
+                if pending_log:
+                    self._flush_log_entry(pending_log.popleft())
+                events = drain_compile_events()
+                if events:
+                    rec["compile_events"] = events
+                self.writer.set_step(step)
+                self._log_input_images(host_batch)
+                fetch = DeferredFetch({k: v for k, v in m.items()
+                                       if k in ("loss_sum", "count",
+                                                "grad_norm_sum")})
+                pending_log.append((step, epoch, batch_idx, fetch, rec))
             else:
-                steps += 1
-            if batch_idx % self.log_step == 0:
-                loss = float(m["loss_sum"]) / max(float(m["count"]), 1.0)
-                self.logger.debug(
-                    "Train Epoch: %d %s Loss: %.6f", epoch,
-                    self._progress(batch_idx + 1), loss)
+                self.recorder.record(step, **rec)
+            if ((single or (batch_idx + 1) % check_every == 0)
+                    and preemption.sync_requested()):
+                preempted = True
+                if main:
+                    self.logger.warning(
+                        "Preemption signal: breaking epoch %d at batch %d "
+                        "(the partial epoch will be checkpointed).",
+                        epoch, batch_idx + 1)
+                break
+        while pending_log:
+            self._flush_log_entry(pending_log.popleft())
+        self.health.drain()   # the last step's summary
         log = finalize_metrics({k: float(v) for k, v in accum.items()}) \
             if accum else {}
         self._sync()
-        elapsed = time.perf_counter() - t0
-        if log and steps and elapsed > 0:
-            log["examples_per_sec"] = round(
-                steps * self.train_loader.batch_size / elapsed, 1)
-        if self.do_validation:
-            val_log = self._valid_epoch(epoch)
+        if log:
+            rate = self.epoch_meter.rate()
+            log["examples_per_sec"] = round(rate["examples_per_sec"], 1)
+            util = mfu(self._flops_per_step, rate["steps_per_sec"],
+                       peak_per_device=self._peak_flops)
+            if util is not None:
+                log["mfu"] = round(util, 4)
+        # a preempted epoch skips validation: the notice window is for
+        # the checkpoint
+        if self.do_validation and not preempted:
+            with span("train/validate", epoch=epoch):
+                val_log = self._valid_epoch(epoch)
             log.update(**{f"val_{k}": v for k, v in val_log.items()})
         return log
 
+    def _seq_len(self, batch: dict) -> int:
+        x = batch[self.input_key]
+        return int(x.shape[1]) if x.dim() == 2 else 0
+
+    def _flush_log_entry(self, entry) -> None:
+        """Complete one deferred log-step record, a log window after its
+        step: the copies have long completed, so the read does not wait
+        on the step just issued."""
+        step, epoch, batch_idx, fetch, rec = entry
+        with span("train/log", step=step):
+            m = fetch.get()
+            self.writer.set_step(step)
+            count = max(float(m["count"]), 1.0)
+            loss_val = float(m["loss_sum"]) / count
+            self.train_metrics.update("loss", loss_val)
+            lr_val = float(self.lr_fn(step))
+            self.writer.add_scalar("lr", lr_val)
+            rec["loss"] = round(loss_val, 6)
+            rec["lr"] = lr_val
+            if self.log_grad_norm:
+                rec["grad_norm"] = round(float(m["grad_norm_sum"]) / count,
+                                         6)
+            if self.profile_enabled and step > 0:
+                rate = self.throughput.rate()
+                self.writer.add_scalar("examples_per_sec",
+                                       rate["examples_per_sec"])
+                rec["steps_per_sec"] = round(rate["steps_per_sec"], 4)
+                rec["examples_per_sec"] = round(rate["examples_per_sec"], 1)
+                if self._tokens_per_example:
+                    rec["tokens_per_sec"] = round(
+                        rate["examples_per_sec"] * self._tokens_per_example,
+                        1)
+                util = mfu(self._flops_per_step, rate["steps_per_sec"],
+                           peak_per_device=self._peak_flops)
+                if util is not None:
+                    self.writer.add_scalar("mfu", util)
+                    rec["mfu"] = round(util, 4)
+            self.logger.debug("Train Epoch: %d %s Loss: %.6f", epoch,
+                              self._progress(batch_idx + 1), loss_val)
+        hc = health_counters()
+        if hc["anomaly_total"]:
+            rec["anomaly_total"] = hc["anomaly_total"]
+        if hc["straggler_windows_total"]:
+            rec["straggler_windows_total"] = hc["straggler_windows_total"]
+        self.recorder.record(step, **rec)
+
     def _valid_epoch(self, epoch: int) -> dict:
+        self.valid_metrics.reset()
         self.valid_loader.set_epoch(epoch)
         accum = None
         for batch in prefetch_to_device(self.valid_loader, self.device,
@@ -328,11 +575,27 @@ class Trainer(BaseTrainer):
             m = self.eval_step(batch)
             accum = m if accum is None else {k: accum[k] + v
                                              for k, v in m.items()}
-        return finalize_metrics({k: float(v) for k, v in accum.items()}) \
+            self.watchdog.beat()
+        result = finalize_metrics({k: float(v) for k, v in accum.items()}) \
             if accum else {}
+        if dist.is_main_process():
+            self.writer.set_step(epoch * self.len_epoch, mode="valid")
+            for k, v in result.items():
+                self.valid_metrics.update(k, v)
+        return result
 
     def _save_checkpoint(self, epoch: int, save_best: bool = False) -> None:
-        """Rank 0 writes the checkpoint; every rank waits for it."""
+        """Rank 0 writes the checkpoint; every rank waits for it. An epoch
+        whose health monitor fired does not crown ``model_best`` under
+        ``health.pause_best_promotion``."""
+        if save_best and not self.health.promotion_allowed():
+            save_best = False
+            if dist.is_main_process():
+                self.logger.warning(
+                    "Health: anomaly at step %s this epoch; best-model "
+                    "promotion skipped for epoch %d "
+                    "(health.pause_best_promotion).",
+                    self.health.last_anomaly_step, epoch)
         if dist.is_main_process():
             self.ckpt_manager.save(
                 epoch=epoch, model=self.model, optimizer=self.optimizer,
@@ -344,6 +607,18 @@ class Trainer(BaseTrainer):
                               else 0.0),
                 save_best=save_best)
         dist.synchronize()
+
+    def _log_input_images(self, batch: dict) -> None:
+        """TB input grid of the first 8 examples, for image batches,
+        from the host-side batch."""
+        x = batch.get(self.input_key)
+        if x is None or np.ndim(x) != 4 or self.writer.writer is None:
+            return
+        imgs = np.asarray(x[:8]).astype(np.float32)
+        lo, hi = imgs.min(), imgs.max()
+        imgs = (imgs - lo) / max(hi - lo, 1e-6)
+        grid = np.concatenate(list(imgs), axis=1)  # [H, 8*W, C]
+        self.writer.add_image("input", grid, dataformats="HWC")
 
     def _progress(self, batch_idx: int) -> str:
         current = batch_idx * self.train_loader.batch_size

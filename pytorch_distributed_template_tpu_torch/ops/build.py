@@ -12,6 +12,12 @@ module is imported: the first launch builds, or a caller builds every
 library at once with :func:`build_all`, which starts one ``nvcc`` per
 source in parallel.
 
+Every build that runs is noted as a compile event (``{"event":
+"nvcc/<name>", "dur_ms": ...}``), which the flight recorder
+(observability/telemetry.py) drains into the next step record; a library
+found already built counts as a cache hit, a build as a miss
+(:func:`cache_counters`, read by ``utils/compile_cache.py``).
+
 Each :class:`CudaLibrary` also carries the launch count of its kernel: the
 wrapper that launches it adds one per launch, so a run can show that its
 main path really went through the kernel. A source that exports several
@@ -20,12 +26,14 @@ own count.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Iterable
@@ -42,6 +50,26 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 #: every library the package defines, in definition order
 LIBRARIES: list["CudaLibrary"] = []
+
+_events_lock = threading.Lock()
+_build_events: collections.deque = collections.deque(maxlen=256)
+_cache = {"hits": 0, "misses": 0}
+
+
+def drain_build_events() -> list:
+    """The builds noted since the last drain, oldest first."""
+    with _events_lock:
+        out = list(_build_events)
+        _build_events.clear()
+    return out
+
+
+def cache_counters() -> dict:
+    """Process-lifetime ``{"hits", "misses"}`` of :meth:`CudaLibrary.load`:
+    a library found built in ``BUILD_DIR`` is a hit, one built is a
+    miss."""
+    with _events_lock:
+        return dict(_cache)
 
 
 def nvcc_path() -> str:
@@ -142,7 +170,9 @@ class CudaLibrary:
     def load(self) -> ctypes.CDLL:
         """The loaded library, built first when needed."""
         if self._lib is None:
-            build_all([self])
+            built = build_all([self])
+            with _events_lock:
+                _cache["misses" if built else "hits"] += 1
             lib = ctypes.CDLL(str(self.path))
             self._declare(lib)
             self._lib = lib
@@ -162,6 +192,10 @@ def build_all(libraries: Iterable[CudaLibrary] = None) -> dict:
         try:
             lib._finish_build(handle)
             built[lib.name] = lib.build_seconds
+            with _events_lock:
+                _build_events.append({"event": f"nvcc/{lib.name}",
+                                      "dur_ms": round(
+                                          lib.build_seconds * 1e3, 3)})
         except RuntimeError as e:
             failures.append(str(e))
     if failures:

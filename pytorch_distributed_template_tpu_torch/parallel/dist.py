@@ -90,6 +90,28 @@ def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
     return tensor
 
 
+def backend() -> str:
+    """The group's backend (``"nccl"``/``"gloo"``); ``""`` without one."""
+    return tdist.get_backend() if in_group() else ""
+
+
+def all_reduce_max(tensor: torch.Tensor) -> torch.Tensor:
+    """``tensor`` maxed over the group, in place; unchanged without one."""
+    if in_group():
+        tdist.all_reduce(tensor, op=tdist.ReduceOp.MAX)
+    return tensor
+
+
+def all_gather_tensor(tensor: torch.Tensor) -> torch.Tensor:
+    """Every process's ``tensor`` stacked in rank order (``[P, ...]``);
+    ``tensor[None]`` without a group."""
+    if not in_group():
+        return tensor[None]
+    out = [torch.empty_like(tensor) for _ in range(tdist.get_world_size())]
+    tdist.all_gather(out, tensor)
+    return torch.stack(out)
+
+
 def all_gather_object(obj: Any) -> List[Any]:
     """Every process's ``obj`` (picklable), in rank order."""
     if not in_group():

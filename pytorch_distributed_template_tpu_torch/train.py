@@ -12,8 +12,14 @@ Flags as in the JAX ``train.py``: ``-c``, ``-r``, ``-s``, ``--seed``,
 ``--no-validate``, ``--lr``, ``--bs``, ``--set KEYCHAIN VALUE``, plus
 ``--device`` (default ``cuda``; raises without a CUDA device). ``-l`` and
 ``--deterministic`` are accepted as the JAX CLI accepts them;
-``--auto-resume`` refuses (ROADMAP A17). Under a launcher (``torchrun``)
-the process joins the group first (``parallel.dist.initialize``: NCCL on
+``--auto-resume`` refuses (ROADMAP A17). As in the JAX ``train.py``: the
+config's ``compile_cache`` section is read (``utils/compile_cache.py``;
+the port's compiled artifacts are its kernel libraries), SIGUSR2 arms an
+on-demand ``torch.profiler`` window of ``PDT_PROFILE_STEPS`` (default 5)
+steps, and a run stopped by SIGTERM checkpoints its epoch and exits with
+status 75 (``utils.preemption.EXIT_PREEMPTED``). Under a launcher
+(``torchrun``) the process joins the group first
+(``parallel.dist.initialize``: NCCL on
 ``cuda:LOCAL_RANK``, gloo with ``--device cpu``) and trains with DDP;
 ``--bs`` is then the per-process batch. The model is built with float32
 master weights (``param_dtype``); its compute dtype is the config's
@@ -24,6 +30,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import logging
+import os
 
 import torch
 
@@ -33,8 +41,13 @@ from .data import datasets  # noqa: F401  (registers the loaders)
 from .engine import metrics  # noqa: F401  (registers the metrics)
 from .engine.losses import resolve_loss
 from .engine.trainer import Trainer
+from .observability.profiler import install_sigusr2
 from .parallel import dist
+from .utils import preemption
+from .utils.compile_cache import configure_compile_cache
 from .utils.util import LATER_RESUME
+
+logger = logging.getLogger(__name__)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -90,14 +103,27 @@ def main(argv=None, on_trainer=None) -> dict:
     """Parse ``argv`` (default ``sys.argv``), join the launcher's process
     group if there is one, build the trainer, call ``on_trainer(trainer)``
     when given (before the first epoch), train, and return the last
-    epoch's log."""
+    epoch's log. Raises ``SystemExit(75)`` when a preemption signal
+    stopped the run (after its checkpoint)."""
     args = ConfigParser.parse_args(build_parser(), OPTIONS, argv)
     device = dist.initialize(args.device)
     _, config = ConfigParser.from_args(args, OPTIONS, training=True)
+    configure_compile_cache(config)
     trainer = build_trainer(args, config, device)
+    if install_sigusr2(trainer.trace) and dist.is_main_process():
+        logger.info("SIGUSR2 armed: signal pid %d to capture an on-demand "
+                    "profiler trace (PDT_PROFILE_STEPS=%s steps).",
+                    os.getpid(), os.environ.get("PDT_PROFILE_STEPS", "5"))
     if on_trainer is not None:
         on_trainer(trainer)
-    return trainer.train()
+    log = trainer.train()
+    if preemption.requested():
+        # checkpointed, but the work is not finished: a distinct status
+        logger.warning("exiting with preemption status %d (resume with -r "
+                       "<run_dir>/checkpoint-epochN)",
+                       preemption.EXIT_PREEMPTED)
+        raise SystemExit(preemption.EXIT_PREEMPTED)
+    return log
 
 
 if __name__ == "__main__":

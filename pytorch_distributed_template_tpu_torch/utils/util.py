@@ -2,8 +2,8 @@
 
 ``read_json``/``write_json`` are copies of the JAX package's
 ``utils/util.py`` functions; ``resolve_device`` is the port's one rule for
-where an entry point runs. ``LATER_RESUME`` and ``LATER_OBSERVABILITY``
-name the slices that the port's refusals point at (ROADMAP.md, queue A).
+where an entry point runs. ``LATER_RESUME`` names the slice that the
+port's refusals of resume state point at (ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
@@ -14,8 +14,7 @@ from pathlib import Path
 import torch
 
 LATER_RESUME = ("ROADMAP A17 (resume state, the native batcher and the "
-                "other optimizers: the slice after A10)")
-LATER_OBSERVABILITY = "ROADMAP A10 (training observability, a later slice)"
+                "other optimizers, a later slice)")
 
 
 def read_json(fname) -> OrderedDict:

@@ -144,13 +144,15 @@ def test_train_config_loads_with_every_key_but_the_later_slices():
     port = json.loads(chip_smoke.TRAIN_CONFIG.read_text())
     jax_cfg = json.loads((chip_smoke.REPO / "configs" /
                           "gpt2_small.json").read_text())
+    # phase 6's copy: the repository's config with every observability
+    # key off (phase 10 runs the repository's own file)
     assert "compile_cache" not in port
     for key in ("health", "telemetry"):
-        assert key not in port["trainer"]
+        assert port["trainer"][key] == {"enabled": False}
     assert port["trainer"]["tensorboard"] is False
     jax_cfg.pop("compile_cache")
     for key in ("health", "telemetry"):
-        jax_cfg["trainer"].pop(key)
+        jax_cfg["trainer"][key] = {"enabled": False}
     jax_cfg["trainer"]["tensorboard"] = False
     assert port == jax_cfg
 
@@ -191,7 +193,8 @@ TINY_MOE_SETS = [
     ("train_loader;args;batch_size", 16),
     ("valid_loader;args;batch_size", 16),
     ("optimizer;args;lr", 0.003), ("trainer;epochs", 2),
-    ("trainer;save_period", 1),
+    ("trainer;save_period", 1), ("trainer;health", {"enabled": False}),
+    ("trainer;telemetry", {"enabled": False}),
 ]
 
 
@@ -239,11 +242,14 @@ def test_moe_train_phase_fails_when_the_expert_kernel_is_skipped(
 
 def test_moe_config_is_the_repositorys_own():
     """Slice 4 runs configs/moelm_stdlib.json itself; every cut is a --set
-    (MOE_SETS, the corpus size)."""
+    (MOE_SETS, the corpus size), and the observability that slice 6 turned
+    on by default stays off, as in phase 6's config."""
     assert chip_smoke.MOE_CONFIG == chip_smoke.REPO / "configs" / \
         "moelm_stdlib.json"
-    assert dict(chip_smoke.MOE_SETS) == {"trainer;epochs": 2,
-                                         "trainer;save_period": 1}
+    assert dict(chip_smoke.MOE_SETS) == {
+        "trainer;epochs": 2, "trainer;save_period": 1,
+        "trainer;health": {"enabled": False},
+        "trainer;telemetry": {"enabled": False}}
 
 
 def test_ptxas_report_names_each_kernels_spills_and_registers():
@@ -323,3 +329,51 @@ def test_mnist_phase_fails_when_the_allreduce_hook_never_fires(
     with pytest.raises(AssertionError, match="no gradient all-reduce"):
         chip_smoke.phase_mnist("cpu", device="cpu", sets=TINY_MNIST_SETS,
                                work=tmp_path)
+
+
+# slice 6 at a tiny size: configs/gpt2_small.json as it is but for the
+# model and the data narrowed (--set), with phase 10's observability
+# extras; the NaN lands at step 5 of the second run's 8
+TINY_OBS_SETS = TINY_TRAIN_SETS + [
+    ("trainer;profiler", {"enabled": True, "trace_start_step": 2,
+                          "trace_steps": 3}),
+    ("trainer;watchdog_secs", 600), ("trainer;log_grad_norm", True)]
+TINY_NAN_SETS = TINY_TRAIN_SETS + [("trainer;epochs", 1)]
+
+
+def test_observe_phase_on_cpu(counted_plain, counted_bwd, tmp_path):
+    launches = chip_smoke.phase_observe(
+        "cpu", device="cpu", sets=TINY_OBS_SETS, nan_sets=TINY_NAN_SETS,
+        nan_step=5, work=tmp_path / "work")
+    # main: 2 epochs x 8 steps + the resumed epoch's 8; nan run: 8
+    layers, train_steps, eval_steps = 2, 16 + 8 + 8, 4 + 2 + 2
+    assert launches == {
+        "flash_fwd": layers * (2 * train_steps + eval_steps),
+        "flash_bwd_dkv": layers * train_steps,
+        "flash_bwd_dq": layers * train_steps, "expert_ffn": 0}
+    stats = chip_smoke.PATH_STATS["observe"]
+    assert stats["steps"] > 0 and stats["ms_per_step_median"] > 0
+    assert stats["span_step_ms_median"] > 0
+    assert stats["span_loop_ms_median"] > 0
+    assert not (tmp_path / "work" / "observe").exists()
+    assert not (tmp_path / "work" / "observe_nan").exists()
+
+
+def test_observe_phase_fails_without_the_anomaly_dump(
+        counted_plain, counted_bwd, monkeypatch, tmp_path):
+    from pytorch_distributed_template_tpu_torch.observability import health
+
+    monkeypatch.setattr(health.HealthMonitor, "_write_dump",
+                        lambda self, step, anomaly: None)
+    with pytest.raises(AssertionError, match="anomaly_5.json"):
+        chip_smoke.phase_observe(
+            "cpu", device="cpu", sets=TINY_OBS_SETS,
+            nan_sets=TINY_NAN_SETS, nan_step=5, work=tmp_path / "work")
+
+
+def test_observe_config_is_the_repositorys_own():
+    assert chip_smoke.OBS_CONFIG == chip_smoke.REPO / "configs" / \
+        "gpt2_small.json"
+    cut = {chain.split(";")[-1] for chain, _ in chip_smoke.OBS_SETS}
+    assert cut == {"n", "epochs", "save_period", "profiler",
+                   "watchdog_secs", "log_grad_norm"}

@@ -49,6 +49,17 @@ ENTRY_MODULES = [
     "pytorch_distributed_template_tpu_torch.parallel.mesh",
     "pytorch_distributed_template_tpu_torch.models.base",
     "pytorch_distributed_template_tpu_torch.models.lenet",
+    "pytorch_distributed_template_tpu_torch.observability.trace",
+    "pytorch_distributed_template_tpu_torch.observability.tracker",
+    "pytorch_distributed_template_tpu_torch.observability.tb",
+    "pytorch_distributed_template_tpu_torch.observability.telemetry",
+    "pytorch_distributed_template_tpu_torch.observability.health",
+    "pytorch_distributed_template_tpu_torch.observability.profiler",
+    "pytorch_distributed_template_tpu_torch.observability.crosshost",
+    "pytorch_distributed_template_tpu_torch.resilience.faults",
+    "pytorch_distributed_template_tpu_torch.utils.compile_cache",
+    "pytorch_distributed_template_tpu_torch.utils.preemption",
+    "pytorch_distributed_template_tpu_torch.utils.watchdog",
 ]
 
 

@@ -157,7 +157,8 @@ def test_cli_defaults_to_cuda_and_refuses_later_slices(tmp_path):
             ttrain.main(base)
     with pytest.raises(NotImplementedError, match="A17"):
         ttrain.main(base + ["--device", "cpu", "--auto-resume"])
-    for chain, value in (("trainer;tensorboard", "true"),
+    for chain, value in (("trainer;save_interval_steps", "4"),
+                         ("trainer;keep_last", "2"),
                          ("trainer;grad_accum_steps", "2"),
                          ("trainer;ema_decay", "0.99"),
                          ("mesh;axes", '{"data": 2, "tensor": 2}')):
