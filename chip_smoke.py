@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 4, 5, 6, 7, 8, 9, 10);
+Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 4, 5, 6, 7, 8, 9, 10,
+11);
 any failure exits non-zero and no phase's exception is caught:
 
 1. build: compile every CUDA source of the port with nvcc (one process per
@@ -162,10 +163,38 @@ reductions are plain PyTorch) adds:
     the step skipped, the params finite, the per-group counts summing to
     the number of gradient elements, no ``model_best``.
 
+Slice 7 (step-accurate resume and the supervisor, ROADMAP A17; no new
+kernel) adds:
+
+11. main path of slice 7: ``configs/gpt2_small.json`` at full width cut
+    by ``--set`` to phase 10's sizes (train ``n`` 256, valid ``n`` 64, 2
+    epochs, ``save_period`` 1) with ``save_interval_steps`` 12,
+    ``keep_last`` 1, ``grad_accum_steps`` 2 (microbatches of 4) and
+    ``ema_decay`` 0.999. Once without a fault through the port's
+    ``train.py`` in this process (every train step must launch B1 2 x 2 x
+    12 times and B2, B3 2 x 12 times each), then once through the port's
+    ``supervise.py`` (a child process per attempt) with
+    ``PDT_FAULTS="kill@step:20;crash@step:46@attempt:2"``: attempt 1 is
+    killed between the slots after batches 12 and 24 and resumes from the
+    first (when the slot's write, 0.6-1.2 s on the card, was done within
+    the 8 steps before the kill; else from the last checkpoint before it);
+    attempt 2 raises in epoch 2 after its batch-12 slot and writes
+    ``checkpoint-emergency``; attempt 3 resumes from it and finishes.
+    Hard checks: 2 restarts, both ``crash``, a clean end; each attempt
+    resuming at the newest checkpoint the attempt before it completed (no
+    step replayed after the crash); ``global_step`` 64 in the last
+    sidecar; the final
+    ``checkpoint-epoch2``'s model, optimizer and EMA tensors bitwise equal
+    to the uninterrupted run's; every logged loss equal at its step;
+    ``keep_last`` 1 leaving no ``checkpoint-epoch1`` beside
+    ``model_best``. Prints each interval save's stop of the loop and its
+    write (time, bytes), each attempt's restart to its first step and the
+    steps replayed, beside the card line.
+
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
-the launches of slices 1, 3, 4 and 6, paged_attn with slice 2's,
-flash_bwd_dkv and flash_bwd_dq with slices 3, 4 and 6, expert_ffn with
+the launches of slices 1, 3, 4, 6 and 7, paged_attn with slice 2's,
+flash_bwd_dkv and flash_bwd_dq with slices 3, 4, 6 and 7, expert_ffn with
 slice 4's) and the device line ``{"ok": true, "device": {...}}``. Every kernel
 row also carries ``pct_of_bound`` (100 x bound / kernel time) and
 ``x_library`` (kernel time / library time); kernel times are device times
@@ -176,6 +205,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -1600,7 +1630,8 @@ class TrainRun:
     """Wraps a trainer's train and eval steps: counts the kernels'
     launches of each step from 0 and checks them exactly (a train step: B1
     n_layer, twice that with remat, B2 and B3 n_layer each, B5 once per
-    MoE layer; an eval step: B1 n_layer, B5 once per MoE layer, no B2/B3),
+    MoE layer, all of it once per microbatch with ``grad_accum_steps``;
+    an eval step: B1 n_layer, B5 once per MoE layer, no B2/B3),
     times each step (host clock to ``cuda.synchronize``) and keeps its
     loss.
 
@@ -1629,7 +1660,9 @@ class TrainRun:
         layers = model.n_layer
         moe = sum(hasattr(block, "moe") for block in model.h)
         fwd = 2 if model.remat else 1     # remat recomputes each forward
-        self.want = {"train": (fwd * layers, layers, layers, fwd * moe),
+        k = trainer.train_step.grad_accum_steps   # microbatches per step
+        self.want = {"train": (k * fwd * layers, k * layers, k * layers,
+                               k * fwd * moe),
                      "eval": (layers, 0, 0, moe)}
         loader = trainer.train_loader
         tokens = loader.arrays["tokens"].shape[1]
@@ -2690,6 +2723,248 @@ def _nan_run(card: str, device, config, sets, nan_step: int, root,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 7: step-accurate resume and the supervisor (ROADMAP A17)
+# ---------------------------------------------------------------------------
+
+# phase 11: the repository's GPT-2 small config (phase 10's file) cut by
+# --set to phase 6's sizes, with interval saves into the A/B slots every
+# 12 batches, keep_last 1, two microbatches of 4 per step and an EMA
+RES_CONFIG = REPO / "configs" / "gpt2_small.json"
+RES_SETS = [("train_loader;args;n", 256), ("valid_loader;args;n", 64),
+            ("trainer;epochs", 2), ("trainer;save_period", 1),
+            ("trainer;save_interval_steps", 12), ("trainer;keep_last", 1),
+            ("trainer;grad_accum_steps", 2), ("trainer;ema_decay", 0.999)]
+# attempt 1 is killed before step 20 (epoch 1, between the slots after
+# batches 12 and 24); attempt 2 raises before step 46 (epoch 2, batch 14,
+# after its batch-12 slot) and writes the emergency save; attempt 3 ends
+RES_FAULTS = "kill@step:20;crash@step:46@attempt:2"
+RES_TIMEOUT_S = 900
+_INTERVAL_LINE = re.compile(
+    r"Interval checkpoint: (\S+) \(the loop stopped ([\d.]+) ms; "
+    r"written in ([\d.]+) s, (\d+) bytes\)")
+
+
+def phase_resilience(card: str, device="cuda", config=RES_CONFIG,
+                     sets=RES_SETS, faults=RES_FAULTS, work=WORK,
+                     seed: int = 0) -> dict:
+    """Phase 11, slice 7's main path: the config run once without a fault
+    through the port's ``train.py`` (launches counted per step), then once
+    through the port's ``supervise.py`` with ``PDT_FAULTS=faults``. Hard
+    checks: 2 restarts, both ``crash``, a clean end; each attempt resumes
+    at the newest checkpoint the one before it completed (the slot before
+    the kill, when its write was done before the kill; the emergency save
+    after the crash, so none of its steps is replayed); ``global_step``
+    epochs x steps in the
+    last sidecar; the last ``checkpoint-epochN``'s model, optimizer and
+    EMA tensors bitwise equal to the uninterrupted run's; every logged
+    loss equal at its step; ``keep_last`` 1 leaving no
+    ``checkpoint-epoch1`` beside ``model_best``. Prints each interval
+    save's stop of the loop and its write, each attempt's restart to its
+    first step and the steps it replayed, beside the card line. Returns
+    the uninterrupted run's launches."""
+    from pytorch_distributed_template_tpu_torch import train as train_cli
+    from pytorch_distributed_template_tpu_torch.resilience.supervisor \
+        import read_supervisor_stats
+
+    root = work / "resilience"
+    if root.exists():
+        shutil.rmtree(root)
+    common = ["-c", str(config), "--device", str(device), "--seed",
+              str(seed)]
+    for chain, value in sets:
+        common += ["--set", chain, json.dumps(value)]
+    box = {}
+
+    def hook(trainer):
+        box["trainer"] = trainer
+        box["run"] = TrainRun(trainer, device, card, "uninterrupted")
+
+    t0 = time.perf_counter()
+    train_cli.main(common + ["-s", str(root / "base")], on_trainer=hook)
+    base_wall = time.perf_counter() - t0
+    trainer, run = box["trainer"], box["run"]
+    base = trainer.config.save_dir
+    epochs, per_epoch = trainer.epochs, trainer.len_epoch
+    interval = trainer.save_interval_steps
+    k = trainer.train_step.grad_accum_steps
+    saves = [dict(r) for r in trainer.ckpt_manager.interval_saves]
+    launches = dict(zip(TRAIN_KERNELS, run.launches))
+    log("[resilience] uninterrupted " + json.dumps({
+        "steps": len(run.steps), "epochs": epochs, "wall_s": base_wall,
+        "grad_accum_steps": k, "launches": launches,
+        "launches_per_train_step": dict(zip(TRAIN_KERNELS,
+                                            run.want["train"])),
+        "ms_per_step_median": float(np.median(
+            [r["ms"] for r in run.steps[1:] or run.steps])),
+        "interval_saves": saves,
+        "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                 "cudnn": torch.backends.cudnn.allow_tf32}, "card": card}))
+    del trainer, run, box
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+    events = root / "supervisor.jsonl"
+    cmd = [sys.executable, "-m",
+           "pytorch_distributed_template_tpu_torch.supervise",
+           "--max-restarts", "3", "--restart-delay", "1", "--jitter", "0",
+           "--events-file", str(events)] + common + [
+               "-s", str(root / "supervised")]
+    out_path = root / "supervised.log"
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out:
+        r = subprocess.run(cmd, cwd=REPO, env=dict(os.environ,
+                                                   PDT_FAULTS=faults),
+                           stdout=out, stderr=subprocess.STDOUT,
+                           timeout=RES_TIMEOUT_S)
+    sup_wall = time.perf_counter() - t0
+    output = out_path.read_text()
+    if r.returncode != 0:
+        raise AssertionError(f"the supervised run exited {r.returncode}: "
+                             f"{output[-4000:]}")
+    stats = read_supervisor_stats(events)
+    if not (stats["restarts_total"] == 2 and stats["causes"] == {"crash": 2}
+            and stats["clean"]):
+        raise AssertionError(f"supervisor.jsonl: {stats}")
+    attempts = _attempts(root / "supervised", events)
+    if len(attempts) != 3:
+        raise AssertionError(f"{len(attempts)} run directories for 3 "
+                             f"attempts: {attempts}")
+    for prev, att in zip(attempts, attempts[1:]):
+        if att["first_step"] != prev["saved_step"]:
+            raise AssertionError(
+                f"attempt {att['attempt']} resumed at step "
+                f"{att['first_step']}, not at the newest checkpoint that "
+                f"attempt {prev['attempt']} completed (step "
+                f"{prev['saved_step']})")
+    if attempts[2]["replayed"] != 0:
+        raise AssertionError(f"steps replayed after the emergency save: "
+                             f"{attempts[2]['replayed']}")
+    last = Path(attempts[-1]["run"])
+    ds = json.loads((last / f"checkpoint-epoch{epochs}.data_state.json")
+                    .read_text())
+    if ds["global_step"] != epochs * per_epoch:
+        raise AssertionError(f"the last sidecar: {ds}")
+    compared = 0
+    for name in ("model.pt", "optimizer.pt", "ema.pt"):
+        want = torch.load(base / f"checkpoint-epoch{epochs}" / name,
+                          map_location="cpu")
+        got = torch.load(last / f"checkpoint-epoch{epochs}" / name,
+                         map_location="cpu")
+        compared += _assert_bitwise(got, want, name)
+    base_losses = _logged_losses([base])
+    sup_losses = _logged_losses([Path(a["run"]) for a in attempts])
+    differ = {s: (v, base_losses.get(s)) for s, v in sup_losses.items()
+              if base_losses.get(s) != v}
+    if differ or len(sup_losses) < len(base_losses) // 2:
+        raise AssertionError(f"logged losses differ from the "
+                             f"uninterrupted run's: {differ}; "
+                             f"{len(sup_losses)} of {len(base_losses)}")
+    pruned = sorted(p.name for p in base.glob("checkpoint-epoch1*"))
+    if pruned or not (base / "model_best").is_dir():
+        raise AssertionError(f"keep_last 1: {pruned} left, model_best "
+                             f"{(base / 'model_best').is_dir()}")
+    child_saves = [{"slot": m.group(1).rsplit("/", 1)[-1],
+                    "stop_ms": float(m.group(2)),
+                    "write_s": float(m.group(3)), "bytes": int(m.group(4))}
+                   for m in _INTERVAL_LINE.finditer(output)]
+    log("[resilience] supervised " + json.dumps({
+        "faults": faults, "restarts_total": stats["restarts_total"],
+        "causes": stats["causes"], "clean": stats["clean"],
+        "wall_s": sup_wall, "attempts": attempts,
+        "last_data_state": ds, "interval_saves": child_saves,
+        "card": card}))
+    log("[resilience] check " + json.dumps({
+        "bitwise_equal_tensors": compared,
+        "losses_equal": len(sup_losses), "losses_uninterrupted":
+        len(base_losses), "global_step": ds["global_step"],
+        "model_best": True, "checkpoint_epoch1_pruned": True,
+        "card": card}))
+    shutil.rmtree(root)
+    return launches
+
+
+def _attempts(save_root: Path, events: Path) -> list:
+    """One row per supervised attempt (its run directory, run ids sort by
+    start): the first step, the step after the last one it finished, the
+    steps it replayed, the newest checkpoint it completed (``saved_step``:
+    the highest ``global_step`` of its ``data_state`` sidecars, 0 without
+    one; a slot still being written when the process died has none), its
+    restart-to-first-step time from its spawn and from the previous
+    attempt's exit (the first step's end: the next step's flight record
+    time less its iteration), its exit code."""
+    evts = [json.loads(line) for line in events.read_text().splitlines()
+            if line.strip()]
+    spawns = [e for e in evts if e["event"] == "spawn"]
+    exits = [e for e in evts if e["event"] == "exit"]
+    runs = sorted(p for p in save_root.glob("*/train/*") if p.is_dir())
+    rows = []
+    for i, run in enumerate(runs):
+        recs = sorted((json.loads(line) for line in
+                       (run / "telemetry.jsonl").read_text().splitlines()),
+                      key=lambda r: r.get("step", -1))
+        steps = [r for r in recs if "event" not in r]
+        saved = [json.loads(p.read_text())["global_step"]
+                 for p in run.glob("checkpoint-*.data_state.json")]
+        row = {"attempt": i + 1, "run": str(run), "first_step": None,
+               "next_step": None, "replayed": None,
+               "saved_step": max(saved, default=0),
+               "returncode": exits[i]["returncode"],
+               "runtime_s": exits[i]["runtime_s"]}
+        if steps:   # an attempt that resumed past the last epoch has none
+            first = steps[0]["step"]
+            nxt = next((r for r in steps if r["step"] == first + 1
+                        and "loss" not in r), None)
+            end = (nxt["t"] - nxt["wall_ms"] / 1e3) if nxt \
+                else steps[0]["t"]
+            row.update(first_step=first, next_step=steps[-1]["step"] + 1,
+                       spawn_to_first_step_s=end - spawns[i]["t"])
+            if i:
+                row["exit_to_first_step_s"] = end - exits[i - 1]["t"]
+                if rows[-1]["next_step"] is not None:
+                    row["replayed"] = rows[-1]["next_step"] - first
+        rows.append(row)
+    return rows
+
+
+def _logged_losses(runs) -> dict:
+    """Step -> logged loss over ``runs`` in order (a later run's record of
+    a step it replayed wins)."""
+    out = {}
+    for run in runs:
+        for line in (run / "telemetry.jsonl").read_text().splitlines():
+            rec = json.loads(line)
+            if "loss" in rec:
+                out[rec["step"]] = rec["loss"]
+    return out
+
+
+def _assert_bitwise(got, want, where: str) -> int:
+    """``got`` equal to ``want`` (nested state dicts): tensors bitwise,
+    the rest by ``==``; returns the tensors compared."""
+    if torch.is_tensor(want):
+        if not (torch.is_tensor(got) and got.dtype == want.dtype
+                and torch.equal(got, want)):
+            raise AssertionError(f"{where} differs from the uninterrupted "
+                                 f"run's")
+        return 1
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{where}: keys {sorted(got)} against "
+                                 f"{sorted(want)}")
+        return sum(_assert_bitwise(got[k], want[k], f"{where}/{k}")
+                   for k in want)
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{where}: lengths differ")
+        return sum(_assert_bitwise(a, b, f"{where}/{i}")
+                   for i, (a, b) in enumerate(zip(got, want)))
+    if got != want:
+        raise AssertionError(f"{where}: {got!r} against {want!r}")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2715,11 +2990,12 @@ def main() -> int:
     phase_lenet_reference()
     phase_mnist(card)
     obs_launches = phase_observe(card)
+    res_launches = phase_resilience(card)
     shutil.rmtree(WORK)
     log(f"[device] all phases in {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for kern in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
-        train_launches[kern] += obs_launches[kern]
+        train_launches[kern] += obs_launches[kern] + res_launches[kern]
     flash_launches += train_launches["flash_fwd"] + moe_launches["flash_fwd"]
     for kernel, source, replaces, launches, shapes in (
             ("flash_fwd", KERNEL_SOURCE, KERNEL_REPLACES, flash_launches,

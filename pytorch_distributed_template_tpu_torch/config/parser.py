@@ -11,17 +11,23 @@ Same behaviour as the reference parser:
 - ``-r`` finds the config snapshot next to (or above) the checkpoint or
   artifact; ``-c`` together with ``-r`` overlays the new config's top-level
   keys; ``-s`` overrides ``trainer.save_dir``;
+- ``--auto-resume`` (when the entry point defines it and no ``-r`` is
+  given) resumes from :func:`find_latest_checkpoint` of the ``-c``
+  config's experiment (``-s`` honoured), or starts fresh when it has
+  never checkpointed;
 - the run directory ``save_dir/name/{train,test}/<MMDD_HHMMSS>`` receives
   the merged config and the ``info.log``; under a process group rank 0
-  writes them, and its run id is every rank's.
-
-Left to ROADMAP A17: ``--auto-resume`` and ``init_ftn``.
+  writes them, and its run id is every rank's;
+- ``init_obj`` builds a component, ``init_ftn`` returns it with the
+  config's args applied.
 """
 from __future__ import annotations
 
 import json
 import logging
+import re
 from datetime import datetime
+from functools import partial
 from pathlib import Path
 
 from ..observability.logging import setup_logging
@@ -85,6 +91,17 @@ class ConfigParser:
         if hasattr(args, "add_argument"):
             args = cls.parse_args(args, options, argv)
 
+        if (getattr(args, "auto_resume", False) and args.resume is None
+                and args.config is not None):
+            scan_cfg = read_json(Path(args.config))
+            if getattr(args, "save_dir", None) is not None:
+                scan_cfg["trainer"]["save_dir"] = args.save_dir
+            found = find_latest_checkpoint(scan_cfg)
+            if found is not None:
+                args.resume = str(found)
+                logging.getLogger(__name__).warning(
+                    "--auto-resume: resuming from %s", found)
+
         if args.resume is not None:
             resume = Path(args.resume)
             cfg_fname = _resume_config_path(resume)
@@ -124,6 +141,18 @@ class ConfigParser:
         module_args.update(kwargs)
         return resolve(namespace, module_name)(*args, **module_args)
 
+    def init_ftn(self, name, namespace, *args, **kwargs):
+        """The component of config block ``name`` with the config's args
+        (and ``kwargs``) applied, not yet called."""
+        module_name = self[name]["type"]
+        module_args = dict(self[name].get("args", {}))
+        if any(k in module_args for k in kwargs):
+            raise ValueError(
+                "Overwriting kwargs given in config file is not allowed")
+        module_args.update(kwargs)
+        return partial(resolve(namespace, module_name), *args,
+                       **module_args)
+
     def __getitem__(self, name):
         return self.config[name]
 
@@ -157,6 +186,44 @@ class ConfigParser:
     @property
     def run_id(self) -> str:
         return self._run_id
+
+
+def find_latest_checkpoint(config: dict):
+    """The checkpoint ``--auto-resume`` resumes: the run is the one whose
+    newest checkpoint is newest (run ids carry no year, and a fresh
+    retrain restarts the epochs); within it, ``(epoch, completeness,
+    mtime)`` ranks. An epoch-edge checkpoint beats an interval slot or an
+    emergency save of the same epoch; one of those from a later epoch
+    wins; among them the newest wins; one whose sidecar is lost ranks at
+    epoch 0. Hidden (temporary) directories are not checkpoints. None
+    when the experiment has never checkpointed."""
+    base = Path(config["trainer"]["save_dir"]) / config["name"] / "train"
+    by_run: dict = {}
+    if base.is_dir():
+        for run in base.iterdir():
+            cands = by_run.setdefault(run, [])
+            for ck in run.glob("checkpoint-epoch*"):
+                m = re.match(r"checkpoint-epoch(\d+)$", ck.name)
+                if m and ck.is_dir():
+                    cands.append((int(m.group(1)), 1, ck.stat().st_mtime,
+                                  ck))
+            for ck in (list(run.glob("checkpoint-interval-[ab]"))
+                       + list(run.glob("checkpoint-emergency"))):
+                if not ck.is_dir():
+                    continue
+                epoch = 0
+                try:
+                    epoch = int(json.loads(
+                        (run / f"{ck.name}.meta.json").read_text()
+                    ).get("epoch", 0))
+                except (OSError, ValueError):
+                    pass
+                cands.append((epoch, 0, ck.stat().st_mtime, ck))
+    runs = [c for c in by_run.values() if c]
+    if not runs:
+        return None
+    newest_run = max(runs, key=lambda cands: max(c[2] for c in cands))
+    return max(newest_run, key=lambda c: c[:3])[3]
 
 
 def _resume_config_path(resume: Path) -> Path:

@@ -20,6 +20,9 @@ batch) with ``record_stream`` keeping the memory alive until the consumer
 is done with it; ``depth`` batches stay in flight. On the CPU it only wraps
 the arrays as tensors.
 
+:meth:`ArrayDataLoader.iter_batches` starts an epoch at a batch ordinal
+without gathering the batches before it (step-accurate resume).
+
 Left to ROADMAP A17: ``normalize`` (uint8 image storage) and the native
 multithreaded gather (``data/native/batcher.cpp``).
 """
@@ -83,11 +86,21 @@ class ArrayDataLoader:
         return idx, np.ones(len(idx), dtype=bool)
 
     def __iter__(self) -> Iterator[dict]:
+        return self.iter_batches()
+
+    def iter_batches(self, start_batch: int = 0) -> Iterator[dict]:
+        """The epoch's batches from batch ordinal ``start_batch`` on
+        (a mid-epoch resume): the skipped batches are not gathered, and
+        the order is a pure function of ``(seed, epoch)``, so the skip is
+        exact. The ``loader_raise`` hook sees the epoch-absolute
+        ordinal."""
         idx, real = self.epoch_indices()
         n = len(idx)
         end = (n // self.batch_size) * self.batch_size if self.drop_last \
             else n
         for bi, start in enumerate(range(0, end, self.batch_size)):
+            if bi < start_batch:
+                continue
             faults.on_loader_batch(bi, loader=self)
             stop = min(start + self.batch_size, end)
             batch_idx, mask = idx[start:stop], real[start:stop]

@@ -3,8 +3,10 @@
 library).
 
 Build the model, the loss and the metrics from the config, restore
-``config.resume``'s ``model.pt`` onto the device, and run the masked eval
-step over the test loader. Under a process group the loader shards over
+``config.resume``'s ``model.pt`` onto the device (its ``ema.pt``, the EMA's
+shadow weights, when the config trains one and ``trainer.eval_with_ema``
+is not false, as the JAX evaluator does), and run the masked eval step
+over the test loader. Under a process group the loader shards over
 the ranks and the eval step sums the statistics over them, so every rank
 holds the result over the global, unpadded set. With ``save_outputs``
 every rank writes its real rows' outputs and targets (pads dropped, eval
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import load_model
+from ..checkpoint.manager import EMA_FILE
 from ..config.registry import LOADERS, METRICS, MODELS
 from ..data.loader import prefetch_to_device
 from ..parallel import dist, mesh_from_config
@@ -65,7 +68,14 @@ def evaluate(config, device, save_outputs=None, seed=None) -> dict:
     mesh_from_config(config)
     model = config.init_obj("arch", MODELS, device=device,
                             param_dtype=torch.float32)
-    load_model(config.resume, model, map_location=device)
+    trainer_cfg = config["trainer"]
+    use_ema = (float(trainer_cfg.get("ema_decay", 0.0)) > 0
+               and bool(trainer_cfg.get("eval_with_ema", True))
+               and (config.resume / EMA_FILE).exists())
+    load_model(config.resume, model, map_location=device,
+               name=EMA_FILE if use_ema else "model.pt")
+    if use_ema:
+        logger.info("evaluating the EMA's weights (%s)", EMA_FILE)
     criterion = resolve_loss(config["loss"])
     metric_fns = [METRICS.get(m) for m in config["metrics"]]
     test_loader = _build_test_loader(config)

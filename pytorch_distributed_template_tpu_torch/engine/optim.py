@@ -40,7 +40,7 @@ import re
 import torch
 
 from ..config.registry import OPTIMIZERS, SCHEDULERS
-from ..utils.util import LATER_RESUME
+from ..utils.util import LATER_A17
 
 
 def decay_groups(model, weight_decay: float, exclude=None) -> list:
@@ -65,7 +65,7 @@ def decay_groups(model, weight_decay: float, exclude=None) -> list:
 def _common(lr, learning_rate, mu_dtype):
     if mu_dtype:
         raise NotImplementedError(f"mu_dtype (a reduced-precision first "
-                                  f"moment) is {LATER_RESUME}")
+                                  f"moment) is {LATER_A17}")
     return learning_rate if learning_rate is not None else lr
 
 
@@ -142,7 +142,7 @@ def sgd(model, lr=0.1, momentum=0.0, weight_decay=0.0, nesterov=False,
 
 def _later(registry, name: str) -> None:
     def refuse(*args, **kwargs):
-        raise NotImplementedError(f"{name} is {LATER_RESUME}")
+        raise NotImplementedError(f"{name} is {LATER_A17}")
 
     registry.register(name)(refuse)
 
@@ -249,7 +249,7 @@ def build_optimizer(config, steps_per_epoch: int, model):
     opt_args = dict(opt_cfg.get("args", {}))
     if opt_args.get("trainable"):
         raise NotImplementedError(f"optimizer.args.trainable (freezing "
-                                  f"params) is {LATER_RESUME}")
+                                  f"params) is {LATER_A17}")
     opt_args.pop("trainable", None)
     base_lr = opt_args.get("learning_rate", opt_args.get("lr", 1e-3))
     if base_lr is None:

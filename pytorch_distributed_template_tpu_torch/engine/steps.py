@@ -30,7 +30,27 @@ per step.
 
 Dropout draws from ``fold_in(seed, step)`` (the JAX step's
 ``fold_in(state.rng, state.step)``), folded further per layer and site by
-the model (models/layers.py).
+the model (models/layers.py). The step counters are the whole of the RNG
+state: nothing on the path draws from torch's global generator, so a
+resumed run repeats the uninterrupted one.
+
+Gradient accumulation (``grad_accum_steps`` k > 1), as the JAX step
+computes it: the batch is split into k microbatches of consecutive rows (a
+batch size k does not divide raises ``ValueError``), microbatch ``i``
+draws its dropout from ``fold_in(fold_in(seed, step), i)``, each
+microbatch's masked loss *sum* is backpropagated, the gradients add up in
+``.grad``, and the sum is divided once by the global valid count. Under
+DDP every microbatch but the last runs in ``no_sync()``, each backward is
+of the loss sum x world size (DDP's average of the summed gradients is
+then the global sum), and the statistics are summed over the ranks with
+one ``all_reduce`` after the last microbatch, before the division.
+
+EMA (``ema_decay`` d > 0): ``ema <- d ema + (1 - d) params`` after each
+applied update, one shadow tensor per parameter (the float32 master
+weights' dtype), keyed by parameter name (:attr:`TrainStep.ema`, saved as
+``ema.pt``); a step that ``skip_nonfinite`` skips leaves it untouched.
+:func:`ema_weights` evaluates with the shadow weights
+(``trainer.eval_with_ema``).
 
 Models with cross-example coupling (MoE capacity routing) take the batch
 mask inside the forward: a model whose ``forward`` accepts
@@ -66,14 +86,14 @@ step's finiteness anyway and counts only on a non-finite step (exact:
 on a finite step every count is 0); without it the counts are taken on
 the device every step, which costs no read.
 
-Refused by name, each naming its slice: ``grad_accum_steps > 1``,
-``ema_decay``, ``trainable_patterns`` (ROADMAP A17), ``augment``,
-``mixup_alpha`` (A12).
+Refused by name, each naming its slice: ``trainable_patterns`` (ROADMAP
+A17), ``augment``, ``mixup_alpha`` (A12).
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -82,7 +102,7 @@ from ..observability.health import (
     nonfinite_by_group, pack_health_summary, parameter_groups,
 )
 from ..parallel import dist
-from ..utils.util import LATER_RESUME
+from ..utils.util import LATER_A17
 
 _LATER_AUGMENT = "ROADMAP A12 (ops/augment.py, with the other model families)"
 
@@ -100,11 +120,9 @@ def _detached(output):
     return output.detach()
 
 
-def _refuse(grad_accum_steps=1, ema_decay=0.0, augment=None,
-            mixup_alpha=0.0, trainable_patterns=None) -> None:
-    later = {"grad_accum_steps > 1": (grad_accum_steps > 1, LATER_RESUME),
-             "ema_decay": (ema_decay > 0, LATER_RESUME),
-             "trainable": (bool(trainable_patterns), LATER_RESUME),
+def _refuse(augment=None, mixup_alpha=0.0,
+            trainable_patterns=None) -> None:
+    later = {"trainable": (bool(trainable_patterns), LATER_A17),
              "augment": (augment is not None, _LATER_AUGMENT),
              "mixup_alpha": (mixup_alpha > 0, _LATER_AUGMENT)}
     for name, (on, where) in later.items():
@@ -125,17 +143,19 @@ def _global(stats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 class TrainStep:
     """``step(batch) -> metrics``; owns the step and update counters (the
     JAX ``TrainState.step`` and the optimizer's count), which checkpoints
-    save and restore (:meth:`state_dict`). ``model`` may be a
+    save and restore (:meth:`state_dict`), and the EMA (:attr:`ema`, None
+    without ``ema_decay``). ``model`` may be a
     ``DistributedDataParallel`` wrapper: the forward goes through it, and
     its ``module`` answers for the model (forward arguments, ``aux_loss``,
-    the parameter groups of the health summary)."""
+    the parameter groups of the health summary, the EMA's names)."""
 
     def __init__(self, model, optimizer, criterion: Callable,
                  metric_fns: Sequence[Callable], input_key: str,
                  target_key: str, grad_clip_norm: float,
                  skip_nonfinite: bool, lr_fn: Callable[[int], float],
                  seed: int, log_grad_norm: bool = False,
-                 health: bool = False, inject_nan_grad_step=None):
+                 health: bool = False, inject_nan_grad_step=None,
+                 grad_accum_steps: int = 1, ema_decay: float = 0.0):
         self.model, self.optimizer = model, optimizer
         self.module = getattr(model, "module", model)
         self.criterion, self.metric_fns = criterion, list(metric_fns)
@@ -151,6 +171,14 @@ class TrainStep:
         self._all = [p for g in optimizer.param_groups for p in g["params"]]
         self._groups = parameter_groups(self.module) if health else {}
         self._before = None  # the params before the update (health)
+        self.grad_accum_steps = max(int(grad_accum_steps), 1)
+        self.ema_decay = float(ema_decay)
+        #: ``{param name: shadow tensor}``, or None without ``ema_decay``
+        self.ema: Optional[Dict[str, torch.Tensor]] = None
+        if self.ema_decay > 0:
+            named = dict(self.module.named_parameters())
+            self.ema = {n: p.detach().clone() for n, p in named.items()}
+            self._ema_params = list(named.values())
         self.step = 0       # steps taken (the dropout key's counter)
         self.applied = 0    # optimizer updates applied (the schedule's)
 
@@ -159,6 +187,13 @@ class TrainStep:
 
     def load_state_dict(self, state: dict) -> None:
         self.step, self.applied = int(state["step"]), int(state["applied"])
+
+    def seed_ema(self) -> None:
+        """Restart the EMA at the current params (a warm start)."""
+        if self.ema is not None:
+            with torch.no_grad():
+                torch._foreach_copy_(list(self.ema.values()),
+                                     self._ema_params)
 
     def _params(self):
         return [p for p in self._all if p.grad is not None]
@@ -202,16 +237,16 @@ class TrainStep:
                     opt.state[p][k] = v
         return torch.nn.utils.get_total_norm(delta)
 
-    def __call__(self, batch) -> Dict[str, torch.Tensor]:
-        model, opt = self.model, self.optimizer
-        model.train()
+    def _forward(self, batch, seed: int):
+        """One (micro)batch's forward: ``(loss_sum, stats)``, the masked
+        loss sum (with the aux loss) to backpropagate and the local
+        sufficient statistics."""
         target = batch[self.target_key]
         mask = batch["mask"].float()
-        kw = ({"dropout_seed": fold_in(self.seed, self.step)}
-              if self._seeded else {})
+        kw = {"dropout_seed": seed} if self._seeded else {}
         if self._masked:
             kw["example_mask"] = batch["mask"]
-        output = model(batch[self.input_key], **kw)
+        output = self.model(batch[self.input_key], **kw)
         per_ex = self.criterion(output, target)
         loss_sum = (per_ex * mask).sum()
         count = mask.sum()
@@ -222,13 +257,60 @@ class TrainStep:
         out = _detached(output)
         for fn in self.metric_fns:
             stats[f"{fn.__name__}_sum"] = (fn(out, target) * mask).sum()
-        del out
+        return loss_sum, stats
+
+    def _backward_batch(self, batch):
+        """The whole batch at once: the global statistics first, then the
+        backward of the local loss sum x world size / global count.
+        Returns ``(metrics, denom)``."""
+        loss_sum, stats = self._forward(batch, fold_in(self.seed,
+                                                       self.step))
         metrics = _global(stats)
         denom = metrics["count"].clamp_min(1.0)
-        health_loss = metrics["loss_sum"] / denom
-        opt.zero_grad(set_to_none=True)
         (loss_sum * dist.process_count() / denom).backward()
-        del output
+        return metrics, denom
+
+    def _backward_accumulated(self, batch):
+        """k microbatches (see the module docstring); returns
+        ``(metrics, denom)`` with the summed gradients divided once by
+        ``denom``."""
+        k = self.grad_accum_steps
+        b = batch["mask"].shape[0]
+        if b % k:
+            raise ValueError(f"batch size {b} not divisible by "
+                             f"grad_accum_steps {k}")
+        rows = b // k
+        seed = fold_in(self.seed, self.step)
+        world = dist.process_count()
+        no_sync = getattr(self.model, "no_sync", None)
+        stats = None
+        for idx in range(k):
+            micro = {key: v[idx * rows:(idx + 1) * rows]
+                     for key, v in batch.items()}
+            quiet = no_sync is not None and idx < k - 1
+            with no_sync() if quiet else contextlib.nullcontext():
+                loss_sum, s = self._forward(micro, fold_in(seed, idx))
+                (loss_sum * world).backward()
+            stats = s if stats is None else {key: stats[key] + v
+                                             for key, v in s.items()}
+        metrics = _global(stats)
+        denom = metrics["count"].clamp_min(1.0)
+        torch._foreach_div_([p.grad for p in self._params()], denom)
+        return metrics, denom
+
+    @torch.no_grad()
+    def _update_ema(self) -> None:
+        torch._foreach_lerp_(list(self.ema.values()), self._ema_params,
+                             1.0 - self.ema_decay)
+
+    def __call__(self, batch) -> Dict[str, torch.Tensor]:
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        if self.grad_accum_steps > 1:
+            metrics, denom = self._backward_accumulated(batch)
+        else:
+            metrics, denom = self._backward_batch(batch)
+        health_loss = metrics["loss_sum"] / denom
         if self.nan_step is not None and self.step == self.nan_step:
             self._poison()
 
@@ -267,6 +349,8 @@ class TrainStep:
         if ok:
             self._update()
             self.applied += 1
+            if self.ema is not None:
+                self._update_ema()
             if self.health:
                 torch._foreach_sub_(self._before, self._all)  # -update
                 update_norm = torch.nn.utils.get_total_norm(self._before)
@@ -296,8 +380,7 @@ def make_train_step(model, optimizer, criterion: Callable,
                     seed: int = 0) -> TrainStep:
     """Build the train step (the JAX ``make_train_step`` signature, plus
     the torch optimizer, ``lr_fn`` and the dropout ``seed``)."""
-    _refuse(grad_accum_steps, ema_decay, augment, mixup_alpha,
-            trainable_patterns)
+    _refuse(augment, mixup_alpha, trainable_patterns)
     if lr_fn is None:
         base = optimizer.param_groups[0]["lr"]
 
@@ -306,7 +389,29 @@ def make_train_step(model, optimizer, criterion: Callable,
     return TrainStep(model, optimizer, criterion, metric_fns, input_key,
                      target_key, grad_clip_norm, skip_nonfinite, lr_fn, seed,
                      log_grad_norm=log_grad_norm, health=health,
-                     inject_nan_grad_step=inject_nan_grad_step)
+                     inject_nan_grad_step=inject_nan_grad_step,
+                     grad_accum_steps=grad_accum_steps, ema_decay=ema_decay)
+
+
+@contextlib.contextmanager
+def ema_weights(model, ema: Optional[Dict[str, torch.Tensor]]):
+    """Within the block, ``model``'s (or a DDP wrapper's module's) params
+    hold the EMA's shadow weights; the live params come back after it.
+    A no-op when ``ema`` is None."""
+    if ema is None:
+        yield
+        return
+    params = dict(getattr(model, "module", model).named_parameters())
+    with torch.no_grad():
+        live = {n: params[n].detach().clone() for n in ema}
+        for n, shadow in ema.items():
+            params[n].copy_(shadow)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for n, value in live.items():
+                params[n].copy_(value)
 
 
 def make_eval_step(model, criterion: Callable,

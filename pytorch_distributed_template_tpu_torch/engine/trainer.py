@@ -41,21 +41,43 @@ that made it: the log window's metrics and the health summary are copied
 into pinned host memory without blocking and read one window (one step)
 later (``observability.health.DeferredFetch``).
 
-Refused by name, each naming its slice: interval saves, ``keep_last``,
-``init_from`` (A17), and any mesh axis but ``data`` (A11).
+Resilience, as in the JAX trainer (``engine/trainer.py:200-363``,
+``:719-778``, ``:961-980``): the loop keeps a cursor ``(epoch, next
+batch)`` that counts steps *taken* (never the batches the prefetch holds),
+and every checkpoint gets a ``data_state`` sidecar from it
+(:meth:`BaseTrainer._data_state_snapshot`). A resume from a checkpoint
+with one continues at that exact batch (``step_accurate_resume``, default
+on): the resumed epoch's loader starts at the batch ordinal without
+gathering what came before. It falls back to the next epoch, with a
+warning, when the sidecar is missing, the run is iteration-based
+(``len_epoch``) or the length or batch size changed. Every
+``save_interval_steps`` steps of an epoch the state goes to the
+alternating interval slots (a host copy; a thread writes it). An
+unhandled exception in :meth:`BaseTrainer.train` writes
+``checkpoint-emergency`` first (unless ``emergency_checkpoint`` is false,
+the exception is a checkpoint fault, or no step has run) and always
+propagates. ``keep_last`` prunes the epoch checkpoints after each save,
+``init_from`` grafts a checkpoint's params into a fresh run, and with
+``ema_decay`` validation runs on the EMA's weights (``eval_with_ema``,
+default on). Rank 0 writes every checkpoint; every rank takes the same
+steps, so every rank's cursor is the same.
+
+Refused by name: any mesh axis but ``data`` (A11).
 """
 from __future__ import annotations
 
 import collections
+import hashlib
 import json
 import math
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..checkpoint import CheckpointManager
+from ..checkpoint import CheckpointManager, warm_start_params
 from ..data.loader import prefetch_to_device, to_tensors
 from ..models.base import describe
 from ..observability.crosshost import CrossHostAggregator
@@ -73,27 +95,11 @@ from ..observability.tracker import MetricTracker
 from ..parallel import dist, mesh_from_config
 from ..resilience import faults
 from ..utils import preemption
-from ..utils.util import LATER_RESUME
 from ..utils.watchdog import StepWatchdog
 from .optim import build_optimizer
-from .steps import finalize_metrics, make_eval_step, make_train_step
-
-
-def refuse_later_keys(config) -> None:
-    """Raise NotImplementedError naming the slice for every config key
-    the port does not run yet."""
-    trainer = config["trainer"]
-    later = {
-        "trainer.save_interval_steps": (
-            int(trainer.get("save_interval_steps", 0)) > 0, LATER_RESUME),
-        "trainer.keep_last": (int(trainer.get("keep_last", 0)) > 0,
-                              LATER_RESUME),
-        "trainer.init_from": (bool(trainer.get("init_from")), LATER_RESUME),
-    }
-    for key, (on, where) in later.items():
-        if on:
-            raise NotImplementedError(f"{key} is {where}")
-    mesh_from_config(config)
+from .steps import (
+    ema_weights, finalize_metrics, make_eval_step, make_train_step,
+)
 
 
 def _endless_reshuffling(loader):
@@ -116,6 +122,9 @@ class BaseTrainer:
                                         cfg_trainer.get("verbosity", 2))
         self.epochs = cfg_trainer["epochs"]
         self.save_period = cfg_trainer.get("save_period", 1)
+        # 0 = off; else every N batches of an epoch, an interval save
+        self.save_interval_steps = int(
+            cfg_trainer.get("save_interval_steps", 0))
         self.monitor = cfg_trainer.get("monitor", "off")
         if self.monitor == "off":
             self.mnt_mode = "off"
@@ -128,6 +137,10 @@ class BaseTrainer:
             if self.early_stop is None or self.early_stop <= 0:
                 self.early_stop = math.inf
         self.start_epoch = 1
+        # (epoch, next batch): the steps taken, kept by the batch loop;
+        # what the data_state sidecar and the emergency save record
+        self._cursor = None
+        self._resume_next_batch = 0
         self.checkpoint_dir = config.save_dir
         self.ckpt_manager = CheckpointManager(self.checkpoint_dir)
         # rank 0 writes the events (the ranks share the run directory)
@@ -140,6 +153,11 @@ class BaseTrainer:
         raise NotImplementedError
 
     def _save_checkpoint(self, epoch: int, save_best: bool = False) -> None:
+        raise NotImplementedError
+
+    def _state(self) -> dict:
+        """The checkpoint manager's keyword arguments for the live state
+        (model, optimizer, counters, EMA, arch, config, monitor best)."""
         raise NotImplementedError
 
     def train(self) -> dict:
@@ -193,25 +211,41 @@ class BaseTrainer:
                         "Validation performance didn't improve for %s "
                         "epochs. Training stops.", self.early_stop)
                     break
+        except Exception as exc:
+            # land the live state and its cursor before the process dies;
+            # the original exception always propagates
+            self._emergency_save(exc)
+            raise
         finally:
             self._close()
             self._write_summary(log)
         return log
 
     def _close(self) -> None:
-        """End of the run: stop the watchdog, close the profiler window,
-        the recorder and the TB writer, and write ``trace.json`` (rank
-        0)."""
-        for name in ("watchdog", "trace", "recorder", "writer"):
-            part = getattr(self, name, None)
-            if part is not None:
-                (part.stop if name == "watchdog" else part.close)()
-        if dist.is_main_process():
-            try:
-                get_span_recorder().dump(self.config.log_dir / "trace.json")
-            except Exception:  # noqa: BLE001 — teardown diagnostics must
-                self.logger.warning("could not write trace.json",
-                                    exc_info=True)  # not crash the run
+        """End of the run: stop the watchdog, let the interval writes
+        finish (the heartbeat kept alive meanwhile), close the profiler
+        window, the recorder and the TB writer, and write ``trace.json``
+        (rank 0)."""
+        watchdog = getattr(self, "watchdog", None)
+        try:
+            if watchdog is None:
+                self.ckpt_manager.wait()
+            else:
+                watchdog.stop()
+                with watchdog.heartbeat_keepalive():
+                    self.ckpt_manager.wait()
+        finally:
+            for name in ("trace", "recorder", "writer"):
+                part = getattr(self, name, None)
+                if part is not None:
+                    part.close()
+            if dist.is_main_process():
+                try:
+                    get_span_recorder().dump(
+                        self.config.log_dir / "trace.json")
+                except Exception:  # noqa: BLE001 — teardown diagnostics
+                    self.logger.warning(      # must not crash the run
+                        "could not write trace.json", exc_info=True)
 
     def _write_summary(self, log: dict) -> None:
         """``summary.json`` in the run dir (rank 0): the last epoch's
@@ -233,6 +267,62 @@ class BaseTrainer:
         (self.config.save_dir / "summary.json").write_text(
             json.dumps(summary, indent=2))
 
+    def _data_state_snapshot(self) -> Optional[dict]:
+        """The ``data_state`` sidecar of the state being saved: where the
+        next batch lives (epoch and batch ordinal, past an epoch's end
+        the next epoch's first), the step counter, the data order's
+        knobs, and a fingerprint of the dropout stream's ``(seed, step)``
+        for forensics. None before the first batch."""
+        if self._cursor is None:
+            return None
+        epoch, next_batch = self._cursor
+        len_epoch = int(getattr(self, "len_epoch", 0) or 0)
+        if len_epoch and next_batch >= len_epoch:
+            epoch, next_batch = epoch + 1, 0
+        ds = {"epoch": int(epoch), "next_batch": int(next_batch),
+              "len_epoch": len_epoch}
+        step = getattr(self, "train_step", None)
+        if step is not None:
+            ds["global_step"] = int(step.step)
+            ds["rng_fingerprint"] = hashlib.sha256(
+                f"{step.seed}:{step.step}".encode()).hexdigest()[:12]
+        loader = getattr(self, "train_loader", None)
+        if loader is not None:
+            ds["batch_size"] = int(loader.batch_size)
+            if loader.sampler is not None:
+                ds["sampler"] = loader.sampler.state()
+            else:
+                ds["shuffle"] = bool(loader.shuffle)
+                ds["data_seed"] = int(loader.seed)
+        return ds
+
+    def _emergency_save(self, exc: Exception) -> None:
+        """``checkpoint-emergency`` on the unhandled-exception path (rank
+        0). Skipped when ``trainer.emergency_checkpoint`` is false, when
+        the exception is a checkpoint fault (the checkpointer is what
+        failed), or when no step has run. Never raises: the original
+        exception is the story."""
+        if not bool(self.config["trainer"].get("emergency_checkpoint",
+                                               True)):
+            return
+        if getattr(exc, "is_checkpoint_fault", False):
+            self.logger.warning(
+                "Emergency checkpoint SKIPPED: the failure is the "
+                "checkpoint path itself (%s).", exc)
+            return
+        if self._cursor is None or not dist.is_main_process():
+            return
+        try:
+            self.ckpt_manager.save_emergency(
+                epoch=self._cursor[0], **self._state(),
+                data_state=self._data_state_snapshot())
+            self.logger.warning("Emergency checkpoint saved after %s: %s",
+                                type(exc).__name__, exc)
+        except Exception:  # noqa: BLE001 — never mask the original error
+            self.logger.warning(
+                "Emergency checkpoint failed (original error propagates)",
+                exc_info=True)
+
 
 class Trainer(BaseTrainer):
     """Concrete trainer (the JAX package's ``Trainer``).
@@ -250,7 +340,7 @@ class Trainer(BaseTrainer):
 
     def __init__(self, model, criterion, metric_ftns, config, train_loader,
                  valid_loader=None, device=None, seed: int = 0):
-        refuse_later_keys(config)
+        mesh_from_config(config)   # refuses any axis but data (A11)
         super().__init__(config)
         cfg = config["trainer"]
         # the fault plan: PDT_FAULTS wins over trainer.faults; installed
@@ -295,12 +385,15 @@ class Trainer(BaseTrainer):
         # (the JAX trainer's default)
         health_cfg = cfg.get("health", {}) or {}
         self._health_enabled = bool(health_cfg.get("enabled", True))
+        ema_decay = float(cfg.get("ema_decay", 0.0))
+        self.use_ema = ema_decay > 0 and bool(cfg.get("eval_with_ema",
+                                                      True))
         self.train_step = make_train_step(
             net, self.optimizer, criterion, self.metric_ftns,
             input_key=self.input_key, target_key=self.target_key,
             grad_clip_norm=cfg.get("grad_clip_norm", 0.0),
             grad_accum_steps=int(cfg.get("grad_accum_steps", 1)),
-            ema_decay=float(cfg.get("ema_decay", 0.0)),
+            ema_decay=ema_decay,
             skip_nonfinite=self.skip_nonfinite,
             augment=cfg.get("augment"),
             mixup_alpha=float(cfg.get("mixup_alpha", 0.0)),
@@ -320,10 +413,27 @@ class Trainer(BaseTrainer):
         if config.resume is not None:
             state, self.start_epoch, best = self.ckpt_manager.restore(
                 config.resume, model, self.optimizer, config.config,
-                type(model).__name__, map_location=self.device)
+                type(model).__name__, map_location=self.device,
+                ema=self.train_step.ema)
             self.train_step.load_state_dict(state)
             if best is not None:
                 self.mnt_best = best
+            if bool(cfg.get("step_accurate_resume", True)):
+                self._apply_data_state(
+                    CheckpointManager.load_data_state(config.resume))
+        elif cfg.get("init_from"):
+            # params only: the optimizer, the counters and the epoch start
+            # fresh; the EMA starts at the grafted weights
+            restored, skipped = warm_start_params(
+                cfg["init_from"], model, map_location=self.device)
+            self.train_step.seed_ema()
+            if dist.is_main_process():
+                self.logger.info(
+                    "Warm start from %s: %d param tensors restored, %d "
+                    "kept their init%s", cfg["init_from"], len(restored),
+                    len(skipped),
+                    (" (e.g. " + ", ".join(skipped[:3]) + ")") if skipped
+                    else "")
 
         self.train_metrics = MetricTracker("loss", writer=self.writer)
         self.valid_metrics = MetricTracker(
@@ -376,9 +486,58 @@ class Trainer(BaseTrainer):
     def _to_device(self, batch: dict) -> dict:
         return to_tensors(batch, self.device)
 
+    def _apply_data_state(self, ds: Optional[dict]) -> None:
+        """Turn a checkpoint's ``data_state`` sidecar into a mid-epoch
+        start: ``start_epoch`` becomes the epoch in flight and
+        :meth:`_batches` starts it at ``next_batch``. Keeps the epoch
+        granularity, with a warning, for an iteration-based run or a
+        changed length or batch size."""
+        if not ds:
+            return
+        if self._train_iter is not None:
+            self.logger.warning(
+                "data_state present but len_epoch (iteration-based) "
+                "training resumes at epoch granularity.")
+            return
+        if (int(ds.get("len_epoch", self.len_epoch)) != self.len_epoch
+                or int(ds.get("batch_size", self.train_loader.batch_size))
+                != self.train_loader.batch_size):
+            self.logger.warning(
+                "data_state geometry mismatch (checkpoint len_epoch=%s/"
+                "batch_size=%s vs current %s/%s); resuming at epoch "
+                "granularity.", ds.get("len_epoch"), ds.get("batch_size"),
+                self.len_epoch, self.train_loader.batch_size)
+            return
+        epoch = int(ds.get("epoch", self.start_epoch))
+        next_batch = int(ds.get("next_batch", 0))
+        if next_batch >= self.len_epoch:
+            epoch, next_batch = epoch + 1, 0
+        self.start_epoch = epoch
+        self._resume_next_batch = next_batch
+        if next_batch and dist.is_main_process():
+            self.logger.info(
+                "Step-accurate resume: continuing epoch %d at batch %d "
+                "(global step %s).", epoch, next_batch,
+                ds.get("global_step", "?"))
+
+    def _state(self) -> dict:
+        return dict(model=self.model, optimizer=self.optimizer,
+                    train_state=self.train_step.state_dict(),
+                    arch=type(self.model).__name__,
+                    config=dict(self.config.config),
+                    monitor_best=(self.mnt_best
+                                  if isinstance(self.mnt_best, (int, float))
+                                  else 0.0),
+                    ema=self.train_step.ema)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _first_batch(self, epoch: int) -> int:
+        """The batch ordinal ``epoch`` starts at: the resume point in the
+        resumed epoch, else 0."""
+        return self._resume_next_batch if epoch == self.start_epoch else 0
 
     def _batches(self, epoch: int):
         if self._train_iter is not None:
@@ -386,7 +545,8 @@ class Trainer(BaseTrainer):
                 yield next(self._train_iter)
         else:
             self.train_loader.set_epoch(epoch)
-            yield from self.train_loader
+            yield from self.train_loader.iter_batches(
+                start_batch=self._first_batch(epoch))
 
     def _train_epoch(self, epoch: int) -> dict:
         self.train_metrics.reset()
@@ -413,7 +573,8 @@ class Trainer(BaseTrainer):
         single = dist.process_count() == 1
         preempted = False
         self.watchdog.start()
-        batch_idx = -1
+        batch_idx = self._first_batch(epoch) - 1
+        self._cursor = (epoch, batch_idx + 1)
         # log-step metrics are read one log window late (never on the step
         # that made them); holds at most one entry
         pending_log = collections.deque()
@@ -434,6 +595,7 @@ class Trainer(BaseTrainer):
             self.trace.before_step(step)
             with span("train/step", step=step):
                 m = self.train_step(batch)
+            self._cursor = (epoch, batch_idx + 1)   # the step is taken
             self.trace.after_step(step)
             self.watchdog.beat()
             if "health" in m:
@@ -499,6 +661,12 @@ class Trainer(BaseTrainer):
                         "(the partial epoch will be checkpointed).",
                         epoch, batch_idx + 1)
                 break
+            if (self.save_interval_steps
+                    and (batch_idx + 1) % self.save_interval_steps == 0
+                    and main):
+                self.ckpt_manager.save_interval(
+                    epoch=epoch, step=batch_idx + 1, **self._state(),
+                    data_state=self._data_state_snapshot())
         while pending_log:
             self._flush_log_entry(pending_log.popleft())
         self.health.drain()   # the last step's summary
@@ -570,12 +738,14 @@ class Trainer(BaseTrainer):
         self.valid_metrics.reset()
         self.valid_loader.set_epoch(epoch)
         accum = None
-        for batch in prefetch_to_device(self.valid_loader, self.device,
-                                        self.prefetch_depth):
-            m = self.eval_step(batch)
-            accum = m if accum is None else {k: accum[k] + v
-                                             for k, v in m.items()}
-            self.watchdog.beat()
+        with ema_weights(self.model,
+                         self.train_step.ema if self.use_ema else None):
+            for batch in prefetch_to_device(self.valid_loader, self.device,
+                                            self.prefetch_depth):
+                m = self.eval_step(batch)
+                accum = m if accum is None else {k: accum[k] + v
+                                                 for k, v in m.items()}
+                self.watchdog.beat()
         result = finalize_metrics({k: float(v) for k, v in accum.items()}) \
             if accum else {}
         if dist.is_main_process():
@@ -598,14 +768,12 @@ class Trainer(BaseTrainer):
                     self.health.last_anomaly_step, epoch)
         if dist.is_main_process():
             self.ckpt_manager.save(
-                epoch=epoch, model=self.model, optimizer=self.optimizer,
-                train_state=self.train_step.state_dict(),
-                arch=type(self.model).__name__,
-                config=dict(self.config.config),
-                monitor_best=(self.mnt_best
-                              if isinstance(self.mnt_best, (int, float))
-                              else 0.0),
-                save_best=save_best)
+                epoch=epoch, **self._state(), save_best=save_best,
+                # a finished epoch gives (epoch + 1, batch 0); a preempted
+                # one its exact next batch
+                data_state=self._data_state_snapshot())
+            self.ckpt_manager.prune(
+                int(self.config["trainer"].get("keep_last", 0)))
         dist.synchronize()
 
     def _log_input_images(self, batch: dict) -> None:

@@ -94,12 +94,16 @@ class Dense(nn.Linear):
 
 def embed(weight, tokens, dtype):
     """Rows of ``weight`` for ``tokens`` (any integer dtype; byte tokens
-    arrive as uint8), in ``dtype``. An index rather than ``F.embedding``:
-    the index's backward sums repeated rows in a fixed (sorted) order,
-    which a resumed training run needs to reproduce the uninterrupted one;
-    ``F.embedding``'s backward on CUDA does not fix that order at a small
-    vocabulary with many repeated rows (256 bytes, thousands of tokens)."""
-    return weight[tokens.long()].to(dtype)
+    arrive as uint8), in ``dtype``. Both backwards sum repeated rows in a
+    fixed order, which a resumed training run needs to reproduce the
+    uninterrupted one: on CUDA an index (its backward sorts the rows;
+    ``F.embedding``'s does not fix the order at a small vocabulary with
+    many repeated rows, 256 bytes and thousands of tokens), on the CPU
+    ``F.embedding`` (the index's backward there adds rows from several
+    threads in whatever order they run)."""
+    if weight.is_cuda:
+        return weight[tokens.long()].to(dtype)
+    return F.embedding(tokens.long(), weight).to(dtype)
 
 
 def layer_norm_f32(x, weight, bias, eps: float):

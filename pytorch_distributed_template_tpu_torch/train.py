@@ -5,14 +5,21 @@ root ``train.py``.
         -c configs/lm_debug.json [--device cpu] [-s SAVE_DIR]
     python -m pytorch_distributed_template_tpu_torch.train \\
         -r <run_dir>/checkpoint-epochN            # resume at epoch N + 1
+    python -m pytorch_distributed_template_tpu_torch.train \\
+        -c configs/lm_debug.json --auto-resume    # the newest checkpoint
     torchrun --standalone --nproc_per_node=N \\
         -m pytorch_distributed_template_tpu_torch.train -c configs/mnist.json
 
 Flags as in the JAX ``train.py``: ``-c``, ``-r``, ``-s``, ``--seed``,
 ``--no-validate``, ``--lr``, ``--bs``, ``--set KEYCHAIN VALUE``, plus
 ``--device`` (default ``cuda``; raises without a CUDA device). ``-l`` and
-``--deterministic`` are accepted as the JAX CLI accepts them;
-``--auto-resume`` refuses (ROADMAP A17). As in the JAX ``train.py``: the
+``--deterministic`` are accepted as the JAX CLI accepts them.
+``--auto-resume`` resumes the ``-c`` config's experiment from its newest
+checkpoint (``config.parser.find_latest_checkpoint``: an epoch edge, an
+interval slot or the emergency save, at the exact next batch when the
+checkpoint has a ``data_state`` sidecar), or starts it fresh; the
+supervisor (``supervise.py``) relaunches a run this way. As in the JAX
+``train.py``: the
 config's ``compile_cache`` section is read (``utils/compile_cache.py``;
 the port's compiled artifacts are its kernel libraries), SIGUSR2 arms an
 on-demand ``torch.profiler`` window of ``PDT_PROFILE_STEPS`` (default 5)
@@ -45,7 +52,6 @@ from .observability.profiler import install_sigusr2
 from .parallel import dist
 from .utils import preemption
 from .utils.compile_cache import configure_compile_cache
-from .utils.util import LATER_RESUME
 
 logger = logging.getLogger(__name__)
 
@@ -63,8 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-validate", action="store_true",
                         help="skip validation during training")
     parser.add_argument("--auto-resume", action="store_true",
-                        help="resume from the newest checkpoint (refused: "
-                             "ROADMAP A17)")
+                        help="resume the experiment's newest checkpoint "
+                             "(a fresh run when there is none)")
     parser.add_argument("--seed", type=int, default=None,
                         help="Random seed (weights and dropout).")
     parser.add_argument("--deterministic", action="store_true",
@@ -83,8 +89,6 @@ OPTIONS = [
 
 def build_trainer(args, config, device) -> Trainer:
     """Model, loss, metrics, loaders and the trainer, from the config."""
-    if args.auto_resume:
-        raise NotImplementedError(f"--auto-resume is {LATER_RESUME}")
     seed = args.seed if args.seed is not None else 0
     model = config.init_obj("arch", MODELS, device=device,
                             param_dtype=torch.float32)
@@ -120,7 +124,7 @@ def main(argv=None, on_trainer=None) -> dict:
     if preemption.requested():
         # checkpointed, but the work is not finished: a distinct status
         logger.warning("exiting with preemption status %d (resume with -r "
-                       "<run_dir>/checkpoint-epochN)",
+                       "<run_dir>/checkpoint-epochN or --auto-resume)",
                        preemption.EXIT_PREEMPTED)
         raise SystemExit(preemption.EXIT_PREEMPTED)
     return log

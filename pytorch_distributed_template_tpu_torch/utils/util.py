@@ -2,8 +2,10 @@
 
 ``read_json``/``write_json`` are copies of the JAX package's
 ``utils/util.py`` functions; ``resolve_device`` is the port's one rule for
-where an entry point runs. ``LATER_RESUME`` names the slice that the
-port's refusals of resume state point at (ROADMAP.md, queue A).
+where an entry point runs. ``LATER_A17`` names the ROADMAP item that the
+port's remaining refusals of training options point at (ROADMAP.md,
+queue A): what A17 still holds after its resume state and supervisor
+were ported.
 """
 from __future__ import annotations
 
@@ -13,8 +15,9 @@ from pathlib import Path
 
 import torch
 
-LATER_RESUME = ("ROADMAP A17 (resume state, the native batcher and the "
-                "other optimizers, a later slice)")
+LATER_A17 = ("ROADMAP A17's tail (the other optimizers, mu_dtype, "
+             "trainable, ReduceLROnPlateau, the native batcher and "
+             "normalize; a later slice)")
 
 
 def read_json(fname) -> OrderedDict:

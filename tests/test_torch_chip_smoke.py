@@ -377,3 +377,49 @@ def test_observe_config_is_the_repositorys_own():
     cut = {chain.split(";")[-1] for chain, _ in chip_smoke.OBS_SETS}
     assert cut == {"n", "epochs", "save_period", "profiler",
                    "watchdog_secs", "log_grad_norm"}
+
+
+# slice 7 at a tiny size: phase 11's cuts on the tiny GPT-2 (8 steps per
+# epoch): slots every 3 batches; attempt 1 killed before step 5 (batch 5,
+# between the slots after batches 3 and 6), attempt 2 raising before step
+# 12 (epoch 2, batch 4, after its batch-3 slot)
+TINY_RES_SETS = TINY_TRAIN_SETS + [
+    ("trainer;save_interval_steps", 3), ("trainer;keep_last", 1),
+    ("trainer;grad_accum_steps", 2), ("trainer;ema_decay", 0.999)]
+TINY_RES_FAULTS = "kill@step:5;crash@step:12@attempt:2"
+
+
+def test_resilience_phase_on_cpu(counted_plain, counted_bwd, tmp_path):
+    launches = chip_smoke.phase_resilience(
+        "cpu", device="cpu", sets=TINY_RES_SETS, faults=TINY_RES_FAULTS,
+        work=tmp_path / "work")
+    # the uninterrupted run: 2 epochs x 8 steps of 2 microbatches, 2 eval
+    # steps per epoch (the supervised children are other processes)
+    layers, micro_steps, eval_steps = 2, 2 * 16, 2 * 2
+    assert launches == {
+        "flash_fwd": layers * (2 * micro_steps + eval_steps),
+        "flash_bwd_dkv": layers * micro_steps,
+        "flash_bwd_dq": layers * micro_steps, "expert_ffn": 0}
+    assert not (tmp_path / "work" / "resilience").exists()
+
+
+def test_resilience_phase_fails_without_step_accurate_resume(
+        counted_plain, counted_bwd, tmp_path):
+    """Resuming at epoch granularity skips the killed epoch's tail: the
+    phase must fail."""
+    with pytest.raises(AssertionError, match="not at the newest"):
+        chip_smoke.phase_resilience(
+            "cpu", device="cpu", faults=TINY_RES_FAULTS,
+            sets=TINY_RES_SETS + [("trainer;step_accurate_resume", False)],
+            work=tmp_path / "work")
+
+
+def test_resilience_config_is_the_repositorys_own():
+    assert chip_smoke.RES_CONFIG == chip_smoke.REPO / "configs" / \
+        "gpt2_small.json"
+    cut = dict(chip_smoke.RES_SETS)
+    assert cut == {
+        "train_loader;args;n": 256, "valid_loader;args;n": 64,
+        "trainer;epochs": 2, "trainer;save_period": 1,
+        "trainer;save_interval_steps": 12, "trainer;keep_last": 1,
+        "trainer;grad_accum_steps": 2, "trainer;ema_decay": 0.999}

@@ -60,6 +60,9 @@ ENTRY_MODULES = [
     "pytorch_distributed_template_tpu_torch.utils.compile_cache",
     "pytorch_distributed_template_tpu_torch.utils.preemption",
     "pytorch_distributed_template_tpu_torch.utils.watchdog",
+    "pytorch_distributed_template_tpu_torch.resilience.supervisor",
+    "pytorch_distributed_template_tpu_torch.supervise",
+    "pytorch_distributed_template_tpu_torch.config.parser",
 ]
 
 

@@ -148,6 +148,9 @@ def test_resume_equals_the_uninterrupted_run(runs):
 
 
 def test_cli_defaults_to_cuda_and_refuses_later_slices(tmp_path):
+    """The CLI defaults to CUDA; the resume, interval-save, accumulation
+    and EMA options (ROADMAP A17, ported) build a trainer on the CPU; a
+    mesh axis beyond ``data`` still refuses, naming its slice (A11)."""
     import torch
 
     cfg = str(REPO / "configs" / "lm_debug.json")
@@ -155,12 +158,22 @@ def test_cli_defaults_to_cuda_and_refuses_later_slices(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.main(base)
-    with pytest.raises(NotImplementedError, match="A17"):
-        ttrain.main(base + ["--device", "cpu", "--auto-resume"])
-    for chain, value in (("trainer;save_interval_steps", "4"),
-                         ("trainer;keep_last", "2"),
-                         ("trainer;grad_accum_steps", "2"),
-                         ("trainer;ema_decay", "0.99"),
-                         ("mesh;axes", '{"data": 2, "tensor": 2}')):
-        with pytest.raises(NotImplementedError, match="slice"):
-            ttrain.main(base + ["--device", "cpu", "--set", chain, value])
+    built = []
+    cpu = base + ["--device", "cpu", "--set", "trainer;epochs", "0"]
+    ttrain.main(cpu + ["--auto-resume"], on_trainer=built.append)
+    assert built[-1].config.resume is None   # nothing to resume: fresh
+    for chain, value, attr, want in (
+            ("trainer;save_interval_steps", "4", "save_interval_steps", 4),
+            ("trainer;keep_last", "2", None, None),
+            ("trainer;grad_accum_steps", "2", "grad_accum_steps", 2),
+            ("trainer;ema_decay", "0.99", "ema_decay", 0.99)):
+        ttrain.main(cpu + ["--set", chain, value], on_trainer=built.append)
+        trainer = built[-1]
+        assert trainer.config["trainer"][chain.split(";")[1]] == json.loads(
+            value)
+        if attr == "save_interval_steps":
+            assert trainer.save_interval_steps == want
+        elif attr is not None:
+            assert getattr(trainer.train_step, attr) == want
+    with pytest.raises(NotImplementedError, match="slice"):
+        ttrain.main(cpu + ["--set", "mesh;axes", '{"data": 2, "tensor": 2}'])
