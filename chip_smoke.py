@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 4, 5, 6, 7, 8, 9, 10,
-11);
-any failure exits non-zero and no phase's exception is caught:
+Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 3e, 4, 5, 6, 7, 8, 9,
+10, 11, 12, 13), each one's time printed beside the card line; any
+failure exits non-zero and no phase's exception is caught:
 
 1. build: compile every CUDA source of the port with nvcc (one process per
    source, all started together) and print the build time and the ptxas
@@ -168,18 +168,18 @@ kernel) adds:
 
 11. main path of slice 7: ``configs/gpt2_small.json`` at full width cut
     by ``--set`` to phase 10's sizes (train ``n`` 256, valid ``n`` 64, 2
-    epochs, ``save_period`` 1) with ``save_interval_steps`` 12,
+    epochs, ``save_period`` 1) with ``save_interval_steps`` 16,
     ``keep_last`` 1, ``grad_accum_steps`` 2 (microbatches of 4) and
     ``ema_decay`` 0.999. Once without a fault through the port's
     ``train.py`` in this process (every train step must launch B1 2 x 2 x
     12 times and B2, B3 2 x 12 times each), then once through the port's
     ``supervise.py`` (a child process per attempt) with
-    ``PDT_FAULTS="kill@step:20;crash@step:46@attempt:2"``: attempt 1 is
-    killed between the slots after batches 12 and 24 and resumes from the
-    first (when the slot's write, 0.6-1.2 s on the card, was done within
-    the 8 steps before the kill; else from the last checkpoint before it);
-    attempt 2 raises in epoch 2 after its batch-12 slot and writes
-    ``checkpoint-emergency``; attempt 3 resumes from it and finishes.
+    ``PDT_FAULTS="kill@step:31;crash@step:46@attempt:2"``: attempt 1 is
+    killed 15 steps (2.0 s) after the slot of batch 16, with no slot
+    between, so that slot's write (0.6-1.2 s on the card) is done, and
+    attempt 2 must start at its batch; attempt 2 raises in epoch 2 before
+    its batch-16 slot and writes ``checkpoint-emergency``; attempt 3
+    resumes from it and finishes.
     Hard checks: 2 restarts, both ``crash``, a clean end; each attempt
     resuming at the newest checkpoint the attempt before it completed (no
     step replayed after the crash); ``global_step`` 64 in the last
@@ -191,12 +191,47 @@ kernel) adds:
     write (time, bytes), each attempt's restart to its first step and the
     steps replayed, beside the card line.
 
+Slice 8 (the other optimizers, ``mu_dtype``, ``trainable``,
+``ReduceLROnPlateau``, the Digits / BPE loaders, ``lm_nll`` and the native
+batcher, ROADMAP A17's tail and A18; no new kernel) adds:
+
+3e. the small f32 GPT2 of phase 3c (d_model 128: Adafactor factors its
+    kernels) takes 5 steps under each of the ten optimizers, Adam with a
+    bf16 ``mu``, AdamW with ``trainable`` and AdamW under a forced plateau
+    scale, on the card and on the CPU from the same weights and batches,
+    TF32 off for this comparison only: losses rtol 1e-5, params atol 1e-4
+    (Lion at lr 1e-5, where a flipped sign moves a weight 2e-5), frozen
+    params unchanged; then cell (h)'s model (GPT-2 small, bf16, remat,
+    flash, fused head, batch 8 x 1024) takes 3 steps under AdamW,
+    Adafactor, Lion and Adam with a bf16 ``mu``: the optimizer-state bytes
+    must equal the count the parameter shapes give; step ms and peak
+    memory printed;
+12. main path of slice 8's LMs: a 2 MB corpus from the port's
+    ``tools/make_text_corpus.py``; ``configs/bytelm_stdlib.json`` as it
+    is for 1 epoch (``--set`` the data_dir and the epochs), then
+    ``configs/bpelm_stdlib.json`` at full width (GPT2, 8 layers, d_model
+    512, 8 heads, vocab 1024, seq 512, batch 32, bf16, flash, fused head
+    chunk 256, AdamW, WarmupCosine, clip 1.0) for 2 epochs with
+    ``save_period`` 1: every train step must launch B1, B2 and B3 8 times
+    each, every eval step B1 8 times and no B2/B3; losses finite and
+    falling; the BPE tokenizer fitted once (the validation loader and the
+    resume reuse its caches, mtimes unchanged) and pinned in the run
+    directory; ``val_lm_nll`` equal to ``val_loss`` (rtol 1e-5); a resume
+    from ``checkpoint-epoch1`` reproducing epoch 2;
+13. ``configs/digits.json`` as it is (LeNet, Adam with amsgrad, StepLR, 40
+    epochs, early stop 15) on the real UCI digits (1,438 train, 359
+    validation images): the last epoch's held-out ``val_accuracy`` at
+    least 0.95; the port's ``test.py`` on ``model_best`` gives the
+    validation loss and metrics of the epoch it holds (rtol 1e-6). The
+    native batcher must have gathered in phases 12 and 13 (its call
+    count, reset before each).
+
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
-the launches of slices 1, 3, 4, 6 and 7, paged_attn with slice 2's,
-flash_bwd_dkv and flash_bwd_dq with slices 3, 4, 6 and 7, expert_ffn with
-slice 4's) and the device line ``{"ok": true, "device": {...}}``. Every kernel
-row also carries ``pct_of_bound`` (100 x bound / kernel time) and
+the launches of slices 1, 3, 4, 6, 7 and 8, paged_attn with slice 2's,
+flash_bwd_dkv and flash_bwd_dq with slices 3, 4, 6, 7 and 8, expert_ffn
+with slice 4's) and the device line ``{"ok": true, "device": {...}}``.
+Every kernel row also carries ``pct_of_bound`` (100 x bound / kernel time) and
 ``x_library`` (kernel time / library time); kernel times are device times
 (:func:`cuda_ms`). The script needs a CUDA device and the repository
 beside it; it imports nothing of JAX.
@@ -1811,12 +1846,14 @@ PATH_STATS: dict = {}
 
 
 def _train_path(card: str, device, config, sets, run_root, seed: int,
-                label: str = "train", check=None) -> dict:
+                label: str = "train", check=None,
+                resume: bool = True) -> dict:
     """One training main path through the port's ``train.py`` (see
     :func:`phase_train`); ``check(trainer, run)`` runs after the main run,
-    before the resume; ``run_root`` is removed at the end. The main run's
-    steady-state step numbers (:meth:`TrainRun.steady`) land in
-    ``PATH_STATS[label]``."""
+    before the resume (``resume`` False: none; the checkpoints expected
+    are those of the config's ``save_period``); ``run_root`` is removed at
+    the end. The main run's steady-state step numbers
+    (:meth:`TrainRun.steady`) land in ``PATH_STATS[label]``."""
     import warnings
 
     from pytorch_distributed_template_tpu_torch import train as train_cli
@@ -1878,10 +1915,10 @@ def _train_path(card: str, device, config, sets, run_root, seed: int,
                                  f"{monitored}: {e}")
     run_dir = trainer.config.save_dir
     epochs = trainer.epochs
-    for path in ([run_dir / f"checkpoint-epoch{e}" / "model.pt"
-                  for e in range(1, epochs + 1)]
-                 + [run_dir / "model_best" / "model.pt",
-                    run_dir / "summary.json"]):
+    saved = [run_dir / f"checkpoint-epoch{e}" / "model.pt"
+             for e in range(1, epochs + 1) if e % trainer.save_period == 0]
+    for path in saved + ([run_dir / "model_best" / "model.pt"] if saved
+                         else []) + [run_dir / "summary.json"]:
         if not path.is_file():
             raise AssertionError(f"{path} was not written")
     summary = json.loads((run_dir / "summary.json").read_text())
@@ -1905,30 +1942,33 @@ def _train_path(card: str, device, config, sets, run_root, seed: int,
         "launches": dict(zip(TRAIN_KERNELS, run.launches)),
         "summary": summary, "card": card}))
 
-    # resume from the first epoch's checkpoint: epoch 2 again
+    launches = run.launches
     resume_box = {}
+    if resume:
+        # resume from the first epoch's checkpoint: epoch 2 again
+        def resume_hook(trainer):
+            resume_box["run"] = TrainRun(trainer, device, card, "resume")
 
-    def resume_hook(trainer):
-        resume_box["run"] = TrainRun(trainer, device, card, "resume")
-
-    train_cli.main(["-r", str(run_dir / "checkpoint-epoch1"), "-s",
-                    str(run_root / "resume"), "--device", str(device)],
-                   on_trainer=resume_hook)
-    resumed = resume_box["run"]
-    if [e["epoch"] for e in resumed.epoch_logs] != list(
-            range(2, epochs + 1)):
-        raise AssertionError(f"the resumed run ran epochs "
-                             f"{[e['epoch'] for e in resumed.epoch_logs]}")
-    again, first = resumed.epoch_logs[0], run.epoch_logs[1]
-    keys = sorted({"loss", "val_loss", monitored})
-    diffs = {k: abs(again[k] - first[k]) / abs(first[k]) for k in keys}
-    log(f"[{label}] resume " + json.dumps({
-        "epoch": 2, "uninterrupted": {k: first[k] for k in diffs},
-        "resumed": {k: again[k] for k in diffs}, "rel_diff": diffs,
-        "rtol": RESUME_RTOL}))
-    if max(diffs.values()) > RESUME_RTOL:
-        raise AssertionError(f"resume does not reproduce epoch 2: {diffs}")
-    launches = [a + b for a, b in zip(run.launches, resumed.launches)]
+        train_cli.main(["-r", str(run_dir / "checkpoint-epoch1"), "-s",
+                        str(run_root / "resume"), "--device", str(device)],
+                       on_trainer=resume_hook)
+        resumed = resume_box["run"]
+        if [e["epoch"] for e in resumed.epoch_logs] != list(
+                range(2, epochs + 1)):
+            raise AssertionError(
+                f"the resumed run ran epochs "
+                f"{[e['epoch'] for e in resumed.epoch_logs]}")
+        again, first = resumed.epoch_logs[0], run.epoch_logs[1]
+        keys = sorted({"loss", "val_loss", monitored})
+        diffs = {k: abs(again[k] - first[k]) / abs(first[k]) for k in keys}
+        log(f"[{label}] resume " + json.dumps({
+            "epoch": 2, "uninterrupted": {k: first[k] for k in diffs},
+            "resumed": {k: again[k] for k in diffs}, "rel_diff": diffs,
+            "rtol": RESUME_RTOL}))
+        if max(diffs.values()) > RESUME_RTOL:
+            raise AssertionError(f"resume does not reproduce epoch 2: "
+                                 f"{diffs}")
+        launches = [a + b for a, b in zip(run.launches, resumed.launches)]
 
     # where a train step's time goes (outside the counted runs)
     batches = [trainer._to_device(b) for b, _ in zip(
@@ -2729,16 +2769,18 @@ def _nan_run(card: str, device, config, sets, nan_step: int, root,
 
 # phase 11: the repository's GPT-2 small config (phase 10's file) cut by
 # --set to phase 6's sizes, with interval saves into the A/B slots every
-# 12 batches, keep_last 1, two microbatches of 4 per step and an EMA
+# 16 batches, keep_last 1, two microbatches of 4 per step and an EMA
 RES_CONFIG = REPO / "configs" / "gpt2_small.json"
 RES_SETS = [("train_loader;args;n", 256), ("valid_loader;args;n", 64),
             ("trainer;epochs", 2), ("trainer;save_period", 1),
-            ("trainer;save_interval_steps", 12), ("trainer;keep_last", 1),
+            ("trainer;save_interval_steps", 16), ("trainer;keep_last", 1),
             ("trainer;grad_accum_steps", 2), ("trainer;ema_decay", 0.999)]
-# attempt 1 is killed before step 20 (epoch 1, between the slots after
-# batches 12 and 24); attempt 2 raises before step 46 (epoch 2, batch 14,
-# after its batch-12 slot) and writes the emergency save; attempt 3 ends
-RES_FAULTS = "kill@step:20;crash@step:46@attempt:2"
+# attempt 1 is killed before step 31 (epoch 1, batch 31), 15 steps (2.0 s
+# at 136.5 ms a step) after the slot of batch 16 and with no slot between,
+# so that slot's write (0.6-1.2 s) is done and attempt 2 must start at its
+# batch; attempt 2 raises before step 46 (epoch 2, batch 14, before its
+# batch-16 slot) and writes the emergency save; attempt 3 ends
+RES_FAULTS = "kill@step:31;crash@step:46@attempt:2"
 RES_TIMEOUT_S = 900
 _INTERVAL_LINE = re.compile(
     r"Interval checkpoint: (\S+) \(the loop stopped ([\d.]+) ms; "
@@ -2780,8 +2822,22 @@ def phase_resilience(card: str, device="cuda", config=RES_CONFIG,
         box["trainer"] = trainer
         box["run"] = TrainRun(trainer, device, card, "uninterrupted")
 
+    # on the CPU both sides run one intra-op thread: a weight gradient's
+    # GEMM splits its reduction over the threads MKL takes, and in its
+    # dynamic mode MKL may take fewer than asked, in one process and not
+    # in another, which changes the last bits (the card's runs are
+    # deterministic as they are)
+    on_cpu = torch.device(device).type == "cpu"
+    child_env = dict(os.environ, PDT_FAULTS=faults)
+    threads = torch.get_num_threads()
+    if on_cpu:
+        child_env.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+        torch.set_num_threads(1)
     t0 = time.perf_counter()
-    train_cli.main(common + ["-s", str(root / "base")], on_trainer=hook)
+    try:
+        train_cli.main(common + ["-s", str(root / "base")], on_trainer=hook)
+    finally:
+        torch.set_num_threads(threads)
     base_wall = time.perf_counter() - t0
     trainer, run = box["trainer"], box["run"]
     base = trainer.config.save_dir
@@ -2814,10 +2870,8 @@ def phase_resilience(card: str, device="cuda", config=RES_CONFIG,
     out_path = root / "supervised.log"
     t0 = time.perf_counter()
     with open(out_path, "w") as out:
-        r = subprocess.run(cmd, cwd=REPO, env=dict(os.environ,
-                                                   PDT_FAULTS=faults),
-                           stdout=out, stderr=subprocess.STDOUT,
-                           timeout=RES_TIMEOUT_S)
+        r = subprocess.run(cmd, cwd=REPO, env=child_env, stdout=out,
+                           stderr=subprocess.STDOUT, timeout=RES_TIMEOUT_S)
     sup_wall = time.perf_counter() - t0
     output = out_path.read_text()
     if r.returncode != 0:
@@ -2838,6 +2892,11 @@ def phase_resilience(card: str, device="cuda", config=RES_CONFIG,
                 f"{att['first_step']}, not at the newest checkpoint that "
                 f"attempt {prev['attempt']} completed (step "
                 f"{prev['saved_step']})")
+    slot = _pre_kill_slot(faults, interval, per_epoch)
+    if attempts[1]["first_step"] != slot:
+        raise AssertionError(
+            f"attempt 2 started at step {attempts[1]['first_step']}, not "
+            f"at the batch of the slot before the kill (step {slot})")
     if attempts[2]["replayed"] != 0:
         raise AssertionError(f"steps replayed after the emergency save: "
                              f"{attempts[2]['replayed']}")
@@ -2883,6 +2942,15 @@ def phase_resilience(card: str, device="cuda", config=RES_CONFIG,
         "card": card}))
     shutil.rmtree(root)
     return launches
+
+
+def _pre_kill_slot(faults: str, interval: int, per_epoch: int) -> int:
+    """The global step of the newest checkpoint before the plan's
+    ``kill@step:K``: the last interval slot (or epoch edge) of K's
+    epoch at or before K."""
+    kill = int(re.search(r"kill@step:(\d+)", faults).group(1))
+    epoch, batch = divmod(kill, per_epoch)
+    return epoch * per_epoch + batch // interval * interval
 
 
 def _attempts(save_root: Path, events: Path) -> list:
@@ -2965,6 +3033,423 @@ def _assert_bitwise(got, want, where: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# slice 8: the other optimizers, mu_dtype, trainable, ReduceLROnPlateau; the
+# byte and BPE LMs and the real digits through the repository's configs
+# ---------------------------------------------------------------------------
+
+# phase 3e: each optimizer config takes OPTIM_REF_STEPS steps of the small
+# f32 GPT2 (d_model 128: the qkv, MLP and square projection kernels factor
+# under Adafactor); (label, optimizer block, lr_scale of the final update)
+OPTIM_DECAY = {"weight_decay": 0.1,
+               "weight_decay_exclude": ["bias$", "ln_", "wpe"]}
+OPTIM_REF = [
+    ("RMSprop", {"type": "RMSprop", "args": dict(
+        lr=1e-3, momentum=0.9, **OPTIM_DECAY)}, 1.0),
+    ("Adagrad", {"type": "Adagrad", "args": dict(lr=1e-2, **OPTIM_DECAY)},
+     1.0),
+    ("Adadelta", {"type": "Adadelta", "args": dict(lr=1.0, **OPTIM_DECAY)},
+     1.0),
+    ("Adamax", {"type": "Adamax", "args": dict(lr=2e-3, **OPTIM_DECAY)},
+     1.0),
+    ("NAdam", {"type": "NAdam", "args": dict(lr=2e-3, **OPTIM_DECAY)}, 1.0),
+    ("RAdam", {"type": "RAdam", "args": dict(lr=1e-3, **OPTIM_DECAY)}, 1.0),
+    ("Adafactor", {"type": "Adafactor", "args": dict(lr=1e-2,
+                                                     **OPTIM_DECAY)}, 1.0),
+    ("LARS", {"type": "LARS", "args": dict(lr=0.5, momentum=0.9,
+                                           **OPTIM_DECAY)}, 1.0),
+    ("LAMB", {"type": "LAMB", "args": dict(lr=1e-2, **OPTIM_DECAY)}, 1.0),
+    # a flipped sign moves a weight by 2 lr: at 1e-5, 2e-5 < the atol
+    ("Lion", {"type": "Lion", "args": dict(lr=1e-5, **OPTIM_DECAY)}, 1.0),
+    ("Adam_mu_bf16", {"type": "Adam", "args": {
+        "lr": 1e-3, "mu_dtype": "bfloat16"}}, 1.0),
+    ("AdamW_trainable", {"type": "AdamW", "args": dict(
+        lr=1e-3, trainable=["h_1/", "ln_f"], **OPTIM_DECAY)}, 1.0),
+    ("AdamW_plateau", {"type": "AdamW", "args": dict(lr=1e-3,
+                                                     **OPTIM_DECAY)}, 0.25),
+]
+OPTIM_REF_STEPS = 5
+# float32 on both sides, TF32 off: the card and the CPU differ by
+# summation order (and the kernels' f32 arms), as in phase 3c
+OPTIM_REF_TOL = {"loss_rtol": 1e-5, "param_atol": 1e-4}
+# the full-width part: cell (h)'s model (configs/gpt2_small.json's arch),
+# OPTIM_FULL_STEPS steps of each
+OPTIM_FULL_CONFIG = REPO / "configs" / "gpt2_small.json"
+OPTIM_FULL = [
+    ("AdamW", {"type": "AdamW", "args": dict(lr=6e-4, **OPTIM_DECAY)}),
+    ("Adafactor", {"type": "Adafactor", "args": dict(lr=1e-2,
+                                                     **OPTIM_DECAY)}),
+    ("Lion", {"type": "Lion", "args": dict(lr=1e-4, **OPTIM_DECAY)}),
+    ("Adam_mu_bf16", {"type": "Adam", "args": {"lr": 6e-4,
+                                               "mu_dtype": "bfloat16"}}),
+]
+OPTIM_FULL_STEPS = 3
+
+
+def _optim_ref_run(opt_cfg, scale, state, batches, device):
+    """``OPTIM_REF_STEPS`` train steps of the small GPT2 under ``opt_cfg``
+    (through ``build_optimizer``) on ``device``: (per-step losses, final
+    params on the CPU, the parameter names the optimizer holds)."""
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.config.registry import (
+        MODELS,
+    )
+    from pytorch_distributed_template_tpu_torch.engine import (
+        losses, optim, steps,
+    )
+
+    model = MODELS.get("GPT2")(**TRAIN_REF["GPT2"], device=device,
+                               param_dtype=torch.float32)
+    model.load_state_dict(state)
+    opt, lr_fn, _ = optim.build_optimizer({"optimizer": opt_cfg}, 1, model)
+    step = steps.make_train_step(
+        model, opt, losses.fused_lm_cross_entropy(16), input_key="tokens",
+        target_key="tokens", grad_clip_norm=1.0, lr_fn=lr_fn)
+    step.lr_scale = scale
+    out = []
+    for batch in batches:
+        m = step({k: torch.from_numpy(v).to(device)
+                  for k, v in batch.items()})
+        out.append(float(m["loss_sum"]) / float(m["count"]))
+    held = {n for n, p in model.named_parameters() if p in opt.state}
+    return out, {k: v.detach().cpu() for k, v in
+                 model.state_dict().items()}, held
+
+
+def phase_optim_reference(device="cuda", configs=OPTIM_REF) -> None:
+    """Phase 3e, first part: the small f32 GPT2 of phase 3c takes
+    ``OPTIM_REF_STEPS`` steps under each of ``OPTIM_REF`` (the ten
+    optimizers, Adam with a bf16 ``mu``, AdamW with ``trainable``, AdamW
+    under a forced plateau scale) on ``device`` and on the CPU from the
+    same weights and batches, TF32 off for this comparison only: per-step
+    losses and final params within ``OPTIM_REF_TOL``; the frozen params of
+    the ``trainable`` run unchanged on both."""
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.config.registry import (
+        MODELS,
+    )
+    from pytorch_distributed_template_tpu_torch.data.datasets import (
+        synthetic_lm,
+    )
+
+    args = TRAIN_REF["GPT2"]
+    cpu = MODELS.get("GPT2")(**args, device="cpu")
+    cpu.init_weights(torch.Generator().manual_seed(11))
+    state = cpu.state_dict()
+    toks = synthetic_lm(n=4 * OPTIM_REF_STEPS, seq_len=args["max_len"],
+                        vocab_size=args["vocab_size"], seed=2)["tokens"]
+    batches = [{"tokens": toks[4 * i:4 * i + 4], "mask": np.ones(4, bool)}
+               for i in range(OPTIM_REF_STEPS)]
+    t0 = time.perf_counter()
+    with _TF32(False, False) as tf32:
+        for label, opt_cfg, scale in configs:
+            dev_loss, dev_p, dev_held = _optim_ref_run(
+                opt_cfg, scale, state, batches, device)
+            cpu_loss, cpu_p, cpu_held = _optim_ref_run(
+                opt_cfg, scale, state, batches, "cpu")
+            loss_err = max(abs(a - b) / abs(b)
+                           for a, b in zip(dev_loss, cpu_loss))
+            param_err = max((dev_p[k] - cpu_p[k]).abs().max().item()
+                            for k in cpu_p)
+            moved = max((cpu_p[k] - state[k]).abs().max().item()
+                        for k in cpu_p)
+            frozen = sorted(k for k in cpu_p if k not in cpu_held)
+            row = {"optimizer": label, "config": opt_cfg,
+                   "lr_scale": scale, "steps": OPTIM_REF_STEPS,
+                   "losses_device": dev_loss, "losses_cpu": cpu_loss,
+                   "loss_max_rel_err": loss_err,
+                   "param_max_abs_err": param_err,
+                   "param_max_abs_change": moved, "frozen": len(frozen),
+                   "tol": OPTIM_REF_TOL, "device": str(device), **tf32}
+            log("[optim-reference] " + json.dumps(row))
+            if not (loss_err <= OPTIM_REF_TOL["loss_rtol"]
+                    and param_err <= OPTIM_REF_TOL["param_atol"]
+                    and moved > 0 and dev_held == cpu_held):
+                raise AssertionError(f"{label} on {device} differs from the "
+                                     f"CPU: {row}")
+            for k in frozen:
+                if not (torch.equal(dev_p[k], state[k])
+                        and torch.equal(cpu_p[k], state[k])):
+                    raise AssertionError(f"{label}: frozen {k} moved")
+            if "trainable" in opt_cfg["args"] and not frozen:
+                raise AssertionError(f"{label} froze nothing")
+    log(f"[optim-reference] {len(configs)} optimizer configs in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_optim_full(card: str, device="cuda",
+                     config=OPTIM_FULL_CONFIG) -> list:
+    """Phase 3e, second part: cell (h)'s model (the arch of
+    ``configs/gpt2_small.json``: GPT-2 small, bf16, remat, flash, fused
+    head) takes ``OPTIM_FULL_STEPS`` steps of its batch under each of
+    ``OPTIM_FULL``. Prints the optimizer-state bytes, which must equal
+    ``optim.expected_state_bytes`` (the parameter shapes' count), the step
+    ms and the peak memory, beside the card line."""
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.config.registry import (
+        MODELS,
+    )
+    from pytorch_distributed_template_tpu_torch.data.datasets import (
+        synthetic_lm,
+    )
+    from pytorch_distributed_template_tpu_torch.engine import (
+        losses, optim, steps,
+    )
+
+    cfg = json.loads(Path(config).read_text())
+    args = cfg["arch"]["args"]
+    bs = cfg["train_loader"]["args"]["batch_size"]
+    toks = synthetic_lm(n=bs * OPTIM_FULL_STEPS, seq_len=args["max_len"],
+                        vocab_size=args["vocab_size"], seed=3)["tokens"]
+    rows = []
+    for label, opt_cfg in OPTIM_FULL:
+        model = MODELS.get("GPT2")(**args, device=device)
+        model.init_weights(torch.Generator(device=device).manual_seed(0))
+        opt, lr_fn, _ = optim.build_optimizer({"optimizer": opt_cfg}, 1,
+                                              model)
+        step = steps.make_train_step(
+            model, opt, losses.fused_lm_cross_entropy(256),
+            input_key="tokens", target_key="tokens", grad_clip_norm=1.0,
+            lr_fn=lr_fn)
+        _sync(device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ms, step_losses = [], []
+        for i in range(OPTIM_FULL_STEPS):
+            batch = {"tokens": torch.from_numpy(
+                toks[bs * i:bs * (i + 1)]).to(device),
+                "mask": torch.ones(bs, dtype=torch.bool, device=device)}
+            _sync(device)
+            t0 = time.perf_counter()
+            m = step(batch)
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            step_losses.append(float(m["loss_sum"]) / float(m["count"]))
+        n = sum(p.numel() for p in model.parameters())
+        got, want = optim.state_bytes(opt), optim.expected_state_bytes(opt)
+        row = {"optimizer": label, "params": n, "state_bytes": got,
+               "expected_state_bytes": want,
+               "state_bytes_per_param": got / n, "losses": step_losses,
+               "step_ms": ms,
+               "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                if torch.device(device).type == "cuda"
+                                else "not measured"),
+               "card": card}
+        log("[optim-full] " + json.dumps(row))
+        if got != want or not all(np.isfinite(step_losses)):
+            raise AssertionError(f"{label} at full width: {row}")
+        rows.append(row)
+        del model, opt, step
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+LM_CORPUS_MB = 2.0
+BYTELM_CONFIG = REPO / "configs" / "bytelm_stdlib.json"
+BYTELM_SETS = [("trainer;epochs", 1)]
+BPELM_CONFIG = REPO / "configs" / "bpelm_stdlib.json"
+BPELM_SETS = [("trainer;epochs", 2), ("trainer;save_period", 1)]
+NLL_RTOL = 1e-5     # val_lm_nll against val_loss: the same mean NLL
+
+
+def phase_lm_configs(card: str, device="cuda", byte_config=BYTELM_CONFIG,
+                     byte_sets=BYTELM_SETS, bpe_config=BPELM_CONFIG,
+                     bpe_sets=BPELM_SETS, corpus_mb: float = LM_CORPUS_MB,
+                     work=WORK, seed: int = 0) -> dict:
+    """Phase 12, slice 8's LM path: a corpus of ``corpus_mb`` MB from the
+    port's ``tools/make_text_corpus.py``; ``configs/bytelm_stdlib.json``
+    for one epoch (no checkpoint at its ``save_period`` 2, so no resume;
+    ``byte_config`` None skips it),
+    then ``configs/bpelm_stdlib.json`` at full width for 2 epochs with a
+    resume, each through :func:`_train_path` (exact launches per step,
+    falling losses). Checks the BPE tokenizer is fitted once (the
+    validation loader and the resume reuse its caches: their mtimes
+    unchanged), the run pins it, and ``val_lm_nll`` equals ``val_loss``
+    within ``NLL_RTOL``. Returns the launches of both runs per kernel."""
+    from pytorch_distributed_template_tpu_torch.data import tokenizer
+    from pytorch_distributed_template_tpu_torch.tools import (
+        make_text_corpus,
+    )
+
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    data_dir = work / "lm_data"
+    t0 = time.perf_counter()
+    info = make_text_corpus.build(data_dir / "pystdlib.txt",
+                                  int(corpus_mb * 1e6))
+    log(f"[lm] corpus: {info['files']} files, {info['bytes']} bytes from "
+        f"{info['source']} in {time.perf_counter() - t0:.1f} s")
+    data_sets = [(f"{split};args;data_dir", str(data_dir))
+                 for split in ("train_loader", "valid_loader")]
+    if byte_config is not None:
+        t0 = time.perf_counter()
+        launches = _train_path(card, device, byte_config,
+                               list(byte_sets) + data_sets, work / "bytelm",
+                               seed, label="bytelm", resume=False)
+        log(f"[lm] bytelm phase in {time.perf_counter() - t0:.1f} s")
+
+    fits = []
+    fit = tokenizer.BpeTokenizer.train_from_file.__func__
+
+    def counted(cls, *a, **kw):
+        t = time.perf_counter()
+        out = fit(cls, *a, **kw)
+        fits.append(time.perf_counter() - t)
+        return out
+
+    stamps = {}
+
+    def check(trainer, run):
+        if len(fits) != 1:
+            raise AssertionError(f"the tokenizer was fitted {len(fits)} "
+                                 f"times for the train and valid loaders")
+        tok = Path(trainer.train_loader.tokenizer_path)
+        ids = tok.with_suffix(".npy")
+        stamps["main"] = (tok.stat().st_mtime_ns, ids.stat().st_mtime_ns)
+        stamps["paths"] = (tok, ids)
+        pinned = trainer.config.save_dir / "tokenizer.json"
+        if pinned.read_bytes() != tok.read_bytes():
+            raise AssertionError("the run did not pin its tokenizer")
+        for e in run.epoch_logs:
+            rel = abs(e["val_lm_nll"] - e["val_loss"]) / abs(e["val_loss"])
+            if rel > NLL_RTOL:
+                raise AssertionError(f"epoch {e['epoch']}: val_lm_nll "
+                                     f"{e['val_lm_nll']} against val_loss "
+                                     f"{e['val_loss']}")
+        log("[bpelm] tokenizer " + json.dumps({
+            "path": tok.name, "vocab": trainer.model.vocab_size,
+            "fits": len(fits), "fit_and_encode_s": fits,
+            "train_tokens": int(trainer.train_loader.arrays["tokens"].size),
+            "val_tokens": int(trainer.valid_loader.arrays["tokens"].size),
+            "train_steps_per_epoch": len(trainer.train_loader),
+            "val_steps_per_epoch": len(trainer.valid_loader),
+            "val_lm_nll": [e["val_lm_nll"] for e in run.epoch_logs],
+            "val_loss": [e["val_loss"] for e in run.epoch_logs],
+            "card": card}))
+
+    t0 = time.perf_counter()
+    tokenizer.BpeTokenizer.train_from_file = classmethod(counted)
+    try:
+        bpe = _train_path(card, device, bpe_config,
+                          list(bpe_sets) + data_sets, work / "bpelm", seed,
+                          label="bpelm", check=check)
+    finally:
+        tokenizer.BpeTokenizer.train_from_file = classmethod(fit)
+    tok, ids = stamps["paths"]
+    after = (tok.stat().st_mtime_ns, ids.stat().st_mtime_ns)
+    if len(fits) != 1 or after != stamps["main"]:
+        raise AssertionError(f"the tokenizer was fitted {len(fits)} times; "
+                             f"caches {stamps['main']} -> {after}")
+    log(f"[lm] bpelm phase in {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(data_dir)
+    return {k: launches[k] + bpe[k] for k in launches}
+
+
+DIGITS_CONFIG = REPO / "configs" / "digits.json"
+DIGITS_MIN_VAL_ACC = 0.95      # the JAX package's own bar
+DIGITS_KEYS = ("loss", "accuracy", "top_k_acc", "val_loss", "val_accuracy",
+               "val_top_k_acc")
+
+
+def phase_digits(card: str, device="cuda", config=DIGITS_CONFIG, sets=(),
+                 work=WORK, seed: int = 0,
+                 min_val_acc: float = DIGITS_MIN_VAL_ACC) -> dict:
+    """Phase 13: ``configs/digits.json`` as it is (LeNet, Adam with
+    amsgrad, StepLR, 40 epochs, early stop 15) on the real UCI digits
+    through the port's ``train.py``; the last epoch's held-out
+    ``val_accuracy`` must reach ``min_val_acc`` (the JAX package's test
+    reads the last epoch's too); then the port's ``test.py`` on
+    ``model_best`` gives the validation loss and metrics of the epoch it
+    holds (``TEST_RTOL``; it is written at ``save_period`` epochs that
+    improved; without one, the last epoch checkpoint). Prints ms per step
+    and the wall time."""
+    from pytorch_distributed_template_tpu_torch import test as test_cli
+    from pytorch_distributed_template_tpu_torch import train as train_cli
+
+    root = work / "digits"
+    if root.exists():
+        shutil.rmtree(root)
+    argv = ["-c", str(config), "-s", str(root / "main"), "--device",
+            str(device), "--seed", str(seed)]
+    for chain, value in sets:
+        argv += ["--set", chain, json.dumps(value)]
+    box, logs, step_ms = {}, [], []
+
+    def hook(trainer):
+        box["trainer"] = trainer
+        real_epoch, real_step = trainer._train_epoch, trainer.train_step
+
+        def epoch(e):
+            out = real_epoch(e)
+            logs.append(dict(out, epoch=e))
+            return out
+
+        def call(batch):
+            _sync(device)
+            t = time.perf_counter()
+            m = real_step(batch)
+            _sync(device)
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return m
+
+        trainer._train_epoch = epoch
+        trainer.train_step = _Wrapped(real_step, call)
+        log(f"[digits] {type(trainer.model).__name__} on {trainer.device}: "
+            f"{trainer.train_loader.n_samples} train and "
+            f"{trainer.valid_loader.n_samples} validation images, batch "
+            f"{trainer.train_loader.batch_size}, {trainer.epochs} epochs, "
+            f"{type(trainer.optimizer).__name__}; cuts: {list(sets)}")
+
+    t0 = time.perf_counter()
+    train_cli.main(argv, on_trainer=hook)
+    wall = time.perf_counter() - t0
+    trainer = box["trainer"]
+    for e in logs:
+        if not all(np.isfinite(e[k]) for k in DIGITS_KEYS):
+            raise AssertionError(f"epoch {e['epoch']}: {e}")
+    best = None
+    for e in logs:     # the trainer's rule: max val_accuracy, >= wins
+        if best is None or e["val_accuracy"] >= best["val_accuracy"]:
+            best = e
+    # model_best is written at a save_period epoch that improved (the
+    # epoch its meta names); without one, the last epoch checkpoint
+    run_dir = trainer.config.save_dir
+    ckpt = run_dir / "model_best"
+    if not ckpt.is_dir():
+        ckpt = max(run_dir.glob("checkpoint-epoch*[0-9]"),
+                   key=lambda c: int(c.name.rsplit("epoch", 1)[1]))
+    saved = json.loads((ckpt.parent / f"{ckpt.name}.meta.json").read_text())
+    held = logs[int(saved["epoch"]) - 1]
+    row = {"config": str(Path(config).relative_to(REPO)),
+           "epochs_run": len(logs), "wall_s": wall,
+           "ms_per_step_median": float(np.median(step_ms[1:] or step_ms)),
+           "steps": len(step_ms), "best_epoch": best["epoch"],
+           "best": {k: best[k] for k in DIGITS_KEYS},
+           "tested": ckpt.name, "tested_epoch": held["epoch"],
+           "final": {k: logs[-1][k] for k in DIGITS_KEYS},
+           "min_val_accuracy": min_val_acc, "card": card}
+    log("[digits] " + json.dumps(row))
+    if logs[-1]["val_accuracy"] < min_val_acc:
+        raise AssertionError(f"val_accuracy {logs[-1]['val_accuracy']} is "
+                             f"under {min_val_acc}")
+    result = test_cli.main(["-r", str(ckpt), "-s",
+                            str(root / "test"), "--device", str(device)])
+    errs = {k: abs(result[k] - held[f"val_{k}"]) / abs(held[f"val_{k}"])
+            for k in ("loss", "accuracy", "top_k_acc")}
+    log("[digits] test.py " + json.dumps({
+        "tested": ckpt.name, "epoch": held["epoch"], "test": result,
+        "rel_err_vs_its_val": errs, "rtol": TEST_RTOL}))
+    if max(errs.values()) > TEST_RTOL:
+        raise AssertionError(f"test.py differs from model_best's epoch's "
+                             f"validation: {errs}")
+    del trainer, box
+    gc.collect()
+    shutil.rmtree(root)
+    row["test"] = result
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2974,28 +3459,52 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"[device] {name} | nvidia-smi: {card}")
     t_start = time.perf_counter()
-    phase_build()
-    rows = phase_kernel()
-    paged_rows = phase_paged_kernel()
-    bwd_rows = phase_bwd_kernel()
-    ffn_rows = phase_expert_ffn_kernel()
-    phase_reference()
-    phase_paged_reference()
-    phase_train_reference()
-    phase_moe_train_reference()
-    flash_launches = phase_main(card, keep_artifact=True)
-    paged_launches = phase_serve(card, WORK / "art" / "model")
-    train_launches = phase_train(card)
-    moe_launches = phase_moe_train(card)
-    phase_lenet_reference()
-    phase_mnist(card)
-    obs_launches = phase_observe(card)
-    res_launches = phase_resilience(card)
+    times = {}
+
+    def timed(phase, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        times[phase] = time.perf_counter() - t0
+        log(f"[time] phase {phase}: {times[phase]:.1f} s | {card}")
+        return out
+
+    from pytorch_distributed_template_tpu_torch.data import native
+
+    timed("1", phase_build)
+    rows = timed("2", phase_kernel)
+    paged_rows = timed("2b", phase_paged_kernel)
+    bwd_rows = timed("2c", phase_bwd_kernel)
+    ffn_rows = timed("2d", phase_expert_ffn_kernel)
+    timed("3", phase_reference)
+    timed("3b", phase_paged_reference)
+    timed("3c", phase_train_reference)
+    timed("3d", phase_moe_train_reference)
+    timed("3e", lambda: (phase_optim_reference(), phase_optim_full(card)))
+    flash_launches = timed("4", phase_main, card, keep_artifact=True)
+    paged_launches = timed("5", phase_serve, card, WORK / "art" / "model")
+    train_launches = timed("6", phase_train, card)
+    moe_launches = timed("7", phase_moe_train, card)
+    timed("8", phase_lenet_reference)
+    timed("9", phase_mnist, card)
+    obs_launches = timed("10", phase_observe, card)
+    res_launches = timed("11", phase_resilience, card)
+    native.CALLS.reset()
+    lm_launches = timed("12", phase_lm_configs, card)
+    gathers = {"12": native.CALLS.calls}
+    native.CALLS.reset()
+    timed("13", phase_digits, card)
+    gathers["13"] = native.CALLS.calls
+    log("[native] gathers " + json.dumps(gathers))
+    if not all(gathers.values()):
+        raise AssertionError(f"the native batcher did not gather in every "
+                             f"phase: {gathers}")
+    log("[time] " + json.dumps({"phases_s": times, "card": card}))
     shutil.rmtree(WORK)
     log(f"[device] all phases in {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for kern in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
-        train_launches[kern] += obs_launches[kern] + res_launches[kern]
+        train_launches[kern] += (obs_launches[kern] + res_launches[kern]
+                                 + lm_launches[kern])
     flash_launches += train_launches["flash_fwd"] + moe_launches["flash_fwd"]
     for kernel, source, replaces, launches, shapes in (
             ("flash_fwd", KERNEL_SOURCE, KERNEL_REPLACES, flash_launches,

@@ -17,9 +17,11 @@ read the JAX package's orbax checkpoints.
 
 Every directory is written whole into a hidden temporary directory beside
 it, then renamed into place, and its sidecars are written after it (each
-by a rename): a kill at any point leaves either the old checkpoint or the
-new one, never a torn one, and a slot whose sidecars are missing ranks
-below every other checkpoint (``config.parser.find_latest_checkpoint``).
+by a rename, the ``data_state`` cursor before the meta): a kill at any
+point leaves either the old checkpoint or the new one, never a torn one:
+a slot without its meta ranks below every other checkpoint
+(``config.parser.find_latest_checkpoint``), and a slot without its cursor
+resumes at the start of its own epoch, with a warning (the trainer).
 The interval slots alternate, so one of them is always complete.
 
 An interval save stops the step loop only for a host copy of the state
@@ -164,10 +166,13 @@ def _write_checkpoint(path: Path, payload: dict, meta: dict,
             done.result()
     nbytes = sum(f.stat().st_size for f in tmp.iterdir())
     _replace_dir(tmp, path)
-    _write_json(path.parent / f"{path.name}.meta.json", meta)
+    # the cursor before the meta: a kill between the two leaves a slot
+    # without meta (ranked at epoch 0), never one that ranks by its meta
+    # and has no cursor (resumed at epoch + 1, the epoch's rest skipped)
     if data_state is not None:
         _write_json(path.parent / f"{path.name}.data_state.json",
                     data_state)
+    _write_json(path.parent / f"{path.name}.meta.json", meta)
     return nbytes
 
 

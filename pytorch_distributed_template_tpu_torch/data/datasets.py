@@ -1,23 +1,32 @@
 """Datasets and their loaders, registered in ``config.LOADERS``: the port
 of the JAX package's ``data/datasets.py`` for the LM family
-(``synthetic_lm``, ``SyntheticLMLoader``, ``ByteLMLoader``) and MNIST
-(``_synthetic_image_classification``, ``synthetic_mnist``,
-``_try_load_mnist``, ``MnistDataLoader``).
+(``synthetic_lm``, ``SyntheticLMLoader``, ``ByteLMLoader``,
+``BpeLMLoader``), MNIST (``_synthetic_image_classification``,
+``synthetic_mnist``, ``_try_load_mnist``, ``MnistDataLoader``), the real
+UCI digits (``DigitsDataLoader``) and ``.npy`` arrays
+(``NpyDataLoader``).
 
 The arrays are byte-identical to the JAX package's (same numpy Philox
 generators, same seeds, the same memory-mapped bytes). Real MNIST is read
 from raw or gzipped idx files anywhere under ``data_dir``; nothing is
 downloaded, so without them the loader falls back to the deterministic,
-learnable synthetic set of the same shapes. Every loader shards over the
-process group's ranks (a ``ShardedSampler``) when there is more than one
-process. ``BpeLMLoader`` is registered so a config naming it fails with
-the slice it waits for.
+learnable synthetic set of the same shapes. The digits are the port's own
+``digits.csv.gz``, a byte copy of the file scikit-learn ships (the UCI
+optical-recognition test set, 1,797 8x8 images; BSD-3 with
+scikit-learn), read with ``gzip`` and numpy. ``BpeLMLoader``'s tokenizer
+and id-stream caches have the JAX package's paths and formats
+(``tokenizer.bpe_cache_path``), so a cache either package wrote loads in
+the other. Every loader shards over the process group's ranks (a
+``ShardedSampler``) when there is more than one process.
 """
 from __future__ import annotations
 
 import gzip
 import logging
+import os
+import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -26,8 +35,7 @@ from ..parallel import dist
 from .loader import ArrayDataLoader
 from .sampler import ShardedSampler
 
-_SLICE_BPE = ("BpeLMLoader (its tokenizer cache) is a later slice (the "
-              "data layer)")
+DIGITS_CSV = Path(__file__).parent / "digits.csv.gz"
 logger = logging.getLogger(__name__)
 
 
@@ -98,7 +106,8 @@ def _try_load_mnist(data_dir: Path, training: bool):
 
 
 def _make_image_loader(dataset: dict, batch_size: int, shuffle: bool,
-                       drop_last: bool = False, seed: int = 0):
+                       drop_last: bool = False, seed: int = 0,
+                       normalize: Optional[dict] = None):
     """An ``ArrayDataLoader``, sharded over the ranks by a
     ``ShardedSampler`` when there is more than one process."""
     sampler = None
@@ -106,7 +115,8 @@ def _make_image_loader(dataset: dict, batch_size: int, shuffle: bool,
         sampler = ShardedSampler(len(next(iter(dataset.values()))),
                                  shuffle=shuffle, seed=seed)
     return ArrayDataLoader(dataset, batch_size=batch_size, shuffle=shuffle,
-                           sampler=sampler, drop_last=drop_last, seed=seed)
+                           sampler=sampler, drop_last=drop_last, seed=seed,
+                           normalize=normalize)
 
 
 @LOADERS.register("MnistDataLoader")
@@ -197,5 +207,144 @@ def byte_lm_loader(data_dir: str = "data/", batch_size: int = 8,
 
 
 @LOADERS.register("BpeLMLoader")
-def bpe_lm_loader(**kwargs):
-    raise NotImplementedError(_SLICE_BPE)
+def bpe_lm_loader(data_dir: str = "data/", batch_size: int = 8,
+                  shuffle: bool = True, num_workers: int = 0,
+                  training: bool = True, file: str = "input.txt",
+                  seq_len: int = 256, vocab_size: int = 1024,
+                  val_fraction: float = 0.1, seed: int = 0):
+    """Subword LM over any local text file: a byte-level BPE tokenizer
+    (data/tokenizer.py) fitted once per ``(file, vocab_size, train
+    fraction)`` on the bytes before the ``1 - val_fraction`` cut, and the
+    file's id stream, both cached beside the file (rank 0 builds them with
+    atomic writes; the other ranks poll for them, so ``data_dir`` must be
+    shared). The split falls at the token that covers the byte cut
+    (``token_index_at_byte``); then non-overlapping ``seq_len`` windows,
+    as ``ByteLMLoader``, with its synthetic fallback when the file is
+    absent. ``loader.tokenizer_path`` names the tokenizer (the trainer
+    pins a copy in the run directory)."""
+    del num_workers
+    from .tokenizer import BpeTokenizer, bpe_cache_path, token_index_at_byte
+
+    path = Path(data_dir) / file
+    if not path.exists():
+        logger.warning("BpeLMLoader: %s not found; using synthetic LM "
+                       "data.", path)
+        data = synthetic_lm(n=2048, seq_len=seq_len, vocab_size=vocab_size,
+                            seed=seed, training=training)
+        return _make_image_loader(data, batch_size, shuffle, seed=seed)
+    tok_path = bpe_cache_path(data_dir, file, vocab_size,
+                              val_fraction=val_fraction)
+    ids_path = tok_path.with_suffix(".npy")
+    src_mtime = path.stat().st_mtime
+
+    def caches_fresh():
+        return (tok_path.exists() and ids_path.exists()
+                and tok_path.stat().st_mtime >= src_mtime
+                and ids_path.stat().st_mtime >= tok_path.stat().st_mtime)
+
+    if not caches_fresh():
+        if dist.is_main_process():
+            logger.info("BpeLMLoader: training %d-vocab BPE on %s ...",
+                        vocab_size, path)
+            tok = BpeTokenizer.train_from_file(
+                path, vocab_size, sample_until=1.0 - val_fraction)
+            tok.save(tok_path)
+            logger.info("BpeLMLoader: tokenizing %s ...", path)
+            ids = tok.encode_file(path)
+            dtype = np.uint16 if tok.vocab_size <= 65536 else np.int32
+            tmp = ids_path.with_name(ids_path.name + f".tmp{os.getpid()}")
+            with open(tmp, "wb") as f:   # a handle: np.save adds no suffix
+                np.save(f, ids.astype(dtype))
+            os.replace(tmp, ids_path)
+        else:
+            deadline = time.time() + 1800
+            while not caches_fresh():
+                if time.time() > deadline:
+                    raise TimeoutError(
+                        f"BpeLMLoader: timed out waiting for rank 0 to "
+                        f"build {tok_path} / {ids_path}: every rank needs "
+                        "data_dir on a filesystem it shares with rank 0")
+                time.sleep(2.0)
+    tok = BpeTokenizer.load(tok_path)
+    ids = np.load(ids_path, mmap_mode="r")
+    split = token_index_at_byte(
+        tok, ids, int(path.stat().st_size * (1.0 - val_fraction)))
+    part = ids[:split] if training else ids[split:]
+    n_chunks = len(part) // seq_len
+    if n_chunks == 0:
+        raise ValueError(
+            f"BpeLMLoader: {path} too small for one {seq_len}-token "
+            f"{'train' if training else 'val'} sequence")
+    tokens = np.asarray(part[: n_chunks * seq_len]).reshape(n_chunks,
+                                                            seq_len)
+    loader = _make_image_loader({"tokens": tokens}, batch_size, shuffle,
+                                seed=seed)
+    loader.tokenizer_path = tok_path
+    return loader
+
+
+def _load_real_digits(training: bool, val_fraction: float, seed: int):
+    """The UCI digits (``DIGITS_CSV``: 64 pixel columns of 0-16, then the
+    label) as the JAX package's ``_load_real_digits`` gives them: a Philox
+    permutation of ``seed`` splits train from validation, the 8x8 images
+    go 3x nearest-upsampled to 24x24 and zero-padded to LeNet's 28x28,
+    normalised by ``(x - 0.2243) / 0.3494`` (the whole upsampled set's
+    statistics)."""
+    with gzip.open(DIGITS_CSV, "rt") as f:
+        data = np.loadtxt(f, delimiter=",")
+    images = data[:, :-1].reshape(-1, 8, 8).astype(np.float32) / 16.0
+    labels = data[:, -1].astype(int).astype(np.int32)
+    perm = np.random.Generator(np.random.Philox(key=seed)).permutation(
+        len(images))
+    n_train = len(images) - int(len(images) * val_fraction)
+    idx = perm[:n_train] if training else perm[n_train:]
+    x = images[idx][..., None]                          # [n, 8, 8, 1]
+    x = np.repeat(np.repeat(x, 3, axis=1), 3, axis=2)   # [n, 24, 24, 1]
+    x = np.pad(x, ((0, 0), (2, 2), (2, 2), (0, 0)))     # [n, 28, 28, 1]
+    x = (x - 0.2243) / 0.3494
+    return {"image": x.astype(np.float32), "label": labels[idx]}
+
+
+@LOADERS.register("DigitsDataLoader")
+def digits_loader(data_dir: str = "data/", batch_size: int = 128,
+                  shuffle: bool = True, num_workers: int = 0,
+                  training: bool = True, val_fraction: float = 0.2,
+                  seed: int = 0):
+    """Real handwritten-digit classification (1,438 train and 359
+    validation images at the default split) in MNIST's shapes, for
+    LeNet. ``data_dir`` is accepted and ignored: the data ships with the
+    package."""
+    del num_workers, data_dir
+    data = _load_real_digits(training, val_fraction, seed=seed)
+    return _make_image_loader(data, batch_size, shuffle, seed=seed)
+
+
+@LOADERS.register("NpyDataLoader")
+def npy_loader(data_dir: str = "data/", batch_size: int = 128,
+               shuffle: bool = True, num_workers: int = 0,
+               training: bool = True, files: Optional[dict] = None,
+               mmap: bool = True, seed: int = 0,
+               normalize: Optional[dict] = None):
+    """Any dataset preprocessed into aligned ``.npy`` arrays. ``files``
+    maps a batch key to a file under ``data_dir``; ``{split}`` in a name
+    becomes ``train`` or ``val`` (default ``{"image":
+    "{split}_images.npy", "label": "{split}_labels.npy"}``). ``mmap``
+    memory-maps the arrays (the native gather copies out of the mapped
+    pages); labels are cast to int32; a uint8 image array takes
+    ``normalize`` (``ArrayDataLoader``)."""
+    del num_workers
+    split = "train" if training else "val"
+    files = files or {"image": "{split}_images.npy",
+                      "label": "{split}_labels.npy"}
+    arrays = {}
+    for key, fname in files.items():
+        path = Path(data_dir) / fname.format(split=split)
+        if not path.exists():
+            raise FileNotFoundError(
+                f"NpyDataLoader: {path} not found (key '{key}')")
+        arr = np.load(path, mmap_mode="r" if mmap else None)
+        if key == "label":
+            arr = np.asarray(arr, dtype=np.int32)
+        arrays[key] = arr
+    return _make_image_loader(arrays, batch_size, shuffle, seed=seed,
+                              normalize=normalize)

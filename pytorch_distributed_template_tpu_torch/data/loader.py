@@ -1,6 +1,6 @@
 """Batched loading of in-memory numpy arrays and the host->device prefetch:
 the port of the JAX package's ``data/loader.py`` (``ArrayDataLoader``,
-``prefetch_to_device``).
+``host_prefetch``, ``prefetch_to_device``).
 
 Batches are dicts of numpy arrays. Without a sampler the order is
 ``epoch_permutation(seed, epoch, n)`` when shuffling, else ``0..n-1``; a
@@ -12,6 +12,15 @@ combined. Same indices, same padding, same masks as the JAX loader. Each
 batch passes the fault hook ``faults.on_loader_batch`` (``loader_raise``)
 before its gather, as in the JAX loader, and the gather and the copy to
 the device run in the spans ``data/host_gather`` and ``data/device_put``.
+Every array is gathered by the native multithreaded batcher
+(``data/native``, numpy for what it cannot take). ``normalize`` (a uint8
+image array) gives float32 ``(x / 255 - mean) / std`` batches through the
+fused native gather, or, with ``on_device``, keeps them uint8 across the
+copy and normalises on the device (:attr:`ArrayDataLoader.
+device_transform`, which ``prefetch_to_device`` applies).
+
+:func:`host_prefetch` assembles batches on a background thread, ``depth``
+ahead of the consumer (the role of the reference's loader workers).
 
 :func:`prefetch_to_device` moves batches to a CUDA device ahead of use:
 pinned host copies, ``non_blocking`` transfers on a side stream, and the
@@ -23,12 +32,12 @@ the arrays as tensors.
 :meth:`ArrayDataLoader.iter_batches` starts an epoch at a batch ordinal
 without gathering the batches before it (step-accurate resume).
 
-Left to ROADMAP A17: ``normalize`` (uint8 image storage) and the native
-multithreaded gather (``data/native/batcher.cpp``).
 """
 from __future__ import annotations
 
 import collections
+import queue
+import threading
 from typing import Iterable, Iterator, Optional
 
 import numpy as np
@@ -36,6 +45,7 @@ import torch
 
 from ..observability.trace import span
 from ..resilience import faults
+from . import native
 from .sampler import ShardedSampler, epoch_permutation
 
 
@@ -49,11 +59,15 @@ class ArrayDataLoader:
         ignored when ``sampler`` is given.
     :param sampler: a ``ShardedSampler`` that owns the index order.
     :param drop_last: drop the trailing partial batch instead of padding.
+    :param normalize: ``{"key": "image", "mean": [...], "std": [...]}``
+        for a uint8 array with a trailing channel dim; ``"on_device":
+        true`` defers it past the copy (:attr:`device_transform`).
     """
 
     def __init__(self, arrays: dict, batch_size: int, shuffle: bool = True,
                  sampler: Optional[ShardedSampler] = None,
-                 drop_last: bool = False, seed: int = 0):
+                 drop_last: bool = False, seed: int = 0,
+                 normalize: Optional[dict] = None):
         if not arrays:
             raise ValueError("arrays must be a non-empty dict")
         lens = {k: len(v) for k, v in arrays.items()}
@@ -68,6 +82,49 @@ class ArrayDataLoader:
         self.drop_last = bool(drop_last)
         self.seed = seed
         self.epoch = 0
+        self.normalize = dict(normalize) if normalize else None
+        self._norm_on_device = False
+        if self.normalize:
+            if not ("mean" in self.normalize and "std" in self.normalize):
+                raise ValueError("normalize needs 'mean' and 'std'")
+            key = self.normalize.get("key", "image")
+            if key not in arrays:
+                raise ValueError(f"normalize key {key!r} not in arrays "
+                                 f"{sorted(arrays)}")
+            if arrays[key].dtype != np.uint8:
+                raise ValueError(
+                    f"normalize targets uint8 storage; array {key!r} is "
+                    f"{arrays[key].dtype} — pre-normalized data should "
+                    "drop the normalize option")
+            self._norm_on_device = bool(self.normalize.get("on_device"))
+
+    @property
+    def device_transform(self):
+        """With ``normalize.on_device``: ``batch -> batch`` with the image
+        tensor made float32 ``(x / 255 - mean) / std`` on its device (a
+        batch without the key passes unchanged); else None."""
+        if not self._norm_on_device:
+            return None
+        key = self.normalize.get("key", "image")
+        mean = torch.tensor(self.normalize["mean"], dtype=torch.float32)
+        std = torch.tensor(self.normalize["std"], dtype=torch.float32)
+
+        def transform(batch: dict) -> dict:
+            if key not in batch:
+                return batch
+            x = batch[key]
+            x = x.float() / 255.0
+            return {**batch, key: (x - mean.to(x.device)) / std.to(x.device)}
+
+        return transform
+
+    def _gather(self, key: str, v, batch_idx) -> np.ndarray:
+        if (self.normalize is not None and not self._norm_on_device
+                and key == self.normalize.get("key", "image")):
+            return native.gather_normalize_u8(
+                v, batch_idx, np.asarray(self.normalize["mean"], np.float32),
+                np.asarray(self.normalize["std"], np.float32))
+        return native.gather(v, batch_idx)
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -110,7 +167,8 @@ class ArrayDataLoader:
                 batch_idx = np.concatenate([batch_idx, np.resize(idx, pad)])
                 mask = np.concatenate([mask, np.zeros(pad, dtype=bool)])
             with span("data/host_gather"):
-                batch = {k: v[batch_idx] for k, v in self.arrays.items()}
+                batch = {k: self._gather(k, v, batch_idx)
+                         for k, v in self.arrays.items()}
             batch["mask"] = mask
             yield batch
 
@@ -128,17 +186,67 @@ def to_tensors(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
-def prefetch_to_device(batches: Iterable[dict], device,
-                       depth: int = 2) -> Iterator[dict]:
+def host_prefetch(iterable: Iterable, depth: int = 2) -> Iterator:
+    """``iterable``'s items assembled on a background thread, at most
+    ``depth`` ahead of the consumer (a bounded queue). An exception in the
+    thread is raised where the consumer reaches it; a consumer that stops
+    early releases the thread and the buffered items."""
+    q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
+    done = object()
+    stop = threading.Event()
+
+    def worker():
+        try:
+            for item in iterable:
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.1)
+                        break
+                    except queue.Full:
+                        pass
+                if stop.is_set():
+                    return
+            q.put(done)
+        except BaseException as exc:  # noqa: BLE001 — to the consumer
+            if not stop.is_set():
+                q.put(exc)
+
+    thread = threading.Thread(target=worker, daemon=True,
+                              name="host-prefetch")
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        while True:
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+
+
+def prefetch_to_device(batches: Iterable[dict], device, depth: int = 2,
+                       transform=None) -> Iterator[dict]:
     """Yield ``batches`` as tensors on ``device``, keeping ``depth``
     batches' host->device copies in flight on a side CUDA stream. On a
-    non-CUDA device each batch is converted when it is reached."""
+    non-CUDA device each batch is converted when it is reached.
+    ``transform`` (a loader's ``device_transform``) runs on each batch
+    once it is on the device."""
     device = torch.device(device)
+    if transform is None:
+        def transform(batch):
+            return batch
     if device.type != "cuda":
         for batch in batches:
             with span("data/device_put"):
                 out = to_tensors(batch, device)
-            yield out
+            yield transform(out)
         return
     copy_stream = torch.cuda.Stream(device)
     in_flight = collections.deque()
@@ -166,4 +274,4 @@ def prefetch_to_device(batches: Iterable[dict], device,
         nxt = next(it, None)
         if nxt is not None:
             in_flight.append(put(nxt))
-        yield out
+        yield transform(out)

@@ -1,7 +1,8 @@
 """Byte-level BPE tokenizer: train / encode / decode / save, in-tree.
 
 A copy of ``pytorch_distributed_template_tpu/data/tokenizer.py``
-(``BpeTokenizer``, ``tokenizer_from_config``): that module is numpy-only,
+(``BpeTokenizer``, ``token_index_at_byte``, ``tokenizer_from_config``,
+``bpe_cache_path``): that module is numpy-only,
 but importing it goes through the JAX package's ``data/__init__``, which
 imports JAX, so the port keeps its own copy. Tokenizer files are shared:
 one written by either package loads in the other.
@@ -236,6 +237,32 @@ class BpeTokenizer:
         if spec.get("format") != "bpe-bytelevel-v1":
             raise ValueError(f"{path}: not a bpe-bytelevel-v1 tokenizer")
         return cls([tuple(m) for m in spec["merges"]])
+
+
+def token_index_at_byte(tok: BpeTokenizer, ids, byte_cut: int) -> int:
+    """Index of the first token whose bytes start at or after
+    ``byte_cut`` in the original file.
+
+    Token byte lengths are exact (chunked encoding never merges across
+    chunk bounds, so summed token lengths reproduce file offsets).
+    Lets a loader place its train/val split at the SAME byte position
+    the tokenizer's fit stopped at — a fraction of the id stream only
+    approximates it, because bytes-per-token differs between head and
+    tail."""
+    lens = np.array([len(v) for v in tok.vocab], np.int64)
+    total, chunk = 0, 1 << 22
+    for i in range(0, len(ids), chunk):
+        seg = lens[np.asarray(ids[i: i + chunk])]
+        s = int(seg.sum())
+        if total + s < byte_cut:
+            total += s
+            continue
+        # boundary in this chunk: the straddling token goes to TRAIN
+        # (its bytes begin before the cut), so the split is after the
+        # first token whose cumulative coverage reaches the cut
+        cum = total + np.cumsum(seg)
+        return i + int(np.searchsorted(cum, byte_cut, side="left")) + 1
+    return len(ids)
 
 
 def tokenizer_from_config(config) -> "BpeTokenizer | None":

@@ -86,7 +86,9 @@ def evaluate(config, device, save_outputs=None, seed=None) -> dict:
                                input_key=input_key, target_key=target_key)
     depth = max(int(config["trainer"].get("prefetch_depth", 2)), 1)
     accum, dumped_out, dumped_tgt = None, [], []
-    for batch in prefetch_to_device(test_loader, device, depth):
+    for batch in prefetch_to_device(
+            test_loader, device, depth,
+            getattr(test_loader, "device_transform", None)):
         m = eval_step(batch)
         accum = m if accum is None else {k: accum[k] + v
                                          for k, v in m.items()}

@@ -1,5 +1,6 @@
 """Metrics: the port of the JAX package's ``engine/metrics.py``
-(``accuracy``, ``top_k_acc``, ``lm_token_accuracy``, ``lm_bits_per_byte``).
+(``accuracy``, ``top_k_acc``, ``lm_token_accuracy``, ``lm_bits_per_byte``,
+``lm_nll``).
 
 Metrics are per-example functions ``(output, target) -> [B]`` computed
 without gradients; the steps reduce them with the padding mask as
@@ -68,3 +69,16 @@ def lm_bits_per_byte(output, target):
     if isinstance(output, tuple):
         return fused_lm_cross_entropy(chunk=256)(output, target) / _LN2
     return lm_cross_entropy(output, target) / _LN2
+
+
+@METRICS.register("lm_nll")
+def lm_nll(output, target):
+    """Per-example next-token negative log likelihood in nats per token
+    (the subword counterpart of ``lm_bits_per_byte``; ``exp`` of the
+    aggregated value is the corpus perplexity). Plain ``[B, T, V]`` logits
+    or the fused head's ``(hidden, head_w)``, through the loss
+    implementations (fused: chunk 256); differentiable, as the JAX
+    function is."""
+    if isinstance(output, tuple):
+        return fused_lm_cross_entropy(chunk=256)(output, target)
+    return lm_cross_entropy(output, target)

@@ -21,12 +21,26 @@ last batch is mostly padding as much as a full one.) Every rank holds the
 global statistics, so every rank takes the same monitor and early-stop
 decisions. Clipping runs after DDP's gradient all-reduce.
 
-``skip_nonfinite``: when the loss or any gradient is non-finite the update
-is skipped (params and optimizer moments untouched, the schedule and
-Adam's step count not advanced), the step's statistics are zeroed and
-``skipped_sum`` counts it. The JAX step decides this branchlessly inside
-the compiled program; here the decision reads one scalar back to the host
-per step.
+``skip_nonfinite``: when the loss or any gradient *after the clip* is
+non-finite the update is skipped (params and optimizer moments untouched,
+the schedule and Adam's step count not advanced), the step's statistics
+are zeroed and ``skipped_sum`` counts it. As in the JAX step, a global
+norm that overflows while every gradient is finite clips them to zeros
+(scale 0), and that step applies (AdamW's decay with it). The JAX step
+decides this branchlessly inside the compiled program; here the decision
+reads one scalar back to the host per step.
+
+``trainable`` (``optimizer.args.trainable``): the parameters the
+optimizer's groups leave out are frozen; their gradients are dropped
+after the backward, so the global norm, the clip, the health summary and
+the update see the trainable ones alone (the JAX step zeroes them).
+``lr_scale`` (:attr:`TrainStep.lr_scale`, ``ReduceLROnPlateau``'s
+controller sets it per epoch) multiplies the final update
+(``optim.set_lr``) and is saved with the counters. ``debug.nan_check``
+raises ``FloatingPointError`` at the first step whose loss or gradients
+(the injected ``nan_grad`` included) are not finite, as ``jax_debug_nans``
+stops the JAX step; autograd's anomaly mode names a backward function
+that made a NaN.
 
 Dropout draws from ``fold_in(seed, step)`` (the JAX step's
 ``fold_in(state.rng, state.step)``), folded further per layer and site by
@@ -86,8 +100,8 @@ step's finiteness anyway and counts only on a non-finite step (exact:
 on a finite step every count is 0); without it the counts are taken on
 the device every step, which costs no read.
 
-Refused by name, each naming its slice: ``trainable_patterns`` (ROADMAP
-A17), ``augment``, ``mixup_alpha`` (A12).
+Refused by name, naming their slice: ``augment``, ``mixup_alpha``
+(ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -102,7 +116,7 @@ from ..observability.health import (
     nonfinite_by_group, pack_health_summary, parameter_groups,
 )
 from ..parallel import dist
-from ..utils.util import LATER_A17
+from .optim import set_lr
 
 _LATER_AUGMENT = "ROADMAP A12 (ops/augment.py, with the other model families)"
 
@@ -120,10 +134,8 @@ def _detached(output):
     return output.detach()
 
 
-def _refuse(augment=None, mixup_alpha=0.0,
-            trainable_patterns=None) -> None:
-    later = {"trainable": (bool(trainable_patterns), LATER_A17),
-             "augment": (augment is not None, _LATER_AUGMENT),
+def _refuse(augment=None, mixup_alpha=0.0) -> None:
+    later = {"augment": (augment is not None, _LATER_AUGMENT),
              "mixup_alpha": (mixup_alpha > 0, _LATER_AUGMENT)}
     for name, (on, where) in later.items():
         if on:
@@ -155,7 +167,8 @@ class TrainStep:
                  skip_nonfinite: bool, lr_fn: Callable[[int], float],
                  seed: int, log_grad_norm: bool = False,
                  health: bool = False, inject_nan_grad_step=None,
-                 grad_accum_steps: int = 1, ema_decay: float = 0.0):
+                 grad_accum_steps: int = 1, ema_decay: float = 0.0,
+                 nan_check: bool = False):
         self.model, self.optimizer = model, optimizer
         self.module = getattr(model, "module", model)
         self.criterion, self.metric_fns = criterion, list(metric_fns)
@@ -169,6 +182,14 @@ class TrainStep:
         self._seeded = _forward_takes(self.module, "dropout_seed")
         self._masked = _forward_takes(self.module, "example_mask")
         self._all = [p for g in optimizer.param_groups for p in g["params"]]
+        # parameters no group holds (``trainable``): their gradients are
+        # dropped after the backward, before the norm and the clip
+        held = {id(p) for p in self._all}
+        self._frozen = [p for p in self.module.parameters()
+                        if id(p) not in held]
+        self.nan_check = bool(nan_check)
+        #: the plateau controller's multiplier of the final update
+        self.lr_scale = 1.0
         self._groups = parameter_groups(self.module) if health else {}
         self._before = None  # the params before the update (health)
         self.grad_accum_steps = max(int(grad_accum_steps), 1)
@@ -183,10 +204,15 @@ class TrainStep:
         self.applied = 0    # optimizer updates applied (the schedule's)
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "applied": self.applied}
+        """The counters, and ``lr_scale`` once a plateau has moved it."""
+        state = {"step": self.step, "applied": self.applied}
+        if self.lr_scale != 1.0:
+            state["lr_scale"] = self.lr_scale
+        return state
 
     def load_state_dict(self, state: dict) -> None:
         self.step, self.applied = int(state["step"]), int(state["applied"])
+        self.lr_scale = float(state.get("lr_scale", 1.0))
 
     def seed_ema(self) -> None:
         """Restart the EMA at the current params (a warm start)."""
@@ -208,10 +234,18 @@ class TrainStep:
                 p.grad.add_(float("nan"))
 
     def _update(self) -> None:
-        lr = self.lr_fn(self.applied)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
+        set_lr(self.optimizer, self.lr_fn(self.applied), self.lr_scale)
         self.optimizer.step()
+
+    def _check_finite(self, loss_sum) -> None:
+        """``debug.nan_check``: stop at the first step whose loss or
+        gradients are not finite (one read per step)."""
+        grads = [p.grad for p in self._params()]
+        norms = torch._foreach_norm(grads, float("inf")) if grads else []
+        if not bool(torch.isfinite(torch.stack([loss_sum, *norms])).all()):
+            raise FloatingPointError(
+                f"debug.nan_check: non-finite loss or gradients at step "
+                f"{self.step}")
 
     @torch.no_grad()
     def _discarded_update_norm(self) -> torch.Tensor:
@@ -306,13 +340,25 @@ class TrainStep:
     def __call__(self, batch) -> Dict[str, torch.Tensor]:
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        if self.grad_accum_steps > 1:
-            metrics, denom = self._backward_accumulated(batch)
-        else:
-            metrics, denom = self._backward_batch(batch)
+        try:
+            if self.grad_accum_steps > 1:
+                metrics, denom = self._backward_accumulated(batch)
+            else:
+                metrics, denom = self._backward_batch(batch)
+        except RuntimeError as exc:
+            # anomaly mode (debug.nan_check) names the backward function
+            # that made a NaN
+            if self.nan_check and "nan" in str(exc).lower():
+                raise FloatingPointError(
+                    f"debug.nan_check: step {self.step}: {exc}") from exc
+            raise
+        for p in self._frozen:
+            p.grad = None
         health_loss = metrics["loss_sum"] / denom
         if self.nan_step is not None and self.step == self.nan_step:
             self._poison()
+        if self.nan_check:
+            self._check_finite(metrics["loss_sum"])
 
         params = self._params()
         gnorm = None
@@ -321,13 +367,16 @@ class TrainStep:
             gnorm = torch.nn.utils.get_total_norm([p.grad for p in params])
         ok = True
         if self.skip_nonfinite:
-            finite = torch.isfinite(metrics["loss_sum"])
+            # the JAX step's test, on the gradients after the clip: a
+            # finite norm means finite leaves; an overflowed norm clips
+            # finite leaves to zeros (scale 0), so there the leaves decide
+            # (their max-abs norms overflow no sum)
+            leaves = torch.isfinite(torch.stack(torch._foreach_norm(
+                [p.grad for p in params], float("inf")))).all()
             if gnorm is not None:
-                finite = finite & torch.isfinite(gnorm)
-            else:
-                for p in params:
-                    finite = finite & torch.isfinite(p.grad).all()
-            ok = bool(finite)   # the step's one read
+                leaves = torch.isfinite(gnorm) | leaves
+            ok = bool(torch.isfinite(metrics["loss_sum"]) & leaves)
+            # ^ the step's one read
         grad_counts = None
         if self.health:
             if not (self.skip_nonfinite and ok):
@@ -377,10 +426,14 @@ def make_train_step(model, optimizer, criterion: Callable,
                     log_grad_norm: bool = False, trainable_patterns=None,
                     health: bool = False, inject_nan_grad_step=None,
                     lr_fn: Callable[[int], float] = None,
-                    seed: int = 0) -> TrainStep:
+                    seed: int = 0, nan_check: bool = False) -> TrainStep:
     """Build the train step (the JAX ``make_train_step`` signature, plus
-    the torch optimizer, ``lr_fn`` and the dropout ``seed``)."""
-    _refuse(augment, mixup_alpha, trainable_patterns)
+    the torch optimizer, ``lr_fn``, the dropout ``seed`` and
+    ``debug.nan_check``). ``trainable_patterns`` is accepted for that
+    signature: the freeze follows the optimizer's groups, which
+    ``build_optimizer`` built from the same patterns."""
+    del trainable_patterns
+    _refuse(augment, mixup_alpha)
     if lr_fn is None:
         base = optimizer.param_groups[0]["lr"]
 
@@ -390,7 +443,8 @@ def make_train_step(model, optimizer, criterion: Callable,
                      target_key, grad_clip_norm, skip_nonfinite, lr_fn, seed,
                      log_grad_norm=log_grad_norm, health=health,
                      inject_nan_grad_step=inject_nan_grad_step,
-                     grad_accum_steps=grad_accum_steps, ema_decay=ema_decay)
+                     grad_accum_steps=grad_accum_steps, ema_decay=ema_decay,
+                     nan_check=nan_check)
 
 
 @contextlib.contextmanager

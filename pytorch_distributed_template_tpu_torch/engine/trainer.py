@@ -62,6 +62,21 @@ propagates. ``keep_last`` prunes the epoch checkpoints after each save,
 default on). Rank 0 writes every checkpoint; every rank takes the same
 steps, so every rank's cursor is the same.
 
+The JAX trainer's other keys: ``trainer.host_prefetch`` (default 2)
+assembles the batches on a thread that many ahead of the device copies;
+``trainer.progress`` wraps the train and validation loops in a tqdm bar
+on rank 0 (``utils.util.maybe_tqdm``: on a TTY by default, the plain loop
+without tqdm); ``trainer.debug`` goes to ``utils.debug.configure_debug``
+(``nan_check`` stops the run at the first non-finite loss or gradient,
+and anomaly mode is put back when the run ends); ``aot_warmup`` is
+accepted and logged as meaningless in eager PyTorch. A
+``ReduceLROnPlateau`` scheduler's controller steps once per epoch on its
+monitored key (every rank holds the same global metrics), sets the train
+step's ``lr_scale`` and is warned about once when the key is missing; the
+scale is saved with the counters and restored on resume, the
+controller's counters restart. A train loader with a ``tokenizer_path``
+(``BpeLMLoader``) gets its tokenizer copied into the run directory.
+
 Refused by name: any mesh axis but ``data`` (A11).
 """
 from __future__ import annotations
@@ -71,14 +86,17 @@ import hashlib
 import json
 import math
 import os
+import re
+import shutil
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..checkpoint import CheckpointManager, warm_start_params
-from ..data.loader import prefetch_to_device, to_tensors
+from ..data.loader import host_prefetch, prefetch_to_device, to_tensors
 from ..models.base import describe
 from ..observability.crosshost import CrossHostAggregator
 from ..observability.health import (
@@ -95,6 +113,8 @@ from ..observability.tracker import MetricTracker
 from ..parallel import dist, mesh_from_config
 from ..resilience import faults
 from ..utils import preemption
+from ..utils.debug import configure_debug
+from ..utils.util import maybe_tqdm
 from ..utils.watchdog import StepWatchdog
 from .optim import build_optimizer
 from .steps import (
@@ -235,6 +255,8 @@ class BaseTrainer:
                 with watchdog.heartbeat_keepalive():
                     self.ckpt_manager.wait()
         finally:
+            if getattr(self, "_anomaly_was", None) is not None:
+                torch.autograd.set_detect_anomaly(self._anomaly_was)
             for name in ("trace", "recorder", "writer"):
                 part = getattr(self, name, None)
                 if part is not None:
@@ -343,6 +365,12 @@ class Trainer(BaseTrainer):
         mesh_from_config(config)   # refuses any axis but data (A11)
         super().__init__(config)
         cfg = config["trainer"]
+        self._anomaly_was = torch.is_anomaly_enabled()
+        nan_check = configure_debug(cfg.get("debug"))
+        if "aot_warmup" in cfg and dist.is_main_process():
+            self.logger.info(
+                "trainer.aot_warmup has no meaning in eager PyTorch (no "
+                "step is compiled ahead); ignored")
         # the fault plan: PDT_FAULTS wins over trainer.faults; installed
         # per trainer so one-shot faults re-arm for each fresh run
         faults.install_from_env_or_config(cfg.get("faults"))
@@ -364,6 +392,16 @@ class Trainer(BaseTrainer):
         self.train_loader = train_loader
         self.valid_loader = valid_loader
         self.do_validation = valid_loader is not None
+        tok_path = getattr(train_loader, "tokenizer_path", None)
+        if tok_path is not None and dist.is_main_process():
+            # the run's own copy of the tokenizer: the corpus-side cache
+            # can be rewritten by a later run, generate.py must read the
+            # merges this run's embeddings saw (tokenizer_from_config)
+            try:
+                shutil.copyfile(tok_path,
+                                self.checkpoint_dir / "tokenizer.json")
+            except OSError as exc:
+                self.logger.warning("could not pin the tokenizer: %s", exc)
         len_epoch = cfg.get("len_epoch")
         self._train_iter = None
         if len_epoch is None:
@@ -377,8 +415,9 @@ class Trainer(BaseTrainer):
         self.input_key = dk.get("input", "image")
         self.target_key = dk.get("target", "label")
 
-        self.optimizer, self.lr_fn = build_optimizer(config, self.len_epoch,
-                                                     model)
+        self.optimizer, self.lr_fn, self.plateau = build_optimizer(
+            config, self.len_epoch, model)
+        self._plateau_warned = False
         self.skip_nonfinite = bool(cfg.get("skip_nonfinite", False))
         self.log_grad_norm = bool(cfg.get("log_grad_norm", False))
         # the health summary rides the step; on unless enabled is false
@@ -400,7 +439,7 @@ class Trainer(BaseTrainer):
             log_grad_norm=self.log_grad_norm,
             health=self._health_enabled,
             inject_nan_grad_step=faults.nan_grad_step(),
-            lr_fn=self.lr_fn, seed=seed)
+            lr_fn=self.lr_fn, seed=seed, nan_check=nan_check)
         self.eval_step = make_eval_step(
             net, criterion, self.metric_ftns, input_key=self.input_key,
             target_key=self.target_key)
@@ -416,11 +455,15 @@ class Trainer(BaseTrainer):
                 type(model).__name__, map_location=self.device,
                 ema=self.train_step.ema)
             self.train_step.load_state_dict(state)
+            if self.plateau is not None:
+                # the scale survives the resume, the counters restart
+                self.plateau.scale = self.train_step.lr_scale
             if best is not None:
                 self.mnt_best = best
             if bool(cfg.get("step_accurate_resume", True)):
                 self._apply_data_state(
-                    CheckpointManager.load_data_state(config.resume))
+                    CheckpointManager.load_data_state(config.resume),
+                    config.resume)
         elif cfg.get("init_from"):
             # params only: the optimizer, the counters and the epoch start
             # fresh; the EMA starts at the grafted weights
@@ -486,13 +529,23 @@ class Trainer(BaseTrainer):
     def _to_device(self, batch: dict) -> dict:
         return to_tensors(batch, self.device)
 
-    def _apply_data_state(self, ds: Optional[dict]) -> None:
+    def _apply_data_state(self, ds: Optional[dict], resume=None) -> None:
         """Turn a checkpoint's ``data_state`` sidecar into a mid-epoch
         start: ``start_epoch`` becomes the epoch in flight and
         :meth:`_batches` starts it at ``next_batch``. Keeps the epoch
         granularity, with a warning, for an iteration-based run or a
-        changed length or batch size."""
+        changed length or batch size. A mid-epoch slot (``resume`` an
+        interval or emergency save) without its cursor restarts its own
+        epoch at batch 0, with a warning: the next epoch would skip the
+        rest of it."""
         if not ds:
+            name = Path(resume).name if resume is not None else ""
+            if re.match(r"checkpoint-(interval-[ab]|emergency)$", name):
+                self.start_epoch = max(self.start_epoch - 1, 1)
+                self.logger.warning(
+                    "%s has no data_state sidecar (its write was cut); "
+                    "restarting its epoch %d at batch 0, the steps it "
+                    "took in that epoch replayed.", name, self.start_epoch)
             return
         if self._train_iter is not None:
             self.logger.warning(
@@ -562,10 +615,18 @@ class Trainer(BaseTrainer):
                 host.append(b)
                 yield b
 
-        batches_it = iter(prefetch_to_device(kept(self._batches(epoch)),
-                                             self.device,
-                                             self.prefetch_depth))
+        batches = self._batches(epoch)
+        depth = int(self.config["trainer"].get("host_prefetch", 2))
+        if depth > 0:
+            batches = host_prefetch(batches, depth)
         main = dist.is_main_process()
+        batches_it = iter(maybe_tqdm(
+            prefetch_to_device(
+                kept(batches), self.device, self.prefetch_depth,
+                getattr(self.train_loader, "device_transform", None)),
+            total=self.len_epoch, desc=f"train {epoch}",
+            enable=self.config["trainer"].get("progress") if main
+            else False))
         # preemption: one rank polls its flag every batch; several reach
         # consensus every preempt_check_steps batches, all at the same one
         check_every = max(int(self.config["trainer"].get(
@@ -686,7 +747,37 @@ class Trainer(BaseTrainer):
             with span("train/validate", epoch=epoch):
                 val_log = self._valid_epoch(epoch)
             log.update(**{f"val_{k}": v for k, v in val_log.items()})
+        # a preempted epoch skipped validation: its monitored key is
+        # absent, which is no plateau decision
+        if self.plateau is not None and not preempted:
+            self._plateau_step(log)
         return log
+
+    def _plateau_step(self, log: dict) -> None:
+        """ReduceLROnPlateau, once per epoch: the controller reads the
+        monitored key (every rank holds the same global epoch metrics, so
+        every rank takes the same decision) and the step's ``lr_scale``
+        follows it. A missing key is warned about once."""
+        value = log.get(self.plateau.monitor)
+        if value is None:
+            if not self._plateau_warned and dist.is_main_process():
+                self.logger.warning(
+                    "Warning: ReduceLROnPlateau monitor '%s' not found in "
+                    "epoch metrics %s; plateau LR scheduling is inactive.",
+                    self.plateau.monitor, sorted(log))
+            self._plateau_warned = True
+            return
+        # NaN counts as a bad epoch (comparisons with NaN are false), as
+        # in torch
+        new_scale = self.plateau.step(float(value))
+        if new_scale != self.train_step.lr_scale:
+            if dist.is_main_process():
+                self.logger.info(
+                    "ReduceLROnPlateau: %s did not improve for %d epochs; "
+                    "lr scale %.3g -> %.3g", self.plateau.monitor,
+                    self.plateau.patience + 1, self.train_step.lr_scale,
+                    new_scale)
+            self.train_step.lr_scale = new_scale
 
     def _seq_len(self, batch: dict) -> int:
         x = batch[self.input_key]
@@ -703,7 +794,7 @@ class Trainer(BaseTrainer):
             count = max(float(m["count"]), 1.0)
             loss_val = float(m["loss_sum"]) / count
             self.train_metrics.update("loss", loss_val)
-            lr_val = float(self.lr_fn(step))
+            lr_val = float(self.lr_fn(step)) * self.train_step.lr_scale
             self.writer.add_scalar("lr", lr_val)
             rec["loss"] = round(loss_val, 6)
             rec["lr"] = lr_val
@@ -738,10 +829,16 @@ class Trainer(BaseTrainer):
         self.valid_metrics.reset()
         self.valid_loader.set_epoch(epoch)
         accum = None
+        batches = prefetch_to_device(
+            self.valid_loader, self.device, self.prefetch_depth,
+            getattr(self.valid_loader, "device_transform", None))
+        if dist.is_main_process():
+            batches = maybe_tqdm(
+                batches, total=len(self.valid_loader), desc=f"valid {epoch}",
+                enable=self.config["trainer"].get("progress"))
         with ema_weights(self.model,
                          self.train_step.ema if self.use_ema else None):
-            for batch in prefetch_to_device(self.valid_loader, self.device,
-                                            self.prefetch_depth):
+            for batch in batches:
                 m = self.eval_step(batch)
                 accum = m if accum is None else {k: accum[k] + v
                                                  for k, v in m.items()}

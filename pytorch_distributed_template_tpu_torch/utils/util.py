@@ -1,23 +1,18 @@
-"""Host-side helpers: ordered JSON round-trip and device selection.
+"""Host-side helpers: ordered JSON round-trip, the progress bar and
+device selection.
 
-``read_json``/``write_json`` are copies of the JAX package's
-``utils/util.py`` functions; ``resolve_device`` is the port's one rule for
-where an entry point runs. ``LATER_A17`` names the ROADMAP item that the
-port's remaining refusals of training options point at (ROADMAP.md,
-queue A): what A17 still holds after its resume state and supervisor
-were ported.
+``read_json``/``write_json`` and ``maybe_tqdm`` are copies of the JAX
+package's ``utils/util.py`` functions; ``resolve_device`` is the port's one
+rule for where an entry point runs.
 """
 from __future__ import annotations
 
 import json
+import sys
 from collections import OrderedDict
 from pathlib import Path
 
 import torch
-
-LATER_A17 = ("ROADMAP A17's tail (the other optimizers, mu_dtype, "
-             "trainable, ReduceLROnPlateau, the native batcher and "
-             "normalize; a later slice)")
 
 
 def read_json(fname) -> OrderedDict:
@@ -42,3 +37,21 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' "
             "(--device cpu) to run on the CPU")
     return dev
+
+
+def maybe_tqdm(iterable, total=None, desc: str = "", enable=None):
+    """``iterable`` in a tqdm progress bar (the reference's hot loops have
+    one) when ``enable`` (``trainer.progress``) is true, or when it is
+    None and stderr is a TTY (log files must not fill with carriage-return
+    frames); tqdm is optional, and without it the iterable comes back as
+    it is. Callers also gate on rank 0."""
+    if enable is None:
+        enable = getattr(sys.stderr, "isatty", lambda: False)()
+    if not enable:
+        return iterable
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return iterable
+    return tqdm(iterable, total=total, desc=desc, leave=False,
+                dynamic_ncols=True)

@@ -14,8 +14,9 @@ them skipped by ``skip_nonfinite``) rtol 1e-5 with atol 1e-5. Then: a batch that
 raises as in JAX; a skipped step leaves the EMA and the optimizer state
 bitwise untouched; EMA checkpoints load in both directions; validation
 and ``test.py`` evaluate the EMA's weights (``eval_with_ema``); and 2 gloo
-ranks with k = 2 equal 1 process with k = 2 (epoch logs rtol 1e-5,
-params atol 1e-4, ``PARAM_ATOL_DDP``).
+ranks with k = 2 equal 1 process with k = 2 (the epoch logs' losses rtol
+1e-5, their argmax metrics within one predicted token per epoch, params
+atol 1e-4, ``PARAM_ATOL_DDP``).
 """
 import json
 import logging
@@ -81,6 +82,13 @@ TIMEOUT_S = 240
 # whose gradient is near zero turns that into a few percent of lr (3.2e-5
 # at most when this bound was set)
 PARAM_ATOL_DDP = 1e-4
+# argmax metrics of those runs: their weights may differ by PARAM_ATOL_DDP,
+# so a logit pair that close flips a prediction; a flip moves the epoch's
+# token accuracy by one predicted token of the 256 x 31 an lm_debug epoch
+# scores (both sides are deterministic run against run)
+ARGMAX_METRICS = ("lm_token_accuracy", "accuracy", "top_k_acc")
+TOKENS_PER_EPOCH = 256 * 31
+MAX_FLIPPED_TOKENS = 1
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -135,7 +143,7 @@ def _pair(with_ema=False):
 
 
 def _port_step(tmodel, crit=None, **kw):
-    opt, lr_fn = toptim.build_optimizer(STEP_CFG, 2, tmodel)
+    opt, lr_fn, _ = toptim.build_optimizer(STEP_CFG, 2, tmodel)
     return tsteps.make_train_step(
         tmodel, opt, crit or tlosses.lm_cross_entropy, lr_fn=lr_fn,
         **KW, **kw)
@@ -427,8 +435,12 @@ def test_two_gloo_ranks_with_accumulation_equal_one_process(tmp_path):
     assert one.ddp is None and len(logs) == 2
     for got, want in zip(ranks[0]["logs"], logs):
         for key in got:
-            np.testing.assert_allclose(got[key], want[key], rtol=1e-5,
-                                       err_msg=key)
+            if key in ARGMAX_METRICS:
+                flipped = abs(got[key] - want[key]) * TOKENS_PER_EPOCH
+                assert flipped <= MAX_FLIPPED_TOKENS + 1e-3, (key, flipped)
+            else:
+                np.testing.assert_allclose(got[key], want[key], rtol=1e-5,
+                                           err_msg=key)
     a = torch.load(f"{tmp_path / 'two'}.pt")
     for name, value in one.model.state_dict().items():
         np.testing.assert_allclose(a[name].numpy(), value.numpy(),

@@ -103,11 +103,6 @@ def test_byte_loader_refuses_a_file_too_small(tmp_path):
                                      file="tiny.txt", seq_len=256)
 
 
-def test_bpe_loader_refuses_by_name():
-    with pytest.raises(NotImplementedError, match="BpeLMLoader"):
-        TLOADERS.get("BpeLMLoader")(file="x.txt")
-
-
 @pytest.mark.parametrize("max_mb", [0.02, 0.3])
 def test_corpus_tool_writes_the_same_bytes(tmp_path, max_mb):
     a = jcorpus.build(tmp_path / "a.txt", int(max_mb * 1e6))

@@ -180,7 +180,7 @@ def _steps(skip, nan_step=None, nan_group=None, clip=0.05):
     layout = jhealth.health_layout(state.params)
     tmodel = TM.get("TinyLM")(**MODEL, device="cpu")
     tmodel.load_state_dict(params_from_flax(jax.device_get(state.params)))
-    opt, lr_fn = toptim.build_optimizer(STEP_CFG, 2, tmodel)
+    opt, lr_fn, _ = toptim.build_optimizer(STEP_CFG, 2, tmodel)
     kw = dict(input_key="tokens", target_key="tokens", grad_clip_norm=clip,
               skip_nonfinite=skip, health=True,
               inject_nan_grad_step=nan_step)

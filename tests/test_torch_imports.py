@@ -63,6 +63,10 @@ ENTRY_MODULES = [
     "pytorch_distributed_template_tpu_torch.resilience.supervisor",
     "pytorch_distributed_template_tpu_torch.supervise",
     "pytorch_distributed_template_tpu_torch.config.parser",
+    "pytorch_distributed_template_tpu_torch.data.native",
+    "pytorch_distributed_template_tpu_torch.data.tokenizer",
+    "pytorch_distributed_template_tpu_torch.utils.debug",
+    "pytorch_distributed_template_tpu_torch.utils.util",
 ]
 
 

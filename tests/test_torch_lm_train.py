@@ -187,7 +187,7 @@ def test_train_steps_match_make_train_step():
                                       jnp.zeros((1, 16), jnp.int32))
     tmodel = TM.get("TinyLM")(**MODEL, device="cpu")
     tmodel.load_state_dict(params_from_flax(jax.device_get(state.params)))
-    opt, lr_fn = toptim.build_optimizer(STEP_CFG, 2, tmodel)
+    opt, lr_fn, _ = toptim.build_optimizer(STEP_CFG, 2, tmodel)
     jcrit = _Poison(jlosses.lm_cross_entropy)
     tcrit = _Poison(tlosses.lm_cross_entropy)
     kw = dict(input_key="tokens", target_key="tokens", grad_clip_norm=0.05,
@@ -214,7 +214,7 @@ def test_train_steps_match_make_train_step():
 
 def test_schedule_is_epoch_indexed_from_zero():
     model = TM.get("TinyLM")(**MODEL, device="cpu")
-    _, lr_fn = toptim.build_optimizer(STEP_CFG, 4, model)
+    _, lr_fn, _ = toptim.build_optimizer(STEP_CFG, 4, model)
     _, jlr, _ = joptim.build_optimizer(STEP_CFG, steps_per_epoch=4)
     for step in range(24):
         np.testing.assert_allclose(lr_fn(step), float(jlr(step)),
@@ -222,19 +222,8 @@ def test_schedule_is_epoch_indexed_from_zero():
     assert lr_fn(0) == pytest.approx(0.01 / 2)   # the first epoch: base/2
     cfg = dict(STEP_CFG, lr_scheduler=dict(STEP_CFG["lr_scheduler"],
                                            unit="step"))
-    _, lr_fn = toptim.build_optimizer(cfg, 4, model)
+    _, lr_fn, _ = toptim.build_optimizer(cfg, 4, model)
     _, jlr, _ = joptim.build_optimizer(cfg, steps_per_epoch=4)
     for step in range(8):
         np.testing.assert_allclose(lr_fn(step), float(jlr(step)),
                                    rtol=1e-6)
-
-
-@pytest.mark.parametrize("kind, name", [
-    ("optimizer", "RMSprop"), ("optimizer", "Lion"),
-    ("lr_scheduler", "ReduceLROnPlateau"), ("optimizer", "Adafactor")])
-def test_later_optimizers_and_schedules_refuse(kind, name):
-    cfg = {"optimizer": {"type": "AdamW", "args": {"lr": 0.1}}}
-    cfg[kind] = {"type": name, "args": {}}
-    model = TM.get("TinyLM")(**MODEL, device="cpu")
-    with pytest.raises(NotImplementedError, match="A17"):
-        toptim.build_optimizer(cfg, 4, model)

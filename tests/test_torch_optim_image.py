@@ -10,9 +10,9 @@ package's (optax):
 - ``SGD`` with momentum, nesterov and coupled decay: the same trace from
   the first step (atol 1e-6 over 6 steps);
 - the eight closed-form schedules over epochs 0-200 for several argument
-  sets (rtol 1e-5, atol 1e-6: JAX evaluates them in float32);
-- ``ReduceLROnPlateau`` and the ten other optimizers still refuse, naming
-  their slice.
+  sets (rtol 1e-5, atol 1e-6: JAX evaluates them in float32).
+The ten other optimizers and ``ReduceLROnPlateau`` are held against optax
+and the JAX package in tests/test_torch_optimizers.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -117,14 +117,3 @@ def test_schedules_match_jax(name, args):
         np.testing.assert_allclose(tf(epoch), float(jf(jnp.int32(epoch))),
                                    rtol=1e-5, atol=1e-6,
                                    err_msg=f"{name} epoch {epoch}")
-
-
-@pytest.mark.parametrize("kind, name", [
-    ("optimizer", n) for n in ("RMSprop", "Adagrad", "Adadelta", "Adamax",
-                               "NAdam", "RAdam", "Adafactor", "LARS",
-                               "LAMB", "Lion")] + [
-    ("scheduler", "ReduceLROnPlateau")])
-def test_later_optimizers_refuse_naming_their_slice(kind, name):
-    reg = OPTIMIZERS if kind == "optimizer" else SCHEDULERS
-    with pytest.raises(NotImplementedError, match="A17"):
-        reg.get(name)()
