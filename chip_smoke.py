@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 3e, 4, 5, 6, 7, 8, 9,
-10, 11, 12, 13), each one's time printed beside the card line; any
-failure exits non-zero and no phase's exception is caught:
+10, 11, 12, 13, 14a, 14b, 14c), each one's time printed beside the card
+line; any failure exits non-zero and no phase's exception is caught:
 
 1. build: compile every CUDA source of the port with nvcc (one process per
    source, all started together) and print the build time and the ptxas
@@ -226,11 +226,44 @@ batcher, ROADMAP A17's tail and A18; no new kernel) adds:
     native batcher must have gathered in phases 12 and 13 (its call
     count, reset before each).
 
+Slice 9 (sequence parallelism, ROADMAP A11a: the ``seq`` mesh axis, ring
+and Ulysses attention on B1-B3, the zigzag layout; no new kernel) adds:
+
+14a. the one-process ring and Ulysses paths (S = 4 shards in this process,
+    the K/V exchange a list rotation; the same per-step work as the
+    process-group path) forward and backward against ``flash_attention``
+    over the whole sequence, at the configs' full width in bf16:
+    ``llama_swa_long``'s attention (B 1, T 16384, 12/4 heads, D 64,
+    window 2048, contiguous: one banded diagonal flash block per shard
+    and one masked einsum block at the band's edge), ``gpt2_long``'s (B 1,
+    T 8192, 12 heads, causal, zigzag, then the inverse permutation: 3 + 2
+    (S - 1) = 9 quarter blocks per shard) and ``ulysses_flash`` at llama's
+    shape; the max errors of out, dq, dk, dv, and B1's forward and B2's
+    and B3's backward launches equal to the schedule's count; then the
+    new block shapes through phases 2 and 2c's rows (kernel / bound /
+    plain / SDPA);
+14b. main path of slice 9 on one card: the port's ``train.py`` with
+    ``configs/llama_swa_long.json`` (Llama, 12 layers, d_model 768, 12/4
+    heads, window 2048, seq 16384, batch 4, ``grad_accum_steps`` 4, bf16,
+    remat, ``ring_flash``, fused head) cut by ``--set`` only: the seq axis
+    1 (the ring computes the whole attention on B1-B3), one epoch of 8
+    steps over a 600 kB corpus, a 2-step warm-up; exact launches per
+    step (B1 96, B2 48, B3 48; eval B1 12), finite and falling losses, ms
+    per step and peak memory;
+14c. with 4 cards: ``torchrun --nproc_per_node=4`` (this script's
+    ``--sp-child`` mode per rank) of ``llama_swa_long.json`` as it is
+    (seq 4) and ``gpt2_long.json`` with data 1 (seq 4, zigzag), float32
+    and dropout off by ``--set``, against one rank with seq 1 in this
+    process: the first 3 losses within rtol 1e-4, the ring's P2P calls
+    and bytes and ms per step. With fewer cards it prints ``"sp_nccl":
+    "not run: N card(s)"``.
+
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
-the launches of slices 1, 3, 4, 6, 7 and 8, paged_attn with slice 2's,
-flash_bwd_dkv and flash_bwd_dq with slices 3, 4, 6, 7 and 8, expert_ffn
-with slice 4's) and the device line ``{"ok": true, "device": {...}}``.
+the launches of slices 1, 3, 4, 6, 7, 8 and 9, paged_attn with slice 2's,
+flash_bwd_dkv and flash_bwd_dq with slices 3, 4, 6, 7, 8 and 9,
+expert_ffn with slice 4's; phase 14a's block shapes among the rows) and
+the device line ``{"ok": true, "device": {...}}``.
 Every kernel row also carries ``pct_of_bound`` (100 x bound / kernel time) and
 ``x_library`` (kernel time / library time); kernel times are device times
 (:func:`cuda_ms`). The script needs a CUDA device and the repository
@@ -289,6 +322,10 @@ REF_ARCH = {"vocab_size": 512, "n_layer": 2, "n_head": 4, "n_kv_head": 2,
             "d_model": 256, "max_len": 128, "window": 16,
             "attn_impl": "flash"}
 REF_LOGIT_ATOL = 1e-3   # f32 on both sides, two layers, summation order
+# the plain forward holds [B, H, T, T] f32 scores (and as many again for the
+# masks and probabilities); past this many bytes of scores it runs one
+# batch row and as many kv heads (with their query heads) as fit at a time
+PLAIN_SCORE_BYTES = 6 << 30
 
 
 def log(msg: str) -> None:
@@ -396,35 +433,76 @@ def ptxas_report(build_log: str) -> list:
     return lines
 
 
+def _sdpa_args(q, k, v, causal: bool, window: int):
+    """``scaled_dot_product_attention``'s ``[B, H, T, D]`` inputs and
+    keywords for the same attention. A GQA call passes ``enable_gqa``;
+    past ``PLAIN_SCORE_BYTES`` of scores it gets K/V expanded to the query
+    heads instead (before the timing), as the backends that take
+    ``enable_gqa`` with a mask hold the whole scores."""
+    from pytorch_distributed_template_tpu_torch.ops.flash import (
+        visible_mask,
+    )
+
+    b, t, h, _ = q.shape
+    kw = {}
+    if k.shape[2] != h:
+        if b * h * t * t * 4 > PLAIN_SCORE_BYTES:
+            k, v = (x.repeat_interleave(h // k.shape[2], dim=2)
+                    for x in (k, v))
+        else:
+            kw["enable_gqa"] = True
+    if 0 < window < t:
+        kw["attn_mask"] = visible_mask(t, t, causal, window, q.device)
+    else:
+        kw["is_causal"] = causal
+    return [x.transpose(1, 2).contiguous() for x in (q, k, v)], kw
+
+
 def _sdpa_ms(q, k, v, causal: bool, window: int, reps: int):
     """Time of one ``scaled_dot_product_attention`` call on the same
     inputs (yardstick only; the port never calls it)."""
     import torch.nn.functional as F
 
-    from pytorch_distributed_template_tpu_torch.ops.flash import (
-        visible_mask,
-    )
-
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    t = q.shape[1]
-    kw = {"enable_gqa": True} if k.shape[2] != q.shape[2] else {}
-    if 0 < window < t:
-        kw["attn_mask"] = visible_mask(t, t, causal, window, q.device)
-    else:
-        kw["is_causal"] = causal
+    (qt, kt, vt), kw = _sdpa_args(q, k, v, causal, window)
     return cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
                    reps)
 
 
-def phase_kernel() -> list:
+def plain_forward(q, k, v, causal: bool, window: int):
+    """``flash_attention_ref(q, k, v, causal, window)``, computed in pieces
+    (a batch row and a group of kv heads with their query heads) when its
+    scores would exceed ``PLAIN_SCORE_BYTES``: the same arithmetic, as the
+    heads and rows are independent."""
     from pytorch_distributed_template_tpu_torch.ops.flash import (
-        FLASH_FWD, flash_attention_lse, flash_attention_ref,
-        flash_bound_seconds,
+        flash_attention_ref,
+    )
+
+    b, t, h, _ = q.shape
+    kvh = k.shape[2]
+    if b * h * t * t * 4 <= PLAIN_SCORE_BYTES:
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    r = h // kvh
+    per = max(1, PLAIN_SCORE_BYTES // (r * t * t * 4))
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    for i in range(b):
+        for j in range(0, kvh, per):
+            kv, qh = slice(j, j + per), slice(j * r, (j + per) * r)
+            out[i:i + 1, :, qh], lse[i:i + 1, qh] = flash_attention_ref(
+                q[i:i + 1, :, qh], k[i:i + 1, :, kv], v[i:i + 1, :, kv],
+                causal=causal, window=window)
+    return out, lse
+
+
+def phase_kernel(shapes=None) -> list:
+    from pytorch_distributed_template_tpu_torch.ops.flash import (
+        FLASH_FWD, flash_attention_lse, flash_bound_seconds,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for (b, h, kvh, t, d, causal, window, dtype) in KERNEL_SHAPES:
+    for (b, h, kvh, t, d, causal, window, dtype) in (shapes
+                                                      or KERNEL_SHAPES):
         def rnd(heads):
             return torch.randn((b, t, heads, d), generator=gen,
                                device="cuda", dtype=torch.float32).to(dtype)
@@ -433,9 +511,8 @@ def phase_kernel() -> list:
         out, lse = flash_attention_lse(q, k, v, causal=causal,
                                        window=window)
         torch.cuda.synchronize()
-        ref_out, ref_lse = flash_attention_ref(q.float(), k.float(),
-                                               v.float(), causal=causal,
-                                               window=window)
+        ref_out, ref_lse = plain_forward(q.float(), k.float(), v.float(),
+                                         causal, window)
         diff = (out.float() - ref_out).abs()
         err_out = diff.max().item()
         atol, rtol, tol_lse = TOL[dtype]
@@ -455,9 +532,8 @@ def phase_kernel() -> list:
         reps = 20 if t <= 2048 else 5
         kernel_ms = cuda_ms(
             lambda: flash_attention_lse(q, k, v, causal, window), reps)
-        ref_ms = cuda_ms(
-            lambda: flash_attention_ref(q, k, v, causal, window),
-            max(2, reps // 4), warmup=1)
+        ref_ms = cuda_ms(lambda: plain_forward(q, k, v, causal, window),
+                         max(2, reps // 4), warmup=1)
         library_ms = _sdpa_ms(q, k, v, causal, window, reps)
         bound_s, bound_by = flash_bound_seconds(
             b, t, h, kvh, d, causal, window, q.element_size(),
@@ -1470,18 +1546,8 @@ def _sdpa_bwd_ms(q, k, v, g, causal: bool, window: int, reps: int):
     the same inputs (yardstick only; the port never calls it)."""
     import torch.nn.functional as F
 
-    from pytorch_distributed_template_tpu_torch.ops.flash import (
-        visible_mask,
-    )
-
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    t = q.shape[1]
-    kw = {"enable_gqa": True} if k.shape[2] != q.shape[2] else {}
-    if 0 < window < t:
-        kw["attn_mask"] = visible_mask(t, t, causal, window, q.device)
-    else:
-        kw["is_causal"] = causal
+    leaves, kw = _sdpa_args(q, k, v, causal, window)
+    qt, kt, vt = (x.requires_grad_() for x in leaves)
     out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
     gt = g.transpose(1, 2).contiguous()
     ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
@@ -1490,7 +1556,7 @@ def _sdpa_bwd_ms(q, k, v, g, causal: bool, window: int, reps: int):
     return ms
 
 
-def phase_bwd_kernel() -> list:
+def phase_bwd_kernel(shapes=None) -> list:
     """B2 and B3 against the plain backward on the card: max errors, the
     arm, kernel / plain / SDPA-backward times and the card's bound per
     kernel, one row each per shape, and a ``flash_bwd_pair`` row per shape
@@ -1503,7 +1569,7 @@ def phase_bwd_kernel() -> list:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, pairs = [], []
     for (name, b, h, kvh, t, d, causal, window, dtype,
-         with_lse) in BWD_SHAPES:
+         with_lse) in (shapes or BWD_SHAPES):
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device="cuda",
                                dtype=torch.float32)
@@ -1693,7 +1759,8 @@ class TrainRun:
         self.steps, self.epoch_logs = [], []
         model = trainer.model
         layers = model.n_layer
-        moe = sum(hasattr(block, "moe") for block in model.h)
+        blocks = model.h if hasattr(model, "h") else model.layers
+        moe = sum(hasattr(block, "moe") for block in blocks)
         fwd = 2 if model.remat else 1     # remat recomputes each forward
         k = trainer.train_step.grad_accum_steps   # microbatches per step
         self.want = {"train": (k * fwd * layers, k * layers, k * layers,
@@ -3450,6 +3517,489 @@ def phase_digits(card: str, device="cuda", config=DIGITS_CONFIG, sets=(),
     return row
 
 
+
+# ---------------------------------------------------------------------------
+# slice 9: sequence parallelism (ring and Ulysses attention on B1-B3)
+# ---------------------------------------------------------------------------
+
+# phase 14a: (name, impl, layout, B, T, H, KVH, D, window, S) of the ops at
+# the configs' full width: llama_swa_long's attention (contiguous banded
+# ring), gpt2_long's (zigzag ring), and Ulysses at llama's shape
+SEQ_OPS = [
+    ("llama_swa_long", "ring_flash", "contig", 1, 16384, 12, 4, 64, 2048,
+     4),
+    ("gpt2_long", "ring_flash", "zigzag", 1, 8192, 12, 12, 64, 0, 4),
+    ("llama_swa_long_ulysses", "ulysses_flash", "contig", 1, 16384, 12, 4,
+     64, 2048, 4),
+]
+# ring against whole, bf16 on both sides. The output: phase 2's forward
+# limit, |ring - whole| <= 1e-2 + 1.6e-2 |whole| (the ring merges S bf16
+# block outputs, each rounded once, in f32). The gradients: |ring - whole|
+# <= a * max_row|whole| + r |whole| + 1e-5, the absolute term scaled by
+# the largest |whole| of the element's own (position, head) row, as a
+# gradient's rounding scales with its own row's size (B2/B3's limit, with
+# the row for the tensor); doubled, as the ring adds one bf16 partial per
+# block in bf16 (one rounding per addition)
+SEQ_OUT_TOL = (1e-2, 1.6e-2)
+SEQ_GRAD_TOL = (2e-2, 3.2e-2)
+# the block shapes of B1-B3 on this slice's path, through phases 2 and 2c's
+# rows: gpt2_long's zigzag quarter blocks (1024 x 1024, causal diagonal and
+# maskless), llama_swa_long's banded diagonal block (4096, window 2048,
+# 12/4 heads) and Ulysses' local attention (16384, 3/1 heads), the
+# backward with the lse cotangent, as the ring merges by lse; and 14b's
+# own (llama_swa_long whole at seq 1: 16384, 12/4 heads, window 2048, the
+# train step's microbatch of 1 and the eval step's batch of 4), its
+# backward without the lse cotangent as 14b runs it, and with it
+SEQ_KERNEL_SHAPES = [
+    (1, 12, 12, 1024, 64, True, 0, torch.bfloat16),
+    (1, 12, 12, 1024, 64, False, 0, torch.bfloat16),
+    (1, 12, 4, 4096, 64, True, 2048, torch.bfloat16),
+    (1, 3, 1, 16384, 64, True, 2048, torch.bfloat16),
+    (1, 12, 4, 16384, 64, True, 2048, torch.bfloat16),
+    (4, 12, 4, 16384, 64, True, 2048, torch.bfloat16),
+]
+SEQ_BWD_SHAPES = [
+    ("zigzag_diagonal", 1, 12, 12, 1024, 64, True, 0, torch.bfloat16, True),
+    ("zigzag_quarter", 1, 12, 12, 1024, 64, False, 0, torch.bfloat16, True),
+    ("swa_diagonal", 1, 12, 4, 4096, 64, True, 2048, torch.bfloat16, True),
+    ("ulysses_local", 1, 3, 1, 16384, 64, True, 2048, torch.bfloat16, True),
+    ("swa_whole", 1, 12, 4, 16384, 64, True, 2048, torch.bfloat16, False),
+    ("swa_whole_lse", 1, 12, 4, 16384, 64, True, 2048, torch.bfloat16,
+     True),
+]
+LLAMA_LONG_CONFIG = REPO / "configs" / "llama_swa_long.json"
+GPT2_LONG_CONFIG = REPO / "configs" / "gpt2_long.json"
+# phase 14b: llama_swa_long.json on one card, cut by --set: the seq axis 1,
+# an epoch of 8 steps over a corpus of 8 x 4 rows of 16384 bytes (and 3
+# validation rows), the warm-up to 2 steps so that 8 steps move the loss
+SEQ_CORPUS_BYTES = 600_000
+SEQ_TRAIN_SETS = [("mesh;axes;seq", 1), ("trainer;epochs", 1),
+                  ("lr_scheduler;args;warmup_epochs", 2)]
+# phase 14c: both configs on 4 cards (llama as it is, seq 4; gpt2 with
+# data 1, so seq 4) against one rank (seq 1), float32 and dropout off on
+# both sides (the seq index folds into the masks), TF32 off; the first
+# SEQ_NCCL_STEPS losses within rtol 1e-4
+SEQ_NCCL_STEPS = 3
+SEQ_NCCL_RTOL = 1e-4
+SEQ_NCCL = [
+    ("llama_swa_long", LLAMA_LONG_CONFIG, [], [("mesh;axes;seq", 1)]),
+    ("gpt2_long", GPT2_LONG_CONFIG, [("mesh;axes;data", 1),
+                                     ("arch;args;dropout", 0.0)],
+     [("mesh;axes;data", 1), ("mesh;axes;seq", 1),
+      ("arch;args;dropout", 0.0)]),
+]
+SEQ_NCCL_COMMON = [("arch;args;bfloat16", False), ("trainer;epochs", 1),
+                   ("trainer;len_epoch", SEQ_NCCL_STEPS),
+                   ("trainer;tensorboard", False),
+                   ("trainer;save_period", 100)]
+
+
+def seq_schedule(impl: str, layout: str, s: int, tl: int,
+                 window: int) -> int:
+    """The flash blocks one layer call of ``impl`` runs over ``s`` shards
+    of ``tl`` positions (causal): the zigzag ring 3 + 2 (S - 1) per shard,
+    the contiguous ring one diagonal block and one per hop inside the band
+    (the band's edge blocks are einsum), Ulysses one per shard. B2 and B3
+    run once per forward block."""
+    from pytorch_distributed_template_tpu_torch.ops.attention import (
+        _ring_steps_needed,
+    )
+
+    if impl.startswith("ulysses"):
+        return s
+    if layout == "zigzag":
+        return s * (3 + 2 * (s - 1))
+    n = _ring_steps_needed(tl, s, window) if window > 0 else s
+    full = [t for t in range(1, n) if not (window > 0
+                                            and t * tl + tl - 1 >= window)]
+    return s * (1 + len(full))
+
+
+def _tol_excess(got, ref, tol, per_row: bool) -> tuple:
+    """(max |got - ref|, max(|got - ref| - limit)): ``per_row`` the
+    gradients' limit (``a`` x the largest |ref| of the element's [..., D]
+    row + ``r`` |ref| + 1e-5), else the output's (``a`` + ``r`` |ref|)."""
+    a, r = tol
+    ref = ref.float()
+    err = (got.float() - ref).abs()
+    if per_row:
+        limit = a * ref.abs().amax(-1, keepdim=True) + r * ref.abs() + 1e-5
+    else:
+        limit = a + r * ref.abs()
+    return err.max().item(), (err - limit).max().item()
+
+
+def phase_seq_ops(card: str, device="cuda", cases=SEQ_OPS,
+                  dtype=torch.bfloat16) -> list:
+    """Phase 14a: the one-process ring and Ulysses paths (S shards in this
+    process, the exchange a list rotation) forward and backward against
+    ``flash_attention`` over the whole sequence on ``device``, at the
+    configs' full width. Per case: the max abs errors of out, dq, dk, dv
+    (``SEQ_OUT_TOL``, ``SEQ_GRAD_TOL``), and the flash blocks launched in
+    the forward (B1) and the backward (B3, B2), each equal to
+    :func:`seq_schedule`'s count; the ring's and the whole attention's
+    forward + backward ms (host clock to a sync)."""
+    from pytorch_distributed_template_tpu_torch.ops import attention as att
+    from pytorch_distributed_template_tpu_torch.ops import flash
+
+    libs = (flash.FLASH_FWD, flash.FLASH_BWD_DQ, flash.FLASH_BWD_DKV)
+
+    def reset():
+        for lib in libs:
+            lib.launches = 0
+
+    def read():
+        return tuple(lib.launches for lib in libs)
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = []
+    for (name, impl, layout, b, t, h, kvh, d, window, s) in cases:
+        def rnd(heads):
+            return torch.randn((b, t, heads, d), generator=gen, device=dev,
+                               dtype=torch.float32).to(dtype)
+
+        q, k, v, g = rnd(h), rnd(kvh), rnd(kvh), rnd(h)
+        perm = (torch.as_tensor(att.zigzag_perm(t, s), device=dev)
+                if layout == "zigzag" else torch.arange(t, device=dev))
+        inv = torch.argsort(perm)
+
+        def whole():
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            out = flash.flash_attention(*leaves, causal=True, window=window)
+            out.backward(g)
+            return [out.detach()] + [x.grad for x in leaves]
+
+        def ring(count: bool = False):
+            leaves = [x[:, perm].contiguous().requires_grad_()
+                      for x in (q, k, v)]
+            shards = [[c.contiguous() for c in x.chunk(s, dim=1)]
+                      for x in leaves]
+            if count:
+                _sync(dev)
+                reset()
+            if impl.startswith("ulysses"):
+                outs = att.ulysses_attention_shards(
+                    *shards, causal=True, window=window,
+                    inner="flash" if impl == "ulysses_flash" else "xla")
+            else:
+                outs = att.ring_attention_shards(
+                    *shards, causal=True, layout=layout, window=window,
+                    block_impl="flash" if impl == "ring_flash"
+                    else "einsum")
+            out = torch.cat(outs, dim=1)
+            fwd = read() if count else None
+            if count:
+                reset()
+            out.backward(g[:, perm])
+            bwd = read() if count else None
+            return ([out.detach()[:, inv]]
+                    + [x.grad[:, inv] for x in leaves], fwd, bwd)
+
+        ref = whole()
+        got, fwd, bwd = ring(count=True)
+        _sync(dev)
+        errs, excess = {}, {}
+        for gname, x, want in zip(("out", "dq", "dk", "dv"), got, ref):
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"[seq] {name}: non-finite {gname}")
+            tol = SEQ_OUT_TOL if gname == "out" else SEQ_GRAD_TOL
+            errs[gname], excess[gname] = _tol_excess(x, want, tol,
+                                                     gname != "out")
+        blocks = seq_schedule(impl, layout, s, t // s, window)
+        want_counts = {"fwd": (blocks, 0, 0), "bwd": (0, blocks, blocks)}
+        del got, ref
+        ring_ms = _host_ms(lambda: ring()) if dev.type == "cuda" else None
+        whole_ms = _host_ms(whole) if dev.type == "cuda" else None
+        row = {"case": name, "impl": impl, "layout": layout, "B": b, "T": t,
+               "H": h, "KVH": kvh, "D": d, "window": window, "S": s,
+               "dtype": str(dtype).replace("torch.", ""),
+               "max_abs_err": errs, "tol_out": SEQ_OUT_TOL,
+               "tol_grads": SEQ_GRAD_TOL,
+               "launches_fwd_B1_B3_B2": fwd, "launches_bwd_B1_B3_B2": bwd,
+               "schedule_blocks": blocks, "ring_fwd_bwd_ms": ring_ms,
+               "whole_fwd_bwd_ms": whole_ms, "card": card}
+        log("[seq] " + json.dumps(row))
+        bad = {k: v for k, v in excess.items() if v > 0}
+        if bad:
+            raise AssertionError(f"[seq] {name}: ring against whole "
+                                 f"attention beyond the limit by {bad}")
+        if fwd != want_counts["fwd"] or bwd != want_counts["bwd"]:
+            raise AssertionError(
+                f"[seq] {name}: launches fwd {fwd}, bwd {bwd} (B1, B3, B2); "
+                f"the schedule predicts {want_counts}")
+        rows.append(row)
+        del q, k, v, g
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    reset()
+    return rows
+
+
+def _host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of ``fn`` to a device sync."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def _seq_corpus(work: Path, n_bytes: int = SEQ_CORPUS_BYTES) -> Path:
+    from pytorch_distributed_template_tpu_torch.tools import (
+        make_text_corpus,
+    )
+
+    data_dir = work / "seq_data"
+    info = make_text_corpus.build(data_dir / "input.txt", n_bytes)
+    if info["bytes"] < 0.95 * n_bytes:
+        raise AssertionError(f"the corpus holds {info['bytes']} bytes of "
+                             f"the {n_bytes} asked for")
+    return data_dir
+
+
+def phase_seq_train(card: str, device="cuda", work=WORK,
+                    config=LLAMA_LONG_CONFIG, sets=SEQ_TRAIN_SETS,
+                    corpus_bytes: int = SEQ_CORPUS_BYTES) -> dict:
+    """Phase 14b: ``configs/llama_swa_long.json`` through the port's
+    ``train.py`` on one card, cut by ``--set`` only (the seq axis 1, one
+    epoch over a corpus of ``corpus_bytes``, a 2-step warm-up): every train
+    step launches B1 2 x 12 x 4 times (remat, 4 microbatches) and B2, B3
+    12 x 4 each, every eval step B1 12 times (:class:`TrainRun`); the
+    losses finite and falling; ms per step and peak memory printed; then
+    3 train steps under ``torch.profiler`` (outside the counted run).
+    Returns the run's launches per kernel."""
+    from pytorch_distributed_template_tpu_torch import train as train_cli
+
+    root = work / "seq_train"
+    if root.exists():
+        shutil.rmtree(root)
+    argv = _seq_argv(config, sets, root / "run", device,
+                     _seq_corpus(root, corpus_bytes))
+    box = {}
+
+    def hook(trainer):
+        box["trainer"] = trainer
+        box["run"] = TrainRun(trainer, device, card, "seq_train")
+        m = trainer.model
+        log(f"[seq_train] {type(m).__name__} on {trainer.device}: mesh "
+            f"{trainer.mesh.sizes}, {m.n_layer} layers, {m.n_head}/"
+            f"{m.n_kv_head} heads, d_model {m.d_model}, window {m.window}, "
+            f"{m.attn_impl}, remat {m.remat}, fused head {m.fused_head}, "
+            f"{m.dtype}; batch {trainer.train_loader.batch_size} x "
+            f"{trainer.train_loader.arrays['tokens'].shape[1]}, "
+            f"{len(trainer.train_loader)} train / "
+            f"{len(trainer.valid_loader)} eval steps; cuts: {sets}")
+
+    t0 = time.perf_counter()
+    train_cli.main(argv, on_trainer=hook)
+    wall = time.perf_counter() - t0
+    trainer, run = box["trainer"], box["run"]
+    losses = [r["loss"] for r in run.steps]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[seq_train] non-finite losses: {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise AssertionError(f"[seq_train] the loss did not fall: {losses}")
+    if not np.isfinite(run.epoch_logs[-1].get("val_loss", np.nan)):
+        raise AssertionError(f"[seq_train] no finite val_loss: "
+                             f"{run.epoch_logs}")
+    steady = run.steps[1:] or run.steps
+    PATH_STATS["seq_train"] = {"steps": len(run.steps),
+                               "eval_steps": len(trainer.valid_loader)}
+    log("[seq_train] " + json.dumps({
+        "steps": len(run.steps), "wall_s": wall, "losses": losses,
+        "val_loss": run.epoch_logs[-1]["val_loss"],
+        "ms_per_step_median": float(np.median([r["ms"] for r in steady])),
+        "tokens_per_s_median": float(np.median(
+            [r["tokens_per_s"] for r in steady])),
+        "peak_mem_gib_max": max(r["peak_mem_gib"] for r in run.steps),
+        "launches_per_train_step": dict(zip(TRAIN_KERNELS,
+                                            run.want["train"])),
+        "launches_per_eval_step": dict(zip(TRAIN_KERNELS,
+                                           run.want["eval"])),
+        "launches": dict(zip(TRAIN_KERNELS, run.launches)), "card": card}))
+    launches = dict(zip(TRAIN_KERNELS, run.launches))
+    # where a step's time goes (outside the counted run)
+    batches = [trainer._to_device(b) for b, _ in zip(
+        trainer.train_loader, range(3))]
+    row = _profiled(lambda: [trainer.train_step(b) for b in batches],
+                    device, top_n=12, sums=("flash_fwd", "flash_bwd_dkv",
+                                            "flash_bwd_dq"))
+    log("[profile] " + json.dumps({"profile": "seq_train_steps", "steps": 3,
+                                   **row, "card": card}))
+    del trainer, box, batches
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    return launches
+
+
+def _seq_argv(config, sets, save_dir, device, data_dir) -> list:
+    argv = ["-c", str(config), "-s", str(save_dir), "--device", str(device)]
+    for chain, value in list(sets) + [
+            (f"{split};args;data_dir", str(data_dir))
+            for split in ("train_loader", "valid_loader")]:
+        argv += ["--set", chain, json.dumps(value)]
+    return argv
+
+
+def seq_child(spec_path: str) -> int:
+    """One rank of phase 14c (``chip_smoke.py --sp-child SPEC`` under
+    ``torchrun``): the port's ``train.py`` on the spec's argv (an epoch of
+    ``trainer.len_epoch`` steps and a validation pass), TF32 off; writes
+    each train step's loss, ms and the ring's P2P calls and bytes, and the
+    mesh, to ``<out>.rank<R>.json``."""
+    from pytorch_distributed_template_tpu_torch import train as train_cli
+    from pytorch_distributed_template_tpu_torch.parallel import (
+        collectives, dist,
+    )
+
+    spec = json.loads(Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    steps, box = [], {}
+
+    def hook(trainer):
+        box["trainer"] = trainer
+        real = trainer.train_step
+
+        def call(batch):
+            _sync(trainer.device)
+            collectives.reset_counts()
+            t0 = time.perf_counter()
+            m = real(batch)
+            _sync(trainer.device)
+            steps.append({"loss": float(m["loss_sum"])
+                          / max(float(m["count"]), 1.0),
+                          "ms": (time.perf_counter() - t0) * 1e3,
+                          **collectives.P2P})
+            return m
+
+        trainer.train_step = _Wrapped(real, call)
+
+    train_cli.main(spec["argv"], on_trainer=hook)
+    rank = dist.process_index()
+    Path(f"{spec['out']}.rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "steps": steps, "mesh": box["trainer"].mesh.sizes,
+        "world": dist.process_count(), "backend": dist.backend(),
+        "ddp": box["trainer"].ddp is not None}))
+    dist.shutdown()
+    return 0
+
+
+def phase_seq_nccl(card: str, device="cuda", work=WORK, runs=SEQ_NCCL,
+                   common=SEQ_NCCL_COMMON, n_steps: int = SEQ_NCCL_STEPS,
+                   nproc: int = 4, corpus_bytes: int = SEQ_CORPUS_BYTES,
+                   timeout: float = 900.0) -> dict:
+    """Phase 14c: with ``nproc`` cards, ``torchrun --nproc_per_node=nproc``
+    of each config (``chip_smoke.py --sp-child``) against one rank in this
+    process with a seq axis of 1, both float32 without TF32 and dropout
+    off, an epoch of ``n_steps`` steps (``SEQ_NCCL_COMMON``'s
+    ``len_epoch``): the ``n_steps`` losses within ``SEQ_NCCL_RTOL``, every rank
+    the same losses; prints the ring's P2P calls and bytes and ms per step.
+    DDP's bucket all-reduces (the world group) interleave with the ring's
+    permutes (the seq groups) with NCCL's watchdog on: a hang fails the
+    phase at ``timeout``. With fewer cards it prints ``"sp_nccl": "not run:
+    N card(s)"`` and returns {}."""
+    from pytorch_distributed_template_tpu_torch import train as train_cli
+
+    cards = torch.cuda.device_count() if device == "cuda" else nproc
+    if device == "cuda" and cards < nproc:
+        log("[seq_nccl] " + json.dumps({
+            "sp_nccl": f"not run: {cards} card(s)", "card": card}))
+        return {}
+    root = work / "seq_nccl"
+    if root.exists():
+        shutil.rmtree(root)
+    data_dir = _seq_corpus(root, corpus_bytes)
+    out = {}
+    for name, config, rank_sets, one_sets in runs:
+        spec = {"argv": _seq_argv(config, list(common) + list(rank_sets),
+                                  root / f"{name}_ranks", device, data_dir),
+                "steps": n_steps, "out": str(root / f"{name}_out")}
+        spec_path = root / f"{name}.json"
+        spec_path.write_text(json.dumps(spec))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={nproc}", str(REPO / "chip_smoke.py"),
+               "--sp-child", str(spec_path)]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                           timeout=timeout)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            # the first rank's traceback, else the launcher's summary
+            err = r.stderr + r.stdout
+            at = err.find("Traceback")
+            tail = err[at:at + 4000] if at >= 0 else err[-4000:]
+            raise AssertionError(f"[seq_nccl] {name}: torchrun exited "
+                                 f"{r.returncode}: {tail}")
+        ranks = [json.loads(Path(f"{spec['out']}.rank{i}.json").read_text())
+                 for i in range(nproc)]
+        one, one_ms = [], []
+
+        def hook(trainer):
+            real = trainer.train_step
+
+            def call(batch):
+                _sync(trainer.device)
+                t0 = time.perf_counter()
+                m = real(batch)
+                _sync(trainer.device)
+                one_ms.append((time.perf_counter() - t0) * 1e3)
+                one.append(float(m["loss_sum"]) / max(float(m["count"]),
+                                                      1.0))
+                return m
+
+            trainer.train_step = _Wrapped(real, call)
+
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            train_cli.main(_seq_argv(config, list(common) + list(one_sets),
+                                     root / f"{name}_one", device, data_dir),
+                           on_trainer=hook)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        losses = [s["loss"] for s in ranks[0]["steps"]]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, one)]
+        row = {"config": name, "mesh": ranks[0]["mesh"],
+               "world": ranks[0]["world"], "backend": ranks[0]["backend"],
+               "losses": losses, "one_rank_losses": one, "rel_diff": rel,
+               "rtol": SEQ_NCCL_RTOL,
+               "ms_per_step": [s["ms"] for s in ranks[0]["steps"]],
+               "one_rank_ms_per_step": one_ms,
+               "p2p_per_step": [{k: s[k] for k in (
+                   "ppermute", "ppermute_bytes", "all_to_all",
+                   "all_to_all_bytes")} for s in ranks[0]["steps"]],
+               "torchrun_wall_s": wall, "card": card}
+        log("[seq_nccl] " + json.dumps(row))
+        for rk in ranks:
+            if [s["loss"] for s in rk["steps"]] != losses:
+                raise AssertionError(f"[seq_nccl] {name}: rank "
+                                     f"{rk['rank']} logged other losses")
+            if not (rk["ddp"] and rk["backend"] == ("nccl" if device ==
+                                                    "cuda" else "gloo")):
+                raise AssertionError(f"[seq_nccl] {name}: rank {rk}")
+        if len(losses) != n_steps or len(one) != n_steps \
+                or max(rel) > SEQ_NCCL_RTOL:
+            raise AssertionError(f"[seq_nccl] {name}: {nproc} ranks' "
+                                 f"losses {losses} against one rank's "
+                                 f"{one}")
+        out[name] = row
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3494,6 +4044,11 @@ def main() -> int:
     native.CALLS.reset()
     timed("13", phase_digits, card)
     gathers["13"] = native.CALLS.calls
+    timed("14a", phase_seq_ops, card)
+    rows += timed("14a-kernels", phase_kernel, SEQ_KERNEL_SHAPES)
+    bwd_rows += timed("14a-bwd", phase_bwd_kernel, SEQ_BWD_SHAPES)
+    seq_launches = timed("14b", phase_seq_train, card)
+    timed("14c", phase_seq_nccl, card)
     log("[native] gathers " + json.dumps(gathers))
     if not all(gathers.values()):
         raise AssertionError(f"the native batcher did not gather in every "
@@ -3504,7 +4059,7 @@ def main() -> int:
     kernels = []
     for kern in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         train_launches[kern] += (obs_launches[kern] + res_launches[kern]
-                                 + lm_launches[kern])
+                                 + lm_launches[kern] + seq_launches[kern])
     flash_launches += train_launches["flash_fwd"] + moe_launches["flash_fwd"]
     for kernel, source, replaces, launches, shapes in (
             ("flash_fwd", KERNEL_SOURCE, KERNEL_REPLACES, flash_launches,
@@ -3536,4 +4091,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sp-child"]:
+        sys.exit(seq_child(sys.argv[2]))
     sys.exit(main())

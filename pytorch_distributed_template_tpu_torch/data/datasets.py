@@ -16,8 +16,9 @@ optical-recognition test set, 1,797 8x8 images; BSD-3 with
 scikit-learn), read with ``gzip`` and numpy. ``BpeLMLoader``'s tokenizer
 and id-stream caches have the JAX package's paths and formats
 (``tokenizer.bpe_cache_path``), so a cache either package wrote loads in
-the other. Every loader shards over the process group's ranks (a
-``ShardedSampler``) when there is more than one process.
+the other. Every loader shards its rows (a ``ShardedSampler``) when it has
+more than one shard: ``shard=(index, count)``, the mesh's data axis as
+the entry points pass it, else the process group's rank and size.
 """
 from __future__ import annotations
 
@@ -107,12 +108,16 @@ def _try_load_mnist(data_dir: Path, training: bool):
 
 def _make_image_loader(dataset: dict, batch_size: int, shuffle: bool,
                        drop_last: bool = False, seed: int = 0,
-                       normalize: Optional[dict] = None):
-    """An ``ArrayDataLoader``, sharded over the ranks by a
-    ``ShardedSampler`` when there is more than one process."""
+                       normalize: Optional[dict] = None,
+                       shard: Optional[tuple] = None):
+    """An ``ArrayDataLoader``, sharded by a ``ShardedSampler`` when
+    ``shard`` (``(index, count)``; default the process group's rank and
+    size) has more than one shard."""
+    index, count = shard or (dist.process_index(), dist.process_count())
     sampler = None
-    if dist.process_count() > 1:
+    if count > 1:
         sampler = ShardedSampler(len(next(iter(dataset.values()))),
+                                 num_shards=count, shard_index=index,
                                  shuffle=shuffle, seed=seed)
     return ArrayDataLoader(dataset, batch_size=batch_size, shuffle=shuffle,
                            sampler=sampler, drop_last=drop_last, seed=seed,
@@ -123,7 +128,7 @@ def _make_image_loader(dataset: dict, batch_size: int, shuffle: bool,
 def mnist_loader(data_dir: str = "data/", batch_size: int = 128,
                  shuffle: bool = True, num_workers: int = 0,
                  training: bool = True, synthetic_n: int = 4096,
-                 seed: int = 0):
+                 seed: int = 0, shard: Optional[tuple] = None):
     """MNIST loader with the reference's signature; synthetic fallback."""
     del num_workers  # no worker pool: the arrays are memory-resident
     data = _try_load_mnist(Path(data_dir), training)
@@ -133,7 +138,8 @@ def mnist_loader(data_dir: str = "data/", batch_size: int = 128,
             "using deterministic synthetic MNIST (n=%d). Provide raw idx "
             "files to train on real data.", data_dir, synthetic_n)
         data = synthetic_mnist(n=synthetic_n, seed=seed, training=training)
-    return _make_image_loader(data, batch_size, shuffle, seed=seed)
+    return _make_image_loader(data, batch_size, shuffle, seed=seed,
+                              shard=shard)
 
 
 def synthetic_lm(n: int = 2048, seq_len: int = 128, vocab_size: int = 50257,
@@ -164,11 +170,13 @@ def synthetic_lm(n: int = 2048, seq_len: int = 128, vocab_size: int = 50257,
 def lm_loader(data_dir: str = "data/", batch_size: int = 8,
               shuffle: bool = True, num_workers: int = 0,
               training: bool = True, n: int = 2048, seq_len: int = 128,
-              vocab_size: int = 50257, seed: int = 0):
+              vocab_size: int = 50257, seed: int = 0,
+              shard: Optional[tuple] = None):
     del data_dir, num_workers
     data = synthetic_lm(n=n, seq_len=seq_len, vocab_size=vocab_size,
                         seed=seed, training=training)
-    return _make_image_loader(data, batch_size, shuffle, seed=seed)
+    return _make_image_loader(data, batch_size, shuffle, seed=seed,
+                              shard=shard)
 
 
 @LOADERS.register("ByteLMLoader")
@@ -176,7 +184,7 @@ def byte_lm_loader(data_dir: str = "data/", batch_size: int = 8,
                    shuffle: bool = True, num_workers: int = 0,
                    training: bool = True, file: str = "input.txt",
                    seq_len: int = 256, val_fraction: float = 0.1,
-                   seed: int = 0):
+                   seed: int = 0, shard: Optional[tuple] = None):
     """Byte-level LM over any local file (vocab 256).
 
     The file is memory-mapped as uint8 and split by ``val_fraction`` (the
@@ -192,7 +200,8 @@ def byte_lm_loader(data_dir: str = "data/", batch_size: int = 8,
             path)
         data = synthetic_lm(n=2048, seq_len=seq_len, vocab_size=256,
                             seed=seed, training=training)
-        return _make_image_loader(data, batch_size, shuffle, seed=seed)
+        return _make_image_loader(data, batch_size, shuffle, seed=seed,
+                                  shard=shard)
     raw = np.memmap(path, dtype=np.uint8, mode="r")
     split = int(len(raw) * (1.0 - val_fraction))
     part = raw[:split] if training else raw[split:]
@@ -203,7 +212,7 @@ def byte_lm_loader(data_dir: str = "data/", batch_size: int = 8,
             f"{'train' if training else 'val'} sequence")
     tokens = part[: n_chunks * seq_len].reshape(n_chunks, seq_len)
     return _make_image_loader({"tokens": tokens}, batch_size, shuffle,
-                              seed=seed)
+                              seed=seed, shard=shard)
 
 
 @LOADERS.register("BpeLMLoader")
@@ -211,7 +220,8 @@ def bpe_lm_loader(data_dir: str = "data/", batch_size: int = 8,
                   shuffle: bool = True, num_workers: int = 0,
                   training: bool = True, file: str = "input.txt",
                   seq_len: int = 256, vocab_size: int = 1024,
-                  val_fraction: float = 0.1, seed: int = 0):
+                  val_fraction: float = 0.1, seed: int = 0,
+                  shard: Optional[tuple] = None):
     """Subword LM over any local text file: a byte-level BPE tokenizer
     (data/tokenizer.py) fitted once per ``(file, vocab_size, train
     fraction)`` on the bytes before the ``1 - val_fraction`` cut, and the
@@ -231,7 +241,8 @@ def bpe_lm_loader(data_dir: str = "data/", batch_size: int = 8,
                        "data.", path)
         data = synthetic_lm(n=2048, seq_len=seq_len, vocab_size=vocab_size,
                             seed=seed, training=training)
-        return _make_image_loader(data, batch_size, shuffle, seed=seed)
+        return _make_image_loader(data, batch_size, shuffle, seed=seed,
+                                  shard=shard)
     tok_path = bpe_cache_path(data_dir, file, vocab_size,
                               val_fraction=val_fraction)
     ids_path = tok_path.with_suffix(".npy")
@@ -278,7 +289,7 @@ def bpe_lm_loader(data_dir: str = "data/", batch_size: int = 8,
     tokens = np.asarray(part[: n_chunks * seq_len]).reshape(n_chunks,
                                                             seq_len)
     loader = _make_image_loader({"tokens": tokens}, batch_size, shuffle,
-                                seed=seed)
+                                seed=seed, shard=shard)
     loader.tokenizer_path = tok_path
     return loader
 
@@ -309,14 +320,15 @@ def _load_real_digits(training: bool, val_fraction: float, seed: int):
 def digits_loader(data_dir: str = "data/", batch_size: int = 128,
                   shuffle: bool = True, num_workers: int = 0,
                   training: bool = True, val_fraction: float = 0.2,
-                  seed: int = 0):
+                  seed: int = 0, shard: Optional[tuple] = None):
     """Real handwritten-digit classification (1,438 train and 359
     validation images at the default split) in MNIST's shapes, for
     LeNet. ``data_dir`` is accepted and ignored: the data ships with the
     package."""
     del num_workers, data_dir
     data = _load_real_digits(training, val_fraction, seed=seed)
-    return _make_image_loader(data, batch_size, shuffle, seed=seed)
+    return _make_image_loader(data, batch_size, shuffle, seed=seed,
+                              shard=shard)
 
 
 @LOADERS.register("NpyDataLoader")
@@ -324,7 +336,8 @@ def npy_loader(data_dir: str = "data/", batch_size: int = 128,
                shuffle: bool = True, num_workers: int = 0,
                training: bool = True, files: Optional[dict] = None,
                mmap: bool = True, seed: int = 0,
-               normalize: Optional[dict] = None):
+               normalize: Optional[dict] = None,
+               shard: Optional[tuple] = None):
     """Any dataset preprocessed into aligned ``.npy`` arrays. ``files``
     maps a batch key to a file under ``data_dir``; ``{split}`` in a name
     becomes ``train`` or ``val`` (default ``{"image":
@@ -347,4 +360,4 @@ def npy_loader(data_dir: str = "data/", batch_size: int = 128,
             arr = np.asarray(arr, dtype=np.int32)
         arrays[key] = arr
     return _make_image_loader(arrays, batch_size, shuffle, seed=seed,
-                              normalize=normalize)
+                              normalize=normalize, shard=shard)

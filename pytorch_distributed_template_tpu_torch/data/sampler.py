@@ -9,7 +9,7 @@ global order, and shuffling permutes globally from ``(seed, epoch)`` so
 every shard sees the same permutation. ``pad_mask()`` marks which of a
 shard's indices are real, so evaluation over the padded set stays exact.
 The shard count and index default to the port's process group
-(``parallel.dist``).
+(``parallel.dist``); under a mesh the loaders pass its data axis's.
 """
 from __future__ import annotations
 

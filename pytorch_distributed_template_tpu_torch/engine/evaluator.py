@@ -10,7 +10,10 @@ over the test loader. Under a process group the loader shards over
 the ranks and the eval step sums the statistics over them, so every rank
 holds the result over the global, unpadded set. With ``save_outputs``
 every rank writes its real rows' outputs and targets (pads dropped, eval
-order) as ``outputs_p{rank}.npy`` / ``targets_p{rank}.npy``.
+order) as ``outputs_p{rank}.npy`` / ``targets_p{rank}.npy``. The mesh is
+the config's, as the trainer's: the test set shards over the data axis
+and the model gets the mesh; on a seq axis > 1 a rank's outputs
+are one shard of each row, so ``save_outputs`` refuses there.
 """
 from __future__ import annotations
 
@@ -23,24 +26,27 @@ from ..checkpoint import load_model
 from ..checkpoint.manager import EMA_FILE
 from ..config.registry import LOADERS, METRICS, MODELS
 from ..data.loader import prefetch_to_device
-from ..parallel import dist, mesh_from_config
+from ..models.base import inject_mesh
+from ..parallel import dist
+from ..parallel.mesh import build_mesh, mesh_from_config
 from .losses import resolve_loss
 from .steps import finalize_metrics, make_eval_step
 
 
-def _build_test_loader(config):
+def _build_test_loader(config, shard):
     """The config's ``test_loader``; else its ``valid_loader`` (or
     ``train_loader``) rebuilt with ``training=False`` and no shuffle, as
-    the reference's ``test.py`` does."""
+    the reference's ``test.py`` does; ``shard``: ``(index, count)`` of the
+    mesh's data axis."""
     if config.get("test_loader", None):
-        return config.init_obj("test_loader", LOADERS)
+        return config.init_obj("test_loader", LOADERS, shard=shard)
     for block in ("valid_loader", "train_loader"):
         spec = config.get(block, None)
         if spec:
             args = dict(spec.get("args", {}))
             args["training"] = False
             args["shuffle"] = False
-            return LOADERS.get(spec["type"])(**args)
+            return LOADERS.get(spec["type"])(**args, shard=shard)
     raise KeyError("config defines none of test_loader/valid_loader/"
                    "train_loader")
 
@@ -65,9 +71,12 @@ def evaluate(config, device, save_outputs=None, seed=None) -> dict:
     logger = config.get_logger("test")
     if config.resume is None:
         raise ValueError("evaluation requires a checkpoint (-r)")
-    mesh_from_config(config)
-    model = config.init_obj("arch", MODELS, device=device,
-                            param_dtype=torch.float32)
+    mesh = build_mesh(mesh_from_config(config))
+    if save_outputs is not None and mesh.axis_size("seq") > 1:
+        raise ValueError("save_outputs writes whole rows; on a seq axis > 1 "
+                         "each rank holds one shard of a row")
+    model = inject_mesh(config.init_obj("arch", MODELS, device=device,
+                                        param_dtype=torch.float32), mesh)
     trainer_cfg = config["trainer"]
     use_ema = (float(trainer_cfg.get("ema_decay", 0.0)) > 0
                and bool(trainer_cfg.get("eval_with_ema", True))
@@ -78,7 +87,7 @@ def evaluate(config, device, save_outputs=None, seed=None) -> dict:
         logger.info("evaluating the EMA's weights (%s)", EMA_FILE)
     criterion = resolve_loss(config["loss"])
     metric_fns = [METRICS.get(m) for m in config["metrics"]]
-    test_loader = _build_test_loader(config)
+    test_loader = _build_test_loader(config, mesh.data_shard())
     dk = config.get("data_keys", {}) or {}
     input_key = dk.get("input", "image")
     target_key = dk.get("target", "label")

@@ -4,10 +4,21 @@ language-model family and the image losses (``nll_loss``,
 
 Losses are per-example functions ``(output, target) -> [B]``; the train
 and eval steps apply the padding mask and reduce (engine/steps.py).
+
 ``resolve_loss`` keeps the JAX package's config contract: a plain string
 names a loss, a ``{"type", "args"}`` dict calls a registered factory.
 
 ``mlm_cross_entropy`` waits for BERT (other model families).
+
+On a seq axis (sequence parallelism) an LM's output holds one shard of
+each row's positions (``ops.attention.SeqShard``) and the step passes
+``shard=``: the LM losses then read each held position's label from the
+whole target row at its global position + 1 (on a zigzag shard the next
+position may sit on another rank, or on this one but not adjacent), the
+row's last position has none, and the divisor is the whole row's ``T -
+1``. The value is this shard's part of the per-example loss; the parts
+add up over the seq group (the step's statistics are summed over every
+rank) to JAX's value, up to reassociation.
 """
 from __future__ import annotations
 
@@ -65,30 +76,46 @@ def _token_ce(logits, labels):
                            reduction="none").view(b, t)
 
 
+def shard_labels(target, shard):
+    """``(labels [B, Tl], valid [Tl] f32)`` of a seq shard: each held
+    position's next token from the whole ``[B, T]`` row; the row's last
+    position has none (valid 0, its label a placeholder)."""
+    last = shard.length - 1
+    nxt = (shard.positions + 1).clamp_max(last)
+    return target[:, nxt].long(), (shard.positions < last).float()
+
+
 @LOSSES.register("lm_cross_entropy")
-def lm_cross_entropy(output, target):
+def lm_cross_entropy(output, target, shard=None):
     """Next-token LM loss: output ``[B, T, V]`` logits, target ``[B, T]``
     tokens. Shifts internally (predict token t+1 from position t) and
-    returns the per-sequence mean."""
+    returns the per-sequence mean (a seq shard's part of it with
+    ``shard``)."""
+    if shard is not None:
+        labels, valid = shard_labels(target, shard)
+        return ((_token_ce(output.float(), labels) * valid).sum(-1)
+                / (shard.length - 1))
     return _token_ce(output[:, :-1].float(), target[:, 1:].long()).mean(-1)
 
 
-def chunk_shifted_sequence(h, labels, chunk: int, pad_label: int = 0):
+def chunk_shifted_sequence(h, labels, chunk: int, pad_label: int = 0,
+                           valid=None):
     """Split an already-shifted ``(hidden [B, T-1, D], labels [B, T-1])``
     pair into chunk-leading tensors ``(h_c [n, B, chunk, D], l_c [n, B,
     chunk], valid [n, chunk])``: trailing padding rows are marked invalid
-    and their labels set to ``pad_label``."""
+    and their labels set to ``pad_label``. ``valid`` (``[T-1]`` f32, a seq
+    shard's) marks further rows invalid."""
     b, tm1, d = h.shape
     n_chunks = -(-tm1 // chunk)
     t_pad = n_chunks * chunk
+    ok = torch.ones(tm1, device=h.device) if valid is None else valid
     if t_pad != tm1:
         h = F.pad(h, (0, 0, 0, t_pad - tm1))
         labels = F.pad(labels, (0, t_pad - tm1), value=pad_label)
+        ok = F.pad(ok, (0, t_pad - tm1))
     h_c = h.reshape(b, n_chunks, chunk, d).transpose(0, 1)
     l_c = labels.reshape(b, n_chunks, chunk).transpose(0, 1)
-    valid = (torch.arange(t_pad, device=h.device) < tm1).float().view(
-        n_chunks, chunk)
-    return h_c, l_c, valid
+    return h_c, l_c, ok.view(n_chunks, chunk)
 
 
 def _chunk_loss(hc, lc, vc, w):
@@ -103,19 +130,26 @@ def fused_lm_cross_entropy(chunk: int = 256):
     the sequence.
 
     Pairs with a ``fused_head`` model: ``output`` is ``(hidden [B, T, D],
-    head_w [D, V])``. Each ``chunk``-token slice computes its logits
-    ``(h @ w).float()`` and its CE under ``torch.utils.checkpoint``, so the
+    head_w [D, V])`` (a seq shard's ``[B, T / S, D]`` with ``shard``).
+    Each ``chunk``-token slice computes its logits ``(h @ w).float()``
+    and its CE under ``torch.utils.checkpoint``, so the
     backward recomputes them and one ``[B, chunk, V]`` slice is alive at a
     time (the JAX package's ``jax.checkpoint`` scan). Same value as
     ``lm_cross_entropy`` on the same params up to float reassociation."""
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
 
-    def loss(output, target):
+    def loss(output, target, shard=None):
         h, w = output
-        tm1 = h.shape[1] - 1
-        h_c, l_c, v_c = chunk_shifted_sequence(h[:, :-1],
-                                               target[:, 1:].long(), chunk)
+        if shard is None:
+            tm1 = h.shape[1] - 1
+            h_c, l_c, v_c = chunk_shifted_sequence(
+                h[:, :-1], target[:, 1:].long(), chunk)
+        else:
+            tm1 = shard.length - 1
+            labels, valid = shard_labels(target, shard)
+            h_c, l_c, v_c = chunk_shifted_sequence(h, labels, chunk,
+                                                   valid=valid)
         total = torch.zeros(h.shape[0], dtype=torch.float32,
                             device=h.device)
         grad = torch.is_grad_enabled()

@@ -4,7 +4,9 @@
 
 Metrics are per-example functions ``(output, target) -> [B]`` computed
 without gradients; the steps reduce them with the padding mask as
-sufficient statistics (engine/steps.py).
+sufficient statistics (engine/steps.py). The LM metrics take a seq
+shard's ``shard=`` as the LM losses do (engine/losses.py): the value is
+the shard's part, the parts add up over the seq group.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 from ..config.registry import METRICS
 from .losses import (
     chunk_shifted_sequence, fused_lm_cross_entropy, lm_cross_entropy,
+    shard_labels,
 )
 
 _LN2 = 0.6931471805599453
@@ -39,40 +42,49 @@ def top_k_acc(output, target, k: int = 3):
 
 @METRICS.register("lm_token_accuracy")
 @torch.no_grad()
-def lm_token_accuracy(output, target):
+def lm_token_accuracy(output, target, shard=None):
     """Next-token accuracy: output ``[B, T, V]`` logits, or the
     ``fused_head`` model's ``(hidden [B, T, D], head_w [D, V])``, whose
-    argmax is taken per 256-token chunk so the full logits never exist."""
-    if isinstance(output, tuple):
-        h, w = output
+    argmax is taken per 256-token chunk so the full logits never exist.
+    ``shard``: a seq shard's part (engine/losses.py)."""
+    h = output[0] if isinstance(output, tuple) else output
+    if shard is None:
         tm1 = h.shape[1] - 1
+        h, labels = h[:, :-1], target[:, 1:].long()
+    else:
+        tm1 = shard.length - 1
+        labels, valid = shard_labels(target, shard)
+        # label -1 never matches an argmax: the row's last position
+        labels = torch.where(valid > 0, labels, torch.full_like(labels, -1))
+    if isinstance(output, tuple):
+        w = output[1]
         # pad_label -1 never matches an argmax: padding rows count 0
-        h_c, l_c, _ = chunk_shifted_sequence(
-            h[:, :-1], target[:, 1:].long(), chunk=256, pad_label=-1)
+        h_c, l_c, _ = chunk_shifted_sequence(h, labels, chunk=256,
+                                             pad_label=-1)
         hits = torch.zeros(h.shape[0], dtype=torch.float32,
                            device=h.device)
         for i in range(h_c.shape[0]):
             pred = (h_c[i] @ w).float().argmax(-1)
             hits += (pred == l_c[i]).float().sum(-1)
         return hits / tm1
-    pred = output[:, :-1].argmax(-1)
-    return (pred == target[:, 1:].long()).float().mean(-1)
+    return (h.argmax(-1) == labels).float().sum(-1) / tm1
 
 
 @METRICS.register("lm_bits_per_byte")
 @torch.no_grad()
-def lm_bits_per_byte(output, target):
+def lm_bits_per_byte(output, target, shard=None):
     """Per-example next-token cross entropy in bits (the byte-LM quality
     number when tokens are bytes, vocab 256: 8.0 is uniform). Plain
     ``[B, T, V]`` logits or the fused head's ``(hidden, head_w)``, through
     the loss implementations (fused: chunk 256), divided by ln 2."""
     if isinstance(output, tuple):
-        return fused_lm_cross_entropy(chunk=256)(output, target) / _LN2
-    return lm_cross_entropy(output, target) / _LN2
+        return fused_lm_cross_entropy(chunk=256)(output, target,
+                                                 shard) / _LN2
+    return lm_cross_entropy(output, target, shard) / _LN2
 
 
 @METRICS.register("lm_nll")
-def lm_nll(output, target):
+def lm_nll(output, target, shard=None):
     """Per-example next-token negative log likelihood in nats per token
     (the subword counterpart of ``lm_bits_per_byte``; ``exp`` of the
     aggregated value is the corpus perplexity). Plain ``[B, T, V]`` logits
@@ -80,5 +92,5 @@ def lm_nll(output, target):
     implementations (fused: chunk 256); differentiable, as the JAX
     function is."""
     if isinstance(output, tuple):
-        return fused_lm_cross_entropy(chunk=256)(output, target)
-    return lm_cross_entropy(output, target)
+        return fused_lm_cross_entropy(chunk=256)(output, target, shard)
+    return lm_cross_entropy(output, target, shard)

@@ -325,7 +325,8 @@ def load_generation_stack(config, device=None, use_ema: bool = False,
     if tp > 1:
         raise NotImplementedError(
             f"tensor_parallel={tp}: tensor-parallel serving is a later "
-            "slice (parallel axes); this slice serves on one device")
+            "slice (parallel axes, ROADMAP A11b); this slice serves on one "
+            "device")
     kvq = str(serving.get("kv_quant") or "")
     if kvq:
         # a serving mode (the scales are cache leaves, not params): the

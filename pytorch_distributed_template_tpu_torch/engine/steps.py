@@ -100,6 +100,18 @@ step's finiteness anyway and counts only on a non-finite step (exact:
 on a finite step every count is 0); without it the counts are taken on
 the device every step, which costs no read.
 
+Sequence parallelism (a model with ``seq_shard``: the LM families on a
+mesh whose ``seq`` axis is S > 1): the model returns one shard of each
+row's positions, and the steps pass that ``shard=`` to the loss and the
+LM metrics (engine/losses.py), which give the shard's part of each
+example's value. The statistics stay sums over every rank, so the parts
+add up; only the example count is the data axis's: the rank at seq index 0
+counts the batch's real rows and the others count 0 (each example would
+otherwise count S times). The backward of each rank's part reaches the
+other shards' activations through the ring's permutes, and DDP over the
+whole world averages the gradients, which leaves sum over all real rows /
+global count as with data parallelism alone.
+
 Refused by name, naming their slice: ``augment``, ``mixup_alpha``
 (ROADMAP A12).
 """
@@ -140,6 +152,18 @@ def _refuse(augment=None, mixup_alpha=0.0) -> None:
     for name, (on, where) in later.items():
         if on:
             raise NotImplementedError(f"{name} is {where}")
+
+
+def _seq_shard(model, inputs):
+    """The model's seq shard of the ``[B, T]`` input rows, or None."""
+    fn = getattr(model, "seq_shard", None)
+    return fn(inputs.shape[1]) if fn is not None else None
+
+
+def _example_count(mask, shard) -> torch.Tensor:
+    """Real rows, counted once per data shard: seq index 0 counts."""
+    count = mask.sum()
+    return count if shard is None or shard.index == 0 else count * 0.0
 
 
 def _global(stats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -281,16 +305,19 @@ class TrainStep:
         if self._masked:
             kw["example_mask"] = batch["mask"]
         output = self.model(batch[self.input_key], **kw)
-        per_ex = self.criterion(output, target)
+        shard = _seq_shard(self.module, batch[self.input_key])
+        skw = {} if shard is None else {"shard": shard}
+        per_ex = self.criterion(output, target, **skw)
         loss_sum = (per_ex * mask).sum()
-        count = mask.sum()
+        count = _example_count(mask, shard)
         aux = getattr(self.module, "aux_loss", None)
         if aux is not None:
             loss_sum = loss_sum + aux * count
         stats = {"loss_sum": loss_sum.detach(), "count": count}
         out = _detached(output)
         for fn in self.metric_fns:
-            stats[f"{fn.__name__}_sum"] = (fn(out, target) * mask).sum()
+            stats[f"{fn.__name__}_sum"] = (fn(out, target, **skw)
+                                           * mask).sum()
         return loss_sum, stats
 
     def _backward_batch(self, batch):
@@ -484,11 +511,15 @@ def make_eval_step(model, criterion: Callable,
         kw = {"example_mask": batch["mask"]} if masked else {}
         output = model(batch[input_key], **kw)
         target = batch[target_key]
-        per_ex = criterion(output, target)
+        shard = _seq_shard(model, batch[input_key])
+        skw = {} if shard is None else {"shard": shard}
+        per_ex = criterion(output, target, **skw)
         mask = batch["mask"].float()
-        metrics = {"loss_sum": (per_ex * mask).sum(), "count": mask.sum()}
+        metrics = {"loss_sum": (per_ex * mask).sum(),
+                   "count": _example_count(mask, shard)}
         for fn in metric_fns:
-            metrics[f"{fn.__name__}_sum"] = (fn(output, target) * mask).sum()
+            metrics[f"{fn.__name__}_sum"] = (fn(output, target, **skw)
+                                             * mask).sum()
         return _global(metrics)
 
     return eval_step

@@ -77,7 +77,15 @@ scale is saved with the counters and restored on resume, the
 controller's counters restart. A train loader with a ``tokenizer_path``
 (``BpeLMLoader``) gets its tokenizer copied into the run directory.
 
-Refused by name: any mesh axis but ``data`` (A11).
+The config's mesh (``parallel.mesh``): ``data`` and ``seq``. DDP runs
+over the whole world (parameters are replicated over both axes); the
+loaders shard over the data axis (built with :meth:`Mesh.data_shard`, and
+checked here), so the ranks of a seq row train on the same batch, and the
+model gets the mesh (``models.base.inject_mesh``)
+for its sequence-parallel attention. Rank 0 writes; the ``data_state``
+sidecar's sampler state records the data axis's shard count.
+Refused by name: the other mesh axes (ROADMAP A11b-d), and a seq axis > 1
+for a model without sequence parallelism.
 """
 from __future__ import annotations
 
@@ -97,7 +105,7 @@ import torch
 
 from ..checkpoint import CheckpointManager, warm_start_params
 from ..data.loader import host_prefetch, prefetch_to_device, to_tensors
-from ..models.base import describe
+from ..models.base import describe, inject_mesh
 from ..observability.crosshost import CrossHostAggregator
 from ..observability.health import (
     DeferredFetch, HealthMonitor, health_counters, health_layout,
@@ -110,7 +118,8 @@ from ..observability.telemetry import FlightRecorder, drain_compile_events
 from ..observability.trace import get_recorder as get_span_recorder
 from ..observability.trace import span
 from ..observability.tracker import MetricTracker
-from ..parallel import dist, mesh_from_config
+from ..parallel import dist
+from ..parallel.mesh import build_mesh, mesh_from_config
 from ..resilience import faults
 from ..utils import preemption
 from ..utils.debug import configure_debug
@@ -346,6 +355,23 @@ class BaseTrainer:
                 exc_info=True)
 
 
+def _check_shards(mesh, *loaders) -> None:
+    """Refuse a loader whose rows are not sharded as ``mesh``'s data axis
+    (:meth:`Mesh.data_shard`): sharded by world rank instead, the ranks of
+    a seq row would read different batches."""
+    want = mesh.data_shard()
+    for loader in loaders:
+        if loader is None or not hasattr(loader, "sampler"):
+            continue
+        got = ((0, 1) if loader.sampler is None else
+               (loader.sampler.shard_index, loader.sampler.num_shards))
+        if got != want:
+            raise ValueError(
+                f"a loader reads data shard {got[0]} of {got[1]}; the mesh "
+                f"{mesh.sizes} gives this rank shard {want[0]} of {want[1]} "
+                "(build the loaders with shard=mesh.data_shard())")
+
+
 class Trainer(BaseTrainer):
     """Concrete trainer (the JAX package's ``Trainer``).
 
@@ -358,11 +384,23 @@ class Trainer(BaseTrainer):
     :param train_loader / valid_loader: ``ArrayDataLoader``-compatible.
     :param device: where the batches go (the model's device).
     :param seed: the dropout stream's seed (``--seed``).
+    :param mesh: the config's ``parallel.mesh.Mesh`` (built from the config
+        when None); the loaders must shard over its data axis.
     """
 
     def __init__(self, model, criterion, metric_ftns, config, train_loader,
-                 valid_loader=None, device=None, seed: int = 0):
-        mesh_from_config(config)   # refuses any axis but data (A11)
+                 valid_loader=None, device=None, seed: int = 0, mesh=None):
+        # refuses the axes of A11b-d
+        self.mesh = (mesh if mesh is not None
+                     else build_mesh(mesh_from_config(config)))
+        _check_shards(self.mesh, train_loader, valid_loader)
+        if (self.mesh.axis_size("seq") > 1
+                and not hasattr(model, "seq_shard")):
+            raise ValueError(
+                f"a seq axis of {self.mesh.axis_size('seq')} needs a model "
+                f"with sequence-parallel attention; {type(model).__name__} "
+                "has none")
+        inject_mesh(model, self.mesh)
         super().__init__(config)
         cfg = config["trainer"]
         self._anomaly_was = torch.is_anomaly_enabled()
@@ -445,8 +483,9 @@ class Trainer(BaseTrainer):
             target_key=self.target_key)
         if dist.is_main_process():
             self.logger.info(describe(model))
-            self.logger.info("on %s, %d process(es)%s", self.device,
-                             dist.process_count(),
+            self.logger.info("on %s, %d process(es), mesh %s%s",
+                             self.device, dist.process_count(),
+                             self.mesh.sizes,
                              ", DistributedDataParallel" if self.ddp
                              else "")
         if config.resume is not None:

@@ -1,6 +1,6 @@
 """Model description helpers: the port of the JAX package's
-``models/base.py`` (``param_count``, ``describe``), the reference's
-``BaseModel`` summary, over a module's parameters."""
+``models/base.py`` (``param_count``, ``inject_mesh``, ``describe``), the
+reference's ``BaseModel`` summary, over a module's parameters."""
 from __future__ import annotations
 
 from torch import nn
@@ -9,6 +9,16 @@ from torch import nn
 def param_count(model: nn.Module) -> int:
     """Number of parameter elements (a DDP wrapper counts its module's)."""
     return sum(p.numel() for p in model.parameters())
+
+
+def inject_mesh(model: nn.Module, mesh) -> nn.Module:
+    """Give a mesh-aware model (a ``mesh`` attribute that is None: the LM
+    families, whose forward hands it to their SP attention) the runtime
+    mesh; no-op for models without one or with a mesh already. Returns the
+    model."""
+    if getattr(model, "mesh", "absent") is None:
+        model.mesh = mesh
+    return model
 
 
 def describe(model: nn.Module) -> str:

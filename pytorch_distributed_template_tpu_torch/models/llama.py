@@ -35,8 +35,17 @@ the plain forward and the decode forward over a KV cache, registered as
   head) (models/quant.py). Paged: the call's own tokens round-trip through
   int8 too; contiguous and rolling caches: only history rows do.
 
-Left to later slices, each refused with a message naming it:
-sequence-parallel attention (ring, Ulysses), MoE, w8a16 weights, LoRA.
+- Sequence parallelism (``attn_impl`` ``ring``, ``ring_flash``,
+  ``ulysses``, ``ulysses_flash``; ops/attention.py), training only: with a
+  mesh whose ``seq`` axis is S > 1, each rank embeds its shard of the row
+  and RoPE rotates q and k by the shard's global positions; the SP impls
+  take compact K/V (``n_kv_head`` heads cross the wire). ``window > 0``
+  forces the contiguous layout (the band balances the causal triangle and
+  the ring stops early), as in the JAX model; ``seq_layout: "zigzag"``
+  applies to an unwindowed ring.
+
+Left to later slices, each refused with a message naming it: MoE, w8a16
+weights, LoRA, decoding on a seq axis.
 """
 from __future__ import annotations
 
@@ -50,7 +59,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config.registry import MODELS
 from ..ops.attention import (
-    grouped_query_attention, multihead_attention, paged_gqa_attention,
+    SP_IMPLS, grouped_query_attention, multihead_attention,
+    paged_gqa_attention, seq_plan, sequence_attention,
 )
 from ..ops.flash import flash_attention
 from .layers import Dense, embed
@@ -209,7 +219,9 @@ class LlamaAttention(nn.Module):
         self.o_proj = Dense(n_head * hd, d_model, **lin)
 
     def forward(self, x, cache=None, start: int = 0,
-                prefill: bool = False, paged=None):
+                prefill: bool = False, paged=None, sp=None):
+        """``sp``: ``(positions [T] of a seq shard or None, layout, mesh)``
+        of the seq axis (``LlamaLM.forward``), or None."""
         b, t, _ = x.shape
         hd = self.head_dim
         q = self.q_proj(x).view(b, t, self.n_head, hd)
@@ -220,10 +232,16 @@ class LlamaAttention(nn.Module):
         elif cache is not None:
             ctx = self._cached_attention(q, k, v, cache, start, prefill)
         else:
-            pos = torch.arange(t, device=x.device)
+            pos, layout, mesh = sp or (None, "contig", None)
+            if pos is None:
+                pos = torch.arange(t, device=x.device)
             cos, sin = rope_tables(pos, hd, self.rope_base)
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-            if self.attn_impl == "flash":
+            if self.attn_impl in SP_IMPLS:
+                ctx = sequence_attention(
+                    q, k, v.contiguous(), self.attn_impl, mesh, causal=True,
+                    layout=layout, window=self.window)
+            elif self.attn_impl == "flash":
                 ctx = flash_attention(q, k, v, causal=True,
                                       window=self.window)
             else:
@@ -399,9 +417,9 @@ class LlamaBlock(nn.Module):
                           param_dtype=param_dtype)
 
     def forward(self, x, cache=None, start: int = 0, prefill: bool = False,
-                paged=None):
+                paged=None, sp=None):
         x = x + self.self_attn(self.input_layernorm(x), cache, start,
-                               prefill, paged)
+                               prefill, paged, sp)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -415,7 +433,7 @@ class LlamaLM(nn.Module):
                  rope_base: float = 10000.0, rms_eps: float = 1e-6,
                  window: int = 0, device=None, kv_quant: str = "",
                  remat: bool = False, fused_head: bool = False,
-                 param_dtype=None):
+                 param_dtype=None, mesh=None, seq_layout: str = "natural"):
         super().__init__()
         n_kv = n_kv_head or n_head
         if kv_quant not in ("", "int8"):
@@ -424,11 +442,9 @@ class LlamaLM(nn.Module):
         if n_head % n_kv:
             raise ValueError(
                 f"n_head {n_head} not divisible by n_kv_head {n_kv}")
-        if attn_impl not in ("xla", "flash"):
-            raise NotImplementedError(
-                f"attn_impl={attn_impl!r}: sequence-parallel attention is "
-                "a later slice (parallel axes); this slice runs 'flash' "
-                "and 'xla'")
+        if attn_impl not in ("xla", "flash") + SP_IMPLS:
+            raise ValueError(f"attn_impl={attn_impl!r}; expected one of "
+                             f"{('xla', 'flash') + SP_IMPLS}")
         # Llama's ~8/3 ratio rounded up to a multiple of 16, as in JAX
         d_ff = d_ff or -(-int(d_model * 8 / 3) // 16) * 16
         self.vocab_size, self.n_layer, self.n_head = vocab_size, n_layer, \
@@ -449,6 +465,21 @@ class LlamaLM(nn.Module):
         self.lm_head = Dense(d_model, vocab_size, bias=False,
                              compute_dtype=dtype, param_dtype=param_dtype,
                              device=device)
+        self.attn_impl, self.seq_layout = attn_impl, seq_layout
+        # the parallel mesh whose seq axis the SP impls run over
+        # (parallel/mesh.py); None until ``inject_mesh`` sets it
+        self.mesh = mesh
+
+    def _seq_plan(self, t: int):
+        # a window rides the contiguous banded ring
+        return seq_plan(self.mesh, self.attn_impl, self.seq_layout, t,
+                        self.lm_head.weight.device,
+                        zigzag_ok=self.window == 0)
+
+    def seq_shard(self, t: int):
+        """The :class:`ops.attention.SeqShard` this rank's outputs hold of
+        a ``[B, t]`` row, or None without a seq axis > 1."""
+        return self._seq_plan(t)[0]
 
     @property
     def device(self) -> torch.device:
@@ -517,7 +548,8 @@ class LlamaLM(nn.Module):
                 block_tables=None, row_starts=None, pad_lens=None):
         """tokens ``[B, T]`` -> f32 logits ``[B, T, V]`` (or, with no
         cache and ``fused_head``, ``(hidden, head_w [D, V])`` in the
-        compute dtype).
+        compute dtype); on a seq axis S > 1 the shard's ``[B, T / S,
+        ...]`` (:meth:`seq_shard`).
 
         With a ``DecodeCache``: decode forward from ``cache.pos_index``,
         which advances by ``T``. ``prefill=True`` asserts the cache is
@@ -528,6 +560,16 @@ class LlamaLM(nn.Module):
         model's device) place each row's lanes; ``prefill=True`` keeps the
         last position's logits only."""
         b, t = tokens.shape
+        sp = None
+        if cache is None:
+            shard, layout = self._seq_plan(t)
+            if shard is not None:
+                tokens = tokens[:, shard.positions]
+            sp = (None if shard is None else shard.positions, layout,
+                  self.mesh)
+        elif self.mesh is not None and self.mesh.axis_size("seq") > 1:
+            raise NotImplementedError("decoding on a seq axis is a later "
+                                      "slice (serving over parallel axes)")
         x = embed(self.embed_tokens.weight, tokens, self.dtype)
         start, paged = 0, None
         if isinstance(cache, PagedCache):
@@ -550,10 +592,11 @@ class LlamaLM(nn.Module):
         remat = self.remat and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
             if remat:
-                x = checkpoint(block, x, use_reentrant=False)
+                x = checkpoint(block, x, None, 0, False, None, sp,
+                               use_reentrant=False)
                 continue
             layer_cache = cache.layers[i] if cache is not None else None
-            x = block(x, layer_cache, start, prefill, paged)
+            x = block(x, layer_cache, start, prefill, paged, sp)
         x = self.norm(x)
         if cache is None and self.fused_head:
             return x.to(self.dtype), self.lm_head.weight.t().to(self.dtype)
@@ -562,17 +605,13 @@ class LlamaLM(nn.Module):
         return self.lm_head(x).float()
 
 
-def _refuse_later(quant="", lora_rank=0, mesh=None,
-                  seq_layout="natural") -> None:
+def _refuse_later(quant="", lora_rank=0) -> None:
     if quant:
         raise NotImplementedError(
             f"quant={quant!r} (w8a16 serving weights) is a later slice")
     if lora_rank:
         raise NotImplementedError("LoRA is a later slice (other model "
                                   "families)")
-    if mesh is not None or seq_layout != "natural":
-        raise NotImplementedError(
-            "meshes and sequence layouts are a later slice (parallel axes)")
 
 
 def _dtype(bfloat16: bool):
@@ -590,10 +629,11 @@ def llama(vocab_size: int = 32000, n_layer: int = 12, n_head: int = 12,
           lora_alpha: float = 16.0, device=None, param_dtype=None):
     """``param_dtype`` (default: the compute dtype) stores the weights
     wider than they compute: training passes float32."""
-    _refuse_later(quant, lora_rank, mesh, seq_layout)
+    _refuse_later(quant, lora_rank)
     return LlamaLM(vocab_size, n_layer, n_head, n_kv_head, d_model, d_ff,
                    max_len, _dtype(bfloat16), attn_impl, rope_base, rms_eps,
-                   window, device, kv_quant, remat, fused_head, param_dtype)
+                   window, device, kv_quant, remat, fused_head, param_dtype,
+                   mesh, seq_layout)
 
 
 @MODELS.register("Mistral")
@@ -607,10 +647,11 @@ def mistral(vocab_size: int = 32000, n_layer: int = 32, n_head: int = 32,
             lora_alpha: float = 16.0, device=None, param_dtype=None):
     """Mistral-7B-v0.1 shape: the Llama architecture with 4:1 GQA and a
     4096-token sliding window."""
-    _refuse_later(quant, lora_rank, mesh)
+    _refuse_later(quant, lora_rank)
     return LlamaLM(vocab_size, n_layer, n_head, n_kv_head, d_model, d_ff,
                    max_len, _dtype(bfloat16), attn_impl, rope_base, rms_eps,
-                   window, device, kv_quant, remat, fused_head, param_dtype)
+                   window, device, kv_quant, remat, fused_head, param_dtype,
+                   mesh)
 
 
 @MODELS.register("TinyLlama")
@@ -623,7 +664,8 @@ def tiny_llama(vocab_size: int = 256, n_layer: int = 2, n_head: int = 4,
                kv_quant: str = "", lora_rank: int = 0,
                lora_alpha: float = 16.0, device=None, param_dtype=None):
     """Small GQA config for tests and dry runs."""
-    _refuse_later(quant, lora_rank, mesh, seq_layout)
+    _refuse_later(quant, lora_rank)
     return LlamaLM(vocab_size, n_layer, n_head, n_kv_head, d_model, d_ff,
                    max_len, _dtype(bfloat16), attn_impl, 10000.0, 1e-6,
-                   window, device, kv_quant, remat, fused_head, param_dtype)
+                   window, device, kv_quant, remat, fused_head, param_dtype,
+                   mesh, seq_layout)

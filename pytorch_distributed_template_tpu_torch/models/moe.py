@@ -44,8 +44,8 @@ from .layers import dropout
 _SLICE_SWIGLU = ("the swiglu expert (Mixtral / sparse Llama) is a later "
                  "slice (other model families)")
 _SLICE_EXPERT_PARALLEL = ("expert parallelism (a mesh with an 'expert' "
-                          "axis, the einsum arm's all-to-all) is a later "
-                          "slice (parallel axes)")
+                          "axis, the einsum arm's all-to-all) is ROADMAP "
+                          "A11d, a later slice")
 
 
 class RowGather(torch.autograd.Function):
@@ -241,8 +241,7 @@ def _moe_lm(vocab_size, n_layer, n_head, d_model, max_len, dropout,
 
     _check_param_dtype(param_dtype)
     _refuse_later(overrides.pop("quant", ""), overrides.pop("kv_quant", ""),
-                  overrides.pop("lora_rank", 0), mesh,
-                  overrides.pop("seq_layout", "natural"))
+                  overrides.pop("lora_rank", 0))
     overrides.pop("lora_alpha", None)
     return TransformerLM(
         vocab_size=vocab_size, n_layer=n_layer, n_head=n_head,
@@ -250,7 +249,8 @@ def _moe_lm(vocab_size, n_layer, n_head, d_model, max_len, dropout,
         dtype=_dtype(bfloat16), attn_impl=attn_impl, remat=remat,
         moe_experts=num_experts, moe_top_k=top_k, moe_every=moe_every,
         moe_capacity_factor=capacity_factor,
-        moe_aux_loss_weight=aux_loss_weight, device=device, **overrides)
+        moe_aux_loss_weight=aux_loss_weight, mesh=mesh, device=device,
+        **overrides)
 
 
 @MODELS.register("MoeLM")

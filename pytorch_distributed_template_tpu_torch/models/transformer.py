@@ -34,10 +34,25 @@ as ``GPT2`` and ``TinyLM`` with the JAX registry's defaults.
   none), once per call: a block recomputed under remat returns its value
   again but adds nothing twice.
 
+- Sequence parallelism (``attn_impl`` ``ring``, ``ring_flash``,
+  ``ulysses``, ``ulysses_flash``; ops/attention.py): with a mesh whose
+  ``seq`` axis is S > 1 (the LM's ``mesh``, set by
+  ``models.base.inject_mesh`` and handed to the blocks with the layout),
+  each rank embeds only its shard of the ``[B, T]`` row, the shard's
+  tokens and the ``wpe`` rows of its global positions
+  (:meth:`TransformerLM.seq_shard`), and returns the shard's logits (or
+  hidden states) in the shard's order: the LM losses read their labels
+  from the whole row (engine/losses.py). ``seq_layout: "zigzag"`` gives
+  the ring impls the zigzag shards (JAX permutes the tokens before the
+  blocks and back before the head; a rank here holds its zigzag shard
+  throughout). Dropout folds the seq index into each site's seed, so the
+  shards of a row draw different masks. With S == 1 the SP impls compute
+  the whole attention (the flash kernels for ``*_flash``).
+
 Left to later slices, each refused with a message naming it: decode
 caches (serving the GPT-2 family), swiglu experts (other model families)
-and expert parallelism, ring/Ulysses attention and zigzag layouts
-(parallel axes), w8a16 weights and int8 KV (serving), LoRA.
+and expert parallelism (MoE blocks on a seq axis, ROADMAP A11d), w8a16
+weights and int8 KV (serving), LoRA.
 """
 from __future__ import annotations
 
@@ -47,12 +62,20 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config.registry import MODELS
-from ..ops.attention import multihead_attention
+from ..ops.attention import (
+    SP_IMPLS, multihead_attention, seq_plan, sequence_attention,
+)
 from ..ops.flash import flash_attention
 from .layers import Dense, dropout, embed, fold_in, layer_norm_f32
 from .moe import MoeMlp
 
-_SLICE_PARALLEL = "a later slice (parallel axes)"
+_ATTN_IMPLS = ("xla", "flash") + SP_IMPLS
+_SLICE_EXPERT_PARALLEL = ("MoE blocks on a seq axis need the routing over "
+                          "the whole sequence: ROADMAP A11d (expert "
+                          "parallelism), a later slice")
+#: folded into the dropout seed with the seq index: the shards of one row
+#: must not repeat one mask
+SEQ_DROPOUT_SALT = 0x5E0
 _SLICE_GPT2_SERVING = ("serving the GPT-2 family (its decode caches) is a "
                        "later slice")
 
@@ -101,11 +124,17 @@ class SelfAttention(nn.Module):
         self.out = Dense(d_model, d_model, compute_dtype=dtype,
                          param_dtype=torch.float32, device=device)
 
-    def forward(self, x, seed=None):
+    def forward(self, x, seed=None, sp=None):
+        """``sp``: ``(positions, layout, mesh)`` of the seq axis
+        (``TransformerLM.forward``), or None."""
         b, t, d_model = x.shape
         qkv = self.qkv(x).view(b, t, 3, self.n_head, self.head_dim)
         q, k, v = (qkv[:, :, i].contiguous() for i in range(3))
-        if self.attn_impl == "flash":
+        if self.attn_impl in SP_IMPLS:
+            _, layout, mesh = sp or (None, "contig", None)
+            ctx = sequence_attention(q, k, v, self.attn_impl, mesh,
+                                     causal=True, layout=layout)
+        elif self.attn_impl == "flash":
             ctx = flash_attention(q, k, v, causal=True)
         else:
             ctx = multihead_attention(q, k, v, causal=True)
@@ -132,8 +161,8 @@ class Block(nn.Module):
         else:
             self.mlp = MlpBlock(d_model, d_ff, rate, dtype, device=device)
 
-    def forward(self, x, seed=None, example_mask=None):
-        x = x + self.attn(self.ln_1(x), _site(seed, 1))
+    def forward(self, x, seed=None, example_mask=None, sp=None):
+        x = x + self.attn(self.ln_1(x), _site(seed, 1), sp)
         if hasattr(self, "moe"):
             y, aux = self.moe(self.ln_2(x), example_mask, _site(seed, 2))
             return x + y, aux
@@ -151,12 +180,12 @@ class TransformerLM(nn.Module):
                  tie_embeddings: bool = True, ln_eps: float = 1e-5,
                  moe_experts: int = 0, moe_top_k: int = 2,
                  moe_every: int = 2, moe_capacity_factor: float = 1.25,
-                 moe_aux_loss_weight: float = 0.01, device=None):
+                 moe_aux_loss_weight: float = 0.01, mesh=None,
+                 seq_layout: str = "natural", device=None):
         super().__init__()
-        if attn_impl not in ("xla", "flash"):
-            raise NotImplementedError(
-                f"attn_impl={attn_impl!r}: sequence-parallel attention is "
-                f"{_SLICE_PARALLEL}; this slice runs 'flash' and 'xla'")
+        if attn_impl not in _ATTN_IMPLS:
+            raise ValueError(f"attn_impl={attn_impl!r}; expected one of "
+                             f"{_ATTN_IMPLS}")
         if d_model % n_head:
             raise ValueError(f"d_model {d_model} not divisible by n_head "
                              f"{n_head}")
@@ -185,6 +214,22 @@ class TransformerLM(nn.Module):
             self.lm_head = Dense(d_model, vocab_size, bias=False,
                                  compute_dtype=dtype,
                                  param_dtype=torch.float32, device=device)
+        self.seq_layout = seq_layout
+        # the parallel mesh whose seq axis the SP impls run over
+        # (parallel/mesh.py); None until ``inject_mesh`` sets it
+        self.mesh = mesh
+
+    def _seq_plan(self, t: int):
+        if (self.moe_experts > 0 and self.mesh is not None
+                and self.mesh.axis_size("seq") > 1):
+            raise NotImplementedError(_SLICE_EXPERT_PARALLEL)
+        return seq_plan(self.mesh, self.attn_impl, self.seq_layout, t,
+                        self.wpe.device)
+
+    def seq_shard(self, t: int):
+        """The :class:`ops.attention.SeqShard` this rank's outputs hold of
+        a ``[B, t]`` row, or None without a seq axis > 1."""
+        return self._seq_plan(t)[0]
 
     def _is_moe_layer(self, i: int) -> bool:
         """The JAX ``_moe_kwargs`` rule: every ``moe_every``-th block."""
@@ -219,7 +264,8 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens, dropout_seed=None, example_mask=None):
         """tokens ``[B, T]`` -> f32 logits ``[B, T, V]``, or ``(hidden,
-        head_w)`` in the compute dtype with ``fused_head``.
+        head_w)`` in the compute dtype with ``fused_head``; on a seq axis
+        S > 1 the shard's ``[B, T / S, ...]`` (:meth:`seq_shard`).
         ``dropout_seed`` seeds every dropout mask of the call (needed in
         training mode when dropout > 0). ``example_mask`` ([B] bool) marks
         the real rows of a padded batch for the MoE blocks (dense blocks
@@ -228,16 +274,27 @@ class TransformerLM(nn.Module):
         if t > self.max_len:
             raise ValueError(f"sequence {t} exceeds max_len {self.max_len}")
         dt = self.dtype
-        x = embed(self.wte.weight, tokens, dt) + self.wpe[:t].to(dt)[None]
+        shard, layout = self._seq_plan(t)
+        if shard is None:
+            pos = self.wpe[:t]
+        else:
+            # this rank's shard: its tokens and its global positions' rows
+            tokens = tokens[:, shard.positions]
+            pos = self.wpe[shard.positions]
+            if dropout_seed is not None:
+                dropout_seed = fold_in(dropout_seed, SEQ_DROPOUT_SALT,
+                                       shard.index)
+        sp = (None if shard is None else shard.positions, layout, self.mesh)
+        x = embed(self.wte.weight, tokens, dt) + pos.to(dt)[None]
         x = dropout(x, self.rate, _site(dropout_seed, 0), self.training)
         aux_total = None
         for i, block in enumerate(self.h):
             seed = _site(dropout_seed, i + 1)
             if self.remat and torch.is_grad_enabled():
-                x, aux = checkpoint(block, x, seed, example_mask,
+                x, aux = checkpoint(block, x, seed, example_mask, sp,
                                     use_reentrant=False)
             else:
-                x, aux = block(x, seed, example_mask)
+                x, aux = block(x, seed, example_mask, sp)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
         self.aux_loss = aux_total
@@ -251,8 +308,7 @@ class TransformerLM(nn.Module):
         return self.lm_head(x).float()
 
 
-def _refuse_later(quant="", kv_quant="", lora_rank=0, mesh=None,
-                  seq_layout="natural") -> None:
+def _refuse_later(quant="", kv_quant="", lora_rank=0) -> None:
     if quant or kv_quant:
         raise NotImplementedError(
             f"quant={quant!r} / kv_quant={kv_quant!r}: "
@@ -260,9 +316,6 @@ def _refuse_later(quant="", kv_quant="", lora_rank=0, mesh=None,
     if lora_rank:
         raise NotImplementedError("LoRA fine-tuning is a later slice "
                                   "(other model families)")
-    if mesh is not None or seq_layout != "natural":
-        raise NotImplementedError(
-            f"meshes and sequence layouts are {_SLICE_PARALLEL}")
 
 
 _GPT2_SIZES = {
@@ -295,12 +348,13 @@ def gpt2(size: str = "gpt2-small", vocab_size: int = 50257,
     cfg = dict(_GPT2_SIZES[size])
     cfg.update(overrides)
     _refuse_later(cfg.pop("quant", ""), cfg.pop("kv_quant", ""),
-                  cfg.pop("lora_rank", 0), mesh, seq_layout)
+                  cfg.pop("lora_rank", 0))
     cfg.pop("lora_alpha", None)
     return TransformerLM(vocab_size=vocab_size, max_len=max_len,
                          dropout=dropout, dtype=_dtype(bfloat16),
                          attn_impl=attn_impl, remat=remat,
-                         fused_head=fused_head, device=device, **cfg)
+                         fused_head=fused_head, mesh=mesh,
+                         seq_layout=seq_layout, device=device, **cfg)
 
 
 @MODELS.register("TinyLM")
@@ -313,10 +367,11 @@ def tiny_lm(vocab_size: int = 256, n_layer: int = 2, n_head: int = 4,
             lora_alpha: float = 16.0, device=None, param_dtype=None):
     """Small config for tests and dry runs."""
     _check_param_dtype(param_dtype)
-    _refuse_later(quant, kv_quant, lora_rank, mesh, seq_layout)
+    _refuse_later(quant, kv_quant, lora_rank)
     return TransformerLM(vocab_size=vocab_size, n_layer=n_layer,
                          n_head=n_head, d_model=d_model, max_len=max_len,
                          dropout=dropout, dtype=_dtype(bfloat16),
                          attn_impl=attn_impl, remat=remat,
                          fused_head=fused_head,
-                         tie_embeddings=tie_embeddings, device=device)
+                         tie_embeddings=tie_embeddings, mesh=mesh,
+                         seq_layout=seq_layout, device=device)

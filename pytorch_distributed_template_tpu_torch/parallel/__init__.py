@@ -1,7 +1,8 @@
-"""Data parallelism over ``torch.distributed`` (DDP): the process group and
-its host-side collectives (``dist``), and the config's mesh over the ranks
-(``mesh``)."""
+"""Data and sequence parallelism over ``torch.distributed``: the process
+group and its host-side collectives (``dist``), the config's ``{data,
+seq}`` mesh over the ranks (``mesh``), and the differentiable collectives
+of the sequence-parallel attention (``collectives``)."""
 from . import dist
-from .mesh import mesh_from_config, resolve_axis_sizes
+from .mesh import build_mesh, mesh_from_config, resolve_axis_sizes
 
-__all__ = ["dist", "mesh_from_config", "resolve_axis_sizes"]
+__all__ = ["dist", "build_mesh", "mesh_from_config", "resolve_axis_sizes"]

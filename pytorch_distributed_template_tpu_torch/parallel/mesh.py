@@ -1,10 +1,20 @@
 """The config's ``mesh`` block over ``torch.distributed`` ranks: the port of
-the JAX package's ``parallel/mesh.py::resolve_axis_sizes`` and
-``mesh_from_config``.
+the JAX package's ``parallel/mesh.py`` (``resolve_axis_sizes``,
+``build_mesh``, ``mesh_from_config``).
 
-The port runs data parallelism only: ``{"data": -1}`` and ``{"data":
-world_size}`` resolve to the data axis over the ranks (DDP). Every other
-axis refuses by name until ROADMAP A11 (parallel axes) ports it.
+The port runs two axes: ``data`` (DDP over the ranks) and ``seq``
+(sequence parallelism: ring and Ulysses attention, ops/attention.py).
+Ranks are laid out as JAX's ``build_mesh`` reshapes its devices in
+``MESH_AXES`` order, data outer and seq inner: ``rank = data_index * S +
+seq_index``. :func:`build_mesh` makes one process group per seq row (the
+ranks that share a data index) and one per data column, on every rank in
+the same order (``dist.new_group`` is collective). The other axes refuse
+by name until their ROADMAP items port them (:data:`LATER_AXES`).
+
+:func:`build_mesh` of :func:`mesh_from_config` is the config's mesh; the
+entry points build it once and hand its data axis (:meth:`Mesh.data_shard`)
+to the loaders, so every rank of a seq row reads the same batch, as JAX's
+``batch_spec`` shards the batch over the data axes only.
 """
 from __future__ import annotations
 
@@ -15,7 +25,15 @@ import numpy as np
 from . import dist
 
 MESH_AXES = ("pipe", "data", "fsdp", "seq", "expert", "tensor")
-LATER_AXES = "ROADMAP A11 (parallel axes beyond data, a later slice)"
+#: the axes the port runs, in rank order (outer first)
+PORTED_AXES = ("data", "seq")
+#: the ROADMAP item that ports each other axis
+LATER_AXES = {
+    "tensor": "ROADMAP A11b (tensor parallelism and FSDP), a later slice",
+    "fsdp": "ROADMAP A11b (tensor parallelism and FSDP), a later slice",
+    "pipe": "ROADMAP A11c (pipeline parallelism), a later slice",
+    "expert": "ROADMAP A11d (expert parallelism), a later slice",
+}
 
 
 def resolve_axis_sizes(axes: Optional[Dict[str, int]],
@@ -48,13 +66,82 @@ def resolve_axis_sizes(axes: Optional[Dict[str, int]],
 
 def mesh_from_config(config, world_size: Optional[int] = None
                      ) -> Dict[str, int]:
-    """``{"data": world_size}`` from the config's ``mesh`` block (default
-    ``{"data": -1}``); any axis but ``data`` raises NotImplementedError
-    naming its slice."""
+    """The axis sizes of the config's ``mesh`` block (default ``{"data":
+    -1}``) over ``world_size`` ranks (default: the process group's), in
+    ``MESH_AXES`` order; an axis the port does not run raises
+    NotImplementedError naming its ROADMAP item."""
     block = config.get("mesh") or {}
     axes = dict(block.get("axes") or {"data": -1})
-    others = sorted(a for a in axes if a != "data")
-    if others:
-        raise NotImplementedError(f"mesh axes {others} are {LATER_AXES}")
+    later = sorted(a for a in axes if a in LATER_AXES)
+    if later:
+        raise NotImplementedError("; ".join(
+            f"mesh axis {a!r} is {LATER_AXES[a]}" for a in later))
     n = dist.process_count() if world_size is None else int(world_size)
-    return resolve_axis_sizes(axes, n)
+    sizes = resolve_axis_sizes(axes, n)
+    return {a: sizes[a] for a in MESH_AXES if a in sizes}
+
+
+class Mesh:
+    """The ``{data, seq}`` mesh of one rank: the axis sizes, this rank's
+    index on each axis and the process group of each axis it belongs to
+    (None for an axis of size 1, or without a process group)."""
+
+    def __init__(self, sizes: Dict[str, int], rank: int = 0,
+                 groups: Optional[dict] = None):
+        self.sizes = {a: int(sizes.get(a, 1)) for a in PORTED_AXES}
+        self.rank = int(rank)
+        self._groups = dict(groups or {})
+
+    def axis_size(self, name: str) -> int:
+        """The axis's size; 1 for an axis the mesh does not have."""
+        return self.sizes.get(name, 1)
+
+    def axis_index(self, name: str) -> int:
+        """This rank's index on the axis (``rank = data * S + seq``)."""
+        seq = self.sizes["seq"]
+        if name == "seq":
+            return self.rank % seq
+        if name == "data":
+            return self.rank // seq
+        return 0
+
+    def data_shard(self) -> tuple:
+        """``(index, count)`` of this rank's data shard, as the loaders
+        take it: every rank of a seq row reads the same shard."""
+        return self.axis_index("data"), self.axis_size("data")
+
+    def group(self, name: str):
+        """The process group of this rank's ``name`` axis, or None."""
+        return self._groups.get(name)
+
+
+def _axis_ranks(sizes: Dict[str, int], axis: str):
+    """Every group of ``axis``: the global ranks that differ only in their
+    index on it, groups in rank order."""
+    d, s = sizes["data"], sizes["seq"]
+    if axis == "seq":
+        return [[i * s + j for j in range(s)] for i in range(d)]
+    return [[i * s + j for i in range(d)] for j in range(s)]
+
+
+def build_mesh(sizes: Dict[str, int]) -> Mesh:
+    """This rank's :class:`Mesh` over the process group (collective: every
+    rank creates every axis group, in the same order)."""
+    sizes = {a: int(sizes.get(a, 1)) for a in PORTED_AXES}
+    n = dist.process_count()
+    if sizes["data"] * sizes["seq"] != n:
+        raise ValueError(f"mesh {sizes} does not cover the {n} process(es)")
+    rank = dist.process_index()
+    groups = {}
+    if dist.in_group():
+        import torch.distributed as tdist
+
+        for axis in PORTED_AXES:
+            if sizes[axis] == 1:
+                continue
+            for ranks in _axis_ranks(sizes, axis):
+                group = tdist.new_group(ranks=ranks)
+                if rank in ranks:
+                    groups[axis] = group
+    return Mesh(sizes, rank, groups)
+

@@ -109,11 +109,11 @@ def _refuse_later(args) -> None:
     if int(args.dp) > 1:
         raise NotImplementedError(
             "--dp > 1 (data-parallel engine groups) is a later slice of "
-            "the port (parallel axes)")
+            "the port (parallel axes, ROADMAP A11b)")
     if int(args.tp) > 1:
         raise NotImplementedError(
             "--tp > 1 (tensor-parallel serving) is a later slice of the "
-            "port (parallel axes)")
+            "port (parallel axes, ROADMAP A11b)")
     if args.role != "both":
         raise NotImplementedError(
             f"--role {args.role} (disaggregated prefill/decode with page "

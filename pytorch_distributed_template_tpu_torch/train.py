@@ -28,7 +28,16 @@ status 75 (``utils.preemption.EXIT_PREEMPTED``). Under a launcher
 (``torchrun``) the process joins the group first
 (``parallel.dist.initialize``: NCCL on
 ``cuda:LOCAL_RANK``, gloo with ``--device cpu``) and trains with DDP;
-``--bs`` is then the per-process batch. The model is built with float32
+``--bs`` is then the batch of one data shard. A config's ``mesh`` with a
+``seq`` axis (``configs/llama_swa_long.json``, ``gpt2_long.json``) splits
+each row over that many ranks (sequence parallelism; ranks ``data * S +
+seq``), the ranks of a seq row reading the same batch::
+
+    torchrun --standalone --nproc_per_node=4 \
+        -m pytorch_distributed_template_tpu_torch.train \
+        -c configs/llama_swa_long.json
+
+The model is built with float32
 master weights (``param_dtype``); its compute dtype is the config's
 (``bfloat16: true``), and the model's weights are drawn from ``--seed``
 (default 0) with the family's init law.
@@ -50,6 +59,7 @@ from .engine.losses import resolve_loss
 from .engine.trainer import Trainer
 from .observability.profiler import install_sigusr2
 from .parallel import dist
+from .parallel.mesh import build_mesh, mesh_from_config
 from .utils import preemption
 from .utils.compile_cache import configure_compile_cache
 
@@ -90,17 +100,19 @@ OPTIONS = [
 def build_trainer(args, config, device) -> Trainer:
     """Model, loss, metrics, loaders and the trainer, from the config."""
     seed = args.seed if args.seed is not None else 0
+    mesh = build_mesh(mesh_from_config(config))   # refuses A11b-d's axes
     model = config.init_obj("arch", MODELS, device=device,
                             param_dtype=torch.float32)
     model.init_weights(torch.Generator(device=device).manual_seed(seed))
     criterion = resolve_loss(config["loss"])
     metric_fns = [METRICS.get(m) for m in config["metrics"]]
-    train_loader = config.init_obj("train_loader", LOADERS)
-    valid_loader = (None if args.no_validate
-                    else config.init_obj("valid_loader", LOADERS))
+    shard = mesh.data_shard()
+    train_loader = config.init_obj("train_loader", LOADERS, shard=shard)
+    valid_loader = (None if args.no_validate else
+                    config.init_obj("valid_loader", LOADERS, shard=shard))
     return Trainer(model, criterion, metric_fns, config=config,
                    train_loader=train_loader, valid_loader=valid_loader,
-                   device=device, seed=seed)
+                   device=device, seed=seed, mesh=mesh)
 
 
 def main(argv=None, on_trainer=None) -> dict:

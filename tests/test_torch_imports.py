@@ -47,6 +47,8 @@ ENTRY_MODULES = [
     "pytorch_distributed_template_tpu_torch.engine.evaluator",
     "pytorch_distributed_template_tpu_torch.parallel.dist",
     "pytorch_distributed_template_tpu_torch.parallel.mesh",
+    "pytorch_distributed_template_tpu_torch.parallel.collectives",
+    "pytorch_distributed_template_tpu_torch.ops.attention",
     "pytorch_distributed_template_tpu_torch.models.base",
     "pytorch_distributed_template_tpu_torch.models.lenet",
     "pytorch_distributed_template_tpu_torch.observability.trace",

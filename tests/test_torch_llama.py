@@ -134,6 +134,13 @@ def test_later_slices_refuse(arg, value):
         assert cache.layers[0].k.dtype == torch.int8
         assert cache.layers[0].k_scale.dtype == torch.float32
         return
+    if arg == "attn_impl":
+        # ported with sequence parallelism: the model builds, and a ring
+        # impl needs a mesh, as in JAX
+        model = TMODELS.get("TinyLlama")(attn_impl=value, device="cpu")
+        with pytest.raises(ValueError, match="requires a mesh"):
+            model(torch.zeros((1, 8), dtype=torch.long))
+        return
     with pytest.raises(NotImplementedError):
         TMODELS.get("TinyLlama")(**{arg: value}, device="cpu")
 

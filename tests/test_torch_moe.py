@@ -294,8 +294,17 @@ def test_refuses_later_slices_by_name():
         tmoe.MoeMlp(D, F_, E, expert_act="swiglu")
     with pytest.raises(NotImplementedError, match="expert parallelism"):
         tmoe.MoeMlp(D, F_, E, mesh={"expert": 2})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TM.get("MoeLM")(n_layer=1, d_model=32, n_head=2, mesh={"data": 2})
+    # a data-axis mesh is ported (DDP, slice 5; the trainer gives every
+    # model its mesh); MoE blocks on a seq axis wait for expert parallelism
+    from pytorch_distributed_template_tpu_torch.parallel.mesh import Mesh
+
+    TM.get("MoeLM")(n_layer=1, d_model=32, n_head=2,
+                    mesh=Mesh({"data": 2}), device="cpu")
+    model = TM.get("MoeLM")(n_layer=1, d_model=32, n_head=2,
+                            attn_impl="ring", mesh=Mesh({"seq": 2}),
+                            device="cpu")
+    with pytest.raises(NotImplementedError, match="A11d"):
+        model(torch.zeros((1, 8), dtype=torch.long))
 
 
 def test_row_gather_backward_equals_index_autograd():
