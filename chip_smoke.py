@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 3e, 4, 5, 6, 7, 8, 9,
-10, 11, 12, 13, 14a, 14b, 14c), each one's time printed beside the card
-line; any failure exits non-zero and no phase's exception is caught:
+10, 11, 12, 13, 14a, 14b, 14c, 15a-15f), each one's time printed beside
+the card line; any failure exits non-zero and no phase's exception is
+caught:
 
 1. build: compile every CUDA source of the port with nvcc (one process per
    source, all started together) and print the build time and the ptxas
@@ -258,12 +259,49 @@ and Ulysses attention on B1-B3, the zigzag layout; no new kernel) adds:
     and bytes and ms per step. With fewer cards it prints ``"sp_nccl":
     "not run: N card(s)"``.
 
+Slice 10 (image training, ROADMAP A12's image half: ResNet and ViT with
+BatchNorm state, augment and mixup in the step, the CIFAR and ImageNet
+loaders; no new kernel: convs, BN and pools are cuDNN and plain PyTorch,
+ViT's flash attention B1-B3) adds:
+
+15a. a small f32 ResNet (CIFAR stem, one block per stage, BatchNorm) and a
+    small ViT (d 64, 2 layers, 32 px, patch 8, flash) train 5 steps on the
+    card and on the CPU from the same weights and batches with augment
+    (flip, crop 4, cutout 8) and mixup 0.2 on, TF32 off: the same per-step
+    losses, final params and BN running averages (phase 3c's limits);
+15b. B1, and B3 then B2, against their plain versions at ViT-B/16's
+    attention (12 heads x 197 tokens, D 64, bf16, non-causal: the train
+    microbatch 256 and the eval batch 1024), with phases 2 and 2c's
+    limits and rows (phases 2 and 2c also hold a batch of 8 at that shape);
+15c. ``configs/cifar10_resnet18.json`` as it is (synthetic CIFAR-10), 2
+    epochs with a checkpoint each: losses finite and falling, the last
+    ``val_accuracy`` above chance, a resume from ``checkpoint-epoch1``
+    reproducing epoch 2 and every tensor of the final state (BN buffers
+    included) exactly, ``test.py`` on ``model_best`` equal to the best
+    epoch's validation (rtol 1e-6), and a 5-step profile;
+15d. ``configs/imagenet_resnet50.json`` as it is (batch 256, bf16, the
+    synthetic fallback), 1 epoch; then the same from uint8 shards written
+    by the port's ``tools/make_image_shards.py --synthetic`` (the native
+    gather, the ``on_device`` normalize): images/s, MFU with its count,
+    peak memory and a 5-step profile for each;
+15e. ``configs/imagenet_vit_b16.json`` (global batch 1024 in 4
+    microbatches of 256: one card does not hold the batch's activations),
+    3 epochs, once as it is (``xla``) and once with ``attn_impl
+    "flash"``: exact launches (flash: per train step B1, B2, B3 48 each,
+    per eval step B1 12; xla none), images/s and peak memory;
+15f. with 4 cards: the CIFAR config in f32 with ``mixup_alpha`` 0.2, 3
+    steps on 4 NCCL ranks (64 rows each: global BN statistics, the global
+    mixup roll, the augment draws sliced per rank) against one rank (256)
+    within rtol 1e-4 (phase 14c's machinery, ``"image_nccl"``); with fewer
+    cards it prints ``"image_nccl": "not run: N card(s)"``.
+
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
-the launches of slices 1, 3, 4, 6, 7, 8 and 9, paged_attn with slice 2's,
-flash_bwd_dkv and flash_bwd_dq with slices 3, 4, 6, 7, 8 and 9,
-expert_ffn with slice 4's; phase 14a's block shapes among the rows) and
-the device line ``{"ok": true, "device": {...}}``.
+the launches of slices 1, 3, 4, 6, 7, 8, 9 and 10, paged_attn with slice
+2's, flash_bwd_dkv and flash_bwd_dq with slices 3, 4, 6, 7, 8, 9 and 10,
+expert_ffn with slice 4's; phase 14a's block shapes and phase 15b's ViT
+shapes among the rows) and the device line ``{"ok": true, "device":
+{...}}``.
 Every kernel row also carries ``pct_of_bound`` (100 x bound / kernel time) and
 ``x_library`` (kernel time / library time); kernel times are device times
 (:func:`cuda_ms`). The script needs a CUDA device and the repository
@@ -293,8 +331,10 @@ KERNEL_SOURCE = "pytorch_distributed_template_tpu_torch/csrc/flash_fwd.cu"
 KERNEL_REPLACES = "pytorch_distributed_template_tpu/ops/flash.py:109"
 # (B, H, KVH, T, D, causal, window, dtype): the main path's prefill shapes
 # (Mistral-7B: 32/8 heads, D 128, window 4096: requests a, b and d), a
-# ragged f32 case, a non-causal banded case, and the training paths'
-# shapes (GPT-2 small: 8 x 12 heads x 1024; the MoE LM: 32 x 8 x 512)
+# ragged f32 case, a non-causal banded case, the training paths'
+# shapes (GPT-2 small: 8 x 12 heads x 1024; the MoE LM: 32 x 8 x 512) and
+# ViT-B/16's attention at a small batch (bf16, non-causal, T 197: ragged
+# with B > 1 through the 4-D TMA maps; phase 15b runs its full batches)
 KERNEL_SHAPES = [
     (1, 32, 8, 1024, 128, True, 4096, torch.bfloat16),
     (1, 32, 8, 6144, 128, True, 4096, torch.bfloat16),
@@ -303,6 +343,7 @@ KERNEL_SHAPES = [
     (2, 8, 8, 512, 32, False, 128, torch.bfloat16),
     (8, 12, 12, 1024, 64, True, 0, torch.bfloat16),
     (32, 8, 8, 512, 64, True, 0, torch.bfloat16),
+    (8, 12, 12, 197, 64, False, 0, torch.bfloat16),
 ]
 # (atol, rtol, lse atol) against the plain version computed in f32 from the
 # same inputs, |out - ref| <= atol + rtol |ref|. bf16: the output is rounded
@@ -1487,8 +1528,9 @@ BWD_REPLACES = {"flash_bwd_dkv":
 # (name, B, H, KVH, T, D, causal, window, dtype, lse cotangent): the
 # training main path's shape first (GPT-2 small: 12 heads, D 64, T 1024,
 # batch 8), Mistral's head shape with GQA, a banded, a ragged f32 and a
-# non-causal banded case, and one case through both outputs of
-# flash_attention_lse
+# non-causal banded case, one case through both outputs of
+# flash_attention_lse, and ViT-B/16's attention at a small batch (bf16,
+# non-causal, ragged T 197, B > 1; phase 15b runs its microbatch)
 BWD_SHAPES = [
     ("gpt2_small", 8, 12, 12, 1024, 64, True, 0, torch.bfloat16, False),
     ("moe_lm", 32, 8, 8, 512, 64, True, 0, torch.bfloat16, False),
@@ -1498,6 +1540,7 @@ BWD_SHAPES = [
     ("noncausal_banded", 2, 8, 8, 512, 32, False, 128, torch.bfloat16,
      False),
     ("lse_cotangent", 2, 12, 12, 512, 64, True, 0, torch.bfloat16, True),
+    ("vit_b16_b8", 8, 12, 12, 197, 64, False, 0, torch.bfloat16, False),
 ]
 # |got - ref| <= a * max|ref| + r * |ref| + 1e-5 against the plain backward
 # in f32 on the same inputs. bf16 (1e-2, 1.6e-2): the kernels round P and dS
@@ -3894,7 +3937,7 @@ def seq_child(spec_path: str) -> int:
 def phase_seq_nccl(card: str, device="cuda", work=WORK, runs=SEQ_NCCL,
                    common=SEQ_NCCL_COMMON, n_steps: int = SEQ_NCCL_STEPS,
                    nproc: int = 4, corpus_bytes: int = SEQ_CORPUS_BYTES,
-                   timeout: float = 900.0) -> dict:
+                   timeout: float = 900.0, tag: str = "seq_nccl") -> dict:
     """Phase 14c: with ``nproc`` cards, ``torchrun --nproc_per_node=nproc``
     of each config (``chip_smoke.py --sp-child``) against one rank in this
     process with a seq axis of 1, both float32 without TF32 and dropout
@@ -3904,18 +3947,25 @@ def phase_seq_nccl(card: str, device="cuda", work=WORK, runs=SEQ_NCCL,
     DDP's bucket all-reduces (the world group) interleave with the ring's
     permutes (the seq groups) with NCCL's watchdog on: a hang fails the
     phase at ``timeout``. With fewer cards it prints ``"sp_nccl": "not run:
-    N card(s)"`` and returns {}."""
+    N card(s)"`` and returns {}. Phase 15f runs its image config through
+    the same machinery (``tag`` ``"image_nccl"``, no corpus: the loaders'
+    ``data_dir`` is an empty directory)."""
     from pytorch_distributed_template_tpu_torch import train as train_cli
 
     cards = torch.cuda.device_count() if device == "cuda" else nproc
     if device == "cuda" and cards < nproc:
-        log("[seq_nccl] " + json.dumps({
-            "sp_nccl": f"not run: {cards} card(s)", "card": card}))
+        log(f"[{tag}] " + json.dumps({
+            tag.replace("seq_", "sp_"): f"not run: {cards} card(s)",
+            "card": card}))
         return {}
-    root = work / "seq_nccl"
+    root = work / tag
     if root.exists():
         shutil.rmtree(root)
-    data_dir = _seq_corpus(root, corpus_bytes)
+    if corpus_bytes:
+        data_dir = _seq_corpus(root, corpus_bytes)
+    else:
+        data_dir = root / "no_data"
+        data_dir.mkdir(parents=True)
     out = {}
     for name, config, rank_sets, one_sets in runs:
         spec = {"argv": _seq_argv(config, list(common) + list(rank_sets),
@@ -3935,7 +3985,7 @@ def phase_seq_nccl(card: str, device="cuda", work=WORK, runs=SEQ_NCCL,
             err = r.stderr + r.stdout
             at = err.find("Traceback")
             tail = err[at:at + 4000] if at >= 0 else err[-4000:]
-            raise AssertionError(f"[seq_nccl] {name}: torchrun exited "
+            raise AssertionError(f"[{tag}] {name}: torchrun exited "
                                  f"{r.returncode}: {tail}")
         ranks = [json.loads(Path(f"{spec['out']}.rank{i}.json").read_text())
                  for i in range(nproc)]
@@ -3979,17 +4029,17 @@ def phase_seq_nccl(card: str, device="cuda", work=WORK, runs=SEQ_NCCL,
                    "ppermute", "ppermute_bytes", "all_to_all",
                    "all_to_all_bytes")} for s in ranks[0]["steps"]],
                "torchrun_wall_s": wall, "card": card}
-        log("[seq_nccl] " + json.dumps(row))
+        log(f"[{tag}] " + json.dumps(row))
         for rk in ranks:
             if [s["loss"] for s in rk["steps"]] != losses:
-                raise AssertionError(f"[seq_nccl] {name}: rank "
+                raise AssertionError(f"[{tag}] {name}: rank "
                                      f"{rk['rank']} logged other losses")
             if not (rk["ddp"] and rk["backend"] == ("nccl" if device ==
                                                     "cuda" else "gloo")):
-                raise AssertionError(f"[seq_nccl] {name}: rank {rk}")
+                raise AssertionError(f"[{tag}] {name}: rank {rk}")
         if len(losses) != n_steps or len(one) != n_steps \
                 or max(rel) > SEQ_NCCL_RTOL:
-            raise AssertionError(f"[seq_nccl] {name}: {nproc} ranks' "
+            raise AssertionError(f"[{tag}] {name}: {nproc} ranks' "
                                  f"losses {losses} against one rank's "
                                  f"{one}")
         out[name] = row
@@ -3998,6 +4048,495 @@ def phase_seq_nccl(card: str, device="cuda", work=WORK, runs=SEQ_NCCL,
             torch.cuda.empty_cache()
     shutil.rmtree(root)
     return out
+
+
+# ---------------------------------------------------------------------------
+# slice 10: image training (ResNet and ViT with BatchNorm state, augment,
+# mixup, the CIFAR and ImageNet loaders); B1-B3 at ViT-B/16's attention
+# ---------------------------------------------------------------------------
+
+CIFAR_CONFIG = REPO / "configs" / "cifar10_resnet18.json"
+RESNET50_CONFIG = REPO / "configs" / "imagenet_resnet50.json"
+VIT_CONFIG = REPO / "configs" / "imagenet_vit_b16.json"
+# phase 15a: a small f32 ResNet (CIFAR stem, one block per stage) and a
+# small ViT (d 64, 2 layers, 32 px, patch 8: 17 tokens, flash at D 32), 5
+# steps of 16 with augment and mixup on, card against CPU, TF32 off; the
+# tolerances of phase 3c (summation order only)
+IMAGE_REF = {
+    "ResNet": {"cls": "ResNet", "stage_sizes": (1, 1, 1, 1),
+               "num_filters": 16, "num_classes": 10, "cifar_stem": True,
+               "input_shape": (32, 32, 3)},
+    "ViT": {"cls": "ViT", "num_classes": 10, "image_size": 32,
+            "patch_size": 8, "n_layer": 2, "n_head": 2, "d_model": 64,
+            "attn_impl": "flash"},
+}
+IMAGE_REF_AUGMENT = {"flip": True, "crop_padding": 4, "cutout": 8}
+IMAGE_REF_MIXUP = 0.2
+# phase 15b: ViT-B/16's attention (12 heads x 197 tokens, D 64, bf16,
+# non-causal): the train microbatch (1024 / grad_accum_steps 4) and the
+# eval batch for B1, the microbatch for B2/B3
+VIT_KERNEL_SHAPES = [
+    (256, 12, 12, 197, 64, False, 0, torch.bfloat16),
+    (1024, 12, 12, 197, 64, False, 0, torch.bfloat16),
+]
+VIT_BWD_SHAPES = [
+    ("vit_b16", 256, 12, 12, 197, 64, False, 0, torch.bfloat16, False),
+]
+# phase 15c: cifar10_resnet18.json as it is (synthetic CIFAR-10: 4096 and
+# 4096), cut to 2 epochs with a checkpoint each
+CIFAR_SETS = [("trainer;epochs", 2), ("trainer;save_period", 1)]
+CIFAR_MIN_VAL_ACC = 0.1          # chance
+IMAGE_KEYS = ("loss", "accuracy", "top_k_acc", "val_loss", "val_accuracy",
+              "val_top_k_acc")
+# phase 15d: imagenet_resnet50.json as it is (batch 256, bf16, the
+# synthetic fallback of 4096 and 1024 images), 1 epoch; then from uint8
+# shards of the same counts
+RESNET50_SETS = [("trainer;epochs", 1)]
+RESNET50_SHARDS = {"train": 4096, "val": 1024}
+# phase 15e: imagenet_vit_b16.json (global batch 1024, synthetic 1024 and
+# 1024: one step per epoch), 3 epochs; one card does not hold a 1024-image
+# step's activations (the xla path keeps f32 scores and probabilities of
+# [B, 12, 197, 197] per layer), so 4 microbatches of 256 make the update
+VIT_SETS = [("trainer;epochs", 3), ("trainer;save_period", 10),
+            ("trainer;grad_accum_steps", 4)]
+# phase 15f: the CIFAR config in f32 with mixup 0.2, 3 steps on 4 NCCL
+# ranks (64 rows each) against one rank (256), TF32 off: rtol 1e-4
+IMAGE_NCCL = [("cifar10_resnet18", CIFAR_CONFIG,
+               [("train_loader;args;batch_size", 64),
+                ("valid_loader;args;batch_size", 64)], [])]
+IMAGE_NCCL_COMMON = [("trainer;mixup_alpha", 0.2), ("trainer;epochs", 1),
+                     ("trainer;len_epoch", SEQ_NCCL_STEPS),
+                     ("trainer;tensorboard", False),
+                     ("trainer;save_period", 100),
+                     ("valid_loader;args;synthetic_n", 512)]
+
+
+def _image_ref_run(spec, state, batches, device):
+    """``TRAIN_REF_STEPS`` steps of the small model ``spec`` on ``device``
+    from ``state`` with augment and mixup on (the config's optimizer:
+    nesterov SGD for the ResNet, AdamW for the ViT): (per-step losses,
+    final state dict on the CPU, buffers included)."""
+    from pytorch_distributed_template_tpu_torch.engine import (
+        losses, optim, steps,
+    )
+    from pytorch_distributed_template_tpu_torch.models import resnet, vit
+    from pytorch_distributed_template_tpu_torch.ops.augment import (
+        build_augment,
+    )
+
+    kw = dict(spec)
+    if kw.pop("cls") == "ResNet":
+        model = resnet.ResNet(kw.pop("stage_sizes"), resnet.BasicBlock,
+                              device=device, **kw)
+        opt = optim.OPTIMIZERS.get("SGD")(
+            model, lr=0.1, momentum=0.9, weight_decay=5e-4, nesterov=True)
+    else:
+        model = vit.ViT(device=device, **kw)
+        opt = optim.OPTIMIZERS.get("AdamW")(model, lr=1e-3,
+                                            betas=(0.9, 0.95),
+                                            weight_decay=0.3)
+    model.load_state_dict(state)
+    step = steps.make_train_step(
+        model, opt, losses.nll_loss, grad_clip_norm=1.0,
+        augment=build_augment(IMAGE_REF_AUGMENT),
+        mixup_alpha=IMAGE_REF_MIXUP, seed=5)
+    out = []
+    for batch in batches:
+        m = step({k: torch.from_numpy(v).to(device)
+                  for k, v in batch.items()})
+        out.append(float(m["loss_sum"]) / float(m["count"]))
+    return out, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def phase_image_reference(device="cuda") -> None:
+    """Phase 15a: a small f32 ResNet (CIFAR stem, BatchNorm) and a small
+    ViT (flash) trained ``TRAIN_REF_STEPS`` steps on ``device`` and on the
+    CPU from the same weights and batches, augment and mixup on (the
+    draws are the host's, the same on both), TF32 off on the card for
+    this comparison only: per-step losses, final params and BN running
+    averages within ``TRAIN_REF_TOL``."""
+    from pytorch_distributed_template_tpu_torch.data.datasets import (
+        synthetic_cifar10,
+    )
+    from pytorch_distributed_template_tpu_torch.models import resnet, vit
+
+    data = synthetic_cifar10(n=16 * TRAIN_REF_STEPS, seed=2)
+    batches = [{"image": data["image"][16 * i:16 * i + 16],
+                "label": data["label"][16 * i:16 * i + 16],
+                "mask": np.ones(16, bool)} for i in range(TRAIN_REF_STEPS)]
+    for name, spec in IMAGE_REF.items():
+        kw = dict(spec)
+        kw.pop("cls")
+        cpu = (resnet.ResNet(kw.pop("stage_sizes"), resnet.BasicBlock, **kw)
+               if name == "ResNet" else vit.ViT(**kw))
+        cpu.init_weights(torch.Generator().manual_seed(7))
+        if name == "ViT":       # its head starts at 0: give it a slope
+            with torch.no_grad():
+                cpu.head.weight.normal_(
+                    0.0, 0.02, generator=torch.Generator().manual_seed(8))
+        state = {k: v.clone() for k, v in cpu.state_dict().items()}
+        with _TF32(False, False) as tf32:
+            dev_loss, dev_s = _image_ref_run(spec, state, batches, device)
+        cpu_loss, cpu_s = _image_ref_run(spec, state, batches, "cpu")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(dev_loss,
+                                                           cpu_loss))
+        errs = {k: (dev_s[k] - cpu_s[k]).abs().max().item() for k in cpu_s}
+        buffers = [k for k in errs if k.endswith(("running_mean",
+                                                  "running_var"))]
+        row = {"model": name, "steps": TRAIN_REF_STEPS,
+               "augment": IMAGE_REF_AUGMENT, "mixup_alpha": IMAGE_REF_MIXUP,
+               "losses_device": dev_loss, "losses_cpu": cpu_loss,
+               "loss_max_rel_err": loss_err,
+               "param_max_abs_err": max(v for k, v in errs.items()
+                                        if k not in buffers),
+               "bn_buffer_max_abs_err": max((errs[k] for k in buffers),
+                                            default=None),
+               "bn_buffers": len(buffers), "tol": TRAIN_REF_TOL,
+               "device": str(device), "device_run": tf32}
+        log("[image-reference] " + json.dumps(row))
+        if not (loss_err <= TRAIN_REF_TOL["loss_rtol"]
+                and max(errs.values()) <= TRAIN_REF_TOL["param_atol"]):
+            raise AssertionError(f"small f32 {name} training on {device} "
+                                 f"differs from the CPU: {row}")
+
+
+class ImageRun:
+    """Wraps an image trainer's train and eval steps: counts B1-B3's
+    launches of each step from 0 and checks them exactly (a ViT with
+    ``attn_impl "flash"``: per train step B1, B2 and B3 ``n_layer`` x
+    microbatches, per eval step B1 ``n_layer`` and no B2/B3; every other
+    image model none), times each step (host clock to
+    ``cuda.synchronize``) and keeps its loss, images/s, MFU (the
+    profiler's ``train_step_flops`` count over the card's peak) and peak
+    memory."""
+
+    def __init__(self, trainer, device, card: str, label: str):
+        from pytorch_distributed_template_tpu_torch.observability.profiler \
+            import train_step_flops
+        from pytorch_distributed_template_tpu_torch.ops import flash
+
+        self.counters = (flash.FLASH_FWD, flash.FLASH_BWD_DKV,
+                         flash.FLASH_BWD_DQ)
+        self.device, self.card, self.label = device, card, label
+        self.launches = [0, 0, 0]
+        self.steps, self.epoch_logs, self.eval_ms = [], [], []
+        self.model = model = trainer.model
+        k = trainer.train_step.grad_accum_steps
+        # the kernels run on the card only (the CPU takes plain versions)
+        layers = (model.n_layer if getattr(model, "h", None) is not None
+                  and model.h[0].attn_impl == "flash"
+                  and torch.device(device).type == "cuda" else 0)
+        self.want = {"train": (k * layers, k * layers, k * layers),
+                     "eval": (layers, 0, 0)}
+        self.batch = trainer.train_loader.batch_size
+        self.flops = train_step_flops(model, self.batch, 0)
+        trainer.train_step = self._wrap(trainer.train_step, "train")
+        trainer.eval_step = self._wrap(trainer.eval_step, "eval")
+        real_epoch = trainer._train_epoch
+
+        def epoch(e):
+            out = real_epoch(e)
+            self.epoch_logs.append(dict(out, epoch=e))
+            log(f"[image] ({self.label}) epoch " + json.dumps(
+                dict(out, epoch=e, card=card)))
+            return out
+
+        trainer._train_epoch = epoch
+
+    def _wrap(self, fn, kind):
+        is_cuda = torch.device(self.device).type == "cuda"
+
+        def call(batch):
+            _sync(self.device)
+            for c in self.counters:
+                c.launches = 0
+            if is_cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = fn(batch)
+            _sync(self.device)
+            secs = time.perf_counter() - t0
+            got = tuple(c.launches for c in self.counters)
+            if got != self.want[kind]:
+                raise AssertionError(
+                    f"({self.label}) a {kind} step launched B1, B2, B3 = "
+                    f"{got}, not {self.want[kind]}")
+            self.launches = [a + b for a, b in zip(self.launches, got)]
+            if kind == "eval":
+                self.eval_ms.append(secs * 1e3)
+                return m
+            row = {"step": len(self.steps),
+                   "loss": float(m["loss_sum"]) / max(float(m["count"]),
+                                                      1.0),
+                   "ms": secs * 1e3, "images_per_s": self.batch / secs,
+                   "mfu": self.flops / secs / PEAK_FLOPS[torch.bfloat16],
+                   "peak_mem_gib": (torch.cuda.max_memory_allocated()
+                                    / 2 ** 30 if is_cuda else 0.0)}
+            self.steps.append(row)
+            return m
+
+        return _Wrapped(fn, call)
+
+    def summary(self) -> dict:
+        steady = self.steps[1:] or self.steps
+        return {"steps": len(self.steps),
+                "ms_per_step_median": float(np.median(
+                    [r["ms"] for r in steady])),
+                "images_per_s_median": float(np.median(
+                    [r["images_per_s"] for r in steady])),
+                "mfu_median": float(np.median([r["mfu"] for r in steady])),
+                "model_flops_per_step": self.flops,
+                "peak_mem_gib_max": max(r["peak_mem_gib"]
+                                        for r in self.steps),
+                "eval_ms_median": (float(np.median(self.eval_ms))
+                                   if self.eval_ms else None),
+                "launches_b1_b2_b3": self.launches,
+                "losses": [r["loss"] for r in self.steps]}
+
+
+def _release(device) -> None:
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _image_argv(config, save_dir, device, sets) -> list:
+    argv = ["-c", str(config), "-s", str(save_dir), "--device", str(device)]
+    for chain, value in sets:
+        argv += ["--set", chain, json.dumps(value)]
+    return argv
+
+
+def _image_train(card, device, config, sets, save_dir, label):
+    """The port's ``train.py`` on ``config`` cut by ``sets``, wrapped in an
+    :class:`ImageRun`; returns ``(trainer, run, wall seconds)``."""
+    from pytorch_distributed_template_tpu_torch import train as train_cli
+
+    box = {}
+
+    def hook(trainer):
+        box["trainer"] = trainer
+        box["run"] = ImageRun(trainer, device, card, label)
+        m = trainer.model
+        log(f"[image] ({label}) {type(m).__name__} on {trainer.device}, "
+            f"{sum(p.numel() for p in m.parameters()) / 1e6:.2f} M params, "
+            f"{m.dtype}; train {trainer.train_loader.n_samples} images in "
+            f"batches of {trainer.train_loader.batch_size} "
+            f"({trainer.train_step.grad_accum_steps} microbatches), "
+            f"{len(trainer.train_loader)} steps per epoch; augment "
+            f"{trainer.config['trainer'].get('augment')}, mixup "
+            f"{trainer.train_step.mixup_alpha}; cuts: {sets}")
+
+    t0 = time.perf_counter()
+    train_cli.main(_image_argv(config, save_dir, device, sets),
+                   on_trainer=hook)
+    wall = time.perf_counter() - t0
+    trainer, run = box["trainer"], box["run"]
+    losses = [r["loss"] for r in run.steps]
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"({label}) training losses {losses}")
+    for e in run.epoch_logs:
+        if not all(np.isfinite(e[k]) for k in IMAGE_KEYS):
+            raise AssertionError(f"({label}) epoch {e['epoch']}: {e}")
+    return trainer, run, wall
+
+
+def _image_profile(trainer, device, card: str, label: str) -> dict:
+    """5 train steps under ``torch.profiler`` (outside the counted run),
+    on batches as the trainer gets them (the loader's device transform
+    applied)."""
+    from pytorch_distributed_template_tpu_torch.data.loader import (
+        prefetch_to_device,
+    )
+
+    loader = trainer.train_loader
+    batches = [b for b, _ in zip(prefetch_to_device(
+        loader, device, 2, getattr(loader, "device_transform", None)),
+        range(5))]
+    row = _profiled(lambda: [trainer.train_step(b) for b in batches],
+                    device, top_n=10)
+    row = {"profile": f"{label}_steps", "steps": len(batches), **row,
+           "card": card}
+    log("[profile] " + json.dumps(row))
+    return row
+
+
+def phase_cifar(card: str, device="cuda", config=CIFAR_CONFIG,
+                sets=CIFAR_SETS, work=WORK) -> None:
+    """Phase 15c: ``configs/cifar10_resnet18.json`` as it is (ResNet-18,
+    CIFAR stem, batch 256, nesterov SGD, augment flip and crop 4; the
+    synthetic CIFAR-10 without pickles), cut by ``sets`` to 2 epochs with a
+    checkpoint each: losses finite and falling, the last ``val_accuracy``
+    above chance; a resume from ``checkpoint-epoch1`` reproduces epoch 2
+    exactly (the logs and every tensor of the final state, BN buffers
+    included: the augment draws come from the step counter); the port's
+    ``test.py`` on ``model_best`` gives the best epoch's validation
+    (``TEST_RTOL``)."""
+    from pytorch_distributed_template_tpu_torch import test as test_cli
+    from pytorch_distributed_template_tpu_torch import train as train_cli
+
+    root = work / "cifar"
+    if root.exists():
+        shutil.rmtree(root)
+    trainer, run, wall = _image_train(card, device, config, sets,
+                                      root / "main", "cifar")
+    logs = run.epoch_logs
+    row = {"config": str(Path(config).relative_to(REPO)), "wall_s": wall,
+           **run.summary(), "epochs": [{k: e[k] for k in IMAGE_KEYS}
+                                       for e in logs], "card": card}
+    log("[image] (cifar) " + json.dumps(row))
+    if not logs[-1]["loss"] < logs[0]["loss"]:
+        raise AssertionError(f"the loss did not fall: {logs}")
+    if not logs[-1]["val_accuracy"] > CIFAR_MIN_VAL_ACC:
+        raise AssertionError(f"val_accuracy {logs[-1]['val_accuracy']} "
+                             f"is not above chance")
+    final = {k: v.detach().clone()
+             for k, v in trainer.model.state_dict().items()}
+    run_dir = trainer.config.save_dir
+    box = {}
+
+    def hook(t):
+        box["run"] = ImageRun(t, device, card, "cifar-resume")
+
+    train_cli.main(["-r", str(run_dir / "checkpoint-epoch1"), "-s",
+                    str(root / "resume"), "--device", str(device)],
+                   on_trainer=hook)
+    resumed = box["run"]
+    again = resumed.epoch_logs
+    diffs = {k: again[0][k] - logs[1][k] for k in IMAGE_KEYS}
+    resumed_state = resumed.model.state_dict()
+    unequal = [k for k, v in final.items()
+               if not torch.equal(v, resumed_state[k])]
+    log("[image] (cifar) resume " + json.dumps({
+        "epoch": 2, "diff": diffs, "state_tensors": len(final),
+        "unequal_tensors": unequal[:5],
+        "bn_buffers": sum(k.endswith("running_var") for k in final)}))
+    if [e["epoch"] for e in again] != [2] or any(diffs.values()) \
+            or unequal:
+        raise AssertionError(f"the resume does not reproduce epoch 2: "
+                             f"{diffs}, {unequal[:5]}")
+    best = None
+    for e in logs:     # monitor "max val_accuracy": >= wins
+        if best is None or e["val_accuracy"] >= best["val_accuracy"]:
+            best = e
+    result = test_cli.main(["-r", str(run_dir / "model_best"), "-s",
+                            str(root / "test"), "--device", str(device),
+                            "--save-outputs", str(root / "outputs")])
+    errs = {k: abs(result[k] - best[f"val_{k}"]) / abs(best[f"val_{k}"])
+            for k in ("loss", "accuracy", "top_k_acc")}
+    rows = np.load(root / "outputs" / "outputs_p0.npy").shape
+    log("[image] (cifar) test.py " + json.dumps({
+        "epoch": best["epoch"], "test": result, "rel_err_vs_its_val": errs,
+        "rtol": TEST_RTOL, "saved_outputs": rows}))
+    if max(errs.values()) > TEST_RTOL or rows[0] != \
+            trainer.valid_loader.n_samples:
+        raise AssertionError(f"test.py differs from model_best's epoch: "
+                             f"{errs}, outputs {rows}")
+    _image_profile(trainer, device, card, "cifar")
+    del trainer, run, box, resumed
+    _release(device)
+    shutil.rmtree(root)
+
+
+def phase_resnet50(card: str, device="cuda", config=RESNET50_CONFIG,
+                   sets=RESNET50_SETS, shards=RESNET50_SHARDS,
+                   image_size: int = 224, work=WORK) -> dict:
+    """Phase 15d: ``configs/imagenet_resnet50.json`` as it is (ResNet-50,
+    batch 256, bf16, nesterov SGD, WarmupCosine, flip; no shards under its
+    ``data_dir``: the synthetic ImageNet of 4096 and 1024 images), 1
+    epoch; then the same run from uint8 shards that the port's
+    ``tools/make_image_shards.py --synthetic`` writes (the native
+    batcher's gathers, the ``on_device`` normalize). Prints images/s, MFU
+    with its count, peak memory and a 5-step profile per run."""
+    from pytorch_distributed_template_tpu_torch.data import native
+
+    root = work / "resnet50"
+    if root.exists():
+        shutil.rmtree(root)
+    cfg = json.loads(Path(config).read_text())
+    if any(any((REPO / cfg[f"{s}_loader"]["args"]["data_dir"])
+               .glob("*.npy")) for s in ("train", "valid")):
+        raise AssertionError("shards under the config's data_dir: the "
+                             "synthetic fallback would not run")
+    out = {}
+    trainer, run, wall = _image_train(card, device, config, sets,
+                                      root / "synthetic", "resnet50")
+    out["synthetic"] = dict(run.summary(), wall_s=wall)
+    log("[image] (resnet50) " + json.dumps(dict(
+        out["synthetic"], data="synthetic fallback", card=card)))
+    out["synthetic"]["profile"] = _image_profile(trainer, device, card,
+                                                 "resnet50")
+    del trainer, run
+    _release(device)
+
+    data_dir = root / "shards"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m",
+         "pytorch_distributed_template_tpu_torch.tools.make_image_shards",
+         "--synthetic", str(n), "--split", split, "--out", str(data_dir),
+         "--image-size", str(image_size)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for split, n in shards.items()]
+    for p in procs:
+        text = p.communicate(timeout=600)[0]
+        if p.returncode != 0:
+            raise AssertionError(f"make_image_shards: {text[-2000:]}")
+    shard_s = time.perf_counter() - t0
+    shard_sets = list(sets) + [(f"{s}_loader;args;data_dir", str(data_dir))
+                               for s in ("train", "valid")]
+    native.CALLS.reset()
+    trainer, run, wall = _image_train(card, device, config, shard_sets,
+                                      root / "sharded", "resnet50-shards")
+    loader = trainer.train_loader
+    out["shards"] = dict(run.summary(), wall_s=wall,
+                         shard_write_s=shard_s,
+                         native_gathers=native.CALLS.calls,
+                         images=type(loader.arrays["image"]).__name__,
+                         on_device_normalize=loader.device_transform
+                         is not None)
+    log("[image] (resnet50) " + json.dumps(dict(
+        out["shards"], data=f"uint8 shards {shards}", card=card)))
+    if not (native.CALLS.calls and out["shards"]["on_device_normalize"]
+            and out["shards"]["images"] == "ShardedU8Array"):
+        raise AssertionError(f"the sharded run missed its path: "
+                             f"{out['shards']}")
+    out["shards"]["profile"] = _image_profile(trainer, device, card,
+                                              "resnet50-shards")
+    del trainer, run, loader
+    _release(device)
+    shutil.rmtree(root)
+    return out
+
+
+def phase_vit(card: str, device="cuda", config=VIT_CONFIG, sets=VIT_SETS,
+              work=WORK) -> dict:
+    """Phase 15e: ``configs/imagenet_vit_b16.json`` (ViT-B/16, global
+    batch 1024 in 4 microbatches, bf16, AdamW, clip 1.0, flip, mixup 0.2,
+    dropout 0.1; synthetic ImageNet, one step per epoch) for 3 epochs,
+    once as it is (``attn_impl "xla"``) and once with ``attn_impl
+    "flash"``: exact launches per step (flash: per train step B1, B2, B3
+    12 x 4; per eval step B1 12; xla: none), images/s and peak memory,
+    then a profile of one train step (the epoch's one batch; outside the
+    counted run). Returns the flash run's launches per kernel."""
+    root = work / "vit"
+    if root.exists():
+        shutil.rmtree(root)
+    out = {}
+    for impl in ("xla", "flash"):
+        run_sets = list(sets) + ([("arch;args;attn_impl", impl)]
+                                 if impl != "xla" else [])
+        trainer, run, wall = _image_train(card, device, config, run_sets,
+                                          root / impl, f"vit-{impl}")
+        out[impl] = dict(run.summary(), wall_s=wall)
+        log("[image] (vit) " + json.dumps(dict(out[impl], attn_impl=impl,
+                                               card=card)))
+        _image_profile(trainer, device, card, f"vit-{impl}")
+        del trainer, run
+        _release(device)
+    shutil.rmtree(root)
+    return dict(zip(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+                    out["flash"]["launches_b1_b2_b3"]))
 
 
 def main() -> int:
@@ -4049,6 +4588,14 @@ def main() -> int:
     bwd_rows += timed("14a-bwd", phase_bwd_kernel, SEQ_BWD_SHAPES)
     seq_launches = timed("14b", phase_seq_train, card)
     timed("14c", phase_seq_nccl, card)
+    timed("15a", phase_image_reference)
+    rows += timed("15b", phase_kernel, VIT_KERNEL_SHAPES)
+    bwd_rows += timed("15b-bwd", phase_bwd_kernel, VIT_BWD_SHAPES)
+    timed("15c", phase_cifar, card)
+    timed("15d", phase_resnet50, card)
+    vit_launches = timed("15e", phase_vit, card)
+    timed("15f", phase_seq_nccl, card, runs=IMAGE_NCCL,
+          common=IMAGE_NCCL_COMMON, corpus_bytes=0, tag="image_nccl")
     log("[native] gathers " + json.dumps(gathers))
     if not all(gathers.values()):
         raise AssertionError(f"the native batcher did not gather in every "
@@ -4059,7 +4606,8 @@ def main() -> int:
     kernels = []
     for kern in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         train_launches[kern] += (obs_launches[kern] + res_launches[kern]
-                                 + lm_launches[kern] + seq_launches[kern])
+                                 + lm_launches[kern] + seq_launches[kern]
+                                 + vit_launches[kern])
     flash_launches += train_launches["flash_fwd"] + moe_launches["flash_fwd"]
     for kernel, source, replaces, launches, shapes in (
             ("flash_fwd", KERNEL_SOURCE, KERNEL_REPLACES, flash_launches,

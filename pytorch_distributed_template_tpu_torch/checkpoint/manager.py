@@ -12,8 +12,12 @@ emergency save ``emergency: true``) and, for all but ``model_best``, a
 state lives (the trainer's ``_data_state_snapshot``). Inside a checkpoint
 directory: ``model.pt``, ``optimizer.pt`` (``torch.save`` of the state
 dicts), ``train_state.json`` (the step and applied-update counters) and,
-when the run keeps an EMA of the params, ``ema.pt``. The port does not
-read the JAX package's orbax checkpoints.
+when the run keeps an EMA of the params, ``ema.pt``. ``model.pt`` is the
+model's whole state dict: a BatchNorm model's running averages (the JAX
+package's ``batch_stats``) ride every save with the params, the interval
+slots' pinned host copy included, and every resume restores them; the
+EMA is over the params alone. The port does not read the JAX package's
+orbax checkpoints.
 
 Every directory is written whole into a hidden temporary directory beside
 it, then renamed into place, and its sidecars are written after it (each
@@ -86,11 +90,20 @@ def _strip_module(state: dict) -> dict:
 
 
 def load_model(path, model, map_location="cpu", name="model.pt") -> None:
-    """Load ``<path>/<name>`` (the params, or ``ema.pt``'s shadow
-    params) into ``model`` (or a DDP wrapper's module), read onto
-    ``map_location``."""
-    state = torch.load(Path(path) / name, map_location=map_location)
-    _bare(model).load_state_dict(_strip_module(state))
+    """Load ``<path>/<name>`` into ``model`` (or a DDP wrapper's module),
+    read onto ``map_location``: ``model.pt``, the params and buffers
+    (BatchNorm's running averages), or ``ema.pt``, the EMA's shadow
+    params, over the params alone (the buffers stay as they are)."""
+    state = _strip_module(torch.load(Path(path) / name,
+                                     map_location=map_location))
+    model = _bare(model)
+    if name == EMA_FILE:
+        missing = set(dict(model.named_parameters())) - set(state)
+        if missing:
+            raise KeyError(f"{name} lacks params {sorted(missing)[:3]}")
+        model.load_state_dict(state, strict=False)
+    else:
+        model.load_state_dict(state)
 
 
 def _payload(model, optimizer, train_state: dict, ema) -> dict:
@@ -427,15 +440,17 @@ class CheckpointManager:
 
 def warm_start_params(resume_path, model, map_location="cpu"
                       ) -> Tuple[List[str], List[str]]:
-    """Graft a training checkpoint's ``model.pt`` into ``model`` (its bare
-    module) by state-dict key and shape, in place: the transfer and
+    """Graft a training checkpoint's ``model.pt`` params into ``model``
+    (its bare module) by name and shape, in place: the transfer and
     fine-tune start behind ``trainer.init_from``. What does not match
-    keeps its initialisation; the optimizer, the counters and the epoch do
-    not travel. Returns ``(restored keys, skipped keys)``, sorted."""
+    keeps its initialisation; the buffers (BatchNorm's running averages,
+    as the JAX package's ``batch_stats``), the optimizer, the counters
+    and the epoch do not travel. Returns ``(restored keys, skipped
+    keys)``, sorted."""
     resume_path = Path(resume_path).resolve()
     disk = _strip_module(torch.load(resume_path / "model.pt",
                                     map_location=map_location))
-    current = _bare(model).state_dict()
+    current = dict(_bare(model).named_parameters())
     matched = sorted(k for k, v in current.items()
                      if k in disk and tuple(disk[k].shape) == tuple(v.shape))
     skipped = sorted(set(current) - set(matched))

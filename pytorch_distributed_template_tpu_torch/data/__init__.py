@@ -1,3 +1,4 @@
 """Data: the byte-level BPE tokenizer the serving path decodes with, and
-the LM training loaders (importing ``data.datasets`` registers them in
-``config.LOADERS``)."""
+the training loaders, LM and image (importing ``data.datasets`` registers
+them in ``config.LOADERS``; ``data.sharded`` holds the uint8 image
+shards)."""

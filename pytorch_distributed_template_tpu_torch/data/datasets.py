@@ -3,14 +3,21 @@ of the JAX package's ``data/datasets.py`` for the LM family
 (``synthetic_lm``, ``SyntheticLMLoader``, ``ByteLMLoader``,
 ``BpeLMLoader``), MNIST (``_synthetic_image_classification``,
 ``synthetic_mnist``, ``_try_load_mnist``, ``MnistDataLoader``), the real
-UCI digits (``DigitsDataLoader``) and ``.npy`` arrays
-(``NpyDataLoader``).
+UCI digits (``DigitsDataLoader``), ``.npy`` arrays (``NpyDataLoader``),
+CIFAR-10 (``synthetic_cifar10``, ``_try_load_cifar10``,
+``Cifar10DataLoader``) and ImageNet (``synthetic_imagenet``,
+``SyntheticImageNetLoader``, and ``ShardedImageNetLoader`` over the uint8
+shards of ``data/sharded.py``).
 
 The arrays are byte-identical to the JAX package's (same numpy Philox
 generators, same seeds, the same memory-mapped bytes). Real MNIST is read
 from raw or gzipped idx files anywhere under ``data_dir``; nothing is
 downloaded, so without them the loader falls back to the deterministic,
-learnable synthetic set of the same shapes. The digits are the port's own
+learnable synthetic set of the same shapes; so do CIFAR-10 (its python
+pickle batches, ``data_batch_1``.. and ``test_batch``, anywhere under
+``data_dir``, normalised by the per-channel mean and std) and ImageNet
+(no shards under ``data_dir``: the synthetic set at 224 px, templates of
+16 x 16 repeated up). The digits are the port's own
 ``digits.csv.gz``, a byte copy of the file scikit-learn ships (the UCI
 optical-recognition test set, 1,797 8x8 images; BSD-3 with
 scikit-learn), read with ``gzip`` and numpy. ``BpeLMLoader``'s tokenizer
@@ -73,6 +80,34 @@ def synthetic_mnist(n: int = 4096, seed: int = 0, training: bool = True):
     images, labels = _synthetic_image_classification(
         n, (28, 28, 1), 10, seed=seed, split=0 if training else 1)
     return {"image": images, "label": labels}
+
+
+def synthetic_cifar10(n: int = 4096, seed: int = 0, training: bool = True):
+    images, labels = _synthetic_image_classification(
+        n, (32, 32, 3), 10, seed=seed, split=0 if training else 1)
+    return {"image": images, "label": labels}
+
+
+def synthetic_imagenet(n: int = 1024, image_size: int = 224, seed: int = 0,
+                       training: bool = True, num_classes: int = 1000):
+    """``n`` images of ``image_size``: per-class 16 x 16 x 3 templates
+    repeated up to the size, plus noise of std 0.3 (full-size templates
+    would be ~600 MB at 1000 classes)."""
+    split = 0 if training else 1
+    tmpl_rng = np.random.Generator(np.random.Philox(key=seed))
+    rng = np.random.Generator(
+        np.random.Philox(np.random.SeedSequence((seed, split + 1))))
+    small = 16
+    if image_size % small != 0 or image_size < small:
+        raise ValueError(f"image_size must be a positive multiple of "
+                         f"{small}, got {image_size}")
+    templates = tmpl_rng.normal(0, 1, size=(num_classes, small, small, 3)) \
+        .astype(np.float32)
+    labels = rng.integers(0, num_classes, size=n).astype(np.int32)
+    factor = image_size // small
+    images = np.repeat(np.repeat(templates[labels], factor, 1), factor, 2)
+    images += 0.3 * rng.normal(size=images.shape).astype(np.float32)
+    return {"image": images.astype(np.float32), "label": labels}
 
 
 def _try_load_mnist(data_dir: Path, training: bool):
@@ -361,3 +396,99 @@ def npy_loader(data_dir: str = "data/", batch_size: int = 128,
         arrays[key] = arr
     return _make_image_loader(arrays, batch_size, shuffle, seed=seed,
                               normalize=normalize, shard=shard)
+
+
+def _try_load_cifar10(data_dir: Path, training: bool):
+    """The python-pickle CIFAR-10 batches anywhere under ``data_dir``
+    (``data_batch_1``..``5`` or ``test_batch``), NHWC float32 normalised
+    by the per-channel mean and std, or None when absent."""
+    import pickle
+
+    base = None
+    for cand in data_dir.rglob("data_batch_1"):
+        base = cand.parent
+        break
+    if base is None:
+        return None
+    files = ([base / f"data_batch_{i}" for i in range(1, 6)] if training
+             else [base / "test_batch"])
+    xs, ys = [], []
+    for f in files:
+        with open(f, "rb") as fh:
+            d = pickle.load(fh, encoding="bytes")
+        xs.append(np.asarray(d[b"data"], dtype=np.uint8))
+        ys.append(np.asarray(d[b"labels"], dtype=np.int32))
+    x = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    mean = np.array([0.4914, 0.4822, 0.4465], np.float32)
+    std = np.array([0.2470, 0.2435, 0.2616], np.float32)
+    x = (x.astype(np.float32) / 255.0 - mean) / std
+    return {"image": x, "label": np.concatenate(ys)}
+
+
+@LOADERS.register("Cifar10DataLoader")
+def cifar10_loader(data_dir: str = "data/", batch_size: int = 128,
+                   shuffle: bool = True, num_workers: int = 0,
+                   training: bool = True, synthetic_n: int = 4096,
+                   seed: int = 0, shard: Optional[tuple] = None):
+    """CIFAR-10 from its pickle batches; the synthetic set without
+    them."""
+    del num_workers
+    data = _try_load_cifar10(Path(data_dir), training)
+    if data is None:
+        logger.warning("CIFAR-10 files not found under %s; using synthetic "
+                       "CIFAR-10.", data_dir)
+        data = synthetic_cifar10(n=synthetic_n, seed=seed, training=training)
+    return _make_image_loader(data, batch_size, shuffle, seed=seed,
+                              shard=shard)
+
+
+@LOADERS.register("ShardedImageNetLoader")
+def sharded_imagenet_loader(data_dir: str = "data/imagenet_shards/",
+                            batch_size: int = 128, shuffle: bool = True,
+                            num_workers: int = 0, training: bool = True,
+                            normalize: Optional[dict] = None,
+                            synthetic_n: int = 1024,
+                            image_size: int = 224, num_classes: int = 1000,
+                            seed: int = 0, shard: Optional[tuple] = None):
+    """ImageNet-scale training from uint8 mmap shards
+    (``{split}_images_NNNN.npy`` / ``{split}_labels_NNNN.npy``, written by
+    ``tools/make_image_shards.py``; ``data/sharded.py``): the batches are
+    gathered out of the mapped pages by the native batcher. The default
+    ``normalize`` is ImageNet's mean and std ``on_device``: uint8 crosses
+    to the card and is normalised there. Without shards, the synthetic
+    ImageNet in memory (``synthetic_n`` images)."""
+    del num_workers
+    from .sharded import open_sharded_split
+
+    if normalize is None:
+        normalize = {"mean": [0.485, 0.456, 0.406],
+                     "std": [0.229, 0.224, 0.225], "on_device": True}
+    pair = open_sharded_split(data_dir, training)
+    if pair is None:
+        logger.warning(
+            "ShardedImageNetLoader: no shards under %s; using synthetic "
+            "ImageNet (n=%d). Convert real data with "
+            "tools/make_image_shards.py.", data_dir, synthetic_n)
+        data = synthetic_imagenet(n=synthetic_n, image_size=image_size,
+                                  seed=seed, training=training,
+                                  num_classes=num_classes)
+        return _make_image_loader(data, batch_size, shuffle, seed=seed,
+                                  shard=shard)
+    images, labels = pair
+    return _make_image_loader({"image": images, "label": labels},
+                              batch_size, shuffle, seed=seed,
+                              normalize=normalize, shard=shard)
+
+
+@LOADERS.register("SyntheticImageNetLoader")
+def imagenet_loader(data_dir: str = "data/", batch_size: int = 128,
+                    shuffle: bool = True, num_workers: int = 0,
+                    training: bool = True, n: int = 1024,
+                    image_size: int = 224, num_classes: int = 1000,
+                    seed: int = 0, shard: Optional[tuple] = None):
+    """The synthetic ImageNet in memory (``data_dir`` is not read)."""
+    del num_workers, data_dir
+    data = synthetic_imagenet(n=n, image_size=image_size, seed=seed,
+                              training=training, num_classes=num_classes)
+    return _make_image_loader(data, batch_size, shuffle, seed=seed,
+                              shard=shard)

@@ -119,11 +119,18 @@ class ArrayDataLoader:
         return transform
 
     def _gather(self, key: str, v, batch_idx) -> np.ndarray:
+        """Rows ``batch_idx`` of ``v``: a virtual array with its own
+        ``gather`` / ``gather_normalize`` (``data/sharded.py``) gathers
+        itself, any other array through the native batcher."""
         if (self.normalize is not None and not self._norm_on_device
                 and key == self.normalize.get("key", "image")):
-            return native.gather_normalize_u8(
-                v, batch_idx, np.asarray(self.normalize["mean"], np.float32),
-                np.asarray(self.normalize["std"], np.float32))
+            mean = np.asarray(self.normalize["mean"], np.float32)
+            std = np.asarray(self.normalize["std"], np.float32)
+            if hasattr(v, "gather_normalize"):
+                return v.gather_normalize(batch_idx, mean, std)
+            return native.gather_normalize_u8(v, batch_idx, mean, std)
+        if hasattr(v, "gather"):
+            return v.gather(batch_idx)
         return native.gather(v, batch_idx)
 
     def set_epoch(self, epoch: int) -> None:

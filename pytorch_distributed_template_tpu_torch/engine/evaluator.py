@@ -3,9 +3,11 @@
 library).
 
 Build the model, the loss and the metrics from the config, restore
-``config.resume``'s ``model.pt`` onto the device (its ``ema.pt``, the EMA's
-shadow weights, when the config trains one and ``trainer.eval_with_ema``
-is not false, as the JAX evaluator does), and run the masked eval step
+``config.resume``'s ``model.pt`` onto the device (then its ``ema.pt``, the
+EMA's shadow params, when the config trains one and
+``trainer.eval_with_ema`` is not false, as the JAX evaluator does; a
+BatchNorm model keeps ``model.pt``'s running averages), and run the
+masked eval step in eval mode (BatchNorm on the running averages)
 over the test loader. Under a process group the loader shards over
 the ranks and the eval step sums the statistics over them, so every rank
 holds the result over the global, unpadded set. With ``save_outputs``
@@ -81,9 +83,10 @@ def evaluate(config, device, save_outputs=None, seed=None) -> dict:
     use_ema = (float(trainer_cfg.get("ema_decay", 0.0)) > 0
                and bool(trainer_cfg.get("eval_with_ema", True))
                and (config.resume / EMA_FILE).exists())
-    load_model(config.resume, model, map_location=device,
-               name=EMA_FILE if use_ema else "model.pt")
+    load_model(config.resume, model, map_location=device)
     if use_ema:
+        # the EMA's params over model.pt's buffers (BN's running averages)
+        load_model(config.resume, model, map_location=device, name=EMA_FILE)
         logger.info("evaluating the EMA's weights (%s)", EMA_FILE)
     criterion = resolve_loss(config["loss"])
     metric_fns = [METRICS.get(m) for m in config["metrics"]]

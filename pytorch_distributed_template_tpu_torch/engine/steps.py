@@ -112,8 +112,29 @@ other shards' activations through the ring's permutes, and DDP over the
 whole world averages the gradients, which leaves sum over all real rows /
 global count as with data parallelism alone.
 
-Refused by name, naming their slice: ``augment``, ``mixup_alpha``
-(ROADMAP A12).
+Augment and mixup (image batches ``[B, H, W, C]``), before the forward
+and before the microbatch split, as in the JAX step: ``augment`` (an
+``ops.augment.Augment``) draws its per-example randomness on the host
+from ``fold_in(fold_in(seed, step), 7919)`` for the global batch and
+applies this rank's rows on the device. ``mixup_alpha`` > 0 draws one
+``lam`` ~ Beta(alpha, alpha) from ``fold_in(fold_in(seed, step), 7920)``
+and one shift in ``[1, B)`` (B the global batch) from that folded with 1,
+mixes ``x = lam x + (1 - lam) roll(x, shift)`` and rolls the targets into
+``batch["_mix_target"]``; the loss is ``lam L(y) + (1 - lam)
+L(y_rolled)``, the metrics are against the original labels. The roll is
+over the global batch: a data shard holds the global rows ``index::count``
+(``data/sampler.py``), so its rolled rows are one other shard's rows
+rolled locally (:func:`global_roll`), received with one
+``parallel.collectives.ppermute`` over the data group (none when the
+shift is a multiple of the shard count). The draws are numpy's Philox,
+not JAX's threefry: an augmented or mixed step is reproducible within
+each package, on any number of ranks, not across the packages.
+
+Models with running statistics (BatchNorm buffers): the forward in
+training mode updates them, each microbatch in turn; a step that
+``skip_nonfinite`` skips puts them back bit for bit (a copy taken before
+the forward), as the JAX step keeps its ``batch_stats``. The EMA is over
+the parameters only.
 """
 from __future__ import annotations
 
@@ -121,6 +142,7 @@ import contextlib
 import inspect
 from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..models.layers import fold_in
@@ -128,9 +150,11 @@ from ..observability.health import (
     nonfinite_by_group, pack_health_summary, parameter_groups,
 )
 from ..parallel import dist
+from ..parallel.collectives import ppermute
 from .optim import set_lr
 
-_LATER_AUGMENT = "ROADMAP A12 (ops/augment.py, with the other model families)"
+#: folded into the step's seed for the mixup draws (the JAX step's)
+MIXUP_SALT = 7920
 
 
 def _forward_takes(model, name: str) -> bool:
@@ -146,12 +170,32 @@ def _detached(output):
     return output.detach()
 
 
-def _refuse(augment=None, mixup_alpha=0.0) -> None:
-    later = {"augment": (augment is not None, _LATER_AUGMENT),
-             "mixup_alpha": (mixup_alpha > 0, _LATER_AUGMENT)}
-    for name, (on, where) in later.items():
-        if on:
-            raise NotImplementedError(f"{name} is {where}")
+def draw_mixup(seed: int, alpha: float, b: int) -> tuple:
+    """``(lam, shift)`` of step seed ``seed`` (``fold_in(seed, step)``):
+    ``lam`` ~ Beta(alpha, alpha) as float32, ``shift`` uniform in ``[1,
+    b)`` for a global batch of ``b`` rows."""
+    key = fold_in(seed, MIXUP_SALT)
+    lam = np.random.Generator(np.random.Philox(key=key)).beta(alpha, alpha)
+    shift = np.random.Generator(np.random.Philox(
+        key=fold_in(key, 1))).integers(1, max(b, 2))
+    return np.float32(lam), int(shift)
+
+
+def global_roll(x: torch.Tensor, shift: int, shard=(0, 1),
+                group=None) -> torch.Tensor:
+    """This data shard's rows of ``roll(global batch, shift, axis 0)``,
+    where shard ``(index, count)`` holds the global rows ``index::count``:
+    global row ``j count + index`` takes row ``j count + index - shift``,
+    which is row ``j - c`` of shard ``(index - shift) % count``, with ``c
+    = shift // count`` plus 1 where ``index < shift % count``. That
+    shard's rows come by one ``ppermute`` over ``group`` (none when
+    ``shift % count == 0``), then roll by ``c`` here."""
+    index, count = shard
+    hop = shift % count
+    c = shift // count + (1 if index < hop else 0)
+    if hop:
+        x = ppermute(x, group, hop)
+    return torch.roll(x, c, dims=0)
 
 
 def _seq_shard(model, inputs):
@@ -192,8 +236,15 @@ class TrainStep:
                  seed: int, log_grad_norm: bool = False,
                  health: bool = False, inject_nan_grad_step=None,
                  grad_accum_steps: int = 1, ema_decay: float = 0.0,
-                 nan_check: bool = False):
+                 nan_check: bool = False, augment=None,
+                 mixup_alpha: float = 0.0, mesh=None):
         self.model, self.optimizer = model, optimizer
+        self.augment, self.mixup_alpha = augment, float(mixup_alpha)
+        # the data axis: the draws' rows and the mixup roll's partners
+        self.shard = (mesh.data_shard() if mesh is not None else
+                      (dist.process_index(), dist.process_count()))
+        self.data_group = mesh.group("data") if mesh is not None else None
+        self._lam = None    # (lam, 1 - lam) of this step's mixup, float32
         self.module = getattr(model, "module", model)
         self.criterion, self.metric_fns = criterion, list(metric_fns)
         self.input_key, self.target_key = input_key, target_key
@@ -226,6 +277,11 @@ class TrainStep:
             self._ema_params = list(named.values())
         self.step = 0       # steps taken (the dropout key's counter)
         self.applied = 0    # optimizer updates applied (the schedule's)
+        # running statistics (BN buffers), restored on a skipped step
+        self._stats = [b for b in self.module.buffers()
+                       if b.is_floating_point()]
+        self._stats_before = ([torch.empty_like(b) for b in self._stats]
+                              if skip_nonfinite and self._stats else None)
 
     def state_dict(self) -> dict:
         """The counters, and ``lr_scale`` once a plateau has moved it."""
@@ -295,6 +351,29 @@ class TrainStep:
                     opt.state[p][k] = v
         return torch.nn.utils.get_total_norm(delta)
 
+    def _prepare(self, batch):
+        """Augment, then mixup, on the whole (global) batch before any
+        microbatch split; the batch unchanged without them."""
+        if self.augment is None and self.mixup_alpha <= 0:
+            return batch
+        batch = dict(batch)
+        seed = fold_in(self.seed, self.step)
+        x = batch[self.input_key]
+        if self.augment is not None:
+            x = self.augment(seed, x, self.shard)
+        if self.mixup_alpha > 0:
+            lam, shift = draw_mixup(seed, self.mixup_alpha,
+                                    x.shape[0] * self.shard[1])
+            group = self.data_group
+            batch["_mix_target"] = global_roll(batch[self.target_key],
+                                               shift, self.shard, group)
+            one_minus = np.float32(1.0) - lam
+            x = x * float(lam) + global_roll(x, shift, self.shard,
+                                             group) * float(one_minus)
+            self._lam = (float(lam), float(one_minus))
+        batch[self.input_key] = x
+        return batch
+
     def _forward(self, batch, seed: int):
         """One (micro)batch's forward: ``(loss_sum, stats)``, the masked
         loss sum (with the aux loss) to backpropagate and the local
@@ -308,6 +387,10 @@ class TrainStep:
         shard = _seq_shard(self.module, batch[self.input_key])
         skw = {} if shard is None else {"shard": shard}
         per_ex = self.criterion(output, target, **skw)
+        if "_mix_target" in batch:
+            lam, one_minus = self._lam
+            per_ex = lam * per_ex + one_minus * self.criterion(
+                output, batch["_mix_target"], **skw)
         loss_sum = (per_ex * mask).sum()
         count = _example_count(mask, shard)
         aux = getattr(self.module, "aux_loss", None)
@@ -367,6 +450,9 @@ class TrainStep:
     def __call__(self, batch) -> Dict[str, torch.Tensor]:
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
+        batch = self._prepare(batch)
+        if self._stats_before is not None:
+            torch._foreach_copy_(self._stats_before, self._stats)
         try:
             if self.grad_accum_steps > 1:
                 metrics, denom = self._backward_accumulated(batch)
@@ -432,6 +518,8 @@ class TrainStep:
                 update_norm = torch.nn.utils.get_total_norm(self._before)
         else:
             metrics = {k: torch.zeros_like(v) for k, v in metrics.items()}
+            if self._stats_before is not None:
+                torch._foreach_copy_(self._stats, self._stats_before)
             if self.health:
                 update_norm = self._discarded_update_norm()
         if self.skip_nonfinite:
@@ -453,14 +541,16 @@ def make_train_step(model, optimizer, criterion: Callable,
                     log_grad_norm: bool = False, trainable_patterns=None,
                     health: bool = False, inject_nan_grad_step=None,
                     lr_fn: Callable[[int], float] = None,
-                    seed: int = 0, nan_check: bool = False) -> TrainStep:
+                    seed: int = 0, nan_check: bool = False,
+                    mesh=None) -> TrainStep:
     """Build the train step (the JAX ``make_train_step`` signature, plus
-    the torch optimizer, ``lr_fn``, the dropout ``seed`` and
-    ``debug.nan_check``). ``trainable_patterns`` is accepted for that
-    signature: the freeze follows the optimizer's groups, which
-    ``build_optimizer`` built from the same patterns."""
+    the torch optimizer, ``lr_fn``, the dropout ``seed``,
+    ``debug.nan_check`` and the ``mesh``, whose data axis the augment
+    draws and the mixup roll run over; default the process group).
+    ``augment`` is ``ops.augment.build_augment``'s. ``trainable_patterns``
+    is accepted for that signature: the freeze follows the optimizer's
+    groups, which ``build_optimizer`` built from the same patterns."""
     del trainable_patterns
-    _refuse(augment, mixup_alpha)
     if lr_fn is None:
         base = optimizer.param_groups[0]["lr"]
 
@@ -471,7 +561,8 @@ def make_train_step(model, optimizer, criterion: Callable,
                      log_grad_norm=log_grad_norm, health=health,
                      inject_nan_grad_step=inject_nan_grad_step,
                      grad_accum_steps=grad_accum_steps, ema_decay=ema_decay,
-                     nan_check=nan_check)
+                     nan_check=nan_check, augment=augment,
+                     mixup_alpha=mixup_alpha, mesh=mesh)
 
 
 @contextlib.contextmanager

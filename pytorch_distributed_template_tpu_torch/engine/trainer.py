@@ -21,7 +21,12 @@ the device through ``data.loader.prefetch_to_device`` (a side-stream copy
 pipeline on CUDA). ``trainer.len_epoch`` switches to iteration-based
 epochs of that many steps over an endless loader that reshuffles on each
 pass. On CUDA the trainer asks cuDNN for deterministic algorithms, so a
-resumed run repeats the uninterrupted one.
+resumed run repeats the uninterrupted one. The train step runs the model
+in training mode (BatchNorm on the batch's statistics, updating its
+running averages), validation in eval mode (on the running averages);
+``trainer.augment`` and ``mixup_alpha`` go to the step
+(``ops/augment.py``, engine/steps.py), which draws them over the mesh's
+data axis.
 
 Observability, as in the JAX trainer (``engine/trainer.py:776-1075``):
 spans ``data/next_batch``, ``train/step``, ``train/log`` and
@@ -106,6 +111,7 @@ import torch
 from ..checkpoint import CheckpointManager, warm_start_params
 from ..data.loader import host_prefetch, prefetch_to_device, to_tensors
 from ..models.base import describe, inject_mesh
+from ..ops.augment import build_augment
 from ..observability.crosshost import CrossHostAggregator
 from ..observability.health import (
     DeferredFetch, HealthMonitor, health_counters, health_layout,
@@ -421,9 +427,12 @@ class Trainer(BaseTrainer):
         self.model = model
         self.ddp = None
         if dist.in_group():
+            # BN's running averages come from the global statistics, the
+            # same on every rank: nothing to broadcast before a forward
             self.ddp = torch.nn.parallel.DistributedDataParallel(
                 model, device_ids=([self.device]
-                                   if self.device.type == "cuda" else None))
+                                   if self.device.type == "cuda" else None),
+                broadcast_buffers=False)
         net = self.ddp if self.ddp is not None else model
         self.criterion = criterion
         self.metric_ftns = list(metric_ftns)
@@ -472,12 +481,13 @@ class Trainer(BaseTrainer):
             grad_accum_steps=int(cfg.get("grad_accum_steps", 1)),
             ema_decay=ema_decay,
             skip_nonfinite=self.skip_nonfinite,
-            augment=cfg.get("augment"),
+            augment=build_augment(cfg.get("augment")),
             mixup_alpha=float(cfg.get("mixup_alpha", 0.0)),
             log_grad_norm=self.log_grad_norm,
             health=self._health_enabled,
             inject_nan_grad_step=faults.nan_grad_step(),
-            lr_fn=self.lr_fn, seed=seed, nan_check=nan_check)
+            lr_fn=self.lr_fn, seed=seed, nan_check=nan_check,
+            mesh=self.mesh)
         self.eval_step = make_eval_step(
             net, criterion, self.metric_ftns, input_key=self.input_key,
             target_key=self.target_key)

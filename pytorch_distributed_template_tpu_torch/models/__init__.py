@@ -4,3 +4,5 @@ from . import llama  # noqa: F401  (registers Llama, Mistral, TinyLlama)
 from . import transformer  # noqa: F401  (registers GPT2, TinyLM)
 from . import moe  # noqa: F401  (registers MoeLM, TinyMoeLM)
 from . import lenet  # noqa: F401  (registers LeNet, MnistModel)
+from . import resnet  # noqa: F401  (registers ResNet18/34/50/101/152)
+from . import vit  # noqa: F401  (registers ViT)

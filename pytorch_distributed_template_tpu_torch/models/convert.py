@@ -1,5 +1,5 @@
-"""Flax param tree <-> the port's state dict, for the Llama, GPT-2 and
-LeNet families.
+"""Flax param tree <-> the port's state dict, for the Llama, GPT-2,
+LeNet, ResNet and ViT families.
 
 The JAX package's params are nested dicts (``layers_0/self_attn/q_proj/
 kernel``, ``h_0/attn/qkv/bias``); the port's modules name the same weights
@@ -16,9 +16,19 @@ translation:
 - ``embed_tokens/embedding``, ``wte/embedding`` -> ``*.weight`` as is;
 - LayerNorm ``scale`` -> ``weight``; ``bias`` and RMSNorm ``weight``
   leaves as they are; the bare ``wpe`` param as it is;
+- BatchNorm ``scale`` -> ``weight`` (a BN is ``bn_init``, ``norm_proj``
+  or ``BatchNorm_i``; the ResNet blocks keep flax's names,
+  ``BasicBlock_i``, ``Conv_i``, ``conv_proj``); ViT's bare ``cls`` and
+  ``pos_embed`` params as they are;
 - the MoE block's stacked expert leaves ``h_i/moe/{wi, wo, bi, bo}``
   (``[E, D, F]``, ``[E, F, D]``, ``[E, F]``, ``[E, D]``) as they are, and
   its router ``h_i/moe/router/{kernel, bias}`` like any dense layer.
+
+A ResNet's ``batch_stats`` (``<bn>/mean`` and ``<bn>/var``) are the BN
+modules' buffers ``<bn>.running_mean`` and ``<bn>.running_var``
+(:func:`batch_stats_from_flax`, :func:`flax_batch_stats`);
+:func:`flax_from_params` leaves them out, as flax keeps them out of the
+params.
 
 Both directions take and give plain containers: nested dicts of numpy
 arrays on the flax side, a flat dict of CPU tensors on the torch side.
@@ -43,6 +53,10 @@ _INDEXED = re.compile(r"^(layers|h)_(\d+)$")
 _INDEXED_PARENTS = ("layers", "h")
 _EMBEDDINGS = ("wte", "embed_tokens")
 _EXPERT_LEAVES = ("wi", "wo", "bi", "bo")   # MoeMlp's stacked expert params
+_TOP_LEVEL = ("wpe", "cls", "pos_embed")     # bare params at the root
+_BATCH_NORM = re.compile(r"^(bn_init|norm_proj|BatchNorm_\d+)$")
+#: batch_stats leaf <-> BN buffer
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree, prefix=()):
@@ -54,8 +68,9 @@ def _flatten(tree, prefix=()):
             yield path, val
 
 
-def _is_layer_norm(module: str) -> bool:
-    return module.startswith("ln_")
+def _is_scale(module: str) -> bool:
+    """A LayerNorm or BatchNorm, whose flax weight leaf is ``scale``."""
+    return module.startswith("ln_") or bool(_BATCH_NORM.match(module))
 
 
 def flax_path(name: str) -> str:
@@ -64,7 +79,8 @@ def flax_path(name: str) -> str:
     ``h.0.ln_1.weight`` -> ``h_0/ln_1/scale``, ``wte.weight`` ->
     ``wte/embedding``, ``layers.1.input_layernorm.weight`` ->
     ``layers_1/input_layernorm/weight``, ``h.1.moe.wi`` ->
-    ``h_1/moe/wi``, ``wpe`` -> ``wpe``."""
+    ``h_1/moe/wi``, ``wpe`` -> ``wpe``, ``BasicBlock_0.BatchNorm_1.weight``
+    -> ``BasicBlock_0/BatchNorm_1/scale``."""
     parts = name.split(".")
     mods, i = [], 0
     while i < len(parts) - 1:
@@ -81,7 +97,7 @@ def flax_path(name: str) -> str:
         owner = mods[-1]
         if owner in _EMBEDDINGS:
             leaf = "embedding"
-        elif _is_layer_norm(owner):
+        elif _is_scale(owner):
             leaf = "scale"
         elif not (owner.endswith("layernorm") or owner == "norm"):
             leaf = "kernel"
@@ -99,7 +115,7 @@ def params_from_flax(tree) -> dict:
         parts = [_INDEXED.sub(r"\1.\2", p) for p in path[:-1]]
         last = path[-1]
         if not parts:
-            if last != "wpe":
+            if last not in _TOP_LEVEL:
                 raise KeyError(f"unexpected flax leaf {last}")
             name = last
         elif last == "kernel":
@@ -119,9 +135,12 @@ def params_from_flax(tree) -> dict:
 
 def flax_from_params(state_dict) -> dict:
     """Inverse of :func:`params_from_flax`: torch state dict -> flax tree
-    of float32 numpy arrays."""
+    of float32 numpy arrays (BN buffers left out: :func:`flax_batch_stats`
+    gives them)."""
     tree: dict = {}
     for name, tensor in state_dict.items():
+        if name.rsplit(".", 1)[-1] in _STATS.values():
+            continue
         path = flax_path(name).split("/")
         arr = tensor.detach().to("cpu", torch.float32).numpy()
         if path[-1] == "kernel":
@@ -130,6 +149,35 @@ def flax_from_params(state_dict) -> dict:
         for m in path[:-1]:
             node = node.setdefault(m, {})
         node[path[-1]] = np.ascontiguousarray(arr)
+    return tree
+
+
+def batch_stats_from_flax(tree) -> dict:
+    """Flax ``batch_stats`` (``{bn path: {"mean", "var"}}``) -> the BN
+    buffers' state-dict entries (CPU float32 tensors)."""
+    out = {}
+    for path, leaf in _flatten(tree):
+        if path[-1] not in _STATS:
+            raise KeyError(f"unexpected batch_stats leaf {'/'.join(path)}")
+        out[".".join(list(path[:-1]) + [_STATS[path[-1]]])] = torch.tensor(
+            np.ascontiguousarray(np.asarray(leaf, np.float32)))
+    return out
+
+
+def flax_batch_stats(state_dict) -> dict:
+    """Inverse of :func:`batch_stats_from_flax`: the BN buffers of a state
+    dict as a flax ``batch_stats`` tree of float32 numpy arrays."""
+    leaves = {v: k for k, v in _STATS.items()}
+    tree: dict = {}
+    for name, tensor in state_dict.items():
+        *mods, leaf = name.split(".")
+        if leaf not in leaves:
+            continue
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaves[leaf]] = tensor.detach().to("cpu", torch.float32) \
+            .numpy().copy()
     return tree
 
 

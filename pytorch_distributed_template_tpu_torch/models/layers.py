@@ -8,6 +8,13 @@
   ``Embed(dtype=...)``).
 - :func:`layer_norm_f32`: LayerNorm in float32 with float32 scale and bias
   (flax's ``LayerNorm(dtype=float32)``).
+- :class:`BatchNorm`: flax's ``nn.BatchNorm`` over the channels of an
+  NCHW tensor, its statistics global over the process group (below).
+- :class:`SameConv2d` and :func:`max_pool_same`: a convolution and a max
+  pool with TF/flax ``SAME`` padding, which is asymmetric where the
+  window overhangs by an odd count (a 3x3/2 conv on 112 pads (0, 1), the
+  7x7/2 stem conv on 224 (2, 3), a 4x4/1 conv (1, 2)); the conv computes
+  in its compute dtype over parameters stored wider, like :class:`Dense`.
 - :func:`dropout` with :func:`fold_in` seeds (and :class:`Dropout`, its
   module form): every mask is drawn from a ``torch.Generator`` seeded by
   ``(seed, step, layer, site)`` inside the module that uses it, so a block recomputed by ``torch.utils.checkpoint``
@@ -18,6 +25,7 @@
 from __future__ import annotations
 
 import torch
+import torch.distributed as tdist
 from torch import nn
 from torch.nn import functional as F
 
@@ -110,3 +118,179 @@ def layer_norm_f32(x, weight, bias, eps: float):
     """LayerNorm over the last axis in float32; returns float32."""
     return F.layer_norm(x.float(), (x.shape[-1],), weight.float(),
                         bias.float(), eps)
+
+
+def same_pads(size: int, kernel: int, stride: int) -> tuple:
+    """``(before, after)`` padding of TF/flax ``SAME`` on one axis: the
+    output has ``ceil(size / stride)`` positions and the extra one of an
+    odd total goes after."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(nn.Conv2d):
+    """``nn.Conv2d`` with ``padding`` ``"SAME"`` (TF/flax; the pads come
+    from the input's size at each call) or ``"VALID"``, computing in
+    ``compute_dtype`` over parameters stored in ``param_dtype``. Where
+    ``SAME``'s pads are symmetric the conv pads them itself; else the
+    input is padded first (``F.pad``) and the conv pads nothing."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 stride: int = 1, bias: bool = False, padding: str = "SAME",
+                 compute_dtype=torch.float32, param_dtype=None, device=None):
+        super().__init__(in_channels, out_channels, kernel, stride,
+                         padding=0, bias=bias, device=device,
+                         dtype=param_dtype or compute_dtype)
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be SAME or VALID, got {padding}")
+        self.same = padding == "SAME"
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        w = self.weight.to(dt)
+        b = None if self.bias is None else self.bias.to(dt)
+        x = x.to(dt)
+        pad = (0, 0)
+        if self.same:
+            ph = same_pads(x.shape[2], self.kernel_size[0], self.stride[0])
+            pw = same_pads(x.shape[3], self.kernel_size[1], self.stride[1])
+            if ph[0] == ph[1] and pw[0] == pw[1]:
+                pad = (ph[0], pw[0])
+            else:
+                x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        return F.conv2d(x, w, b, self.stride, pad)
+
+
+def max_pool_same(x, kernel: int, stride: int):
+    """flax's ``max_pool(x, (k, k), (s, s), "SAME")`` on NCHW: the pads
+    are -inf, asymmetric as :func:`same_pads` gives them."""
+    ph = same_pads(x.shape[2], kernel, stride)
+    pw = same_pads(x.shape[3], kernel, stride)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(x, kernel, stride)
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    if group is not None:
+        tdist.all_reduce(t, group=group)
+    return t
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Training-mode batch norm over every axis but 1, flax's arithmetic:
+    float32 statistics from the sums of x and x**2 (``var = E[x**2] -
+    E[x]**2``, clipped at 0), ``y = (x - mean) * (rsqrt(var + eps) *
+    scale) + bias`` in float32, cast to x's dtype. With a ``group`` the
+    sums ``[sum x, sum x**2, n]`` are all-reduced over it before the
+    division (one call), and the backward all-reduces the two sums its
+    input gradient needs (another): the statistics and their gradients
+    are the global batch's. Saves x in its own dtype and two float32
+    vectors, not the float32 intermediates."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.float()
+        n = xf.new_full((1,), x.numel() / x.shape[1])  # no host copy
+        sums = _all_reduce(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                                      n]), group)
+        c = x.shape[1]
+        count = sums[-1]
+        mean = sums[:c] / count
+        var = torch.clamp_min(sums[c:2 * c] / count - mean * mean, 0.0)
+        rstd = torch.rsqrt(var + eps)
+        y = (xf - mean.view(shape)) * (rstd * weight).view(shape) \
+            + bias.view(shape)
+        ctx.save_for_backward(x, weight, mean, rstd, var > 0, count)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _mean, _var):
+        x, weight, mean, rstd, positive, count = ctx.saved_tensors
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        g = gy.float()
+        xc = x.float() - mean.view(shape)
+        sums = torch.cat([g.sum(dims), (g * xc).sum(dims)])
+        c = x.shape[1]
+        # the parameters' gradients are this rank's part (DDP averages
+        # them); the input's needs the global sums
+        d_bias, d_weight = sums[:c].clone(), sums[c:] * rstd
+        sums = _all_reduce(sums, ctx.group)
+        # dL/dmean through y, and dL/dvar (0 where the clip held var at 0)
+        d_mean = -sums[:c] * weight * rstd
+        d_var = torch.where(positive,
+                            -0.5 * rstd ** 3 * weight * sums[c:],
+                            torch.zeros_like(rstd))
+        dx = (g * (weight * rstd).view(shape)
+              + (d_mean / count).view(shape)
+              + (2.0 * d_var / count).view(shape) * xc)
+        return dx.to(x.dtype), d_weight, d_bias, None, None
+
+
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5,
+    param_dtype=float32)`` over axis 1 (the channels of NCHW).
+
+    Training mode: the batch's statistics, every row of it (flax's BN
+    sees no mask: padded rows count), float32 whatever the input's
+    dtype, and the running averages ``r = 0.9 r + 0.1 batch`` of the mean
+    and the **biased** variance (``nn.BatchNorm2d`` weighs the other
+    way round and keeps the unbiased variance). Eval mode: the running
+    averages. Scale and bias are float32, the output has the input's
+    dtype. Under a process group the statistics are the global batch's
+    (the sums all-reduced over ``group``, default the whole group: the
+    data axis of an image model's mesh), as the JAX package gets them
+    from ``jit`` over a sharded batch; rank-local statistics would make
+    four ranks differ from one. The running averages are buffers
+    (``running_mean``, ``running_var``: flax's ``batch_stats``), so they
+    ride the model's state dict into every checkpoint."""
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5, zero_scale: bool = False, device=None):
+        super().__init__()
+        kw = dict(device=device, dtype=torch.float32)
+        self.momentum, self.eps = float(momentum), float(eps)
+        self.zero_scale = bool(zero_scale)
+        self.weight = nn.Parameter(torch.ones(features, **kw))
+        self.bias = nn.Parameter(torch.zeros(features, **kw))
+        self.register_buffer("running_mean", torch.zeros(features, **kw))
+        self.register_buffer("running_var", torch.ones(features, **kw))
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """flax's init: scale 1 (0 with ``zero_scale``), bias 0, running
+        mean 0 and variance 1."""
+        self.weight.fill_(0.0 if self.zero_scale else 1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x):
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        if self.training:
+            group = (tdist.group.WORLD
+                     if tdist.is_available() and tdist.is_initialized()
+                     else None)
+            y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias,
+                                                 self.eps, group)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+            return y
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape) \
+            + self.bias.view(shape)
+        return y.to(x.dtype)
+
+    def extra_repr(self) -> str:
+        return (f"{self.weight.shape[0]}, momentum={self.momentum}, "
+                f"eps={self.eps}")

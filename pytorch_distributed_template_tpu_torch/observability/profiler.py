@@ -4,7 +4,9 @@ capture (the port of the JAX package's ``observability/profiler.py``).
 - ``ThroughputMeter``: steps/sec + examples/sec over timing windows (a
   copy of the JAX class).
 - ``train_step_flops``: the model FLOPs of one train step, counted
-  analytically (PERF.md §2). The JAX module reads the compiled step's
+  analytically (PERF.md §2): an LM's from its params and tokens, an
+  image model's from its own count; None for any other model, so that
+  ``mfu`` never applies the LM formula to an image batch. The JAX module reads the compiled step's
   FLOPs from XLA's cost analysis (``executable_flops``); eager PyTorch
   has no compiled program to ask, and ``torch.utils.flop_counter`` does
   not see the hand-written kernels the attention runs on. The two counts
@@ -60,10 +62,15 @@ def peak_flops_per_device(device=None) -> Optional[float]:
 
 
 def train_step_flops(model, batch: int, t: int) -> Optional[float]:
-    """Model FLOPs of one LM train step (forward + backward, no remat
-    recompute), or None for a model without ``d_model``/``n_layer``.
+    """Model FLOPs of one train step (forward + backward, no remat
+    recompute), or None for a model without a count.
 
-    6 x active params x tokens for the dense work (the tied head counted
+    An image model counts itself: 3 x ``batch`` x its
+    ``flops_per_example()`` (ResNet: 2 k² C_in C_out H_out W_out per conv
+    and the head; ViT: its Dense layers and non-causal attention over its
+    own tokens, 197 at 224 px with patch 16). An LM (``d_model`` and
+    ``n_layer``, ``t`` tokens per row): 6 x active params x tokens for
+    the dense work (the tied head counted
     once, the position table ``wpe`` excluded; an MoE layer's stacked
     expert weights count ``top_k / E`` of their size, what one token uses,
     not the capacity padding) plus 12 x d_model x (visible keys summed
@@ -73,7 +80,10 @@ def train_step_flops(model, batch: int, t: int) -> Optional[float]:
     from ..ops.flash import visible_keys
 
     model = getattr(model, "module", model)
-    if not (hasattr(model, "d_model") and hasattr(model, "n_layer")):
+    if hasattr(model, "flops_per_example"):
+        return 3.0 * batch * model.flops_per_example()
+    if not (hasattr(model, "d_model") and hasattr(model, "n_layer")) \
+            or t <= 0:
         return None
     n = sum(p.numel() for name, p in model.named_parameters()
             if name != "wpe")
