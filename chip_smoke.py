@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 3e, 4, 5, 6, 7, 8, 9,
-10, 11, 12, 13, 14a, 14b, 14c, 15a-15f), each one's time printed beside
+10, 11, 12, 13, 14a, 14b, 14c, 15a-15f, 16a-16g), each one's time printed beside
 the card line; any failure exits non-zero and no phase's exception is
 caught:
 
@@ -108,7 +108,7 @@ Slice 4 (MoE LM training, kernel B5) adds:
     ``tools/make_text_corpus.py``, then the port's ``train.py`` with
     ``configs/moelm_stdlib.json`` at full width (8 layers, d_model 512,
     d_ff 1024, 8 heads, 8 experts top-2, seq 512, batch 32, bf16, flash,
-    fused head), cut to a 2 MB corpus and 2 epochs, with the health
+    fused head), cut to a 1 MB corpus and 2 epochs, with the health
     summary and the flight recorder off (on by default since slice 6; off,
     the step is the one slice 4 ran): every train step must
     launch B5, B1, B2 and B3 8 times each, every eval step B5 and B1 8
@@ -279,8 +279,9 @@ ViT's flash attention B1-B3) adds:
     reproducing epoch 2 and every tensor of the final state (BN buffers
     included) exactly, ``test.py`` on ``model_best`` equal to the best
     epoch's validation (rtol 1e-6), and a 5-step profile;
-15d. ``configs/imagenet_resnet50.json`` as it is (batch 256, bf16, the
-    synthetic fallback), 1 epoch; then the same from uint8 shards written
+15d. ``configs/imagenet_resnet50.json`` (batch 256, bf16, the synthetic
+    fallback cut to 2048 and 512 images), 1 epoch; then the same from
+    uint8 shards of those counts written
     by the port's ``tools/make_image_shards.py --synthetic`` (the native
     gather, the ``on_device`` normalize): images/s, MFU with its count,
     peak memory and a 5-step profile for each;
@@ -295,13 +296,61 @@ ViT's flash attention B1-B3) adds:
     within rtol 1e-4 (phase 14c's machinery, ``"image_nccl"``); with fewer
     cards it prints ``"image_nccl": "not run: N card(s)"``.
 
+Slice 11 (BERT MLM pretraining and classifier transfer, LoRA and its
+merge, checkpoint soups, ROADMAP A12b; no new kernel: BERT's attention is
+B1-B3 without the causal mask) adds:
+
+16a. small f32 ``BertMLM`` and ``BertClassifier`` (flash) and LoRA'd
+    GPT2 and Llama (flash, the adapters trained alone) take 5 AdamW steps
+    on the card and on the CPU from the same weights and batches, TF32
+    off: losses, first-step gradients and final params within phase 3c's
+    limits, the frozen base bitwise fixed; the 80/10/10 corruption on the
+    card equals the CPU's on the same draws bit for bit; the merge on the
+    card equals the CPU's;
+16b. B1, and B3 then B2, at ``bert_mlm_stdlib.json``'s attention (128 x 6
+    heads x 128 tokens, D 64, bf16, non-causal) with phases 2 and 2c's
+    limits and rows;
+16c. ``configs/bert_mlm_stdlib.json`` as it is on phase 12's 2 MB corpus
+    and its cached 1024-id BPE, 2 epochs with a checkpoint each, once
+    with ``xla`` attention and once with ``attn_impl "flash"`` (exact
+    launches: per train step B1, B2, B3 6 each, per eval step B1 6),
+    losses finite and falling, a resume from ``checkpoint-epoch1``
+    reproducing epoch 2; ``test.py --seed 3`` twice equal, ``test.py``
+    equal to the best epoch's validation (rtol 1e-6), ``--save-outputs``
+    writing the logits and the bool mask;
+16d. the soup of 16c's two checkpoints through the port's
+    ``checkpoint.average`` and ``test.py`` (its ``val_loss`` beside both
+    inputs'); a soup of one checkpoint evaluates bitwise as that
+    checkpoint;
+16e. ``configs/bert_cls_stdlib.json`` as it is (``PyModuleClsLoader`` over
+    this machine's standard library, 8 classes, 6 epochs; the loader's
+    windows and its cold and warm seconds first), warm (``init_from``
+    16c's ``model_best``: exactly the ``encoder.*`` tensors restored,
+    ``classifier_head.*`` skipped) and fresh, through
+    ``tools/bert_transfer_experiment.py``'s functions: the warm run's best
+    ``val_accuracy`` above chance (0.125); warm against fresh is reported;
+16f. LoRA rank 8 on cell (h)'s GPT-2 small from phase 6's epoch-1 weights,
+    one epoch of 32 steps (cell (h)'s exact launches): the base bitwise
+    fixed, the optimizer state = the adapters' elements x 8 B, the
+    artifact of ``tools/merge_lora.py`` a dense GPT-2 whose logits equal
+    the adapted model's within phase 2c's bf16 limits; ms per step beside
+    cell (h)'s;
+16g. LoRA rank 4 at ``llama_debug.json``'s width in f32 (one head of D
+    64), merged, then the port's ``generate.py`` on the artifact: greedy
+    tokens identical to the adapted model's; then
+    ``configs/mistral_7b_lora.json`` (Mistral-7B's widths and depth over
+    a random-init float32 base, bf16 compute, remat, flash, seq 1024,
+    batch 1, rank 8, the adapters alone): peak memory under 80 GiB, every
+    loss finite, every base tensor's checksums unchanged, ms per step and
+    MFU.
+
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
-the launches of slices 1, 3, 4, 6, 7, 8, 9 and 10, paged_attn with slice
-2's, flash_bwd_dkv and flash_bwd_dq with slices 3, 4, 6, 7, 8, 9 and 10,
-expert_ffn with slice 4's; phase 14a's block shapes and phase 15b's ViT
-shapes among the rows) and the device line ``{"ok": true, "device":
-{...}}``.
+the launches of slices 1, 3, 4, 6, 7, 8, 9, 10 and 11, paged_attn with
+slice 2's, flash_bwd_dkv and flash_bwd_dq with slices 3, 4, 6, 7, 8, 9,
+10 and 11, expert_ffn with slice 4's; phase 14a's block shapes, phase
+15b's ViT shapes and phase 16b's BERT shape among the rows) and the
+device line ``{"ok": true, "device": {...}}``.
 Every kernel row also carries ``pct_of_bound`` (100 x bound / kernel time) and
 ``x_library`` (kernel time / library time); kernel times are device times
 (:func:`cuda_ms`). The script needs a CUDA device and the repository
@@ -1806,9 +1855,11 @@ class TrainRun:
         moe = sum(hasattr(block, "moe") for block in blocks)
         fwd = 2 if model.remat else 1     # remat recomputes each forward
         k = trainer.train_step.grad_accum_steps   # microbatches per step
-        self.want = {"train": (k * fwd * layers, k * layers, k * layers,
+        # an attention off the flash kernels (``xla``) launches none
+        attn = layers if "flash" in model.attn_impl else 0
+        self.want = {"train": (k * fwd * attn, k * attn, k * attn,
                                k * fwd * moe),
-                     "eval": (layers, 0, 0, moe)}
+                     "eval": (attn, 0, 0, moe)}
         loader = trainer.train_loader
         tokens = loader.arrays["tokens"].shape[1]
         self.tokens = loader.batch_size * tokens
@@ -1942,13 +1993,24 @@ class _Wrapped:
 
 
 def phase_train(card: str, device="cuda", config=TRAIN_CONFIG,
-                sets=TRAIN_SETS, work=WORK, seed: int = 0) -> dict:
+                sets=TRAIN_SETS, work=WORK, seed: int = 0,
+                keep=None) -> dict:
     """Slice 3's main path: the port's ``train.py`` with the GPT-2 small
     config at full width (only sample counts and epochs cut), exact launch
     counts per step, losses finite and falling, checkpoints and summary
     written, a resume from ``checkpoint-epoch1`` reproducing epoch 2, then
-    a profile of 5 train steps. Returns the path's launches per kernel."""
-    return _train_path(card, device, config, sets, work / "train", seed)
+    a profile of 5 train steps. ``keep``: a directory that receives
+    ``checkpoint-epoch1/model.pt`` (phase 16f's base). Returns the path's
+    launches per kernel."""
+    def check(trainer, run):
+        if keep is not None:
+            dst = Path(keep) / "checkpoint-epoch1"
+            dst.mkdir(parents=True, exist_ok=True)
+            shutil.copyfile(trainer.config.save_dir / "checkpoint-epoch1"
+                            / "model.pt", dst / "model.pt")
+
+    return _train_path(card, device, config, sets, work / "train", seed,
+                       check=check)
 
 
 #: the steady-state numbers of each training path's main run, by label
@@ -1957,12 +2019,13 @@ PATH_STATS: dict = {}
 
 def _train_path(card: str, device, config, sets, run_root, seed: int,
                 label: str = "train", check=None,
-                resume: bool = True) -> dict:
+                resume: bool = True, falling: bool = True) -> dict:
     """One training main path through the port's ``train.py`` (see
     :func:`phase_train`); ``check(trainer, run)`` runs after the main run,
     before the resume (``resume`` False: none; the checkpoints expected
     are those of the config's ``save_period``); ``run_root`` is removed at
-    the end. The main run's steady-state step numbers
+    the end. ``falling`` False drops the falling-loss check (a fine-tune
+    from trained weights). The main run's steady-state step numbers
     (:meth:`TrainRun.steady`) land in ``PATH_STATS[label]``."""
     import warnings
 
@@ -2015,7 +2078,7 @@ def _train_path(card: str, device, config, sets, run_root, seed: int,
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training losses: {losses}")
     head, tail = np.mean(losses[:5]), np.mean(losses[-5:])
-    if not tail < head:
+    if falling and not tail < head:
         raise AssertionError(f"the loss did not fall: first 5 steps "
                              f"{head:.4f}, last 5 {tail:.4f}")
     monitored = trainer.mnt_metric if trainer.mnt_mode != "off" else "loss"
@@ -2131,7 +2194,8 @@ MOE_REF = {"vocab_size": 256, "n_layer": 2, "n_head": 2, "d_model": 128,
 # port's train.py; only the corpus size (a few MB of the standard library),
 # the epochs and the checkpoint period are cut
 MOE_CONFIG = REPO / "configs" / "moelm_stdlib.json"
-MOE_CORPUS_MB = 2.0
+# 1 MB since slice 11 (2 MB before): the script's time limit
+MOE_CORPUS_MB = 1.0
 # the health summary and the flight recorder, on by default, turned off as
 # in phase 6's config: slice 4's path runs the step it ran before slice 6
 MOE_SETS = [("trainer;epochs", 2), ("trainer;save_period", 1),
@@ -3367,7 +3431,7 @@ NLL_RTOL = 1e-5     # val_lm_nll against val_loss: the same mean NLL
 def phase_lm_configs(card: str, device="cuda", byte_config=BYTELM_CONFIG,
                      byte_sets=BYTELM_SETS, bpe_config=BPELM_CONFIG,
                      bpe_sets=BPELM_SETS, corpus_mb: float = LM_CORPUS_MB,
-                     work=WORK, seed: int = 0) -> dict:
+                     work=WORK, seed: int = 0, keep_data=None) -> dict:
     """Phase 12, slice 8's LM path: a corpus of ``corpus_mb`` MB from the
     port's ``tools/make_text_corpus.py``; ``configs/bytelm_stdlib.json``
     for one epoch (no checkpoint at its ``save_period`` 2, so no resume;
@@ -3377,7 +3441,9 @@ def phase_lm_configs(card: str, device="cuda", byte_config=BYTELM_CONFIG,
     falling losses). Checks the BPE tokenizer is fitted once (the
     validation loader and the resume reuse its caches: their mtimes
     unchanged), the run pins it, and ``val_lm_nll`` equals ``val_loss``
-    within ``NLL_RTOL``. Returns the launches of both runs per kernel."""
+    within ``NLL_RTOL``. ``keep_data``: where the corpus and its BPE caches
+    move at the end (phase 16c trains on them), else they are removed.
+    Returns the launches of both runs per kernel."""
     from pytorch_distributed_template_tpu_torch.data import tokenizer
     from pytorch_distributed_template_tpu_torch.tools import (
         make_text_corpus,
@@ -3452,7 +3518,11 @@ def phase_lm_configs(card: str, device="cuda", byte_config=BYTELM_CONFIG,
         raise AssertionError(f"the tokenizer was fitted {len(fits)} times; "
                              f"caches {stamps['main']} -> {after}")
     log(f"[lm] bpelm phase in {time.perf_counter() - t0:.1f} s")
-    shutil.rmtree(data_dir)
+    if keep_data is None:
+        shutil.rmtree(data_dir)
+    else:
+        Path(keep_data).parent.mkdir(parents=True, exist_ok=True)
+        shutil.move(str(data_dir), str(keep_data))
     return {k: launches[k] + bpe[k] for k in launches}
 
 
@@ -4088,11 +4158,14 @@ CIFAR_SETS = [("trainer;epochs", 2), ("trainer;save_period", 1)]
 CIFAR_MIN_VAL_ACC = 0.1          # chance
 IMAGE_KEYS = ("loss", "accuracy", "top_k_acc", "val_loss", "val_accuracy",
               "val_top_k_acc")
-# phase 15d: imagenet_resnet50.json as it is (batch 256, bf16, the
-# synthetic fallback of 4096 and 1024 images), 1 epoch; then from uint8
-# shards of the same counts
+# phase 15d: imagenet_resnet50.json (batch 256, bf16, the synthetic
+# fallback cut to 2048 and 512 images since slice 11, against the config's
+# 4096 and 1024: the script's time limit), 1 epoch; then from uint8 shards
+# of the same counts
+RESNET50_COUNTS = [("train_loader;args;synthetic_n", 2048),
+                   ("valid_loader;args;synthetic_n", 512)]
 RESNET50_SETS = [("trainer;epochs", 1)]
-RESNET50_SHARDS = {"train": 4096, "val": 1024}
+RESNET50_SHARDS = {"train": 2048, "val": 512}
 # phase 15e: imagenet_vit_b16.json (global batch 1024, synthetic 1024 and
 # 1024: one step per epoch), 3 epochs; one card does not hold a 1024-image
 # step's activations (the xla path keeps f32 scores and probabilities of
@@ -4439,12 +4512,13 @@ def phase_cifar(card: str, device="cuda", config=CIFAR_CONFIG,
 
 
 def phase_resnet50(card: str, device="cuda", config=RESNET50_CONFIG,
-                   sets=RESNET50_SETS, shards=RESNET50_SHARDS,
+                   sets=RESNET50_COUNTS + RESNET50_SETS,
+                   shards=RESNET50_SHARDS,
                    image_size: int = 224, work=WORK) -> dict:
-    """Phase 15d: ``configs/imagenet_resnet50.json`` as it is (ResNet-50,
-    batch 256, bf16, nesterov SGD, WarmupCosine, flip; no shards under its
-    ``data_dir``: the synthetic ImageNet of 4096 and 1024 images), 1
-    epoch; then the same run from uint8 shards that the port's
+    """Phase 15d: ``configs/imagenet_resnet50.json`` (ResNet-50, batch
+    256, bf16, nesterov SGD, WarmupCosine, flip; no shards under its
+    ``data_dir``: the synthetic ImageNet, cut by ``sets`` to 2048 and 512
+    images), 1 epoch; then the same run from uint8 shards that the port's
     ``tools/make_image_shards.py --synthetic`` writes (the native
     batcher's gathers, the ``on_device`` normalize). Prints images/s, MFU
     with its count, peak memory and a 5-step profile per run."""
@@ -4539,6 +4613,648 @@ def phase_vit(card: str, device="cuda", config=VIT_CONFIG, sets=VIT_SETS,
                     out["flash"]["launches_b1_b2_b3"]))
 
 
+# ---------------------------------------------------------------------------
+# slice 11: BERT MLM and classifier transfer, LoRA and its merge, soups
+# ---------------------------------------------------------------------------
+
+BERT_MLM_CONFIG = REPO / "configs" / "bert_mlm_stdlib.json"
+BERT_CLS_CONFIG = REPO / "configs" / "bert_cls_stdlib.json"
+# phase 16a: small f32 BERT models and LoRA'd GPT2 / Llama (head_dim 64 so
+# the flash kernels take them), 5 AdamW steps card against CPU with phase
+# 3c's limits; the LoRA runs train the adapters alone (``trainable``)
+BERT_REF = {"vocab_size": 128, "n_layer": 2, "n_head": 2, "d_model": 128,
+            "max_len": 32, "dropout": 0.0, "attn_impl": "flash"}
+BERT_REF_CLASSES = 5
+LORA_REF = {"GPT2": dict(TRAIN_REF["GPT2"], lora_rank=4),
+            "Llama": dict(TRAIN_REF["Llama"], lora_rank=4)}
+# phase 16b: bert_mlm_stdlib.json's attention (6 heads x 128 tokens, D 64,
+# bf16, non-causal, batch 128): one 128 x 128 tile per (batch, head)
+BERT_KERNEL_SHAPES = [(128, 6, 6, 128, 64, False, 0, torch.bfloat16)]
+BERT_BWD_SHAPES = [
+    ("bert_mlm", 128, 6, 6, 128, 64, False, 0, torch.bfloat16, False)]
+# phase 16c: bert_mlm_stdlib.json as it is on phase 12's 2 MB corpus and
+# its 1024-vocab BPE, cut to 2 epochs with a checkpoint each, once with
+# xla and once with flash attention
+BERT_CORPUS_MB = 2.0
+BERT_MLM_SETS = [("trainer;epochs", 2), ("trainer;save_period", 1)]
+BERT_EVAL_SEED = 3
+# phase 16e: bert_cls_stdlib.json as it is (8 classes: chance 0.125)
+BERT_CLS_SETS = []
+BERT_CLS_CHANCE = 0.125
+# phase 16f: LoRA on cell (h)'s GPT-2 small from phase 6's epoch-1 weights,
+# one epoch of 32 steps; the merged dense model against the adapted one in
+# bf16 with phase 2c's bf16 limits
+LORA_GPT2_SETS = [("train_loader;args;n", 256), ("valid_loader;args;n", 64),
+                  ("trainer;epochs", 1), ("trainer;save_period", 1),
+                  ("arch;args;lora_rank", 8),
+                  ("optimizer;args;trainable", ["lora_"])]
+GPT2_BASE = WORK / "gpt2_base"
+# phase 16g: llama_debug.json's width in f32 (one head of D 64: the paged
+# pool of its serving section takes D 64 and 128), LoRA rank 4; then
+# Mistral-7B's widths
+LLAMA_DEBUG_CONFIG = REPO / "configs" / "llama_debug.json"
+LORA_LLAMA_SETS = [("arch;args;n_head", 1), ("arch;args;n_kv_head", 1),
+                   ("arch;args;lora_rank", 4),
+                   ("optimizer;args;trainable", ["lora_"]),
+                   ("trainer;epochs", 1), ("trainer;tensorboard", False)]
+LORA_GREEDY = 16
+MISTRAL_LORA_CONFIG = REPO / "pytorch_distributed_template_tpu_torch" \
+    / "configs" / "mistral_7b_lora.json"
+MISTRAL_LORA_SETS = []
+MEMORY_LIMIT_GIB = 80.0
+
+
+def _bert_ref_run(model, state, batches, device, crit, target_key,
+                  trainable=None):
+    """``TRAIN_REF_STEPS`` AdamW steps of ``model`` moved to ``device``
+    from ``state`` (``trainable``: the adapters alone): (per-step losses,
+    the first step's gradients, final state, optimizer) on the CPU."""
+    from pytorch_distributed_template_tpu_torch.engine import optim, steps
+
+    model = model.to(device)
+    model.load_state_dict(state)
+    target = model
+    if trainable:
+        optim.freeze_untrainable(model, trainable)
+        target = optim.Trainable(model, trainable)
+    opt = optim.OPTIMIZERS.get("AdamW")(
+        target, lr=1e-3, betas=(0.9, 0.95), weight_decay=0.1,
+        weight_decay_exclude=["bias$", "ln_", "wpe", "norm"])
+    step = steps.make_train_step(model, opt, crit, input_key="tokens",
+                                 target_key=target_key)
+    losses, grads = [], None
+    for batch in batches:
+        m = step({k: torch.from_numpy(v).to(device)
+                  for k, v in batch.items()})
+        losses.append(float(m["loss_sum"]) / float(m["count"]))
+        if grads is None:
+            grads = {n: p.grad.detach().cpu() for n, p in
+                     model.named_parameters() if p.grad is not None}
+    return losses, grads, {k: v.detach().cpu()
+                           for k, v in model.state_dict().items()}
+
+
+def _ref_compare(label, dev, cpu, device, extra=None) -> dict:
+    """Card against CPU for ``_bert_ref_run``'s results: losses and
+    params within ``TRAIN_REF_TOL``, first-step gradients within phase
+    2c's f32 limits; raises on a miss."""
+    (dev_loss, dev_g, dev_p), (cpu_loss, cpu_g, cpu_p) = dev, cpu
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(dev_loss, cpu_loss))
+    param_err = max((dev_p[k] - cpu_p[k]).abs().max().item() for k in cpu_p)
+    grad = [_grad_error(dev_g[k], cpu_g[k], torch.float32) for k in cpu_g]
+    row = {"model": label, "steps": TRAIN_REF_STEPS,
+           "losses_device": dev_loss, "losses_cpu": cpu_loss,
+           "loss_max_rel_err": loss_err, "param_max_abs_err": param_err,
+           "grad_max_abs_err": max(g[0] for g in grad),
+           "grads": len(grad), "tol": TRAIN_REF_TOL,
+           "grad_tol": BWD_TOL[torch.float32], "device": str(device),
+           **(extra or {})}
+    log("[bert-reference] " + json.dumps(row))
+    if not (set(dev_g) == set(cpu_g) and loss_err <= TRAIN_REF_TOL[
+            "loss_rtol"] and param_err <= TRAIN_REF_TOL["param_atol"]
+            and max(g[1] for g in grad) <= 0):
+        raise AssertionError(f"small f32 {label} on {device} differs from "
+                             f"the CPU: {row}")
+    return row
+
+
+def phase_bert_reference(device="cuda") -> None:
+    """Phase 16a: small f32 ``BertMLM`` and ``BertClassifier`` (flash) and
+    LoRA'd GPT2 and Llama (flash, the adapters trained alone) take
+    ``TRAIN_REF_STEPS`` AdamW steps on ``device`` (kernels) and on the CPU
+    (plain versions) from the same weights and batches, TF32 off: losses,
+    first-step gradients and final params within phase 3c's limits (the
+    MLM mask draws are the host's, the same on both); the frozen base
+    bitwise fixed on both. The corruption applied on the device to the
+    same draws equals the CPU's bit for bit, and ``merge_lora_params`` on
+    the device equals the CPU's (f32, atol 1e-6 x the largest weight)."""
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.config.registry import (
+        MODELS,
+    )
+    from pytorch_distributed_template_tpu_torch.data.datasets import (
+        synthetic_lm,
+    )
+    from pytorch_distributed_template_tpu_torch.engine import losses
+    from pytorch_distributed_template_tpu_torch.models import bert, lora
+
+    with _TF32(False, False) as tf32:
+        v = BERT_REF["vocab_size"]
+        toks = synthetic_lm(n=8 * TRAIN_REF_STEPS, seq_len=BERT_REF[
+            "max_len"], vocab_size=v - 1, seed=4)["tokens"]
+        labels = (toks[:, 0] % BERT_REF_CLASSES).astype(np.int32)
+        batches = [{"tokens": toks[8 * i:8 * i + 8],
+                    "label": labels[8 * i:8 * i + 8],
+                    "mask": np.ones(8, bool)}
+                   for i in range(TRAIN_REF_STEPS)]
+        for name, kw, crit, tgt in (
+                ("BertMLM", {}, losses.mlm_cross_entropy, "tokens"),
+                ("BertClassifier", {"num_classes": BERT_REF_CLASSES},
+                 losses.cross_entropy, "label")):
+            def build(dev, name=name, kw=kw):
+                return MODELS.get(name)(**BERT_REF, **kw, device=dev)
+
+            cpu = build("cpu")
+            cpu.init_weights(torch.Generator().manual_seed(7))
+            state = {k: t.clone() for k, t in cpu.state_dict().items()}
+            _ref_compare(name, _bert_ref_run(build(device), state, batches,
+                                             device, crit, tgt),
+                         _bert_ref_run(cpu, state, batches, "cpu", crit,
+                                       tgt), device, {"device_run": tf32})
+
+        model = MODELS.get("BertMLM")(**BERT_REF)
+        t = torch.from_numpy(toks[:8])
+        draws = model.mask_draws(11, t)
+        on_dev = {k: d.to(device) for k, d in draws.items()}
+        got = bert.corrupt(t.to(device), on_dev["sel"], on_dev["mix"],
+                           on_dev["rand_tok"], model.mask_id).cpu()
+        want = bert.corrupt(t, draws["sel"], draws["mix"],
+                            draws["rand_tok"], model.mask_id)
+        row = {"corrupt": list(t.shape), "masked": int(draws["sel"].sum()),
+               "changed": int((want != t.long()).sum()),
+               "bit_exact": bool(torch.equal(got, want))}
+        log("[bert-reference] " + json.dumps(row))
+        if not row["bit_exact"]:
+            raise AssertionError(f"the corruption on {device} differs from "
+                                 f"the CPU's on the same draws: {row}")
+
+        for name, args in LORA_REF.items():
+            toks = synthetic_lm(n=4 * TRAIN_REF_STEPS, seq_len=args[
+                "max_len"], vocab_size=args["vocab_size"], seed=1)["tokens"]
+            batches = [{"tokens": toks[4 * i:4 * i + 4],
+                        "mask": np.ones(4, bool)}
+                       for i in range(TRAIN_REF_STEPS)]
+            crit = (losses.fused_lm_cross_entropy(16)
+                    if args.get("fused_head") else losses.lm_cross_entropy)
+
+            def build(dev, name=name, args=args):
+                return MODELS.get(name)(**args, device=dev,
+                                        param_dtype=torch.float32)
+
+            cpu = build("cpu")
+            cpu.init_weights(torch.Generator().manual_seed(7))
+            state = {k: t.clone() for k, t in cpu.state_dict().items()}
+            dev = _bert_ref_run(build(device), state, batches, device, crit,
+                                "tokens", trainable=["lora_"])
+            ref = _bert_ref_run(cpu, state, batches, "cpu", crit, "tokens",
+                                trainable=["lora_"])
+            base = [k for k in state if k.rsplit(".", 1)[-1]
+                    not in lora.ADAPTER_LEAVES]
+            fixed = all(torch.equal(run[2][k], state[k]) for run in
+                        (dev, ref) for k in base)
+            merged_dev = lora.merge_lora_params(
+                {k: t.to(device) for k, t in dev[2].items()})
+            merged_cpu = lora.merge_lora_params(dev[2])
+            merge_err = max((merged_dev[k].cpu() - merged_cpu[k]).abs().max()
+                            .item() / max(merged_cpu[k].abs().max().item(),
+                                          1e-30) for k in merged_cpu)
+            _ref_compare(f"{name}+LoRA", dev, ref, device, {
+                "base_bitwise_fixed": fixed, "base_tensors": len(base),
+                "adapters": len(state) - len(base),
+                "merge_max_rel_err": merge_err, "device_run": tf32})
+            if not fixed or merge_err > 1e-6:
+                raise AssertionError(f"{name}+LoRA: base fixed {fixed}, "
+                                     f"merge error {merge_err}")
+
+
+def _counted_run(card, device, argv, label, check=None):
+    """The port's ``train.py`` with ``argv`` under a :class:`TrainRun`
+    (exact launches per step, step times, MFU, peak memory); losses
+    finite. Returns ``(trainer, run, wall seconds)``."""
+    from pytorch_distributed_template_tpu_torch import train as train_cli
+
+    box = {}
+
+    def hook(trainer):
+        box["trainer"] = trainer
+        box["run"] = TrainRun(trainer, device, card, label)
+        if check is not None:
+            check(trainer)
+
+    t0 = time.perf_counter()
+    train_cli.main(argv, on_trainer=hook)
+    wall = time.perf_counter() - t0
+    trainer, run = box["trainer"], box["run"]
+    losses = [r["loss"] for r in run.steps]
+    if not losses or not all(np.isfinite(losses)):
+        raise AssertionError(f"({label}) training losses {losses}")
+    return trainer, run, wall
+
+
+def _run_row(run, wall) -> dict:
+    steady = run.steps[1:] or run.steps
+    return {"steps": len(run.steps), "wall_s": wall,
+            "ms_per_step_median": float(np.median([r["ms"] for r in steady])),
+            "tokens_per_s_median": float(np.median(
+                [r["tokens_per_s"] for r in steady])),
+            "mfu_median": float(np.median([r["mfu"] for r in steady])),
+            "model_flops_per_step": run.flops,
+            "peak_mem_gib_max": max(r["peak_mem_gib"] for r in run.steps),
+            "launches": dict(zip(TRAIN_KERNELS, run.launches)),
+            "loss_first": run.steps[0]["loss"],
+            "loss_last": run.steps[-1]["loss"]}
+
+
+def _eval_checks(card, device, run_dir, logs, root) -> dict:
+    """16c's ``test.py`` checks on ``model_best`` (seeded twice, unseeded
+    against the best epoch's validation, ``--save-outputs``), then 16d:
+    the soup of ``checkpoint-epoch1`` and ``-epoch2`` through the port's
+    ``checkpoint.average`` CLI (its ``main``) and ``test.py``, and a soup of one
+    checkpoint against that checkpoint (bitwise)."""
+    from pytorch_distributed_template_tpu_torch import test as test_cli
+    from pytorch_distributed_template_tpu_torch.checkpoint import average
+
+    def evaluate(ckpt, *extra):
+        return test_cli.main(["-r", str(ckpt), "-s", str(root / "test"),
+                              "--device", str(device), *extra])
+
+    best = None
+    for e in logs:      # monitor "min val_loss": a later tie wins
+        if best is None or e["val_loss"] <= best["val_loss"]:
+            best = e
+    seeded = [evaluate(run_dir / "model_best", "--seed",
+                       str(BERT_EVAL_SEED)) for _ in range(2)]
+    plain = evaluate(run_dir / "model_best", "--save-outputs",
+                     str(root / "outputs"))
+    errs = {k: abs(plain[k] - best[f"val_{k}"]) / abs(best[f"val_{k}"])
+            for k in ("loss", "mlm_accuracy")}
+    out = np.load(root / "outputs" / "outputs_p0.npy", mmap_mode="r")
+    masks = np.load(root / "outputs" / "masks_p0.npy")
+    row = {"best_epoch": best["epoch"], "test": plain,
+           "rel_err_vs_its_val": errs, "rtol": TEST_RTOL,
+           "seed": BERT_EVAL_SEED, "seeded": seeded,
+           "outputs": list(out.shape), "masks": list(masks.shape),
+           "masks_dtype": str(masks.dtype),
+           "masked_per_row": float(masks.sum(-1).mean())}
+    log("[bert] (mlm) test.py " + json.dumps(row))
+    if (max(errs.values()) > TEST_RTOL or seeded[0] != seeded[1]
+            or out.shape[:2] != masks.shape or masks.dtype != bool):
+        raise AssertionError(f"test.py on model_best: {row}")
+    shutil.rmtree(root / "outputs")
+
+    t0 = time.perf_counter()
+    soup = run_dir / "soup-epoch1-2"
+    average.main([str(run_dir / "checkpoint-epoch1"),
+                  str(run_dir / "checkpoint-epoch2"), "-o", str(soup)])
+    soup_test = evaluate(soup)
+    one = average.average_checkpoints([run_dir / "checkpoint-epoch2"],
+                                      run_dir / "soup-epoch2")
+    one_test, ckpt_test = evaluate(one), evaluate(run_dir /
+                                                  "checkpoint-epoch2")
+    soup_row = {"soup_val_loss": soup_test["loss"],
+                "soup_val_mlm_accuracy": soup_test["mlm_accuracy"],
+                "epoch1_val_loss": logs[0]["val_loss"],
+                "epoch2_val_loss": logs[1]["val_loss"],
+                "one_soup": one_test, "epoch2": ckpt_test,
+                "one_soup_bitwise": one_test == ckpt_test,
+                "seconds": time.perf_counter() - t0, "card": card}
+    log("[bert] (soup) " + json.dumps(soup_row))
+    if one_test != ckpt_test or not np.isfinite(soup_test["loss"]):
+        raise AssertionError(f"the soups: {soup_row}")
+    return {"test": row, "soup": soup_row}
+
+
+def phase_bert_mlm(card: str, device="cuda", config=BERT_MLM_CONFIG,
+                   sets=BERT_MLM_SETS, corpus_mb: float = BERT_CORPUS_MB,
+                   work=WORK, seed: int = 0) -> dict:
+    """Phases 16c and 16d: phase 12's corpus and its cached 1024-id BPE
+    where phase 12 left them (``work / "bert_keep" / "data"``), else a
+    corpus of ``corpus_mb`` MB from the port's
+    ``tools/make_text_corpus.py``; then ``configs/bert_mlm_stdlib.json``
+    as it is (6 layers, d_model 384, 6 heads, vocab 1025, seq 128, batch
+    128, bf16, mask rate 0.15, dropout 0.1, AdamW, WarmupCosine, clip 1.0)
+    cut by ``sets`` (2 epochs, a checkpoint each) through
+    :func:`_train_path`: once with ``xla`` attention (no resume), once with
+    ``attn_impl "flash"`` (exact B1/B2/B3 launches per step, losses finite
+    and falling, a resume from ``checkpoint-epoch1`` reproducing epoch 2;
+    then :func:`_eval_checks`: ``test.py`` and the soups). Keeps the flash
+    run's ``model_best`` and logs, and the corpus with its BPE caches,
+    under ``work / "bert_keep"`` for 16e. Returns the flash run's launches
+    per kernel."""
+    from pytorch_distributed_template_tpu_torch.tools import (
+        make_text_corpus,
+    )
+
+    keep = work / "bert_keep"
+    data_dir = keep / "data"
+    if (data_dir / "pystdlib.txt").exists():
+        log(f"[bert] phase 12's corpus and BPE caches: "
+            f"{sorted(p.name for p in data_dir.iterdir())}")
+    else:
+        t0 = time.perf_counter()
+        info = make_text_corpus.build(data_dir / "pystdlib.txt",
+                                      int(corpus_mb * 1e6))
+        log(f"[bert] corpus: {info['files']} files, {info['bytes']} bytes "
+            f"from {info['source']} in {time.perf_counter() - t0:.1f} s")
+    data_sets = [(f"{split};args;data_dir", str(data_dir))
+                 for split in ("train_loader", "valid_loader")]
+    out = {}
+
+    def report(label):
+        def check(trainer, run):
+            out[label] = dict(_run_row(run, 0.0), epochs=[
+                {k: e[k] for k in ("epoch", "loss", "mlm_accuracy",
+                                   "val_loss", "val_mlm_accuracy")}
+                for e in run.epoch_logs], card=card)
+            log(f"[bert] ({label}) " + json.dumps(out[label]))
+            if label == "flash":
+                run_dir = trainer.config.save_dir
+                out["eval"] = _eval_checks(card, device, run_dir,
+                                           run.epoch_logs, work / "bert_eval")
+                shutil.copytree(run_dir / "model_best", keep / "model_best")
+                for name in ("info.log", "summary.json", "config.json"):
+                    shutil.copyfile(run_dir / name, keep / name)
+        return check
+
+    _train_path(card, device, config, list(sets) + data_sets,
+                work / "bert_xla", seed, label="bert_xla", resume=False,
+                check=report("xla"))
+    launches = _train_path(card, device, config, list(sets) + data_sets + [
+        ("arch;args;attn_impl", "flash")], work / "bert_flash", seed,
+        label="bert_flash", check=report("flash"))
+    log("[bert] (mlm) " + json.dumps({
+        "xla_ms": out["xla"]["ms_per_step_median"],
+        "flash_ms": out["flash"]["ms_per_step_median"],
+        "xla_peak_gib": out["xla"]["peak_mem_gib_max"],
+        "flash_peak_gib": out["flash"]["peak_mem_gib_max"], "card": card}))
+    if (work / "bert_eval").exists():
+        shutil.rmtree(work / "bert_eval")
+    return launches
+
+
+def phase_bert_cls(card: str, device="cuda", config=BERT_CLS_CONFIG,
+                   sets=BERT_CLS_SETS, work=WORK, seeds=(1,),
+                   chance: float = BERT_CLS_CHANCE) -> dict:
+    """Phase 16e: ``configs/bert_cls_stdlib.json`` as it is
+    (``PyModuleClsLoader`` over this machine's standard library, 8
+    classes, 6 epochs) through ``tools/bert_transfer_experiment.py``'s
+    logic, per seed: a warm run (``trainer.init_from`` 16c's
+    ``model_best``) and a fresh one at the same seed and budget, then the
+    tool's ``summarize`` (curves, verdict). The loader's windows and its
+    seconds with the cache cold and warm come first. Hard checks: the warm
+    start restores exactly the ``encoder.*`` tensors and skips
+    ``classifier_head.*``; the warm run's best ``val_accuracy`` is above
+    ``chance``. Returns the runs' launches per kernel."""
+    from pytorch_distributed_template_tpu_torch.data import datasets
+    from pytorch_distributed_template_tpu_torch.engine import trainer as eng
+    from pytorch_distributed_template_tpu_torch.tools import (
+        bert_transfer_experiment as tool,
+    )
+
+    keep = work / "bert_keep"
+    data_dir = keep / "data"
+    args = dict(json.loads(Path(config).read_text())["train_loader"]["args"],
+                data_dir=str(data_dir))
+    args.update({chain.rsplit(";", 1)[1]: value for chain, value in sets
+                 if chain.startswith("train_loader;args;")})
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        loader = datasets.py_module_cls_loader(**args)
+        times.append(time.perf_counter() - t0)
+    val = datasets.py_module_cls_loader(**dict(args, training=False,
+                                               shuffle=False))
+    counts = np.bincount(loader.arrays["label"], minlength=8).tolist()
+    log("[bert] (cls) loader " + json.dumps({
+        "train_windows": int(loader.n_samples),
+        "val_windows": int(val.n_samples), "train_per_class": counts,
+        "cold_s": times[0], "warm_s": times[1],
+        "cache": loader.window_cache.name, "card": card}))
+    data_sets = [(f"{split};args;data_dir", str(data_dir))
+                 for split in ("train_loader", "valid_loader")]
+    grafts = []
+    real = eng.warm_start_params
+
+    def recorded(*a, **kw):
+        got = real(*a, **kw)
+        grafts.append(got)
+        return got
+
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    runs = {"warm": {}, "fresh": {}}
+    eng.warm_start_params = recorded
+    try:
+        for s in seeds:
+            for arm in ("warm", "fresh"):
+                extra = ([("trainer;init_from", str(keep / "model_best"))]
+                         if arm == "warm" else [])
+                argv = tool.train_argv(config, work / f"bert_{arm}_s{s}", s,
+                                       list(sets) + data_sets + extra,
+                                       device)
+                trainer, run, wall = _counted_run(card, device, argv,
+                                                  f"cls-{arm}")
+                row = dict(_run_row(run, wall), seed=s, arm=arm,
+                           best_val_accuracy=max(
+                               e["val_accuracy"] for e in run.epoch_logs),
+                           card=card)
+                log("[bert] (cls) " + json.dumps(row))
+                runs[arm][s] = trainer.config.save_dir
+                launches = {k: launches[k] + v
+                            for k, v in row["launches"].items()}
+                del trainer, run
+                _release(device)
+    finally:
+        eng.warm_start_params = real
+    restored, skipped = grafts[0]
+    want = sorted(k for k in restored + skipped if k.startswith("encoder."))
+    graft = {"restored": len(restored), "skipped": skipped,
+             "exact": (restored == want and bool(skipped) and all(
+                 k.startswith("classifier_head.") for k in skipped))}
+    verdict = tool.summarize(keep, runs["warm"], runs["fresh"],
+                             work / "bert_transfer")
+    log("[bert] (cls) " + json.dumps({"graft": graft, "verdict": verdict,
+                                      "chance": chance,
+                                      "card": card}))
+    if len(grafts) != len(seeds) or not graft["exact"]:
+        raise AssertionError(f"the warm start grafted {graft}")
+    if not all(p["warm"] > chance for p in verdict["per_seed"]):
+        raise AssertionError(f"the warm runs stay at chance: {verdict}")
+    for d in list(runs["warm"].values()) + list(runs["fresh"].values()):
+        shutil.rmtree(d.parents[2])
+    shutil.rmtree(keep)
+    shutil.rmtree(work / "bert_transfer")
+    return launches
+
+
+def phase_lora_gpt2(card: str, device="cuda", config=TRAIN_CONFIG,
+                    sets=LORA_GPT2_SETS, base=GPT2_BASE, work=WORK,
+                    seed: int = 0) -> dict:
+    """Phase 16f: LoRA (rank 8, the adapters alone) on cell (h)'s GPT-2
+    small at full width, warm-started from phase 6's ``checkpoint-epoch1``
+    (``base``), one epoch of 32 steps through :func:`_train_path` (cell
+    (h)'s exact B1/B2/B3 launches per step). Hard checks: every base
+    tensor bitwise equal to the checkpoint's after the run; the optimizer
+    state's bytes = the adapters' elements x 2 moments x 4 B; the
+    artifact of the port's ``tools/merge_lora.py`` builds a plain dense
+    GPT-2 whose logits equal the adapted model's within phase 2c's bf16
+    limits. Prints ms per step beside cell (h)'s (phase 6, this call).
+    Returns the run's launches per kernel."""
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.checkpoint import (
+        restore_serving_params,
+    )
+    from pytorch_distributed_template_tpu_torch.config.registry import (
+        MODELS,
+    )
+    from pytorch_distributed_template_tpu_torch.engine import optim
+    from pytorch_distributed_template_tpu_torch.models import lora
+    from pytorch_distributed_template_tpu_torch.tools import merge_lora
+
+    ckpt = Path(base) / "checkpoint-epoch1"
+    if not (ckpt / "model.pt").is_file():
+        raise AssertionError(f"no base weights at {ckpt} (phase 6 keeps "
+                             f"them)")
+
+    def check(trainer, run):
+        disk = torch.load(ckpt / "model.pt", map_location="cpu")
+        live = trainer.model.state_dict()
+        moved = [k for k, t in disk.items() if not torch.equal(
+            live[k].cpu(), t)]
+        adapters = sum(p.numel() for n, p in trainer.model.named_parameters()
+                       if n.rsplit(".", 1)[-1] in lora.ADAPTER_LEAVES)
+        state = optim.state_bytes(trainer.optimizer)
+        path = merge_lora.main(["-r", str(trainer.config.save_dir /
+                                          "checkpoint-epoch1"),
+                                "-s", str(work / "lora_merge_log")])
+        cfg = json.loads((path.parent / "config.json").read_text())
+        dense = MODELS.get(cfg["arch"]["type"])(
+            **cfg["arch"]["args"], device=device, param_dtype=torch.float32)
+        dense.load_state_dict(restore_serving_params(path, device))
+        batch = next(iter(trainer.valid_loader))
+        tokens = torch.from_numpy(np.asarray(batch["tokens"][:2])).to(device)
+        with torch.no_grad():
+            trainer.model.eval()
+            dense.eval()
+            h, w = trainer.model(tokens)
+            hd, wd = dense(tokens)
+            got, want = (hd @ wd).float(), (h @ w).float()
+        err, excess = _grad_error(got, want, torch.bfloat16)
+        row = {"base_tensors": len(disk), "base_moved": moved[:5],
+               "adapter_elements": adapters, "state_bytes": state,
+               "expected_state_bytes": adapters * 2 * 4,
+               "merged_logit_max_abs_err": err,
+               "merged_logit_tol": BWD_TOL[torch.bfloat16],
+               "cell_h_ms_per_step": PATH_STATS.get("train", {}).get(
+                   "ms_per_step_median", "not measured in this call"),
+               "card": card}
+        log("[lora] (gpt2) " + json.dumps(row))
+        if moved or state != adapters * 8 or excess > 0:
+            raise AssertionError(f"LoRA on GPT-2 small: {row}")
+        del dense
+
+    launches = _train_path(card, device, config, list(sets) + [
+        ("trainer;init_from", str(ckpt))], work / "lora_gpt2", seed,
+        label="lora_gpt2", check=check, resume=False, falling=False)
+    log("[lora] (gpt2) " + json.dumps({
+        "ms_per_step": PATH_STATS["lora_gpt2"]["ms_per_step_median"],
+        "cell_h_ms_per_step": PATH_STATS.get("train", {}).get(
+            "ms_per_step_median", "not measured in this call"),
+        "card": card}))
+    for d in (Path(base), work / "lora_merge_log"):
+        if d.exists():
+            shutil.rmtree(d)
+    return launches
+
+
+def _checksums(model) -> dict:
+    """Per base tensor an int64 sum of its bit patterns and of the bit
+    patterns times their index: a moved bit changes one of them."""
+    out = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("lora_a", "lora_b"):
+                continue
+            bits = p.detach().view(torch.int32).flatten().long()
+            idx = torch.arange(bits.numel(), device=bits.device)
+            out[name] = (int(bits.sum()), int((bits * (idx % 65521)).sum()))
+    return out
+
+
+def phase_lora_llama(card: str, device="cuda", config=LLAMA_DEBUG_CONFIG,
+                     sets=LORA_LLAMA_SETS, mistral=MISTRAL_LORA_CONFIG,
+                     mistral_sets=MISTRAL_LORA_SETS, work=WORK,
+                     seed: int = 0) -> dict:
+    """Phase 16g: LoRA on a Llama, merged, then served. At
+    ``configs/llama_debug.json``'s width in f32 (``sets``): one epoch of
+    LoRA steps, the port's ``tools/merge_lora.py``, then the port's
+    ``generate.py -r <merged>``: its greedy tokens must equal the adapted
+    model's (a ``GenerationService`` over the trained model). Then
+    ``mistral`` (``configs/mistral_7b_lora.json``: Mistral-7B's widths and
+    depth over a random-init base, float32 base params, bf16 compute,
+    remat, flash, seq 1024, batch 1, synthetic tokens, rank 8, the
+    adapters alone): peak memory under ``MEMORY_LIMIT_GIB``, every loss
+    finite, every base tensor's checksums unchanged (:func:`_checksums`),
+    ms per step and MFU. Returns the Mistral run's launches per kernel
+    (the small run's attention is ``xla``)."""
+    from pytorch_distributed_template_tpu_torch import generate as gen_cli
+    from pytorch_distributed_template_tpu_torch.engine.serving import (
+        GenerationService,
+    )
+    from pytorch_distributed_template_tpu_torch.tools import (
+        bert_transfer_experiment as tool, merge_lora,
+    )
+
+    root = work / "lora_llama"
+    with _TF32(False, False):
+        trainer, run, wall = _counted_run(
+            card, device, tool.train_argv(config, root / "small", seed, sets,
+                                          device), "lora-llama")
+        path = merge_lora.main(["-r", str(trainer.config.save_dir /
+                                          "model_best"),
+                                "-s", str(root / "merge_log")])
+        prompt = [1, 2, 3, 4, 5, 6, 7, 8]
+        # the adapted model served as generate.py serves the artifact
+        # (the config's serving section: its paged prefix pool)
+        want = GenerationService.from_model(
+            trainer.model, device=device, prefix_cache=(
+                trainer.config.config.get("serving") or {}).get(
+                "prefix_cache")).generate(
+            prompt_ids=prompt, max_new_tokens=LORA_GREEDY)["ids"]
+        got = gen_cli.main(["-r", str(path), "--prompt-ids",
+                            ",".join(map(str, prompt)), "--max-new-tokens",
+                            str(LORA_GREEDY), "--device", str(device), "-s",
+                            str(root / "gen_log")])["ids"]
+    row = {"run": _run_row(run, wall), "adapted_greedy": want,
+           "merged_generate_py": got, "identical": want == got,
+           "card": card}
+    log("[lora] (llama f32) " + json.dumps(row))
+    if want != got:
+        raise AssertionError(f"the merged artifact's greedy tokens differ "
+                             f"from the adapted model's: {row}")
+    del trainer, run
+    _release(device)
+
+    sums = {}
+
+    def snapshot(trainer):
+        m = trainer.model
+        sums["before"] = _checksums(m)
+        log(f"[lora] (mistral) {type(m).__name__}: {m.n_layer} layers, "
+            f"d_model {m.d_model}, {m.n_head}/{m.n_kv_head} heads, "
+            f"{sum(p.numel() for p in m.parameters()) / 1e9:.3f} B params "
+            f"({sum(p.numel() for p in m.parameters() if p.requires_grad)}"
+            f" trainable), {next(m.parameters()).dtype} params, {m.dtype} "
+            f"compute, remat {m.remat}, {m.attn_impl}")
+
+    trainer, run, wall = _counted_run(
+        card, device, tool.train_argv(mistral, root / "mistral", seed,
+                                      mistral_sets, device),
+        "lora-mistral", check=snapshot)
+    after = _checksums(trainer.model)
+    moved = [k for k in after if after[k] != sums["before"][k]]
+    mrow = dict(_run_row(run, wall), base_tensors=len(after),
+                base_moved=moved[:5], memory_limit_gib=MEMORY_LIMIT_GIB,
+                card=card)
+    log("[lora] (mistral) " + json.dumps(mrow))
+    if moved or mrow["peak_mem_gib_max"] >= MEMORY_LIMIT_GIB:
+        raise AssertionError(f"LoRA at Mistral width: {mrow}")
+    launches = mrow["launches"]
+    del trainer, run
+    _release(device)
+    shutil.rmtree(root)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -4571,14 +5287,15 @@ def main() -> int:
     timed("3e", lambda: (phase_optim_reference(), phase_optim_full(card)))
     flash_launches = timed("4", phase_main, card, keep_artifact=True)
     paged_launches = timed("5", phase_serve, card, WORK / "art" / "model")
-    train_launches = timed("6", phase_train, card)
+    train_launches = timed("6", phase_train, card, keep=GPT2_BASE)
     moe_launches = timed("7", phase_moe_train, card)
     timed("8", phase_lenet_reference)
     timed("9", phase_mnist, card)
     obs_launches = timed("10", phase_observe, card)
     res_launches = timed("11", phase_resilience, card)
     native.CALLS.reset()
-    lm_launches = timed("12", phase_lm_configs, card)
+    lm_launches = timed("12", phase_lm_configs, card,
+                        keep_data=WORK / "bert_keep" / "data")
     gathers = {"12": native.CALLS.calls}
     native.CALLS.reset()
     timed("13", phase_digits, card)
@@ -4596,6 +5313,13 @@ def main() -> int:
     vit_launches = timed("15e", phase_vit, card)
     timed("15f", phase_seq_nccl, card, runs=IMAGE_NCCL,
           common=IMAGE_NCCL_COMMON, corpus_bytes=0, tag="image_nccl")
+    timed("16a", phase_bert_reference)
+    rows += timed("16b", phase_kernel, BERT_KERNEL_SHAPES)
+    bwd_rows += timed("16b-bwd", phase_bwd_kernel, BERT_BWD_SHAPES)
+    bert_launches = timed("16c-16d", phase_bert_mlm, card)
+    cls_launches = timed("16e", phase_bert_cls, card)
+    lora_launches = timed("16f", phase_lora_gpt2, card)
+    llama_launches = timed("16g", phase_lora_llama, card)
     log("[native] gathers " + json.dumps(gathers))
     if not all(gathers.values()):
         raise AssertionError(f"the native batcher did not gather in every "
@@ -4607,7 +5331,9 @@ def main() -> int:
     for kern in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         train_launches[kern] += (obs_launches[kern] + res_launches[kern]
                                  + lm_launches[kern] + seq_launches[kern]
-                                 + vit_launches[kern])
+                                 + vit_launches[kern] + bert_launches[kern]
+                                 + cls_launches[kern] + lora_launches[kern]
+                                 + llama_launches[kern])
     flash_launches += train_launches["flash_fwd"] + moe_launches["flash_fwd"]
     for kernel, source, replaces, launches, shapes in (
             ("flash_fwd", KERNEL_SOURCE, KERNEL_REPLACES, flash_launches,

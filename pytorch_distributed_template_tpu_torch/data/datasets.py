@@ -5,9 +5,10 @@ of the JAX package's ``data/datasets.py`` for the LM family
 ``synthetic_mnist``, ``_try_load_mnist``, ``MnistDataLoader``), the real
 UCI digits (``DigitsDataLoader``), ``.npy`` arrays (``NpyDataLoader``),
 CIFAR-10 (``synthetic_cifar10``, ``_try_load_cifar10``,
-``Cifar10DataLoader``) and ImageNet (``synthetic_imagenet``,
+``Cifar10DataLoader``), ImageNet (``synthetic_imagenet``,
 ``SyntheticImageNetLoader``, and ``ShardedImageNetLoader`` over the uint8
-shards of ``data/sharded.py``).
+shards of ``data/sharded.py``) and the standard-library package
+classification of the BERT family (``PyModuleClsLoader``).
 
 The arrays are byte-identical to the JAX package's (same numpy Philox
 generators, same seeds, the same memory-mapped bytes). Real MNIST is read
@@ -326,6 +327,137 @@ def bpe_lm_loader(data_dir: str = "data/", batch_size: int = 8,
     loader = _make_image_loader({"tokens": tokens}, batch_size, shuffle,
                                 seed=seed, shard=shard)
     loader.tokenizer_path = tok_path
+    return loader
+
+
+@LOADERS.register("PyModuleClsLoader")
+def py_module_cls_loader(data_dir: str = "data/", batch_size: int = 64,
+                         shuffle: bool = True, num_workers: int = 0,
+                         training: bool = True,
+                         modules: tuple = ("asyncio", "email", "unittest",
+                                           "xml", "multiprocessing",
+                                           "importlib", "encodings",
+                                           "http"),
+                         seq_len: int = 128, vocab_size: int = 1024,
+                         corpus_file: str = "pystdlib.txt",
+                         val_fraction: float = 0.2,
+                         max_chunks_per_module: int = 1000,
+                         seed: int = 0, shard: Optional[tuple] = None):
+    """Which standard-library package does a window of ``seq_len`` BPE
+    tokens come from? The labelled companion of the ``pystdlib.txt``
+    pretraining corpus, over the Python standard library installed here,
+    tokenized with the BPE tokenizer ``BpeLMLoader`` caches for that
+    corpus (``bpe_cache_path``, or the legacy ``<corpus>.bpe<V>.json``;
+    fitted on the corpus's first 90% and cached there when neither
+    exists), so a pretrained encoder's embeddings line up with the ids.
+
+    As the JAX loader, array for array: per package, its ``.py`` files
+    (the first 256 KiB of each) cut into whole windows; whole files go to
+    validation in the order of the md5 of their stdlib-relative name
+    until the package's share reaches ``val_fraction`` (stratified by
+    package); each package thinned in proportion to ``max_chunks_per_
+    module`` windows (every file keeps at least one); validation windows
+    equal to a training window dropped. The windows are cached as
+    ``pycls_<key>.npz`` in ``data_dir``, the key folding in the packages,
+    the sizes, ``max_chunks_per_module`` and the md5 of the tokenizer's
+    bytes (``v3``): a refit tokenizer misses the cache. Without a
+    tokenizer or corpus, or without the standard library, it falls back
+    to synthetic labelled rows whose token range depends on the class."""
+    del num_workers
+    import hashlib
+    import sysconfig
+
+    from .tokenizer import BpeTokenizer, bpe_cache_path
+
+    modules = tuple(modules)
+    stdlib = Path(sysconfig.get_paths()["stdlib"])
+    tok_path = bpe_cache_path(data_dir, corpus_file, vocab_size)
+    legacy_tok = Path(data_dir) / f"{corpus_file}.bpe{vocab_size}.json"
+    corpus = Path(data_dir) / corpus_file
+    if tok_path.exists():
+        tok = BpeTokenizer.load(tok_path)
+    elif legacy_tok.exists():
+        tok = BpeTokenizer.load(legacy_tok)
+    elif corpus.exists():
+        tok = BpeTokenizer.train_from_file(corpus, vocab_size,
+                                           sample_until=0.9)
+        tok.save(tok_path)
+    else:
+        tok = None
+    if tok is None or not stdlib.exists():
+        logger.warning("PyModuleClsLoader: %s missing; using synthetic "
+                       "labeled data.", tok_path if tok is None else stdlib)
+        rng = np.random.default_rng(seed + (0 if training else 1))
+        n = 512 if training else 128
+        labels = rng.integers(0, len(modules), n)
+        tokens = (rng.integers(0, vocab_size // 2, (n, seq_len))
+                  + labels[:, None] * (vocab_size // (2 * len(modules))))
+        return _make_image_loader(
+            {"tokens": tokens.astype(np.int32),
+             "label": labels.astype(np.int32)},
+            batch_size, shuffle, seed=seed, shard=shard)
+
+    tok_file = tok_path if tok_path.exists() else legacy_tok
+    tok_fp = hashlib.md5(tok_file.read_bytes()).hexdigest()[:10]
+    key = hashlib.md5(
+        ("|".join(modules) + f"|{seq_len}|{vocab_size}|{val_fraction}"
+         + f"|{max_chunks_per_module}|{tok_fp}|v3").encode()).hexdigest()[:10]
+    cache = Path(data_dir) / f"pycls_{key}.npz"
+    if not cache.exists():
+        tok_rows, lab_rows, split_rows = [], [], []
+        for li, mod in enumerate(modules):
+            root = stdlib / mod
+            files = (sorted(root.rglob("*.py")) if root.is_dir()
+                     else [stdlib / f"{mod}.py"])
+            files = [f for f in files
+                     if f.exists() and "__pycache__" not in f.parts]
+            encoded = []
+            for f in files:
+                rel = f.relative_to(stdlib).as_posix()
+                ids = tok.encode(f.read_bytes()[: 256 << 10])
+                k = len(ids) // seq_len
+                if k == 0:
+                    continue
+                h = int(hashlib.md5(rel.encode()).hexdigest(), 16)
+                encoded.append((h, ids[: k * seq_len].reshape(k, seq_len)))
+            encoded.sort(key=lambda e: e[0])
+            total_mod = sum(len(c) for _, c in encoded)
+            chunks_per_file, val_seen = [], 0
+            for _, c in encoded:
+                is_val = val_seen < val_fraction * total_mod
+                val_seen += len(c) if is_val else 0
+                chunks_per_file.append((c, is_val))
+            total = sum(len(c) for c, _ in chunks_per_file)
+            frac = min(total, max_chunks_per_module) / max(total, 1)
+            for c, is_val in chunks_per_file:
+                c = c[:max(1, int(round(len(c) * frac)))]
+                tok_rows.append(c)
+                lab_rows.append(np.full(len(c), li, np.int32))
+                split_rows.append(np.full(len(c), is_val, bool))
+        tokens = np.concatenate(tok_rows).astype(np.int32)
+        labels = np.concatenate(lab_rows)
+        is_val = np.concatenate(split_rows)
+        train_keys = {r.tobytes() for r in tokens[~is_val]}
+        dup = np.array([is_val[i] and tokens[i].tobytes() in train_keys
+                        for i in range(len(tokens))])
+        if dup.any():
+            logger.info("PyModuleClsLoader: dropping %d val windows "
+                        "duplicated in train files", int(dup.sum()))
+            tokens, labels, is_val = tokens[~dup], labels[~dup], \
+                is_val[~dup]
+        tmp = cache.with_name(cache.name + f".tmp{os.getpid()}")
+        with open(tmp, "wb") as fh:
+            np.savez(fh, tokens=tokens, labels=labels, is_val=is_val)
+        os.replace(tmp, cache)
+        logger.info("PyModuleClsLoader: cached %d windows (%d val) over %d "
+                    "classes to %s", len(labels), int(is_val.sum()),
+                    len(modules), cache)
+    data = np.load(cache)
+    sel = ~data["is_val"] if training else data["is_val"]
+    loader = _make_image_loader(
+        {"tokens": data["tokens"][sel], "label": data["labels"][sel]},
+        batch_size, shuffle, seed=seed, shard=shard)
+    loader.window_cache = cache
     return loader
 
 

@@ -12,10 +12,19 @@ over the test loader. Under a process group the loader shards over
 the ranks and the eval step sums the statistics over them, so every rank
 holds the result over the global, unpadded set. With ``save_outputs``
 every rank writes its real rows' outputs and targets (pads dropped, eval
-order) as ``outputs_p{rank}.npy`` / ``targets_p{rank}.npy``. The mesh is
-the config's, as the trainer's: the test set shards over the data axis
-and the model gets the mesh; on a seq axis > 1 a rank's outputs
+order) as ``outputs_p{rank}.npy`` / ``targets_p{rank}.npy``, and for a
+masked LM (the class attribute ``mlm_output``: ``BertMLM``'s ``(logits,
+mask)``) the logits as outputs and the mask beside them as
+``masks_p{rank}.npy`` (bool), as the JAX evaluator writes them. The mesh
+is the config's, as the trainer's: the test set shards over the data
+axis and the model gets the mesh; on a seq axis > 1 a rank's outputs
 are one shard of each row, so ``save_outputs`` refuses there.
+
+``seed`` (``test.py --seed``) seeds eval-time model randomness, as the
+JAX evaluator's ``"eval"`` stream does: batch ``i`` gets ``fold_in(seed,
+i)`` (``models.layers.fold_in``; the same on every rank), which a model
+with ``eval_draws`` (``BertMLM``'s seeded eval mask) draws from; without
+it the model's deterministic eval mask stays.
 """
 from __future__ import annotations
 
@@ -29,10 +38,11 @@ from ..checkpoint.manager import EMA_FILE
 from ..config.registry import LOADERS, METRICS, MODELS
 from ..data.loader import prefetch_to_device
 from ..models.base import inject_mesh
+from ..models.layers import fold_in
 from ..parallel import dist
 from ..parallel.mesh import build_mesh, mesh_from_config
 from .losses import resolve_loss
-from .steps import finalize_metrics, make_eval_step
+from .steps import eval_kwargs, finalize_metrics, make_eval_step
 
 
 def _build_test_loader(config, shard):
@@ -53,23 +63,27 @@ def _build_test_loader(config, shard):
                    "train_loader")
 
 
-def _outputs(model, batch, input_key: str):
-    """The model's per-example outputs as float32 (a fused head's
-    ``(hidden, head_w)`` materialised as logits)."""
+def _outputs(model, batch, input_key: str, seed=None, shard=None):
+    """``(outputs, mask)``: the model's per-example outputs as float32 (a
+    fused head's ``(hidden, head_w)`` materialised as logits; a masked
+    LM's logits) and a masked LM's position mask as bool (else None), for
+    the batch the eval step scored (the same ``seed``)."""
     with torch.no_grad():
-        out = model(batch[input_key])
+        out = model(batch[input_key],
+                    **eval_kwargs(model, batch, input_key, seed, shard))
+    if getattr(model, "mlm_output", False):
+        logits, sel = out
+        return logits.float(), sel.bool()
     if isinstance(out, tuple):
         hidden, w = out
         out = hidden @ w
-    return out.float()
+    return out.float(), None
 
 
 def evaluate(config, device, save_outputs=None, seed=None) -> dict:
     """Evaluate ``config.resume`` on the config's test loader; returns the
     loss and metrics over the global set. ``seed`` seeds eval-time model
-    randomness in the JAX package (BertMLM's eval mask); no model of the
-    port draws any, so evaluation is deterministic either way."""
-    del seed
+    randomness (module docstring); None keeps the deterministic path."""
     logger = config.get_logger("test")
     if config.resume is None:
         raise ValueError("evaluation requires a checkpoint (-r)")
@@ -94,20 +108,28 @@ def evaluate(config, device, save_outputs=None, seed=None) -> dict:
     dk = config.get("data_keys", {}) or {}
     input_key = dk.get("input", "image")
     target_key = dk.get("target", "label")
+    shard = mesh.data_shard()
     eval_step = make_eval_step(model, criterion, metric_fns,
-                               input_key=input_key, target_key=target_key)
+                               input_key=input_key, target_key=target_key,
+                               data_shard=shard)
     depth = max(int(config["trainer"].get("prefetch_depth", 2)), 1)
-    accum, dumped_out, dumped_tgt = None, [], []
-    for batch in prefetch_to_device(
+    accum, dumped_out, dumped_tgt, dumped_msk = None, [], [], []
+    for i, batch in enumerate(prefetch_to_device(
             test_loader, device, depth,
-            getattr(test_loader, "device_transform", None)):
-        m = eval_step(batch)
+            getattr(test_loader, "device_transform", None))):
+        batch_seed = None if seed is None else fold_in(int(seed), i)
+        m = eval_step(batch, seed=batch_seed)
         accum = m if accum is None else {k: accum[k] + v
                                          for k, v in m.items()}
         if save_outputs is not None:
-            keep = batch["mask"].bool()
-            dumped_out.append(_outputs(model, batch, input_key)[keep].cpu())
-            dumped_tgt.append(batch[target_key][keep].cpu())
+            # rows picked on the host: a uint16 token target has no CUDA
+            # index kernel
+            keep = batch["mask"].bool().cpu().numpy()
+            out, msk = _outputs(model, batch, input_key, batch_seed, shard)
+            dumped_out.append(out.cpu().numpy()[keep])
+            dumped_tgt.append(batch[target_key].cpu().numpy()[keep])
+            if msk is not None:
+                dumped_msk.append(msk.cpu().numpy()[keep])
 
     if save_outputs is not None:
         out_dir = Path(save_outputs)
@@ -115,9 +137,12 @@ def evaluate(config, device, save_outputs=None, seed=None) -> dict:
         rank = dist.process_index()
         if dumped_out:
             np.save(out_dir / f"outputs_p{rank}.npy",
-                    torch.cat(dumped_out).numpy())
+                    np.concatenate(dumped_out))
             np.save(out_dir / f"targets_p{rank}.npy",
-                    torch.cat(dumped_tgt).numpy())
+                    np.concatenate(dumped_tgt))
+            if dumped_msk:
+                np.save(out_dir / f"masks_p{rank}.npy",
+                        np.concatenate(dumped_msk))
             logger.info("saved per-example outputs to %s", out_dir)
         else:
             logger.info("no local eval rows on process %d; skipping the "

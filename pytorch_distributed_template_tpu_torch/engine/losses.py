@@ -1,14 +1,13 @@
 """Losses: the port of the JAX package's ``engine/losses.py`` for the
-language-model family and the image losses (``nll_loss``,
-``cross_entropy``, ``mse_loss``, ``smooth_cross_entropy``).
+language-model family, the BERT family's ``mlm_cross_entropy`` and the
+image losses (``nll_loss``, ``cross_entropy``, ``mse_loss``,
+``smooth_cross_entropy``).
 
 Losses are per-example functions ``(output, target) -> [B]``; the train
 and eval steps apply the padding mask and reduce (engine/steps.py).
 
 ``resolve_loss`` keeps the JAX package's config contract: a plain string
 names a loss, a ``{"type", "args"}`` dict calls a registered factory.
-
-``mlm_cross_entropy`` waits for BERT (other model families).
 
 On a seq axis (sequence parallelism) an LM's output holds one shard of
 each row's positions (``ops.attention.SeqShard``) and the step passes
@@ -40,6 +39,21 @@ def nll_loss(output, target):
 def cross_entropy(output, target):
     """Softmax cross entropy of raw logits ``[B, C]``."""
     return F.cross_entropy(output.float(), target.long(), reduction="none")
+
+
+@LOSSES.register("mlm_cross_entropy")
+def mlm_cross_entropy(output, target):
+    """Masked-LM loss of the BERT family (models/bert.py): ``output`` is
+    ``(logits [B, T, V], mask [B, T])``, ``target`` the original tokens.
+    Per-example mean cross entropy over the masked positions, divided by
+    ``max(mask.sum(), 1)`` (a row with none gives 0)."""
+    logits, sel = output
+    b, t, v = logits.shape
+    tok = F.cross_entropy(logits.float().reshape(b * t, v),
+                          target.long().reshape(b * t),
+                          reduction="none").view(b, t)
+    denom = sel.sum(-1).clamp_min(1.0)
+    return (tok * sel).sum(-1) / denom
 
 
 @LOSSES.register("mse_loss")

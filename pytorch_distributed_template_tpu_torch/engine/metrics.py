@@ -1,6 +1,6 @@
 """Metrics: the port of the JAX package's ``engine/metrics.py``
 (``accuracy``, ``top_k_acc``, ``lm_token_accuracy``, ``lm_bits_per_byte``,
-``lm_nll``).
+``lm_nll``, ``mlm_accuracy``).
 
 Metrics are per-example functions ``(output, target) -> [B]`` computed
 without gradients; the steps reduce them with the padding mask as
@@ -26,6 +26,17 @@ _LN2 = 0.6931471805599453
 def accuracy(output, target):
     """1 where the argmax (the first, on a tie) is the label."""
     return (output.argmax(-1) == target.long()).float()
+
+
+@METRICS.register("mlm_accuracy")
+@torch.no_grad()
+def mlm_accuracy(output, target):
+    """Per-example accuracy of the BERT MLM pair ``(logits, mask)`` at the
+    masked positions against the original tokens, over ``max(mask.sum(),
+    1)``."""
+    logits, sel = output
+    hit = (logits.argmax(-1) == target.long()).float()
+    return (hit * sel).sum(-1) / sel.sum(-1).clamp_min(1.0)
 
 
 @METRICS.register("top_k_acc")

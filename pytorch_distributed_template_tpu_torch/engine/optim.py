@@ -40,7 +40,10 @@
   other parameter, as the JAX package's ``_trainable_only``: frozen
   parameters are in no group, so they hold no optimizer state and get no
   update and no decay; the train step drops their gradients before the
-  global norm (engine/steps.py).
+  global norm (engine/steps.py). The trainer turns their
+  ``requires_grad`` off before it wraps the model
+  (:func:`freeze_untrainable`), so no gradient is computed for them: a
+  LoRA fine-tune's frozen base holds neither gradients nor state.
 - The train step multiplies the *final* update by ``lr_scale``
   (``ReduceLROnPlateau``), as the JAX step does: an ``OptaxOptimizer``
   reads it from its groups (``group["lr_scale"]``); for the
@@ -103,6 +106,19 @@ class Trainable:
 
     def named_parameters(self):
         return iter(self._named)
+
+
+def freeze_untrainable(model, patterns) -> int:
+    """``requires_grad`` off for every parameter of ``model`` whose JAX
+    path no regex of ``patterns`` (``optimizer.args.trainable``) matches;
+    returns how many were frozen."""
+    held = {id(p) for _, p in Trainable(model, patterns).named_parameters()}
+    frozen = 0
+    for p in model.parameters():
+        if id(p) not in held and p.requires_grad:
+            p.requires_grad_(False)
+            frozen += 1
+    return frozen
 
 
 def _lr(lr, learning_rate):

@@ -130,6 +130,17 @@ shift is a multiple of the shard count). The draws are numpy's Philox,
 not JAX's threefry: an augmented or mixed step is reproducible within
 each package, on any number of ranks, not across the packages.
 
+Masked-LM corruption (a model with ``mask_draws``: ``BertMLM``), before
+the forward and the microbatch split, beside the augment draws: the model
+draws ``sel``, ``mix`` and ``rand_tok`` on the host for the global batch
+from ``fold_in(fold_in(seed, step), MLM_SALT)`` (their own salt, not
+7919), this data shard's rows kept; they ride the batch as
+``_mlm_<name>`` (so microbatches slice them) and reach the forward as
+``mask_draws``. The eval step takes an optional ``seed`` (``test.py
+--seed``: the evaluator's per-batch ``fold_in(seed, batch index)``) and
+hands a model with ``eval_draws`` its seeded eval mask; without one the
+model keeps its deterministic eval mask.
+
 Models with running statistics (BatchNorm buffers): the forward in
 training mode updates them, each microbatch in turn; a step that
 ``skip_nonfinite`` skips puts them back bit for bit (a copy taken before
@@ -155,6 +166,8 @@ from .optim import set_lr
 
 #: folded into the step's seed for the mixup draws (the JAX step's)
 MIXUP_SALT = 7920
+#: the batch keys that carry the masked-LM draws (``_mlm_<name>``)
+_MLM = "_mlm_"
 
 
 def _forward_takes(model, name: str) -> bool:
@@ -256,6 +269,7 @@ class TrainStep:
                          else int(inject_nan_grad_step))
         self._seeded = _forward_takes(self.module, "dropout_seed")
         self._masked = _forward_takes(self.module, "example_mask")
+        self._mlm = hasattr(self.module, "mask_draws")
         self._all = [p for g in optimizer.param_groups for p in g["params"]]
         # parameters no group holds (``trainable``): their gradients are
         # dropped after the backward, before the norm and the clip
@@ -352,13 +366,18 @@ class TrainStep:
         return torch.nn.utils.get_total_norm(delta)
 
     def _prepare(self, batch):
-        """Augment, then mixup, on the whole (global) batch before any
-        microbatch split; the batch unchanged without them."""
-        if self.augment is None and self.mixup_alpha <= 0:
+        """Augment, then mixup, and the masked-LM draws, on the whole
+        (global) batch before any microbatch split; the batch unchanged
+        without them."""
+        if self.augment is None and self.mixup_alpha <= 0 and not self._mlm:
             return batch
         batch = dict(batch)
         seed = fold_in(self.seed, self.step)
         x = batch[self.input_key]
+        if self._mlm:
+            for name, d in self.module.mask_draws(seed, x,
+                                                  self.shard).items():
+                batch[_MLM + name] = d
         if self.augment is not None:
             x = self.augment(seed, x, self.shard)
         if self.mixup_alpha > 0:
@@ -383,6 +402,9 @@ class TrainStep:
         kw = {"dropout_seed": seed} if self._seeded else {}
         if self._masked:
             kw["example_mask"] = batch["mask"]
+        if self._mlm:
+            kw["mask_draws"] = {k[len(_MLM):]: v for k, v in batch.items()
+                                if k.startswith(_MLM)}
         output = self.model(batch[self.input_key], **kw)
         shard = _seq_shard(self.module, batch[self.input_key])
         skw = {} if shard is None else {"shard": shard}
@@ -586,20 +608,35 @@ def ema_weights(model, ema: Optional[Dict[str, torch.Tensor]]):
                 params[n].copy_(value)
 
 
+def eval_kwargs(model, batch, input_key: str, seed=None, shard=None):
+    """The eval forward's keyword arguments: the batch mask for a model
+    that takes ``example_mask``, and with a ``seed`` the seeded eval mask
+    of a model with ``eval_draws`` over data shard ``shard`` (default the
+    process group's rank and size)."""
+    kw = ({"example_mask": batch["mask"]}
+          if _forward_takes(model, "example_mask") else {})
+    if seed is not None and hasattr(model, "eval_draws"):
+        shard = shard or (dist.process_index(), dist.process_count())
+        kw["mask_draws"] = model.eval_draws(seed, batch[input_key], shard)
+    return kw
+
+
 def make_eval_step(model, criterion: Callable,
                    metric_fns: Sequence[Callable] = (),
-                   input_key: str = "image", target_key: str = "label"):
-    """``eval_step(batch) -> metrics`` (sufficient statistics, summed over
-    the process group's ranks), the model in eval mode and no gradients.
-    A DDP wrapper is evaluated through its ``module``."""
+                   input_key: str = "image", target_key: str = "label",
+                   data_shard=None):
+    """``eval_step(batch, seed=None) -> metrics`` (sufficient statistics,
+    summed over the process group's ranks), the model in eval mode and no
+    gradients; ``seed`` seeds eval-time model randomness
+    (:func:`eval_kwargs`, over ``data_shard``). A DDP wrapper is
+    evaluated through its ``module``."""
 
     model = getattr(model, "module", model)
-    masked = _forward_takes(model, "example_mask")
 
     @torch.no_grad()
-    def eval_step(batch):
+    def eval_step(batch, seed=None):
         model.eval()
-        kw = {"example_mask": batch["mask"]} if masked else {}
+        kw = eval_kwargs(model, batch, input_key, seed, data_shard)
         output = model(batch[input_key], **kw)
         target = batch[target_key]
         shard = _seq_shard(model, batch[input_key])

@@ -131,7 +131,7 @@ from ..utils import preemption
 from ..utils.debug import configure_debug
 from ..utils.util import maybe_tqdm
 from ..utils.watchdog import StepWatchdog
-from .optim import build_optimizer
+from .optim import build_optimizer, freeze_untrainable
 from .steps import (
     ema_weights, finalize_metrics, make_eval_step, make_train_step,
 )
@@ -425,6 +425,11 @@ class Trainer(BaseTrainer):
             torch.backends.cudnn.deterministic = True
             torch.backends.cudnn.benchmark = False
         self.model = model
+        trainable = (config["optimizer"].get("args", {}) or {}).get(
+            "trainable")
+        if trainable:
+            # before DDP registers the parameters that take gradients
+            freeze_untrainable(model, trainable)
         self.ddp = None
         if dist.in_group():
             # BN's running averages come from the global statistics, the

@@ -6,3 +6,4 @@ from . import moe  # noqa: F401  (registers MoeLM, TinyMoeLM)
 from . import lenet  # noqa: F401  (registers LeNet, MnistModel)
 from . import resnet  # noqa: F401  (registers ResNet18/34/50/101/152)
 from . import vit  # noqa: F401  (registers ViT)
+from . import bert  # noqa: F401  (registers BertMLM, BertClassifier)

@@ -1,5 +1,5 @@
 """Flax param tree <-> the port's state dict, for the Llama, GPT-2,
-LeNet, ResNet and ViT families.
+LeNet, ResNet, ViT and BERT families, LoRA adapters included.
 
 The JAX package's params are nested dicts (``layers_0/self_attn/q_proj/
 kernel``, ``h_0/attn/qkv/bias``); the port's modules name the same weights
@@ -22,7 +22,13 @@ translation:
   ``pos_embed`` params as they are;
 - the MoE block's stacked expert leaves ``h_i/moe/{wi, wo, bi, bo}``
   (``[E, D, F]``, ``[E, F, D]``, ``[E, F]``, ``[E, D]``) as they are, and
-  its router ``h_i/moe/router/{kernel, bias}`` like any dense layer.
+  its router ``h_i/moe/router/{kernel, bias}`` like any dense layer;
+- the LoRA adapters ``*/lora_a`` ``[in, r]`` and ``*/lora_b`` ``[r, out]``
+  as they are (``models/lora.py`` stores flax's layout);
+- the BERT tree: the trunk under ``encoder`` (``encoder/wte/embedding``,
+  ``encoder/wpe``, ``encoder/h_i/...``, ``encoder/ln_f``) and
+  ``classifier_head`` like any dense layer; a bare ``wpe`` under a module
+  as at the root.
 
 A ResNet's ``batch_stats`` (``<bn>/mean`` and ``<bn>/var``) are the BN
 modules' buffers ``<bn>.running_mean`` and ``<bn>.running_var``
@@ -53,7 +59,9 @@ _INDEXED = re.compile(r"^(layers|h)_(\d+)$")
 _INDEXED_PARENTS = ("layers", "h")
 _EMBEDDINGS = ("wte", "embed_tokens")
 _EXPERT_LEAVES = ("wi", "wo", "bi", "bo")   # MoeMlp's stacked expert params
-_TOP_LEVEL = ("wpe", "cls", "pos_embed")     # bare params at the root
+_TOP_LEVEL = ("wpe", "cls", "pos_embed")     # bare params (BERT's wpe
+#                                              sits under ``encoder``)
+_AS_IS = _TOP_LEVEL + ("lora_a", "lora_b")   # leaves that keep their name
 _BATCH_NORM = re.compile(r"^(bn_init|norm_proj|BatchNorm_\d+)$")
 #: batch_stats leaf <-> BN buffer
 _STATS = {"mean": "running_mean", "var": "running_var"}
@@ -80,7 +88,8 @@ def flax_path(name: str) -> str:
     ``wte/embedding``, ``layers.1.input_layernorm.weight`` ->
     ``layers_1/input_layernorm/weight``, ``h.1.moe.wi`` ->
     ``h_1/moe/wi``, ``wpe`` -> ``wpe``, ``BasicBlock_0.BatchNorm_1.weight``
-    -> ``BasicBlock_0/BatchNorm_1/scale``."""
+    -> ``BasicBlock_0/BatchNorm_1/scale``, ``h.0.attn.qkv.lora_a`` ->
+    ``h_0/attn/qkv/lora_a``, ``encoder.wpe`` -> ``encoder/wpe``."""
     parts = name.split(".")
     mods, i = [], 0
     while i < len(parts) - 1:
@@ -101,8 +110,8 @@ def flax_path(name: str) -> str:
             leaf = "scale"
         elif not (owner.endswith("layernorm") or owner == "norm"):
             leaf = "kernel"
-    elif leaf != "bias" and not (mods[-1] == "moe"
-                                 and leaf in _EXPERT_LEAVES):
+    elif leaf != "bias" and leaf not in _AS_IS and not (
+            mods[-1] == "moe" and leaf in _EXPERT_LEAVES):
         raise KeyError(f"unexpected state-dict entry {name}")
     return "/".join(mods + [leaf])
 
@@ -123,8 +132,8 @@ def params_from_flax(tree) -> dict:
             name = "weight"
         elif last in ("embedding", "weight", "scale"):
             name = "weight"
-        elif last == "bias" or (parts[-1] == "moe"
-                                and last in _EXPERT_LEAVES):
+        elif last == "bias" or last in _AS_IS or (
+                parts[-1] == "moe" and last in _EXPERT_LEAVES):
             name = last
         else:
             raise KeyError(f"unexpected flax leaf {'/'.join(path)}")

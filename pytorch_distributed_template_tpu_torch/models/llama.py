@@ -44,8 +44,12 @@ the plain forward and the decode forward over a KV cache, registered as
   the ring stops early), as in the JAX model; ``seq_layout: "zigzag"``
   applies to an unwindowed ring.
 
+- LoRA (``lora_rank > 0``, ``lora_alpha``): every projection, the head
+  included unless fused (JAX puts LoRA on the untied head too), is a
+  ``models.lora.LoRADense`` (``models.quant.dense_factory``).
+
 Left to later slices, each refused with a message naming it: MoE, w8a16
-weights, LoRA, decoding on a seq axis.
+weights, decoding on a seq axis.
 """
 from __future__ import annotations
 
@@ -63,8 +67,10 @@ from ..ops.attention import (
     paged_gqa_attention, seq_plan, sequence_attention,
 )
 from ..ops.flash import flash_attention
-from .layers import Dense, embed
-from .quant import dequantize_kv, quantize_kv
+from .layers import embed
+from .quant import (
+    check_lora_quant, dense_factory, dequantize_kv, quantize_kv,
+)
 
 #: reserved pool page: pad lanes and unallocated table lanes write here
 SCRATCH_BLOCK = 0
@@ -202,7 +208,7 @@ class LlamaAttention(nn.Module):
     def __init__(self, d_model: int, n_head: int, n_kv_head: int,
                  attn_impl: str = "xla", rope_base: float = 10000.0,
                  window: int = 0, dtype=torch.float32, device=None,
-                 kv_quant: str = "", param_dtype=None):
+                 kv_quant: str = "", param_dtype=None, lora: dict = None):
         super().__init__()
         self.n_head, self.n_kv_head = n_head, n_kv_head
         self.head_dim = d_model // n_head
@@ -211,12 +217,12 @@ class LlamaAttention(nn.Module):
         self.window = window
         self.kv_quant = kv_quant
         hd = self.head_dim
-        lin = dict(bias=False, compute_dtype=dtype, param_dtype=param_dtype,
-                   device=device)
-        self.q_proj = Dense(d_model, n_head * hd, **lin)
-        self.k_proj = Dense(d_model, n_kv_head * hd, **lin)
-        self.v_proj = Dense(d_model, n_kv_head * hd, **lin)
-        self.o_proj = Dense(n_head * hd, d_model, **lin)
+        dense = dense_factory(dtype, param_dtype=param_dtype, device=device,
+                              **(lora or {}))
+        self.q_proj = dense(d_model, n_head * hd)
+        self.k_proj = dense(d_model, n_kv_head * hd)
+        self.v_proj = dense(d_model, n_kv_head * hd)
+        self.o_proj = dense(n_head * hd, d_model)
 
     def forward(self, x, cache=None, start: int = 0,
                 prefill: bool = False, paged=None, sp=None):
@@ -388,13 +394,13 @@ class LlamaAttention(nn.Module):
 
 class SwiGLU(nn.Module):
     def __init__(self, d_model: int, d_ff: int, dtype=torch.float32,
-                 device=None, param_dtype=None):
+                 device=None, param_dtype=None, lora: dict = None):
         super().__init__()
-        lin = dict(bias=False, compute_dtype=dtype, param_dtype=param_dtype,
-                   device=device)
-        self.gate_proj = Dense(d_model, d_ff, **lin)
-        self.up_proj = Dense(d_model, d_ff, **lin)
-        self.down_proj = Dense(d_ff, d_model, **lin)
+        dense = dense_factory(dtype, param_dtype=param_dtype, device=device,
+                              **(lora or {}))
+        self.gate_proj = dense(d_model, d_ff)
+        self.up_proj = dense(d_model, d_ff)
+        self.down_proj = dense(d_ff, d_model)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -403,18 +409,18 @@ class SwiGLU(nn.Module):
 class LlamaBlock(nn.Module):
     def __init__(self, d_model, n_head, n_kv_head, d_ff, attn_impl,
                  rope_base, rms_eps, window, dtype, device, kv_quant="",
-                 param_dtype=None):
+                 param_dtype=None, lora: dict = None):
         super().__init__()
         self.input_layernorm = RMSNorm(d_model, rms_eps, device=device)
         self.self_attn = LlamaAttention(d_model, n_head, n_kv_head,
                                         attn_impl, rope_base, window,
                                         dtype=dtype, device=device,
                                         kv_quant=kv_quant,
-                                        param_dtype=param_dtype)
+                                        param_dtype=param_dtype, lora=lora)
         self.post_attention_layernorm = RMSNorm(d_model, rms_eps,
                                                 device=device)
         self.mlp = SwiGLU(d_model, d_ff, dtype=dtype, device=device,
-                          param_dtype=param_dtype)
+                          param_dtype=param_dtype, lora=lora)
 
     def forward(self, x, cache=None, start: int = 0, prefill: bool = False,
                 paged=None, sp=None):
@@ -433,7 +439,8 @@ class LlamaLM(nn.Module):
                  rope_base: float = 10000.0, rms_eps: float = 1e-6,
                  window: int = 0, device=None, kv_quant: str = "",
                  remat: bool = False, fused_head: bool = False,
-                 param_dtype=None, mesh=None, seq_layout: str = "natural"):
+                 param_dtype=None, mesh=None, seq_layout: str = "natural",
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         n_kv = n_kv_head or n_head
         if kv_quant not in ("", "int8"):
@@ -457,14 +464,18 @@ class LlamaLM(nn.Module):
         self.embed_tokens = nn.Embedding(vocab_size, d_model,
                                          dtype=param_dtype or dtype,
                                          device=device)
+        lora = dict(lora_rank=lora_rank, lora_alpha=lora_alpha)
         self.layers = nn.ModuleList(
             LlamaBlock(d_model, n_head, n_kv, d_ff, attn_impl, rope_base,
-                       rms_eps, window, dtype, device, kv_quant, param_dtype)
+                       rms_eps, window, dtype, device, kv_quant, param_dtype,
+                       lora)
             for _ in range(n_layer))
         self.norm = RMSNorm(d_model, rms_eps, device=device)
-        self.lm_head = Dense(d_model, vocab_size, bias=False,
-                             compute_dtype=dtype, param_dtype=param_dtype,
-                             device=device)
+        # a fused head hands its plain kernel to the loss (JAX's
+        # ``_HeadKernel``): no adapters there
+        self.lm_head = dense_factory(
+            dtype, param_dtype=param_dtype, device=device,
+            **({} if fused_head else lora))(d_model, vocab_size)
         self.attn_impl, self.seq_layout = attn_impl, seq_layout
         # the parallel mesh whose seq axis the SP impls run over
         # (parallel/mesh.py); None until ``inject_mesh`` sets it
@@ -489,10 +500,12 @@ class LlamaLM(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         """Random init from ``generator``, the flax initializers' law:
         N(0, 0.02) for every projection and the embedding, ones for the
-        norms."""
+        norms, zeros for the LoRA ``lora_b``."""
         for name, p in self.named_parameters():
             if name.endswith("layernorm.weight") or name == "norm.weight":
                 p.fill_(1.0)
+            elif name.endswith("lora_b"):
+                p.zero_()
             else:
                 p.normal_(0.0, 0.02, generator=generator)
 
@@ -606,12 +619,10 @@ class LlamaLM(nn.Module):
 
 
 def _refuse_later(quant="", lora_rank=0) -> None:
+    check_lora_quant(quant, lora_rank)
     if quant:
         raise NotImplementedError(
             f"quant={quant!r} (w8a16 serving weights) is a later slice")
-    if lora_rank:
-        raise NotImplementedError("LoRA is a later slice (other model "
-                                  "families)")
 
 
 def _dtype(bfloat16: bool):
@@ -633,7 +644,7 @@ def llama(vocab_size: int = 32000, n_layer: int = 12, n_head: int = 12,
     return LlamaLM(vocab_size, n_layer, n_head, n_kv_head, d_model, d_ff,
                    max_len, _dtype(bfloat16), attn_impl, rope_base, rms_eps,
                    window, device, kv_quant, remat, fused_head, param_dtype,
-                   mesh, seq_layout)
+                   mesh, seq_layout, lora_rank, lora_alpha)
 
 
 @MODELS.register("Mistral")
@@ -651,7 +662,7 @@ def mistral(vocab_size: int = 32000, n_layer: int = 32, n_head: int = 32,
     return LlamaLM(vocab_size, n_layer, n_head, n_kv_head, d_model, d_ff,
                    max_len, _dtype(bfloat16), attn_impl, rope_base, rms_eps,
                    window, device, kv_quant, remat, fused_head, param_dtype,
-                   mesh)
+                   mesh, lora_rank=lora_rank, lora_alpha=lora_alpha)
 
 
 @MODELS.register("TinyLlama")
@@ -668,4 +679,4 @@ def tiny_llama(vocab_size: int = 256, n_layer: int = 2, n_head: int = 4,
     return LlamaLM(vocab_size, n_layer, n_head, n_kv_head, d_model, d_ff,
                    max_len, _dtype(bfloat16), attn_impl, 10000.0, 1e-6,
                    window, device, kv_quant, remat, fused_head, param_dtype,
-                   mesh, seq_layout)
+                   mesh, seq_layout, lora_rank, lora_alpha)

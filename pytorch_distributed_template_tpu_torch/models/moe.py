@@ -241,8 +241,7 @@ def _moe_lm(vocab_size, n_layer, n_head, d_model, max_len, dropout,
 
     _check_param_dtype(param_dtype)
     _refuse_later(overrides.pop("quant", ""), overrides.pop("kv_quant", ""),
-                  overrides.pop("lora_rank", 0))
-    overrides.pop("lora_alpha", None)
+                  overrides.get("lora_rank", 0))
     return TransformerLM(
         vocab_size=vocab_size, n_layer=n_layer, n_head=n_head,
         d_model=d_model, max_len=max_len, dropout=dropout,

@@ -49,10 +49,17 @@ as ``GPT2`` and ``TinyLM`` with the JAX registry's defaults.
   shards of a row draw different masks. With S == 1 the SP impls compute
   the whole attention (the flash kernels for ``*_flash``).
 
+- ``causal`` (``SelfAttention``, ``Block``; default True): False gives
+  the bidirectional attention of the BERT family (models/bert.py).
+- LoRA (``lora_rank > 0``, ``lora_alpha``): every projection (``qkv``,
+  ``out``, ``up``, ``down``, and an untied head that is not fused) is a
+  ``models.lora.LoRADense`` (``models.quant.dense_factory``), as in the
+  JAX family; the MoE experts and router stay dense.
+
 Left to later slices, each refused with a message naming it: decode
 caches (serving the GPT-2 family), swiglu experts (other model families)
 and expert parallelism (MoE blocks on a seq axis, ROADMAP A11d), w8a16
-weights and int8 KV (serving), LoRA.
+weights and int8 KV (serving).
 """
 from __future__ import annotations
 
@@ -66,8 +73,9 @@ from ..ops.attention import (
     SP_IMPLS, multihead_attention, seq_plan, sequence_attention,
 )
 from ..ops.flash import flash_attention
-from .layers import Dense, dropout, embed, fold_in, layer_norm_f32
+from .layers import dropout, embed, fold_in, layer_norm_f32
 from .moe import MoeMlp
+from .quant import check_lora_quant, dense_factory
 
 _ATTN_IMPLS = ("xla", "flash") + SP_IMPLS
 _SLICE_EXPERT_PARALLEL = ("MoE blocks on a seq axis need the routing over "
@@ -98,15 +106,21 @@ class LayerNorm(nn.Module):
         return layer_norm_f32(x, self.weight, self.bias, self.eps)
 
 
+def _biased(dtype, lora: dict, device):
+    """The family's biased projections (``dense_factory``): float32 params,
+    LoRA per ``lora`` (``lora_rank``, ``lora_alpha``)."""
+    return dense_factory(dtype, use_bias=True, param_dtype=torch.float32,
+                         device=device, **(lora or {}))
+
+
 class MlpBlock(nn.Module):
     def __init__(self, d_model: int, d_ff: int, rate: float, dtype,
-                 device=None):
+                 device=None, lora: dict = None):
         super().__init__()
         self.rate = rate
-        self.up = Dense(d_model, d_ff, compute_dtype=dtype,
-                        param_dtype=torch.float32, device=device)
-        self.down = Dense(d_ff, d_model, compute_dtype=dtype,
-                          param_dtype=torch.float32, device=device)
+        dense = _biased(dtype, lora, device)
+        self.up = dense(d_model, d_ff)
+        self.down = dense(d_ff, d_model)
 
     def forward(self, x, seed=None):
         y = self.down(F.gelu(self.up(x), approximate="tanh"))
@@ -115,14 +129,15 @@ class MlpBlock(nn.Module):
 
 class SelfAttention(nn.Module):
     def __init__(self, d_model: int, n_head: int, rate: float, dtype,
-                 attn_impl: str, device=None):
+                 attn_impl: str, device=None, causal: bool = True,
+                 lora: dict = None):
         super().__init__()
         self.n_head, self.rate, self.attn_impl = n_head, rate, attn_impl
+        self.causal = causal
         self.head_dim = d_model // n_head
-        self.qkv = Dense(d_model, 3 * d_model, compute_dtype=dtype,
-                         param_dtype=torch.float32, device=device)
-        self.out = Dense(d_model, d_model, compute_dtype=dtype,
-                         param_dtype=torch.float32, device=device)
+        dense = _biased(dtype, lora, device)
+        self.qkv = dense(d_model, 3 * d_model)
+        self.out = dense(d_model, d_model)
 
     def forward(self, x, seed=None, sp=None):
         """``sp``: ``(positions, layout, mesh)`` of the seq axis
@@ -133,11 +148,11 @@ class SelfAttention(nn.Module):
         if self.attn_impl in SP_IMPLS:
             _, layout, mesh = sp or (None, "contig", None)
             ctx = sequence_attention(q, k, v, self.attn_impl, mesh,
-                                     causal=True, layout=layout)
+                                     causal=self.causal, layout=layout)
         elif self.attn_impl == "flash":
-            ctx = flash_attention(q, k, v, causal=True)
+            ctx = flash_attention(q, k, v, causal=self.causal)
         else:
-            ctx = multihead_attention(q, k, v, causal=True)
+            ctx = multihead_attention(q, k, v, causal=self.causal)
         out = self.out(ctx.reshape(b, t, d_model))
         return dropout(out, self.rate, seed, self.training)
 
@@ -149,17 +164,19 @@ class Block(nn.Module):
 
     def __init__(self, d_model: int, n_head: int, d_ff: int, rate: float,
                  dtype, attn_impl: str, ln_eps: float, n_layer: int = 1,
-                 moe: dict = None, device=None):
+                 moe: dict = None, device=None, causal: bool = True,
+                 lora: dict = None):
         super().__init__()
         self.ln_1 = LayerNorm(d_model, ln_eps, device=device)
         self.attn = SelfAttention(d_model, n_head, rate, dtype, attn_impl,
-                                  device=device)
+                                  device=device, causal=causal, lora=lora)
         self.ln_2 = LayerNorm(d_model, ln_eps, device=device)
         if moe:
             self.moe = MoeMlp(d_model, d_ff, dropout=rate, n_layer=n_layer,
                               dtype=dtype, device=device, **moe)
         else:
-            self.mlp = MlpBlock(d_model, d_ff, rate, dtype, device=device)
+            self.mlp = MlpBlock(d_model, d_ff, rate, dtype, device=device,
+                                lora=lora)
 
     def forward(self, x, seed=None, example_mask=None, sp=None):
         x = x + self.attn(self.ln_1(x), _site(seed, 1), sp)
@@ -181,7 +198,8 @@ class TransformerLM(nn.Module):
                  moe_experts: int = 0, moe_top_k: int = 2,
                  moe_every: int = 2, moe_capacity_factor: float = 1.25,
                  moe_aux_loss_weight: float = 0.01, mesh=None,
-                 seq_layout: str = "natural", device=None):
+                 seq_layout: str = "natural", lora_rank: int = 0,
+                 lora_alpha: float = 16.0, device=None):
         super().__init__()
         if attn_impl not in _ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r}; expected one of "
@@ -203,17 +221,21 @@ class TransformerLM(nn.Module):
         moe = dict(num_experts=moe_experts, top_k=moe_top_k,
                    capacity_factor=moe_capacity_factor,
                    aux_loss_weight=moe_aux_loss_weight)
+        lora = dict(lora_rank=lora_rank, lora_alpha=lora_alpha)
         self.h = nn.ModuleList(
             Block(d_model, n_head, d_ff, dropout, dtype, attn_impl, ln_eps,
                   n_layer=n_layer,
-                  moe=moe if self._is_moe_layer(i) else None, device=device)
+                  moe=moe if self._is_moe_layer(i) else None, device=device,
+                  lora=lora)
             for i in range(n_layer))
         self.aux_loss = None
         self.ln_f = LayerNorm(d_model, ln_eps, device=device)
         if not tie_embeddings:
-            self.lm_head = Dense(d_model, vocab_size, bias=False,
-                                 compute_dtype=dtype,
-                                 param_dtype=torch.float32, device=device)
+            # a fused head hands its plain kernel to the loss (JAX's
+            # ``_HeadKernel``): no adapters there
+            self.lm_head = dense_factory(
+                dtype, param_dtype=torch.float32, device=device,
+                **({} if fused_head else lora))(d_model, vocab_size)
         self.seq_layout = seq_layout
         # the parallel mesh whose seq axis the SP impls run over
         # (parallel/mesh.py); None until ``inject_mesh`` sets it
@@ -248,7 +270,7 @@ class TransformerLM(nn.Module):
                 p.normal_(0.0, 0.01, generator=generator)
             elif ".ln_" in name or name.startswith("ln_f."):
                 p.fill_(1.0 if name.endswith("weight") else 0.0)
-            elif name.endswith(("bias", "moe.bi", "moe.bo")):
+            elif name.endswith(("bias", "moe.bi", "moe.bo", "lora_b")):
                 p.zero_()
             elif name.endswith(("attn.out.weight", "mlp.down.weight",
                                 "moe.wo")):
@@ -309,13 +331,11 @@ class TransformerLM(nn.Module):
 
 
 def _refuse_later(quant="", kv_quant="", lora_rank=0) -> None:
+    check_lora_quant(quant, lora_rank)
     if quant or kv_quant:
         raise NotImplementedError(
             f"quant={quant!r} / kv_quant={kv_quant!r}: "
             f"{_SLICE_GPT2_SERVING}")
-    if lora_rank:
-        raise NotImplementedError("LoRA fine-tuning is a later slice "
-                                  "(other model families)")
 
 
 _GPT2_SIZES = {
@@ -348,8 +368,7 @@ def gpt2(size: str = "gpt2-small", vocab_size: int = 50257,
     cfg = dict(_GPT2_SIZES[size])
     cfg.update(overrides)
     _refuse_later(cfg.pop("quant", ""), cfg.pop("kv_quant", ""),
-                  cfg.pop("lora_rank", 0))
-    cfg.pop("lora_alpha", None)
+                  cfg.get("lora_rank", 0))
     return TransformerLM(vocab_size=vocab_size, max_len=max_len,
                          dropout=dropout, dtype=_dtype(bfloat16),
                          attn_impl=attn_impl, remat=remat,
@@ -374,4 +393,5 @@ def tiny_lm(vocab_size: int = 256, n_layer: int = 2, n_head: int = 4,
                          attn_impl=attn_impl, remat=remat,
                          fused_head=fused_head,
                          tie_embeddings=tie_embeddings, mesh=mesh,
-                         seq_layout=seq_layout, device=device)
+                         seq_layout=seq_layout, lora_rank=lora_rank,
+                         lora_alpha=lora_alpha, device=device)

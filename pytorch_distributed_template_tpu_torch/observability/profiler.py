@@ -73,9 +73,12 @@ def train_step_flops(model, batch: int, t: int) -> Optional[float]:
     the dense work (the tied head counted
     once, the position table ``wpe`` excluded; an MoE layer's stacked
     expert weights count ``top_k / E`` of their size, what one token uses,
-    not the capacity padding) plus 12 x d_model x (visible keys summed
-    over the queries) x batch per layer for causal attention (two
-    matmuls, forward and twice that backward)."""
+    not the capacity padding; a LoRA layer's frozen base weight counts 4
+    x, its weight gradient never computed) plus 12 x d_model x (visible
+    keys summed over the queries) x batch per layer for the attention
+    (two matmuls, forward and twice that backward), causal unless the
+    model says ``causal = False`` (the BERT family)."""
+    from ..models.lora import LoRADense
     from ..models.moe import MoeMlp
     from ..ops.flash import visible_keys
 
@@ -86,16 +89,20 @@ def train_step_flops(model, batch: int, t: int) -> Optional[float]:
             or t <= 0:
         return None
     n = sum(p.numel() for name, p in model.named_parameters()
-            if name != "wpe")
+            if name.rsplit(".", 1)[-1] != "wpe")
+    frozen = 0
     for mod in model.modules():
         if isinstance(mod, MoeMlp):
             idle = 1 - min(mod.top_k, mod.num_experts) / mod.num_experts
             n -= idle * sum(getattr(mod, leaf).numel()
                             for leaf in ("wi", "wo", "bi", "bo"))
+        elif isinstance(mod, LoRADense):
+            frozen += mod.weight.numel()
     window = int(getattr(model, "window", 0) or 0)
-    attn = 12.0 * model.d_model * visible_keys(t, True, window) * batch \
+    causal = bool(getattr(model, "causal", True))
+    attn = 12.0 * model.d_model * visible_keys(t, causal, window) * batch \
         * model.n_layer
-    return 6.0 * n * batch * t + attn
+    return (6.0 * n - 2.0 * frozen) * batch * t + attn
 
 
 def mfu(flops_per_step: Optional[float], steps_per_sec: float,

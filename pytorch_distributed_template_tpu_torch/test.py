@@ -35,8 +35,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="accepted for launcher compatibility; unused")
     parser.add_argument("-s", "--save_dir", default=None, type=str)
     parser.add_argument("--seed", type=int, default=None,
-                        help="seed for eval-time model randomness (no "
-                             "model of the port draws any)")
+                        help="seed for eval-time model randomness "
+                             "(BertMLM's seeded eval mask), folded per "
+                             "batch; default: the deterministic eval")
     parser.add_argument("--save-outputs", default=None, type=str,
                         metavar="DIR",
                         help="dump per-example outputs/targets (npy) here "

@@ -69,6 +69,11 @@ ENTRY_MODULES = [
     "pytorch_distributed_template_tpu_torch.data.tokenizer",
     "pytorch_distributed_template_tpu_torch.utils.debug",
     "pytorch_distributed_template_tpu_torch.utils.util",
+    "pytorch_distributed_template_tpu_torch.models.bert",
+    "pytorch_distributed_template_tpu_torch.models.lora",
+    "pytorch_distributed_template_tpu_torch.checkpoint.average",
+    "pytorch_distributed_template_tpu_torch.tools.merge_lora",
+    "pytorch_distributed_template_tpu_torch.tools.bert_transfer_experiment",
 ]
 
 

@@ -172,6 +172,32 @@ def test_flash_vit_b16_attention(cuda, b):
         _assert_grad_close(got, want, torch.bfloat16, name)
 
 
+@pytest.mark.parametrize("b", [2, 128])
+def test_flash_bert_attention(cuda, b):
+    """bert_mlm_stdlib.json's attention: 6 heads x 128 tokens (one 128 x
+    128 tile per batch row and head), D 64, bf16, non-causal, at batch 2
+    and the config's 128; B1, then B3 and B2, against the plain
+    versions."""
+    q, k, v = _qkv(cuda, b, 128, 6, 6, 64, torch.bfloat16, seed=b)
+    out, lse = flash.flash_attention_lse(q, k, v, causal=False)
+    g = torch.randn(out.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(b)
+                    ).to(torch.bfloat16)
+    dq, dk, dv = flash.flash_attention_bwd(q, k, v, out, lse, g,
+                                           causal=False)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash.flash_attention_ref(
+        q.float(), k.float(), v.float(), causal=False)
+    atol, rtol = TOL_OUT[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out, atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=TOL_LSE, rtol=0.0)
+    ref = flash.flash_attention_bwd_ref(
+        q.float(), k.float(), v.float(), out.float(), lse, g.float(),
+        causal=False)
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        _assert_grad_close(got, want, torch.bfloat16, name)
+
+
 def test_flash_fwd_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv(cuda, 1, 16, 4, 4, 16, torch.float32, seed=0)
     with pytest.raises(ValueError, match="head_dim"):

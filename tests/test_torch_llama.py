@@ -134,6 +134,12 @@ def test_later_slices_refuse(arg, value):
         assert cache.layers[0].k.dtype == torch.int8
         assert cache.layers[0].k_scale.dtype == torch.float32
         return
+    if arg == "lora_rank":
+        # ported with LoRA: the projections and the head take adapters
+        model = TMODELS.get("TinyLlama")(lora_rank=value, device="cpu")
+        assert sum(n.endswith("lora_a")
+                   for n, _ in model.named_parameters()) == 2 * 7 + 1
+        return
     if arg == "attn_impl":
         # ported with sequence parallelism: the model builds, and a ring
         # impl needs a mesh, as in JAX

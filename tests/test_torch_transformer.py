@@ -212,6 +212,11 @@ def test_later_slices_refuse_by_name(arg, value):
             plain.load_state_dict(model.state_dict())
             torch.testing.assert_close(model(tokens), plain(tokens),
                                        rtol=0, atol=0)
+    elif arg == "lora_rank":
+        # ported with LoRA: qkv, out, up and down take adapters
+        model = TM.get("TinyLM")(lora_rank=value, device="cpu")
+        assert sum(n.endswith("lora_a")
+                   for n, _ in model.named_parameters()) == 2 * 4
     else:
         with pytest.raises(NotImplementedError, match="later slice"):
             TM.get("TinyLM")(**{arg: value}, device="cpu")
