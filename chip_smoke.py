@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 3e, 4, 5, 6, 7, 8, 9,
-10, 11, 12, 13, 14a, 14b, 14c, 15a-15f, 16a-16g), each one's time printed beside
-the card line; any failure exits non-zero and no phase's exception is
-caught:
+10, 11, 12, 13, 14a, 14b, 14c, 15a-15f, 16a-16g, 17a-17d), each one's time
+printed beside the card line; any failure exits non-zero and no phase's
+exception is caught:
 
 1. build: compile every CUDA source of the port with nvcc (one process per
    source, all started together) and print the build time and the ptxas
@@ -280,7 +280,7 @@ ViT's flash attention B1-B3) adds:
     included) exactly, ``test.py`` on ``model_best`` equal to the best
     epoch's validation (rtol 1e-6), and a 5-step profile;
 15d. ``configs/imagenet_resnet50.json`` (batch 256, bf16, the synthetic
-    fallback cut to 2048 and 512 images), 1 epoch; then the same from
+    fallback cut to 1280 and 256 images), 1 epoch; then the same from
     uint8 shards of those counts written
     by the port's ``tools/make_image_shards.py --synthetic`` (the native
     gather, the ``on_device`` normalize): images/s, MFU with its count,
@@ -343,6 +343,35 @@ B1-B3 without the causal mask) adds:
     batch 1, rank 8, the adapters alone): peak memory under 80 GiB, every
     loss finite, every base tensor's checksums unchanged, ms per step and
     MFU.
+
+Slice 12 (pipeline parallelism, ROADMAP A11c: the ``pipe`` axis, GPipe
+and circular schedules, the pipelined GPT-2 / Llama; and the HF weight
+import, A12b's rest; no TPU kernel on this path: the pipelined trunk's
+attention is the plain einsum attention, as in the JAX trunk) adds:
+
+17a. a small f32 ``TinyPipeLM`` in the circular layout (``[S 2, V 2, Lc
+    1]``, remat, fused head) trains 5 steps on the card and on the CPU from
+    the same weights and batches, TF32 off: phase 3c's limits;
+17b. ``configs/gpt2_pp.json`` on one card, the mesh cut to ``{"data":
+    -1}`` by ``--set`` (the sequential trunk over the ``[S 4, V 3, Lc 1]``
+    stacks; no kernel launched, every count held at 0), train ``n`` 256,
+    valid ``n`` 64, 2 epochs, ``save_period`` 1: losses finite and
+    falling, checkpoints and ``summary.json``, a resume from
+    ``checkpoint-epoch1`` reproducing epoch 2, ms/step, peak memory and a
+    5-step profile;
+17c. with 4 cards: ``torchrun --nproc_per_node=4`` (``--sp-child``) of
+    ``gpt2_pp.json`` with its pipe axis of 4, 2 epochs of 3 steps in f32
+    without TF32, against one rank in this process without a pipe axis
+    (losses within ``SEQ_NCCL_RTOL``, every rank the same; each rank's
+    parameter bytes a quarter of the trunk's plus the replicated ones;
+    the permutes per step 2 x (27 + 26), the output sums 4), the ranks'
+    ``checkpoint-epoch1`` resumed in this process reproducing their epoch
+    2; then one bf16 epoch of the config as it is: ms/step and the P2P
+    calls and bytes per step. With fewer cards it prints ``"pp_nccl":
+    "not run: N card(s)"``;
+17d. phase 6's GPT-2 small exported to an HF ``GPT2LMHeadModel`` state
+    dict and imported again (``models/hf_import.py``): every tensor and
+    the logits of 2 x 1024 tokens bit-equal.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
@@ -1851,12 +1880,14 @@ class TrainRun:
         self.steps, self.epoch_logs = [], []
         model = trainer.model
         layers = model.n_layer
-        blocks = model.h if hasattr(model, "h") else model.layers
+        # a pipelined trunk (stacked tensors) has no block modules
+        blocks = getattr(model, "h", None) or getattr(model, "layers", ())
         moe = sum(hasattr(block, "moe") for block in blocks)
         fwd = 2 if model.remat else 1     # remat recomputes each forward
         k = trainer.train_step.grad_accum_steps   # microbatches per step
-        # an attention off the flash kernels (``xla``) launches none
-        attn = layers if "flash" in model.attn_impl else 0
+        # an attention off the flash kernels (``xla``, the pipelined
+        # trunk's einsum attention) launches none
+        attn = layers if "flash" in getattr(model, "attn_impl", "") else 0
         self.want = {"train": (k * fwd * attn, k * attn, k * attn,
                                k * fwd * moe),
                      "eval": (attn, 0, 0, moe)}
@@ -2048,7 +2079,7 @@ def _train_path(card: str, device, config, sets, run_root, seed: int,
         box["run"] = TrainRun(trainer, device, card, "main", warns=warns)
         m = trainer.model
         moe = ""
-        if m.moe_experts:
+        if getattr(m, "moe_experts", 0):
             mlp = next(b.moe for b in m.h if hasattr(b, "moe"))
             moe = (f", {m.moe_experts} experts top-{mlp.top_k} in every "
                    f"{m.moe_every}. block (capacity factor "
@@ -2057,8 +2088,8 @@ def _train_path(card: str, device, config, sets, run_root, seed: int,
             f"{m.n_layer} layers, {m.n_head} heads, d_model {m.d_model}, "
             f"d_ff {m.d_ff}, vocab {m.vocab_size}, seq {m.max_len}, batch "
             f"{trainer.train_loader.batch_size}, {m.dtype}, remat "
-            f"{m.remat}, {m.attn_impl}, fused head {m.fused_head}, dropout "
-            f"{m.rate}{moe}, "
+            f"{m.remat}, {getattr(m, 'attn_impl', 'einsum trunk')}, fused "
+            f"head {m.fused_head}, dropout {getattr(m, 'rate', 0.0)}{moe}, "
             f"{sum(p.numel() for p in m.parameters()) / 1e6:.2f} M params; "
             f"{len(trainer.train_loader)} steps per epoch; cuts: {sets}")
 
@@ -3960,6 +3991,16 @@ def _seq_argv(config, sets, save_dir, device, data_dir) -> list:
     return argv
 
 
+def _param_bytes(model, names) -> dict:
+    """The bytes of ``model``'s parameters named in ``names`` (the pipe
+    stages' slices) and of the others (replicated)."""
+    out = {"stage": 0, "replicated": 0}
+    for name, p in model.named_parameters():
+        out["stage" if name in names else "replicated"] += \
+            p.numel() * p.element_size()
+    return out
+
+
 def seq_child(spec_path: str) -> int:
     """One rank of phase 14c (``chip_smoke.py --sp-child SPEC`` under
     ``torchrun``): the port's ``train.py`` on the spec's argv (an epoch of
@@ -3996,10 +4037,14 @@ def seq_child(spec_path: str) -> int:
 
     train_cli.main(spec["argv"], on_trainer=hook)
     rank = dist.process_index()
+    t = box["trainer"]
+    placed = getattr(t.model, "pipe_placements", None) or {}
     Path(f"{spec['out']}.rank{rank}.json").write_text(json.dumps({
-        "rank": rank, "steps": steps, "mesh": box["trainer"].mesh.sizes,
+        "rank": rank, "steps": steps, "mesh": t.mesh.sizes,
         "world": dist.process_count(), "backend": dist.backend(),
-        "ddp": box["trainer"].ddp is not None}))
+        "ddp": t.ddp is not None, "run_dir": str(t.config.save_dir),
+        "placed": sorted(placed),
+        "param_bytes": _param_bytes(t.model, placed)}))
     dist.shutdown()
     return 0
 
@@ -4159,13 +4204,14 @@ CIFAR_MIN_VAL_ACC = 0.1          # chance
 IMAGE_KEYS = ("loss", "accuracy", "top_k_acc", "val_loss", "val_accuracy",
               "val_top_k_acc")
 # phase 15d: imagenet_resnet50.json (batch 256, bf16, the synthetic
-# fallback cut to 2048 and 512 images since slice 11, against the config's
-# 4096 and 1024: the script's time limit), 1 epoch; then from uint8 shards
-# of the same counts
-RESNET50_COUNTS = [("train_loader;args;synthetic_n", 2048),
-                   ("valid_loader;args;synthetic_n", 512)]
+# fallback cut to 1280 and 256 images since slice 12 (2048 and 512 in slice
+# 11), against the config's 4096 and 1024: the script's time limit; five
+# steps, as many as the profile takes), 1 epoch; then from uint8 shards of
+# the same counts
+RESNET50_COUNTS = [("train_loader;args;synthetic_n", 1280),
+                   ("valid_loader;args;synthetic_n", 256)]
 RESNET50_SETS = [("trainer;epochs", 1)]
-RESNET50_SHARDS = {"train": 2048, "val": 512}
+RESNET50_SHARDS = {"train": 1280, "val": 256}
 # phase 15e: imagenet_vit_b16.json (global batch 1024, synthetic 1024 and
 # 1024: one step per epoch), 3 epochs; one card does not hold a 1024-image
 # step's activations (the xla path keeps f32 scores and probabilities of
@@ -4517,7 +4563,7 @@ def phase_resnet50(card: str, device="cuda", config=RESNET50_CONFIG,
                    image_size: int = 224, work=WORK) -> dict:
     """Phase 15d: ``configs/imagenet_resnet50.json`` (ResNet-50, batch
     256, bf16, nesterov SGD, WarmupCosine, flip; no shards under its
-    ``data_dir``: the synthetic ImageNet, cut by ``sets`` to 2048 and 512
+    ``data_dir``: the synthetic ImageNet, cut by ``sets`` to 1280 and 256
     images), 1 epoch; then the same run from uint8 shards that the port's
     ``tools/make_image_shards.py --synthetic`` writes (the native
     batcher's gathers, the ``on_device`` normalize). Prints images/s, MFU
@@ -5078,7 +5124,7 @@ def phase_bert_cls(card: str, device="cuda", config=BERT_CLS_CONFIG,
 
 def phase_lora_gpt2(card: str, device="cuda", config=TRAIN_CONFIG,
                     sets=LORA_GPT2_SETS, base=GPT2_BASE, work=WORK,
-                    seed: int = 0) -> dict:
+                    seed: int = 0, drop_base: bool = True) -> dict:
     """Phase 16f: LoRA (rank 8, the adapters alone) on cell (h)'s GPT-2
     small at full width, warm-started from phase 6's ``checkpoint-epoch1``
     (``base``), one epoch of 32 steps through :func:`_train_path` (cell
@@ -5088,7 +5134,8 @@ def phase_lora_gpt2(card: str, device="cuda", config=TRAIN_CONFIG,
     artifact of the port's ``tools/merge_lora.py`` builds a plain dense
     GPT-2 whose logits equal the adapted model's within phase 2c's bf16
     limits. Prints ms per step beside cell (h)'s (phase 6, this call).
-    Returns the run's launches per kernel."""
+    ``drop_base`` False keeps ``base`` for phase 17d. Returns the run's
+    launches per kernel."""
     import pytorch_distributed_template_tpu_torch.models  # noqa: F401
     from pytorch_distributed_template_tpu_torch.checkpoint import (
         restore_serving_params,
@@ -5150,7 +5197,8 @@ def phase_lora_gpt2(card: str, device="cuda", config=TRAIN_CONFIG,
         "cell_h_ms_per_step": PATH_STATS.get("train", {}).get(
             "ms_per_step_median", "not measured in this call"),
         "card": card}))
-    for d in (Path(base), work / "lora_merge_log"):
+    for d in ((Path(base),) if drop_base else ()) + (
+            work / "lora_merge_log",):
         if d.exists():
             shutil.rmtree(d)
     return launches
@@ -5255,6 +5303,379 @@ def phase_lora_llama(card: str, device="cuda", config=LLAMA_DEBUG_CONFIG,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 12: pipeline parallelism (the pipe axis, GPipe and circular
+# schedules, the pipelined GPT-2 / Llama) and the HF weight import; no TPU
+# kernel on this path (the pipelined trunk's attention is the plain einsum
+# attention, as in the JAX trunk)
+# ---------------------------------------------------------------------------
+
+GPT2_PP_CONFIG = REPO / "configs" / "gpt2_pp.json"
+# phase 17a: a small f32 TinyPipeLM in the circular layout ([S 2, V 2, Lc
+# 1]), remat and the fused head, card against CPU (phase 3c's limits)
+PIPE_REF = {"vocab_size": 512, "n_layer": 4, "n_head": 4, "d_model": 128,
+            "max_len": 64, "n_stages": 2, "n_chunks": 2,
+            "n_microbatches": 2, "remat": True, "fused_head": True}
+# phase 17b: gpt2_pp.json on one card: the mesh cut to the data axis (the
+# sequential trunk over the [S 4, V 3, Lc 1] stacks), the sample counts and
+# the epochs cut as phase 6's
+PP_TRAIN_SETS = [("mesh;axes", {"data": -1}), ("train_loader;args;n", 256),
+                 ("valid_loader;args;n", 64), ("trainer;epochs", 2),
+                 ("trainer;save_period", 1)]
+# phase 17c: gpt2_pp.json on 4 cards (pipe 4 as it is) against one rank
+# without a pipe axis: 2 epochs of 3 steps (batch 16 in 2 accumulation
+# pieces of 8 microbatches), a checkpoint each; float32 without TF32, then
+# bf16 as the config has it for the step times
+PP_NCCL_COMMON = [("train_loader;args;n", 48), ("valid_loader;args;n", 16),
+                  ("trainer;epochs", 2), ("trainer;save_period", 1),
+                  ("trainer;tensorboard", False)]
+PP_NCCL_F32 = [("arch;args;bfloat16", False)]
+PP_NCCL_BF16 = [("trainer;epochs", 1), ("trainer;save_period", 100)]
+PP_ONE_RANK = [("mesh;axes", {"data": 1})]
+PP_NCCL_STEPS = 6
+
+
+def pp_ticks(m: int, s: int, v: int) -> int:
+    """Ticks of one pipelined forward: ``ceil(M/S) S V + S - 1``."""
+    return -(-m // s) * s * v + s - 1
+
+
+def phase_pipe_reference(device="cuda") -> None:
+    """Phase 17a: a small f32 ``TinyPipeLM`` (circular layout, remat,
+    fused head) trained ``TRAIN_REF_STEPS`` steps on ``device`` and on the
+    CPU from the same weights and batches, TF32 off: per-step losses and
+    final params within ``TRAIN_REF_TOL``."""
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.config.registry import (
+        MODELS,
+    )
+    from pytorch_distributed_template_tpu_torch.data.datasets import (
+        synthetic_lm,
+    )
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        args = PIPE_REF
+        cpu = MODELS.get("TinyPipeLM")(**args, device="cpu")
+        cpu.init_weights(torch.Generator().manual_seed(7))
+        state = cpu.state_dict()
+        toks = synthetic_lm(n=4 * TRAIN_REF_STEPS, seq_len=args["max_len"],
+                            vocab_size=args["vocab_size"], seed=1)["tokens"]
+        batches = [{"tokens": toks[4 * i:4 * i + 4],
+                    "mask": np.ones(4, bool)}
+                   for i in range(TRAIN_REF_STEPS)]
+        dev_loss, dev_p = _train_ref_run("TinyPipeLM", args, state, batches,
+                                         device)
+        cpu_loss, cpu_p = _train_ref_run("TinyPipeLM", args, state, batches,
+                                         "cpu")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(dev_loss, cpu_loss))
+    param_err = max((dev_p[k] - cpu_p[k]).abs().max().item() for k in cpu_p)
+    row = {"model": "TinyPipeLM", "layout": list(state["qkv_k"].shape[:3]),
+           "steps": TRAIN_REF_STEPS, "losses_device": dev_loss,
+           "losses_cpu": cpu_loss, "loss_max_rel_err": loss_err,
+           "param_max_abs_err": param_err, "tol": TRAIN_REF_TOL,
+           "device": str(device)}
+    log("[pipe-reference] " + json.dumps(row))
+    if not (loss_err <= TRAIN_REF_TOL["loss_rtol"]
+            and param_err <= TRAIN_REF_TOL["param_atol"]):
+        raise AssertionError(f"small f32 TinyPipeLM training on {device} "
+                             f"differs from the CPU: {row}")
+
+
+def phase_pp_train(card: str, device="cuda", config=GPT2_PP_CONFIG,
+                   sets=PP_TRAIN_SETS, work=WORK) -> dict:
+    """Phase 17b: ``configs/gpt2_pp.json`` through the port's ``train.py``
+    on one card, the mesh cut to the data axis by ``--set`` (the
+    sequential trunk over the config's ``[S 4, V 3, Lc 1]`` stacks, no
+    kernel launched: :class:`TrainRun` holds every count at 0), train
+    ``n`` 256, valid ``n`` 64, 2 epochs with a checkpoint each
+    (:func:`_train_path`: losses finite and falling, checkpoints and
+    ``summary.json``, a resume from ``checkpoint-epoch1`` reproducing
+    epoch 2, ms/step, peak memory, a 5-step profile)."""
+    def check(trainer, run):
+        m = trainer.model
+        lead = tuple(m.qkv_k.shape[:3])
+        want = (m.n_stages, m.n_chunks, m.n_layer // (m.n_stages
+                                                       * m.n_chunks))
+        if lead != want or m.pipe_placements or trainer.mesh.axis_size(
+                "pipe") != 1:
+            raise AssertionError(f"[pp_train] trunk {lead}, placements "
+                                 f"{m.pipe_placements}, mesh "
+                                 f"{trainer.mesh.sizes}")
+        log("[pp_train] " + json.dumps({
+            "layout": list(lead), "grad_accum_steps":
+            trainer.train_step.grad_accum_steps,
+            "microbatches": m.n_microbatches, "card": card}))
+
+    return _train_path(card, device, config, sets, work / "pp_train", 0,
+                       label="pp_train", check=check)
+
+
+def _pp_argv(config, sets, save_dir, device) -> list:
+    argv = ["-c", str(config), "-s", str(save_dir), "--device", str(device)]
+    for chain, value in sets:
+        argv += ["--set", chain, json.dumps(value)]
+    return argv
+
+
+def _pp_torchrun(tag, name, config, sets, root, device, nproc, timeout):
+    """``torchrun --nproc_per_node=nproc`` of ``config`` cut by ``sets``
+    (this script's ``--sp-child`` per rank): each rank's record."""
+    spec = {"argv": _pp_argv(config, sets, root / f"{name}_ranks", device),
+            "out": str(root / f"{name}_out")}
+    spec_path = root / f"{name}.json"
+    spec_path.write_text(json.dumps(spec))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(REPO / "chip_smoke.py"),
+           "--sp-child", str(spec_path)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                       timeout=timeout)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        err = r.stderr + r.stdout
+        at = err.find("Traceback")
+        tail = err[at:at + 4000] if at >= 0 else err[-4000:]
+        raise AssertionError(f"[{tag}] {name}: torchrun exited "
+                             f"{r.returncode}: {tail}")
+    ranks = [json.loads(Path(f"{spec['out']}.rank{i}.json").read_text())
+             for i in range(nproc)]
+    return ranks, wall
+
+
+def _one_rank(argv, device):
+    """The port's ``train.py`` in this process: each train step's loss and
+    ms, and the trainer."""
+    from pytorch_distributed_template_tpu_torch import train as train_cli
+
+    steps, box = [], {}
+
+    def hook(trainer):
+        box["trainer"] = trainer
+        real = trainer.train_step
+
+        def call(batch):
+            _sync(trainer.device)
+            t0 = time.perf_counter()
+            m = real(batch)
+            _sync(trainer.device)
+            steps.append({"loss": float(m["loss_sum"])
+                          / max(float(m["count"]), 1.0),
+                          "ms": (time.perf_counter() - t0) * 1e3})
+            return m
+
+        trainer.train_step = _Wrapped(real, call)
+
+    train_cli.main(argv, on_trainer=hook)
+    return steps, box["trainer"]
+
+
+def phase_pp_nccl(card: str, device="cuda", work=WORK,
+                  config=GPT2_PP_CONFIG, nproc: int = 4,
+                  timeout: float = 900.0, common=PP_NCCL_COMMON,
+                  f32=PP_NCCL_F32, bf16=PP_NCCL_BF16,
+                  n_steps: int = PP_NCCL_STEPS) -> dict:
+    """Phase 17c: with ``nproc`` cards, ``torchrun --nproc_per_node=nproc``
+    of ``configs/gpt2_pp.json`` with its pipe axis of 4 (``PP_NCCL_COMMON``:
+    2 epochs of 3 steps, a checkpoint each), float32 without TF32, against
+    one rank in this process without a pipe axis: the losses within
+    ``SEQ_NCCL_RTOL``, every rank the same losses; each rank's parameter
+    bytes a quarter of the trunk's plus the replicated parameters'; the
+    permutes per train step ``grad_accum_steps`` x (the forward's ticks + the
+    backward's, one fewer) and two output sums per piece; the ranks'
+    ``checkpoint-epoch1`` resumed in this process without a pipe axis
+    reproducing the ranks' epoch-2 losses within ``SEQ_NCCL_RTOL``. Then
+    one bf16 run of the config as it is (``PP_NCCL_BF16``: one epoch):
+    ms/step and the P2P calls and bytes per step. With fewer cards it
+    prints ``"pp_nccl": "not run: N card(s)"`` and returns {}. ``common``,
+    ``f32``, ``bf16`` and ``n_steps`` cut the runs (a tiny width on the
+    CPU: the ``--sp-child`` ranks run on gloo with ``--device cpu``)."""
+    cards = torch.cuda.device_count() if device == "cuda" else nproc
+    if device == "cuda" and cards < nproc:
+        log("[pp_nccl] " + json.dumps({
+            "pp_nccl": f"not run: {cards} card(s)", "card": card}))
+        return {}
+    root = work / "pp_nccl"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    cfg = json.loads(Path(config).read_text())
+    for chain, value in list(common) + list(f32):
+        node = cfg
+        *head, last = chain.split(";")
+        for k in head:
+            node = node[k]
+        node[last] = value
+    args = cfg["arch"]["args"]
+    accum = int(cfg["trainer"].get("grad_accum_steps", 1))
+    pieces = cfg["train_loader"]["args"]["batch_size"] // accum
+    ticks = pp_ticks(min(args["n_microbatches"], pieces), args["n_stages"],
+                     args["n_chunks"])
+    want_permutes = accum * (ticks + ticks - 1)
+    f32_sets = list(common) + list(f32)
+    ranks, wall = _pp_torchrun("pp_nccl", "f32", config, f32_sets, root,
+                               device, nproc, timeout)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        one, trainer = _one_rank(_pp_argv(config, f32_sets + PP_ONE_RANK,
+                                          root / "one", device), device)
+        one_bytes = _param_bytes(trainer.model, ranks[0]["placed"])
+        del trainer
+        resumed, _ = _one_rank([
+            "-r", str(Path(ranks[0]["run_dir"]) / "checkpoint-epoch1"),
+            "-s", str(root / "resume"), "--device", str(device),
+            "--set", "mesh;axes", json.dumps({"data": 1})], device)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    one_losses = [s["loss"] for s in one]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, one_losses)]
+    half = n_steps // 2
+    rel_resume = [abs(a - b) / abs(b) for a, b in zip(
+        [s["loss"] for s in resumed], losses[half:])]
+    row = {"config": "gpt2_pp", "mesh": ranks[0]["mesh"],
+           "world": ranks[0]["world"], "backend": ranks[0]["backend"],
+           "ddp": ranks[0]["ddp"], "losses": losses,
+           "one_rank_losses": one_losses, "rel_diff": rel,
+           "resumed_epoch2_losses": [s["loss"] for s in resumed],
+           "resume_rel_diff": rel_resume, "rtol": SEQ_NCCL_RTOL,
+           "ticks_per_forward": ticks, "permutes_per_step_want":
+           want_permutes,
+           "param_bytes_per_rank": [r["param_bytes"] for r in ranks],
+           "one_rank_param_bytes": one_bytes,
+           "ms_per_step": [s["ms"] for s in ranks[0]["steps"]],
+           "one_rank_ms_per_step": [s["ms"] for s in one],
+           "p2p_per_step": [{k: s[k] for k in (
+               "ppermute", "ppermute_bytes", "psum", "psum_bytes")}
+               for s in ranks[0]["steps"]],
+           "torchrun_wall_s": wall, "dtype": "float32", "card": card}
+    log("[pp_nccl] " + json.dumps(row))
+    for rk in ranks:
+        if [s["loss"] for s in rk["steps"]] != losses:
+            raise AssertionError(f"[pp_nccl] rank {rk['rank']} logged other "
+                                 f"losses")
+        if rk["ddp"] or rk["backend"] != ("nccl" if device == "cuda"
+                                          else "gloo"):
+            raise AssertionError(f"[pp_nccl] rank {rk['rank']}: ddp "
+                                 f"{rk['ddp']}, {rk['backend']}")
+        pb = rk["param_bytes"]
+        if (pb["stage"] * nproc != one_bytes["stage"]
+                or pb["replicated"] != one_bytes["replicated"]):
+            raise AssertionError(f"[pp_nccl] rank {rk['rank']} holds "
+                                 f"{pb}, not 1/{nproc} of {one_bytes}")
+        for s in rk["steps"]:
+            if (s["ppermute"], s["psum"]) != (want_permutes, 2 * accum):
+                raise AssertionError(
+                    f"[pp_nccl] rank {rk['rank']}: {s['ppermute']} permutes "
+                    f"and {s['psum']} sums in a step, not {want_permutes} "
+                    f"and {2 * accum}")
+    if (len(losses) != n_steps or len(one_losses) != n_steps
+            or len(rel_resume) != half or max(rel + rel_resume)
+            > SEQ_NCCL_RTOL):
+        raise AssertionError(f"[pp_nccl] {nproc} ranks against one rank: "
+                             f"{row}")
+    gc.collect()
+    torch.cuda.empty_cache() if device == "cuda" else None
+    half16, wall16 = _pp_torchrun("pp_nccl", "bf16", config,
+                                  list(common) + list(bf16), root, device,
+                                  nproc, timeout)
+    steps = half16[0]["steps"]
+    row16 = {"config": "gpt2_pp", "dtype": "bfloat16",
+             "mesh": half16[0]["mesh"],
+             "losses": [s["loss"] for s in steps],
+             "ms_per_step": [s["ms"] for s in steps],
+             "ms_per_step_median": float(np.median([s["ms"]
+                                                    for s in steps[1:]])),
+             "p2p_per_step": [{k: s[k] for k in (
+                 "ppermute", "ppermute_bytes", "psum", "psum_bytes")}
+                 for s in steps],
+             "param_bytes_per_rank": [r["param_bytes"] for r in half16],
+             "torchrun_wall_s": wall16, "card": card}
+    log("[pp_nccl] " + json.dumps(row16))
+    if not all(np.isfinite(row16["losses"])):
+        raise AssertionError(f"[pp_nccl] bf16 losses: {row16['losses']}")
+    shutil.rmtree(root)
+    return {"f32": row, "bf16": row16}
+
+
+def phase_hf_import(card: str, device="cuda", config=TRAIN_CONFIG,
+                    base=GPT2_BASE) -> dict:
+    """Phase 17d: phase 6's GPT-2 small (``base``'s ``checkpoint-epoch1``,
+    cell (h)'s config) on the card, exported to an HF ``GPT2LMHeadModel``
+    state dict and imported again (``models/hf_import.py``, numpy on the
+    host): every tensor and the logits of 2 x 1024 tokens bit-equal to the
+    model's; the export and import times printed. ``base`` is removed at
+    the end."""
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.config.registry import (
+        MODELS,
+    )
+    from pytorch_distributed_template_tpu_torch.models import hf_import
+
+    ckpt = Path(base) / "checkpoint-epoch1" / "model.pt"
+    if not ckpt.is_file():
+        raise AssertionError(f"no base weights at {ckpt} (phase 6 keeps "
+                             "them)")
+    arch = json.loads(Path(config).read_text())["arch"]
+
+    def build():
+        return MODELS.get(arch["type"])(
+            **arch["args"], device=device,
+            param_dtype=torch.float32).eval()
+
+    model = build()
+    model.load_state_dict(torch.load(ckpt, map_location=device))
+    toks = torch.from_numpy(np.random.default_rng(17).integers(
+        0, model.vocab_size, (2, model.max_len))).to(device)
+
+    def logits(m):
+        with torch.no_grad():
+            out = m(toks)
+            if isinstance(out, tuple):
+                out = out[0] @ out[1]
+            return out.float()
+
+    want = logits(model)
+    t0 = time.perf_counter()
+    exported = hf_import.export_hf_gpt2(model.state_dict())
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = hf_import.import_hf_gpt2(exported, model.n_layer)
+    t_import = time.perf_counter() - t0
+    again = build()
+    again.load_state_dict(back)
+    got = logits(again)
+    tensors = model.state_dict()
+    differ = [k for k in tensors if not torch.equal(
+        tensors[k], again.state_dict()[k])]
+    row = {"model": f"{arch['type']} {arch['args'].get('size')}",
+           "hf_tensors": len(exported), "export_s": t_export,
+           "import_s": t_import, "tensors_differing": differ,
+           "logits_shape": list(got.shape),
+           "logits_max_abs_err": float((got - want).abs().max()),
+           "card": card}
+    log("[hf_import] " + json.dumps(row))
+    if differ or not torch.equal(got, want):
+        raise AssertionError(f"[hf_import] the round trip changed the "
+                             f"model: {row}")
+    del model, again, tensors
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    shutil.rmtree(base)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -5318,8 +5739,15 @@ def main() -> int:
     bwd_rows += timed("16b-bwd", phase_bwd_kernel, BERT_BWD_SHAPES)
     bert_launches = timed("16c-16d", phase_bert_mlm, card)
     cls_launches = timed("16e", phase_bert_cls, card)
-    lora_launches = timed("16f", phase_lora_gpt2, card)
+    lora_launches = timed("16f", phase_lora_gpt2, card, drop_base=False)
     llama_launches = timed("16g", phase_lora_llama, card)
+    timed("17a", phase_pipe_reference)
+    pp_launches = timed("17b", phase_pp_train, card)
+    timed("17c", phase_pp_nccl, card)
+    timed("17d", phase_hf_import, card)
+    if any(pp_launches.values()):
+        raise AssertionError(f"the pipelined trunk launched a kernel: "
+                             f"{pp_launches}")
     log("[native] gathers " + json.dumps(gathers))
     if not all(gathers.values()):
         raise AssertionError(f"the native batcher did not gather in every "

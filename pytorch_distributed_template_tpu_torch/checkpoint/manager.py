@@ -47,7 +47,11 @@ Under DDP the trainer calls the manager on rank 0 only. The model's state
 dict is always the bare module's (a ``DistributedDataParallel`` wrapper is
 unwrapped, and a ``module.`` prefix is stripped on load), so a checkpoint
 written under DDP loads in one process and the other way round. Every
-rank loads with ``map_location`` set to its own device.
+rank loads with ``map_location`` set to its own device. On a pipe axis
+the trainer hands the manager the whole tensors it gathered over the pipe
+group, so the files are a one-process run's; a load into a model that
+holds one stage's slices (``pipe_placements``) cuts the model's, the
+optimizer's and the EMA's tensors to them (``parallel.sharding``).
 """
 from __future__ import annotations
 
@@ -66,6 +70,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..observability.trace import span
+from ..parallel.sharding import slice_optimizer_state, slice_pipe
 from ..resilience import faults
 
 logger = logging.getLogger(__name__)
@@ -97,6 +102,7 @@ def load_model(path, model, map_location="cpu", name="model.pt") -> None:
     state = _strip_module(torch.load(Path(path) / name,
                                      map_location=map_location))
     model = _bare(model)
+    state = slice_pipe(model, state)
     if name == EMA_FILE:
         missing = set(dict(model.named_parameters())) - set(state)
         if missing:
@@ -407,8 +413,10 @@ class CheckpointManager:
                 "from that of checkpoint. Optimizer parameters not being "
                 "resumed.")
         else:
-            optimizer.load_state_dict(torch.load(
-                resume_path / "optimizer.pt", map_location=map_location))
+            optimizer.load_state_dict(slice_optimizer_state(
+                _bare(model), optimizer, torch.load(
+                    resume_path / "optimizer.pt",
+                    map_location=map_location)))
         self._restore_ema(resume_path, model, ema, map_location)
         train_state = json.loads((resume_path / "train_state.json")
                                  .read_text())
@@ -427,8 +435,8 @@ class CheckpointManager:
                     "disabled in this run; shadow weights discarded.")
             return
         if has_ema:
-            source = _strip_module(torch.load(resume_path / EMA_FILE,
-                                              map_location=map_location))
+            source = slice_pipe(_bare(model), _strip_module(torch.load(
+                resume_path / EMA_FILE, map_location=map_location)))
         else:
             logger.warning("Warning: checkpoint has no ema_params; seeding "
                            "EMA from the restored params.")
@@ -448,8 +456,8 @@ def warm_start_params(resume_path, model, map_location="cpu"
     and the epoch do not travel. Returns ``(restored keys, skipped
     keys)``, sorted."""
     resume_path = Path(resume_path).resolve()
-    disk = _strip_module(torch.load(resume_path / "model.pt",
-                                    map_location=map_location))
+    disk = slice_pipe(_bare(model), _strip_module(torch.load(
+        resume_path / "model.pt", map_location=map_location)))
     current = dict(_bare(model).named_parameters())
     matched = sorted(k for k, v in current.items()
                      if k in disk and tuple(disk[k].shape) == tuple(v.shape))

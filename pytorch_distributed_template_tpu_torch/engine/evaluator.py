@@ -17,8 +17,12 @@ masked LM (the class attribute ``mlm_output``: ``BertMLM``'s ``(logits,
 mask)``) the logits as outputs and the mask beside them as
 ``masks_p{rank}.npy`` (bool), as the JAX evaluator writes them. The mesh
 is the config's, as the trainer's: the test set shards over the data
-axis and the model gets the mesh; on a seq axis > 1 a rank's outputs
-are one shard of each row, so ``save_outputs`` refuses there.
+axis and the model gets the mesh (on a pipe axis each rank keeps its
+stage's slices and ``model.pt``'s whole tensors are cut to them); on a seq
+axis > 1 a rank's outputs are one shard of each row, so ``save_outputs``
+refuses there. The output files are one per data shard, named by its
+index (the rank without a pipe axis) and written by the shard's first
+pipe stage; every stage runs the pipeline.
 
 ``seed`` (``test.py --seed``) seeds eval-time model randomness, as the
 JAX evaluator's ``"eval"`` stream does: batch ``i`` gets ``fold_in(seed,
@@ -71,12 +75,13 @@ def _outputs(model, batch, input_key: str, seed=None, shard=None):
     with torch.no_grad():
         out = model(batch[input_key],
                     **eval_kwargs(model, batch, input_key, seed, shard))
-    if getattr(model, "mlm_output", False):
-        logits, sel = out
-        return logits.float(), sel.bool()
-    if isinstance(out, tuple):
-        hidden, w = out
-        out = hidden @ w
+        if getattr(model, "mlm_output", False):
+            logits, sel = out
+            return logits.float(), sel.bool()
+        if isinstance(out, tuple):
+            # the head's weight is a view of a parameter: inside no_grad
+            hidden, w = out
+            out = hidden @ w
     return out.float(), None
 
 
@@ -111,7 +116,7 @@ def evaluate(config, device, save_outputs=None, seed=None) -> dict:
     shard = mesh.data_shard()
     eval_step = make_eval_step(model, criterion, metric_fns,
                                input_key=input_key, target_key=target_key,
-                               data_shard=shard)
+                               data_shard=shard, mesh=mesh)
     depth = max(int(config["trainer"].get("prefetch_depth", 2)), 1)
     accum, dumped_out, dumped_tgt, dumped_msk = None, [], [], []
     for i, batch in enumerate(prefetch_to_device(
@@ -131,10 +136,10 @@ def evaluate(config, device, save_outputs=None, seed=None) -> dict:
             if msk is not None:
                 dumped_msk.append(msk.cpu().numpy()[keep])
 
-    if save_outputs is not None:
+    if save_outputs is not None and mesh.axis_index("pipe") == 0:
         out_dir = Path(save_outputs)
         out_dir.mkdir(parents=True, exist_ok=True)
-        rank = dist.process_index()
+        rank = shard[0]
         if dumped_out:
             np.save(out_dir / f"outputs_p{rank}.npy",
                     np.concatenate(dumped_out))

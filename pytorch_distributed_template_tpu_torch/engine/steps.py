@@ -130,6 +130,26 @@ shift is a multiple of the shard count). The draws are numpy's Philox,
 not JAX's threefry: an augmented or mixed step is reproducible within
 each package, on any number of ranks, not across the packages.
 
+Pipeline parallelism (a mesh whose ``pipe`` axis is S > 1, a model with
+``pipe_placements``: the pipelined families, each rank holding its
+stage's slices of the trunk and the whole embeddings and head). Every rank
+of a pipe row computes the same loss from the outputs the pipeline sums
+over the row, and backpropagates it scaled by ``1 / S``; the sum's
+backward sums the cotangents over the row, so each stage slice gets its
+one-process gradient and each replicated parameter gets ``1 / S`` of the
+head's part on every rank and the embedding's part on stage 0 alone. The
+replicated parameters' gradients are then summed over the pipe group (one
+``all_reduce`` of their concatenation): every rank holds their whole
+gradient, bit for bit the same. DDP runs over the data group only (the
+trainer), so each backward is of the loss x data-axis size / S. The
+statistics are counted at pipe index 0 (the others add zeros to the one
+``all_reduce``). Every global read takes the whole row
+(``parallel.sharding.PipeReduce``): the pre-clip gradient norm, the update
+norm, the non-finite counts of the health summary and of
+``skip_nonfinite`` / ``debug.nan_check`` sum a stage slice's part over the
+pipe group and count a replicated parameter once, so every rank clips by
+the same scale and takes the same skip decision.
+
 Masked-LM corruption (a model with ``mask_draws``: ``BertMLM``), before
 the forward and the microbatch split, beside the augment draws: the model
 draws ``sel``, ``mix`` and ``rand_tok`` on the host for the global batch
@@ -155,6 +175,7 @@ from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from ..models.layers import fold_in
 from ..observability.health import (
@@ -162,6 +183,7 @@ from ..observability.health import (
 )
 from ..parallel import dist
 from ..parallel.collectives import ppermute
+from ..parallel.sharding import PipeReduce
 from .optim import set_lr
 
 #: folded into the step's seed for the mixup draws (the JAX step's)
@@ -223,11 +245,23 @@ def _example_count(mask, shard) -> torch.Tensor:
     return count if shard is None or shard.index == 0 else count * 0.0
 
 
-def _global(stats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """``stats`` summed over the process group with one ``all_reduce``;
-    unchanged without a group."""
+def _replicas(model) -> int:
+    """The ranks a ``DistributedDataParallel`` wrapper averages the
+    gradients over (1 for a bare module)."""
+    if isinstance(model, torch.nn.parallel.DistributedDataParallel):
+        return tdist.get_world_size(model.process_group)
+    return 1
+
+
+def _global(stats: Dict[str, torch.Tensor],
+            counted: bool = True) -> Dict[str, torch.Tensor]:
+    """``stats`` summed over the process group with one ``all_reduce``
+    (zeros from a rank that is not ``counted``: a pipe stage past the
+    first); unchanged without a group."""
     if not dist.in_group():
         return stats
+    if not counted:
+        stats = {k: torch.zeros_like(v) for k, v in stats.items()}
     vec = dist.all_reduce_sum(torch.stack([v.float() for v in
                                            stats.values()]))
     return dict(zip(stats, vec.unbind()))
@@ -296,6 +330,13 @@ class TrainStep:
                        if b.is_floating_point()]
         self._stats_before = ([torch.empty_like(b) for b in self._stats]
                               if skip_nonfinite and self._stats else None)
+        # a pipe row (the pipelined families on a pipe axis > 1): the
+        # global reads; the loss x DDP's ranks / S
+        pipe = 1 if mesh is None else mesh.axis_size("pipe")
+        self.pipe = PipeReduce(self.module, mesh) if pipe > 1 else None
+        self._counted = self.pipe is None or self.pipe.first
+        self._loss_scale = _replicas(model) / pipe
+        self._group_weights = None
 
     def state_dict(self) -> dict:
         """The counters, and ``lr_scale`` once a plateau has moved it."""
@@ -331,12 +372,36 @@ class TrainStep:
         set_lr(self.optimizer, self.lr_fn(self.applied), self.lr_scale)
         self.optimizer.step()
 
+    def _nonfinite(self, grads, *scalars) -> torch.Tensor:
+        """How many of ``scalars`` and of ``grads``' max-abs norms are not
+        finite, over the pipe row."""
+        norms = torch._foreach_norm(grads, float("inf")) if grads else []
+        bad = (~torch.isfinite(torch.stack([*scalars, *norms]).float())
+               ).sum().float()
+        return self.pipe.sum(bad) if self.pipe is not None else bad
+
+    def _norm(self, tensors, params) -> torch.Tensor:
+        """The global 2-norm of ``tensors``, one per parameter of
+        ``params``."""
+        if self.pipe is None:
+            return torch.nn.utils.get_total_norm(tensors)
+        return self.pipe.norm(tensors, params)
+
+    def _sum_replicated(self) -> None:
+        """The replicated parameters' gradients summed over the pipe group
+        (one ``all_reduce`` of their concatenation)."""
+        grads = [p.grad for p in self._params() if not self.pipe.is_stage(p)]
+        if not grads:
+            return
+        flat = self.pipe.sum(torch.cat([g.reshape(-1) for g in grads]))
+        torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(
+            flat.split([g.numel() for g in grads]), grads)])
+
     def _check_finite(self, loss_sum) -> None:
         """``debug.nan_check``: stop at the first step whose loss or
         gradients are not finite (one read per step)."""
         grads = [p.grad for p in self._params()]
-        norms = torch._foreach_norm(grads, float("inf")) if grads else []
-        if not bool(torch.isfinite(torch.stack([loss_sum, *norms])).all()):
+        if bool(self._nonfinite(grads, loss_sum) > 0):
             raise FloatingPointError(
                 f"debug.nan_check: non-finite loss or gradients at step "
                 f"{self.step}")
@@ -363,7 +428,7 @@ class TrainStep:
                     opt.state[p][k].copy_(v)
                 else:
                     opt.state[p][k] = v
-        return torch.nn.utils.get_total_norm(delta)
+        return self._norm(delta, self._all)
 
     def _prepare(self, batch):
         """Augment, then mixup, and the masked-LM draws, on the whole
@@ -431,9 +496,9 @@ class TrainStep:
         Returns ``(metrics, denom)``."""
         loss_sum, stats = self._forward(batch, fold_in(self.seed,
                                                        self.step))
-        metrics = _global(stats)
+        metrics = _global(stats, self._counted)
         denom = metrics["count"].clamp_min(1.0)
-        (loss_sum * dist.process_count() / denom).backward()
+        (loss_sum * self._loss_scale / denom).backward()
         return metrics, denom
 
     def _backward_accumulated(self, batch):
@@ -447,7 +512,6 @@ class TrainStep:
                              f"grad_accum_steps {k}")
         rows = b // k
         seed = fold_in(self.seed, self.step)
-        world = dist.process_count()
         no_sync = getattr(self.model, "no_sync", None)
         stats = None
         for idx in range(k):
@@ -456,10 +520,10 @@ class TrainStep:
             quiet = no_sync is not None and idx < k - 1
             with no_sync() if quiet else contextlib.nullcontext():
                 loss_sum, s = self._forward(micro, fold_in(seed, idx))
-                (loss_sum * world).backward()
+                (loss_sum * self._loss_scale).backward()
             stats = s if stats is None else {key: stats[key] + v
                                              for key, v in s.items()}
-        metrics = _global(stats)
+        metrics = _global(stats, self._counted)
         denom = metrics["count"].clamp_min(1.0)
         torch._foreach_div_([p.grad for p in self._params()], denom)
         return metrics, denom
@@ -489,6 +553,8 @@ class TrainStep:
             raise
         for p in self._frozen:
             p.grad = None
+        if self.pipe is not None:
+            self._sum_replicated()
         health_loss = metrics["loss_sum"] / denom
         if self.nan_step is not None and self.step == self.nan_step:
             self._poison()
@@ -499,15 +565,14 @@ class TrainStep:
         gnorm = None
         if self.grad_clip_norm > 0 or self.log_grad_norm or self.health:
             # the pre-clip global norm of the mean gradient
-            gnorm = torch.nn.utils.get_total_norm([p.grad for p in params])
+            gnorm = self._norm([p.grad for p in params], params)
         ok = True
         if self.skip_nonfinite:
             # the JAX step's test, on the gradients after the clip: a
             # finite norm means finite leaves; an overflowed norm clips
             # finite leaves to zeros (scale 0), so there the leaves decide
             # (their max-abs norms overflow no sum)
-            leaves = torch.isfinite(torch.stack(torch._foreach_norm(
-                [p.grad for p in params], float("inf")))).all()
+            leaves = self._nonfinite([p.grad for p in params]) == 0
             if gnorm is not None:
                 leaves = torch.isfinite(gnorm) | leaves
             ok = bool(torch.isfinite(metrics["loss_sum"]) & leaves)
@@ -520,6 +585,11 @@ class TrainStep:
                 grad_counts = nonfinite_by_group(
                     {g: [p.grad for p in ps if p.grad is not None]
                      for g, ps in self._groups.items()})
+                if self.pipe is not None:
+                    if self._group_weights is None:
+                        self._group_weights = self.pipe.group_weights(
+                            self._groups, grad_counts.device).long()
+                    grad_counts = grad_counts * self._group_weights
             if self._before is None:
                 self._before = [torch.empty_like(p) for p in self._all]
             torch._foreach_copy_(self._before, self._all)
@@ -537,7 +607,7 @@ class TrainStep:
                 self._update_ema()
             if self.health:
                 torch._foreach_sub_(self._before, self._all)  # -update
-                update_norm = torch.nn.utils.get_total_norm(self._before)
+                update_norm = self._norm(self._before, self._all)
         else:
             metrics = {k: torch.zeros_like(v) for k, v in metrics.items()}
             if self._stats_before is not None:
@@ -547,9 +617,15 @@ class TrainStep:
         if self.skip_nonfinite:
             metrics["skipped_sum"] = denom * (0.0 if ok else 1.0)
         if self.health:
-            metrics["health"] = pack_health_summary(
-                health_loss, gnorm, update_norm, grad_counts, self._all,
-                groups=len(self._groups))
+            vec = pack_health_summary(
+                health_loss, gnorm, update_norm, grad_counts,
+                self._all if self.pipe is None
+                else self.pipe.counted(self._all), groups=len(self._groups))
+            if self.pipe is not None:
+                # the counts over the row (stage slices summed, the
+                # replicated counted at pipe index 0)
+                vec = torch.cat([vec[:3], self.pipe.sum(vec[3:].clone())])
+            metrics["health"] = vec
         self.step += 1
         return metrics
 
@@ -624,14 +700,16 @@ def eval_kwargs(model, batch, input_key: str, seed=None, shard=None):
 def make_eval_step(model, criterion: Callable,
                    metric_fns: Sequence[Callable] = (),
                    input_key: str = "image", target_key: str = "label",
-                   data_shard=None):
+                   data_shard=None, mesh=None):
     """``eval_step(batch, seed=None) -> metrics`` (sufficient statistics,
-    summed over the process group's ranks), the model in eval mode and no
-    gradients; ``seed`` seeds eval-time model randomness
+    summed over the process group's ranks; on a pipe axis of ``mesh`` the
+    first stage's, every stage computing the same), the model in eval mode
+    and no gradients; ``seed`` seeds eval-time model randomness
     (:func:`eval_kwargs`, over ``data_shard``). A DDP wrapper is
     evaluated through its ``module``."""
 
     model = getattr(model, "module", model)
+    counted = mesh is None or mesh.axis_index("pipe") == 0
 
     @torch.no_grad()
     def eval_step(batch, seed=None):
@@ -648,7 +726,7 @@ def make_eval_step(model, criterion: Callable,
         for fn in metric_fns:
             metrics[f"{fn.__name__}_sum"] = (fn(output, target, **skw)
                                              * mask).sum()
-        return _global(metrics)
+        return _global(metrics, counted)
 
     return eval_step
 

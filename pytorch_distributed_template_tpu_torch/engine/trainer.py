@@ -82,15 +82,33 @@ scale is saved with the counters and restored on resume, the
 controller's counters restart. A train loader with a ``tokenizer_path``
 (``BpeLMLoader``) gets its tokenizer copied into the run directory.
 
-The config's mesh (``parallel.mesh``): ``data`` and ``seq``. DDP runs
-over the whole world (parameters are replicated over both axes); the
-loaders shard over the data axis (built with :meth:`Mesh.data_shard`, and
-checked here), so the ranks of a seq row train on the same batch, and the
-model gets the mesh (``models.base.inject_mesh``)
-for its sequence-parallel attention. Rank 0 writes; the ``data_state``
-sidecar's sampler state records the data axis's shard count.
-Refused by name: the other mesh axes (ROADMAP A11b-d), and a seq axis > 1
-for a model without sequence parallelism.
+The config's mesh (``parallel.mesh``): ``pipe``, ``data`` and ``seq``.
+The loaders shard over the data axis (built with :meth:`Mesh.data_shard`,
+and checked here), so the ranks of a seq row and the stages of a pipe row
+train on the same batch, and the model gets the mesh
+(``models.base.inject_mesh``) for its sequence-parallel attention or its
+pipeline. Without a pipe axis DDP runs over the whole world (parameters
+are replicated over data and seq). With one (a pipelined model,
+``n_stages`` equal to the axis) every rank builds the whole model from the
+seed, the injection leaves it its stage's slices of the trunk, and the
+optimizer is built after it, so the moments are per stage too; DDP runs
+over the data group (none when the data axis is 1: DDP over the world
+would average different stages' weights of equal shapes); the train step
+sums the replicated parameters' gradients over the pipe group and reads
+its norms over the row (engine/steps.py). Every checkpoint holds the
+whole stacked tensors, params, optimizer moments and EMA gathered over
+the pipe group by every rank before rank 0 writes, the files a
+one-process run writes; a resume or ``init_from`` cuts them to the
+stage's slices, whatever pipe size wrote them. The emergency save gathers
+too, so under a pipe axis it lands only when every rank raises (a fault
+plan's crash); a rank that fails alone leaves the others waiting in the
+gather, as they would in the pipeline's next permute, until the process
+group's timeout. Optimizers that read a whole parameter's norm (``LARS``,
+``LAMB``, ``Adafactor``) refuse a pipe axis: a stage holds a slice. Rank
+0 writes; the ``data_state`` sidecar's sampler state records the data
+axis's shard count. Refused by name: the other mesh axes (ROADMAP A11b,
+A11d), a seq axis > 1 for a model without sequence parallelism, and a pipe
+axis > 1 for a model without a pipelined trunk.
 """
 from __future__ import annotations
 
@@ -126,6 +144,7 @@ from ..observability.trace import span
 from ..observability.tracker import MetricTracker
 from ..parallel import dist
 from ..parallel.mesh import build_mesh, mesh_from_config
+from ..parallel.sharding import gather_optimizer_state, gather_pipe
 from ..resilience import faults
 from ..utils import preemption
 from ..utils.debug import configure_debug
@@ -194,6 +213,13 @@ class BaseTrainer:
         """The checkpoint manager's keyword arguments for the live state
         (model, optimizer, counters, EMA, arch, config, monitor best)."""
         raise NotImplementedError
+
+    def _saved_state(self) -> Optional[dict]:
+        """:meth:`_state` where a save needs it: on rank 0, and on every
+        rank of a pipe axis (its gather is collective); else None."""
+        if dist.is_main_process() or getattr(self, "_pipe_sharded", False):
+            return self._state()
+        return None
 
     def train(self) -> dict:
         """The epoch loop; returns the last epoch's log."""
@@ -347,11 +373,14 @@ class BaseTrainer:
                 "Emergency checkpoint SKIPPED: the failure is the "
                 "checkpoint path itself (%s).", exc)
             return
-        if self._cursor is None or not dist.is_main_process():
+        if self._cursor is None:
             return
         try:
+            state = self._saved_state()
+            if not dist.is_main_process():
+                return
             self.ckpt_manager.save_emergency(
-                epoch=self._cursor[0], **self._state(),
+                epoch=self._cursor[0], **state,
                 data_state=self._data_state_snapshot())
             self.logger.warning("Emergency checkpoint saved after %s: %s",
                                 type(exc).__name__, exc)
@@ -406,7 +435,16 @@ class Trainer(BaseTrainer):
                 f"a seq axis of {self.mesh.axis_size('seq')} needs a model "
                 f"with sequence-parallel attention; {type(model).__name__} "
                 "has none")
+        pipe = self.mesh.axis_size("pipe")
+        if pipe > 1 and getattr(model, "n_stages", None) != pipe:
+            raise ValueError(
+                f"a pipe axis of {pipe} needs a pipelined model of as many "
+                f"stages; {type(model).__name__} has "
+                f"{getattr(model, 'n_stages', 'no pipelined trunk')}")
+        # on a pipe axis: this rank keeps its stages' slices, before the
+        # optimizer and DDP see the parameters
         inject_mesh(model, self.mesh)
+        self._pipe_sharded = bool(getattr(model, "pipe_placements", None))
         super().__init__(config)
         cfg = config["trainer"]
         self._anomaly_was = torch.is_anomaly_enabled()
@@ -431,13 +469,16 @@ class Trainer(BaseTrainer):
             # before DDP registers the parameters that take gradients
             freeze_untrainable(model, trainable)
         self.ddp = None
-        if dist.in_group():
+        # DDP over the world, or over the data group on a pipe axis (the
+        # stages of a pipe row hold different weights of equal shapes)
+        ddp_group = self.mesh.group("data") if pipe > 1 else None
+        if dist.in_group() and (pipe == 1 or ddp_group is not None):
             # BN's running averages come from the global statistics, the
             # same on every rank: nothing to broadcast before a forward
             self.ddp = torch.nn.parallel.DistributedDataParallel(
                 model, device_ids=([self.device]
                                    if self.device.type == "cuda" else None),
-                broadcast_buffers=False)
+                broadcast_buffers=False, process_group=ddp_group)
         net = self.ddp if self.ddp is not None else model
         self.criterion = criterion
         self.metric_ftns = list(metric_ftns)
@@ -469,6 +510,12 @@ class Trainer(BaseTrainer):
 
         self.optimizer, self.lr_fn, self.plateau = build_optimizer(
             config, self.len_epoch, model)
+        if pipe > 1 and type(self.optimizer).__name__ in (
+                "LARS", "LAMB", "Adafactor"):
+            raise NotImplementedError(
+                f"{type(self.optimizer).__name__} reads each parameter's "
+                "whole norm; on a pipe axis a stage holds a slice of the "
+                "stacked trunk (an elementwise optimizer runs there)")
         self._plateau_warned = False
         self.skip_nonfinite = bool(cfg.get("skip_nonfinite", False))
         self.log_grad_norm = bool(cfg.get("log_grad_norm", False))
@@ -495,7 +542,7 @@ class Trainer(BaseTrainer):
             mesh=self.mesh)
         self.eval_step = make_eval_step(
             net, criterion, self.metric_ftns, input_key=self.input_key,
-            target_key=self.target_key)
+            target_key=self.target_key, mesh=self.mesh)
         if dist.is_main_process():
             self.logger.info(describe(model))
             self.logger.info("on %s, %d process(es), mesh %s%s",
@@ -628,14 +675,23 @@ class Trainer(BaseTrainer):
                 ds.get("global_step", "?"))
 
     def _state(self) -> dict:
-        return dict(model=self.model, optimizer=self.optimizer,
+        """The checkpoint manager's keyword arguments; on a pipe axis the
+        whole tensors, gathered over the pipe group (collective: every
+        rank calls it, at the same point)."""
+        model, optimizer, ema = self.model, self.optimizer, \
+            self.train_step.ema
+        if self._pipe_sharded:
+            model = _Whole(gather_pipe(model, model.state_dict()))
+            optimizer = _Whole(gather_optimizer_state(self.model, optimizer))
+            ema = None if ema is None else gather_pipe(self.model, ema)
+        return dict(model=model, optimizer=optimizer,
                     train_state=self.train_step.state_dict(),
                     arch=type(self.model).__name__,
                     config=dict(self.config.config),
                     monitor_best=(self.mnt_best
                                   if isinstance(self.mnt_best, (int, float))
                                   else 0.0),
-                    ema=self.train_step.ema)
+                    ema=ema)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -778,10 +834,12 @@ class Trainer(BaseTrainer):
                 break
             if (self.save_interval_steps
                     and (batch_idx + 1) % self.save_interval_steps == 0
-                    and main):
-                self.ckpt_manager.save_interval(
-                    epoch=epoch, step=batch_idx + 1, **self._state(),
-                    data_state=self._data_state_snapshot())
+                    and (main or self._pipe_sharded)):
+                state = self._saved_state()
+                if main:
+                    self.ckpt_manager.save_interval(
+                        epoch=epoch, step=batch_idx + 1, **state,
+                        data_state=self._data_state_snapshot())
         while pending_log:
             self._flush_log_entry(pending_log.popleft())
         self.health.drain()   # the last step's summary
@@ -917,9 +975,10 @@ class Trainer(BaseTrainer):
                     "promotion skipped for epoch %d "
                     "(health.pause_best_promotion).",
                     self.health.last_anomaly_step, epoch)
+        state = self._saved_state()
         if dist.is_main_process():
             self.ckpt_manager.save(
-                epoch=epoch, **self._state(), save_best=save_best,
+                epoch=epoch, **state, save_best=save_best,
                 # a finished epoch gives (epoch + 1, batch 0); a preempted
                 # one its exact next batch
                 data_state=self._data_state_snapshot())
@@ -945,6 +1004,17 @@ class Trainer(BaseTrainer):
         if self._train_iter is not None:
             current, total = batch_idx, self.len_epoch
         return f"[{current}/{total} ({100.0 * current / total:.0f}%)]"
+
+
+class _Whole:
+    """A gathered state dict in the place of the module or optimizer it
+    came from (what the checkpoint manager calls ``state_dict()`` on)."""
+
+    def __init__(self, state: dict):
+        self._state = state
+
+    def state_dict(self) -> dict:
+        return self._state
 
 
 def model_device(model) -> torch.device:

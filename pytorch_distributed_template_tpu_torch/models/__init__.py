@@ -7,3 +7,5 @@ from . import lenet  # noqa: F401  (registers LeNet, MnistModel)
 from . import resnet  # noqa: F401  (registers ResNet18/34/50/101/152)
 from . import vit  # noqa: F401  (registers ViT)
 from . import bert  # noqa: F401  (registers BertMLM, BertClassifier)
+from . import pipelined  # noqa: F401  (registers GPT2Pipelined, PipelinedLM,
+#                                  LlamaPipelined, TinyPipeLM)

@@ -28,7 +28,11 @@ translation:
 - the BERT tree: the trunk under ``encoder`` (``encoder/wte/embedding``,
   ``encoder/wpe``, ``encoder/h_i/...``, ``encoder/ln_f``) and
   ``classifier_head`` like any dense layer; a bare ``wpe`` under a module
-  as at the root.
+  as at the root;
+- the pipelined families' trees (``models/pipelined.py``): flat top-level
+  leaves (``wte``, ``qkv_k [L, D, 3D]``, ..., ``lnf_g``; ``embed_tokens``,
+  ``q_k``, ..., ``head_k``) as they are, under the same names: the port's
+  pipelined modules keep flax's stacked ``[in, out]`` kernels.
 
 A ResNet's ``batch_stats`` (``<bn>/mean`` and ``<bn>/var``) are the BN
 modules' buffers ``<bn>.running_mean`` and ``<bn>.running_var``
@@ -62,6 +66,11 @@ _EXPERT_LEAVES = ("wi", "wo", "bi", "bo")   # MoeMlp's stacked expert params
 _TOP_LEVEL = ("wpe", "cls", "pos_embed")     # bare params (BERT's wpe
 #                                              sits under ``encoder``)
 _AS_IS = _TOP_LEVEL + ("lora_a", "lora_b")   # leaves that keep their name
+#: the pipelined families' flat top-level leaves (GPT-2, then Llama)
+_PIPELINED = ("wte", "ln1_g", "ln1_b", "qkv_k", "qkv_b", "out_k", "out_b",
+              "ln2_g", "ln2_b", "up_k", "up_b", "down_k", "down_b", "lnf_g",
+              "lnf_b", "embed_tokens", "q_k", "k_k", "v_k", "o_k",
+              "gate_k", "norm_g", "head_k")
 _BATCH_NORM = re.compile(r"^(bn_init|norm_proj|BatchNorm_\d+)$")
 #: batch_stats leaf <-> BN buffer
 _STATS = {"mean": "running_mean", "var": "running_var"}
@@ -124,7 +133,7 @@ def params_from_flax(tree) -> dict:
         parts = [_INDEXED.sub(r"\1.\2", p) for p in path[:-1]]
         last = path[-1]
         if not parts:
-            if last not in _TOP_LEVEL:
+            if last not in _TOP_LEVEL + _PIPELINED:
                 raise KeyError(f"unexpected flax leaf {last}")
             name = last
         elif last == "kernel":

@@ -1,13 +1,16 @@
 """Differentiable collectives over one process group: the counterparts of
-``lax.ppermute`` and the tiled ``lax.all_to_all`` that the JAX package's
-ring and Ulysses attention run inside ``shard_map``.
+``lax.ppermute``, the tiled ``lax.all_to_all`` and ``lax.psum`` that the
+JAX package's ring and Ulysses attention and its pipeline schedule run
+inside ``shard_map``.
 
 Each is a ``torch.autograd.Function``: :func:`ppermute` sends to the next
 rank of the group and receives from the previous one (``batch_isend_irecv``);
 its backward is the reverse permutation. :func:`all_to_all` splits a tensor
 into the group's size along one axis, sends chunk ``j`` to rank ``j`` and
 concatenates what it receives along another axis in rank order
-(``all_to_all_single``); its backward is the inverse all-to-all. Autograd
+(``all_to_all_single``); its backward is the inverse all-to-all.
+:func:`psum` sums a tensor over the group (``all_reduce``); its backward
+sums the cotangents over the group, psum's transpose. Autograd
 then differentiates a ring as JAX does, through the flash backward, the
 merges and the permutes. Every rank must issue the same collectives in the
 same order: callers never branch on their rank around one.
@@ -22,7 +25,7 @@ import torch.distributed as tdist
 
 #: ``{"ppermute": calls, "ppermute_bytes": bytes sent, "all_to_all": ...}``
 P2P = {"ppermute": 0, "ppermute_bytes": 0, "all_to_all": 0,
-       "all_to_all_bytes": 0}
+       "all_to_all_bytes": 0, "psum": 0, "psum_bytes": 0}
 
 
 def reset_counts() -> None:
@@ -95,6 +98,31 @@ def all_to_all(x: torch.Tensor, group, split_axis: int,
     ``split_axis``, chunk ``j`` to rank ``j``, the received chunks
     concatenated along ``concat_axis`` in rank order."""
     return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.contiguous().clone()
+    P2P["psum"] += 1
+    P2P["psum_bytes"] += out.numel() * out.element_size()
+    tdist.all_reduce(out, group=group)
+    return out
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` on every rank (``lax.psum``); the
+    backward sums the cotangents over the group."""
+    return _PSum.apply(x, group)
 
 
 def all_to_all_local(xs, split_axis: int, concat_axis: int):

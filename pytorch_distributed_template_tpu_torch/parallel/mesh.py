@@ -2,19 +2,22 @@
 the JAX package's ``parallel/mesh.py`` (``resolve_axis_sizes``,
 ``build_mesh``, ``mesh_from_config``).
 
-The port runs two axes: ``data`` (DDP over the ranks) and ``seq``
-(sequence parallelism: ring and Ulysses attention, ops/attention.py).
-Ranks are laid out as JAX's ``build_mesh`` reshapes its devices in
-``MESH_AXES`` order, data outer and seq inner: ``rank = data_index * S +
-seq_index``. :func:`build_mesh` makes one process group per seq row (the
-ranks that share a data index) and one per data column, on every rank in
-the same order (``dist.new_group`` is collective). The other axes refuse
-by name until their ROADMAP items port them (:data:`LATER_AXES`).
+The port runs three axes: ``pipe`` (pipeline parallelism:
+parallel/pipeline.py, the pipelined models), ``data`` (DDP over the
+ranks) and ``seq`` (sequence parallelism: ring and Ulysses attention,
+ops/attention.py). Ranks are laid out as JAX's ``build_mesh`` reshapes its
+devices in ``MESH_AXES`` order, pipe outermost and seq innermost: ``rank =
+(pipe_index * D + data_index) * S + seq_index``. :func:`build_mesh` makes
+one process group per row of each axis of size > 1 (the ranks that differ
+only in their index on it), on every rank in the same order
+(``dist.new_group`` is collective). The other axes refuse by name until
+their ROADMAP items port them (:data:`LATER_AXES`).
 
 :func:`build_mesh` of :func:`mesh_from_config` is the config's mesh; the
 entry points build it once and hand its data axis (:meth:`Mesh.data_shard`)
-to the loaders, so every rank of a seq row reads the same batch, as JAX's
-``batch_spec`` shards the batch over the data axes only.
+to the loaders, so every rank of a seq row and every stage of a pipe row
+reads the same batch, as JAX's ``batch_spec`` shards the batch over the
+data axes only.
 """
 from __future__ import annotations
 
@@ -26,12 +29,11 @@ from . import dist
 
 MESH_AXES = ("pipe", "data", "fsdp", "seq", "expert", "tensor")
 #: the axes the port runs, in rank order (outer first)
-PORTED_AXES = ("data", "seq")
+PORTED_AXES = ("pipe", "data", "seq")
 #: the ROADMAP item that ports each other axis
 LATER_AXES = {
     "tensor": "ROADMAP A11b (tensor parallelism and FSDP), a later slice",
     "fsdp": "ROADMAP A11b (tensor parallelism and FSDP), a later slice",
-    "pipe": "ROADMAP A11c (pipeline parallelism), a later slice",
     "expert": "ROADMAP A11d (expert parallelism), a later slice",
 }
 
@@ -82,9 +84,9 @@ def mesh_from_config(config, world_size: Optional[int] = None
 
 
 class Mesh:
-    """The ``{data, seq}`` mesh of one rank: the axis sizes, this rank's
-    index on each axis and the process group of each axis it belongs to
-    (None for an axis of size 1, or without a process group)."""
+    """The ``{pipe, data, seq}`` mesh of one rank: the axis sizes, this
+    rank's index on each axis and the process group of each axis it belongs
+    to (None for an axis of size 1, or without a process group)."""
 
     def __init__(self, sizes: Dict[str, int], rank: int = 0,
                  groups: Optional[dict] = None):
@@ -96,18 +98,21 @@ class Mesh:
         """The axis's size; 1 for an axis the mesh does not have."""
         return self.sizes.get(name, 1)
 
+    @property
+    def axis_names(self) -> tuple:
+        """The axes of size > 1, in rank order (what a partition rule's
+        axis must name to shard: parallel/sharding.py)."""
+        return tuple(a for a in PORTED_AXES if self.sizes[a] > 1)
+
     def axis_index(self, name: str) -> int:
-        """This rank's index on the axis (``rank = data * S + seq``)."""
-        seq = self.sizes["seq"]
-        if name == "seq":
-            return self.rank % seq
-        if name == "data":
-            return self.rank // seq
-        return 0
+        """This rank's index on the axis (``rank = (pipe * D + data) * S +
+        seq``)."""
+        return _index(self.sizes, self.rank, name)
 
     def data_shard(self) -> tuple:
         """``(index, count)`` of this rank's data shard, as the loaders
-        take it: every rank of a seq row reads the same shard."""
+        take it: every rank of a seq row and of a pipe row reads the same
+        shard."""
         return self.axis_index("data"), self.axis_size("data")
 
     def group(self, name: str):
@@ -115,13 +120,24 @@ class Mesh:
         return self._groups.get(name)
 
 
+def _index(sizes: Dict[str, int], rank: int, axis: str) -> int:
+    """``rank``'s index on ``axis`` (0 for an axis the mesh lacks)."""
+    if axis not in PORTED_AXES:
+        return 0
+    inner = int(np.prod([sizes[a] for a in PORTED_AXES[
+        PORTED_AXES.index(axis) + 1:]]))
+    return (rank // inner) % sizes[axis]
+
+
 def _axis_ranks(sizes: Dict[str, int], axis: str):
     """Every group of ``axis``: the global ranks that differ only in their
     index on it, groups in rank order."""
-    d, s = sizes["data"], sizes["seq"]
-    if axis == "seq":
-        return [[i * s + j for j in range(s)] for i in range(d)]
-    return [[i * s + j for i in range(d)] for j in range(s)]
+    n = int(np.prod([sizes[a] for a in PORTED_AXES]))
+    groups: dict = {}
+    for rank in range(n):
+        key = tuple(_index(sizes, rank, a) for a in PORTED_AXES if a != axis)
+        groups.setdefault(key, []).append(rank)
+    return list(groups.values())
 
 
 def build_mesh(sizes: Dict[str, int]) -> Mesh:
@@ -129,7 +145,7 @@ def build_mesh(sizes: Dict[str, int]) -> Mesh:
     rank creates every axis group, in the same order)."""
     sizes = {a: int(sizes.get(a, 1)) for a in PORTED_AXES}
     n = dist.process_count()
-    if sizes["data"] * sizes["seq"] != n:
+    if int(np.prod(list(sizes.values()))) != n:
         raise ValueError(f"mesh {sizes} does not cover the {n} process(es)")
     rank = dist.process_index()
     groups = {}

@@ -74,6 +74,10 @@ ENTRY_MODULES = [
     "pytorch_distributed_template_tpu_torch.checkpoint.average",
     "pytorch_distributed_template_tpu_torch.tools.merge_lora",
     "pytorch_distributed_template_tpu_torch.tools.bert_transfer_experiment",
+    "pytorch_distributed_template_tpu_torch.parallel.sharding",
+    "pytorch_distributed_template_tpu_torch.parallel.pipeline",
+    "pytorch_distributed_template_tpu_torch.models.pipelined",
+    "pytorch_distributed_template_tpu_torch.models.hf_import",
 ]
 
 

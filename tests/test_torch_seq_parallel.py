@@ -300,7 +300,8 @@ def test_four_gloo_ranks_equal_jax_trainer(runs, name):
     jax_out, ranks, params, _ = runs
     for r in ranks:
         run = r[name]
-        assert run["ddp"] and run["mesh"] == {"data": 2, "seq": 2}
+        assert run["ddp"]
+        assert run["mesh"] == {"pipe": 1, "data": 2, "seq": 2}
         assert run["shards"] == 2 and run["steps"] == 3
         # every rank logs the same global numbers
         assert [{k: log[k] for k in KEYS} for log in run["logs"]] == [
