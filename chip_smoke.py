@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 3e, 4, 5, 6, 7, 8, 9,
-10, 11, 12, 13, 14a, 14b, 14c, 15a-15f, 16a-16g, 17a-17d), each one's time
+10, 11, 12, 13, 14a, 14b, 14c, 15a-15f, 16a-16g, 17a-17d, 18a-18c), each
+one's time
 printed beside the card line; any failure exits non-zero and no phase's
 exception is caught:
 
@@ -371,14 +372,26 @@ attention is the plain einsum attention, as in the JAX trunk) adds:
     "not run: N card(s)"``;
 17d. phase 6's GPT-2 small exported to an HF ``GPT2LMHeadModel`` state
     dict and imported again (``models/hf_import.py``): every tensor and
-    the logits of 2 x 1024 tokens bit-equal.
+    the logits of 2 x 1024 tokens bit-equal;
+18a. B1 and B2/B3 against their plain versions at Mistral-7B's per-rank
+    shapes on a tensor axis (``TP_KERNEL_SHAPES``, ``TP_BWD_SHAPES``);
+18b. with 4 cards: one ``torchrun --nproc_per_node=4`` (``--tp-child``)
+    trains ``configs/mistral_7b_fsdp.json`` cut to 2 layers in f32 on
+    ``{"fsdp": 4}``, ``{"tensor": 4}``, ``{"fsdp": 2, "tensor": 2}`` and
+    ``{"data": 2, "fsdp": 2}`` against one rank (``phase_tp_nccl``);
+18c. with 4 cards: the config as it is, Mistral-7B at full width and
+    depth in bf16, 5 steps on ``{"fsdp": 4}`` and 5 on ``{"tensor": 4}``:
+    ms/step, MFU, peak memory and collective bytes per rank
+    (``phase_tp_full``). With fewer cards 18b and 18c print ``"tp_fsdp":
+    "not run: N card(s)"``.
 
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
-the launches of slices 1, 3, 4, 6, 7, 8, 9, 10 and 11, paged_attn with
-slice 2's, flash_bwd_dkv and flash_bwd_dq with slices 3, 4, 6, 7, 8, 9,
-10 and 11, expert_ffn with slice 4's; phase 14a's block shapes, phase
-15b's ViT shapes and phase 16b's BERT shape among the rows) and the
+the launches of slices 1, 3, 4, 6, 7, 8, 9, 10, 11 and 13 (rank 0's of
+18b/18c), paged_attn with slice 2's, flash_bwd_dkv and flash_bwd_dq with
+slices 3, 4, 6, 7, 8, 9, 10, 11 and 13, expert_ffn with slice 4's; phase
+14a's block shapes, phase 15b's ViT shapes, phase 16b's BERT shape and
+phase 18a's tensor-parallel shapes among the rows) and the
 device line ``{"ok": true, "device": {...}}``.
 Every kernel row also carries ``pct_of_bound`` (100 x bound / kernel time) and
 ``x_library`` (kernel time / library time); kernel times are device times
@@ -4038,7 +4051,7 @@ def seq_child(spec_path: str) -> int:
     train_cli.main(spec["argv"], on_trainer=hook)
     rank = dist.process_index()
     t = box["trainer"]
-    placed = getattr(t.model, "pipe_placements", None) or {}
+    placed = getattr(t.model, "placements", None) or {}
     Path(f"{spec['out']}.rank{rank}.json").write_text(json.dumps({
         "rank": rank, "steps": steps, "mesh": t.mesh.sizes,
         "world": dist.process_count(), "backend": dist.backend(),
@@ -5403,10 +5416,10 @@ def phase_pp_train(card: str, device="cuda", config=GPT2_PP_CONFIG,
         lead = tuple(m.qkv_k.shape[:3])
         want = (m.n_stages, m.n_chunks, m.n_layer // (m.n_stages
                                                        * m.n_chunks))
-        if lead != want or m.pipe_placements or trainer.mesh.axis_size(
+        if lead != want or m.placements or trainer.mesh.axis_size(
                 "pipe") != 1:
             raise AssertionError(f"[pp_train] trunk {lead}, placements "
-                                 f"{m.pipe_placements}, mesh "
+                                 f"{m.placements}, mesh "
                                  f"{trainer.mesh.sizes}")
         log("[pp_train] " + json.dumps({
             "layout": list(lead), "grad_accum_steps":
@@ -5424,16 +5437,15 @@ def _pp_argv(config, sets, save_dir, device) -> list:
     return argv
 
 
-def _pp_torchrun(tag, name, config, sets, root, device, nproc, timeout):
-    """``torchrun --nproc_per_node=nproc`` of ``config`` cut by ``sets``
-    (this script's ``--sp-child`` per rank): each rank's record."""
-    spec = {"argv": _pp_argv(config, sets, root / f"{name}_ranks", device),
-            "out": str(root / f"{name}_out")}
-    spec_path = root / f"{name}.json"
+def _torchrun_child(flag, spec, spec_path, label, nproc, timeout):
+    """``torchrun --nproc_per_node=nproc`` of this script's ``flag``
+    child (``--sp-child`` or ``--tp-child``) on ``spec``, written to
+    ``spec_path``: each rank's record (``<out>.rank<R>.json``) and the
+    wall seconds."""
     spec_path.write_text(json.dumps(spec))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={nproc}", str(REPO / "chip_smoke.py"),
-           "--sp-child", str(spec_path)]
+           flag, str(spec_path)]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                        timeout=timeout)
@@ -5442,11 +5454,19 @@ def _pp_torchrun(tag, name, config, sets, root, device, nproc, timeout):
         err = r.stderr + r.stdout
         at = err.find("Traceback")
         tail = err[at:at + 4000] if at >= 0 else err[-4000:]
-        raise AssertionError(f"[{tag}] {name}: torchrun exited "
-                             f"{r.returncode}: {tail}")
-    ranks = [json.loads(Path(f"{spec['out']}.rank{i}.json").read_text())
-             for i in range(nproc)]
-    return ranks, wall
+        raise AssertionError(f"[{label}] torchrun exited {r.returncode}: "
+                             f"{tail}")
+    return [json.loads(Path(f"{spec['out']}.rank{i}.json").read_text())
+            for i in range(nproc)], wall
+
+
+def _pp_torchrun(tag, name, config, sets, root, device, nproc, timeout):
+    """``torchrun --nproc_per_node=nproc`` of ``config`` cut by ``sets``
+    (this script's ``--sp-child`` per rank): each rank's record."""
+    spec = {"argv": _pp_argv(config, sets, root / f"{name}_ranks", device),
+            "out": str(root / f"{name}_out")}
+    return _torchrun_child("--sp-child", spec, root / f"{name}.json",
+                           f"{tag}] [{name}", nproc, timeout)
 
 
 def _one_rank(argv, device):
@@ -5676,6 +5696,398 @@ def phase_hf_import(card: str, device="cuda", config=TRAIN_CONFIG,
     return row
 
 
+# ---------------------------------------------------------------------------
+# slice 13: tensor parallelism and ZeRO-3 (the tensor and fsdp mesh axes on
+# the GPT-2 and Llama families); B1-B3 run on each tensor rank's local
+# heads, no new kernel
+# ---------------------------------------------------------------------------
+
+MISTRAL_FSDP_CONFIG = REPO / "pytorch_distributed_template_tpu_torch" \
+    / "configs" / "mistral_7b_fsdp.json"
+# phase 18a: B1-B3 at the per-rank shapes of Mistral-7B on a tensor axis
+# (32/8 heads split 4 or 2 ways; T 4096, D 128, the 4096-token band): one
+# row under tensor 4, the four rows each tensor-4 rank runs at 18c's global
+# batch (every rank of a tensor row reads the batch), and tensor 2
+TP_KERNEL_SHAPES = [
+    (1, 8, 2, 4096, 128, True, 4096, torch.bfloat16),
+    (4, 8, 2, 4096, 128, True, 4096, torch.bfloat16),
+    (1, 16, 4, 4096, 128, True, 4096, torch.bfloat16),
+]
+TP_BWD_SHAPES = [
+    ("mistral_tensor4", 1, 8, 2, 4096, 128, True, 4096, torch.bfloat16,
+     False),
+    ("mistral_tensor2", 1, 16, 4, 4096, 128, True, 4096, torch.bfloat16,
+     False),
+]
+# phase 18b: mistral_7b_fsdp.json cut to 2 layers (every width as it is),
+# float32 without TF32, 3 steps of the global batch 4 on each mesh (the
+# fsdp-4 run 2 epochs, a checkpoint each: the only run that saves),
+# against one rank without a tensor or fsdp axis
+TP_NCCL_COMMON = [("arch;args;n_layer", 2), ("arch;args;bfloat16", False),
+                  ("train_loader;args;n", 12), ("valid_loader;args;n", 4)]
+TP_NO_SAVE = [("trainer;save_period", 1000)]
+TP_NCCL_MESHES = [("fsdp4", {"fsdp": 4}), ("tensor4", {"tensor": 4}),
+                  ("fsdp2_tensor2", {"fsdp": 2, "tensor": 2}),
+                  ("data2_fsdp2", {"data": 2, "fsdp": 2})]
+TP_NCCL_STEPS = 3
+TP_GLOBAL_BATCH = 4
+# phase 18c: the config as it is (bf16, 32 layers), 5 steps on each mesh
+TP_FULL_MESHES = [("fsdp4", {"fsdp": 4}), ("tensor4", {"tensor": 4})]
+TP_FULL_COMMON: list = []
+# the two meshes' bf16 losses from the same weights and rows: bf16's
+# rounding of the same sums taken in other orders
+TP_BF16_RTOL = 2e-2
+GIB = 1 << 30
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+COLLECTIVE_KEYS = ("all_gather", "all_gather_bytes", "reduce_scatter",
+                   "reduce_scatter_bytes", "all_reduce", "all_reduce_bytes")
+
+
+def _tp_sets(mesh: dict, batch: int = TP_GLOBAL_BATCH) -> list:
+    """The mesh, and the loaders' per-shard batch of the global ``batch``."""
+    shards = mesh.get("data", 1) * mesh.get("fsdp", 1)
+    return [("mesh;axes", mesh),
+            ("train_loader;args;batch_size", batch // shards),
+            ("valid_loader;args;batch_size", batch // shards)]
+
+
+def _flash_counts() -> list:
+    from pytorch_distributed_template_tpu_torch.ops import flash
+
+    return [flash.FLASH_FWD.launches, flash.FLASH_BWD_DKV.launches,
+            flash.FLASH_BWD_DQ.launches]
+
+
+def _count_plain_flash() -> None:
+    """On the CPU (a rehearsal): the plain attention versions count as the
+    kernels' launches, as the tests' ``counted_plain`` does."""
+    from pytorch_distributed_template_tpu_torch.ops import flash
+
+    fwd, bwd = flash.flash_attention_ref, flash.flash_attention_bwd_ref
+
+    def counted_fwd(*args, **kw):
+        flash.FLASH_FWD.launches += 1
+        return fwd(*args, **kw)
+
+    def counted_bwd(*args, **kw):
+        flash.FLASH_BWD_DKV.launches += 1
+        flash.FLASH_BWD_DQ.launches += 1
+        return bwd(*args, **kw)
+
+    flash.flash_attention_ref = counted_fwd
+    flash.flash_attention_bwd_ref = counted_bwd
+
+
+def tp_child(spec_path: str) -> int:
+    """One rank of phases 18b/18c (``chip_smoke.py --tp-child SPEC`` under
+    ``torchrun``): the port's ``train.py`` on each of the spec's argvs in
+    turn (``"@name"`` is that run's ``checkpoint-epoch1``), TF32 off;
+    writes per run each train step's loss, ms and collective calls and
+    bytes, the B1-B3 launches, the peak memory, the placements and the
+    parameter bytes to ``<out>.rank<R>.json``."""
+    from pytorch_distributed_template_tpu_torch import train as train_cli
+    from pytorch_distributed_template_tpu_torch.parallel import (
+        collectives, dist,
+    )
+
+    spec = json.loads(Path(spec_path).read_text())
+    if spec.get("count_plain"):
+        _count_plain_flash()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = {}
+    for name, argv in spec["runs"]:
+        argv = [result[a[1:]]["run_dir"] + "/checkpoint-epoch1"
+                if a.startswith("@") else a for a in argv]
+        steps, box = [], {}
+
+        def hook(trainer):
+            box["trainer"] = trainer
+            cuda = trainer.device.type == "cuda"
+            box["peak_setup"] = (torch.cuda.max_memory_allocated() / GIB
+                                 if cuda else 0.0)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            box["launches"] = _flash_counts()
+            real = trainer.train_step
+
+            def call(batch):
+                _sync(trainer.device)
+                collectives.reset_counts()
+                t0 = time.perf_counter()
+                m = real(batch)
+                _sync(trainer.device)
+                steps.append({"loss": float(m["loss_sum"])
+                              / max(float(m["count"]), 1.0),
+                              "ms": (time.perf_counter() - t0) * 1e3,
+                              **{k: collectives.P2P[k]
+                                 for k in COLLECTIVE_KEYS}})
+                return m
+
+            trainer.train_step = _Wrapped(real, call)
+
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        train_cli.main(argv, on_trainer=hook)
+        t = box["trainer"]
+        cuda = t.device.type == "cuda"
+        placed = t.model.placements
+        result[name] = {
+            "steps": steps, "mesh": t.mesh.sizes, "ddp": t.ddp is not None,
+            "backend": dist.backend(), "world": dist.process_count(),
+            "run_dir": str(t.config.save_dir),
+            "launches": [b - a for a, b in zip(box["launches"],
+                                               _flash_counts())],
+            "peak_gib_setup": box["peak_setup"],
+            "peak_gib_steps": (torch.cuda.max_memory_allocated() / GIB
+                               if cuda else 0.0),
+            "placements": {n: pl.axis for n, pl in placed.items()},
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in t.model.parameters()),
+            "params_whole": sum(p.numel() * (t.mesh.axis_size(
+                placed[n].axis) if n in placed else 1)
+                for n, p in t.model.named_parameters())}
+        del t
+        box.clear()
+        _release("cuda" if cuda else "cpu")
+    rank = dist.process_index()
+    Path(f"{spec['out']}.rank{rank}.json").write_text(json.dumps(
+        {"rank": rank, "runs": result}))
+    dist.shutdown()
+    return 0
+
+
+def _tp_torchrun(tag, runs, root, device, nproc, timeout):
+    """``torchrun --nproc_per_node=nproc`` of this script's ``--tp-child``
+    over ``runs`` (``[(name, argv)]``): each rank's record."""
+    spec = {"runs": runs, "out": str(root / f"{tag}_out"),
+            "count_plain": torch.device(device).type == "cpu"}
+    return _torchrun_child("--tp-child", spec, root / f"{tag}.json", tag,
+                           nproc, timeout)
+
+
+def _not_run(tag, device, nproc, card) -> bool:
+    cards = torch.cuda.device_count() if device == "cuda" else nproc
+    if device == "cuda" and cards < nproc:
+        log(f"[{tag}] " + json.dumps({"tp_fsdp": f"not run: {cards} "
+                                      "card(s)", "card": card}))
+        return True
+    return False
+
+
+def _expected_bytes(model, placements: dict, mesh: dict) -> int:
+    """A rank's parameter bytes under ``placements`` (``{name: axis}``) of
+    the whole ``model``: a placed tensor's share, the others whole."""
+    return sum(p.numel() * p.element_size()
+               // mesh.get(placements.get(n), 1)
+               for n, p in model.named_parameters())
+
+
+def phase_tp_nccl(card: str, device="cuda", work=WORK,
+                  config=MISTRAL_FSDP_CONFIG, nproc: int = 4,
+                  timeout: float = 900.0, common=TP_NCCL_COMMON,
+                  meshes=TP_NCCL_MESHES,
+                  n_steps: int = TP_NCCL_STEPS) -> dict:
+    """Phase 18b: with ``nproc`` cards, one ``torchrun`` trains
+    ``configs/mistral_7b_fsdp.json`` cut by ``TP_NCCL_COMMON`` (2 layers,
+    float32 without TF32) for ``n_steps`` steps on each of
+    ``TP_NCCL_MESHES`` (the fsdp-4 run two epochs, a checkpoint each), then
+    resumes the fsdp-4 run's ``checkpoint-epoch1`` on ``{"tensor": 4}``;
+    against one rank in this process without those axes (two epochs),
+    and that checkpoint resumed in this process: every mesh's losses within
+    ``SEQ_NCCL_RTOL`` of the one rank's, every rank the same losses, no
+    DDP, each rank's parameter bytes the placement's share of the one
+    rank's, B1-B3 launched on every rank; the resumed runs' losses equal
+    the fsdp-4 run's epoch 2. Prints the collectives' calls and bytes per
+    step. With fewer cards it prints ``"tp_fsdp": "not run: N card(s)"``
+    and returns {}. ``common``, ``meshes`` and ``n_steps`` cut it (a tiny
+    width on the CPU: the ranks run on gloo with ``--device cpu``)."""
+    tag = "tp_nccl"
+    if _not_run(tag, device, nproc, card):
+        return {}
+    root = work / tag
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    runs = []
+    for name, mesh in meshes:
+        saves = ([("trainer;epochs", 2), ("trainer;save_period", 1)]
+                 if name == "fsdp4" else [("trainer;epochs", 1)]
+                 + TP_NO_SAVE)
+        runs.append((name, _pp_argv(config, list(common) + _tp_sets(mesh)
+                                    + saves, root / name, device)))
+    runs.append(("resumed_tensor4", [
+        "-r", "@fsdp4", "-s", str(root / "resumed"), "--device",
+        str(device)] + sum((["--set", k, json.dumps(v)] for k, v in
+                            _tp_sets({"tensor": 4}) + TP_NO_SAVE), [])))
+    ranks, wall = _tp_torchrun(tag, runs, root, device, nproc, timeout)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        one, trainer = _one_rank(_pp_argv(
+            config, list(common) + _tp_sets({"data": 1})
+            + [("trainer;epochs", 2)] + TP_NO_SAVE, root / "one", device),
+            device)
+        model = trainer.model
+        expected = {name: _expected_bytes(
+            model, ranks[0]["runs"][name]["placements"], mesh)
+            for name, mesh in meshes}
+        whole = sum(p.numel() for p in model.parameters())
+        del trainer, model
+        _release(device)
+        resumed, _ = _one_rank([
+            "-r", str(Path(ranks[0]["runs"]["fsdp4"]["run_dir"])
+                      / "checkpoint-epoch1"),
+            "-s", str(root / "resume_one"), "--device", str(device)]
+            + sum((["--set", k, json.dumps(v)] for k, v in
+                   _tp_sets({"data": 1}) + TP_NO_SAVE), []), device)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    one_losses = [s["loss"] for s in one]
+    out = {}
+    for name, mesh in meshes + [("resumed_tensor4", {"tensor": 4})]:
+        first = ranks[0]["runs"][name]
+        losses = [s["loss"] for s in first["steps"]]
+        want = (one_losses[n_steps:] if name.startswith("resumed")
+                else one_losses[:len(losses)])
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        row = {"mesh": name, "sizes": first["mesh"],
+               "world": first["world"], "backend": first["backend"],
+               "losses": losses, "one_rank_losses": want, "rel_diff": rel,
+               "rtol": SEQ_NCCL_RTOL,
+               "param_bytes_per_rank": [r["runs"][name]["param_bytes"]
+                                        for r in ranks],
+               "launches_per_rank": [r["runs"][name]["launches"]
+                                     for r in ranks],
+               "ms_per_step": [s["ms"] for s in first["steps"]],
+               "collectives_per_step": [{k: s[k] for k in COLLECTIVE_KEYS}
+                                        for s in first["steps"]],
+               "peak_gib_steps_per_rank": [r["runs"][name]["peak_gib_steps"]
+                                           for r in ranks],
+               "dtype": "float32", "card": card}
+        log(f"[{tag}] " + json.dumps(row))
+        n_want = 2 * n_steps if name == "fsdp4" else n_steps
+        if len(losses) != n_want or max(rel) > SEQ_NCCL_RTOL:
+            raise AssertionError(f"[{tag}] {name}: {nproc} ranks' losses "
+                                 f"{losses} against one rank's {want}")
+        for rk in ranks:
+            run = rk["runs"][name]
+            if [s["loss"] for s in run["steps"]] != losses:
+                raise AssertionError(f"[{tag}] {name}: rank {rk['rank']} "
+                                     "logged other losses")
+            if run["ddp"] or run["backend"] != ("nccl" if device == "cuda"
+                                                else "gloo"):
+                raise AssertionError(f"[{tag}] {name}: rank {rk['rank']}: "
+                                     f"ddp {run['ddp']}, {run['backend']}")
+            if not all(run["launches"]):
+                raise AssertionError(f"[{tag}] {name}: rank {rk['rank']} "
+                                     f"launched B1-B3 {run['launches']}")
+            if run["params_whole"] != whole or (
+                    name in expected
+                    and run["param_bytes"] != expected[name]):
+                raise AssertionError(
+                    f"[{tag}] {name}: rank {rk['rank']} holds "
+                    f"{run['param_bytes']} bytes of {run['params_whole']} "
+                    f"params, not {expected.get(name)} of {whole}")
+        out[name] = row
+    resumed_losses = [s["loss"] for s in resumed]
+    fsdp_epoch2 = [s["loss"] for s in
+                   ranks[0]["runs"]["fsdp4"]["steps"]][n_steps:]
+    rel = [abs(a - b) / abs(b) for a, b in zip(resumed_losses, fsdp_epoch2)]
+    log(f"[{tag}] " + json.dumps({
+        "resumed_one_rank": resumed_losses, "fsdp4_epoch2": fsdp_epoch2,
+        "rel_diff": rel, "torchrun_wall_s": wall, "card": card}))
+    if len(resumed_losses) != n_steps or max(rel) > SEQ_NCCL_RTOL:
+        raise AssertionError(f"[{tag}] the fsdp-4 checkpoint resumed in one "
+                             f"process: {resumed_losses} against "
+                             f"{fsdp_epoch2}")
+    shutil.rmtree(root)
+    return out
+
+
+def phase_tp_full(card: str, device="cuda", work=WORK,
+                  config=MISTRAL_FSDP_CONFIG, nproc: int = 4,
+                  timeout: float = 1200.0, common=TP_FULL_COMMON,
+                  meshes=TP_FULL_MESHES,
+                  peak_flops: float = PEAK_FLOPS[torch.bfloat16]) -> dict:
+    """Phase 18c: with ``nproc`` cards, one ``torchrun`` trains
+    ``configs/mistral_7b_fsdp.json`` as it is (Mistral-7B at its published
+    widths and depth, bf16 over float32 master weights, remat, flash) for
+    an epoch (5 steps of the global batch 4 x 4096 tokens) on ``{"fsdp":
+    4}``, then on ``{"tensor": 4}``: every loss finite, the two meshes'
+    losses within ``TP_BF16_RTOL`` of each other, every rank's peak memory
+    under the card's, B1-B3 launched on every rank. Prints ms per step,
+    MFU (6 N tokens per step, the remat recompute not counted, over
+    ``nproc`` cards' bf16 peak), the peak memory and the collectives'
+    calls and bytes per step per rank. With fewer cards it prints
+    ``"tp_fsdp": "not run: N card(s)"`` and returns {}."""
+    tag = "tp_full"
+    if _not_run(tag, device, nproc, card):
+        return {}
+    root = work / tag
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    cfg = json.loads(Path(config).read_text())
+    for chain, value in common:
+        node = cfg
+        *head, last = chain.split(";")
+        for k in head:
+            node = node[k]
+        node[last] = value
+    tokens = TP_GLOBAL_BATCH * cfg["train_loader"]["args"]["seq_len"]
+    runs = [(name, _pp_argv(config, list(common) + _tp_sets(mesh),
+                            root / name, device)) for name, mesh in meshes]
+    ranks, wall = _tp_torchrun(tag, runs, root, device, nproc, timeout)
+    cap = (torch.cuda.get_device_properties(0).total_memory / GIB
+           if device == "cuda" else float("inf"))
+    out = {}
+    for name, _ in meshes:
+        first = ranks[0]["runs"][name]
+        steps = first["steps"]
+        ms = [s["ms"] for s in steps]
+        steady = float(np.median(ms[1:] or ms))
+        flops = 6.0 * first["params_whole"] * tokens
+        peaks = [max(r["runs"][name]["peak_gib_setup"],
+                     r["runs"][name]["peak_gib_steps"]) for r in ranks]
+        row = {"mesh": name, "sizes": first["mesh"],
+               "params": first["params_whole"], "tokens_per_step": tokens,
+               "losses": [s["loss"] for s in steps], "ms_per_step": ms,
+               "ms_per_step_median": steady,
+               "mfu": flops / (steady / 1e3 * nproc * peak_flops),
+               "param_gib_per_rank": [r["runs"][name]["param_bytes"] / GIB
+                                      for r in ranks],
+               "peak_gib_setup_per_rank": [r["runs"][name]["peak_gib_setup"]
+                                           for r in ranks],
+               "peak_gib_steps_per_rank": [r["runs"][name]["peak_gib_steps"]
+                                           for r in ranks],
+               "collectives_per_step": [{k: s[k] for k in COLLECTIVE_KEYS}
+                                        for s in steps],
+               "launches_per_rank": [r["runs"][name]["launches"]
+                                     for r in ranks],
+               "torchrun_wall_s": wall, "dtype": "bfloat16", "card": card}
+        log(f"[{tag}] " + json.dumps(row))
+        if not all(np.isfinite(row["losses"])) or max(peaks) >= cap:
+            raise AssertionError(f"[{tag}] {name}: losses {row['losses']}, "
+                                 f"peaks {peaks} GiB of {cap}")
+        if not all(all(r["runs"][name]["launches"]) for r in ranks):
+            raise AssertionError(f"[{tag}] {name}: B1-B3 launches "
+                                 f"{row['launches_per_rank']}")
+        out[name] = row
+    a, b = (out[name]["losses"] for name, _ in meshes[:2])
+    rel = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    log(f"[{tag}] " + json.dumps({"meshes": [m for m, _ in meshes[:2]],
+                                  "rel_diff": rel, "rtol": TP_BF16_RTOL,
+                                  "card": card}))
+    if len(a) != len(b) or max(rel) > TP_BF16_RTOL:
+        raise AssertionError(f"[{tag}] the meshes' bf16 losses {a} and {b}")
+    shutil.rmtree(root)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -5745,6 +6157,15 @@ def main() -> int:
     pp_launches = timed("17b", phase_pp_train, card)
     timed("17c", phase_pp_nccl, card)
     timed("17d", phase_hf_import, card)
+    rows += timed("18a", phase_kernel, TP_KERNEL_SHAPES)
+    bwd_rows += timed("18a-bwd", phase_bwd_kernel, TP_BWD_SHAPES)
+    tp_rows = timed("18b", phase_tp_nccl, card)
+    tp_rows.update({f"full_{k}": v for k, v in
+                    timed("18c", phase_tp_full, card).items()})
+    # rank 0's launches in the 18b/18c ranks (other processes)
+    tp_launches = dict(zip(FLASH_KERNELS, (
+        sum(row["launches_per_rank"][0][i] for row in tp_rows.values())
+        for i in range(3))))
     if any(pp_launches.values()):
         raise AssertionError(f"the pipelined trunk launched a kernel: "
                              f"{pp_launches}")
@@ -5761,7 +6182,7 @@ def main() -> int:
                                  + lm_launches[kern] + seq_launches[kern]
                                  + vit_launches[kern] + bert_launches[kern]
                                  + cls_launches[kern] + lora_launches[kern]
-                                 + llama_launches[kern])
+                                 + llama_launches[kern] + tp_launches[kern])
     flash_launches += train_launches["flash_fwd"] + moe_launches["flash_fwd"]
     for kernel, source, replaces, launches, shapes in (
             ("flash_fwd", KERNEL_SOURCE, KERNEL_REPLACES, flash_launches,
@@ -5795,4 +6216,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sp-child"]:
         sys.exit(seq_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-child"]:
+        sys.exit(tp_child(sys.argv[2]))
     sys.exit(main())

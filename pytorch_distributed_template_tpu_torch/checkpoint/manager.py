@@ -47,11 +47,12 @@ Under DDP the trainer calls the manager on rank 0 only. The model's state
 dict is always the bare module's (a ``DistributedDataParallel`` wrapper is
 unwrapped, and a ``module.`` prefix is stripped on load), so a checkpoint
 written under DDP loads in one process and the other way round. Every
-rank loads with ``map_location`` set to its own device. On a pipe axis
-the trainer hands the manager the whole tensors it gathered over the pipe
-group, so the files are a one-process run's; a load into a model that
-holds one stage's slices (``pipe_placements``) cuts the model's, the
-optimizer's and the EMA's tensors to them (``parallel.sharding``).
+rank loads with ``map_location`` set to its own device. On a pipe, fsdp or
+tensor axis the trainer hands the manager the whole tensors it gathered
+over the mesh, so the files are a one-process run's; a load into a model
+that holds slices (``placements``) reads the files memory-mapped on the
+host and cuts the model's, the optimizer's and the EMA's tensors to its
+slices (``parallel.sharding``) before they reach the device.
 """
 from __future__ import annotations
 
@@ -70,7 +71,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..observability.trace import span
-from ..parallel.sharding import slice_optimizer_state, slice_pipe
+from ..parallel.sharding import slice_optimizer_state, slice_placed
 from ..resilience import faults
 
 logger = logging.getLogger(__name__)
@@ -94,15 +95,23 @@ def _strip_module(state: dict) -> dict:
             for k, v in state.items()}
 
 
+def _read(path, model, map_location):
+    """``torch.load`` of a checkpoint file onto ``map_location``; for a
+    model that holds slices, memory-mapped on the host (a rank copies only
+    its slices to its device)."""
+    if getattr(_bare(model), "placements", None):
+        return torch.load(path, map_location="cpu", mmap=True)
+    return torch.load(path, map_location=map_location)
+
+
 def load_model(path, model, map_location="cpu", name="model.pt") -> None:
     """Load ``<path>/<name>`` into ``model`` (or a DDP wrapper's module),
     read onto ``map_location``: ``model.pt``, the params and buffers
     (BatchNorm's running averages), or ``ema.pt``, the EMA's shadow
     params, over the params alone (the buffers stay as they are)."""
-    state = _strip_module(torch.load(Path(path) / name,
-                                     map_location=map_location))
+    state = _strip_module(_read(Path(path) / name, model, map_location))
     model = _bare(model)
-    state = slice_pipe(model, state)
+    state = slice_placed(model, state)
     if name == EMA_FILE:
         missing = set(dict(model.named_parameters())) - set(state)
         if missing:
@@ -414,9 +423,8 @@ class CheckpointManager:
                 "resumed.")
         else:
             optimizer.load_state_dict(slice_optimizer_state(
-                _bare(model), optimizer, torch.load(
-                    resume_path / "optimizer.pt",
-                    map_location=map_location)))
+                _bare(model), optimizer, _read(
+                    resume_path / "optimizer.pt", model, map_location)))
         self._restore_ema(resume_path, model, ema, map_location)
         train_state = json.loads((resume_path / "train_state.json")
                                  .read_text())
@@ -435,8 +443,8 @@ class CheckpointManager:
                     "disabled in this run; shadow weights discarded.")
             return
         if has_ema:
-            source = slice_pipe(_bare(model), _strip_module(torch.load(
-                resume_path / EMA_FILE, map_location=map_location)))
+            source = slice_placed(_bare(model), _strip_module(_read(
+                resume_path / EMA_FILE, model, map_location)))
         else:
             logger.warning("Warning: checkpoint has no ema_params; seeding "
                            "EMA from the restored params.")
@@ -456,8 +464,8 @@ def warm_start_params(resume_path, model, map_location="cpu"
     and the epoch do not travel. Returns ``(restored keys, skipped
     keys)``, sorted."""
     resume_path = Path(resume_path).resolve()
-    disk = slice_pipe(_bare(model), _strip_module(torch.load(
-        resume_path / "model.pt", map_location=map_location)))
+    disk = slice_placed(_bare(model), _strip_module(_read(
+        resume_path / "model.pt", model, map_location)))
     current = dict(_bare(model).named_parameters())
     matched = sorted(k for k, v in current.items()
                      if k in disk and tuple(disk[k].shape) == tuple(v.shape))

@@ -131,7 +131,7 @@ not JAX's threefry: an augmented or mixed step is reproducible within
 each package, on any number of ranks, not across the packages.
 
 Pipeline parallelism (a mesh whose ``pipe`` axis is S > 1, a model with
-``pipe_placements``: the pipelined families, each rank holding its
+``pipe`` placements: the pipelined families, each rank holding its
 stage's slices of the trunk and the whole embeddings and head). Every rank
 of a pipe row computes the same loss from the outputs the pipeline sums
 over the row, and backpropagates it scaled by ``1 / S``; the sum's
@@ -143,12 +143,26 @@ replicated parameters' gradients are then summed over the pipe group (one
 gradient, bit for bit the same. DDP runs over the data group only (the
 trainer), so each backward is of the loss x data-axis size / S. The
 statistics are counted at pipe index 0 (the others add zeros to the one
-``all_reduce``). Every global read takes the whole row
-(``parallel.sharding.PipeReduce``): the pre-clip gradient norm, the update
-norm, the non-finite counts of the health summary and of
-``skip_nonfinite`` / ``debug.nan_check`` sum a stage slice's part over the
-pipe group and count a replicated parameter once, so every rank clips by
-the same scale and takes the same skip decision.
+``all_reduce``).
+
+Tensor parallelism and ZeRO-3 (a mesh whose ``tensor`` or ``fsdp`` axis
+is > 1; no DDP): every rank of a tensor row computes the same loss (the
+model gathers its vocab-sharded logits), counted at tensor index 0; an
+fsdp rank holds its own rows (the batch shards over data x fsdp). Each
+backward is of the local loss sum / the global count, so the gradients'
+sums are the global mean's: an fsdp-placed parameter's gather
+reduce-scatters the fsdp ranks' parts into its slice, then it is summed
+over the data group; every other gradient (a tensor slice, the same on
+the ranks of a row, or a replicated one) is summed over the data x fsdp
+group; in ``all_reduce``s of up to :data:`SUM_BUCKET_BYTES`, once per
+update (after the last microbatch).
+
+Every global read on a pipe, fsdp or tensor axis takes the whole mesh
+(``parallel.sharding.MeshReduce``): the pre-clip gradient norm, the
+update norm, the non-finite counts of the health summary and of
+``skip_nonfinite`` / ``debug.nan_check`` sum a slice's part over its axis
+and count a replicated parameter once, so every rank clips by the same
+scale and takes the same skip decision.
 
 Masked-LM corruption (a model with ``mask_draws``: ``BertMLM``), before
 the forward and the microbatch split, beside the augment draws: the model
@@ -182,8 +196,9 @@ from ..observability.health import (
     nonfinite_by_group, pack_health_summary, parameter_groups,
 )
 from ..parallel import dist
-from ..parallel.collectives import ppermute
-from ..parallel.sharding import PipeReduce
+from ..parallel.collectives import all_reduce_, ppermute
+from ..parallel.mesh import BATCH
+from ..parallel.sharding import MeshReduce
 from .optim import set_lr
 
 #: folded into the step's seed for the mixup draws (the JAX step's)
@@ -267,6 +282,29 @@ def _global(stats: Dict[str, torch.Tensor],
     return dict(zip(stats, vec.unbind()))
 
 
+#: the largest gradient bucket summed in one ``all_reduce`` (bytes)
+SUM_BUCKET_BYTES = 256 << 20
+
+
+def _sum_flat(grads, group) -> None:
+    """``grads`` summed over ``group`` in place, by ``all_reduce``s of
+    their concatenation in buckets of at most :data:`SUM_BUCKET_BYTES`."""
+    bucket, size = [], 0
+    for g in list(grads) + [None]:
+        if g is not None and (not bucket or size + g.numel()
+                              * g.element_size() <= SUM_BUCKET_BYTES):
+            bucket.append(g)
+            size += g.numel() * g.element_size()
+            continue
+        if bucket:
+            flat = all_reduce_(torch.cat([t.reshape(-1) for t in bucket]),
+                               group)
+            torch._foreach_copy_(bucket, [f.view_as(t) for f, t in zip(
+                flat.split([t.numel() for t in bucket]), bucket)])
+        bucket, size = ([g], g.numel() * g.element_size()) \
+            if g is not None else ([], 0)
+
+
 class TrainStep:
     """``step(batch) -> metrics``; owns the step and update counters (the
     JAX ``TrainState.step`` and the optimizer's count), which checkpoints
@@ -290,7 +328,7 @@ class TrainStep:
         # the data axis: the draws' rows and the mixup roll's partners
         self.shard = (mesh.data_shard() if mesh is not None else
                       (dist.process_index(), dist.process_count()))
-        self.data_group = mesh.group("data") if mesh is not None else None
+        self.data_group = mesh.group(BATCH) if mesh is not None else None
         self._lam = None    # (lam, 1 - lam) of this step's mixup, float32
         self.module = getattr(model, "module", model)
         self.criterion, self.metric_fns = criterion, list(metric_fns)
@@ -330,13 +368,18 @@ class TrainStep:
                        if b.is_floating_point()]
         self._stats_before = ([torch.empty_like(b) for b in self._stats]
                               if skip_nonfinite and self._stats else None)
-        # a pipe row (the pipelined families on a pipe axis > 1): the
-        # global reads; the loss x DDP's ranks / S
+        # a pipe, fsdp or tensor axis > 1: the global reads and the
+        # gradient sums over the mesh; the loss x DDP's ranks / S
+        self.mesh = mesh
         pipe = 1 if mesh is None else mesh.axis_size("pipe")
-        self.pipe = PipeReduce(self.module, mesh) if pipe > 1 else None
-        self._counted = self.pipe is None or self.pipe.first
+        self.reduce = (MeshReduce(self.module, mesh)
+                       if mesh is not None and mesh.model_parallel()
+                       else None)
+        # the statistics: counted at pipe and tensor index 0 (the other
+        # ranks of a pipe or tensor row compute the same ones)
+        self._counted = mesh is None or (mesh.axis_index("pipe") == 0
+                                         and mesh.axis_index("tensor") == 0)
         self._loss_scale = _replicas(model) / pipe
-        self._group_weights = None
 
     def state_dict(self) -> dict:
         """The counters, and ``lr_scale`` once a plateau has moved it."""
@@ -378,24 +421,38 @@ class TrainStep:
         norms = torch._foreach_norm(grads, float("inf")) if grads else []
         bad = (~torch.isfinite(torch.stack([*scalars, *norms]).float())
                ).sum().float()
-        return self.pipe.sum(bad) if self.pipe is not None else bad
+        return self.reduce.sum(bad) if self.reduce is not None else bad
 
     def _norm(self, tensors, params) -> torch.Tensor:
         """The global 2-norm of ``tensors``, one per parameter of
         ``params``."""
-        if self.pipe is None:
+        if self.reduce is None:
             return torch.nn.utils.get_total_norm(tensors)
-        return self.pipe.norm(tensors, params)
+        return self.reduce.norm(tensors, params)
 
-    def _sum_replicated(self) -> None:
-        """The replicated parameters' gradients summed over the pipe group
-        (one ``all_reduce`` of their concatenation)."""
-        grads = [p.grad for p in self._params() if not self.pipe.is_stage(p)]
-        if not grads:
-            return
-        flat = self.pipe.sum(torch.cat([g.reshape(-1) for g in grads]))
-        torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(
-            flat.split([g.numel() for g in grads]), grads)])
+    def _counted_params(self, params) -> list:
+        """The tensors of ``params`` this rank counts in a mesh-wide sum."""
+        return list(params) if self.reduce is None else \
+            self.reduce.counted(params)
+
+    def _sync_grads(self) -> None:
+        """The gradient sums over the mesh, once per update: on a pipe
+        axis the replicated parameters' over the pipe group (DDP averaged
+        over the data group); on an fsdp or tensor axis (no DDP) an
+        fsdp-placed parameter's over the data group (its gather's
+        reduce-scatter summed the fsdp ranks'), every other one's over the
+        data x fsdp group."""
+        mesh, buckets = self.mesh, {}
+        for p in self._params():
+            axis = self.reduce.axis(p)
+            if mesh.axis_size("pipe") > 1:
+                group = mesh.group("pipe") if axis is None else None
+            else:
+                group = mesh.group("data" if axis == "fsdp" else BATCH)
+            if group is not None:
+                buckets.setdefault(id(group), (group, []))[1].append(p.grad)
+        for group, grads in buckets.values():
+            _sum_flat(grads, group)
 
     def _check_finite(self, loss_sum) -> None:
         """``debug.nan_check``: stop at the first step whose loss or
@@ -553,8 +610,8 @@ class TrainStep:
             raise
         for p in self._frozen:
             p.grad = None
-        if self.pipe is not None:
-            self._sum_replicated()
+        if self.reduce is not None:
+            self._sync_grads()
         health_loss = metrics["loss_sum"] / denom
         if self.nan_step is not None and self.step == self.nan_step:
             self._poison()
@@ -581,15 +638,13 @@ class TrainStep:
         if self.health:
             if not (self.skip_nonfinite and ok):
                 # before the clip: clipping by a NaN norm would smear one
-                # bad group over all of them
+                # bad group over all of them; this rank's counted
+                # gradients (summed over the mesh below)
                 grad_counts = nonfinite_by_group(
-                    {g: [p.grad for p in ps if p.grad is not None]
-                     for g, ps in self._groups.items()})
-                if self.pipe is not None:
-                    if self._group_weights is None:
-                        self._group_weights = self.pipe.group_weights(
-                            self._groups, grad_counts.device).long()
-                    grad_counts = grad_counts * self._group_weights
+                    {g: [p.grad for p in self._counted_params(ps)
+                         if p.grad is not None]
+                     for g, ps in self._groups.items()},
+                    device=metrics["loss_sum"].device)
             if self._before is None:
                 self._before = [torch.empty_like(p) for p in self._all]
             torch._foreach_copy_(self._before, self._all)
@@ -619,12 +674,11 @@ class TrainStep:
         if self.health:
             vec = pack_health_summary(
                 health_loss, gnorm, update_norm, grad_counts,
-                self._all if self.pipe is None
-                else self.pipe.counted(self._all), groups=len(self._groups))
-            if self.pipe is not None:
-                # the counts over the row (stage slices summed, the
-                # replicated counted at pipe index 0)
-                vec = torch.cat([vec[:3], self.pipe.sum(vec[3:].clone())])
+                self._counted_params(self._all), groups=len(self._groups))
+            if self.reduce is not None:
+                # the counts over the mesh (each slice and replicated
+                # tensor counted once)
+                vec = torch.cat([vec[:3], self.reduce.sum(vec[3:].clone())])
             metrics["health"] = vec
         self.step += 1
         return metrics
@@ -709,7 +763,8 @@ def make_eval_step(model, criterion: Callable,
     evaluated through its ``module``."""
 
     model = getattr(model, "module", model)
-    counted = mesh is None or mesh.axis_index("pipe") == 0
+    counted = mesh is None or (mesh.axis_index("pipe") == 0
+                               and mesh.axis_index("tensor") == 0)
 
     @torch.no_grad()
     def eval_step(batch, seed=None):

@@ -82,33 +82,40 @@ scale is saved with the counters and restored on resume, the
 controller's counters restart. A train loader with a ``tokenizer_path``
 (``BpeLMLoader``) gets its tokenizer copied into the run directory.
 
-The config's mesh (``parallel.mesh``): ``pipe``, ``data`` and ``seq``.
-The loaders shard over the data axis (built with :meth:`Mesh.data_shard`,
-and checked here), so the ranks of a seq row and the stages of a pipe row
-train on the same batch, and the model gets the mesh
-(``models.base.inject_mesh``) for its sequence-parallel attention or its
-pipeline. Without a pipe axis DDP runs over the whole world (parameters
-are replicated over data and seq). With one (a pipelined model,
-``n_stages`` equal to the axis) every rank builds the whole model from the
-seed, the injection leaves it its stage's slices of the trunk, and the
-optimizer is built after it, so the moments are per stage too; DDP runs
-over the data group (none when the data axis is 1: DDP over the world
-would average different stages' weights of equal shapes); the train step
-sums the replicated parameters' gradients over the pipe group and reads
-its norms over the row (engine/steps.py). Every checkpoint holds the
-whole stacked tensors, params, optimizer moments and EMA gathered over
-the pipe group by every rank before rank 0 writes, the files a
-one-process run writes; a resume or ``init_from`` cuts them to the
-stage's slices, whatever pipe size wrote them. The emergency save gathers
-too, so under a pipe axis it lands only when every rank raises (a fault
-plan's crash); a rank that fails alone leaves the others waiting in the
-gather, as they would in the pipeline's next permute, until the process
-group's timeout. Optimizers that read a whole parameter's norm (``LARS``,
-``LAMB``, ``Adafactor``) refuse a pipe axis: a stage holds a slice. Rank
-0 writes; the ``data_state`` sidecar's sampler state records the data
-axis's shard count. Refused by name: the other mesh axes (ROADMAP A11b,
-A11d), a seq axis > 1 for a model without sequence parallelism, and a pipe
-axis > 1 for a model without a pipelined trunk.
+The config's mesh (``parallel.mesh``): ``pipe``, ``data``, ``fsdp``,
+``seq`` and ``tensor``. The loaders shard over the data and fsdp axes
+(built with :meth:`Mesh.data_shard`, and checked here), so the ranks of a
+seq row, a tensor row and the stages of a pipe row train on the same
+batch, and the model gets the mesh (``models.base.inject_mesh``) for its
+sequence-parallel attention, its tensor-parallel layers or its pipeline.
+Every rank builds the whole model from the seed; the injection leaves it
+its slices of every parameter its rules (or the fsdp fallback) place on
+pipe, fsdp or tensor (``parallel/sharding.py``), and the optimizer is
+built after it, so the moments and the EMA are per slice too. Without
+such an axis DDP runs over the whole world (parameters are replicated
+over data and seq). On a pipe axis (a pipelined model, ``n_stages`` equal
+to the axis) DDP runs over the data group (none when the data axis is 1:
+DDP over the world would average different stages' weights of equal
+shapes); the train step sums the replicated parameters' gradients over
+the pipe group. On an fsdp or tensor axis no DDP runs (its ranks hold
+different slices): the train step sums each gradient over the mesh
+itself (engine/steps.py). The global norms and counts read the whole
+mesh (``parallel.sharding.MeshReduce``). Every checkpoint holds the
+whole tensors, params, optimizer moments and EMA gathered over the mesh
+by every rank, one tensor at a time into rank 0's host memory, before
+rank 0 writes: the files a one-process run writes; a resume or
+``init_from`` cuts them to this rank's slices, whatever mesh wrote them.
+The emergency save gathers too, so on a sharded model it lands only when
+every rank raises (a fault plan's crash); a rank that fails alone leaves
+the others waiting in the gather, as they would in the next collective,
+until the process group's timeout. Optimizers that read a whole
+parameter's norm (``LARS``, ``LAMB``, ``Adafactor``) refuse a pipe, fsdp
+or tensor axis: a rank holds a slice. Rank 0 writes; the ``data_state``
+sidecar's sampler state records the batch axes' shard count. Refused by
+name: the expert axis (ROADMAP A11d), fsdp or tensor beside pipe or seq
+(A11b's remainder), a seq axis > 1 for a model without sequence
+parallelism, a pipe axis > 1 for a model without a pipelined trunk, and a
+tensor axis for a model without tensor-parallel layers.
 """
 from __future__ import annotations
 
@@ -144,7 +151,7 @@ from ..observability.trace import span
 from ..observability.tracker import MetricTracker
 from ..parallel import dist
 from ..parallel.mesh import build_mesh, mesh_from_config
-from ..parallel.sharding import gather_optimizer_state, gather_pipe
+from ..parallel.sharding import gather_optimizer_state, gather_placed
 from ..resilience import faults
 from ..utils import preemption
 from ..utils.debug import configure_debug
@@ -216,8 +223,8 @@ class BaseTrainer:
 
     def _saved_state(self) -> Optional[dict]:
         """:meth:`_state` where a save needs it: on rank 0, and on every
-        rank of a pipe axis (its gather is collective); else None."""
-        if dist.is_main_process() or getattr(self, "_pipe_sharded", False):
+        rank of a sharded model (its gather is collective); else None."""
+        if dist.is_main_process() or getattr(self, "_sharded", False):
             return self._state()
         return None
 
@@ -425,7 +432,7 @@ class Trainer(BaseTrainer):
 
     def __init__(self, model, criterion, metric_ftns, config, train_loader,
                  valid_loader=None, device=None, seed: int = 0, mesh=None):
-        # refuses the axes of A11b-d
+        # refuses the expert axis (A11d) and A11b's remainder
         self.mesh = (mesh if mesh is not None
                      else build_mesh(mesh_from_config(config)))
         _check_shards(self.mesh, train_loader, valid_loader)
@@ -441,10 +448,10 @@ class Trainer(BaseTrainer):
                 f"a pipe axis of {pipe} needs a pipelined model of as many "
                 f"stages; {type(model).__name__} has "
                 f"{getattr(model, 'n_stages', 'no pipelined trunk')}")
-        # on a pipe axis: this rank keeps its stages' slices, before the
-        # optimizer and DDP see the parameters
+        # on a pipe, fsdp or tensor axis: this rank keeps its slices,
+        # before the optimizer and DDP see the parameters
         inject_mesh(model, self.mesh)
-        self._pipe_sharded = bool(getattr(model, "pipe_placements", None))
+        self._sharded = bool(model.placements)
         super().__init__(config)
         cfg = config["trainer"]
         self._anomaly_was = torch.is_anomaly_enabled()
@@ -470,9 +477,13 @@ class Trainer(BaseTrainer):
             freeze_untrainable(model, trainable)
         self.ddp = None
         # DDP over the world, or over the data group on a pipe axis (the
-        # stages of a pipe row hold different weights of equal shapes)
+        # stages of a pipe row hold different weights of equal shapes);
+        # none on an fsdp or tensor axis, whose ranks hold different
+        # slices (the train step sums the gradients over the mesh)
         ddp_group = self.mesh.group("data") if pipe > 1 else None
-        if dist.in_group() and (pipe == 1 or ddp_group is not None):
+        split = any(self.mesh.axis_size(a) > 1 for a in ("fsdp", "tensor"))
+        if dist.in_group() and not split and (pipe == 1
+                                              or ddp_group is not None):
             # BN's running averages come from the global statistics, the
             # same on every rank: nothing to broadcast before a forward
             self.ddp = torch.nn.parallel.DistributedDataParallel(
@@ -510,12 +521,12 @@ class Trainer(BaseTrainer):
 
         self.optimizer, self.lr_fn, self.plateau = build_optimizer(
             config, self.len_epoch, model)
-        if pipe > 1 and type(self.optimizer).__name__ in (
+        if self.mesh.model_parallel() and type(self.optimizer).__name__ in (
                 "LARS", "LAMB", "Adafactor"):
             raise NotImplementedError(
                 f"{type(self.optimizer).__name__} reads each parameter's "
-                "whole norm; on a pipe axis a stage holds a slice of the "
-                "stacked trunk (an elementwise optimizer runs there)")
+                "whole norm; on a pipe, fsdp or tensor axis a rank holds a "
+                "slice of it (an elementwise optimizer runs there)")
         self._plateau_warned = False
         self.skip_nonfinite = bool(cfg.get("skip_nonfinite", False))
         self.log_grad_norm = bool(cfg.get("log_grad_norm", False))
@@ -675,15 +686,19 @@ class Trainer(BaseTrainer):
                 ds.get("global_step", "?"))
 
     def _state(self) -> dict:
-        """The checkpoint manager's keyword arguments; on a pipe axis the
-        whole tensors, gathered over the pipe group (collective: every
-        rank calls it, at the same point)."""
+        """The checkpoint manager's keyword arguments; for a sharded model
+        the whole tensors, gathered over the mesh one at a time into host
+        memory on rank 0 (collective: every rank calls it, at the same
+        point; the others keep only what they hold whole)."""
         model, optimizer, ema = self.model, self.optimizer, \
             self.train_step.ema
-        if self._pipe_sharded:
-            model = _Whole(gather_pipe(model, model.state_dict()))
-            optimizer = _Whole(gather_optimizer_state(self.model, optimizer))
-            ema = None if ema is None else gather_pipe(self.model, ema)
+        if self._sharded:
+            keep = dist.is_main_process()
+            model = _Whole(gather_placed(model, model.state_dict(), keep))
+            optimizer = _Whole(gather_optimizer_state(self.model, optimizer,
+                                                      keep))
+            ema = None if ema is None else gather_placed(self.model, ema,
+                                                         keep)
         return dict(model=model, optimizer=optimizer,
                     train_state=self.train_step.state_dict(),
                     arch=type(self.model).__name__,
@@ -834,7 +849,7 @@ class Trainer(BaseTrainer):
                 break
             if (self.save_interval_steps
                     and (batch_idx + 1) % self.save_interval_steps == 0
-                    and (main or self._pipe_sharded)):
+                    and (main or self._sharded)):
                 state = self._saved_state()
                 if main:
                     self.ckpt_manager.save_interval(

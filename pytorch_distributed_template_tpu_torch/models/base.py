@@ -13,18 +13,17 @@ def param_count(model: nn.Module) -> int:
 
 def inject_mesh(model: nn.Module, mesh) -> nn.Module:
     """Give a mesh-aware model (a ``mesh`` attribute that is None: the LM
-    families, whose forward hands it to their SP attention, and the
-    pipelined families) the runtime mesh; no-op for models without one or
-    with a mesh already. A model with ``partition_rules`` then keeps only
-    this rank's slice of every parameter placed on the ``pipe`` axis
-    (``parallel.sharding.shard_pipe``): inject before the optimizer is
-    built, so that its state is per stage too. Returns the model."""
+    families, whose forward hands it to their SP attention or their
+    tensor-parallel layers, and the pipelined families) the runtime mesh;
+    then keep only this rank's slice of every parameter placed on the
+    ``pipe``, ``fsdp`` or ``tensor`` axis, whatever the model
+    (``parallel.sharding.shard_params``): inject before the optimizer is
+    built, so that its state is per slice too. Returns the model."""
     if getattr(model, "mesh", "absent") is None:
         model.mesh = mesh
-        if hasattr(model, "partition_rules"):
-            from ..parallel.sharding import shard_pipe
+    from ..parallel.sharding import shard_params
 
-            shard_pipe(model, mesh)
+    shard_params(model, mesh)
     return model
 
 

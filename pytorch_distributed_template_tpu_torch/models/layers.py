@@ -29,6 +29,8 @@ import torch.distributed as tdist
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel.collectives import reduce_from
+
 _MASK64 = (1 << 64) - 1
 
 
@@ -112,6 +114,29 @@ def embed(weight, tokens, dtype):
     if weight.is_cuda:
         return weight[tokens.long()].to(dtype)
     return F.embedding(tokens.long(), weight).to(dtype)
+
+
+def vocab_embed(weight, tokens, dtype, tp):
+    """:func:`embed` from a vocab-sharded table: ``weight`` holds rows
+    ``[index * n, (index + 1) * n)`` of the tensor axis ``tp``
+    (``parallel.mesh.AxisGroup``); the tokens outside them look up row 0
+    and are zeroed, then the ranks' rows are summed (Megatron's ``g``)."""
+    n = weight.shape[0]
+    local = tokens.long() - tp.index * n
+    inside = (local >= 0) & (local < n)
+    rows = embed(weight, torch.where(inside, local, 0), dtype)
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return reduce_from(rows, tp.group)
+
+
+def row_parallel(dense, x, tp):
+    """A row-parallel projection: ``dense``'s weight holds this rank's
+    input columns of the tensor axis ``tp``; the partial products are
+    summed over the ranks (Megatron's ``g``) and the replicated bias is
+    added once, after the sum."""
+    dt = dense.compute_dtype
+    y = reduce_from(F.linear(x.to(dt), dense.weight.to(dt)), tp.group)
+    return y if dense.bias is None else y + dense.bias.to(dt)
 
 
 def layer_norm_f32(x, weight, bias, eps: float):

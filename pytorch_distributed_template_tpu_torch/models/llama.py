@@ -48,8 +48,22 @@ the plain forward and the decode forward over a KV cache, registered as
   included unless fused (JAX puts LoRA on the untied head too), is a
   ``models.lora.LoRADense`` (``models.quant.dense_factory``).
 
+- Tensor parallelism (a mesh whose ``tensor`` axis is T > 1,
+  :meth:`LlamaLM.use_tensor_axis`): each rank holds its slice of JAX's
+  Megatron placements (:meth:`LlamaLM.partition_rules`, over the torch
+  dimensions) and computes on it: ``n_head / T`` query heads over
+  ``n_kv_head / T`` KV heads (flash B1-B3 on the local heads),
+  ``d_ff / T`` SwiGLU columns and ``vocab / T`` rows of the embedding and
+  the head. Megatron's ``f`` (parallel/collectives.py) goes before q/k/v,
+  gate/up and the head, its ``g`` after ``o_proj``, ``down_proj`` and the
+  vocab-sharded lookup (models/layers.py); the vocab-sharded logits, or
+  under ``fused_head`` the head's weight, are gathered whole, and every
+  rank of a tensor row computes the same loss. The blocks are the fsdp
+  gather units (:meth:`LlamaLM.fsdp_units`, parallel/fsdp.py). Decoding
+  over a tensor axis is A11b's serving half, LoRA there A11b's remainder.
+
 Left to later slices, each refused with a message naming it: MoE, w8a16
-weights, decoding on a seq axis.
+weights, decoding on a seq axis or a tensor axis.
 """
 from __future__ import annotations
 
@@ -67,13 +81,17 @@ from ..ops.attention import (
     paged_gqa_attention, seq_plan, sequence_attention,
 )
 from ..ops.flash import flash_attention
-from .layers import embed
+from ..parallel.collectives import copy_to, gather_replicated
+from ..parallel.sharding import P
+from .layers import embed, row_parallel, vocab_embed
 from .quant import (
     check_lora_quant, dense_factory, dequantize_kv, quantize_kv,
 )
 
 #: reserved pool page: pad lanes and unallocated table lanes write here
 SCRATCH_BLOCK = 0
+_SLICE_TP_SERVING = ("decoding over a tensor axis is ROADMAP A11b's "
+                     "serving half, a later slice")
 
 
 class RMSNorm(nn.Module):
@@ -223,16 +241,23 @@ class LlamaAttention(nn.Module):
         self.k_proj = dense(d_model, n_kv_head * hd)
         self.v_proj = dense(d_model, n_kv_head * hd)
         self.o_proj = dense(n_head * hd, d_model)
+        self.tp = None      # the tensor axis (``LlamaLM.use_tensor_axis``)
 
     def forward(self, x, cache=None, start: int = 0,
                 prefill: bool = False, paged=None, sp=None):
         """``sp``: ``(positions [T] of a seq shard or None, layout, mesh)``
         of the seq axis (``LlamaLM.forward``), or None."""
         b, t, _ = x.shape
-        hd = self.head_dim
-        q = self.q_proj(x).view(b, t, self.n_head, hd)
-        k = self.k_proj(x).view(b, t, self.n_kv_head, hd)
-        v = self.v_proj(x).view(b, t, self.n_kv_head, hd)
+        hd, tp = self.head_dim, self.tp
+        heads, kv_heads = self.n_head, self.n_kv_head
+        if tp is not None:
+            if cache is not None:
+                raise NotImplementedError(_SLICE_TP_SERVING)
+            x = copy_to(x, tp.group)
+            heads, kv_heads = heads // tp.size, kv_heads // tp.size
+        q = self.q_proj(x).view(b, t, heads, hd)
+        k = self.k_proj(x).view(b, t, kv_heads, hd)
+        v = self.v_proj(x).view(b, t, kv_heads, hd)
         if isinstance(cache, PagedLayer):
             ctx = self._paged_attention(q, k, v, cache, paged)
         elif cache is not None:
@@ -256,7 +281,10 @@ class LlamaAttention(nn.Module):
                     q, k.repeat_interleave(groups, dim=2),
                     v.repeat_interleave(groups, dim=2), causal=True,
                     window=self.window)
-        return self.o_proj(ctx.reshape(b, t, self.n_head * hd))
+        ctx = ctx.reshape(b, t, heads * hd)
+        if tp is not None:
+            return row_parallel(self.o_proj, ctx, tp)
+        return self.o_proj(ctx)
 
     def _paged_attention(self, q, k, v, layer: PagedLayer,
                          at: PagedPlacement):
@@ -401,9 +429,15 @@ class SwiGLU(nn.Module):
         self.gate_proj = dense(d_model, d_ff)
         self.up_proj = dense(d_model, d_ff)
         self.down_proj = dense(d_ff, d_model)
+        self.tp = None      # the tensor axis (``LlamaLM.use_tensor_axis``)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.tp is None:
+            return self.down_proj(F.silu(self.gate_proj(x))
+                                  * self.up_proj(x))
+        x = copy_to(x, self.tp.group)
+        h = F.silu(self.gate_proj(x)) * self.up_proj(x)
+        return row_parallel(self.down_proj, h, self.tp)
 
 
 class LlamaBlock(nn.Module):
@@ -480,6 +514,40 @@ class LlamaLM(nn.Module):
         # the parallel mesh whose seq axis the SP impls run over
         # (parallel/mesh.py); None until ``inject_mesh`` sets it
         self.mesh = mesh
+        self.tp = None      # the tensor axis (``use_tensor_axis``)
+
+    def partition_rules(self):
+        """JAX's Megatron rules over ``tensor`` (``LlamaLM.
+        partition_rules``), over the torch dimensions: column-parallel
+        q/k/v and gate/up (weight rows), row-parallel o/down (weight
+        columns), the vocab-sharded embedding and head."""
+        return [
+            (r"embed_tokens/weight", P("tensor", None)),
+            (r"self_attn/(q_proj|k_proj|v_proj)/weight", P("tensor", None)),
+            (r"self_attn/o_proj/weight", P(None, "tensor")),
+            (r"mlp/(gate_proj|up_proj)/weight", P("tensor", None)),
+            (r"mlp/down_proj/weight", P(None, "tensor")),
+            (r"lm_head/weight", P("tensor", None)),
+        ]
+
+    def fsdp_units(self):
+        """The fsdp gather units (parallel/fsdp.py): the blocks."""
+        return [(f"layers.{i}", block)
+                for i, block in enumerate(self.layers)]
+
+    def use_tensor_axis(self, mesh) -> None:
+        """Compute on this rank's shards of a tensor axis (module
+        docstring); refuses what does not split over it."""
+        tp = mesh.axis("tensor")
+        for what, n in (("n_head", self.n_head),
+                        ("n_kv_head", self.n_kv_head), ("d_ff", self.d_ff),
+                        ("vocab_size", self.vocab_size)):
+            if n % tp.size:
+                raise ValueError(f"{what} {n} does not split over a tensor "
+                                 f"axis of {tp.size}")
+        self.tp = tp
+        for block in self.layers:
+            block.self_attn.tp = block.mlp.tp = tp
 
     def _seq_plan(self, t: int):
         # a window rides the contiguous banded ring
@@ -583,7 +651,12 @@ class LlamaLM(nn.Module):
         elif self.mesh is not None and self.mesh.axis_size("seq") > 1:
             raise NotImplementedError("decoding on a seq axis is a later "
                                       "slice (serving over parallel axes)")
-        x = embed(self.embed_tokens.weight, tokens, self.dtype)
+        elif self.tp is not None:
+            raise NotImplementedError(_SLICE_TP_SERVING)
+        tp = self.tp
+        x = (embed(self.embed_tokens.weight, tokens, self.dtype)
+             if tp is None else vocab_embed(self.embed_tokens.weight,
+                                            tokens, self.dtype, tp))
         start, paged = 0, None
         if isinstance(cache, PagedCache):
             if block_tables is None or row_starts is None:
@@ -612,10 +685,16 @@ class LlamaLM(nn.Module):
             x = block(x, layer_cache, start, prefill, paged, sp)
         x = self.norm(x)
         if cache is None and self.fused_head:
-            return x.to(self.dtype), self.lm_head.weight.t().to(self.dtype)
+            w = self.lm_head.weight
+            if tp is not None:
+                w = gather_replicated(w, 0, tp.group)
+            return x.to(self.dtype), w.t().to(self.dtype)
         if cache is not None and prefill and t > 1:
             x = x[:, -1:]
-        return self.lm_head(x).float()
+        if tp is None:
+            return self.lm_head(x).float()
+        logits = self.lm_head(copy_to(x, tp.group)).float()
+        return gather_replicated(logits, logits.dim() - 1, tp.group)
 
 
 def _refuse_later(quant="", lora_rank=0) -> None:

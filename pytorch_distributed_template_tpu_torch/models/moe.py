@@ -39,6 +39,7 @@ from torch.nn import functional as F
 
 from ..config.registry import MODELS
 from ..ops.expert_ffn import expert_ffn
+from ..parallel.sharding import P
 from .layers import dropout
 
 _SLICE_SWIGLU = ("the swiglu expert (Mixtral / sparse Llama) is a later "
@@ -142,6 +143,21 @@ class MoeMlp(nn.Module):
                                            device=device))
         self.bo = nn.Parameter(torch.zeros(e, d_model, dtype=f32,
                                            device=device))
+
+    @staticmethod
+    def partition_rules():
+        """JAX's expert-parallel rules (``MoeMlp.partition_rules``) over the
+        torch dimensions (the stacked expert leaves keep flax's layout; the
+        router replicated on purpose)."""
+        return [
+            (r"moe/wi", P("expert", None, "tensor")),
+            (r"moe/wg", P("expert", None, "tensor")),
+            (r"moe/wo", P("expert", "tensor", None)),
+            (r"moe/bi", P("expert", "tensor")),
+            (r"moe/bo", P("expert", None)),
+            (r"moe/router/weight", P()),
+            (r"moe/router/bias", P()),
+        ]
 
     def forward(self, x, example_mask=None, seed=None):
         b, t, d = x.shape

@@ -43,7 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config.registry import MODELS
 from ..ops.attention import multihead_attention
-from ..parallel.sharding import P, slice_pipe
+from ..parallel.sharding import P, placed_on, slice_placed
 from .layers import embed
 from .llama import apply_rope, rope_tables
 from .transformer import _GPT2_SIZES, _check_param_dtype, _dtype
@@ -196,7 +196,7 @@ class _PipelinedBase(nn.Module):
         y = _run_trunk(self._blocks(), _microbatch(x, self.n_microbatches),
                        self.mesh, self.n_stages, self.n_chunks, self.remat,
                        layer_fn, extras,
-                       sharded=bool(getattr(self, "pipe_placements", None)))
+                       sharded=bool(placed_on(self, "pipe")))
         return y.reshape((b,) + tuple(x.shape[1:]))
 
     @torch.no_grad()
@@ -212,7 +212,7 @@ class _PipelinedBase(nn.Module):
                         assign: bool = False):
         """``nn.Module.load_state_dict``, whole tensors of a pipe-placed
         parameter cut to this rank's slice first."""
-        return super().load_state_dict(slice_pipe(self, dict(state_dict)),
+        return super().load_state_dict(slice_placed(self, dict(state_dict)),
                                        strict=strict, assign=assign)
 
 
@@ -252,7 +252,7 @@ class PipelinedLM(_PipelinedBase):
         self.lnf_b = nn.Parameter(torch.zeros(d, device=device))
         # the parallel mesh (parallel/mesh.py); None until inject_mesh
         self.mesh = mesh
-        self.pipe_placements = {}
+        self.placements = {}
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -388,7 +388,7 @@ class PipelinedLlama(_PipelinedBase):
         self.head_k = nn.Parameter(torch.empty(d, vocab_size,
                                                device=device))
         self.mesh = mesh
-        self.pipe_placements = {}
+        self.placements = {}
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

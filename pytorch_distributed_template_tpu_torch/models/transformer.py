@@ -49,6 +49,23 @@ as ``GPT2`` and ``TinyLM`` with the JAX registry's defaults.
   shards of a row draw different masks. With S == 1 the SP impls compute
   the whole attention (the flash kernels for ``*_flash``).
 
+- Tensor parallelism (a mesh whose ``tensor`` axis is T > 1,
+  :meth:`TransformerLM.use_tensor_axis`): each rank holds its slice of the
+  Megatron placements of :meth:`TransformerLM.partition_rules` (JAX's
+  rules over the torch dimensions) and computes on it: ``n_head / T``
+  heads (``qkv`` split on the head dimension of its ``[3, H, hd, D]``
+  view, :meth:`TransformerLM.split_view`, so a rank holds the q, k and v
+  of its heads), ``d_ff / T`` MLP columns, ``vocab / T`` embedding rows.
+  Megatron's ``f`` (parallel/collectives.py) goes before ``qkv``, ``up``
+  and the tied head, its ``g`` after ``out`` and ``down`` (their
+  replicated biases added once, after it) and after the vocab-sharded
+  lookup (models/layers.py); the head's vocab-sharded logits, or under
+  ``fused_head`` the head's weight, are gathered whole, and every rank of
+  a tensor row computes the same loss. Dropout acts on the summed,
+  replicated activations with the same seeds, so every rank of the row
+  draws the same masks. The blocks are the fsdp gather units
+  (:meth:`TransformerLM.fsdp_units`, parallel/fsdp.py). MoE blocks refuse
+  a tensor axis (ROADMAP A11d), as does LoRA (A11b's remainder).
 - ``causal`` (``SelfAttention``, ``Block``; default True): False gives
   the bidirectional attention of the BERT family (models/bert.py).
 - LoRA (``lora_rank > 0``, ``lora_alpha``): every projection (``qkv``,
@@ -73,7 +90,11 @@ from ..ops.attention import (
     SP_IMPLS, multihead_attention, seq_plan, sequence_attention,
 )
 from ..ops.flash import flash_attention
-from .layers import dropout, embed, fold_in, layer_norm_f32
+from ..parallel.collectives import copy_to, gather_replicated
+from ..parallel.sharding import P
+from .layers import (
+    dropout, embed, fold_in, layer_norm_f32, row_parallel, vocab_embed,
+)
 from .moe import MoeMlp
 from .quant import check_lora_quant, dense_factory
 
@@ -86,6 +107,9 @@ _SLICE_EXPERT_PARALLEL = ("MoE blocks on a seq axis need the routing over "
 SEQ_DROPOUT_SALT = 0x5E0
 _SLICE_GPT2_SERVING = ("serving the GPT-2 family (its decode caches) is a "
                        "later slice")
+_SLICE_MOE_TENSOR = ("MoE blocks on a tensor axis (MoeMlp's expert rules "
+                     "over tensor, B5 on a split FFN): ROADMAP A11d, a "
+                     "later slice")
 
 
 def _site(seed, *where):
@@ -121,9 +145,15 @@ class MlpBlock(nn.Module):
         dense = _biased(dtype, lora, device)
         self.up = dense(d_model, d_ff)
         self.down = dense(d_ff, d_model)
+        self.tp = None      # the tensor axis (``use_tensor_axis``)
 
     def forward(self, x, seed=None):
-        y = self.down(F.gelu(self.up(x), approximate="tanh"))
+        if self.tp is None:
+            y = self.down(F.gelu(self.up(x), approximate="tanh"))
+        else:
+            h = F.gelu(self.up(copy_to(x, self.tp.group)),
+                       approximate="tanh")
+            y = row_parallel(self.down, h, self.tp)
         return dropout(y, self.rate, seed, self.training)
 
 
@@ -138,12 +168,16 @@ class SelfAttention(nn.Module):
         dense = _biased(dtype, lora, device)
         self.qkv = dense(d_model, 3 * d_model)
         self.out = dense(d_model, d_model)
+        self.tp = None      # the tensor axis (``use_tensor_axis``)
 
     def forward(self, x, seed=None, sp=None):
         """``sp``: ``(positions, layout, mesh)`` of the seq axis
         (``TransformerLM.forward``), or None."""
         b, t, d_model = x.shape
-        qkv = self.qkv(x).view(b, t, 3, self.n_head, self.head_dim)
+        tp, heads = self.tp, self.n_head
+        if tp is not None:
+            x, heads = copy_to(x, tp.group), heads // tp.size
+        qkv = self.qkv(x).view(b, t, 3, heads, self.head_dim)
         q, k, v = (qkv[:, :, i].contiguous() for i in range(3))
         if self.attn_impl in SP_IMPLS:
             _, layout, mesh = sp or (None, "contig", None)
@@ -153,7 +187,9 @@ class SelfAttention(nn.Module):
             ctx = flash_attention(q, k, v, causal=self.causal)
         else:
             ctx = multihead_attention(q, k, v, causal=self.causal)
-        out = self.out(ctx.reshape(b, t, d_model))
+        ctx = ctx.reshape(b, t, heads * self.head_dim)
+        out = self.out(ctx) if tp is None else row_parallel(self.out, ctx,
+                                                            tp)
         return dropout(out, self.rate, seed, self.training)
 
 
@@ -240,6 +276,55 @@ class TransformerLM(nn.Module):
         # the parallel mesh whose seq axis the SP impls run over
         # (parallel/mesh.py); None until ``inject_mesh`` sets it
         self.mesh = mesh
+        self.tp = None      # the tensor axis (``use_tensor_axis``)
+
+    def partition_rules(self):
+        """JAX's Megatron rules over ``tensor`` (``TransformerLM.
+        partition_rules``), over the torch dimensions: column-parallel
+        ``qkv`` and ``up`` (weight rows, bias), row-parallel ``out`` and
+        ``down`` (weight columns), the vocab-sharded embedding and head;
+        ``wpe`` pinned replicated; MoE blocks add MoeMlp's rules."""
+        rules = [
+            (r"wte/weight", P("tensor", None)),
+            (r"attn/qkv/weight", P("tensor", None)),
+            (r"attn/qkv/bias", P("tensor")),
+            (r"attn/out/weight", P(None, "tensor")),
+            (r"mlp/up/weight", P("tensor", None)),
+            (r"mlp/up/bias", P("tensor")),
+            (r"mlp/down/weight", P(None, "tensor")),
+            (r"lm_head/weight", P("tensor", None)),
+            (r"wpe", P()),
+        ]
+        if self.moe_experts > 0:
+            rules = MoeMlp.partition_rules() + rules
+        return rules
+
+    def split_view(self, name: str, shape: tuple):
+        """``(view, dim)`` a tensor split of ``name`` is taken in: the
+        fused ``qkv`` as ``[3, H, hd, ...]`` on its head dimension; else
+        None."""
+        if name.endswith(("attn.qkv.weight", "attn.qkv.bias")):
+            return (3, self.n_head, self.head_dim) + tuple(shape[1:]), 1
+        return None
+
+    def fsdp_units(self):
+        """The fsdp gather units (parallel/fsdp.py): the blocks."""
+        return [(f"h.{i}", block) for i, block in enumerate(self.h)]
+
+    def use_tensor_axis(self, mesh) -> None:
+        """Compute on this rank's shards of a tensor axis (module
+        docstring); refuses what does not split over it."""
+        tp = mesh.axis("tensor")
+        if self.moe_experts > 0:
+            raise NotImplementedError(_SLICE_MOE_TENSOR)
+        for what, n in (("n_head", self.n_head), ("d_ff", self.d_ff),
+                        ("vocab_size", self.vocab_size)):
+            if n % tp.size:
+                raise ValueError(f"{what} {n} does not split over a tensor "
+                                 f"axis of {tp.size}")
+        self.tp = tp
+        for block in self.h:
+            block.attn.tp = block.mlp.tp = tp
 
     def _seq_plan(self, t: int):
         if (self.moe_experts > 0 and self.mesh is not None
@@ -307,7 +392,10 @@ class TransformerLM(nn.Module):
                 dropout_seed = fold_in(dropout_seed, SEQ_DROPOUT_SALT,
                                        shard.index)
         sp = (None if shard is None else shard.positions, layout, self.mesh)
-        x = embed(self.wte.weight, tokens, dt) + pos.to(dt)[None]
+        tp = self.tp
+        x = (embed(self.wte.weight, tokens, dt) if tp is None
+             else vocab_embed(self.wte.weight, tokens, dt, tp))
+        x = x + pos.to(dt)[None]
         x = dropout(x, self.rate, _site(dropout_seed, 0), self.training)
         aux_total = None
         for i, block in enumerate(self.h):
@@ -321,13 +409,20 @@ class TransformerLM(nn.Module):
                 aux_total = aux if aux_total is None else aux_total + aux
         self.aux_loss = aux_total
         x = self.ln_f(x)
+        w = self.wte.weight if self.tie_embeddings else self.lm_head.weight
         if self.fused_head:
-            w = self.wte.weight if self.tie_embeddings \
-                else self.lm_head.weight
+            if tp is not None:
+                w = gather_replicated(w, 0, tp.group)
             return x.to(dt), w.t().to(dt)
+        if tp is not None:
+            x = copy_to(x, tp.group)
         if self.tie_embeddings:
-            return (x.to(dt) @ self.wte.weight.to(dt).t()).float()
-        return self.lm_head(x).float()
+            logits = (x.to(dt) @ w.to(dt).t()).float()
+        else:
+            logits = self.lm_head(x).float()
+        if tp is not None:
+            logits = gather_replicated(logits, logits.dim() - 1, tp.group)
+        return logits
 
 
 def _refuse_later(quant="", kv_quant="", lora_rank=0) -> None:

@@ -28,7 +28,12 @@ factory).
 - Submodules keep flax's names (``patch_embed``, ``cls``, ``pos_embed``,
   ``h_i`` as ``h.i``, ``ln_1``, ``qkv``, ``out``, ``ln_2``, ``up``,
   ``down``, ``ln_f``, ``head``) for ``models/convert.py`` and the health
-  groups. The tensor-parallel ``partition_rules`` are ROADMAP A11b's.
+  groups.
+- :meth:`ViT.partition_rules`: JAX's rules over the torch dimensions. On
+  an fsdp axis they leave ``pos_embed``, ``cls`` and the head replicated
+  and the rest to the ZeRO-3 fallback (parallel/sharding.py), as in JAX;
+  computing on ``tensor`` shards is ROADMAP A11b's remainder (no
+  ``use_tensor_axis``: a tensor axis refuses).
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config.registry import MODELS
 from ..ops.attention import multihead_attention
 from ..ops.flash import flash_attention
+from ..parallel.sharding import P
 from .layers import Dense, SameConv2d, dropout
 from .transformer import LayerNorm, _site
 
@@ -119,6 +125,21 @@ class ViT(nn.Module):
         """Tokens per image: the patches, plus the cls token."""
         n = (self.image_size // self.patch_size) ** 2
         return n + (1 if self.pool == "cls" else 0)
+
+    def partition_rules(self):
+        """JAX's ``ViT.partition_rules`` over the torch dimensions (the
+        Dense weights ``[out, in]``, the patch kernel ``OIHW``)."""
+        return [
+            (r"qkv/weight", P("tensor", None)),
+            (r"qkv/bias", P("tensor")),
+            (r"out/weight", P(None, "tensor")),
+            (r"up/weight", P("tensor", None)),
+            (r"up/bias", P("tensor")),
+            (r"down/weight", P(None, "tensor")),
+            (r"patch_embed/weight", P("tensor", None, None, None)),
+            (r"patch_embed/bias", P("tensor")),
+            (r"pos_embed|cls|head", P()),
+        ]
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

@@ -121,25 +121,29 @@ def health_layout(groups) -> list:
     ]
 
 
-def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def _flat(tensors: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+    if not tensors:     # a rank that counts none (a sharded model's)
+        return torch.zeros(0, device=device)
     return torch.cat([t.detach().reshape(-1).float() for t in tensors])
 
 
-def nonfinite_total(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def nonfinite_total(tensors: Sequence[torch.Tensor],
+                    device=None) -> torch.Tensor:
     """Count of non-finite elements across ``tensors`` (an int64 scalar on
-    their device; one pass over their concatenation)."""
-    return torch.isfinite(_flat(tensors)).logical_not_().sum()
+    their device, or ``device`` when there are none; one pass over their
+    concatenation)."""
+    return torch.isfinite(_flat(tensors, device)).logical_not_().sum()
 
 
-def nonfinite_by_group(grouped: Dict[str, Sequence[torch.Tensor]]
-                       ) -> torch.Tensor:
+def nonfinite_by_group(grouped: Dict[str, Sequence[torch.Tensor]],
+                       device=None) -> torch.Tensor:
     """Non-finite element counts per group, in sorted group order, as
     one int64 vector: one pass over all the tensors concatenated, then
-    a sum per group's slice."""
+    a sum per group's slice (on ``device`` when there are none)."""
     names = sorted(grouped)
     sizes = [sum(t.numel() for t in grouped[n]) for n in names]
-    bad = torch.isfinite(_flat([t for n in names for t in grouped[n]])
-                         ).logical_not_()
+    bad = torch.isfinite(_flat([t for n in names for t in grouped[n]],
+                               device)).logical_not_()
     return torch.stack([part.sum() for part in bad.split(sizes)])
 
 
@@ -153,13 +157,13 @@ def pack_health_summary(loss, grad_norm, update_norm, grad_counts,
     group over all of them), or None for ``groups`` zero counts, which is
     exact only when the caller knows the loss and the grad norm are finite
     (every element is then finite)."""
-    device = new_params[0].device
+    device = torch.as_tensor(loss).device
     scalars = torch.stack([torch.as_tensor(x, device=device).float()
                            .reshape(()) for x in (loss, grad_norm,
                                                   update_norm)])
     if grad_counts is None:   # made on the device: a host tensor needs a copy
         grad_counts = torch.zeros(groups, dtype=torch.int64, device=device)
-    counts = torch.cat([nonfinite_total(new_params).reshape(1),
+    counts = torch.cat([nonfinite_total(new_params, device).reshape(1),
                         grad_counts])
     return torch.cat([scalars, counts.float()])
 

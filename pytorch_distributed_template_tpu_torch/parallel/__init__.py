@@ -1,7 +1,8 @@
-"""Data and sequence parallelism over ``torch.distributed``: the process
-group and its host-side collectives (``dist``), the config's ``{data,
-seq}`` mesh over the ranks (``mesh``), and the differentiable collectives
-of the sequence-parallel attention (``collectives``)."""
+"""Parallelism over ``torch.distributed``: the process group and its
+host-side collectives (``dist``), the config's ``{pipe, data, fsdp, seq,
+tensor}`` mesh over the ranks (``mesh``), the differentiable collectives
+(``collectives``), parameter placement (``sharding``), the ZeRO-3 gather
+units (``fsdp``) and the pipeline schedule (``pipeline``)."""
 from . import dist
 from .mesh import build_mesh, mesh_from_config, resolve_axis_sizes
 

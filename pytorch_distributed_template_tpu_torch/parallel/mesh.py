@@ -2,26 +2,32 @@
 the JAX package's ``parallel/mesh.py`` (``resolve_axis_sizes``,
 ``build_mesh``, ``mesh_from_config``).
 
-The port runs three axes: ``pipe`` (pipeline parallelism:
-parallel/pipeline.py, the pipelined models), ``data`` (DDP over the
-ranks) and ``seq`` (sequence parallelism: ring and Ulysses attention,
-ops/attention.py). Ranks are laid out as JAX's ``build_mesh`` reshapes its
-devices in ``MESH_AXES`` order, pipe outermost and seq innermost: ``rank =
-(pipe_index * D + data_index) * S + seq_index``. :func:`build_mesh` makes
-one process group per row of each axis of size > 1 (the ranks that differ
-only in their index on it), on every rank in the same order
-(``dist.new_group`` is collective). The other axes refuse by name until
-their ROADMAP items port them (:data:`LATER_AXES`).
+The port runs five axes: ``pipe`` (pipeline parallelism:
+parallel/pipeline.py, the pipelined models), ``data`` (data parallelism),
+``fsdp`` (ZeRO-3: the batch and the parameters sharded, parallel/fsdp.py),
+``seq`` (sequence parallelism: ring and Ulysses attention,
+ops/attention.py) and ``tensor`` (Megatron tensor parallelism in the LM
+families). Ranks are laid out as JAX's ``build_mesh`` reshapes its devices
+in ``MESH_AXES`` order, pipe outermost and tensor innermost: ``rank =
+(((pipe * D + data) * F + fsdp) * S + seq) * T + tensor``.
+:func:`build_mesh` makes one process group per row of each axis of size >
+1 (the ranks that differ only in their index on it), and one per row of the
+data x fsdp plane (the ranks sharing every model-parallel index: pipe, seq
+and tensor), over which replicated gradients are averaged, on every rank in
+the same order (``dist.new_group`` is collective). ``expert`` refuses by
+name until its ROADMAP item ports it (:data:`LATER_AXES`).
 
 :func:`build_mesh` of :func:`mesh_from_config` is the config's mesh; the
-entry points build it once and hand its data axis (:meth:`Mesh.data_shard`)
-to the loaders, so every rank of a seq row and every stage of a pipe row
-reads the same batch, as JAX's ``batch_spec`` shards the batch over the
-data axes only.
+entry points build it once and hand its batch shard
+(:meth:`Mesh.data_shard`: over data and fsdp, JAX's ``DATA_AXES``) to the
+loaders, so every rank of a seq row, a tensor row and a pipe row reads the
+same batch, as JAX's ``batch_spec`` shards the batch over the data axes
+only. :attr:`Mesh.axis_names` keeps the axes the config named, size 1
+included, as the JAX mesh does (partition rules prune against them).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 
@@ -29,13 +35,15 @@ from . import dist
 
 MESH_AXES = ("pipe", "data", "fsdp", "seq", "expert", "tensor")
 #: the axes the port runs, in rank order (outer first)
-PORTED_AXES = ("pipe", "data", "seq")
+PORTED_AXES = ("pipe", "data", "fsdp", "seq", "tensor")
 #: the ROADMAP item that ports each other axis
 LATER_AXES = {
-    "tensor": "ROADMAP A11b (tensor parallelism and FSDP), a later slice",
-    "fsdp": "ROADMAP A11b (tensor parallelism and FSDP), a later slice",
     "expert": "ROADMAP A11d (expert parallelism), a later slice",
 }
+#: the axes that shard the batch (JAX's ``DATA_AXES``)
+DATA_AXES = ("data", "fsdp")
+#: the group key of the data x fsdp plane (:meth:`Mesh.group`)
+BATCH = "batch"
 
 
 def resolve_axis_sizes(axes: Optional[Dict[str, int]],
@@ -70,8 +78,9 @@ def mesh_from_config(config, world_size: Optional[int] = None
                      ) -> Dict[str, int]:
     """The axis sizes of the config's ``mesh`` block (default ``{"data":
     -1}``) over ``world_size`` ranks (default: the process group's), in
-    ``MESH_AXES`` order; an axis the port does not run raises
-    NotImplementedError naming its ROADMAP item."""
+    ``MESH_AXES`` order; an axis the port does not run, and ``fsdp`` or
+    ``tensor`` beside ``pipe`` or ``seq``, raise NotImplementedError naming
+    the ROADMAP item."""
     block = config.get("mesh") or {}
     axes = dict(block.get("axes") or {"data": -1})
     later = sorted(a for a in axes if a in LATER_AXES)
@@ -80,19 +89,38 @@ def mesh_from_config(config, world_size: Optional[int] = None
             f"mesh axis {a!r} is {LATER_AXES[a]}" for a in later))
     n = dist.process_count() if world_size is None else int(world_size)
     sizes = resolve_axis_sizes(axes, n)
+    split = [a for a in ("fsdp", "tensor") if sizes.get(a, 1) > 1]
+    other = [a for a in ("pipe", "seq") if sizes.get(a, 1) > 1]
+    if split and other:
+        raise NotImplementedError(
+            f"mesh axes {split} together with {other} are ROADMAP A11b's "
+            "remainder (tensor and fsdp composed with pipe or seq), a later "
+            "slice")
     return {a: sizes[a] for a in MESH_AXES if a in sizes}
 
 
+class AxisGroup(NamedTuple):
+    """One axis of this rank: its process group, size and index."""
+    group: object
+    size: int
+    index: int
+
+
 class Mesh:
-    """The ``{pipe, data, seq}`` mesh of one rank: the axis sizes, this
-    rank's index on each axis and the process group of each axis it belongs
-    to (None for an axis of size 1, or without a process group)."""
+    """The ``{pipe, data, fsdp, seq, tensor}`` mesh of one rank: the axis
+    sizes, this rank's index on each axis and the process group of each
+    axis it belongs to (None for an axis of size 1, or without a process
+    group). ``names``: the axes the config named (default: those of
+    ``sizes``)."""
 
     def __init__(self, sizes: Dict[str, int], rank: int = 0,
-                 groups: Optional[dict] = None):
+                 groups: Optional[dict] = None, names=None):
         self.sizes = {a: int(sizes.get(a, 1)) for a in PORTED_AXES}
         self.rank = int(rank)
         self._groups = dict(groups or {})
+        named = set(sizes if names is None else names)
+        self._names = tuple(a for a in PORTED_AXES
+                            if a in named or self.sizes[a] > 1)
 
     def axis_size(self, name: str) -> int:
         """The axis's size; 1 for an axis the mesh does not have."""
@@ -100,24 +128,40 @@ class Mesh:
 
     @property
     def axis_names(self) -> tuple:
-        """The axes of size > 1, in rank order (what a partition rule's
-        axis must name to shard: parallel/sharding.py)."""
-        return tuple(a for a in PORTED_AXES if self.sizes[a] > 1)
+        """The axes of the mesh in rank order: those the config named, size
+        1 included, as JAX's mesh keeps them (what a partition rule's axis
+        must name to stay in its spec: parallel/sharding.py)."""
+        return self._names
 
     def axis_index(self, name: str) -> int:
-        """This rank's index on the axis (``rank = (pipe * D + data) * S +
-        seq``)."""
+        """This rank's index on the axis (``rank = (((pipe * D + data) * F
+        + fsdp) * S + seq) * T + tensor``)."""
         return _index(self.sizes, self.rank, name)
 
     def data_shard(self) -> tuple:
-        """``(index, count)`` of this rank's data shard, as the loaders
-        take it: every rank of a seq row and of a pipe row reads the same
-        shard."""
-        return self.axis_index("data"), self.axis_size("data")
+        """``(index, count)`` of this rank's batch shard, as the loaders
+        take it: ``(data * F + fsdp, D * F)``; every rank of a seq row, a
+        tensor row and a pipe row reads the same shard."""
+        f = self.axis_size("fsdp")
+        return (self.axis_index("data") * f + self.axis_index("fsdp"),
+                self.axis_size("data") * f)
 
     def group(self, name: str):
-        """The process group of this rank's ``name`` axis, or None."""
+        """The process group of this rank's ``name`` axis, or of its data x
+        fsdp plane for :data:`BATCH`, or None (size 1)."""
         return self._groups.get(name)
+
+    def axis(self, name: str) -> Optional[AxisGroup]:
+        """This rank's :class:`AxisGroup` of ``name``, or None (size 1)."""
+        size = self.axis_size(name)
+        if size == 1:
+            return None
+        return AxisGroup(self.group(name), size, self.axis_index(name))
+
+    def model_parallel(self) -> bool:
+        """Whether a parameter may be split over the ranks: a pipe, fsdp or
+        tensor axis > 1."""
+        return any(self.sizes[a] > 1 for a in ("pipe", "fsdp", "tensor"))
 
 
 def _index(sizes: Dict[str, int], rank: int, axis: str) -> int:
@@ -129,13 +173,16 @@ def _index(sizes: Dict[str, int], rank: int, axis: str) -> int:
     return (rank // inner) % sizes[axis]
 
 
-def _axis_ranks(sizes: Dict[str, int], axis: str):
-    """Every group of ``axis``: the global ranks that differ only in their
-    index on it, groups in rank order."""
+def _axis_ranks(sizes: Dict[str, int], axes):
+    """Every group of ``axes`` (an axis name or a tuple of them): the
+    global ranks that differ only in their indices on them, groups in rank
+    order."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
     n = int(np.prod([sizes[a] for a in PORTED_AXES]))
     groups: dict = {}
     for rank in range(n):
-        key = tuple(_index(sizes, rank, a) for a in PORTED_AXES if a != axis)
+        key = tuple(_index(sizes, rank, a) for a in PORTED_AXES
+                    if a not in axes)
         groups.setdefault(key, []).append(rank)
     return list(groups.values())
 
@@ -143,6 +190,7 @@ def _axis_ranks(sizes: Dict[str, int], axis: str):
 def build_mesh(sizes: Dict[str, int]) -> Mesh:
     """This rank's :class:`Mesh` over the process group (collective: every
     rank creates every axis group, in the same order)."""
+    names = tuple(sizes)
     sizes = {a: int(sizes.get(a, 1)) for a in PORTED_AXES}
     n = dist.process_count()
     if int(np.prod(list(sizes.values()))) != n:
@@ -152,12 +200,16 @@ def build_mesh(sizes: Dict[str, int]) -> Mesh:
     if dist.in_group():
         import torch.distributed as tdist
 
-        for axis in PORTED_AXES:
-            if sizes[axis] == 1:
-                continue
-            for ranks in _axis_ranks(sizes, axis):
+        plan = [(a, a) for a in PORTED_AXES if sizes[a] > 1]
+        if sizes["data"] > 1 and sizes["fsdp"] > 1:
+            plan.append((BATCH, DATA_AXES))
+        for key, axes in plan:
+            for ranks in _axis_ranks(sizes, axes):
                 group = tdist.new_group(ranks=ranks)
                 if rank in ranks:
-                    groups[axis] = group
-    return Mesh(sizes, rank, groups)
+                    groups[key] = group
+        if BATCH not in groups:
+            # one of the two is 1: the plane is the other axis's row
+            groups[BATCH] = groups.get("data", groups.get("fsdp"))
+    return Mesh(sizes, rank, groups, names)
 

@@ -100,7 +100,7 @@ OPTIONS = [
 def build_trainer(args, config, device) -> Trainer:
     """Model, loss, metrics, loaders and the trainer, from the config."""
     seed = args.seed if args.seed is not None else 0
-    mesh = build_mesh(mesh_from_config(config))   # refuses A11b-d's axes
+    mesh = build_mesh(mesh_from_config(config))   # refuses A11d, A11b's rest
     model = config.init_obj("arch", MODELS, device=device,
                             param_dtype=torch.float32)
     model.init_weights(torch.Generator(device=device).manual_seed(seed))

@@ -50,6 +50,6 @@ def test_data_axis_resolves_as_in_jax(axes, n):
 
 def test_other_axes_refuse_and_bad_sizes_raise():
     with pytest.raises(NotImplementedError, match="A11"):
-        mesh.mesh_from_config({"mesh": {"axes": {"data": 2, "tensor": 2}}})
+        mesh.mesh_from_config({"mesh": {"axes": {"data": 2, "expert": 2}}})
     with pytest.raises(ValueError, match="multiply"):
         mesh.mesh_from_config({"mesh": {"axes": {"data": 2}}}, world_size=1)

@@ -159,11 +159,11 @@ for name, argv in spec["runs"]:
     result[name] = {
         "steps": steps, "mesh": mesh.sizes,
         "pipe": mesh.axis_index("pipe"), "data": mesh.axis_index("data"),
-        "placements": sorted(t.model.pipe_placements),
+        "placements": sorted(t.model.placements),
         "shapes": {k: list(p.shape) for k, p in
                    t.model.named_parameters()},
         "stage_sha": {k: sha(p) for k, p in t.model.named_parameters()
-                      if k in t.model.pipe_placements},
+                      if k in t.model.placements},
         "ddp_ranks": (None if t.ddp is None else
                       tdist.get_process_group_ranks(t.ddp.process_group)),
         "init_sha": box["init"], "run_dir": str(t.config.save_dir)}
@@ -301,7 +301,7 @@ def test_ranks_equal_one_process(runs, name):
     assert len(want) == 12
     for r in ranks:
         run = r[name]
-        assert run["mesh"] == dict(mesh, seq=1)
+        assert run["mesh"] == dict(mesh, fsdp=1, seq=1, tensor=1)
         got = run["steps"]
         assert len(got) == len(want)
         for key in ("loss", "grad_norm"):

@@ -258,7 +258,7 @@ def test_gpt2_pp_config_trains_as_the_jax_trainer(tmp_path):
     cfg = _cut("gpt2_pp.json", PP_CUT)
     first, last, jlogs = _jax_trainer_run(cfg, tmp_path)
     logs, trainer = _port_run(cfg, tmp_path / "port", first)
-    assert trainer.ddp is None and not trainer.model.pipe_placements
+    assert trainer.ddp is None and not trainer.model.placements
     assert trainer.train_step.grad_accum_steps == 2
     assert trainer.model.remat and trainer.model.fused_head
     assert len(logs) == len(jlogs) == 1
