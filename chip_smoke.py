@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 3e, 4, 5, 6, 7, 8, 9,
-10, 11, 12, 13, 14a, 14b, 14c, 15a-15f, 16a-16g, 17a-17d, 18a-18c), each
+10, 11, 12, 13, 14a, 14b, 14c, 15a-15f, 16a-16g, 17a-17d, 18a-18c,
+19a-19c), each
 one's time
 printed beside the card line; any failure exits non-zero and no phase's
 exception is caught:
@@ -385,14 +386,40 @@ attention is the plain einsum attention, as in the JAX trunk) adds:
     (``phase_tp_full``). With fewer cards 18b and 18c print ``"tp_fsdp":
     "not run: N card(s)"``.
 
+Slice 14 (tensor-parallel and DP x TP serving, ROADMAP A11b's serving
+half: ``serve.py --tp/--dp`` start one rank process per card; B1 and B4
+run on each rank's local heads, no new kernel) adds:
+
+19a. B1 and B4 against their plain versions at Mistral-7B's per-rank
+    serving shapes (``TP_SERVE_KERNEL_SHAPES``: the 1024-token prefill at
+    8/2 and 16/4 heads; ``TP_PAGED_SHAPES``: 8 decode rows over the ring
+    on bf16 and int8 pages and a 512-token chunk at 8/2 heads);
+19b. with 4 cards: a 2-layer Mistral at its published widths in f32,
+    made by the port's tool, served by the port's ``serve.py`` (in this
+    process; it starts its own ranks) over cell (e)'s traffic on one
+    card, then on tp 4, dp 2 x tp 2 and dp 4 x tp 1: every request's
+    greedy ids identical to one card's, B4 launched on every rank and B1
+    on none, each rank's parameter bytes its share, the tp-1 groups'
+    engines on distinct cards, one decode step's all-reduces within
+    [floor, 1.5 x floor] (``phase_tp_serve``);
+19c. with 4 cards: phase 4's Mistral-7B artifact in bf16 over
+    ``configs/mistral_7b_serve_paged.json`` and cell (e)'s traffic on one
+    card, tp 4 and dp 2 x tp 2: TTFT and ms/token per request beside the
+    one card's, each rank's peak memory and bytes, one decode step's
+    collectives at batch 1 and 8 (``phase_tp_serve_full``). With fewer
+    cards 19b and 19c print ``"tp_serve": "not run: N card(s)"`` and
+    ``"tp_serve_full": ...``.
+
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
 the launches of slices 1, 3, 4, 6, 7, 8, 9, 10, 11 and 13 (rank 0's of
-18b/18c), paged_attn with slice 2's, flash_bwd_dkv and flash_bwd_dq with
+18b/18c) and 14, paged_attn with slice 2's and 14's (the card-0
+process's of 19b/19c: this process for the tp-1 runs, rank 0 of group 0
+for the others), flash_bwd_dkv and flash_bwd_dq with
 slices 3, 4, 6, 7, 8, 9, 10, 11 and 13, expert_ffn with slice 4's; phase
-14a's block shapes, phase 15b's ViT shapes, phase 16b's BERT shape and
-phase 18a's tensor-parallel shapes among the rows) and the
-device line ``{"ok": true, "device": {...}}``.
+14a's block shapes, phase 15b's ViT shapes, phase 16b's BERT shape,
+phase 18a's tensor-parallel shapes and phase 19a's per-rank serving
+shapes among the rows) and the device line ``{"ok": true, "device": {...}}``.
 Every kernel row also carries ``pct_of_bound`` (100 x bound / kernel time) and
 ``x_library`` (kernel time / library time); kernel times are device times
 (:func:`cuda_ms`). The script needs a CUDA device and the repository
@@ -1119,7 +1146,7 @@ def _host_ms(fn, calls: int = 100, batches: int = 7) -> float:
     return sorted(means)[batches // 2]
 
 
-def phase_paged_kernel() -> list:
+def phase_paged_kernel(shapes=None) -> list:
     """B4 against its plain version on the card at the main path's
     shapes: the arm each takes, max error over valid lanes (pad lanes must
     be exactly 0), kernel / plain / SDPA times, the card's bound and the
@@ -1131,7 +1158,7 @@ def phase_paged_kernel() -> list:
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for shape in PAGED_SHAPES:
+    for shape in shapes or PAGED_SHAPES:
         (name, b, t, hq, kvh, d, bt, nb, window, layout, dtype,
          quant) = shape
         q, kp, vp, ks, vs, tables, starts, pads = _paged_case(*shape, gen)
@@ -5866,10 +5893,10 @@ def _tp_torchrun(tag, runs, root, device, nproc, timeout):
                            nproc, timeout)
 
 
-def _not_run(tag, device, nproc, card) -> bool:
+def _not_run(tag, device, nproc, card, key="tp_fsdp") -> bool:
     cards = torch.cuda.device_count() if device == "cuda" else nproc
     if device == "cuda" and cards < nproc:
-        log(f"[{tag}] " + json.dumps({"tp_fsdp": f"not run: {cards} "
+        log(f"[{tag}] " + json.dumps({key: f"not run: {cards} "
                                       "card(s)", "card": card}))
         return True
     return False
@@ -6088,6 +6115,500 @@ def phase_tp_full(card: str, device="cuda", work=WORK,
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 14: tensor-parallel and DP x TP serving (parallel/tp.py,
+# parallel/serving_ranks.py, engine/dp.py, serve.py --tp/--dp); B1 and B4
+# run on each rank's local heads, no new kernel
+# ---------------------------------------------------------------------------
+
+# phase 19a: B1 and B4 at Mistral-7B's per-rank serving shapes (32/8 heads
+# split 4 ways: 8/2, 2 ways: 16/4; D 128): the plain service's 1024-token
+# prefill (B1), the continuous engine's decode rows over the 145-page ring
+# on bf16 and int8 pages and a 512-token prefill chunk (B4)
+TP_SERVE_KERNEL_SHAPES = [
+    (1, 8, 2, 1024, 128, True, 4096, torch.bfloat16),
+    (1, 16, 4, 1024, 128, True, 4096, torch.bfloat16),
+]
+TP_PAGED_SHAPES = [
+    ("decode_ring_tp4", 8, 1, 8, 2, 128, 32, 145, 4096, "ring",
+     torch.bfloat16, False),
+    ("decode_ring_int8_tp4", 8, 1, 8, 2, 128, 32, 145, 4096, "ring",
+     torch.bfloat16, True),
+    ("prefill_chunk_tp4", 1, 512, 8, 2, 128, 32, 145, 4096, "chunk",
+     torch.bfloat16, False),
+]
+# phase 19b: Mistral at its published widths cut to 2 layers, float32
+# (random weights from the seed), served by serve.py on each geometry
+# (name, dp, tp) over cell (e)'s traffic against one card
+TP_SERVE_ARCH = {"n_layer": 2, "bfloat16": False}
+TP_SERVE_GEOMETRIES = [("tp4", 1, 4), ("dp2_tp2", 2, 2), ("dp4_tp1", 4, 1)]
+# phase 19c: phase 4's Mistral-7B artifact as it is (bf16, 32 layers)
+TP_SERVE_FULL_GEOMETRIES = [("tp4", 1, 4), ("dp2_tp2", 2, 2)]
+# 19c's bf16 prefill logits (1024 tokens, 32 layers) against one card's:
+# max |diff| <= TP_LOGIT_RTOL x max |logit|. The readings it sits between:
+# one card's own two paths (paged B4 against flash B1) differ by 4.2% of
+# the scale, the tp-4 ranks by 5.0% (four cards, NVIDIA H100 80GB HBM3,
+# 700 W); a rank's row-parallel part left out (the control, one card, in
+# the same run) must land at >= 2 x TP_LOGIT_RTOL, or the check is blind
+TP_LOGIT_RTOL = 0.10
+# after 19c's tp-4 wave, a second wave of TP_PROFILE_NEW new tokens per
+# request, rank 0's model calls TP_PROFILE_SKIP + 1 .. + TP_PROFILE_CALLS
+# of it under torch.profiler (the measured wave runs untraced)
+TP_PROFILE_NEW, TP_PROFILE_SKIP, TP_PROFILE_CALLS = 24, 4, 12
+
+
+def _engines(service) -> list:
+    return getattr(service, "_engines", None) or [service]
+
+
+def _serve_config(config, arch_args, path) -> Path:
+    """``config`` with the artifact's arch (``-c`` overlays ``arch``)."""
+    cfg = json.loads(Path(config).read_text())
+    cfg["arch"] = {"type": MAIN_ARCH, "args": dict(arch_args)}
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def _cell_e_prompts(vocab: int, sizes, seed: int) -> list:
+    gen = torch.Generator().manual_seed(seed + 7)
+
+    def rand(n):
+        return torch.randint(0, vocab, (n,), generator=gen).tolist()
+
+    prefix = rand(sizes["prefix"])
+    return ([prefix + rand(n) for n in sizes["shared_suffix"]]
+            + [rand(n) for n in sizes["alone"]])
+
+
+def _prefill_logits(model, ids, drop: int = 0):
+    """``ids``' last-position logits (on the CPU) through a fresh-cache
+    prefill (B1) of ``model``. ``drop`` > 1 is the control of a TP check:
+    the input columns that the last of ``drop`` ranks would hold are
+    zeroed at every row-parallel projection (``o_proj``, ``down_proj``),
+    so that rank's part of each sum is left out."""
+    def cut(module, args):
+        x = args[0].clone()
+        x[..., x.shape[-1] - x.shape[-1] // drop:] = 0
+        return (x,) + tuple(args[1:])
+
+    hooks = [m.register_forward_pre_hook(cut)
+             for name, m in model.named_modules()
+             if name.endswith(("o_proj", "down_proj"))] if drop > 1 else []
+    try:
+        with torch.no_grad():
+            cache = model.new_cache(1, len(ids) + 1)
+            return model(torch.tensor([ids], device=model.device),
+                         cache=cache, prefill=True)[0, -1].float().cpu()
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _serve_geometry(card, label, argv, sizes, prompts, block: int,
+                    device, logit_ids=None, controls=(),
+                    profile=False) -> dict:
+    """serve.py with ``argv`` in this process over cell (e): the first
+    shared-prefix request, the other 7 once its prefix is adopted (as
+    :func:`_mix_e`). Every launch count (this process's and the ranks') is
+    set to 0 just before the wave and read just after. After the wave,
+    ``logit_ids``' last-position logits through a fresh-cache prefill
+    (B1) of the service's model (group 0's) land in
+    ``row["prefill_logits"]`` (on the CPU), and for each tp degree of
+    ``controls`` the same with that degree's last rank left out in
+    ``row["control_logits"][degree]``. ``profile``: a second wave traced
+    on group 0's rank 0 (``TP_PROFILE_*``), its summary in
+    ``row["profile"]``. Returns the row."""
+    import threading
+
+    from pytorch_distributed_template_tpu_torch import serve
+    from pytorch_distributed_template_tpu_torch.ops import flash
+    from pytorch_distributed_template_tpu_torch.parallel.tp import (
+        decode_step_collectives,
+    )
+
+    t0 = time.perf_counter()
+    run = ServeRun(argv)
+    up_s = time.perf_counter() - t0
+    svc = run.service
+    groups = serve._groups(svc)
+    engines = _engines(svc)
+    try:
+        cuda = torch.device(device).type == "cuda"
+        _sync(device)
+        if cuda:
+            for d in range(torch.cuda.device_count()):
+                torch.cuda.reset_peak_memory_stats(d)
+        flash.FLASH_FWD.reset()
+        flash.PAGED_ATTN.reset()
+        for g in groups:
+            g.reset_counts()
+        calls0 = svc.stats["model_calls"]
+        need = (svc.prefix_cache_stats()["prefix_adopted_blocks"]
+                + sizes["prefix"] // block)
+        bodies = [{"prompt_ids": p, "max_new_tokens": sizes["new"]}
+                  for p in prompts]
+        first = {}
+        t0 = time.perf_counter()
+        th = threading.Thread(target=lambda: first.update(
+            r=stream_request(run, bodies[0])), daemon=True)
+        th.start()
+        _wait_for(lambda: svc.prefix_cache_stats()["prefix_adopted_blocks"]
+                  >= need or not th.is_alive(), "the shared prefix")
+        rest = _concurrent(lambda b: stream_request(run, b), bodies[1:])
+        th.join(1200)
+        if "r" not in first:
+            raise AssertionError(f"[tp_serve] {label}: first request failed")
+        results = [first["r"]] + rest
+        wall = time.perf_counter() - t0
+        _sync(device)
+        local = {"flash_fwd": flash.FLASH_FWD.launches,
+                 "paged_attn": flash.PAGED_ATTN.launches}
+        per_card = {k: {str(d): n for d, n in lib.per_device.items()}
+                    for k, lib in (("flash_fwd", flash.FLASH_FWD),
+                                   ("paged_attn", flash.PAGED_ATTN))}
+        trips = [g.round_trip_s for g in groups]
+        ranks = [g.rank_stats() for g in groups]
+        for r in results:
+            _check_ids(r["ids"], svc.vocab, sizes["new"], f"({label})")
+        pool = svc.prefix_cache_stats()
+        if pool["warm_admit_copy_bytes"] != 0:
+            raise AssertionError(f"({label}) warm admits copied bytes")
+        tps = svc.tp_stats()
+        # one decode step of the wave's 8 rows: the collectives a cell (e)
+        # step issues, against the floor at that batch
+        step8 = (decode_step_collectives(svc.model, sizes["slots"])
+                 if groups else None)
+        row = {
+            "geometry": label, "dp": getattr(svc, "dp", 1), "tp": svc.tp,
+            "serve_up_s": up_s, "wall_s": wall,
+            "model_calls": svc.stats["model_calls"] - calls0,
+            "ttft_ms": [r["ttft_s"] * 1e3 for r in results],
+            "decode_ms_per_token": [
+                (r["total_s"] - r["ttft_s"]) * 1e3
+                / (len(r["ids"]) - r["first_delta"])
+                for r in results if len(r["ids"]) > r["first_delta"]],
+            "prompt_lens": [len(p) for p in prompts],
+            "prefix_hit_tokens": pool["prefix_hit_tokens"],
+            "launches_here": local, "launches_per_card_here": per_card,
+            "launches_per_rank": [[s["launches"] for s in rs]
+                                  for rs in ranks],
+            "paged_arms_per_rank": [[s["paged_arms"] for s in rs]
+                                    for rs in ranks],
+            "param_bytes_per_rank": [[s["param_bytes"] for s in rs]
+                                     for rs in ranks],
+            "pool_bytes_per_rank": [[sum(s["pool_bytes"].values())
+                                     for s in rs] for rs in ranks],
+            "peak_gib_per_rank": [[s["peak_bytes"] / GIB for s in rs]
+                                  for rs in ranks],
+            "rank_devices": [[s["device"] for s in rs] for rs in ranks],
+            "engine_devices": [str(e.model.device) if not hasattr(
+                e.model, "devices") else [str(d) for d in e.model.devices]
+                               for e in engines],
+            "all_reduce_per_rank_wave": [[s["p2p"]["all_reduce"]
+                                          for s in rs] for rs in ranks],
+            "rank_busy_ms_per_call": [[s["busy_s"] * 1e3 / max(s["calls"], 1)
+                                       for s in rs] for rs in ranks],
+            # rank time per call: host launches / waiting for the device
+            # (rank 0) / the reply
+            "rank_split_ms_per_call": [[{k: v * 1e3 / max(s["calls"], 1)
+                                         for k, v in s["split_s"].items()}
+                                        for s in rs] for rs in ranks],
+            # the serving process per group: a call's round trip, and the
+            # wave's wall time outside round trips (the engine's own host
+            # work: scheduling, tables, sampling), both per model call
+            "round_trip_ms_per_call": [
+                t * 1e3 / max(rs[0]["calls"], 1)
+                for t, rs in zip(trips, ranks)],
+            "outside_round_trips_ms_per_call": [
+                (wall - t) * 1e3 / max(rs[0]["calls"], 1)
+                for t, rs in zip(trips, ranks)],
+            "tp_stats": tps, "decode_step_full_batch": step8, "card": card}
+        if cuda and not groups:
+            row["peak_gib_per_card"] = [
+                torch.cuda.max_memory_allocated(d) / GIB
+                for d in range(torch.cuda.device_count())]
+        if not cuda:
+            pass                # the plain versions count no launch
+        elif groups:
+            lead = ranks[0][0]["launches"]
+            if lead["paged_attn"] == 0 or lead["flash_fwd"] != 0:
+                raise AssertionError(f"[tp_serve] {label}: rank 0 launched "
+                                     f"{lead}")
+            if not all(s["launches"]["paged_attn"] > 0
+                       for rs in ranks for s in rs):
+                raise AssertionError(f"[tp_serve] {label}: a rank launched "
+                                     "no B4")
+        else:
+            # every tp-1 group launched B4 on its own card
+            cards = [str(e.model.device.index) for e in engines]
+            if not all(per_card["paged_attn"].get(c, 0) > 0 for c in cards):
+                raise AssertionError(f"[tp_serve] {label}: B4 launches per "
+                                     f"card {per_card['paged_attn']}, "
+                                     f"engines on cards {cards}")
+        row["ids"] = [r["ids"] for r in results]
+        if profile and groups:
+            groups[0].profile(TP_PROFILE_SKIP, TP_PROFILE_CALLS)
+            _concurrent(lambda b: stream_request(run, dict(
+                b, max_new_tokens=TP_PROFILE_NEW)), bodies)
+            row["profile"] = groups[0].rank_stats()[0]["profile"]
+            if row["profile"] is None:
+                raise AssertionError(f"[tp_serve] {label}: the traced wave "
+                                     "ran fewer than "
+                                     f"{TP_PROFILE_SKIP + TP_PROFILE_CALLS} "
+                                     "model calls")
+        if logit_ids is not None:
+            row["prefill_logits"] = _prefill_logits(svc.model, logit_ids)
+            row["control_logits"] = {
+                d: _prefill_logits(svc.model, logit_ids, d)
+                for d in controls}
+        return row
+    finally:
+        run.close()
+        del run, svc, groups, engines
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            for d in range(torch.cuda.device_count()):
+                with torch.cuda.device(d):
+                    torch.cuda.empty_cache()
+
+
+def _rank0_launches(rows) -> dict:
+    """The launches on card 0: this process's there for the tp-1 runs,
+    rank 0 of group 0's for the others."""
+    out = {"flash_fwd": 0, "paged_attn": 0}
+    for row in rows:
+        for k in out:
+            out[k] += (row["launches_per_rank"][0][0][k]
+                       if row["launches_per_rank"] else
+                       row["launches_per_card_here"][k].get("0", 0))
+    return out
+
+
+def phase_tp_serve(card: str, device="cuda", work=WORK, nproc: int = 4,
+                   arch_args=None, config=SERVE_CONFIG, sizes=None,
+                   geometries=TP_SERVE_GEOMETRIES, seed: int = 0) -> dict:
+    """Phase 19b: with ``nproc`` cards, a random-init Mistral at its widths
+    cut to ``TP_SERVE_ARCH`` (2 layers, float32) made by the port's tool,
+    served by the port's ``serve.py`` (in this process; it starts its own
+    ranks) over cell (e)'s traffic on one card, then on each of
+    ``TP_SERVE_GEOMETRIES`` (tp 4, dp 2 x tp 2, dp 4 x tp 1): every
+    request's greedy ids identical to the one card's; each TP rank launched
+    B4 and no B1; each rank's parameter bytes its placement's share; the
+    tp-1 groups' engines on distinct cards. Prints TTFT and ms/token per
+    request, per-rank bytes and peak memory, and one decode step's
+    collectives against the floor. With fewer cards it prints
+    ``"tp_serve": "not run: N card(s)"`` and returns {}. ``arch_args``,
+    ``config`` and ``sizes`` cut it (a tiny width on the CPU, where the
+    ranks run on gloo)."""
+    from pytorch_distributed_template_tpu_torch.config.registry import (
+        MODELS,
+    )
+    from pytorch_distributed_template_tpu_torch.parallel import tp
+    from pytorch_distributed_template_tpu_torch.tools import (
+        make_serving_artifact as tool,
+    )
+
+    tag = "tp_serve"
+    if _not_run(tag, device, nproc, card, key=tag):
+        return {}
+    arch_args = dict(TP_SERVE_ARCH, **(arch_args or {}))
+    sizes = dict(SERVE_SIZES, **(sizes or {}))
+    root = work / tag
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    argv = ["-o", str(root / "art"), "--arch", MAIN_ARCH, "--seed",
+            str(seed), "--device", str(device)]
+    for key, val in arch_args.items():
+        argv += ["--" + key.replace("_", "-"), json.dumps(val)
+                 if isinstance(val, bool) else str(val)]
+    tool.main(argv)
+    _release(device)
+    cfg = _serve_config(config, arch_args, root / "serve.json")
+    block = json.loads(cfg.read_text())["serving"]["prefix_cache"][
+        "block_tokens"]
+    shape = MODELS.get(MAIN_ARCH)(**arch_args, device="meta")
+    prompts = _cell_e_prompts(shape.vocab_size, sizes, seed)
+    base = ["-r", str(root / "art" / "model"), "-c", str(cfg), "-s",
+            str(root / "run"), "--port", "0", "--max-batch",
+            str(sizes["slots"]), "--decode-chunk", str(sizes["chunk"]),
+            "--device", str(device)]
+    one = _serve_geometry(card, "one", base, sizes, prompts, block, device)
+    log(f"[{tag}] " + json.dumps({k: v for k, v in one.items()
+                                  if k != "ids"}))
+    whole = sum(p.numel() * p.element_size() for p in shape.parameters())
+    out = {"one": one}
+    for name, dp, degree in geometries:
+        row = _serve_geometry(card, name, base + ["--dp", str(dp), "--tp",
+                                                  str(degree)],
+                              sizes, prompts, block, device)
+        same = [a == b for a, b in zip(row["ids"], one["ids"])]
+        row["identical_to_one_card"] = same
+        placed = tp.serving_placements(shape, degree)
+        share = sum(p.numel() * p.element_size()
+                    // (degree if any(placed[n]) else 1)
+                    for n, p in shape.named_parameters())
+        row["param_bytes_whole"], row["param_bytes_share"] = whole, share
+        log(f"[{tag}] " + json.dumps({k: v for k, v in row.items()
+                                      if k != "ids"}))
+        if not all(same):
+            raise AssertionError(f"[{tag}] {name}: greedy ids differ from "
+                                 f"one card's on requests "
+                                 f"{[i for i, s in enumerate(same) if not s]}")
+        if degree > 1:
+            if any(b != share for rs in row["param_bytes_per_rank"]
+                   for b in rs):
+                raise AssertionError(f"[{tag}] {name}: parameter bytes "
+                                     f"{row['param_bytes_per_rank']}, not "
+                                     f"{share} each")
+            st = row["tp_stats"]
+            floor = st["analytic_floor_bytes"]
+            if not (st["counts"]["all-reduce"] >= 2 * shape.n_layer and
+                    floor <= st["bytes"]["all-reduce"] <= 1.5 * floor):
+                raise AssertionError(f"[{tag}] {name}: collectives {st}")
+        elif torch.device(device).type == "cuda" and \
+                row["engine_devices"] != [f"cuda:{g}" for g in range(dp)]:
+            raise AssertionError(f"[{tag}] {name}: tp-1 groups on "
+                                 f"{row['engine_devices']}")
+        out[name] = row
+    shutil.rmtree(root)
+    return out
+
+
+def phase_tp_serve_full(card: str, model_path, device="cuda", work=WORK,
+                        nproc: int = 4, config=SERVE_CONFIG, sizes=None,
+                        geometries=TP_SERVE_FULL_GEOMETRIES,
+                        seed: int = 0) -> dict:
+    """Phase 19c: with ``nproc`` cards, phase 4's Mistral-7B artifact (bf16,
+    32 layers, the published widths) served by the port's ``serve.py``
+    with ``configs/mistral_7b_serve_paged.json`` over cell (e)'s traffic
+    on one card, then ``--tp 4`` and ``--dp 2 --tp 2``: every request's ids
+    in range, warm admits copying nothing, B4 on every rank, and one
+    1024-token prefill's bf16 logits within ``TP_LOGIT_RTOL`` of the one
+    card's while the control (the last rank's row-parallel part left out,
+    on the one card) lands at 2 x ``TP_LOGIT_RTOL`` or more. Prints TTFT
+    and ms/token per request beside the one card's, each rank's peak
+    memory, parameter and pool bytes, its time per call split into host
+    launches, waiting for the device and the reply, the serving process's
+    round trips, a profiled second wave on tp 4's rank 0, and the
+    all-reduces and bytes of one decode step (batch 1 and the wave's 8
+    rows) against the floor; the share of requests whose bf16 greedy ids
+    equal the one card's is reported, not held (the ranks sum the
+    row-parallel products in another order). With fewer cards it prints
+    ``"tp_serve_full": "not run: N card(s)"`` and returns {}."""
+    tag = "tp_serve_full"
+    if _not_run(tag, device, nproc, card, key=tag):
+        return {}
+    sizes = dict(SERVE_SIZES, **(sizes or {}))
+    block = json.loads(Path(config).read_text())["serving"][
+        "prefix_cache"]["block_tokens"]
+    vocab = json.loads((Path(model_path).parent / "config.json")
+                       .read_text())["arch"]["args"].get("vocab_size",
+                                                         32000)
+    prompts = _cell_e_prompts(vocab, sizes, seed)
+    logit_ids = torch.randint(0, vocab, (sizes["logit_prompt"],),
+                              generator=torch.Generator().manual_seed(
+                                  seed + 11)).tolist()
+    root = work / tag
+    base = ["-r", str(model_path), "-c", str(config), "-s", str(root),
+            "--port", "0", "--max-batch", str(sizes["slots"]),
+            "--decode-chunk", str(sizes["chunk"]), "--device", str(device)]
+    _release(device)
+    one = _serve_geometry(card, "one", base, sizes, prompts, block, device,
+                          logit_ids, controls=sorted({d for _, _, d in
+                                                      geometries}))
+    ref = one.pop("prefill_logits")
+    controls = one.pop("control_logits")
+    scale = ref.abs().max().item()
+    log(f"[{tag}] " + json.dumps({k: v for k, v in one.items()
+                                  if k != "ids"}))
+    out = {"one": one}
+    for name, dp, degree in geometries:
+        argv = base + ["--dp", str(dp), "--tp", str(degree)]
+        row = _serve_geometry(card, name, argv, sizes, prompts, block,
+                              device, logit_ids, profile=dp == 1)
+        got = row.pop("prefill_logits")
+        row.pop("control_logits")
+        row["identical_to_one_card"] = [
+            a == b for a, b in zip(row["ids"], one["ids"])]
+        row["first_diff"] = [next((i for i, (x, y) in enumerate(zip(a, b))
+                                   if x != y), len(a))
+                             for a, b in zip(row["ids"], one["ids"])]
+        # the bf16 logits of one 1024-token prefill (B1 on the ranks' local
+        # heads) against the one card's, and the control's distance
+        err = (got - ref).abs().max().item()
+        control = (controls[degree] - ref).abs().max().item()
+        row["prefill_logits"] = {
+            "prompt_len": len(logit_ids), "max_abs_diff": err,
+            "mean_abs_diff": (got - ref).abs().mean().item(),
+            "max_abs": scale, "rel": err / scale,
+            "control_max_abs_diff": control, "control_rel": control / scale,
+            "rtol": TP_LOGIT_RTOL,
+            "same_argmax": bool(got.argmax() == ref.argmax())}
+        for k in ("ttft_ms", "decode_ms_per_token"):
+            row[k + "_median"] = float(np.median(row[k]))
+            row[k + "_one_card_median"] = float(np.median(one[k]))
+        log(f"[{tag}] " + json.dumps({k: v for k, v in row.items()
+                                      if k != "ids"}))
+        if (not torch.isfinite(got).all() or got.shape != ref.shape
+                or err > TP_LOGIT_RTOL * scale):
+            raise AssertionError(f"[{tag}] {name}: prefill logits "
+                                 f"{row['prefill_logits']}")
+        if control < 2 * TP_LOGIT_RTOL * scale:
+            raise AssertionError(f"[{tag}] {name}: the control (rank "
+                                 f"{degree - 1}'s row-parallel part left "
+                                 f"out) is within 2 x TP_LOGIT_RTOL: "
+                                 f"{row['prefill_logits']}")
+        out[name] = row
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def tp_serving_main() -> int:
+    """``chip_smoke.py --tp-serving``: slice 14's phases alone, for four
+    cards: the build, 19a, 19b, phase 4's Mistral-7B artifact (the port's
+    tool, ``MAIN_ARCH`` at seed 0 as phase 4 makes it) and 19c. Prints
+    each phase's rows and time and the launches on card 0; exits 0 when
+    every check held."""
+    from pytorch_distributed_template_tpu_torch.tools import (
+        make_serving_artifact as tool,
+    )
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    log(f"[device] {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()} | nvidia-smi: {card}")
+    times = {}
+
+    def timed(phase, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        times[phase] = time.perf_counter() - t0
+        log(f"[time] phase {phase}: {times[phase]:.1f} s | {card}")
+        return out
+
+    timed("1", phase_build)
+    timed("19a", phase_kernel, TP_SERVE_KERNEL_SHAPES)
+    timed("19a-paged", phase_paged_kernel, TP_PAGED_SHAPES)
+    rows = list(timed("19b", phase_tp_serve, card).values())
+    if WORK.exists():
+        shutil.rmtree(WORK / "art", ignore_errors=True)
+    timed("artifact", tool.main, ["-o", str(WORK / "art"), "--arch",
+                                  MAIN_ARCH, "--seed", "0", "--device",
+                                  "cuda"])
+    _release("cuda")
+    rows += [r for r in timed("19c", phase_tp_serve_full, card,
+                              WORK / "art" / "model").values()
+             if "launches_here" in r]
+    shutil.rmtree(WORK)
+    log("[launches] card 0 " + json.dumps(_rank0_launches(rows)))
+    print(json.dumps({"tp_serving": "ok", "phases_s": times, "card": card}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -6166,6 +6687,16 @@ def main() -> int:
     tp_launches = dict(zip(FLASH_KERNELS, (
         sum(row["launches_per_rank"][0][i] for row in tp_rows.values())
         for i in range(3))))
+    rows += timed("19a", phase_kernel, TP_SERVE_KERNEL_SHAPES)
+    paged_rows += timed("19a-paged", phase_paged_kernel, TP_PAGED_SHAPES)
+    serve_rows = list(timed("19b", phase_tp_serve, card).values())
+    serve_rows += [r for r in timed(
+        "19c", phase_tp_serve_full, card, WORK / "art" / "model").values()
+        if "launches_here" in r]
+    # the card-0 process's launches in 19b/19c (rank 0 of a TP group)
+    serve_launches = _rank0_launches(serve_rows)
+    paged_launches += serve_launches["paged_attn"]
+    flash_launches += serve_launches["flash_fwd"]
     if any(pp_launches.values()):
         raise AssertionError(f"the pipelined trunk launched a kernel: "
                              f"{pp_launches}")
@@ -6218,4 +6749,6 @@ if __name__ == "__main__":
         sys.exit(seq_child(sys.argv[2]))
     if sys.argv[1:2] == ["--tp-child"]:
         sys.exit(tp_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-serving"]:
+        sys.exit(tp_serving_main())
     sys.exit(main())

@@ -6,6 +6,9 @@ state dict), a ``model.meta.json`` sidecar carrying ``params_only: true``,
 and a ``model.manifest.json`` sha256 manifest over the directory's files.
 Restoring verifies the manifest first and refuses loudly on any mismatch:
 serving garbage weights is the one failure nothing downstream catches.
+The meta records the model's ``tp_geometry`` (``parallel.tp.
+model_geometry``), and :func:`check_artifact_tp_geometry` refuses a
+tensor-parallel degree that geometry cannot shard before a weight is read.
 """
 from __future__ import annotations
 
@@ -110,8 +113,34 @@ def load_serving_meta(path) -> Optional[dict]:
     return meta if meta.get("params_only") else None
 
 
-def restore_serving_params(path, device) -> dict:
-    """Verify the manifest, then load the state dict onto ``device``."""
-    verify_artifact_manifest(path)
+def check_artifact_tp_geometry(path, tp: int) -> None:
+    """Refuse a tensor-parallel degree ``tp`` the artifact's recorded
+    ``tp_geometry`` cannot shard, naming every dimension it does not
+    divide (JAX's ``check_artifact_tp_geometry``). Artifacts without a
+    recorded geometry pass: the model-level check
+    (``parallel.tp.validate_tp_geometry``) still guards them."""
+    tp = int(tp)
+    if tp <= 1:
+        return
+    geom = (load_serving_meta(path) or {}).get("tp_geometry")
+    if not geom:
+        return
+    bad = [f"{k}={v}" for k, v in sorted(geom.items())
+           if isinstance(v, int) and v and v % tp]
+    if bad:
+        raise ValueError(
+            f"artifact {path} cannot serve at tensor_parallel={tp}: "
+            f"recorded geometry {', '.join(bad)} not divisible "
+            "(re-produce the artifact with a compatible shape, or pick a "
+            "tp dividing every recorded dimension)")
+
+
+def restore_serving_params(path, device, verify: bool = True) -> dict:
+    """Verify the manifest (unless the caller already did: a TP group's
+    ranks, after the serving process), then load the state dict
+    memory-mapped onto ``device`` (``"cpu"`` keeps it mapped: only the
+    parts a caller copies are read)."""
+    if verify:
+        verify_artifact_manifest(path)
     return torch.load(Path(path).resolve() / PARAMS_FILE,
                       map_location=device, weights_only=True, mmap=True)

@@ -34,10 +34,18 @@ cancelled row is frozen on the device at once (its done flag is set in
 stream order), so its pages free at completion without the JAX engine's
 deferred zombie cleanup.
 
+Tensor parallelism: over a ``parallel.serving_ranks.TensorParallelModel``
+the scheduler runs unchanged on the serving process's CPU, and every model
+call (prefill chunks, admissions, decode steps) runs in lockstep on the
+group's ranks, each over its KV-head slice of the pool; page ids, tables
+and refcounts are the same for every rank, so warm admits stay pointer
+updates. ``stats["tp_degree"]`` reports the degree; ``tp_stats()`` is
+counted once at setup. DP groups are engine/dp.py.
+
 Left to later slices: the non-paged shared-cache engine (eras, the scatter
-warm admit), brownout, deadlines, tracing, anatomy, speculative decoding,
-roles/page shipping and TP/DP. Without a paged pool the constructor
-raises.
+warm admit; ROADMAP A3a.1), brownout and SLOs (A3a.5, A3a.7), deadlines,
+tracing, anatomy, speculative decoding (A4) and roles/page shipping
+(A3a.4). Without a paged pool the constructor raises.
 """
 from __future__ import annotations
 
@@ -57,7 +65,8 @@ from .serving import GenerationService
 logger = logging.getLogger(__name__)
 
 _SLICE_SHARED = ("the non-paged shared-cache continuous engine (scatter "
-                 "warm admits, eras) is a later slice of the port")
+                 "warm admits, eras) is a later slice of the port "
+                 "(ROADMAP A3a.1)")
 _STOP = object()           # worker shutdown sentinel
 
 
@@ -105,18 +114,23 @@ class ContinuousBatchingService(GenerationService):
                       "deferred_admissions": 0, "model_calls": 0,
                       "prefill_chunks": 0, "streamed_prefill_tokens": 0,
                       "streamed_requests": 0, "admit_calls": 0,
-                      "decode_calls": 0}
+                      "decode_calls": 0, "tp_degree": self.tp}
+        # the per-step collective accounting runs a probe on the ranks:
+        # once here, never on the scrape path
+        self.tp_stats()
         self._worker_thread = threading.Thread(
             target=self._worker, daemon=True, name="gen-continuous")
         self._worker_thread.start()
 
     def close(self, timeout: float = 60.0) -> None:
         """Stop the worker thread (queued requests behind the sentinel
-        are never served) and drop the device state."""
+        are never served) and drop the device state (and the ranks of a
+        tensor-parallel model the service loaded)."""
         self._queue.put(_STOP)
         self._worker_thread.join(timeout)
         if self._worker_thread.is_alive():
             raise RuntimeError("continuous scheduler did not stop")
+        super().close()
 
     # ---- request entry ---------------------------------------------------
 
@@ -134,7 +148,8 @@ class ContinuousBatchingService(GenerationService):
         request still queued is dropped)."""
         if int(speculative) > 0:
             raise NotImplementedError(
-                "speculative decoding is a later slice of the port")
+                "speculative decoding is a later slice of the port "
+                "(ROADMAP A4)")
         ids = self.encode_prompt(prompt, prompt_ids)
         stops = self.encode_stop(stop)
         max_new = int(max_new_tokens)

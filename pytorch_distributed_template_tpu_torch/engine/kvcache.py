@@ -23,12 +23,19 @@ package's ``engine/kvcache.py``.
   adopts nothing. A single prefill feed never exceeds the slack, so long
   prompts stream in ``ring_slack_tokens`` chunks.
 
+- **Tensor parallelism**: the pool's pages are split on the KV-head axis
+  over the group's ranks (each rank's ``new_paged_cache`` holds its
+  ``KVH / T`` heads; ``parallel/serving_ranks.py``), while the radix index,
+  the tables, the free list and the refcounts stay single, here: a page id
+  means the same page on every rank. KV heads that T does not divide are
+  refused (``kv_heads``), as in the JAX package.
+
 Left to later slices: the scatter arm (warm admits that copy cached
 blocks into a contiguous cache, ``scatter_blocks`` and the capture
-kernel; a pool that is not paged, or dry, has the serving layer serve
-the request cold, counted under its fallback reason), the spill tiers
-(``SpillTier``; refused by name) and page shipping (``serialize_pages``,
-``export_pages``/``import_pages``).
+kernel; ROADMAP A3a.1; a pool that is not paged, or dry, has the serving
+layer serve the request cold, counted under its fallback reason), the
+spill tiers (``SpillTier``; A3a.3, refused by name) and page shipping
+(``serialize_pages``, ``export_pages``/``import_pages``; A3a.4).
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ import numpy as np
 import torch
 
 from ..models.llama import SCRATCH_BLOCK
+from ..parallel.tp import model_geometry, tp_degree
 
 logger = logging.getLogger(__name__)
 
@@ -173,7 +181,7 @@ class PrefixCache:
                                           and int(disk_spill_blocks) > 0):
             raise NotImplementedError(
                 "KV spill tiers (host/disk demote-on-evict) are a later "
-                "slice of the port")
+                "slice of the port (ROADMAP A3a.3)")
         spec = getattr(model, "kv_cache_spec", None)
         if spec is None:
             raise PoolUnsupported(
@@ -188,6 +196,14 @@ class PrefixCache:
         if eviction != "lru":
             raise ValueError(f"unknown eviction policy {eviction!r} "
                              "(only 'lru')")
+        # TP: every rank's pool holds KVH / T heads of each page
+        self.tp = tp_degree(model)
+        kv_heads = model_geometry(model)["n_kv_head"]
+        if self.tp > 1 and kv_heads % self.tp:
+            raise ValueError(
+                f"kv_heads={kv_heads} does not split over "
+                f"tensor_parallel={self.tp}: the pool shards its pages on "
+                "the KV-head axis")
         if int(block_tokens) < 1 or int(pool_blocks) < 2:
             raise ValueError("need block_tokens >= 1 and pool_blocks "
                              ">= 2 (block 0 is reserved scratch)")
@@ -328,6 +344,13 @@ class PrefixCache:
                else "batch1_scatter_requests")
         with self._lock:
             self.stats[key] += 1
+
+    def cached_block_count(self, ids) -> int:
+        """Full blocks of ``ids`` the pool holds now (no refs taken, no
+        proper-prefix cap): the DP facade's affinity probe."""
+        with self._lock:
+            _, blocks = self.index.match(list(ids))
+            return len(blocks)
 
     def counter(self, name: str) -> int:
         with self._lock:

@@ -17,9 +17,17 @@ the pool refuses, or a dry pool serves the request cold, counted under the
 JAX package's ``pool_fallback_*`` reasons. ``serving.kv_quant: "int8"``
 stores K/V int8 in the pool and in the cold path's cache.
 
+Tensor parallelism (``serving.tensor_parallel`` or ``tensor_parallel=``
+T > 1, parallel/tp.py): the model is a ``parallel.serving_ranks.
+TensorParallelModel``, T rank processes each holding its Megatron slice
+and its KV-head slice of every cache and of the pool, and the service
+runs on the CPU of the serving process exactly as over a local model
+(prefill B1 and the pool's B4 run on the ranks' local heads). ``tp`` and
+``tp_stats()`` report the degree and one decode step's collectives.
+
 Left to later slices, each refused with a message naming it: speculative
-decoding, tensor-parallel serving, and the scatter arm of the prefix cache
-(cached blocks copied into a contiguous cache).
+decoding (ROADMAP A4) and the scatter arm of the prefix cache (cached
+blocks copied into a contiguous cache, A3a.1).
 """
 from __future__ import annotations
 
@@ -30,9 +38,16 @@ import torch
 
 from .. import models  # noqa: F401  (registers the model families)
 from .kvcache import PrefixCache
-from ..checkpoint import load_serving_meta, restore_serving_params
-from ..config.registry import MODELS
+from ..checkpoint import (
+    check_artifact_tp_geometry, load_serving_meta, restore_serving_params,
+    verify_artifact_manifest,
+)
+from ..config.registry import MODELS, resolve
 from ..data.tokenizer import tokenizer_from_config
+from ..parallel.tp import (
+    decode_step_collectives, dp_group_devices, shard_serving_params,
+    tp_degree,
+)
 from ..utils.util import resolve_device
 from .generate import generate, sample_logits
 
@@ -43,7 +58,9 @@ class GenerationService:
     """The request-level generation entry of the front-ends.
 
     ``generate`` is serialized with a lock: one device, one decode path at
-    a time.
+    a time. :meth:`close` stops the ranks of a tensor-parallel model the
+    service loaded itself (a model handed to :meth:`from_model` stays its
+    caller's).
     """
 
     def __init__(self, config, device=None, use_ema: bool = False,
@@ -54,6 +71,7 @@ class GenerationService:
         kw.setdefault("prefix_cache",
                       (config.get("serving") or {}).get("prefix_cache"))
         self._setup(model, tokenizer, **kw)
+        self._owns_model = True
 
     @classmethod
     def from_model(cls, model, tokenizer=None, device=None, **kw):
@@ -67,9 +85,13 @@ class GenerationService:
 
     def _setup(self, model, tokenizer=None, prefix_cache=None):
         self.model, self.tokenizer = model.eval(), tokenizer
+        self._owns_model = False
         self.device = model.device
-        self.arch = type(model).__name__
+        self.arch = getattr(model, "arch", None) or type(model).__name__
         self.vocab = int(getattr(model, "vocab_size", 0))
+        self.tp = tp_degree(model)
+        self._tp_stats = None
+        self._tp_lock = threading.Lock()
         self._lock = threading.Lock()
         # the paged KV prefix pool: a prebuilt PrefixCache or a
         # ``serving.prefix_cache`` dict. A layout the pool refuses
@@ -103,6 +125,21 @@ class GenerationService:
         when no pool is attached."""
         return (self._prefix.stats_snapshot()
                 if self._prefix is not None else None)
+
+    def tp_stats(self) -> dict:
+        """The TP degree and the collectives of one one-token decode step
+        (``parallel.tp.decode_step_collectives``), counted once on the
+        ranks and kept; zeros at tp 1."""
+        with self._tp_lock:
+            if self._tp_stats is None:
+                self._tp_stats = decode_step_collectives(self.model)
+            return self._tp_stats
+
+    def close(self) -> None:
+        """Stop the ranks of a tensor-parallel model this service loaded."""
+        close = getattr(self.model, "close", None)
+        if self._owns_model and close is not None:
+            close()
 
     def encode_prompt(self, prompt=None, prompt_ids=None) -> list:
         """Text or explicit ids -> validated id list (raises ValueError
@@ -221,7 +258,8 @@ class GenerationService:
         samples the same tokens."""
         if int(speculative) > 0:
             raise NotImplementedError(
-                "speculative decoding is a later slice of the port")
+                "speculative decoding is a later slice of the port "
+                "(ROADMAP A4)")
         ids = self.encode_prompt(prompt, prompt_ids)
         stops = self.encode_stop(stop)
         max_new = int(max_new_tokens)
@@ -312,21 +350,20 @@ class GenerationService:
 
 
 def load_generation_stack(config, device=None, use_ema: bool = False,
-                          tensor_parallel: int = 0):
+                          tensor_parallel: int = 0, group: int = 0):
     """``(model, tokenizer | None)`` for ``config.resume``, a params-only
-    serving artifact, with the weights on ``device`` (CUDA unless asked
-    otherwise)."""
+    serving artifact. At tensor parallelism T = ``tensor_parallel`` (or
+    ``serving.tensor_parallel``) > 1 the model is a
+    ``parallel.serving_ranks.TensorParallelModel`` on cards ``[group T,
+    (group + 1) T)`` (gloo ranks on the CPU), the recorded geometry and
+    the manifest checked here first; else the weights load on ``device``
+    (CUDA unless asked otherwise; card ``group`` of a DP group)."""
     if config.resume is None:
         raise ValueError("generation requires a serving artifact (-r)")
     device = resolve_device(device)
     serving = config.get("serving") or {}
     tp = int(tensor_parallel or 0) or int(serving.get("tensor_parallel")
                                           or 1)
-    if tp > 1:
-        raise NotImplementedError(
-            f"tensor_parallel={tp}: tensor-parallel serving is a later "
-            "slice (parallel axes, ROADMAP A11b); this slice serves on one "
-            "device")
     kvq = str(serving.get("kv_quant") or "")
     if kvq:
         # a serving mode (the scales are cache leaves, not params): the
@@ -341,17 +378,44 @@ def load_generation_stack(config, device=None, use_ema: bool = False,
     if use_ema:
         logger.warning("--ema ignored: %s is a params-only serving "
                        "artifact", config.resume)
-    # build on the meta device (no memory), then adopt the restored tensors
-    model = config.init_obj("arch", MODELS, device="meta")
-    state = restore_serving_params(config.resume, device)
+    arch = {"type": config["arch"]["type"],
+            "args": dict(config["arch"].get("args") or {})}
+    if tp > 1:
+        from ..parallel.serving_ranks import TensorParallelModel
+
+        # refuse before a byte of weights is read; the ranks skip the hash
+        check_artifact_tp_geometry(config.resume, tp)
+        verify_artifact_manifest(config.resume)
+        model = TensorParallelModel(arch, config.resume, tp, device,
+                                    first=int(group) * tp)
+    else:
+        model = load_serving_model(
+            arch, config.resume,
+            dp_group_devices(group, 1, device)[0] if group else device)
+    return model, tokenizer_from_config(config)
+
+
+def load_serving_model(arch: dict, resume, device, mesh=None,
+                       verify: bool = True):
+    """The model of ``arch`` (``{"type", "args"}``) with the artifact's
+    weights on ``device``. With a tensor ``mesh`` (a TP rank) it holds
+    only this rank's Megatron slices: the artifact is read memory-mapped
+    on the host and only the slices are copied to the device
+    (``parallel.tp.shard_serving_params``)."""
+    model = resolve(MODELS, arch["type"])(**dict(arch.get("args") or {}),
+                                          device="meta")
+    state = restore_serving_params(
+        resume, "cpu" if mesh is not None else device, verify=verify)
     want = {k: p.dtype for k, p in model.state_dict().items()}
     missing = sorted(set(want) - set(state))
     unexpected = sorted(set(state) - set(want))
     if missing or unexpected:
-        raise ValueError(f"artifact {config.resume} does not match "
-                         f"{config['arch']['type']}: missing {missing[:5]}, "
+        raise ValueError(f"artifact {resume} does not match "
+                         f"{arch['type']}: missing {missing[:5]}, "
                          f"unexpected {unexpected[:5]}")
+    if mesh is not None:
+        state = shard_serving_params(model, state, mesh)
     model.load_state_dict(
         {k: t.to(device=device, dtype=want[k]) for k, t in state.items()},
         assign=True)
-    return model.eval(), tokenizer_from_config(config)
+    return model.eval()

@@ -4,7 +4,9 @@ artifact, the counterpart of the repository's root ``generate.py``.
     python -m pytorch_distributed_template_tpu_torch.generate \\
         -r <artifact>/model --prompt-ids 1,2,3 --max-new-tokens 32
 
-Runs on CUDA unless ``--device cpu`` is given. ``--prompt`` treats the
+Runs on CUDA unless ``--device cpu`` is given; ``--tp T`` serves the model
+over T cards (T rank processes this command starts and stops:
+parallel/serving_ranks.py). ``--prompt`` treats the
 text as UTF-8 bytes for byte-vocab models (vocab <= 256) or encodes it
 with the run's BPE tokenizer; ``--prompt-ids`` takes comma-separated ids,
 and ids are printed back.
@@ -38,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--ema", action="store_true",
                         help="Sample EMA weights (moot for artifacts).")
     parser.add_argument("--speculative", default=0, type=int, metavar="D",
-                        help="Speculative decoding (a later slice).")
+                        help="Speculative decoding (a later slice, ROADMAP "
+                             "A4).")
     parser.add_argument("--stop", action="append", default=None,
                         metavar="STR",
                         help="Stop STRING (must encode to one token); "
@@ -47,7 +50,9 @@ def build_parser() -> argparse.ArgumentParser:
                         metavar="ID", help="Stop token ID; repeatable.")
     parser.add_argument("--seed", default=0, type=int)
     parser.add_argument("--tp", default=0, type=int,
-                        help="Tensor-parallel degree (a later slice).")
+                        help="Tensor-parallel degree: one rank process per "
+                             "card (0 = the config's "
+                             "serving.tensor_parallel, else 1).")
     parser.add_argument("--device", default=None,
                         help="Device to run on (default cuda).")
     return parser
@@ -76,6 +81,8 @@ def main(argv=None) -> dict:
             speculative=args.speculative, stop=stop)
     except ValueError as e:
         raise SystemExit(str(e))
+    finally:
+        service.close()
     if stop is not None:
         logger.info("stop_reason: %s", resp.get("stop_reason"))
     if args.prompt is not None:

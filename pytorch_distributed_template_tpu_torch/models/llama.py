@@ -59,11 +59,17 @@ the plain forward and the decode forward over a KV cache, registered as
   vocab-sharded lookup (models/layers.py); the vocab-sharded logits, or
   under ``fused_head`` the head's weight, are gathered whole, and every
   rank of a tensor row computes the same loss. The blocks are the fsdp
-  gather units (:meth:`LlamaLM.fsdp_units`, parallel/fsdp.py). Decoding
-  over a tensor axis is A11b's serving half, LoRA there A11b's remainder.
+  gather units (:meth:`LlamaLM.fsdp_units`, parallel/fsdp.py). LoRA on a
+  tensor axis is A11b's remainder.
+- Decoding on a tensor axis (TP serving, parallel/tp.py): the caches and
+  the pool hold this rank's ``n_kv_head / T`` heads (int8 pages with their
+  scales), attention runs on the local heads with no collective (B1
+  prefill, B4 over the rank's head slice of the pool), the vocab-sharded
+  lookup and the logits' gather work as in training; every rank of the
+  group runs each call with the same inputs (parallel/serving_ranks.py).
 
 Left to later slices, each refused with a message naming it: MoE, w8a16
-weights, decoding on a seq axis or a tensor axis.
+weights, decoding on a seq axis.
 """
 from __future__ import annotations
 
@@ -90,8 +96,6 @@ from .quant import (
 
 #: reserved pool page: pad lanes and unallocated table lanes write here
 SCRATCH_BLOCK = 0
-_SLICE_TP_SERVING = ("decoding over a tensor axis is ROADMAP A11b's "
-                     "serving half, a later slice")
 
 
 class RMSNorm(nn.Module):
@@ -251,8 +255,6 @@ class LlamaAttention(nn.Module):
         hd, tp = self.head_dim, self.tp
         heads, kv_heads = self.n_head, self.n_kv_head
         if tp is not None:
-            if cache is not None:
-                raise NotImplementedError(_SLICE_TP_SERVING)
             x = copy_to(x, tp.group)
             heads, kv_heads = heads // tp.size, kv_heads // tp.size
         q = self.q_proj(x).view(b, t, heads, hd)
@@ -582,11 +584,18 @@ class LlamaLM(nn.Module):
         ``min(window, total)`` when windowed."""
         return min(self.window, total) if self.window > 0 else total
 
+    @property
+    def local_kv_heads(self) -> int:
+        """The KV heads this rank's caches hold: ``n_kv_head / T`` on a
+        tensor axis of T, else all of them."""
+        return self.n_kv_head // (self.tp.size if self.tp else 1)
+
     def _kv_leaves(self, lead: tuple):
         """Zeroed ``(k, v, k_scale, v_scale)`` of shape ``lead + (KVH,
-        D)``; int8 with f32 scales under ``kv_quant`` (zero rows decode
-        to zeros, as in the JAX package's zeroed caches)."""
-        shape = lead + (self.n_kv_head, self.head_dim)
+        D)`` at this rank's KV heads; int8 with f32 scales under
+        ``kv_quant`` (zero rows decode to zeros, as in the JAX package's
+        zeroed caches)."""
+        shape = lead + (self.local_kv_heads, self.head_dim)
         dev = self.device
         if not self.kv_quant:
             return (torch.zeros(shape, dtype=self.dtype, device=dev),
@@ -620,10 +629,11 @@ class LlamaLM(nn.Module):
         """The decode-cache layout contract engine/kvcache.py reads (the
         JAX package's ``kv_cache_spec``): RoPE family, ``paged`` call path
         implemented for every layout (int8 pages + scales, ring tables
-        when windowed), K/V at ``kv_heads`` heads."""
+        when windowed), K/V at ``kv_heads`` heads: what this rank's pool
+        holds (``n_kv_head / T`` on a tensor axis of T)."""
         return {"rotary": True, "rope_base": float(self.rope_base),
                 "window": int(self.window), "kv_quant": self.kv_quant,
-                "paged": True, "kv_heads": int(self.n_kv_head)}
+                "paged": True, "kv_heads": self.local_kv_heads}
 
     def forward(self, tokens, cache=None, prefill: bool = False,
                 block_tables=None, row_starts=None, pad_lens=None):
@@ -651,8 +661,6 @@ class LlamaLM(nn.Module):
         elif self.mesh is not None and self.mesh.axis_size("seq") > 1:
             raise NotImplementedError("decoding on a seq axis is a later "
                                       "slice (serving over parallel axes)")
-        elif self.tp is not None:
-            raise NotImplementedError(_SLICE_TP_SERVING)
         tp = self.tp
         x = (embed(self.embed_tokens.weight, tokens, self.dtype)
              if tp is None else vocab_embed(self.embed_tokens.weight,

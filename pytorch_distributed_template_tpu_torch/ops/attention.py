@@ -117,21 +117,17 @@ def grouped_query_attention(q, k, v, mask=None):
 
 
 def paged_gqa_attention(q, k_pool, v_pool, tables, row_starts, pad_lens,
-                        mesh=None, window: int = 0, k_scale=None,
-                        v_scale=None):
+                        window: int = 0, k_scale=None, v_scale=None):
     """Attention straight from the paged KV block pool (the JAX
-    package's ``paged_gqa_attention``, single device): q ``[B, T, Hq,
-    D]`` over pools ``[P, bt, KVH, D]`` through ``[B, NB]`` block tables,
-    query head ``i`` reading kv head ``i // (Hq / KVH)``. Runs
-    ``ops.flash.paged_attention`` (the B4 kernel on CUDA, its plain
-    version on the CPU). Head-sharded meshes are a later slice (parallel
-    axes)."""
+    package's ``paged_gqa_attention``): q ``[B, T, Hq, D]`` over pools
+    ``[P, bt, KVH, D]`` through ``[B, NB]`` block tables, query head ``i``
+    reading kv head ``i // (Hq / KVH)``. Runs ``ops.flash.paged_attention``
+    (the B4 kernel on CUDA, its plain version on the CPU). Under tensor
+    parallelism each rank passes its local heads and its head slice of the
+    pool (what JAX's ``shard_map`` over the KV-head axis hands each
+    shard): attention needs no collective."""
     from .flash import paged_attention
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "paged attention over a mesh (head-sharded TP serving) is a "
-            "later slice (parallel axes, ROADMAP A11b)")
     return paged_attention(q, k_pool, v_pool, tables, row_starts,
                            pad_lens, window=window, k_scale=k_scale,
                            v_scale=v_scale)

@@ -110,15 +110,40 @@ def source_digest(source: Path) -> str:
     return h.hexdigest()[:16]
 
 
-class Kernel:
+#: guards the launch counts: the engine threads of several DP groups, each
+#: on its own card, launch from one process
+COUNT_LOCK = threading.Lock()
+
+
+class LaunchCount:
+    """A kernel's launches: ``launches`` in all, ``per_device`` by card
+    index. A wrapper calls :meth:`count` once where it launches."""
+
+    def __init__(self):
+        self.launches = 0
+        self.per_device: dict = {}
+
+    def count(self, device) -> None:
+        with COUNT_LOCK:
+            self.launches += 1
+            self.per_device[device.index] = self.per_device.get(
+                device.index, 0) + 1
+
+    def reset(self) -> None:
+        with COUNT_LOCK:
+            self.launches = 0
+            self.per_device = {}
+
+
+class Kernel(LaunchCount):
     """One kernel of a multi-kernel library and its own launch count."""
 
     def __init__(self, name: str):
+        super().__init__()
         self.name = name
-        self.launches = 0
 
 
-class CudaLibrary:
+class CudaLibrary(LaunchCount):
     """One ``csrc/<name>.cu`` source, its built library and launch count.
 
     ``declare(lib)`` sets ``argtypes``/``restype`` of every exported
@@ -128,11 +153,11 @@ class CudaLibrary:
 
     def __init__(self, name: str, declare: Callable[[ctypes.CDLL], None],
                  kernels: Iterable[str] = ()):
+        super().__init__()
         self.name = name
         self.source = CSRC / f"{name}.cu"
         self._declare = declare
         self._lib = None
-        self.launches = 0
         self.kernels = {k: Kernel(k) for k in kernels}
         self.build_log = ""
         self.build_seconds = 0.0

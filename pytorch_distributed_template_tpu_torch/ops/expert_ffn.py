@@ -125,7 +125,7 @@ def _expert_ffn_cuda(x, wi, wo, bi, bo):
               if dtype == torch.bfloat16 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        EXPERT_FFN.launches += 1
+        EXPERT_FFN.count(x.device)
         err = lib.pdt_expert_ffn(
             x.data_ptr(), wi.data_ptr(), wo.data_ptr(),
             None if bi is None else bi.data_ptr(),

@@ -43,7 +43,7 @@ import ctypes
 
 import torch
 
-from .build import CudaLibrary
+from .build import COUNT_LOCK, CudaLibrary
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
@@ -146,7 +146,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, window: int):
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        FLASH_FWD.launches += 1
+        FLASH_FWD.count(q.device)
         err = lib.pdt_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, t, h, k.shape[2], d, _DTYPE_CODES[dtype],
@@ -370,7 +370,7 @@ def _flash_bwd_cuda(q, k, v, out, g, lse, g_lse, causal: bool, window: int,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if "flash_bwd_dq" in kernels:
-            FLASH_BWD_DQ.launches += 1
+            FLASH_BWD_DQ.count(q.device)
             err = lib.pdt_flash_bwd_dq(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                 out.data_ptr(), lse.data_ptr(),
@@ -378,7 +378,7 @@ def _flash_bwd_cuda(q, k, v, out, g, lse, g_lse, causal: bool, window: int,
                 delta.data_ptr(), dq.data_ptr(), *tail, float(d ** -0.5),
                 stream)
         if err == 0 and "flash_bwd_dkv" in kernels:
-            FLASH_BWD_DKV.launches += 1
+            FLASH_BWD_DKV.count(q.device)
             err = lib.pdt_flash_bwd_dkv(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
@@ -697,8 +697,9 @@ def _paged_cuda(q, k_pool, v_pool, tables, row_starts, pad_lens,
                         device=q.device) if splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        PAGED_ATTN.launches += 1
-        PAGED_ARM_LAUNCHES[arm] += 1
+        PAGED_ATTN.count(q.device)
+        with COUNT_LOCK:
+            PAGED_ARM_LAUNCHES[arm] += 1
         err = lib.pdt_paged_attn(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if quant else None,

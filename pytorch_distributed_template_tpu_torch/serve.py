@@ -24,11 +24,25 @@ Endpoints:
 ``--scheduler auto`` runs the continuous engine when the paged pool is
 enabled and ``--max-batch`` > 1, and the serialized service otherwise.
 Runs on CUDA unless ``--device cpu``. ``--port 0`` binds a free port,
-printed on the ``READY <url>`` line. Left to later slices, each refused
-with a message naming it: the static micro-batch scheduler, ``--dp``,
-``--tp`` > 1, ``--role``, the spill tiers, ``POST /profile``, the page
-shipping endpoints, ``/admin/*`` and the Prometheus text of
-``/metrics``.
+printed on the ``READY <url>`` line.
+
+``--tp T`` (or the config's ``serving.tensor_parallel``) serves one model
+over T cards: this process starts T rank processes itself (no
+``torchrun``; ``parallel/serving_ranks.py``), each holding its Megatron
+slice on its card, and keeps the engine on its own CPU. ``--dp D`` runs D
+independent groups (engine/dp.py; the continuous scheduler only): group g
+on cards ``[g T, (g + 1) T)``. With ``--device cpu`` the ranks run on gloo.
+A rank that fails fails the server: its requests get an error, and the
+process stops serving and exits non-zero. ``/metrics?format=json`` adds
+``dp_groups``, ``tp_degree`` and one decode step's collectives
+(``tp_collective_count_per_step``, ``tp_collective_bytes_per_step``,
+``tp_collective_floor_bytes``, ``tp_<op>_count_per_step`` /
+``tp_<op>_bytes_per_step``).
+
+Left to later slices, each refused with a message naming it: the static
+micro-batch scheduler, ``--role`` (ROADMAP A3a.4), the spill tiers
+(A3a.3), ``POST /profile``, the page shipping endpoints (A3a.4),
+``/admin/*`` and the Prometheus text of ``/metrics``.
 """
 from __future__ import annotations
 
@@ -38,10 +52,13 @@ import logging
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import torch
+
 from . import models  # noqa: F401  (registers the model families)
 from .config import ConfigParser
 from .engine.continuous import ContinuousBatchingService
 from .engine.serving import GenerationService, load_generation_stack
+from .parallel.tp import validate_dp_geometry
 
 logger = logging.getLogger(__name__)
 
@@ -49,9 +66,11 @@ _LATER = {
     "/profile": "on-demand profiling (POST /profile) is a later slice of "
                 "the port",
     "/prefill": "page shipping (disaggregated prefill/decode) is a later "
-                "slice of the port",
-    "/export_pages": "page shipping is a later slice of the port",
-    "/admit_pages": "page shipping is a later slice of the port",
+                "slice of the port (ROADMAP A3a.4)",
+    "/export_pages": "page shipping is a later slice of the port (ROADMAP "
+                     "A3a.4)",
+    "/admit_pages": "page shipping is a later slice of the port (ROADMAP "
+                    "A3a.4)",
 }
 
 
@@ -88,9 +107,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="Device to run on (default cuda).")
     p.add_argument("--tp", default=0, type=int,
-                   help="tensor-parallel degree (a later slice)")
+                   help="tensor-parallel degree: ranks started by this "
+                        "process, one per card (0 = the config's "
+                        "serving.tensor_parallel, else 1)")
     p.add_argument("--dp", default=1, type=int,
-                   help="data-parallel engine groups (a later slice)")
+                   help="data-parallel engine groups, each on its own "
+                        "--tp cards (continuous scheduler only)")
     p.add_argument("--role", default="both",
                    choices=("both", "prefill", "decode"),
                    help="disaggregated serving role (a later slice)")
@@ -106,27 +128,20 @@ def _refuse_later(args) -> None:
         raise NotImplementedError(
             "--scheduler static (the micro-batch BatchedGenerationService) "
             "is a later slice of the port")
-    if int(args.dp) > 1:
-        raise NotImplementedError(
-            "--dp > 1 (data-parallel engine groups) is a later slice of "
-            "the port (parallel axes, ROADMAP A11b)")
-    if int(args.tp) > 1:
-        raise NotImplementedError(
-            "--tp > 1 (tensor-parallel serving) is a later slice of the "
-            "port (parallel axes, ROADMAP A11b)")
     if args.role != "both":
         raise NotImplementedError(
             f"--role {args.role} (disaggregated prefill/decode with page "
-            "shipping) is a later slice of the port")
+            "shipping) is a later slice of the port (ROADMAP A3a.4)")
     if int(args.spill_blocks) > 0 or args.spill_dir:
         raise NotImplementedError(
             "KV spill tiers (--spill-blocks/--spill-dir) are a later slice "
-            "of the port")
+            "of the port (ROADMAP A3a.3)")
 
 
 def build_service(args, config) -> GenerationService:
     """The service the flags and config ask for, with its model loaded on
-    ``args.device`` (CUDA unless asked otherwise)."""
+    ``args.device`` (CUDA unless asked otherwise): over ``--tp`` ranks per
+    group and ``--dp`` groups."""
     _refuse_later(args)
     serving = config.get("serving") or {}
     prefix_cfg = dict(serving.get("prefix_cache") or {})
@@ -136,19 +151,45 @@ def build_service(args, config) -> GenerationService:
         serving.get("prefill_chunk_tokens") or 0)
     if chunk:
         prefix_cfg["prefill_chunk_tokens"] = chunk
-    model, tok = load_generation_stack(config, device=args.device)
+    tp = int(args.tp or 0) or int(serving.get("tensor_parallel") or 1)
+    dp = max(int(args.dp), 1)
+    continuous = dict(slots=args.max_batch, chunk=args.decode_chunk,
+                      window_ms=args.batch_window_ms,
+                      prefix_cache=prefix_cfg, prefill_chunk_tokens=chunk)
+    if dp > 1:
+        # validated before any load: a geometry typo fails at once
+        validate_dp_geometry(dp, tp, args.device or "cuda")
+        if args.scheduler not in ("auto", "continuous"):
+            raise SystemExit("--dp > 1 requires the continuous scheduler "
+                             f"(got --scheduler {args.scheduler})")
+        from .engine.dp import DataParallelService
+
+        return DataParallelService.build_from_config(
+            config, ContinuousBatchingService, device=args.device, dp=dp,
+            tp=tp, service_kw=continuous)
+    model, tok = load_generation_stack(config, device=args.device,
+                                       tensor_parallel=tp)
     want = args.scheduler
     if want == "auto":
         want = ("continuous" if prefix_cfg.get("enabled")
                 and prefix_cfg.get("paged", True) and args.max_batch > 1
                 else "none")
-    if want == "continuous":
-        return ContinuousBatchingService.from_model(
-            model, tok, device=args.device, slots=args.max_batch,
-            chunk=args.decode_chunk, window_ms=args.batch_window_ms,
-            prefix_cache=prefix_cfg, prefill_chunk_tokens=chunk)
-    return GenerationService.from_model(model, tok, device=args.device,
-                                        prefix_cache=prefix_cfg)
+    try:
+        if want == "continuous":
+            return ContinuousBatchingService.from_model(
+                model, tok, device=model.device, **continuous)
+        return GenerationService.from_model(model, tok, device=model.device,
+                                            prefix_cache=prefix_cfg)
+    except BaseException:
+        if hasattr(model, "close"):
+            model.close()
+        raise
+
+
+def _groups(service) -> list:
+    """The tensor-parallel rank groups behind a service."""
+    engines = getattr(service, "_engines", None) or [service]
+    return [e.model for e in engines if hasattr(e.model, "on_failure")]
 
 
 def _run_request(service, req: dict, on_tokens=None, cancel=None) -> dict:
@@ -178,6 +219,20 @@ def service_metrics(service) -> dict:
         out["latency"] = service.latency_percentiles()
     out["prefix_cache"] = service.prefix_cache_stats()
     out["pool_refusal_reason"] = service.pool_refusal_reason
+    # DP x TP: the group count, the TP degree and one decode step's
+    # collectives (counted once on the ranks; zeros at tp 1), flat
+    out["dp_groups"] = int(out["stats"].get("dp_groups", 1) or 1)
+    tp = service.tp_stats()
+    out["tp_degree"] = int(tp["tp_degree"])
+    out["tp_collective_count_per_step"] = int(
+        tp["collective_count_per_step"])
+    out["tp_collective_bytes_per_step"] = int(
+        tp["collective_bytes_per_step"])
+    out["tp_collective_floor_bytes"] = int(tp["analytic_floor_bytes"])
+    for op, n in tp["counts"].items():
+        key = op.replace("-", "_")
+        out[f"tp_{key}_count_per_step"] = int(n)
+        out[f"tp_{key}_bytes_per_step"] = int(tp["bytes"].get(op, 0))
     return out
 
 
@@ -302,10 +357,27 @@ def main(argv=None, on_ready=None):
                                           training=False, argv=argv)
     log = config.get_logger("serve")
     service = build_service(args, config)
-    log.info("scheduler: %s on %s", type(service).__name__, service.device)
+    log.info("scheduler: %s on %s (dp %d, tp %d)", type(service).__name__,
+             service.device, getattr(service, "dp", 1), service.tp)
     server = ThreadingHTTPServer((args.host, args.port),
                                  make_handler(service))
     server.daemon_threads = True
+    failed = []
+
+    def on_failure(err):
+        # the failing call has answered its requests with the error; stop
+        # serving a moment later (shutdown() waits for serve_forever)
+        failed.append(err)
+        threading.Timer(1.0, server.shutdown).start()
+
+    for group in _groups(service):
+        group.on_failure.append(on_failure)
+    threads = torch.get_num_threads()
+    if _groups(service):
+        # the engine computes only on small host tensors here: one
+        # intra-op thread keeps its OpenMP team from competing with the
+        # ranks' processes for the host's cores (PERF.md)
+        torch.set_num_threads(1)
     url = f"http://{args.host}:{server.server_address[1]}"
     log.info("serving %s (vocab %d) on %s: POST /generate, GET /healthz, "
              "GET /metrics", service.arch, service.vocab, url)
@@ -320,6 +392,11 @@ def main(argv=None, on_ready=None):
         server.server_close()
         if hasattr(service, "close"):
             service.close()
+        for group in _groups(service):
+            group.close()
+        torch.set_num_threads(threads)
+    if failed:
+        raise RuntimeError(f"a serving rank failed: {failed[0]}")
     return service
 
 

@@ -10,7 +10,10 @@ The base config is the package's ``configs/mistral_7b_serve.json``; the
 architecture is taken at its registry defaults (``--arch Mistral`` is the
 published Mistral-7B-v0.1 shape) with any ``--vocab-size``/``--d-model``/...
 given on the CLI overriding them. Weights are drawn from an explicit
-``torch.Generator`` seeded with ``--seed``, directly on the device.
+``torch.Generator`` seeded with ``--seed``, directly on the device. The
+meta records the model's ``tp_geometry``; ``--tensor-parallel T`` refuses a
+T that geometry cannot shard, then records T as the artifact's intended
+``serving.tensor_parallel``.
 
     python -m pytorch_distributed_template_tpu_torch.tools.make_serving_artifact \\
         -o /path/to/art --arch Mistral
@@ -34,20 +37,29 @@ ARCH_FLAGS = ("vocab_size", "n_layer", "n_head", "n_kv_head", "d_model",
 
 
 def make_artifact(out_dir, arch: str = "Mistral", arch_args=None,
-                  seed: int = 0, device=None) -> Path:
+                  seed: int = 0, device=None,
+                  tensor_parallel: int = 0) -> Path:
     """Build, randomly initialise and save the artifact; returns the
-    ``-r``-able model path."""
+    ``-r``-able model path. ``tensor_parallel`` > 1 is refused before any
+    weight is drawn when the model's geometry does not divide it."""
     import pytorch_distributed_template_tpu_torch.models  # noqa: F401
     from pytorch_distributed_template_tpu_torch.checkpoint import (
         save_serving_params,
     )
     from pytorch_distributed_template_tpu_torch.config.registry import MODELS
+    from pytorch_distributed_template_tpu_torch.parallel.tp import (
+        model_geometry, validate_tp_geometry,
+    )
     from pytorch_distributed_template_tpu_torch.utils.util import (
         resolve_device,
     )
 
-    device = resolve_device(device)
     arch_args = dict(arch_args or {})
+    shape = MODELS.get(arch)(**arch_args, device="meta")
+    # refuse at production time: an intended tp the geometry cannot shard
+    # would only move the failure to the restore
+    validate_tp_geometry(shape, int(tensor_parallel))
+    device = resolve_device(device)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     model = MODELS.get(arch)(**arch_args, device=device)
@@ -55,9 +67,15 @@ def make_artifact(out_dir, arch: str = "Mistral", arch_args=None,
     cfg = copy.deepcopy(json.loads(BASE_CONFIG.read_text()))
     cfg["name"] = f"{arch}Serve"
     cfg["arch"] = {"type": arch, "args": arch_args}
+    if int(tensor_parallel) > 1:
+        cfg.setdefault("serving", {})["tensor_parallel"] = \
+            int(tensor_parallel)
     (out_dir / "config.json").write_text(json.dumps(cfg, indent=2))
     meta = {"arch": arch, "source": "random-init", "seed": int(seed),
-            "params": sum(p.numel() for p in model.parameters())}
+            "params": sum(p.numel() for p in model.parameters()),
+            "tp_geometry": model_geometry(shape)}
+    if int(tensor_parallel) > 1:
+        meta["tensor_parallel"] = int(tensor_parallel)
     state = {k: t.detach() for k, t in model.state_dict().items()}
     return save_serving_params(out_dir / "model", state, meta=meta)
 
@@ -73,13 +91,17 @@ def main(argv=None) -> int:
         p.add_argument("--" + flag.replace("_", "-"), type=kind,
                        default=None, help="arch arg (default: registry)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--tensor-parallel", type=int, default=0,
+                   help="the intended serving TP degree (refused when the "
+                        "geometry does not divide it)")
     p.add_argument("--device", default=None,
                    help="device for init (default cuda)")
     args = p.parse_args(argv)
     arch_args = {f: getattr(args, f) for f in ARCH_FLAGS
                  if getattr(args, f) is not None}
     path = make_artifact(args.out, arch=args.arch, arch_args=arch_args,
-                         seed=args.seed, device=args.device)
+                         seed=args.seed, device=args.device,
+                         tensor_parallel=args.tensor_parallel)
     print(f"ARTIFACT {path}", flush=True)
     return 0
 

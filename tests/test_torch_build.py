@@ -57,3 +57,28 @@ def test_the_library_path_carries_the_digest_of_its_headers():
         assert lib.path.name == (
             f"lib{lib.name}-{build.source_digest(lib.source)}.so")
     assert build.LINK_FLAGS == ["-lcuda"]
+
+
+def test_launch_counts_are_atomic_and_per_card():
+    """Engine threads of several DP groups launch from one process: every
+    count lands, in all and on its card."""
+    import threading
+
+    import torch
+
+    lib = build.Kernel("probe")
+    cards = [torch.device("cuda", i % 4) for i in range(8)]
+
+    def launch(device):
+        for _ in range(5000):
+            lib.count(device)
+
+    threads = [threading.Thread(target=launch, args=(d,)) for d in cards]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert lib.launches == 8 * 5000
+    assert lib.per_device == {i: 2 * 5000 for i in range(4)}
+    lib.reset()
+    assert (lib.launches, lib.per_device) == (0, {})

@@ -121,8 +121,11 @@ def test_bad_and_later_slice_requests(server):
     assert "later slice" in json.loads(e.value.read())["error"]
 
 
+# --tp and --dp are served (tests/test_torch_tp_serving_ranks.py); beside
+# them the later slices' flags still refuse, before anything loads
 @pytest.mark.parametrize("flags", [
-    ["--scheduler", "static"], ["--tp", "2"], ["--dp", "2"],
+    ["--scheduler", "static"], ["--tp", "2", "--role", "decode"],
+    ["--dp", "2", "--spill-blocks", "8"],
     ["--role", "decode"], ["--spill-blocks", "8"],
 ])
 def test_later_slice_flags_are_refused_by_name(flags):

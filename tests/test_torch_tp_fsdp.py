@@ -19,9 +19,10 @@ phase 18c rehearsed on the CPU.
   head group, and the gather undoes the slice bit for bit.
 - Refusals, each by name: the expert axis (A11d), tensor or fsdp beside
   pipe or seq, MoE blocks on tensor (A11d), models without Megatron layers
-  on tensor, LoRA on either axis, decoding on tensor (A11b's serving
-  half), LARS / LAMB / Adafactor on fsdp or tensor, and what does not
-  split (GPT-2's vocab 50257, 2 KV heads on tensor 4).
+  on tensor, LoRA on either axis, a pool whose KV heads the tensor axis
+  does not split (decoding on tensor itself is served), LARS / LAMB /
+  Adafactor on fsdp or tensor, and what does not split (GPT-2's vocab
+  50257, 2 KV heads on tensor 4).
 - Phase 18c at a tiny width: one spawn of 4 gloo ranks trains
   ``configs/mistral_7b_fsdp.json`` cut to 2 layers of d_model 256 in bf16
   on fsdp 4 and then tensor 4: finite losses, the two meshes within the
@@ -49,6 +50,9 @@ import chip_smoke
 import pytorch_distributed_template_tpu_torch.models  # noqa: F401
 from pytorch_distributed_template_tpu_torch.config.registry import (
     MODELS as TMODELS,
+)
+from pytorch_distributed_template_tpu_torch.engine.kvcache import (
+    PrefixCache,
 )
 from pytorch_distributed_template_tpu_torch.models.convert import flax_path
 from pytorch_distributed_template_tpu_torch.parallel.mesh import (
@@ -209,11 +213,17 @@ def test_model_refusals_name_what_they_refuse(name, kw, axes, error, match):
 
 
 def test_decoding_on_a_tensor_axis_refuses():
+    """Decoding on a tensor axis is served (tests/test_torch_tp_serving*.py):
+    a rank's caches hold its KV heads. What stays refused is a pool whose
+    KV heads the axis does not split."""
     model = TMODELS.get("TinyLlama")(n_head=4, n_kv_head=2, device="cpu")
     model.use_tensor_axis(Mesh({"tensor": 2}))
-    with pytest.raises(NotImplementedError, match="serving half"):
-        model(torch.zeros((1, 4), dtype=torch.long),
-              cache=model.new_cache(1, 8))
+    assert model.new_cache(1, 8).layers[0].k.shape[2] == 1
+    assert model.kv_cache_spec()["kv_heads"] == 1
+    wide = TMODELS.get("TinyLlama")(n_head=4, n_kv_head=2, device="meta",
+                                    mesh=Mesh({"tensor": 4}))
+    with pytest.raises(ValueError, match="kv_heads"):
+        PrefixCache(wide, block_tokens=8, pool_blocks=16)
 
 
 @pytest.mark.parametrize("optimizer", ["LARS", "LAMB", "Adafactor"])
