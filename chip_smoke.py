@@ -5,7 +5,7 @@
 
 Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 3e, 4, 5, 6, 7, 8, 9,
 10, 11, 12, 13, 14a, 14b, 14c, 15a-15f, 16a-16g, 17a-17d, 18a-18c,
-19a-19c), each
+19a-19c, 20a-20c), each
 one's time
 printed beside the card line; any failure exits non-zero and no phase's
 exception is caught:
@@ -24,7 +24,8 @@ exception is caught:
    on the CPU (plain path) gives the same prefill logits and the same
    greedy tokens;
 4. main path of slice 1: a random-init Mistral-7B artifact at full
-   width, made by the port's tool, served through ``GenerationService``,
+   width (16 of its 32 layers: ``MAIN_ARGS``), made by the port's tool,
+   served through ``GenerationService``,
    the ``generate`` CLI and ``engine.generate.generate``: (a) a 1024-token
    prompt, 32 greedy tokens, twice, identical; (b) a 6144-token prompt,
    past the 4096-token window (rolling cache, banded kernel); (c) a
@@ -127,7 +128,7 @@ kernel, the convs, pools and dense layers run on cuDNN/cuBLAS) adds:
     dropout off: the same per-step losses and final params, with TF32 off
     on the card for this comparison only (each run's setting printed);
 9.  main path of slice 5: the port's ``train.py`` with
-    ``configs/mnist.json`` as it is (LeNet at full width, batch 128, 10
+    ``configs/mnist.json`` (LeNet at full width, batch 128, 5 of its 10
     epochs, TensorBoard on, synthetic MNIST without idx files) in this
     process with the launcher's environment set for
     one rank: the process group must be NCCL, the model must train
@@ -324,9 +325,9 @@ B1-B3 without the causal mask) adds:
     ``checkpoint.average`` and ``test.py`` (its ``val_loss`` beside both
     inputs'); a soup of one checkpoint evaluates bitwise as that
     checkpoint;
-16e. ``configs/bert_cls_stdlib.json`` as it is (``PyModuleClsLoader`` over
-    this machine's standard library, 8 classes, 6 epochs; the loader's
-    windows and its cold and warm seconds first), warm (``init_from``
+16e. ``configs/bert_cls_stdlib.json`` (``PyModuleClsLoader`` over this
+    machine's standard library, 8 classes; 3 of its 6 epochs; the
+    loader's windows and its cold and warm seconds first), warm (``init_from``
     16c's ``model_best``: exactly the ``encoder.*`` tensors restored,
     ``classifier_head.*`` skipped) and fresh, through
     ``tools/bert_transfer_experiment.py``'s functions: the warm run's best
@@ -410,13 +411,37 @@ run on each rank's local heads, no new kernel) adds:
     cards 19b and 19c print ``"tp_serve": "not run: N card(s)"`` and
     ``"tp_serve_full": ...``.
 
+Slice 15 (the sparse Llama family, ``MixtralMoE`` with swiglu experts,
+and the ``expert`` mesh axis, ROADMAP A6c.1 and A11d; the experts' three
+products are ``torch.bmm``, as JAX's are einsums outside any Pallas
+kernel; B1-B4 run at Mistral's attention shapes, no new kernel) adds:
+
+20a. ``MixtralMoE`` at its published widths cut to 2 layers in f32 (TF32
+    off), random weights on the card and the same on the CPU: greedy ids
+    of the batch-1 service and of the continuous engine over a paged pool
+    identical on both devices; then ``mixtral_8x7b_serve_paged.json`` (16
+    of 32 layers, bf16, ~47 GB of random weights drawn on the card) in the
+    continuous engine over the config's pool with cell (e)'s traffic:
+    ServeWave's exact B4 / B1 counts, TTFT, decode ms/token and peak
+    memory (``phase_moe_serve``);
+20b. with 4 cards: ``mixtral_8x7b_ep.json`` cut to 2 layers in f32 at a
+    capacity factor of 1.0 on ``{"expert": 4}``, ``{"data": 2, "expert":
+    2}`` and ``{"data": 4}`` (each in a ``torchrun`` of its own) against
+    one rank, the expert-4 checkpoint of one epoch resumed in one process
+    (``phase_ep_nccl``);
+20c. with 4 cards: the config as it is (8 layers, bf16), 5 steps on
+    ``{"expert": 4}``: ms/step, MFU (active experts at top_k / E), peak
+    memory, collectives per rank (``phase_ep_full``). With fewer cards 20b
+    and 20c print ``"moe_ep": "not run: N card(s)"``.
+    ``chip_smoke.py --moe-ep`` runs the build and 20a-20c alone.
+
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
 the launches of slices 1, 3, 4, 6, 7, 8, 9, 10, 11 and 13 (rank 0's of
-18b/18c) and 14, paged_attn with slice 2's and 14's (the card-0
+18b/18c and 20b/20c) and 14, paged_attn with slice 2's, 14's (the card-0
 process's of 19b/19c: this process for the tp-1 runs, rank 0 of group 0
-for the others), flash_bwd_dkv and flash_bwd_dq with
-slices 3, 4, 6, 7, 8, 9, 10, 11 and 13, expert_ffn with slice 4's; phase
+for the others) and 15's (20a), flash_bwd_dkv and flash_bwd_dq with
+slices 3, 4, 6, 7, 8, 9, 10, 11, 13 and 15, expert_ffn with slice 4's; phase
 14a's block shapes, phase 15b's ViT shapes, phase 16b's BERT shape,
 phase 18a's tensor-parallel shapes and phase 19a's per-rank serving
 shapes among the rows) and the device line ``{"ok": true, "device": {...}}``.
@@ -471,8 +496,11 @@ KERNEL_SHAPES = [
 # exact products) differ only by summation order.
 TOL = {torch.bfloat16: (1e-2, 1.6e-2, 1e-3),
        torch.float32: (1e-4, 0.0, 1e-4)}
-# the main path: Mistral at the registry's (published) widths and depth
+# the main path: Mistral at the registry's (published) widths, cut to 16
+# of its 32 layers in the full script (phases 4, 5 and, with four cards,
+# 19c serve this artifact) to pay for phase 20 within the time limit
 MAIN_ARCH = "Mistral"
+MAIN_ARGS = {"n_layer": 16}
 MAIN_SIZES = {"prompt_a": 1024, "prompt_b": 6144, "batch_d": 4,
               "prompt_d": 2048, "new": 32}
 # phase 3: small enough for the CPU, D = 64 so the kernel takes it, window
@@ -1051,7 +1079,8 @@ SERVE_SIZES = {"prefix": 1024, "shared_suffix": [128, 384, 640, 1024],
                "long_new": 64, "short": 128, "short_new": 128,
                "logit_prompt": 1024, "slots": 8, "chunk": 8}
 # last-position logits of the paged batch-1 prefill against slice 1's
-# flash prefill, bf16 at 32 layers: the two paths round K/V, P and the
+# flash prefill, bf16 (read at 32 layers; the full script's artifact has
+# 16, MAIN_ARGS): the two paths round K/V, P and the
 # residual stream at different places, so they agree to a few bf16 ulps
 # of the logits' scale: max |diff| <= 5% of max |logit|
 SERVE_LOGIT_RTOL = 0.05
@@ -2424,9 +2453,9 @@ MNIST_CONFIG = REPO / "configs" / "mnist.json"
 # and final params atol 1e-4, as TRAIN_REF_TOL (summation order only,
 # with TF32 off: cuDNN's TF32 convs would move the losses by ~1e-3)
 LENET_REF_SETS = [("trainer;epochs", 1), ("trainer;save_period", 10)]
-# phase 9: configs/mnist.json as it is (LeNet's full width, batch 128, 10
-# epochs, TensorBoard on)
-MNIST_SETS = []
+# phase 9: configs/mnist.json (LeNet's full width, batch 128, TensorBoard
+# on) cut to 5 of its 10 epochs since slice 15 (the script's time limit)
+MNIST_SETS = [("trainer;epochs", 5)]
 # the torchrun launch: mnist_debug for one epoch
 TORCHRUN_SETS = [("trainer;epochs", 1)]
 MNIST_MIN_VAL_ACC = 0.5          # chance is 0.1
@@ -4724,8 +4753,9 @@ BERT_BWD_SHAPES = [
 BERT_CORPUS_MB = 2.0
 BERT_MLM_SETS = [("trainer;epochs", 2), ("trainer;save_period", 1)]
 BERT_EVAL_SEED = 3
-# phase 16e: bert_cls_stdlib.json as it is (8 classes: chance 0.125)
-BERT_CLS_SETS = []
+# phase 16e: bert_cls_stdlib.json (8 classes: chance 0.125) cut to 3 of
+# its 6 epochs since slice 15 (the script's time limit)
+BERT_CLS_SETS = [("trainer;epochs", 3)]
 BERT_CLS_CHANCE = 0.125
 # phase 16f: LoRA on cell (h)'s GPT-2 small from phase 6's epoch-1 weights,
 # one epoch of 32 steps; the merged dense model against the adapted one in
@@ -5478,11 +5508,17 @@ def _torchrun_child(flag, spec, spec_path, label, nproc, timeout):
                        timeout=timeout)
     wall = time.perf_counter() - t0
     if r.returncode != 0:
+        # the whole output beside the spec; the error quotes the ranks'
+        # first traceback and the end of their stderr (a rank that aborts
+        # leaves no Python traceback, only the watchdog's lines)
+        log_path = spec_path.with_suffix(".log")
+        log_path.write_text(r.stdout + "\n--- stderr ---\n" + r.stderr)
         err = r.stderr + r.stdout
         at = err.find("Traceback")
-        tail = err[at:at + 4000] if at >= 0 else err[-4000:]
-        raise AssertionError(f"[{label}] torchrun exited {r.returncode}: "
-                             f"{tail}")
+        head = err[at:at + 3000] if at >= 0 else ""
+        raise AssertionError(f"[{label}] torchrun exited {r.returncode} "
+                             f"(output: {log_path}): {head}\n...\n"
+                             f"{r.stderr[-5000:]}")
     return [json.loads(Path(f"{spec['out']}.rank{i}.json").read_text())
             for i in range(nproc)], wall
 
@@ -5767,7 +5803,8 @@ TP_BF16_RTOL = 2e-2
 GIB = 1 << 30
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 COLLECTIVE_KEYS = ("all_gather", "all_gather_bytes", "reduce_scatter",
-                   "reduce_scatter_bytes", "all_reduce", "all_reduce_bytes")
+                   "reduce_scatter_bytes", "all_reduce", "all_reduce_bytes",
+                   "psum", "psum_bytes")
 
 
 def _tp_sets(mesh: dict, batch: int = TP_GLOBAL_BATCH) -> list:
@@ -5808,7 +5845,7 @@ def _count_plain_flash() -> None:
 def tp_child(spec_path: str) -> int:
     """One rank of phases 18b/18c (``chip_smoke.py --tp-child SPEC`` under
     ``torchrun``): the port's ``train.py`` on each of the spec's argvs in
-    turn (``"@name"`` is that run's ``checkpoint-epoch1``), TF32 off;
+    turn, TF32 off;
     writes per run each train step's loss, ms and collective calls and
     bytes, the B1-B3 launches, the peak memory, the placements and the
     parameter bytes to ``<out>.rank<R>.json``."""
@@ -5824,8 +5861,6 @@ def tp_child(spec_path: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     result = {}
     for name, argv in spec["runs"]:
-        argv = [result[a[1:]]["run_dir"] + "/checkpoint-epoch1"
-                if a.startswith("@") else a for a in argv]
         steps, box = [], {}
 
         def hook(trainer):
@@ -5914,12 +5949,15 @@ def phase_tp_nccl(card: str, device="cuda", work=WORK,
                   config=MISTRAL_FSDP_CONFIG, nproc: int = 4,
                   timeout: float = 900.0, common=TP_NCCL_COMMON,
                   meshes=TP_NCCL_MESHES,
-                  n_steps: int = TP_NCCL_STEPS) -> dict:
-    """Phase 18b: with ``nproc`` cards, one ``torchrun`` trains
+                  n_steps: int = TP_NCCL_STEPS, saver: str = "fsdp4",
+                  resume_on=("resumed_tensor4", {"tensor": 4}),
+                  tag: str = "tp_nccl", key: str = "tp_fsdp",
+                  saver_epochs: int = 2) -> dict:
+    """Phase 18b: with ``nproc`` cards, a ``torchrun`` for each mesh trains
     ``configs/mistral_7b_fsdp.json`` cut by ``TP_NCCL_COMMON`` (2 layers,
     float32 without TF32) for ``n_steps`` steps on each of
     ``TP_NCCL_MESHES`` (the fsdp-4 run two epochs, a checkpoint each), then
-    resumes the fsdp-4 run's ``checkpoint-epoch1`` on ``{"tensor": 4}``;
+    one resumes the fsdp-4 run's ``checkpoint-epoch1`` on ``{"tensor": 4}``;
     against one rank in this process without those axes (two epochs),
     and that checkpoint resumed in this process: every mesh's losses within
     ``SEQ_NCCL_RTOL`` of the one rank's, every rank the same losses, no
@@ -5928,9 +5966,13 @@ def phase_tp_nccl(card: str, device="cuda", work=WORK,
     the fsdp-4 run's epoch 2. Prints the collectives' calls and bytes per
     step. With fewer cards it prints ``"tp_fsdp": "not run: N card(s)"``
     and returns {}. ``common``, ``meshes`` and ``n_steps`` cut it (a tiny
-    width on the CPU: the ranks run on gloo with ``--device cpu``)."""
-    tag = "tp_nccl"
-    if _not_run(tag, device, nproc, card):
+    width on the CPU: the ranks run on gloo with ``--device cpu``). Phase
+    20b runs it on ``mixtral_8x7b_ep.json`` (``saver`` the mesh that writes
+    the checkpoint, for ``saver_epochs`` 1 the one epoch whose checkpoint
+    the one-process resume reads, its epoch 2 then held against the one
+    rank's; ``resume_on`` None: no resume on the ranks; a mesh without a
+    model-parallel axis runs DDP)."""
+    if _not_run(tag, device, nproc, card, key):
         return {}
     root = work / tag
     if root.exists():
@@ -5938,16 +5980,31 @@ def phase_tp_nccl(card: str, device="cuda", work=WORK,
     root.mkdir(parents=True)
     runs = []
     for name, mesh in meshes:
-        saves = ([("trainer;epochs", 2), ("trainer;save_period", 1)]
-                 if name == "fsdp4" else [("trainer;epochs", 1)]
+        saves = ([("trainer;epochs", saver_epochs),
+                  ("trainer;save_period", 1)]
+                 if name == saver else [("trainer;epochs", 1)]
                  + TP_NO_SAVE)
         runs.append((name, _pp_argv(config, list(common) + _tp_sets(mesh)
                                     + saves, root / name, device)))
-    runs.append(("resumed_tensor4", [
-        "-r", "@fsdp4", "-s", str(root / "resumed"), "--device",
-        str(device)] + sum((["--set", k, json.dumps(v)] for k, v in
-                            _tp_sets({"tensor": 4}) + TP_NO_SAVE), [])))
-    ranks, wall = _tp_torchrun(tag, runs, root, device, nproc, timeout)
+    resumed_meshes = [] if resume_on is None else [resume_on]
+    for name, mesh in resumed_meshes:
+        runs.append((name, [
+            "-r", f"@{saver}", "-s", str(root / "resumed"), "--device",
+            str(device)] + sum((["--set", k, json.dumps(v)] for k, v in
+                                _tp_sets(mesh) + TP_NO_SAVE), [])))
+    # each mesh in a torchrun of its own, one process group per mesh: on
+    # four H100s a second mesh in the ranks of a first that had written two
+    # 38 GB checkpoints hung on NCCL, where gloo with the collective checker
+    # (TORCH_DISTRIBUTED_DEBUG=DETAIL) finds every collective matched
+    ranks, wall = [{"runs": {}} for _ in range(nproc)], 0.0
+    for name, argv in runs:
+        argv = [ranks[0]["runs"][a[1:]]["run_dir"] + "/checkpoint-epoch1"
+                if a.startswith("@") else a for a in argv]
+        part, secs = _tp_torchrun(f"{tag}_{name}", [(name, argv)], root,
+                                  device, nproc, timeout)
+        wall += secs
+        ranks = [{**b, "runs": {**a["runs"], **b["runs"]}}
+                 for a, b in zip(ranks, part)]
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5964,18 +6021,19 @@ def phase_tp_nccl(card: str, device="cuda", work=WORK,
         whole = sum(p.numel() for p in model.parameters())
         del trainer, model
         _release(device)
-        resumed, _ = _one_rank([
-            "-r", str(Path(ranks[0]["runs"]["fsdp4"]["run_dir"])
+        resumed = _one_rank([
+            "-r", str(Path(ranks[0]["runs"][saver]["run_dir"])
                       / "checkpoint-epoch1"),
             "-s", str(root / "resume_one"), "--device", str(device)]
             + sum((["--set", k, json.dumps(v)] for k, v in
-                   _tp_sets({"data": 1}) + TP_NO_SAVE), []), device)
+                   _tp_sets({"data": 1}) + TP_NO_SAVE
+                   + [("trainer;epochs", 2)]), []), device)[0]
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
     one_losses = [s["loss"] for s in one]
     out = {}
-    for name, mesh in meshes + [("resumed_tensor4", {"tensor": 4})]:
+    for name, mesh in meshes + resumed_meshes:
         first = ranks[0]["runs"][name]
         losses = [s["loss"] for s in first["steps"]]
         want = (one_losses[n_steps:] if name.startswith("resumed")
@@ -5996,7 +6054,7 @@ def phase_tp_nccl(card: str, device="cuda", work=WORK,
                                            for r in ranks],
                "dtype": "float32", "card": card}
         log(f"[{tag}] " + json.dumps(row))
-        n_want = 2 * n_steps if name == "fsdp4" else n_steps
+        n_want = saver_epochs * n_steps if name == saver else n_steps
         if len(losses) != n_want or max(rel) > SEQ_NCCL_RTOL:
             raise AssertionError(f"[{tag}] {name}: {nproc} ranks' losses "
                                  f"{losses} against one rank's {want}")
@@ -6005,8 +6063,10 @@ def phase_tp_nccl(card: str, device="cuda", work=WORK,
             if [s["loss"] for s in run["steps"]] != losses:
                 raise AssertionError(f"[{tag}] {name}: rank {rk['rank']} "
                                      "logged other losses")
-            if run["ddp"] or run["backend"] != ("nccl" if device == "cuda"
-                                                else "gloo"):
+            split = any(mesh.get(a, 1) > 1 for a in
+                        ("fsdp", "expert", "tensor"))
+            if run["ddp"] == split or run["backend"] != (
+                    "nccl" if device == "cuda" else "gloo"):
                 raise AssertionError(f"[{tag}] {name}: rank {rk['rank']}: "
                                      f"ddp {run['ddp']}, {run['backend']}")
             if not all(run["launches"]):
@@ -6021,17 +6081,21 @@ def phase_tp_nccl(card: str, device="cuda", work=WORK,
                     f"params, not {expected.get(name)} of {whole}")
         out[name] = row
     resumed_losses = [s["loss"] for s in resumed]
-    fsdp_epoch2 = [s["loss"] for s in
-                   ranks[0]["runs"]["fsdp4"]["steps"]][n_steps:]
+    fsdp_epoch2 = ([s["loss"] for s in
+                    ranks[0]["runs"][saver]["steps"]][n_steps:]
+                   if saver_epochs > 1 else one_losses[n_steps:])
     rel = [abs(a - b) / abs(b) for a, b in zip(resumed_losses, fsdp_epoch2)]
     log(f"[{tag}] " + json.dumps({
-        "resumed_one_rank": resumed_losses, "fsdp4_epoch2": fsdp_epoch2,
+        "resumed_one_rank": resumed_losses, f"{saver}_epoch2": fsdp_epoch2,
         "rel_diff": rel, "torchrun_wall_s": wall, "card": card}))
     if len(resumed_losses) != n_steps or max(rel) > SEQ_NCCL_RTOL:
-        raise AssertionError(f"[{tag}] the fsdp-4 checkpoint resumed in one "
-                             f"process: {resumed_losses} against "
+        raise AssertionError(f"[{tag}] the {saver} checkpoint resumed in "
+                             f"one process: {resumed_losses} against "
                              f"{fsdp_epoch2}")
     shutil.rmtree(root)
+    # the one-rank runs' cached blocks back to the card: the next phase's
+    # rank on card 0 needs them
+    _release(device)
     return out
 
 
@@ -6039,7 +6103,9 @@ def phase_tp_full(card: str, device="cuda", work=WORK,
                   config=MISTRAL_FSDP_CONFIG, nproc: int = 4,
                   timeout: float = 1200.0, common=TP_FULL_COMMON,
                   meshes=TP_FULL_MESHES,
-                  peak_flops: float = PEAK_FLOPS[torch.bfloat16]) -> dict:
+                  peak_flops: float = PEAK_FLOPS[torch.bfloat16],
+                  tag: str = "tp_full", key: str = "tp_fsdp",
+                  flops_per_step=None) -> dict:
     """Phase 18c: with ``nproc`` cards, one ``torchrun`` trains
     ``configs/mistral_7b_fsdp.json`` as it is (Mistral-7B at its published
     widths and depth, bf16 over float32 master weights, remat, flash) for
@@ -6050,10 +6116,14 @@ def phase_tp_full(card: str, device="cuda", work=WORK,
     MFU (6 N tokens per step, the remat recompute not counted, over
     ``nproc`` cards' bf16 peak), the peak memory and the collectives'
     calls and bytes per step per rank. With fewer cards it prints
-    ``"tp_fsdp": "not run: N card(s)"`` and returns {}."""
-    tag = "tp_full"
-    if _not_run(tag, device, nproc, card):
+    ``"tp_fsdp": "not run: N card(s)"`` and returns {}. Phase 20c runs it
+    on ``mixtral_8x7b_ep.json`` over one mesh (no second to compare) with
+    ``flops_per_step`` a callable giving the model's count
+    (``train_step_flops``: the active experts' weights at top_k / E, the
+    attention's visible keys)."""
+    if _not_run(tag, device, nproc, card, key):
         return {}
+    _release(device)    # card 0 is shared with this process
     root = work / tag
     if root.exists():
         shutil.rmtree(root)
@@ -6077,13 +6147,15 @@ def phase_tp_full(card: str, device="cuda", work=WORK,
         steps = first["steps"]
         ms = [s["ms"] for s in steps]
         steady = float(np.median(ms[1:] or ms))
-        flops = 6.0 * first["params_whole"] * tokens
+        flops = (6.0 * first["params_whole"] * tokens
+                 if flops_per_step is None else flops_per_step())
         peaks = [max(r["runs"][name]["peak_gib_setup"],
                      r["runs"][name]["peak_gib_steps"]) for r in ranks]
         row = {"mesh": name, "sizes": first["mesh"],
                "params": first["params_whole"], "tokens_per_step": tokens,
                "losses": [s["loss"] for s in steps], "ms_per_step": ms,
                "ms_per_step_median": steady,
+               "model_flops_per_step": flops,
                "mfu": flops / (steady / 1e3 * nproc * peak_flops),
                "param_gib_per_rank": [r["runs"][name]["param_bytes"] / GIB
                                       for r in ranks],
@@ -6104,6 +6176,9 @@ def phase_tp_full(card: str, device="cuda", work=WORK,
             raise AssertionError(f"[{tag}] {name}: B1-B3 launches "
                                  f"{row['launches_per_rank']}")
         out[name] = row
+    if len(meshes) < 2:
+        shutil.rmtree(root)
+        return out
     a, b = (out[name]["losses"] for name, _ in meshes[:2])
     rel = [abs(x - y) / abs(y) for x, y in zip(a, b)]
     log(f"[{tag}] " + json.dumps({"meshes": [m for m, _ in meshes[:2]],
@@ -6142,7 +6217,8 @@ TP_PAGED_SHAPES = [
 # (name, dp, tp) over cell (e)'s traffic against one card
 TP_SERVE_ARCH = {"n_layer": 2, "bfloat16": False}
 TP_SERVE_GEOMETRIES = [("tp4", 1, 4), ("dp2_tp2", 2, 2), ("dp4_tp1", 4, 1)]
-# phase 19c: phase 4's Mistral-7B artifact as it is (bf16, 32 layers)
+# phase 19c: phase 4's Mistral-7B artifact as it is (bf16; 32 layers in
+# ``--tp-serving``, 16 in the full script)
 TP_SERVE_FULL_GEOMETRIES = [("tp4", 1, 4), ("dp2_tp2", 2, 2)]
 # 19c's bf16 prefill logits (1024 tokens, 32 layers) against one card's:
 # max |diff| <= TP_LOGIT_RTOL x max |logit|. The readings it sits between:
@@ -6564,6 +6640,311 @@ def phase_tp_serve_full(card: str, model_path, device="cuda", work=WORK,
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 15: the sparse Llama family (MixtralMoE, swiglu experts: three
+# torch.bmm, no Pallas kernel in JAX either) and the expert mesh axis; B1-B4
+# run at Mistral's attention shapes, no new kernel
+# ---------------------------------------------------------------------------
+
+MIXTRAL_EP_CONFIG = REPO / "pytorch_distributed_template_tpu_torch" \
+    / "configs" / "mixtral_8x7b_ep.json"
+MIXTRAL_SERVE_CONFIG = REPO / "pytorch_distributed_template_tpu_torch" \
+    / "configs" / "mixtral_8x7b_serve_paged.json"
+# phase 20a's card-vs-CPU check: Mixtral at its published widths cut to 2
+# layers in float32 (TF32 off); prompts and new tokens per engine
+MOE_REF_LAYERS = 2
+MOE_REF_PROMPTS = (37, 96)
+MOE_REF_NEW = 6
+# phase 20b: mixtral_8x7b_ep.json cut to 2 layers in float32 at a capacity
+# factor of 1.0 (C 4096 of 16,384 tokens x 2 slots / 8 experts: an expert
+# past its share drops tokens), 3 steps on each mesh against one rank
+EP_NCCL_COMMON = [("arch;args;n_layer", 2), ("arch;args;bfloat16", False),
+                  ("arch;args;capacity_factor", 1.0),
+                  ("train_loader;args;n", 12), ("valid_loader;args;n", 4)]
+EP_NCCL_MESHES = [("expert4", {"expert": 4}),
+                  ("data2_expert2", {"data": 2, "expert": 2}),
+                  ("data4", {"data": 4})]
+# phase 20c: the config as it is (8 layers, bf16), 5 steps on expert 4
+EP_FULL_MESHES = [("expert4", {"expert": 4})]
+
+
+def _sequential(service, reqs) -> list:
+    """Greedy ids of ``reqs`` served one after another (a fixed batch
+    composition: at a capacity that drops tokens, the rows sharing a call
+    decide which of them keep their experts)."""
+    return [service.generate(**r)["ids"] for r in reqs]
+
+
+def _moe_reference(card: str, device="cuda", arch_over=None) -> dict:
+    """Phase 20a's check: ``MixtralMoE`` at its published widths cut to
+    ``MOE_REF_LAYERS`` layers in float32 (TF32 off), random weights from
+    seed 3 on the card, the same weights on the CPU; the batch-1 service
+    and the continuous engine over a paged pool each serve
+    ``MOE_REF_PROMPTS`` one after another: greedy ids identical on both
+    devices, per engine. ``arch_over`` narrows the model (a CPU
+    rehearsal)."""
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.config.registry import MODELS
+    from pytorch_distributed_template_tpu_torch.engine.continuous import (
+        ContinuousBatchingService,
+    )
+    from pytorch_distributed_template_tpu_torch.engine.serving import (
+        GenerationService,
+    )
+
+    cfg = json.loads(MIXTRAL_SERVE_CONFIG.read_text())
+    arch = dict(cfg["arch"]["args"], **(arch_over or {}),
+                n_layer=MOE_REF_LAYERS, bfloat16=False)
+    rng = np.random.default_rng(13)
+    vocab = arch.get("vocab_size", 32000)
+    reqs = [{"prompt_ids": [int(x) for x in rng.integers(
+        1, vocab, n)], "max_new_tokens": MOE_REF_NEW}
+        for n in MOE_REF_PROMPTS]
+    # room for two requests' rings (145 pages each at window 4096)
+    pool = {"enabled": True, "block_tokens": 32, "pool_blocks": 320,
+            "paged": True}
+    out, models = {}, {}
+    with _TF32(False, False):
+        t0 = time.perf_counter()
+        model = MODELS.get("MixtralMoE")(**arch, device=device)
+        model.init_weights(torch.Generator(device=device).manual_seed(3))
+        cpu = MODELS.get("MixtralMoE")(**arch, device="meta")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             model.state_dict().items()}, assign=True)
+        models = {device: model, "cpu": cpu}
+        setup_s = time.perf_counter() - t0
+        for dev, m in models.items():
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                one = GenerationService.from_model(m, device=dev)
+                batch1 = _sequential(one, reqs)
+                del one
+                eng = ContinuousBatchingService.from_model(
+                    m, device=dev, slots=2, chunk=4, window_ms=5.0,
+                    prefix_cache=dict(pool))
+                try:
+                    paged = _sequential(eng, reqs)
+                finally:
+                    eng.close()
+            out[dev] = {"batch1": batch1, "paged": paged,
+                        "s": time.perf_counter() - t0}
+    row = {"layers": MOE_REF_LAYERS, "params": sum(
+        p.numel() for p in model.parameters()),
+        "prompts": list(MOE_REF_PROMPTS), "new": MOE_REF_NEW,
+        "setup_s": setup_s, **{f"{dev}_s": o["s"] for dev, o in out.items()},
+        "batch1_ids": out[device]["batch1"],
+        "paged_ids": out[device]["paged"], "dtype": "float32",
+        "tf32": False, "card": card}
+    log("[moe_serve] reference " + json.dumps(row))
+    for engine in ("batch1", "paged"):
+        if out[device][engine] != out["cpu"][engine]:
+            raise AssertionError(
+                f"[moe_serve] {engine}: {device} ids {out[device][engine]} "
+                f"against the CPU's {out['cpu'][engine]}")
+    del model, cpu, models
+    _release(device)
+    return row
+
+
+def _local_request(service, body: dict) -> dict:
+    """One request to the in-process engine: ids, TTFT (submission to the
+    first streamed delta) and total seconds, as ``stream_request``."""
+    box = {}
+    t0 = time.perf_counter()
+
+    def on_tokens(ids):
+        if "ttft" not in box and len(ids):
+            box["ttft"] = time.perf_counter() - t0
+            box["first"] = len(ids)
+
+    r = service.generate(**body, on_tokens=on_tokens)
+    return {"ids": r["ids"], "ttft_s": box.get("ttft", float("nan")),
+            "total_s": time.perf_counter() - t0,
+            "first_delta": box.get("first", 1),
+            "prompt_len": len(body["prompt_ids"])}
+
+
+def phase_moe_serve(card: str, device="cuda", config=MIXTRAL_SERVE_CONFIG,
+                    sizes=None, seed: int = 0, arch_over=None) -> dict:
+    """Phase 20a, slice 15's serving path on one card: first
+    :func:`_moe_reference`; then ``mixtral_8x7b_serve_paged.json``
+    (``MixtralMoE`` at Mixtral-8x7B's widths, its ``reduced`` depth of 16
+    layers, bf16, random weights from ``seed`` drawn on the card: no
+    artifact of ~47 GB written and read back) in the continuous engine
+    over the config's paged pool (``ContinuousBatchingService.from_model``
+    with ``serve.py``'s slots and decode chunk) with cell (e)'s traffic: 8
+    concurrent greedy requests of 256-2048 tokens, 4 sharing a 1024-token
+    prefix, 64 new each, through :class:`ServeWave` (B4 = n_layer x model
+    calls and its arms exact, B1 0, ids in range, warm admits copying
+    nothing). Prints TTFT and decode ms/token per request and the peak
+    memory; returns ``{"paged_attn": B4 launches, "reference": row,
+    "row": the wave's figures}``. ``sizes`` and ``arch_over`` cut it (a
+    CPU rehearsal)."""
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.config.registry import MODELS
+    from pytorch_distributed_template_tpu_torch.engine.continuous import (
+        ContinuousBatchingService,
+    )
+
+    ref = _moe_reference(card, device, arch_over)
+    sizes = dict(SERVE_SIZES, **(sizes or {}))
+    cfg = json.loads(Path(config).read_text())
+    arch = dict(cfg["arch"]["args"], **(arch_over or {}))
+    t0 = time.perf_counter()
+    model = MODELS.get("MixtralMoE")(**arch, device=device)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    svc = ContinuousBatchingService.from_model(
+        model, device=device, slots=sizes["slots"], chunk=sizes["chunk"],
+        window_ms=25.0, prefix_cache=dict(cfg["serving"]["prefix_cache"]),
+        prefill_chunk_tokens=cfg["serving"]["prefill_chunk_tokens"])
+    gen = torch.Generator().manual_seed(seed + 7)
+
+    def rand(n):
+        return torch.randint(0, model.vocab_size, (n,),
+                             generator=gen).tolist()
+
+    prefix = rand(sizes["prefix"])
+    prompts = ([prefix + rand(n) for n in sizes["shared_suffix"]]
+               + [rand(n) for n in sizes["alone"]])
+    log("[moe_serve] " + json.dumps({
+        "arch": "MixtralMoE", "n_layer": model.n_layer,
+        "params": sum(p.numel() for p in model.parameters()),
+        "weight_gib": weights / GIB, "build_s": build_s,
+        "pool_blocks": svc._prefix.pool_blocks, "block": svc._prefix.block,
+        "page_mib": svc._prefix.page_bytes / 2 ** 20,
+        "prefill_chunk": svc._prefill_chunk, "card": card}))
+    waves = ServeWave(card, device)
+    pf = svc._prefix
+    need = pf.counter("prefix_adopted_blocks") + sizes["prefix"] // pf.block
+    bodies = [{"prompt_ids": p, "max_new_tokens": sizes["new"]}
+              for p in prompts]
+
+    def drive():
+        import threading
+
+        first = {}
+        th = threading.Thread(target=lambda: first.update(
+            r=_local_request(svc, bodies[0])), daemon=True)
+        th.start()
+        _wait_for(lambda: pf.counter("prefix_adopted_blocks") >= need
+                  or not th.is_alive(), "the shared prefix's adoption")
+        rest = _concurrent(lambda b: _local_request(svc, b), bodies[1:])
+        th.join(1200)
+        if "r" not in first:
+            raise AssertionError("(moe_e) first request failed")
+        return [first["r"]] + rest
+
+    try:
+        results = waves.run("moe_e", svc, drive, sizes["new"])
+        if svc.prefix_cache_stats()["prefix_hit_tokens"] <= 0:
+            raise AssertionError("(moe_e) no prefix hit tokens")
+    finally:
+        svc.close()
+    peak = (torch.cuda.max_memory_allocated() / GIB
+            if torch.device(device).type == "cuda" else 0.0)
+    decode = [(r["total_s"] - r["ttft_s"]) * 1e3
+              / (len(r["ids"]) - r["first_delta"]) for r in results
+              if len(r["ids"]) > r["first_delta"]]
+    row = {"n_layer": model.n_layer, "requests": len(results),
+           "ttft_ms": [r["ttft_s"] * 1e3 for r in results],
+           "ttft_ms_median": float(np.median([r["ttft_s"] * 1e3
+                                              for r in results])),
+           "decode_ms_per_token_median": float(np.median(decode)),
+           "peak_gib": peak, "weight_gib": weights / GIB,
+           "paged_attn_launches": waves.b4_launches, "flash_fwd_launches": 0,
+           "card": card}
+    log("[moe_serve] " + json.dumps(row))
+    del svc, model
+    _release(device)
+    return {"paged_attn": waves.b4_launches, "reference": ref, "row": row}
+
+
+def _mixtral_flops(config, batch: int) -> float:
+    """``train_step_flops`` of the config's whole model (the meta device)
+    at ``batch`` rows of its sequence."""
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.config.registry import MODELS
+    from pytorch_distributed_template_tpu_torch.observability.profiler import (
+        train_step_flops,
+    )
+
+    cfg = json.loads(Path(config).read_text())
+    model = MODELS.get(cfg["arch"]["type"])(**cfg["arch"]["args"],
+                                            device="meta")
+    return train_step_flops(model, batch,
+                            cfg["train_loader"]["args"]["seq_len"])
+
+
+def phase_ep_nccl(card: str, device="cuda", work=WORK, nproc: int = 4,
+                  timeout: float = 900.0, common=EP_NCCL_COMMON,
+                  meshes=EP_NCCL_MESHES) -> dict:
+    """Phase 20b: :func:`phase_tp_nccl` on ``mixtral_8x7b_ep.json`` cut by
+    ``EP_NCCL_COMMON`` (2 layers, float32 without TF32, capacity 1.0):
+    ``{"expert": 4}`` (one epoch and its checkpoint: 38 GB of f32
+    params and Adam moments), ``{"data": 2, "expert": 2}`` and ``{"data":
+    4}`` (DDP, the routing over the global batch on NCCL), each in a
+    ``torchrun`` of its own, each within ``SEQ_NCCL_RTOL`` of one rank,
+    each rank's parameter bytes its placement's share, the expert-4
+    checkpoint resumed in one process reproducing the one rank's epoch 2;
+    the all-reduces and psums per step printed. With fewer cards it prints ``"moe_ep": "not
+    run: N card(s)"``."""
+    return phase_tp_nccl(card, device=device, work=work,
+                         config=MIXTRAL_EP_CONFIG, nproc=nproc,
+                         timeout=timeout, common=common, meshes=meshes,
+                         saver="expert4", resume_on=None, tag="ep_nccl",
+                         key="moe_ep", saver_epochs=1)
+
+
+def phase_ep_full(card: str, device="cuda", work=WORK, nproc: int = 4,
+                  timeout: float = 1200.0, common=()) -> dict:
+    """Phase 20c: :func:`phase_tp_full` on ``mixtral_8x7b_ep.json`` as it
+    is (8 of Mixtral-8x7B's 32 layers at every published width, bf16 over
+    float32 master weights, remat, flash, 4 x 4096 tokens per step, every
+    rank reading the 4 rows) for 5 steps on ``{"expert": 4}``: ms per
+    step, MFU over the model's FLOPs (``_mixtral_flops``), peak memory and
+    collectives per rank, B1-B3 launches."""
+    return phase_tp_full(card, device=device, work=work,
+                         config=MIXTRAL_EP_CONFIG, nproc=nproc,
+                         timeout=timeout, common=list(common),
+                         meshes=EP_FULL_MESHES,
+                         tag="ep_full", key="moe_ep",
+                         flops_per_step=lambda: _mixtral_flops(
+                             MIXTRAL_EP_CONFIG, TP_GLOBAL_BATCH))
+
+
+def moe_ep_main() -> int:
+    """``chip_smoke.py --moe-ep``: slice 15's phases alone: the build, 20a,
+    and with four cards 20b and 20c. Prints each phase's rows and time;
+    exits 0 when every check held."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    log(f"[device] {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()} | nvidia-smi: {card}")
+    times = {}
+
+    def timed(phase, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        times[phase] = time.perf_counter() - t0
+        log(f"[time] phase {phase}: {times[phase]:.1f} s | {card}")
+        return out
+
+    timed("1", phase_build)
+    timed("20a", phase_moe_serve, card)
+    timed("20b", phase_ep_nccl, card)
+    timed("20c", phase_ep_full, card)
+    if WORK.exists():
+        shutil.rmtree(WORK)
+    print(json.dumps({"moe_ep": "ok", "phases_s": times, "card": card}),
+          flush=True)
+    return 0
+
+
 def tp_serving_main() -> int:
     """``chip_smoke.py --tp-serving``: slice 14's phases alone, for four
     cards: the build, 19a, 19b, phase 4's Mistral-7B artifact (the port's
@@ -6639,8 +7020,12 @@ def main() -> int:
     timed("3c", phase_train_reference)
     timed("3d", phase_moe_train_reference)
     timed("3e", lambda: (phase_optim_reference(), phase_optim_full(card)))
-    flash_launches = timed("4", phase_main, card, keep_artifact=True)
-    paged_launches = timed("5", phase_serve, card, WORK / "art" / "model")
+    flash_launches = timed("4", phase_main, card, arch_args=MAIN_ARGS,
+                           keep_artifact=True)
+    # the serving config with the artifact's depth (``-c`` overlays arch)
+    serve_cfg = _serve_config(SERVE_CONFIG, MAIN_ARGS, WORK / "serve.json")
+    paged_launches = timed("5", phase_serve, card, WORK / "art" / "model",
+                           config=serve_cfg)
     train_launches = timed("6", phase_train, card, keep=GPT2_BASE)
     moe_launches = timed("7", phase_moe_train, card)
     timed("8", phase_lenet_reference)
@@ -6691,12 +7076,20 @@ def main() -> int:
     paged_rows += timed("19a-paged", phase_paged_kernel, TP_PAGED_SHAPES)
     serve_rows = list(timed("19b", phase_tp_serve, card).values())
     serve_rows += [r for r in timed(
-        "19c", phase_tp_serve_full, card, WORK / "art" / "model").values()
-        if "launches_here" in r]
+        "19c", phase_tp_serve_full, card, WORK / "art" / "model",
+        config=serve_cfg).values() if "launches_here" in r]
     # the card-0 process's launches in 19b/19c (rank 0 of a TP group)
     serve_launches = _rank0_launches(serve_rows)
     paged_launches += serve_launches["paged_attn"]
     flash_launches += serve_launches["flash_fwd"]
+    paged_launches += timed("20a", phase_moe_serve, card)["paged_attn"]
+    ep_rows = timed("20b", phase_ep_nccl, card)
+    ep_rows.update({f"full_{k}": v for k, v in
+                    timed("20c", phase_ep_full, card).items()})
+    # rank 0's launches in the 20b/20c ranks
+    for i, kern in enumerate(FLASH_KERNELS):
+        tp_launches[kern] += sum(row["launches_per_rank"][0][i]
+                                 for row in ep_rows.values())
     if any(pp_launches.values()):
         raise AssertionError(f"the pipelined trunk launched a kernel: "
                              f"{pp_launches}")
@@ -6751,4 +7144,6 @@ if __name__ == "__main__":
         sys.exit(tp_child(sys.argv[2]))
     if sys.argv[1:2] == ["--tp-serving"]:
         sys.exit(tp_serving_main())
+    if sys.argv[1:2] == ["--moe-ep"]:
+        sys.exit(moe_ep_main())
     sys.exit(main())

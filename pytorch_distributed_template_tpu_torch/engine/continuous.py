@@ -28,8 +28,11 @@ of the JAX package's ``engine/continuous.py``.
 
 PyTorch runs eagerly, so two pieces of the JAX engine that exist for XLA
 compile reuse are left out: the warm-up ladders (``_warm_chunk_ladder``,
-``_warm_admit_ladder``) and power-of-two bucketing of admission feeds and
-group widths (bucketing changes only pad lanes, never valid outputs). A
+``_warm_admit_ladder``) and, for a dense model, power-of-two bucketing of
+admission feeds and group widths (bucketing changes only pad lanes, never
+valid outputs). A sparse model keeps them: its pad lanes and padding rows
+claim expert capacity as the JAX engine's do, and the capacity follows the
+call's token count, so a dropping capacity would route otherwise. A
 cancelled row is frozen on the device at once (its done flag is set in
 stream order), so its pages free at completion without the JAX engine's
 deferred zombie cleanup.
@@ -57,6 +60,7 @@ import time
 import numpy as np
 import torch
 
+from ..models.moe import MoeMlp
 from ..utils.promtext import percentile
 from .generate import isin_stops, sample_rows
 from .kvcache import paged_forward
@@ -103,6 +107,11 @@ class ContinuousBatchingService(GenerationService):
             cap = int(self._prefix.ring_slack_tokens)
             chunk_tok = min(chunk_tok or cap, cap)
         self._prefill_chunk = chunk_tok
+        # a sparse model's expert capacity couples the rows of one call,
+        # so its admissions take the JAX engine's shape (see _admit_group)
+        self._jax_shaped_admits = any(
+            isinstance(m, MoeMlp) for m in getattr(model, "modules",
+                                                   lambda: ())())
         self._window_s = float(window_ms) / 1e3
         self._queue: "queue_mod.Queue" = queue_mod.Queue()
         self._latencies: list = []
@@ -293,19 +302,32 @@ class ContinuousBatchingService(GenerationService):
         # token is never served from cache)
         feed = max(len(r["ids"]) - p.get("done", p["c"])
                    for r, p in zip(reqs, plans))
-        prompts = np.zeros((n, feed), np.int64)
-        pads = np.zeros((n,), np.int32)
-        starts = np.zeros((n,), np.int32)
+        rows, extra = list(zip(reqs, plans)), {}
+        if self._jax_shaped_admits:
+            # every lane of the call claims expert capacity, and the
+            # capacity is a function of the call's token count: feed the
+            # JAX engine's shape, the suffix bucket wide and ``slots`` rows
+            # (copies of the last request). A copy whose tokens are
+            # dropped where the request's are not computes other K/V; the
+            # JAX engine's scatter races the two on the request's pages,
+            # here the copies write nothing
+            feed = self._bucket(feed)
+            rows += [rows[-1]] * (self._slots - n)
+            extra["write_rows"] = n
+        prompts = np.zeros((len(rows), feed), np.int64)
+        pads = np.zeros((len(rows),), np.int32)
+        starts = np.zeros((len(rows),), np.int32)
         stops = np.full((n, W), -1, np.int64)
-        tables = np.stack([pf.table_row(p) for p in plans])
-        for j, (r, p) in enumerate(zip(reqs, plans)):
+        tables = np.stack([pf.table_row(p) for _, p in rows])
+        for j, (r, p) in enumerate(rows):
             ids = r["ids"]
             c = p.get("done", p["c"])
             s = len(ids) - c
             prompts[j, feed - s:] = ids[c:]
             pads[j] = feed - s
             starts[j] = len(ids) - feed          # lane 0's position
-            stops[j, :len(r["stop"])] = r["stop"]
+            if j < n:
+                stops[j, :len(r["stop"])] = r["stop"]
         idx = torch.tensor(slots, dtype=torch.long, device=dev)
         tables_k = torch.from_numpy(tables).to(dev)
         starts_k = torch.from_numpy(starts).to(dev)
@@ -315,7 +337,7 @@ class ContinuousBatchingService(GenerationService):
             logits = self.model(
                 torch.from_numpy(prompts).to(dev), cache=pf.pool,
                 prefill=True, block_tables=tables_k, row_starts=starts_k,
-                pad_lens=torch.from_numpy(pads).to(dev))[:, -1]
+                pad_lens=torch.from_numpy(pads).to(dev), **extra)[:n, -1]
             self.stats["model_calls"] += 1
             self.stats["admit_calls"] += 1
             tok0 = sample_rows(logits, [r["temperature"] for r in reqs],
@@ -325,8 +347,8 @@ class ContinuousBatchingService(GenerationService):
             for r in reqs:
                 pf.drop_plan(r.pop("_pages"))
             raise
-        self._tables[idx] = tables_k
-        self._starts[idx] = starts_k + feed
+        self._tables[idx] = tables_k[:n]
+        self._starts[idx] = starts_k[:n] + feed
         self._tok[idx] = tok0
         self._emitted[idx] = 1
         self._done[idx] = False

@@ -136,8 +136,8 @@ def evaluate(config, device, save_outputs=None, seed=None) -> dict:
             if msk is not None:
                 dumped_msk.append(msk.cpu().numpy()[keep])
 
-    if (save_outputs is not None and mesh.axis_index("pipe") == 0
-            and mesh.axis_index("tensor") == 0):
+    if save_outputs is not None and all(
+            mesh.axis_index(a) == 0 for a in ("pipe", "expert", "tensor")):
         out_dir = Path(save_outputs)
         out_dir.mkdir(parents=True, exist_ok=True)
         rank = shard[0]

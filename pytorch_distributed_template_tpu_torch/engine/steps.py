@@ -155,11 +155,16 @@ reduce-scatters the fsdp ranks' parts into its slice, then it is summed
 over the data group; every other gradient (a tensor slice, the same on
 the ranks of a row, or a replicated one) is summed over the data x fsdp
 group; in ``all_reduce``s of up to :data:`SUM_BUCKET_BYTES`, once per
-update (after the last microbatch).
+update (after the last microbatch). Expert parallelism (an ``expert`` axis
+> 1; no DDP) is the same sum: every rank of an expert row computes the
+same loss (the MoE blocks sum their experts' parts over the row), counted
+at expert index 0, its replicated gradients come out equal on the row and
+its expert slices are its own, so every gradient is summed over the data
+group alone.
 
-Every global read on a pipe, fsdp or tensor axis takes the whole mesh
-(``parallel.sharding.MeshReduce``): the pre-clip gradient norm, the
-update norm, the non-finite counts of the health summary and of
+Every global read on a pipe, fsdp, expert or tensor axis takes the
+whole mesh (``parallel.sharding.MeshReduce``): the pre-clip gradient
+norm, the update norm, the non-finite counts of the health summary and of
 ``skip_nonfinite`` / ``debug.nan_check`` sum a slice's part over its axis
 and count a replicated parameter once, so every rank clips by the same
 scale and takes the same skip decision.
@@ -258,6 +263,14 @@ def _example_count(mask, shard) -> torch.Tensor:
     """Real rows, counted once per data shard: seq index 0 counts."""
     count = mask.sum()
     return count if shard is None or shard.index == 0 else count * 0.0
+
+
+def _counted(mesh) -> bool:
+    """Whether this rank counts its statistics: index 0 on the pipe,
+    expert and tensor axes (the other ranks of such a row compute the same
+    ones)."""
+    return mesh is None or all(mesh.axis_index(a) == 0
+                               for a in ("pipe", "expert", "tensor"))
 
 
 def _replicas(model) -> int:
@@ -375,10 +388,9 @@ class TrainStep:
         self.reduce = (MeshReduce(self.module, mesh)
                        if mesh is not None and mesh.model_parallel()
                        else None)
-        # the statistics: counted at pipe and tensor index 0 (the other
-        # ranks of a pipe or tensor row compute the same ones)
-        self._counted = mesh is None or (mesh.axis_index("pipe") == 0
-                                         and mesh.axis_index("tensor") == 0)
+        # the statistics: counted at pipe, expert and tensor index 0 (the
+        # other ranks of such a row compute the same ones)
+        self._counted = _counted(mesh)
         self._loss_scale = _replicas(model) / pipe
 
     def state_dict(self) -> dict:
@@ -438,7 +450,7 @@ class TrainStep:
     def _sync_grads(self) -> None:
         """The gradient sums over the mesh, once per update: on a pipe
         axis the replicated parameters' over the pipe group (DDP averaged
-        over the data group); on an fsdp or tensor axis (no DDP) an
+        over the data group); on an fsdp, expert or tensor axis (no DDP) an
         fsdp-placed parameter's over the data group (its gather's
         reduce-scatter summed the fsdp ranks'), every other one's over the
         data x fsdp group."""
@@ -763,8 +775,7 @@ def make_eval_step(model, criterion: Callable,
     evaluated through its ``module``."""
 
     model = getattr(model, "module", model)
-    counted = mesh is None or (mesh.axis_index("pipe") == 0
-                               and mesh.axis_index("tensor") == 0)
+    counted = _counted(mesh)
 
     @torch.no_grad()
     def eval_step(batch, seed=None):

@@ -83,39 +83,41 @@ controller's counters restart. A train loader with a ``tokenizer_path``
 (``BpeLMLoader``) gets its tokenizer copied into the run directory.
 
 The config's mesh (``parallel.mesh``): ``pipe``, ``data``, ``fsdp``,
-``seq`` and ``tensor``. The loaders shard over the data and fsdp axes
-(built with :meth:`Mesh.data_shard`, and checked here), so the ranks of a
-seq row, a tensor row and the stages of a pipe row train on the same
-batch, and the model gets the mesh (``models.base.inject_mesh``) for its
-sequence-parallel attention, its tensor-parallel layers or its pipeline.
-Every rank builds the whole model from the seed; the injection leaves it
-its slices of every parameter its rules (or the fsdp fallback) place on
-pipe, fsdp or tensor (``parallel/sharding.py``), and the optimizer is
-built after it, so the moments and the EMA are per slice too. Without
-such an axis DDP runs over the whole world (parameters are replicated
-over data and seq). On a pipe axis (a pipelined model, ``n_stages`` equal
-to the axis) DDP runs over the data group (none when the data axis is 1:
-DDP over the world would average different stages' weights of equal
-shapes); the train step sums the replicated parameters' gradients over
-the pipe group. On an fsdp or tensor axis no DDP runs (its ranks hold
-different slices): the train step sums each gradient over the mesh
-itself (engine/steps.py). The global norms and counts read the whole
-mesh (``parallel.sharding.MeshReduce``). Every checkpoint holds the
-whole tensors, params, optimizer moments and EMA gathered over the mesh
-by every rank, one tensor at a time into rank 0's host memory, before
+``seq``, ``expert`` and ``tensor``. The loaders shard over the data and
+fsdp axes (built with :meth:`Mesh.data_shard`, and checked here), so the
+ranks of a seq row, an expert row, a tensor row and the stages of a pipe
+row train on the same batch, and the model gets the mesh
+(``models.base.inject_mesh``) for its sequence-parallel attention, its
+tensor-parallel layers, its MoE blocks' routing and experts, or its
+pipeline. Every rank builds the whole model from the seed; the injection
+leaves it its slices of every parameter its rules (or the fsdp fallback)
+place on pipe, fsdp, expert or tensor (``parallel/sharding.py``), and the
+optimizer is built after it, so the moments and the EMA are per slice too.
+Without such an axis DDP runs over the whole world (parameters are
+replicated over data and seq). On a pipe axis (a pipelined model,
+``n_stages`` equal to the axis) DDP runs over the data group (none when
+the data axis is 1: DDP over the world would average different stages'
+weights of equal shapes); the train step sums the replicated parameters'
+gradients over the pipe group. On an fsdp, expert or tensor axis no DDP
+runs (its ranks hold different slices): the train step sums each gradient
+over the mesh itself (engine/steps.py). The global norms and counts read
+the whole mesh (``parallel.sharding.MeshReduce``). Every checkpoint holds
+the whole tensors, params, optimizer moments and EMA gathered over the
+mesh by every rank, one tensor at a time into rank 0's host memory, before
 rank 0 writes: the files a one-process run writes; a resume or
 ``init_from`` cuts them to this rank's slices, whatever mesh wrote them.
 The emergency save gathers too, so on a sharded model it lands only when
 every rank raises (a fault plan's crash); a rank that fails alone leaves
 the others waiting in the gather, as they would in the next collective,
 until the process group's timeout. Optimizers that read a whole
-parameter's norm (``LARS``, ``LAMB``, ``Adafactor``) refuse a pipe, fsdp
-or tensor axis: a rank holds a slice. Rank 0 writes; the ``data_state``
-sidecar's sampler state records the batch axes' shard count. Refused by
-name: the expert axis (ROADMAP A11d), fsdp or tensor beside pipe or seq
-(A11b's remainder), a seq axis > 1 for a model without sequence
-parallelism, a pipe axis > 1 for a model without a pipelined trunk, and a
-tensor axis for a model without tensor-parallel layers.
+parameter's norm (``LARS``, ``LAMB``, ``Adafactor``) refuse a pipe, fsdp,
+expert or tensor axis: a rank holds a slice. Rank 0 writes; the
+``data_state`` sidecar's sampler state records the batch axes' shard
+count. Refused by name: the expert axis beside pipe, fsdp, seq or tensor
+(ROADMAP A11d's remainder), fsdp or tensor beside pipe or seq (A11b's
+remainder), a seq axis > 1 for a model without sequence parallelism, a
+pipe axis > 1 for a model without a pipelined trunk, and a tensor axis for
+a model without tensor-parallel layers.
 """
 from __future__ import annotations
 
@@ -432,7 +434,7 @@ class Trainer(BaseTrainer):
 
     def __init__(self, model, criterion, metric_ftns, config, train_loader,
                  valid_loader=None, device=None, seed: int = 0, mesh=None):
-        # refuses the expert axis (A11d) and A11b's remainder
+        # refuses A11b's and A11d's remainders
         self.mesh = (mesh if mesh is not None
                      else build_mesh(mesh_from_config(config)))
         _check_shards(self.mesh, train_loader, valid_loader)
@@ -478,10 +480,12 @@ class Trainer(BaseTrainer):
         self.ddp = None
         # DDP over the world, or over the data group on a pipe axis (the
         # stages of a pipe row hold different weights of equal shapes);
-        # none on an fsdp or tensor axis, whose ranks hold different
-        # slices (the train step sums the gradients over the mesh)
+        # none on an fsdp, expert or tensor axis, whose ranks hold
+        # different slices (the train step sums the gradients over the
+        # mesh)
         ddp_group = self.mesh.group("data") if pipe > 1 else None
-        split = any(self.mesh.axis_size(a) > 1 for a in ("fsdp", "tensor"))
+        split = any(self.mesh.axis_size(a) > 1
+                    for a in ("fsdp", "expert", "tensor"))
         if dist.in_group() and not split and (pipe == 1
                                               or ddp_group is not None):
             # BN's running averages come from the global statistics, the
@@ -525,8 +529,9 @@ class Trainer(BaseTrainer):
                 "LARS", "LAMB", "Adafactor"):
             raise NotImplementedError(
                 f"{type(self.optimizer).__name__} reads each parameter's "
-                "whole norm; on a pipe, fsdp or tensor axis a rank holds a "
-                "slice of it (an elementwise optimizer runs there)")
+                "whole norm; on a pipe, fsdp, expert or tensor axis a rank "
+                "holds a slice of it (an elementwise optimizer runs "
+                "there)")
         self._plateau_warned = False
         self.skip_nonfinite = bool(cfg.get("skip_nonfinite", False))
         self.log_grad_norm = bool(cfg.get("log_grad_norm", False))

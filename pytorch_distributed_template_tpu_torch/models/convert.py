@@ -21,8 +21,9 @@ translation:
   ``BasicBlock_i``, ``Conv_i``, ``conv_proj``); ViT's bare ``cls`` and
   ``pos_embed`` params as they are;
 - the MoE block's stacked expert leaves ``h_i/moe/{wi, wo, bi, bo}``
-  (``[E, D, F]``, ``[E, F, D]``, ``[E, F]``, ``[E, D]``) as they are, and
-  its router ``h_i/moe/router/{kernel, bias}`` like any dense layer;
+  (``[E, D, F]``, ``[E, F, D]``, ``[E, F]``, ``[E, D]``; the swiglu
+  expert's ``layers_i/moe/{wi, wg, wo}``) as they are, and its router
+  ``h_i/moe/router/{kernel, bias}`` like any dense layer;
 - the LoRA adapters ``*/lora_a`` ``[in, r]`` and ``*/lora_b`` ``[r, out]``
   as they are (``models/lora.py`` stores flax's layout);
 - the BERT tree: the trunk under ``encoder`` (``encoder/wte/embedding``,
@@ -62,7 +63,7 @@ _LAYER = re.compile(r"^layers_(\d+)$")
 _INDEXED = re.compile(r"^(layers|h)_(\d+)$")
 _INDEXED_PARENTS = ("layers", "h")
 _EMBEDDINGS = ("wte", "embed_tokens")
-_EXPERT_LEAVES = ("wi", "wo", "bi", "bo")   # MoeMlp's stacked expert params
+_EXPERT_LEAVES = ("wi", "wg", "wo", "bi", "bo")  # MoeMlp's stacked leaves
 _TOP_LEVEL = ("wpe", "cls", "pos_embed")     # bare params (BERT's wpe
 #                                              sits under ``encoder``)
 _AS_IS = _TOP_LEVEL + ("lora_a", "lora_b")   # leaves that keep their name

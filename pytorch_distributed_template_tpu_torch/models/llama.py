@@ -2,7 +2,8 @@
 
 Port of ``pytorch_distributed_template_tpu/models/llama.py`` for serving:
 the plain forward and the decode forward over a KV cache, registered as
-``Llama``, ``Mistral`` and ``TinyLlama`` with the JAX registry's defaults.
+``Llama``, ``Mistral``, ``MixtralMoE`` and ``TinyLlama`` with the JAX
+registry's defaults.
 
 - Serving stores the weights in the compute dtype on the model's device
   (``bfloat16: true`` stores bf16). Training builds the model with
@@ -68,8 +69,24 @@ the plain forward and the decode forward over a KV cache, registered as
   lookup and the logits' gather work as in training; every rank of the
   group runs each call with the same inputs (parallel/serving_ranks.py).
 
-Left to later slices, each refused with a message naming it: MoE, w8a16
-weights, decoding on a seq axis.
+- MoE (``moe_experts > 0``: ``MixtralMoE``, the sparse Llama family): every
+  ``moe_every``-th block swaps its SwiGLU MLP for ``MoeMlp(expert_act=
+  "swiglu")`` (models/moe.py; parameter name ``moe``, as in the flax
+  tree). ``forward(..., example_mask=...)`` keeps padded examples out of
+  expert capacity; in training mode the forward sets ``model.aux_loss`` to
+  the blocks' summed load-balancing loss (None without one), once per
+  call, a block recomputed under remat adding nothing twice. The blocks
+  route over the global batch of the LM's ``mesh`` and split their
+  experts over its ``expert`` axis (models/moe.py); the rules are
+  MoeMlp's plus the Llama rules. The decode paths (contiguous, rolling
+  and paged caches) pass no ``example_mask``, as JAX's engines call the
+  model: every row of a decode or chunk call, an idle or padded one too,
+  claims expert capacity as JAX's does. Zigzag stays off for MoE, as in
+  JAX (the routing keeps natural order).
+
+Left to later slices, each refused with a message naming it: w8a16
+weights, decoding on a seq axis, MoE blocks on a tensor axis (training:
+ROADMAP A11d's remainder; ``serve.py --tp``: A6c.3's remainder).
 """
 from __future__ import annotations
 
@@ -90,12 +107,16 @@ from ..ops.flash import flash_attention
 from ..parallel.collectives import copy_to, gather_replicated
 from ..parallel.sharding import P
 from .layers import embed, row_parallel, vocab_embed
+from .moe import MoeMlp
 from .quant import (
     check_lora_quant, dense_factory, dequantize_kv, quantize_kv,
 )
 
 #: reserved pool page: pad lanes and unallocated table lanes write here
 SCRATCH_BLOCK = 0
+_SLICE_MOE_TENSOR = ("MoE blocks on a tensor axis: ROADMAP A11d's "
+                     "remainder (training) and A6c.3's remainder "
+                     "(tensor-parallel serving), a later slice")
 
 
 class RMSNorm(nn.Module):
@@ -191,14 +212,15 @@ class PagedPlacement:
 
 
 def paged_placement(tables, row_starts, pad_lens, t: int, bt: int,
-                    window: int, head_dim: int,
-                    rope_base: float) -> PagedPlacement:
+                    window: int, head_dim: int, rope_base: float,
+                    write_rows=None) -> PagedPlacement:
     """Row ``b``'s lane ``i`` sits at the row-local position
     ``row_starts[b] + i`` (its RoPE angle); the page for position p is
     ``tables[b, p // bt]``, or ``tables[b, (p // bt) % NB]`` in ring mode
     (``window > 0``; flat mode clips positions to ``NB*bt - 1``), at
-    offset ``p % bt``. Pad lanes (``i < pad_lens[b]``) and ``-1`` table
-    lanes write to the scratch page."""
+    offset ``p % bt``. Pad lanes (``i < pad_lens[b]``), ``-1`` table
+    lanes and the rows from ``write_rows`` on (copies of an earlier row
+    that read its pages) write to the scratch page."""
     b, nb = tables.shape
     lane = torch.arange(t, device=tables.device)
     pos = row_starts.long()[:, None] + lane[None, :]              # [B, T]
@@ -212,6 +234,8 @@ def paged_placement(tables, row_starts, pad_lens, t: int, bt: int,
     cos, sin = rope_tables(safe.reshape(-1), head_dim, rope_base)
     page = tables.long().gather(1, blk)
     ok = (lane[None, :] >= pad_lens.long()[:, None]) & (page >= 0)
+    if write_rows is not None:
+        ok &= torch.arange(b, device=tables.device)[:, None] < write_rows
     flat = torch.where(ok, page, SCRATCH_BLOCK) * bt + safe % bt
     return PagedPlacement(tables, row_starts, pad_lens,
                           cos.view(b, t, head_dim), sin.view(b, t, head_dim),
@@ -443,9 +467,15 @@ class SwiGLU(nn.Module):
 
 
 class LlamaBlock(nn.Module):
+    """Pre-norm block: attention, then the SwiGLU MLP or, with ``moe`` (the
+    ``MoeMlp`` kwargs), the routed swiglu experts. ``forward`` returns
+    ``(x, aux)``: the MoE load-balancing loss in training mode, else
+    None."""
+
     def __init__(self, d_model, n_head, n_kv_head, d_ff, attn_impl,
                  rope_base, rms_eps, window, dtype, device, kv_quant="",
-                 param_dtype=None, lora: dict = None):
+                 param_dtype=None, lora: dict = None, moe: dict = None,
+                 n_layer: int = 1):
         super().__init__()
         self.input_layernorm = RMSNorm(d_model, rms_eps, device=device)
         self.self_attn = LlamaAttention(d_model, n_head, n_kv_head,
@@ -455,14 +485,25 @@ class LlamaBlock(nn.Module):
                                         param_dtype=param_dtype, lora=lora)
         self.post_attention_layernorm = RMSNorm(d_model, rms_eps,
                                                 device=device)
-        self.mlp = SwiGLU(d_model, d_ff, dtype=dtype, device=device,
-                          param_dtype=param_dtype, lora=lora)
+        if moe:
+            self.moe = MoeMlp(d_model, d_ff, dropout=0.0, n_layer=n_layer,
+                              dtype=dtype, expert_act="swiglu",
+                              device=device,
+                              param_dtype=param_dtype or dtype, **moe)
+        else:
+            self.mlp = SwiGLU(d_model, d_ff, dtype=dtype, device=device,
+                              param_dtype=param_dtype, lora=lora)
 
     def forward(self, x, cache=None, start: int = 0, prefill: bool = False,
-                paged=None, sp=None):
+                paged=None, sp=None, example_mask=None):
         x = x + self.self_attn(self.input_layernorm(x), cache, start,
                                prefill, paged, sp)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        h = self.post_attention_layernorm(x)
+        if hasattr(self, "moe"):
+            y, aux = self.moe(h, example_mask,
+                              mesh=sp[2] if sp is not None else None)
+            return x + y, aux
+        return x + self.mlp(h), None
 
 
 class LlamaLM(nn.Module):
@@ -476,7 +517,10 @@ class LlamaLM(nn.Module):
                  window: int = 0, device=None, kv_quant: str = "",
                  remat: bool = False, fused_head: bool = False,
                  param_dtype=None, mesh=None, seq_layout: str = "natural",
-                 lora_rank: int = 0, lora_alpha: float = 16.0):
+                 lora_rank: int = 0, lora_alpha: float = 16.0,
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_every: int = 1, moe_capacity_factor: float = 1.25,
+                 moe_aux_loss_weight: float = 0.01):
         super().__init__()
         n_kv = n_kv_head or n_head
         if kv_quant not in ("", "int8"):
@@ -501,11 +545,17 @@ class LlamaLM(nn.Module):
                                          dtype=param_dtype or dtype,
                                          device=device)
         lora = dict(lora_rank=lora_rank, lora_alpha=lora_alpha)
+        self.moe_experts, self.moe_every = moe_experts, moe_every
+        moe = dict(num_experts=moe_experts, top_k=moe_top_k,
+                   capacity_factor=moe_capacity_factor,
+                   aux_loss_weight=moe_aux_loss_weight)
         self.layers = nn.ModuleList(
             LlamaBlock(d_model, n_head, n_kv, d_ff, attn_impl, rope_base,
                        rms_eps, window, dtype, device, kv_quant, param_dtype,
-                       lora)
-            for _ in range(n_layer))
+                       lora, moe if self._is_moe_layer(i) else None,
+                       n_layer)
+            for i in range(n_layer))
+        self.aux_loss = None
         self.norm = RMSNorm(d_model, rms_eps, device=device)
         # a fused head hands its plain kernel to the loss (JAX's
         # ``_HeadKernel``): no adapters there
@@ -518,12 +568,17 @@ class LlamaLM(nn.Module):
         self.mesh = mesh
         self.tp = None      # the tensor axis (``use_tensor_axis``)
 
+    def _is_moe_layer(self, i: int) -> bool:
+        """The JAX ``_moe_kwargs`` rule: every ``moe_every``-th block."""
+        return self.moe_experts > 0 and (i + 1) % self.moe_every == 0
+
     def partition_rules(self):
         """JAX's Megatron rules over ``tensor`` (``LlamaLM.
         partition_rules``), over the torch dimensions: column-parallel
         q/k/v and gate/up (weight rows), row-parallel o/down (weight
-        columns), the vocab-sharded embedding and head."""
-        return [
+        columns), the vocab-sharded embedding and head; MoE blocks add
+        MoeMlp's expert rules in front."""
+        rules = [
             (r"embed_tokens/weight", P("tensor", None)),
             (r"self_attn/(q_proj|k_proj|v_proj)/weight", P("tensor", None)),
             (r"self_attn/o_proj/weight", P(None, "tensor")),
@@ -531,6 +586,9 @@ class LlamaLM(nn.Module):
             (r"mlp/down_proj/weight", P(None, "tensor")),
             (r"lm_head/weight", P("tensor", None)),
         ]
+        if self.moe_experts > 0:
+            rules = MoeMlp.partition_rules() + rules
+        return rules
 
     def fsdp_units(self):
         """The fsdp gather units (parallel/fsdp.py): the blocks."""
@@ -541,6 +599,8 @@ class LlamaLM(nn.Module):
         """Compute on this rank's shards of a tensor axis (module
         docstring); refuses what does not split over it."""
         tp = mesh.axis("tensor")
+        if self.moe_experts > 0:
+            raise NotImplementedError(_SLICE_MOE_TENSOR)
         for what, n in (("n_head", self.n_head),
                         ("n_kv_head", self.n_kv_head), ("d_ff", self.d_ff),
                         ("vocab_size", self.vocab_size)):
@@ -552,10 +612,16 @@ class LlamaLM(nn.Module):
             block.self_attn.tp = block.mlp.tp = tp
 
     def _seq_plan(self, t: int):
-        # a window rides the contiguous banded ring
+        if (self.moe_experts > 0 and self.mesh is not None
+                and self.mesh.axis_size("seq") > 1):
+            raise NotImplementedError(
+                "MoE blocks on a seq axis need the routing over the whole "
+                "sequence: ROADMAP A11d's remainder, a later slice")
+        # a window rides the contiguous banded ring; MoE routing keeps
+        # natural order
         return seq_plan(self.mesh, self.attn_impl, self.seq_layout, t,
                         self.lm_head.weight.device,
-                        zigzag_ok=self.window == 0)
+                        zigzag_ok=self.window == 0 and self.moe_experts <= 0)
 
     def seq_shard(self, t: int):
         """The :class:`ops.attention.SeqShard` this rank's outputs hold of
@@ -569,13 +635,18 @@ class LlamaLM(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """Random init from ``generator``, the flax initializers' law:
-        N(0, 0.02) for every projection and the embedding, ones for the
-        norms, zeros for the LoRA ``lora_b``."""
+        N(0, 0.02) for every projection, the embedding, the router and the
+        experts' ``wi``/``wg``, N(0, 0.02/sqrt(2 n_layer)) for the experts'
+        ``wo``, ones for the norms, zeros for the router's bias and the
+        LoRA ``lora_b``."""
+        resid = 0.02 / (2 * self.n_layer) ** 0.5
         for name, p in self.named_parameters():
             if name.endswith("layernorm.weight") or name == "norm.weight":
                 p.fill_(1.0)
-            elif name.endswith("lora_b"):
+            elif name.endswith(("lora_b", "router.bias")):
                 p.zero_()
+            elif name.endswith("moe.wo"):
+                p.normal_(0.0, resid, generator=generator)
             else:
                 p.normal_(0.0, 0.02, generator=generator)
 
@@ -636,7 +707,8 @@ class LlamaLM(nn.Module):
                 "paged": True, "kv_heads": self.local_kv_heads}
 
     def forward(self, tokens, cache=None, prefill: bool = False,
-                block_tables=None, row_starts=None, pad_lens=None):
+                block_tables=None, row_starts=None, pad_lens=None,
+                example_mask=None, write_rows=None):
         """tokens ``[B, T]`` -> f32 logits ``[B, T, V]`` (or, with no
         cache and ``fused_head``, ``(hidden, head_w [D, V])`` in the
         compute dtype); on a seq axis S > 1 the shard's ``[B, T / S,
@@ -649,7 +721,13 @@ class LlamaLM(nn.Module):
         With a ``PagedCache`` (the pool): ``block_tables`` ``[B, NB]``,
         ``row_starts`` ``[B]`` and ``pad_lens`` ``[B]`` (int32, on the
         model's device) place each row's lanes; ``prefill=True`` keeps the
-        last position's logits only."""
+        last position's logits only. ``write_rows`` (int) keeps the pool
+        writes to the leading rows: the rest are copies of the last of them
+        that read its pages and write nothing.
+
+        ``example_mask`` ([B] bool, training and evaluation) marks the real
+        rows of a padded batch for the MoE blocks (dense blocks ignore
+        it). Sets ``self.aux_loss``."""
         b, t = tokens.shape
         sp = None
         if cache is None:
@@ -676,7 +754,8 @@ class LlamaLM(nn.Module):
             # the lanes' placement is the same for every layer: once here
             paged = paged_placement(block_tables, row_starts, pad_lens, t,
                                     cache.layers[0].k.shape[1], self.window,
-                                    self.head_dim, self.rope_base)
+                                    self.head_dim, self.rope_base,
+                                    write_rows)
         elif cache is not None:
             start = cache.pos_index
             if prefill and start != 0:
@@ -684,13 +763,18 @@ class LlamaLM(nn.Module):
                                  f"(pos_index is {start})")
             cache.pos_index = start + t
         remat = self.remat and cache is None and torch.is_grad_enabled()
+        aux_total = None
         for i, block in enumerate(self.layers):
             if remat:
-                x = checkpoint(block, x, None, 0, False, None, sp,
-                               use_reentrant=False)
-                continue
-            layer_cache = cache.layers[i] if cache is not None else None
-            x = block(x, layer_cache, start, prefill, paged, sp)
+                x, aux = checkpoint(block, x, None, 0, False, None, sp,
+                                    example_mask, use_reentrant=False)
+            else:
+                layer_cache = cache.layers[i] if cache is not None else None
+                x, aux = block(x, layer_cache, start, prefill, paged, sp,
+                               example_mask)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+        self.aux_loss = aux_total
         x = self.norm(x)
         if cache is None and self.fused_head:
             w = self.lm_head.weight
@@ -750,6 +834,36 @@ def mistral(vocab_size: int = 32000, n_layer: int = 32, n_head: int = 32,
                    max_len, _dtype(bfloat16), attn_impl, rope_base, rms_eps,
                    window, device, kv_quant, remat, fused_head, param_dtype,
                    mesh, lora_rank=lora_rank, lora_alpha=lora_alpha)
+
+
+@MODELS.register("MixtralMoE")
+def mixtral_moe(vocab_size: int = 32000, n_layer: int = 32, n_head: int = 32,
+                n_kv_head: int = 8, d_model: int = 4096, d_ff: int = 14336,
+                max_len: int = 32768, window: int = 4096,
+                num_experts: int = 8, top_k: int = 2, moe_every: int = 1,
+                capacity_factor: float = 1.25,
+                aux_loss_weight: float = 0.01,
+                rope_base: float = 1e6, rms_eps: float = 1e-5,
+                bfloat16: bool = True, attn_impl: str = "flash",
+                remat: bool = True, mesh=None, fused_head: bool = True,
+                device=None, param_dtype=None, **overrides):
+    """Mixtral-8x7B's shape: the Mistral trunk (4:1 GQA, sliding window)
+    with every FFN replaced by 8 routed SwiGLU experts, top-2 gating
+    (models/moe.py, ``expert_act='swiglu'``); the expert weights shard over
+    the ``expert`` mesh axis. ``overrides``: the other ``LlamaLM``
+    arguments (``seq_layout``, ``kv_quant``, ``lora_rank``, ...)."""
+    _refuse_later(overrides.pop("quant", ""),
+                  overrides.get("lora_rank", 0))
+    return LlamaLM(vocab_size=vocab_size, n_layer=n_layer, n_head=n_head,
+                   n_kv_head=n_kv_head, d_model=d_model, d_ff=d_ff,
+                   max_len=max_len, dtype=_dtype(bfloat16),
+                   attn_impl=attn_impl, rope_base=rope_base,
+                   rms_eps=rms_eps, window=window, device=device,
+                   remat=remat, fused_head=fused_head,
+                   param_dtype=param_dtype, mesh=mesh,
+                   moe_experts=num_experts, moe_top_k=top_k,
+                   moe_every=moe_every, moe_capacity_factor=capacity_factor,
+                   moe_aux_loss_weight=aux_loss_weight, **overrides)
 
 
 @MODELS.register("TinyLlama")

@@ -25,11 +25,43 @@ experts' FFNs on stacked weights (``wi [E, D, F]``, ``wo [E, F, D]``,
 - dispatch ``"gather"`` (slot indices, row gathers; ``"auto"``'s choice
   without an expert mesh) or ``"einsum"`` (the GShard one-hot
   dispatch/combine tensors ``[S, E, C]``), the same routing either way;
-- the experts' FFN is ``ops/expert_ffn.py`` (kernel B5 on the card).
+- ``expert_act``: ``"gelu"`` (``wi``/``bi``, gelu, ``wo``/``bo``: the
+  experts' FFN is ``ops/expert_ffn.py``, kernel B5 on the card) or
+  ``"swiglu"`` (the Mixtral / sparse-Llama expert: ``silu(x wg) * (x wi)
+  wo`` with a stacked gate ``wg [E, D, F]`` and no biases, three
+  ``torch.bmm`` in the model dtype, as JAX computes three einsums outside
+  any Pallas kernel).
 
-Refused by name: ``expert_act="swiglu"`` (the Mixtral / sparse-Llama
-expert) and expert parallelism (a mesh with an ``expert`` axis, and with
-it the einsum arm's all-to-all), both later slices.
+Routing is global over the batch of the ``mesh`` passed to ``forward``
+(the LM's): JAX's ``MoeMlp`` runs under SPMD on the global array,
+so its capacity, its slot-order fill and the aux loss's means are over the
+data x fsdp plane's whole batch, in global token order. A data shard
+holds the global rows ``index::count`` (data/sampler.py: shard ``i`` takes
+positions ``i::n`` of the sampler's order, and ``Mesh.data_shard`` is the
+loaders' shard), so global row ``j n + i`` is row ``j`` of rank ``i``: the
+order of the one-process batch, as JAX's one-host trainer sees it. Each
+rank takes ``S`` and ``C`` from the global token count, all-gathers its
+per-slot, per-expert, per-row counts of eligible tokens once, offsets each
+row's cumsum by the eligible tokens of the global rows before it and keeps
+a token when its global slot is under ``C``; the aux loss's ``me``, ``ce``
+and valid count are summed over the plane with one differentiable
+``psum``. Each rank then runs the experts on its own kept tokens only, in
+local slots (``min(C, S_local)`` per expert): a token's output does not
+depend on its slot number.
+
+Expert parallelism (a mesh whose ``expert`` axis is X > 1, the stacked
+leaves sliced to ``E / X`` experts by ``parallel/sharding.py`` from
+:meth:`MoeMlp.partition_rules`): the batch is not sharded over ``expert``,
+so the ranks of an expert group route the same tokens identically (the
+router is replicated); each runs its experts' FFN on its slice of
+``expert_in`` and combines a partial output, summed over the group by
+Megatron's pair (``parallel/collectives.py``: ``copy_to`` on the expert
+inputs and the gates, ``reduce_from`` on the output). The replicated
+leaves' gradients come out equal on every rank of the group and the
+expert leaves' are local; for the einsum arm this is the sum XLA's
+all-to-all pair computes. ``"auto"`` dispatch picks ``"einsum"`` on such
+a mesh, as JAX does. An expert count the axis does not divide stays
+unsliced (the rules refuse it by name, as JAX's placement would fail).
 """
 from __future__ import annotations
 
@@ -39,14 +71,9 @@ from torch.nn import functional as F
 
 from ..config.registry import MODELS
 from ..ops.expert_ffn import expert_ffn
+from ..parallel.collectives import all_gather, copy_to, psum, reduce_from
 from ..parallel.sharding import P
 from .layers import dropout
-
-_SLICE_SWIGLU = ("the swiglu expert (Mixtral / sparse Llama) is a later "
-                 "slice (other model families)")
-_SLICE_EXPERT_PARALLEL = ("expert parallelism (a mesh with an 'expert' "
-                          "axis, the einsum arm's all-to-all) is ROADMAP "
-                          "A11d, a later slice")
 
 
 class RowGather(torch.autograd.Function):
@@ -104,45 +131,50 @@ def capacity(tokens: int, num_experts: int, k: int,
 
 
 class MoeMlp(nn.Module):
-    """Top-k routed expert FFN (drop-in for the dense ``MlpBlock``).
+    """Top-k routed expert FFN (drop-in for the dense ``MlpBlock`` or the
+    Llama family's ``SwiGLU``).
 
-    ``forward(x [B, T, D], example_mask=None, seed=None) -> (y [B, T, D],
-    aux)``: ``aux`` is the weighted load-balancing loss (a float32 scalar)
-    in training mode with ``aux_loss_weight > 0``, else None."""
+    ``forward(x [B, T, D], example_mask=None, seed=None, mesh=None) -> (y
+    [B, T, D], aux)``: ``aux`` is the weighted load-balancing loss (a
+    float32 scalar) in training mode with ``aux_loss_weight > 0``, else
+    None. ``param_dtype`` (default float32, flax's) stores the expert
+    leaves (a bf16 serving model stores them bf16); the router stays
+    float32."""
 
     def __init__(self, d_model: int, d_ff: int, num_experts: int,
                  top_k: int = 2, capacity_factor: float = 1.25,
                  aux_loss_weight: float = 0.01, dropout: float = 0.0,
                  n_layer: int = 1, dtype=torch.float32,
                  expert_act: str = "gelu", dispatch_impl: str = "auto",
-                 mesh=None, device=None):
+                 device=None, param_dtype=None):
         super().__init__()
-        if expert_act == "swiglu":
-            raise NotImplementedError(_SLICE_SWIGLU)
-        if expert_act != "gelu":
+        if expert_act not in ("gelu", "swiglu"):
             raise ValueError(f"expert_act={expert_act!r}; expected "
                              "'gelu'/'swiglu'")
         if dispatch_impl not in ("auto", "gather", "einsum"):
             raise ValueError(f"dispatch_impl={dispatch_impl!r}; expected "
                              "'auto'/'gather'/'einsum'")
-        if mesh is not None:
-            raise NotImplementedError(_SLICE_EXPERT_PARALLEL)
         self.d_model, self.d_ff = d_model, d_ff
         self.num_experts, self.top_k = num_experts, top_k
         self.capacity_factor = capacity_factor
         self.aux_loss_weight = aux_loss_weight
         self.rate, self.n_layer, self.dtype = dropout, n_layer, dtype
-        self.dispatch_impl = dispatch_impl
+        self.expert_act, self.dispatch_impl = expert_act, dispatch_impl
         e, f32 = num_experts, torch.float32
+        pdt = param_dtype or f32
         self.router = nn.Linear(d_model, e, dtype=f32, device=device)
-        self.wi = nn.Parameter(torch.zeros(e, d_model, d_ff, dtype=f32,
-                                           device=device))
-        self.wo = nn.Parameter(torch.zeros(e, d_ff, d_model, dtype=f32,
-                                           device=device))
-        self.bi = nn.Parameter(torch.zeros(e, d_ff, dtype=f32,
-                                           device=device))
-        self.bo = nn.Parameter(torch.zeros(e, d_model, dtype=f32,
-                                           device=device))
+
+        def stack(*shape):
+            return nn.Parameter(torch.zeros(shape, dtype=pdt,
+                                            device=device))
+
+        self.wi = stack(e, d_model, d_ff)
+        if expert_act == "swiglu":
+            self.wg = stack(e, d_model, d_ff)
+        self.wo = stack(e, d_ff, d_model)
+        if expert_act == "gelu":
+            self.bi = stack(e, d_ff)
+            self.bo = stack(e, d_model)
 
     @staticmethod
     def partition_rules():
@@ -159,18 +191,47 @@ class MoeMlp(nn.Module):
             (r"moe/router/bias", P()),
         ]
 
-    def forward(self, x, example_mask=None, seed=None):
-        b, t, d = x.shape
-        s, e = b * t, self.num_experts
-        k = min(self.top_k, e)
-        cap = capacity(s, e, k, self.capacity_factor)
+    def _experts(self, mesh):
+        """``(group, first expert, local count)`` of this rank's experts:
+        ``(None, 0, E)`` unless the stacked leaves hold a slice."""
+        e_loc = self.wi.shape[0]
+        if e_loc == self.num_experts:
+            return None, 0, e_loc
+        ep = mesh.axis("expert") if mesh is not None else None
+        if ep is None or e_loc * ep.size != self.num_experts:
+            raise ValueError(f"{e_loc} of {self.num_experts} experts held "
+                             f"without an expert axis that splits them")
+        return ep, ep.index * e_loc, e_loc
+
+    def _ffn(self, expert_in):
+        """The experts' FFN on ``expert_in [E_local, C, D]`` in the model
+        dtype."""
         dt = self.dtype
-        xf = x.reshape(s, d)
+        if self.expert_act == "gelu":
+            return expert_ffn(expert_in.contiguous(), self.wi.to(dt),
+                              self.wo.to(dt), self.bi.to(dt),
+                              self.bo.to(dt))
+        gate = torch.bmm(expert_in, self.wg.to(dt))
+        up = torch.bmm(expert_in, self.wi.to(dt))
+        return torch.bmm(F.silu(gate) * up, self.wo.to(dt))
+
+    def forward(self, x, example_mask=None, seed=None, mesh=None):
+        b, t, d = x.shape
+        s_loc, e = b * t, self.num_experts
+        k = min(self.top_k, e)
+        batch = mesh.batch() if mesh is not None else None
+        s = s_loc * (batch.size if batch is not None else 1)
+        cap = capacity(s, e, k, self.capacity_factor)
+        cap_l = min(cap, s_loc)       # a rank's kept tokens per expert
+        ep, lo, e_loc = self._experts(mesh)
+        dt = self.dtype
+        dev = x.device
+        xf = x.reshape(s_loc, d)
         if example_mask is not None:
             tok = example_mask.to(torch.float32)[:, None].expand(b, t)
-            tok = tok.reshape(s)
+            tok = tok.reshape(s_loc)
         else:
-            tok = torch.ones(s, dtype=torch.float32, device=x.device)
+            tok = torch.ones(s_loc, dtype=torch.float32, device=dev)
 
         # routing, float32
         logits = F.linear(xf.float(), self.router.weight, self.router.bias)
@@ -181,68 +242,103 @@ class MoeMlp(nn.Module):
                 -1, keepdim=True).clamp_min(1e-9)
         gate_vals = gate_vals * tok[:, None]
 
-        use_gather = self.dispatch_impl in ("auto", "gather")
-        # capacity fill: slot 0 for every token first, then slot 1; the
-        # one-hot is [E, S] so the running count scans the inner axis
+        use_gather = self.dispatch_impl == "gather" or (
+            self.dispatch_impl == "auto"
+            and not (mesh is not None and mesh.axis_size("expert") > 1))
+        # capacity fill over the global batch: slot 0 for every token
+        # first, then slot 1, in global token order; the one-hot is
+        # [E, S] so the running count scans the inner axis
         valid = tok > 0
-        experts = torch.arange(e, device=x.device)[:, None]
-        combine = None if use_gather else torch.zeros(
-            (s, e, cap), dtype=torch.float32, device=x.device)
+        experts = torch.arange(e, device=dev)[:, None]
+        ohs = torch.stack([(experts == gate_idx[None, :, i]) & valid[None, :]
+                           for i in range(k)])  # [k, E, S]; padding: none
+        # the eligible tokens before each of this rank's rows in global
+        # order, per slot and expert: [k, E, B]
+        rows = ohs.view(k, e, b, t).sum(dim=-1)
+        if batch is not None:
+            n, r = batch.size, batch.index
+            every = all_gather(rows[None], 0, batch.group)  # [n, k, E, B]
+            flat = every.permute(1, 2, 3, 0).reshape(k, e, b * n)
+            row_base = (torch.cumsum(flat, dim=-1) - flat)[..., r::n]
+            total = flat.sum(dim=-1)
+        else:
+            row_base = torch.cumsum(rows, dim=-1) - rows
+            total = rows.sum(dim=-1)
+        before = (row_base[..., None] + torch.cumsum(
+            ohs.view(k, e, b, t), dim=-1) - 1).view(k, e, s_loc)
         pos_s, keep_s = [], []
-        fill = torch.zeros(e, dtype=torch.int64, device=x.device)
+        gfill = torch.zeros(e, dtype=torch.int64, device=dev)
+        lfill = torch.zeros(e, dtype=torch.int64, device=dev)
         for slot in range(k):
             idx = gate_idx[:, slot]
-            oh = (experts == idx[None, :]) & valid[None, :]  # padding: none
-            pos = torch.cumsum(oh, dim=1) - 1 + fill[:, None]    # [E, S]
-            keep = (pos < cap) & oh
+            oh = ohs[slot]
+            keep = (before[slot] + gfill[:, None] < cap) & oh    # [E, S]
+            pos = torch.cumsum(oh, dim=1) - 1 + lfill[:, None]
             pos_s.append(pos.gather(0, idx[None, :])[0])
             keep_s.append(keep.gather(0, idx[None, :])[0])
-            if combine is not None:
-                combine = combine + (
-                    gate_vals[:, slot, None, None]
-                    * keep.t()[..., None].float()
-                    * F.one_hot(torch.where(keep, pos, 0).t(), cap).float())
-            fill = fill + keep.sum(dim=1)
+            gfill = torch.clamp(gfill + total[slot], max=cap)
+            lfill = lfill + keep.sum(dim=1)
 
         aux = None
         if self.training and self.aux_loss_weight > 0:
-            denom = tok.sum().clamp_min(1.0)
-            me = (probs * tok[:, None]).sum(0) / denom              # [E]
+            me = (probs * tok[:, None]).sum(0)                      # [E]
             ce = (F.one_hot(gate_idx[:, 0], e).float()
-                  * tok[:, None]).sum(0) / denom                    # [E]
-            aux = self.aux_loss_weight * (e * (me * ce).sum())
+                  * tok[:, None]).sum(0)                            # [E]
+            n = tok.sum()
+            if batch is not None:
+                stats = psum(torch.cat([me, ce, n[None]]), batch.group)
+                me, ce, n = stats[:e], stats[e:2 * e], stats[2 * e]
+            denom = n.clamp_min(1.0)
+            aux = self.aux_loss_weight * (e * ((me / denom)
+                                               * (ce / denom)).sum())
 
-        slots = e * cap
+        # flat local slot per (token, slot); dropped tokens and tokens of
+        # other ranks' experts name the scratch slot
+        slots = e_loc * cap_l
+        dst = torch.stack([
+            torch.where(keep_s[i] & (gate_idx[:, i] >= lo)
+                        & (gate_idx[:, i] < lo + e_loc),
+                        (gate_idx[:, i] - lo) * cap_l + pos_s[i], slots)
+            for i in range(k)], dim=1)                          # [S, k]
+        xin = xf.to(dt)
+        if ep is not None:
+            # Megatron's f: each rank's experts give a part of dx and of
+            # the gates' cotangent
+            xin = copy_to(xin, ep.group)
+            gate_vals = copy_to(gate_vals, ep.group)
         if use_gather:
-            # flat slot per (token, slot); dropped ones name the scratch
-            # slot e * cap. inv: the token in each slot (s: empty).
-            dst = torch.stack([
-                torch.where(keep_s[i], gate_idx[:, i] * cap + pos_s[i],
-                            slots) for i in range(k)], dim=1)      # [S, k]
-            inv = torch.full((slots + 1,), s, dtype=torch.int64,
-                             device=x.device)
+            # inv: the token in each slot (s: empty)
+            inv = torch.full((slots + 1,), s_loc, dtype=torch.int64,
+                             device=dev)
             inv[dst.reshape(-1)] = torch.arange(
-                s, device=x.device).repeat_interleave(k)
-            expert_in = RowGather.apply(xf.to(dt), inv[:slots], dst)
-            expert_in = expert_in.reshape(e, cap, d)
+                s_loc, device=dev).repeat_interleave(k)
+            expert_in = RowGather.apply(xin, inv[:slots], dst)
+            expert_in = expert_in.reshape(e_loc, cap_l, d)
         else:
-            dispatch = (combine > 0).to(dt)                       # [S, E, C]
-            expert_in = torch.einsum("sec,sd->ecd", dispatch, xf.to(dt))
-        out = expert_ffn(expert_in.contiguous(), self.wi.to(dt),
-                         self.wo.to(dt), self.bi.to(dt), self.bo.to(dt))
+            # the GShard combine tensor [S, E_local, C]: one entry per
+            # kept (token, slot); the scratch column is cut off
+            w = gate_vals * torch.stack(keep_s, dim=1).float()
+            combine = torch.zeros((s_loc, slots + 1), dtype=torch.float32,
+                                  device=dev).scatter(1, dst, w)
+            combine = combine[:, :slots].view(s_loc, e_loc, cap_l)
+            dispatch = (combine > 0).to(dt)
+            expert_in = torch.einsum("sec,sd->ecd", dispatch, xin)
+        out = self._ffn(expert_in)
         if use_gather:
             # each (token, slot) reads its slot's output (dropped: zeros);
             # rev: the (token, slot) position reading each slot
             flat = dst.reshape(-1)
-            rev = torch.full((slots + 1,), s * k, dtype=torch.int64,
-                             device=x.device)
-            rev[flat] = torch.arange(s * k, device=x.device)
+            rev = torch.full((slots + 1,), s_loc * k, dtype=torch.int64,
+                             device=dev)
+            rev[flat] = torch.arange(s_loc * k, device=dev)
             picked = RowGather.apply(out.reshape(slots, d), flat,
-                                     rev[:slots, None]).view(s, k, d)
+                                     rev[:slots, None]).view(s_loc, k, d)
             w = (gate_vals * torch.stack(keep_s, dim=1).float()).to(dt)
             y = (w[..., None] * picked).sum(dim=1)
         else:
             y = torch.einsum("sec,ecd->sd", combine.to(dt), out)
+        if ep is not None:
+            y = reduce_from(y, ep.group)     # Megatron's g
         y = dropout(y, self.rate, seed, self.training)
         return y.reshape(b, t, d), aux
 

@@ -32,7 +32,9 @@ as ``GPT2`` and ``TinyLM`` with the JAX registry's defaults.
   block returns its weighted load-balancing loss beside its output and
   the forward sets ``model.aux_loss`` to their sum (None when there is
   none), once per call: a block recomputed under remat returns its value
-  again but adds nothing twice.
+  again but adds nothing twice. The blocks route over the global batch of
+  the LM's ``mesh`` and split their experts over its ``expert`` axis
+  (models/moe.py).
 
 - Sequence parallelism (``attn_impl`` ``ring``, ``ring_flash``,
   ``ulysses``, ``ulysses_flash``; ops/attention.py): with a mesh whose
@@ -65,7 +67,8 @@ as ``GPT2`` and ``TinyLM`` with the JAX registry's defaults.
   replicated activations with the same seeds, so every rank of the row
   draws the same masks. The blocks are the fsdp gather units
   (:meth:`TransformerLM.fsdp_units`, parallel/fsdp.py). MoE blocks refuse
-  a tensor axis (ROADMAP A11d), as does LoRA (A11b's remainder).
+  a tensor axis (ROADMAP A11d's remainder), as does LoRA (A11b's
+  remainder).
 - ``causal`` (``SelfAttention``, ``Block``; default True): False gives
   the bidirectional attention of the BERT family (models/bert.py).
 - LoRA (``lora_rank > 0``, ``lora_alpha``): every projection (``qkv``,
@@ -74,9 +77,9 @@ as ``GPT2`` and ``TinyLM`` with the JAX registry's defaults.
   JAX family; the MoE experts and router stay dense.
 
 Left to later slices, each refused with a message naming it: decode
-caches (serving the GPT-2 family), swiglu experts (other model families)
-and expert parallelism (MoE blocks on a seq axis, ROADMAP A11d), w8a16
-weights and int8 KV (serving).
+caches (serving the GPT-2 family and ``MoeLM``, A6c.3's remainder), MoE
+blocks on a seq or tensor axis (A11d's remainder), w8a16 weights and int8
+KV (serving).
 """
 from __future__ import annotations
 
@@ -99,17 +102,16 @@ from .moe import MoeMlp
 from .quant import check_lora_quant, dense_factory
 
 _ATTN_IMPLS = ("xla", "flash") + SP_IMPLS
-_SLICE_EXPERT_PARALLEL = ("MoE blocks on a seq axis need the routing over "
-                          "the whole sequence: ROADMAP A11d (expert "
-                          "parallelism), a later slice")
+_SLICE_MOE_SEQ = ("MoE blocks on a seq axis need the routing over the "
+                  "whole sequence: ROADMAP A11d's remainder, a later slice")
 #: folded into the dropout seed with the seq index: the shards of one row
 #: must not repeat one mask
 SEQ_DROPOUT_SALT = 0x5E0
 _SLICE_GPT2_SERVING = ("serving the GPT-2 family (its decode caches) is a "
                        "later slice")
 _SLICE_MOE_TENSOR = ("MoE blocks on a tensor axis (MoeMlp's expert rules "
-                     "over tensor, B5 on a split FFN): ROADMAP A11d, a "
-                     "later slice")
+                     "over tensor, B5 on a split FFN): ROADMAP A11d's "
+                     "remainder, a later slice")
 
 
 def _site(seed, *where):
@@ -217,7 +219,8 @@ class Block(nn.Module):
     def forward(self, x, seed=None, example_mask=None, sp=None):
         x = x + self.attn(self.ln_1(x), _site(seed, 1), sp)
         if hasattr(self, "moe"):
-            y, aux = self.moe(self.ln_2(x), example_mask, _site(seed, 2))
+            y, aux = self.moe(self.ln_2(x), example_mask, _site(seed, 2),
+                              sp[2] if sp is not None else None)
             return x + y, aux
         return x + self.mlp(self.ln_2(x), _site(seed, 2)), None
 
@@ -329,7 +332,7 @@ class TransformerLM(nn.Module):
     def _seq_plan(self, t: int):
         if (self.moe_experts > 0 and self.mesh is not None
                 and self.mesh.axis_size("seq") > 1):
-            raise NotImplementedError(_SLICE_EXPERT_PARALLEL)
+            raise NotImplementedError(_SLICE_MOE_SEQ)
         return seq_plan(self.mesh, self.attn_impl, self.seq_layout, t,
                         self.wpe.device)
 

@@ -95,7 +95,8 @@ def train_step_flops(model, batch: int, t: int) -> Optional[float]:
         if isinstance(mod, MoeMlp):
             idle = 1 - min(mod.top_k, mod.num_experts) / mod.num_experts
             n -= idle * sum(getattr(mod, leaf).numel()
-                            for leaf in ("wi", "wo", "bi", "bo"))
+                            for leaf in ("wi", "wg", "wo", "bi", "bo")
+                            if hasattr(mod, leaf))
         elif isinstance(mod, LoRADense):
             frozen += mod.weight.numel()
     window = int(getattr(model, "window", 0) or 0)

@@ -565,8 +565,10 @@ def paged_attention_ref(q, k_pool, v_pool, tables, row_starts, pad_lens,
                         window: int = 0, k_scale=None, v_scale=None):
     """Plain PyTorch version of the B4 kernel (the JAX package's
     ``paged_attention_ref``): gather every row's pages, mask, and run the
-    grouped-query einsum in f32. Invalid lanes (``i < pad_lens[b]``) give
-    garbage the callers ignore, as in the JAX oracle."""
+    grouped-query einsum in f32. A lane that sees no key (an invalid lane,
+    ``i < pad_lens[b]``) gives 0, as the kernel's does (the JAX oracle
+    leaves such lanes undefined): an idle or padded row's MoE route
+    depends on it, so the card and the CPU must agree there too."""
     from .attention import grouped_query_attention
 
     _check_paged(q, k_pool, v_pool, tables, row_starts, pad_lens,
@@ -575,7 +577,9 @@ def paged_attention_ref(q, k_pool, v_pool, tables, row_starts, pad_lens,
     v_all = paged_gather(v_pool, tables, v_scale, q.dtype)
     ok = paged_visible(tables, row_starts, pad_lens, q.shape[1],
                        k_pool.shape[1], window)
-    return grouped_query_attention(q, k_all, v_all, mask=ok[:, None])
+    out = grouped_query_attention(q, k_all, v_all, mask=ok[:, None])
+    seen = ok.any(dim=-1)[:, :, None, None]
+    return torch.where(seen, out, torch.zeros_like(out))
 
 
 #: B4's arms (``csrc/paged_attn.cu``): the query rows one block (or

@@ -2,28 +2,32 @@
 the JAX package's ``parallel/mesh.py`` (``resolve_axis_sizes``,
 ``build_mesh``, ``mesh_from_config``).
 
-The port runs five axes: ``pipe`` (pipeline parallelism:
+The port runs JAX's six axes: ``pipe`` (pipeline parallelism:
 parallel/pipeline.py, the pipelined models), ``data`` (data parallelism),
 ``fsdp`` (ZeRO-3: the batch and the parameters sharded, parallel/fsdp.py),
 ``seq`` (sequence parallelism: ring and Ulysses attention,
-ops/attention.py) and ``tensor`` (Megatron tensor parallelism in the LM
-families). Ranks are laid out as JAX's ``build_mesh`` reshapes its devices
-in ``MESH_AXES`` order, pipe outermost and tensor innermost: ``rank =
-(((pipe * D + data) * F + fsdp) * S + seq) * T + tensor``.
+ops/attention.py), ``expert`` (expert parallelism: the MoE blocks' stacked
+experts sharded, models/moe.py; the batch is not sharded over it) and
+``tensor`` (Megatron tensor parallelism in the LM families). Ranks are laid
+out as JAX's ``build_mesh`` reshapes its devices in ``MESH_AXES`` order,
+pipe outermost and tensor innermost: ``rank = ((((pipe * D + data) * F +
+fsdp) * S + seq) * X + expert) * T + tensor``.
 :func:`build_mesh` makes one process group per row of each axis of size >
 1 (the ranks that differ only in their index on it), and one per row of the
 data x fsdp plane (the ranks sharing every model-parallel index: pipe, seq
 and tensor), over which replicated gradients are averaged, on every rank in
-the same order (``dist.new_group`` is collective). ``expert`` refuses by
-name until its ROADMAP item ports it (:data:`LATER_AXES`).
+the same order (``dist.new_group`` is collective). ``expert`` runs beside
+``data`` only; beside ``pipe``, ``fsdp``, ``seq`` or ``tensor`` it refuses
+by name (:data:`EXPERT_LATER`).
 
 :func:`build_mesh` of :func:`mesh_from_config` is the config's mesh; the
 entry points build it once and hand its batch shard
 (:meth:`Mesh.data_shard`: over data and fsdp, JAX's ``DATA_AXES``) to the
-loaders, so every rank of a seq row, a tensor row and a pipe row reads the
-same batch, as JAX's ``batch_spec`` shards the batch over the data axes
-only. :attr:`Mesh.axis_names` keeps the axes the config named, size 1
-included, as the JAX mesh does (partition rules prune against them).
+loaders, so every rank of a seq row, an expert row, a tensor row and a
+pipe row reads the same batch, as JAX's ``batch_spec`` shards the batch
+over the data axes only. :attr:`Mesh.axis_names` keeps the axes the config
+named, size 1 included, as the JAX mesh does (partition rules prune
+against them).
 """
 from __future__ import annotations
 
@@ -34,12 +38,11 @@ import numpy as np
 from . import dist
 
 MESH_AXES = ("pipe", "data", "fsdp", "seq", "expert", "tensor")
-#: the axes the port runs, in rank order (outer first)
-PORTED_AXES = ("pipe", "data", "fsdp", "seq", "tensor")
-#: the ROADMAP item that ports each other axis
-LATER_AXES = {
-    "expert": "ROADMAP A11d (expert parallelism), a later slice",
-}
+#: the axes the port runs, in rank order (outer first): all of JAX's
+PORTED_AXES = MESH_AXES
+#: what an expert axis beside another model-parallel axis waits for
+EXPERT_LATER = ("ROADMAP A11d's remainder (the expert axis beside pipe, "
+                "fsdp, seq or tensor), a later slice")
 #: the axes that shard the batch (JAX's ``DATA_AXES``)
 DATA_AXES = ("data", "fsdp")
 #: the group key of the data x fsdp plane (:meth:`Mesh.group`)
@@ -78,15 +81,12 @@ def mesh_from_config(config, world_size: Optional[int] = None
                      ) -> Dict[str, int]:
     """The axis sizes of the config's ``mesh`` block (default ``{"data":
     -1}``) over ``world_size`` ranks (default: the process group's), in
-    ``MESH_AXES`` order; an axis the port does not run, and ``fsdp`` or
-    ``tensor`` beside ``pipe`` or ``seq``, raise NotImplementedError naming
-    the ROADMAP item."""
+    ``MESH_AXES`` order; ``fsdp`` or ``tensor`` beside ``pipe`` or
+    ``seq``, and ``expert`` beside any axis but ``data``, raise
+    NotImplementedError naming the ROADMAP item."""
     block = config.get("mesh") or {}
     axes = dict(block.get("axes") or {"data": -1})
-    later = sorted(a for a in axes if a in LATER_AXES)
-    if later:
-        raise NotImplementedError("; ".join(
-            f"mesh axis {a!r} is {LATER_AXES[a]}" for a in later))
+    _refuse_expert_beside({a: int(v) for a, v in axes.items()})
     n = dist.process_count() if world_size is None else int(world_size)
     sizes = resolve_axis_sizes(axes, n)
     split = [a for a in ("fsdp", "tensor") if sizes.get(a, 1) > 1]
@@ -96,7 +96,18 @@ def mesh_from_config(config, world_size: Optional[int] = None
             f"mesh axes {split} together with {other} are ROADMAP A11b's "
             "remainder (tensor and fsdp composed with pipe or seq), a later "
             "slice")
+    _refuse_expert_beside(sizes)
     return {a: sizes[a] for a in MESH_AXES if a in sizes}
+
+
+def _refuse_expert_beside(sizes: Dict[str, int]) -> None:
+    """NotImplementedError for an expert axis > 1 beside another
+    model-parallel axis > 1 (:data:`EXPERT_LATER`)."""
+    beside = [a for a in ("pipe", "fsdp", "seq", "tensor")
+              if sizes.get(a, 1) > 1]
+    if sizes.get("expert", 1) > 1 and beside:
+        raise NotImplementedError(
+            f"mesh axis 'expert' together with {beside} is {EXPERT_LATER}")
 
 
 class AxisGroup(NamedTuple):
@@ -107,9 +118,9 @@ class AxisGroup(NamedTuple):
 
 
 class Mesh:
-    """The ``{pipe, data, fsdp, seq, tensor}`` mesh of one rank: the axis
-    sizes, this rank's index on each axis and the process group of each
-    axis it belongs to (None for an axis of size 1, or without a process
+    """The ``{pipe, data, fsdp, seq, expert, tensor}`` mesh of one rank: the
+    axis sizes, this rank's index on each axis and the process group of
+    each axis it belongs to (None for an axis of size 1, or without a process
     group). ``names``: the axes the config named (default: those of
     ``sizes``)."""
 
@@ -134,14 +145,14 @@ class Mesh:
         return self._names
 
     def axis_index(self, name: str) -> int:
-        """This rank's index on the axis (``rank = (((pipe * D + data) * F
-        + fsdp) * S + seq) * T + tensor``)."""
+        """This rank's index on the axis (``rank = ((((pipe * D + data) *
+        F + fsdp) * S + seq) * X + expert) * T + tensor``)."""
         return _index(self.sizes, self.rank, name)
 
     def data_shard(self) -> tuple:
         """``(index, count)`` of this rank's batch shard, as the loaders
-        take it: ``(data * F + fsdp, D * F)``; every rank of a seq row, a
-        tensor row and a pipe row reads the same shard."""
+        take it: ``(data * F + fsdp, D * F)``; every rank of a seq row, an
+        expert row, a tensor row and a pipe row reads the same shard."""
         f = self.axis_size("fsdp")
         return (self.axis_index("data") * f + self.axis_index("fsdp"),
                 self.axis_size("data") * f)
@@ -158,10 +169,20 @@ class Mesh:
             return None
         return AxisGroup(self.group(name), size, self.axis_index(name))
 
+    def batch(self) -> Optional[AxisGroup]:
+        """The data x fsdp plane of this rank (the ranks that hold other
+        rows of the batch) as an :class:`AxisGroup` whose index is this
+        rank's shard (:meth:`data_shard`), or None (size 1)."""
+        index, count = self.data_shard()
+        if count == 1:
+            return None
+        return AxisGroup(self.group(BATCH), count, index)
+
     def model_parallel(self) -> bool:
-        """Whether a parameter may be split over the ranks: a pipe, fsdp or
-        tensor axis > 1."""
-        return any(self.sizes[a] > 1 for a in ("pipe", "fsdp", "tensor"))
+        """Whether a parameter may be split over the ranks: a pipe, fsdp,
+        expert or tensor axis > 1."""
+        return any(self.sizes[a] > 1
+                   for a in ("pipe", "fsdp", "expert", "tensor"))
 
 
 def _index(sizes: Dict[str, int], rank: int, axis: str) -> int:

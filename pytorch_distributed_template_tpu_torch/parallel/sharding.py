@@ -1,8 +1,8 @@
 """Placement of parameters over the mesh: the port of the JAX package's
 ``parallel/sharding.py`` (``path_str``, ``apply_rules``, ``_prune_spec``,
 ``_largest_divisible_axis``) as placement math over a state dict's names,
-and what the trainer does with a placement on ``pipe``, ``fsdp`` or
-``tensor``.
+and what the trainer does with a placement on ``pipe``, ``fsdp``,
+``expert`` or ``tensor``.
 
 A model's ``partition_rules()`` are ordered ``(regex, P)`` pairs, matched
 with ``re.search`` against each parameter's path (``a/b/c``,
@@ -31,7 +31,9 @@ the layouts). Every rank builds the whole model from the seed first, so
 the slices are the one-process weights. A tensor axis makes the model
 compute on its shards (its ``use_tensor_axis``, refused for a model
 without Megatron layers), an fsdp axis gathers them in units
-(parallel/fsdp.py). A sharded model keeps the one-process state dict on
+(parallel/fsdp.py), an expert axis leaves each rank ``E / X`` of every MoE
+block's stacked experts (``MoeMlp.partition_rules``), on which its blocks
+compute (models/moe.py). A sharded model keeps the one-process state dict on
 disk: :func:`gather_placed` / :func:`gather_optimizer_state` rebuild the
 whole tensors (collective; one tensor at a time, into host memory on the
 rank that writes), and :func:`slice_placed` /
@@ -212,7 +214,7 @@ def shard_params(model, mesh) -> Dict[str, Placement]:
     them). A tensor axis calls the model's ``use_tensor_axis(mesh)`` first
     (NotImplementedError without one), an fsdp axis installs the gather
     units (parallel/fsdp.py). A no-op (no placements) on a mesh without a
-    pipe, fsdp or tensor axis > 1."""
+    pipe, fsdp, expert or tensor axis > 1."""
     if getattr(model, "placed_mesh", None) is not None:
         return model.placements      # sliced already
     model.placed_mesh = mesh

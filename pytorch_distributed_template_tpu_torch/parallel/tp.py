@@ -141,10 +141,16 @@ def validate_tp_geometry(model, tp: int) -> None:
     """Refuse a TP degree the model cannot shard, every violated dimension
     in one message, before any rank starts; a model without
     ``partition_rules()`` is refused at tp > 1 (an artifact's recorded
-    geometry: ``checkpoint.check_artifact_tp_geometry``)."""
+    geometry: ``checkpoint.check_artifact_tp_geometry``), and a sparse
+    model (MoE blocks) by name as ROADMAP A6c.3's remainder."""
     tp = int(tp)
     if tp <= 1:
         return
+    if int(getattr(model, "moe_experts", 0) or 0) > 0:
+        raise NotImplementedError(
+            f"tensor_parallel={tp} on {type(model).__name__}'s MoE blocks: "
+            "MoE under tensor-parallel serving is ROADMAP A6c.3's "
+            "remainder, a later slice")
     if not hasattr(model, "partition_rules"):
         raise ValueError(
             f"{type(model).__name__} declares no partition_rules(): "

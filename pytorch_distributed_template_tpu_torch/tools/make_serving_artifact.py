@@ -8,9 +8,10 @@ Writes the same layout as the JAX package's
 
 The base config is the package's ``configs/mistral_7b_serve.json``; the
 architecture is taken at its registry defaults (``--arch Mistral`` is the
-published Mistral-7B-v0.1 shape) with any ``--vocab-size``/``--d-model``/...
-given on the CLI overriding them. Weights are drawn from an explicit
-``torch.Generator`` seeded with ``--seed``, directly on the device. The
+published Mistral-7B-v0.1 shape, ``--arch MixtralMoE`` Mixtral-8x7B's)
+with any ``--vocab-size``/``--d-model``/... given on the CLI overriding
+them. Weights are drawn from an explicit ``torch.Generator`` seeded with
+``--seed``, directly on the device. The
 meta records the model's ``tp_geometry``; ``--tensor-parallel T`` refuses a
 T that geometry cannot shard, then records T as the artifact's intended
 ``serving.tensor_parallel``.

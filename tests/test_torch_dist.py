@@ -49,7 +49,8 @@ def test_data_axis_resolves_as_in_jax(axes, n):
 
 
 def test_other_axes_refuse_and_bad_sizes_raise():
+    # the expert axis runs beside data; beside seq it is A11d's remainder
     with pytest.raises(NotImplementedError, match="A11"):
-        mesh.mesh_from_config({"mesh": {"axes": {"data": 2, "expert": 2}}})
+        mesh.mesh_from_config({"mesh": {"axes": {"seq": 2, "expert": 2}}})
     with pytest.raises(ValueError, match="multiply"):
         mesh.mesh_from_config({"mesh": {"axes": {"data": 2}}}, world_size=1)

@@ -290,12 +290,16 @@ def test_convert_round_trip():
 
 
 def test_refuses_later_slices_by_name():
-    with pytest.raises(NotImplementedError, match="swiglu"):
-        tmoe.MoeMlp(D, F_, E, expert_act="swiglu")
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        tmoe.MoeMlp(D, F_, E, mesh={"expert": 2})
+    """What stays refused: an unknown expert activation, and MoE blocks on
+    a seq or a tensor axis (ROADMAP A11d's remainder). The swiglu expert
+    and the expert axis beside data are ported (tests/test_torch_mixtral.py,
+    tests/test_torch_moe_ranks.py)."""
+    with pytest.raises(ValueError, match="expert_act"):
+        tmoe.MoeMlp(D, F_, E, expert_act="relu")
+    assert "wg" in dict(tmoe.MoeMlp(D, F_, E, expert_act="swiglu")
+                        .named_parameters())
     # a data-axis mesh is ported (DDP, slice 5; the trainer gives every
-    # model its mesh); MoE blocks on a seq axis wait for expert parallelism
+    # model its mesh); MoE blocks on a seq axis wait for A11d's remainder
     from pytorch_distributed_template_tpu_torch.parallel.mesh import Mesh
 
     TM.get("MoeLM")(n_layer=1, d_model=32, n_head=2,
@@ -303,8 +307,10 @@ def test_refuses_later_slices_by_name():
     model = TM.get("MoeLM")(n_layer=1, d_model=32, n_head=2,
                             attn_impl="ring", mesh=Mesh({"seq": 2}),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="A11d"):
+    with pytest.raises(NotImplementedError, match="A11d's remainder"):
         model(torch.zeros((1, 8), dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="A11d's remainder"):
+        model.use_tensor_axis(Mesh({"tensor": 2}))
 
 
 def test_row_gather_backward_equals_index_autograd():

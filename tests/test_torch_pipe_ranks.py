@@ -301,7 +301,7 @@ def test_ranks_equal_one_process(runs, name):
     assert len(want) == 12
     for r in ranks:
         run = r[name]
-        assert run["mesh"] == dict(mesh, fsdp=1, seq=1, tensor=1)
+        assert run["mesh"] == dict(mesh, fsdp=1, seq=1, expert=1, tensor=1)
         got = run["steps"]
         assert len(got) == len(want)
         for key in ("loss", "grad_norm"):

@@ -302,7 +302,7 @@ def test_four_gloo_ranks_equal_jax_trainer(runs, name):
         run = r[name]
         assert run["ddp"]
         assert run["mesh"] == {"pipe": 1, "data": 2, "fsdp": 1, "seq": 2,
-                               "tensor": 1}
+                               "expert": 1, "tensor": 1}
         assert run["shards"] == 2 and run["steps"] == 3
         # every rank logs the same global numbers
         assert [{k: log[k] for k in KEYS} for log in run["logs"]] == [

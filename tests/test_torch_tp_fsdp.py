@@ -17,8 +17,9 @@ phase 18c rehearsed on the CPU.
   the device.
 - GPT-2's fused ``qkv`` on tensor: each slice holds the q, k and v of its
   head group, and the gather undoes the slice bit for bit.
-- Refusals, each by name: the expert axis (A11d), tensor or fsdp beside
-  pipe or seq, MoE blocks on tensor (A11d), models without Megatron layers
+- Refusals, each by name: the expert axis beside fsdp or tensor (A11d's
+  remainder), tensor or fsdp beside pipe or seq, MoE blocks on tensor
+  (A11d's remainder), models without Megatron layers
   on tensor, LoRA on either axis, a pool whose KV heads the tensor axis
   does not split (decoding on tensor itself is served), LARS / LAMB /
   Adafactor on fsdp or tensor, and what does not split (GPT-2's vocab
@@ -181,7 +182,8 @@ def _mesh_cfg(axes):
 
 
 @pytest.mark.parametrize("axes,match", [
-    ({"expert": 2, "data": 2}, "A11d"),
+    ({"expert": 2, "tensor": 2}, "A11d's remainder"),
+    ({"expert": 2, "fsdp": 2}, "A11d's remainder"),
     ({"fsdp": 2, "pipe": 2}, "A11b's remainder"),
     ({"tensor": 2, "seq": 2}, "A11b's remainder"),
 ])

@@ -397,7 +397,7 @@ def test_ranks_equal_jax_trainer_per_step(runs, name):
         run = r[name]
         assert run["mesh"] == {"pipe": 1, "data": axes.get("data", 1),
                                "fsdp": axes.get("fsdp", 1), "seq": 1,
-                               "tensor": axes.get("tensor", 1)}
+                               "expert": 1, "tensor": axes.get("tensor", 1)}
         assert not run["ddp"]
         np.testing.assert_allclose(run["steps"], want, **STEP_TOL,
                                    err_msg=f"{name} rank {r['rank']}")

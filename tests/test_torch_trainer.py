@@ -150,8 +150,8 @@ def test_resume_equals_the_uninterrupted_run(runs):
 def test_cli_defaults_to_cuda_and_refuses_later_slices(tmp_path):
     """The CLI defaults to CUDA; the resume, interval-save, accumulation
     and EMA options (ROADMAP A17, ported) build a trainer on the CPU; a
-    mesh axis the port does not run still refuses, naming its slice
-    (``expert``, A11d)."""
+    mesh the port does not run still refuses, naming its slice (``expert``
+    beside ``tensor``, A11d's remainder)."""
     import torch
 
     cfg = str(REPO / "configs" / "lm_debug.json")
@@ -177,4 +177,5 @@ def test_cli_defaults_to_cuda_and_refuses_later_slices(tmp_path):
         elif attr is not None:
             assert getattr(trainer.train_step, attr) == want
     with pytest.raises(NotImplementedError, match="slice"):
-        ttrain.main(cpu + ["--set", "mesh;axes", '{"data": 2, "expert": 2}'])
+        ttrain.main(cpu + ["--set", "mesh;axes",
+                           '{"expert": 2, "tensor": 2}'])
