@@ -5,7 +5,7 @@
 
 Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 3e, 4, 5, 6, 7, 8, 9,
 10, 11, 12, 13, 14a, 14b, 14c, 15a-15f, 16a-16g, 17a-17d, 18a-18c,
-19a-19c, 20a-20c), each
+19a-19c, 20a-20c, 21a-21e), each
 one's time
 printed beside the card line; any failure exits non-zero and no phase's
 exception is caught:
@@ -24,7 +24,7 @@ exception is caught:
    on the CPU (plain path) gives the same prefill logits and the same
    greedy tokens;
 4. main path of slice 1: a random-init Mistral-7B artifact at full
-   width (16 of its 32 layers: ``MAIN_ARGS``), made by the port's tool,
+   width (12 of its 32 layers: ``MAIN_ARGS``), made by the port's tool,
    served through ``GenerationService``,
    the ``generate`` CLI and ``engine.generate.generate``: (a) a 1024-token
    prompt, 32 greedy tokens, twice, identical; (b) a 6144-token prompt,
@@ -435,16 +435,55 @@ kernel; B1-B4 run at Mistral's attention shapes, no new kernel) adds:
     and 20c print ``"moe_ep": "not run: N card(s)"``.
     ``chip_smoke.py --moe-ep`` runs the build and 20a-20c alone.
 
+Slice 16 (serving the repository's own LMs, ROADMAP A6a.5, A6c.3's
+caches, A3a.1's batch-1 scatter arm, A3a.2 and A4: the GPT-2 family's
+decode caches with int8 KV, w8a16 weights, prompt-lookup speculative
+decoding and the static micro-batcher; B1, B4 and B5 on new paths, no
+new kernel) adds, after 20c and before the work directory goes:
+
+21a. B1 at the GPT-2 family's prefill shapes (``GPT2_SERVE_KERNEL_SHAPES``:
+    B 1 and 8, 12 heads of 64, T 37 and 512) and B5 at MoeLM's decode
+    capacities (``FFN_DECODE_SHAPES``: E 8, C 1, 3, 8, D 512, F 1024, bf16
+    and f32) against their plain versions; then small f32 ``GPT2`` and
+    ``TinyMoeLM`` on the card and the CPU, TF32 off: cached-decode and
+    int8-KV logits card = CPU, the w8a16 model = the dense one on the
+    dequantized weights, speculative greedy ids = plain greedy ids, the
+    static batcher's ids = each request's solo ids;
+21b. phase 6's GPT-2 small checkpoint (kept with its config) through the
+    port's ``generate.py`` in f32: cold, ``--speculative 4`` and
+    ``--set "arch;args;kv_quant" int8``; speculative ids = plain ids and
+    card ids = CPU ids for 32 tokens, B1 12 per cold prefill; in bf16 the
+    service's TTFT, ms/token, acceptance rate and tokens per verify call;
+    then the port's ``serve.py`` with ``--scheduler auto`` (it must pick
+    ``BatchedGenerationService``) and ``--prefix-cache on`` in f32: 8
+    concurrent 128-token greedy requests of one length and 2 of other
+    lengths, each one's ids = its solo ids, a prompt sent alone twice
+    hitting the scatter arm with warm = cold, the scheduler's ``stats``;
+21c. phase 12's ``bytelm_stdlib`` model through
+    ``tools/quantize_checkpoint.py`` and ``generate.py --prompt "def
+    main(" --speculative 4``: weight bytes dense and w8a16, acceptance;
+21d. phase 7's ``moelm_stdlib`` model through ``generate.py`` in f32: B5
+    8 x model calls (C 1 at decode), B1 8 per cold prefill, card ids =
+    CPU ids for 16 tokens;
+21e. phase 4's Mistral-7B artifact (``MAIN_ARGS``) quantized to w8a16:
+    its bf16 prefill logits within ``W8A16_LOGIT_RTOL`` of the dense
+    model on the dequantized weights, then cell (e)'s traffic on the
+    continuous engine over the paged pool (ServeWave's exact B4 / B1
+    counts): weight bytes, peak memory, TTFT and ms/token beside phase
+    5's. Phase 21's total time is printed.
+
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
 the launches of slices 1, 3, 4, 6, 7, 8, 9, 10, 11 and 13 (rank 0's of
-18b/18c and 20b/20c) and 14, paged_attn with slice 2's, 14's (the card-0
-process's of 19b/19c: this process for the tp-1 runs, rank 0 of group 0
-for the others) and 15's (20a), flash_bwd_dkv and flash_bwd_dq with
-slices 3, 4, 6, 7, 8, 9, 10, 11, 13 and 15, expert_ffn with slice 4's; phase
-14a's block shapes, phase 15b's ViT shapes, phase 16b's BERT shape,
-phase 18a's tensor-parallel shapes and phase 19a's per-rank serving
-shapes among the rows) and the device line ``{"ok": true, "device": {...}}``.
+18b/18c and 20b/20c), 14 and 16 (21b-21d), paged_attn with slice 2's,
+14's (the card-0 process's of 19b/19c: this process for the tp-1 runs,
+rank 0 of group 0 for the others), 15's (20a) and 16's (21e),
+flash_bwd_dkv and flash_bwd_dq with slices 3, 4, 6, 7, 8, 9, 10, 11, 13
+and 15, expert_ffn with slice 4's and 16's (21d); phase 14a's block
+shapes, phase 15b's ViT shapes, phase 16b's BERT shape, phase 18a's
+tensor-parallel shapes, phase 19a's per-rank serving shapes and phase
+21a's GPT-2 serving and B5 decode shapes among the rows) and the device
+line ``{"ok": true, "device": {...}}``.
 Every kernel row also carries ``pct_of_bound`` (100 x bound / kernel time) and
 ``x_library`` (kernel time / library time); kernel times are device times
 (:func:`cuda_ms`). The script needs a CUDA device and the repository
@@ -496,11 +535,13 @@ KERNEL_SHAPES = [
 # exact products) differ only by summation order.
 TOL = {torch.bfloat16: (1e-2, 1.6e-2, 1e-3),
        torch.float32: (1e-4, 0.0, 1e-4)}
-# the main path: Mistral at the registry's (published) widths, cut to 16
-# of its 32 layers in the full script (phases 4, 5 and, with four cards,
-# 19c serve this artifact) to pay for phase 20 within the time limit
+# the main path: Mistral at the registry's (published) widths, cut to 12
+# of its 32 layers in the full script (phases 4, 5, 21e and, with four
+# cards, 19c serve this artifact) to pay for phases 20 and 21 within the
+# time limit (16 layers before; the full script from git archive took
+# 1,184 s of its 1,200 on a slow host with 16 on an H100)
 MAIN_ARCH = "Mistral"
-MAIN_ARGS = {"n_layer": 16}
+MAIN_ARGS = {"n_layer": 12}
 MAIN_SIZES = {"prompt_a": 1024, "prompt_b": 6144, "batch_d": 4,
               "prompt_d": 2048, "new": 32}
 # phase 3: small enough for the CPU, D = 64 so the kernel takes it, window
@@ -1080,7 +1121,7 @@ SERVE_SIZES = {"prefix": 1024, "shared_suffix": [128, 384, 640, 1024],
                "logit_prompt": 1024, "slots": 8, "chunk": 8}
 # last-position logits of the paged batch-1 prefill against slice 1's
 # flash prefill, bf16 (read at 32 layers; the full script's artifact has
-# 16, MAIN_ARGS): the two paths round K/V, P and the
+# 12, MAIN_ARGS): the two paths round K/V, P and the
 # residual stream at different places, so they agree to a few bf16 ulps
 # of the logits' scale: max |diff| <= 5% of max |logit|
 SERVE_LOGIT_RTOL = 0.05
@@ -2100,14 +2141,17 @@ def phase_train(card: str, device="cuda", config=TRAIN_CONFIG,
     counts per step, losses finite and falling, checkpoints and summary
     written, a resume from ``checkpoint-epoch1`` reproducing epoch 2, then
     a profile of 5 train steps. ``keep``: a directory that receives
-    ``checkpoint-epoch1/model.pt`` (phase 16f's base). Returns the path's
-    launches per kernel."""
+    ``checkpoint-epoch1/model.pt`` and the run's ``config.json`` (phase
+    16f's base, phase 21b's checkpoint). Returns the path's launches per
+    kernel."""
     def check(trainer, run):
         if keep is not None:
             dst = Path(keep) / "checkpoint-epoch1"
             dst.mkdir(parents=True, exist_ok=True)
             shutil.copyfile(trainer.config.save_dir / "checkpoint-epoch1"
                             / "model.pt", dst / "model.pt")
+            shutil.copyfile(trainer.config.save_dir / "config.json",
+                            Path(keep) / "config.json")
 
     return _train_path(card, device, config, sets, work / "train", seed,
                        check=check)
@@ -2315,16 +2359,17 @@ def _ffn_library(x, wi, wo, bi, bo):
                                                              wo)
 
 
-def phase_expert_ffn_kernel() -> list:
+def phase_expert_ffn_kernel(shapes=None) -> list:
     """B5 against its plain version on the card: max error, kernel /
-    plain / library times and the card's bound, one row per shape."""
+    plain / library times and the card's bound, one row per shape
+    (``FFN_SHAPES`` by default)."""
     from pytorch_distributed_template_tpu_torch.ops import expert_ffn as ffn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(4)
     lib = ffn.EXPERT_FFN.load()
     rows = []
-    for name, e, c, d, f, bias, dtype in FFN_SHAPES:
+    for name, e, c, d, f, bias, dtype in (shapes or FFN_SHAPES):
         def rnd(*shape, scale=1.0):
             return (torch.randn(shape, generator=gen, device="cuda")
                     * scale).to(dtype)
@@ -2416,10 +2461,12 @@ def phase_moe_train_reference(device="cuda") -> None:
 
 def phase_moe_train(card: str, device="cuda", config=MOE_CONFIG,
                     sets=MOE_SETS, corpus_mb: float = MOE_CORPUS_MB,
-                    work=WORK, seed: int = 0) -> dict:
+                    work=WORK, seed: int = 0, keep=None) -> dict:
     """Slice 4's main path: a corpus of ``corpus_mb`` MB from the port's
     ``tools/make_text_corpus.py``, then :func:`_train_path` with the MoE
-    config reading it. Returns the path's launches per kernel."""
+    config reading it. ``keep``: where the trained model goes
+    (:func:`keep_run`; phase 21d serves it). Returns the path's launches
+    per kernel."""
     from pytorch_distributed_template_tpu_torch.tools import (
         make_text_corpus,
     )
@@ -2432,7 +2479,9 @@ def phase_moe_train(card: str, device="cuda", config=MOE_CONFIG,
     sets = list(sets) + [(f"{split};args;data_dir", str(data_dir))
                          for split in ("train_loader", "valid_loader")]
     launches = _train_path(card, device, config, sets, work / "moe_train",
-                           seed, label="moe")
+                           seed, label="moe",
+                           check=None if keep is None else (
+                               lambda trainer, run: keep_run(trainer, keep)))
     shutil.rmtree(data_dir)
     return launches
 
@@ -3531,7 +3580,8 @@ NLL_RTOL = 1e-5     # val_lm_nll against val_loss: the same mean NLL
 def phase_lm_configs(card: str, device="cuda", byte_config=BYTELM_CONFIG,
                      byte_sets=BYTELM_SETS, bpe_config=BPELM_CONFIG,
                      bpe_sets=BPELM_SETS, corpus_mb: float = LM_CORPUS_MB,
-                     work=WORK, seed: int = 0, keep_data=None) -> dict:
+                     work=WORK, seed: int = 0, keep_data=None,
+                     keep_byte=None) -> dict:
     """Phase 12, slice 8's LM path: a corpus of ``corpus_mb`` MB from the
     port's ``tools/make_text_corpus.py``; ``configs/bytelm_stdlib.json``
     for one epoch (no checkpoint at its ``save_period`` 2, so no resume;
@@ -3542,7 +3592,9 @@ def phase_lm_configs(card: str, device="cuda", byte_config=BYTELM_CONFIG,
     validation loader and the resume reuse its caches: their mtimes
     unchanged), the run pins it, and ``val_lm_nll`` equals ``val_loss``
     within ``NLL_RTOL``. ``keep_data``: where the corpus and its BPE caches
-    move at the end (phase 16c trains on them), else they are removed.
+    move at the end (phase 16c trains on them), else they are removed;
+    ``keep_byte``: where the byte LM's trained model goes
+    (:func:`keep_run`; phase 21c quantizes and serves it).
     Returns the launches of both runs per kernel."""
     from pytorch_distributed_template_tpu_torch.data import tokenizer
     from pytorch_distributed_template_tpu_torch.tools import (
@@ -3562,7 +3614,10 @@ def phase_lm_configs(card: str, device="cuda", byte_config=BYTELM_CONFIG,
         t0 = time.perf_counter()
         launches = _train_path(card, device, byte_config,
                                list(byte_sets) + data_sets, work / "bytelm",
-                               seed, label="bytelm", resume=False)
+                               seed, label="bytelm", resume=False,
+                               check=None if keep_byte is None else (
+                                   lambda trainer, run: keep_run(
+                                       trainer, keep_byte)))
         log(f"[lm] bytelm phase in {time.perf_counter() - t0:.1f} s")
 
     fits = []
@@ -5692,13 +5747,13 @@ def phase_pp_nccl(card: str, device="cuda", work=WORK,
 
 
 def phase_hf_import(card: str, device="cuda", config=TRAIN_CONFIG,
-                    base=GPT2_BASE) -> dict:
+                    base=GPT2_BASE, drop_base: bool = True) -> dict:
     """Phase 17d: phase 6's GPT-2 small (``base``'s ``checkpoint-epoch1``,
     cell (h)'s config) on the card, exported to an HF ``GPT2LMHeadModel``
     state dict and imported again (``models/hf_import.py``, numpy on the
     host): every tensor and the logits of 2 x 1024 tokens bit-equal to the
     model's; the export and import times printed. ``base`` is removed at
-    the end."""
+    the end unless ``drop_base`` is False (phase 21b serves it)."""
     import pytorch_distributed_template_tpu_torch.models  # noqa: F401
     from pytorch_distributed_template_tpu_torch.config.registry import (
         MODELS,
@@ -5755,7 +5810,8 @@ def phase_hf_import(card: str, device="cuda", config=TRAIN_CONFIG,
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    shutil.rmtree(base)
+    if drop_base:
+        shutil.rmtree(base)
     return row
 
 
@@ -6218,7 +6274,7 @@ TP_PAGED_SHAPES = [
 TP_SERVE_ARCH = {"n_layer": 2, "bfloat16": False}
 TP_SERVE_GEOMETRIES = [("tp4", 1, 4), ("dp2_tp2", 2, 2), ("dp4_tp1", 4, 1)]
 # phase 19c: phase 4's Mistral-7B artifact as it is (bf16; 32 layers in
-# ``--tp-serving``, 16 in the full script)
+# ``--tp-serving``, ``MAIN_ARGS``' 12 in the full script on four cards)
 TP_SERVE_FULL_GEOMETRIES = [("tp4", 1, 4), ("dp2_tp2", 2, 2)]
 # 19c's bf16 prefill logits (1024 tokens, 32 layers) against one card's:
 # max |diff| <= TP_LOGIT_RTOL x max |logit|. The readings it sits between:
@@ -6556,7 +6612,8 @@ def phase_tp_serve_full(card: str, model_path, device="cuda", work=WORK,
                         geometries=TP_SERVE_FULL_GEOMETRIES,
                         seed: int = 0) -> dict:
     """Phase 19c: with ``nproc`` cards, phase 4's Mistral-7B artifact (bf16,
-    32 layers, the published widths) served by the port's ``serve.py``
+    the published widths; 32 layers from ``--tp-serving``, ``MAIN_ARGS``'
+    depth in the full script) served by the port's ``serve.py``
     with ``configs/mistral_7b_serve_paged.json`` over cell (e)'s traffic
     on one card, then ``--tp 4`` and ``--dp 2 --tp 2``: every request's ids
     in range, warm admits copying nothing, B4 on every rank, and one
@@ -6990,6 +7047,661 @@ def tp_serving_main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# slice 16: serving the repository's own LMs (ROADMAP A6a.5, A6c.3's caches,
+# A3a.1's batch-1 scatter arm, A3a.2, A4): the GPT-2 family's decode caches
+# with int8 KV, w8a16 weights, prompt-lookup speculative decoding and the
+# static micro-batcher; B1, B4 and B5 on new paths, no new kernel
+# ---------------------------------------------------------------------------
+
+# B1 at the GPT-2 family's prefill shapes: a short and a long prompt, alone
+# and in a static batch of 8 (GPT-2 small's 12 heads of 64)
+GPT2_SERVE_KERNEL_SHAPES = [(b, 12, 12, t, 64, True, 0, torch.bfloat16)
+                            for b in (1, 8) for t in (37, 512)]
+# B5 at MoeLM's decode capacities: C = ceil(2 B 1.25 / 8) is 1 at batch 1,
+# 3 at batch 8 and 8 at a 25-token prefill; moelm_stdlib's D 512, F 1024
+FFN_DECODE_SHAPES = [(f"decode_c{c}_{str(dt)[6:]}", 8, c, 512, 1024, True,
+                      dt) for c in (1, 3, 8)
+                     for dt in (torch.bfloat16, torch.float32)]
+# 21a: small f32 models, head_dim 64 so B1 takes them
+SERVE_REF = {
+    "GPT2": {"size": "gpt2-small", "vocab_size": 512, "max_len": 128,
+             "n_layer": 2, "n_head": 2, "d_model": 128, "dropout": 0.0},
+    "TinyMoeLM": {"vocab_size": 256, "n_layer": 2, "n_head": 2,
+                  "d_model": 128, "d_ff": 256, "max_len": 128},
+}
+# card against CPU, f32 without TF32: max |diff| <= SERVE_REF_RTOL x
+# max |logit| (summation order only). Under int8 KV a K/V row that lands
+# on the other side of a rounding boundary moves by one int8 step (1/127
+# of the row's largest entry) on one side only: INT8_REF_RTOL. w8a16
+# against the dense model on the dequantized weights: (x @ w8) s against
+# x @ (w8 s), rounding only
+SERVE_REF_RTOL = 1e-4
+INT8_REF_RTOL = 2e-2
+W8A16_REF_RTOL = 1e-4
+# 21b: phase 6's GPT-2 small, the prompt a row of its synthetic bigram data
+GPT2_GEN_PROMPT = 64
+GPT2_GEN_NEW = 32          # the f32 hard checks
+GPT2_TIME_NEW = 64         # the bf16 timings
+GPT2_SPEC_DRAFT = 4
+# 21b's server: 8 concurrent greedy requests of one length (128 tokens)
+# and 2 of other lengths, 128 new tokens each; f32 without TF32 (each
+# request's ids against its solo run). A full batch leaves at once; the
+# window holds only the two lone lengths
+STATIC_SERVE = {"prompt": 128, "others": [96, 160], "new": 128,
+                "batch": 8, "window_ms": 200.0}
+# 21e: the w8a16 Mistral's bf16 prefill logits (1024 tokens) against the
+# dense model on its dequantized weights, max |diff| <= W8A16_LOGIT_RTOL x
+# max |logit|: each layer's 7 products rounds twice where the
+# dense one rounds once (the bf16 product of the int8 values, then its
+# scaled output, against the product of the rounded dequantized weight),
+# so the gap is a few bf16 ulps per layer. The limit sits between what
+# this path reads and what wrong ones read (random weights, 12 layers,
+# one NVIDIA H100 80GB HBM3, 700.00 W): sound 5.04% (5.1% at 16 layers);
+# the dense model on the unquantized weights 13.2%; one projection's scale
+# rolled by one channel 51.7%, zeroed 154%
+W8A16_LOGIT_RTOL = 0.10
+# 21e's control: layer 0's attention output projection; its scale zeroed
+# drops that projection from the model and must read >= 2 x the limit
+W8A16_CONTROL_PROJ = "layers.0.self_attn.o_proj"
+BYTELM_KEEP = WORK / "bytelm_keep"
+MOELM_KEEP = WORK / "moelm_keep"
+
+
+def keep_run(trainer, dst) -> Path:
+    """Copy a finished run's model into ``dst/checkpoint/model.pt`` beside
+    its ``dst/config.json``: a checkpoint the port's ``generate.py`` and
+    ``tools/quantize_checkpoint.py`` take with ``-r``."""
+    dst = Path(dst)
+    (dst / "checkpoint").mkdir(parents=True, exist_ok=True)
+    torch.save({k: v.detach().cpu() for k, v in
+                trainer.model.state_dict().items()},
+               dst / "checkpoint" / "model.pt")
+    shutil.copyfile(trainer.config.save_dir / "config.json",
+                    dst / "config.json")
+    return dst / "checkpoint"
+
+
+def _empty_cache(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _launch_counts():
+    from pytorch_distributed_template_tpu_torch.ops import expert_ffn as ffn
+    from pytorch_distributed_template_tpu_torch.ops.flash import (
+        FLASH_FWD, PAGED_ATTN,
+    )
+
+    return {"flash_fwd": FLASH_FWD.launches,
+            "paged_attn": PAGED_ATTN.launches,
+            "expert_ffn": ffn.EXPERT_FFN.launches}
+
+
+def _zero_counts() -> None:
+    from pytorch_distributed_template_tpu_torch.ops import expert_ffn as ffn
+    from pytorch_distributed_template_tpu_torch.ops.flash import (
+        FLASH_FWD, PAGED_ATTN,
+    )
+
+    FLASH_FWD.launches = PAGED_ATTN.launches = 0
+    ffn.EXPERT_FFN.launches = 0
+
+
+def _serve_ref_model(arch: str, device, **extra):
+    from pytorch_distributed_template_tpu_torch.config.registry import (
+        MODELS,
+    )
+
+    model = MODELS.get(arch)(**dict(SERVE_REF[arch], **extra),
+                             device="cpu")
+    if not extra.get("quant"):
+        model.init_weights(torch.Generator().manual_seed(21))
+    return model.to(device).eval()
+
+
+def _decode_logits(model, prompt, steps: int):
+    """The prefill's last logits and ``steps`` greedy decode steps' logits
+    over a fresh cache: ``[B, steps + 1, V]`` on the CPU."""
+    with torch.no_grad():
+        cache = model.new_cache(prompt.shape[0], prompt.shape[1] + steps)
+        out = [model(prompt, cache=cache, prefill=True)[:, -1]]
+        for _ in range(steps):
+            tok = out[-1].argmax(-1, keepdim=True)
+            out.append(model(tok, cache=cache)[:, -1])
+    return torch.stack(out, 1).float().cpu()
+
+
+def phase_gpt2_serve_reference(device="cuda") -> dict:
+    """21a: the GPT-2 family's decode paths on the card against the CPU in
+    f32 without TF32 (small ``GPT2`` and ``TinyMoeLM``): cached-decode and
+    int8-KV logits; the w8a16 model against the dense one on the
+    dequantized weights; speculative greedy ids against plain greedy ids;
+    the static micro-batcher's ids against each request served alone."""
+    import threading
+
+    from pytorch_distributed_template_tpu_torch.engine.generate import (
+        generate, generate_speculative,
+    )
+    from pytorch_distributed_template_tpu_torch.engine.serving import (
+        BatchedGenerationService, GenerationService,
+    )
+    from pytorch_distributed_template_tpu_torch.models.quant import (
+        dequantize_params_w8, quantize_params_w8,
+    )
+
+    out = {}
+    with _TF32(False, False):
+        for arch in SERVE_REF:
+            vocab = SERVE_REF[arch]["vocab_size"]
+            gen = torch.Generator().manual_seed(5)
+            prompt = torch.randint(0, vocab, (3, 20), generator=gen)
+            row = {}
+            for kvq in ("", "int8"):
+                extra = {"kv_quant": kvq} if kvq else {}
+                dev_m = _serve_ref_model(arch, device, **extra)
+                cpu_m = _serve_ref_model(arch, "cpu", **extra)
+                got = _decode_logits(dev_m, prompt.to(device), 8)
+                ref = _decode_logits(cpu_m, prompt, 8)
+                err = (got - ref).abs().max().item()
+                scale = ref.abs().max().item()
+                tol = (INT8_REF_RTOL if kvq else SERVE_REF_RTOL) * scale
+                row[f"decode{'_int8' if kvq else ''}_max_abs_err"] = err
+                if not (torch.isfinite(got).all() and err <= tol):
+                    raise AssertionError(
+                        f"21a {arch} kv_quant={kvq!r}: card decode logits "
+                        f"differ from the CPU's by {err:.3e} (tol "
+                        f"{tol:.3e})")
+            model = _serve_ref_model(arch, device)
+            # speculative greedy == plain greedy, on a repetitive prompt
+            rep = torch.tensor([[7, 8, 9, 10] * 6], device=device)
+            plain = generate(model, rep, 48, temperature=0.0)
+            spec, stats = generate_speculative(model, rep, 48, draft_len=4,
+                                               return_stats=True)
+            if not torch.equal(plain, spec):
+                raise AssertionError(f"21a {arch}: speculative greedy ids "
+                                     "differ from plain greedy ids")
+            row["speculative"] = stats
+            # the static batcher against each request alone
+            solo = GenerationService.from_model(model, device=device)
+            batched = BatchedGenerationService.from_model(
+                model, device=device, max_batch=4, window_ms=300.0)
+            prompts = [torch.randint(0, vocab, (n,), generator=gen).tolist()
+                       for n in (16, 16, 16, 16, 24)]
+            box = [None] * len(prompts)
+            threads = [threading.Thread(target=lambda i=i: box.__setitem__(
+                i, batched.generate(prompt_ids=prompts[i],
+                                    max_new_tokens=16)["ids"]))
+                for i in range(len(prompts))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(600)
+            alone = [solo.generate(prompt_ids=p, max_new_tokens=16)["ids"]
+                     for p in prompts]
+            if box != alone:
+                raise AssertionError(f"21a {arch}: batched ids {box} differ "
+                                     f"from solo ids {alone}")
+            row["static_stats"] = dict(batched.stats)
+            batched.close()
+            if arch == "GPT2":
+                # w8a16 against the dense model on the dequantized weights
+                q = quantize_params_w8({k: v.cpu() for k, v in
+                                        model.state_dict().items()})
+                qm = _serve_ref_model(arch, "cpu", quant="w8a16")
+                qm.load_state_dict(q)
+                dm = _serve_ref_model(arch, "cpu")
+                dm.load_state_dict(dequantize_params_w8(q))
+                qm, dm = qm.to(device), dm.to(device)
+                got = _decode_logits(qm, prompt.to(device), 8)
+                ref = _decode_logits(dm, prompt.to(device), 8)
+                err = (got - ref).abs().max().item()
+                tol = W8A16_REF_RTOL * ref.abs().max().item()
+                row["w8a16_max_abs_err"] = err
+                if err > tol:
+                    raise AssertionError(f"21a w8a16: {err:.3e} > {tol:.3e}"
+                                         " against the dequantized model")
+            out[arch] = row
+            log("[gpt2_serve_ref] " + json.dumps({"arch": arch, **row}))
+            del model, solo
+    _zero_counts()
+    return out
+
+
+def _gen_cli(argv) -> tuple:
+    """The port's ``generate.py`` in this process: ``(response, wall s,
+    launches per kernel)``, the counts set to 0 just before."""
+    from pytorch_distributed_template_tpu_torch import generate as gen_cli
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    resp = gen_cli.main([str(a) for a in argv])
+    return resp, time.perf_counter() - t0, _launch_counts()
+
+
+def _served_times(service, prompt, new: int, spec: int = 0) -> dict:
+    """TTFT (a 1-token request) and decode ms/token (a ``new``-token
+    request less the first token) of one greedy request on ``service``,
+    host wall clock around synchronised calls; each request once after a
+    warm-up."""
+    dev = service.device
+
+    def run(n):
+        service.generate(prompt_ids=prompt, max_new_tokens=n,
+                         speculative=spec)
+        _sync(dev)
+        t0 = time.perf_counter()
+        resp = service.generate(prompt_ids=prompt, max_new_tokens=n,
+                                speculative=spec)
+        _sync(dev)
+        return time.perf_counter() - t0, resp
+
+    t1, _ = run(1)
+    tn, resp = run(new)
+    row = {"ttft_ms": t1 * 1e3, "ms_per_token": (tn - t1) * 1e3 / (new - 1),
+           "new_tokens": new}
+    if spec:
+        st = resp["speculative"]
+        row.update(draft=spec, tokens_per_verify_call=st["tokens_per_call"],
+                   model_calls=st["model_calls"],
+                   acceptance_rate=(st["tokens_emitted"] - st["model_calls"])
+                   / max(st["model_calls"] * spec, 1),
+                   speculation_disabled=st["speculation_disabled"])
+    return row
+
+
+def phase_gpt2_generate(card: str, base=GPT2_BASE, device="cuda",
+                        work=WORK) -> dict:
+    """21b, generate.py: phase 6's GPT-2 small checkpoint (full width, 12
+    layers) through the port's ``generate.py``, cold, ``--speculative 4``
+    and ``--set "arch;args;kv_quant" int8``. Hard in f32 without TF32:
+    speculative ids == plain ids, card ids == CPU ids for
+    ``GPT2_GEN_NEW`` tokens, B1 ``n_layer`` times per cold prefill.
+    Reported in bf16 (the config's dtype): TTFT, ms/token, the speculative
+    acceptance rate and tokens per verify call. Returns the launches."""
+    from pytorch_distributed_template_tpu_torch.data.datasets import (
+        synthetic_lm,
+    )
+    from pytorch_distributed_template_tpu_torch.engine.serving import (
+        GenerationService, load_checkpoint_model,
+    )
+
+    ckpt = Path(base) / "checkpoint-epoch1"
+    cfg = json.loads((Path(base) / "config.json").read_text())
+    vocab = int(cfg["arch"]["args"].get("vocab_size", 50257))
+    prompt = synthetic_lm(n=1, seq_len=GPT2_GEN_PROMPT, vocab_size=vocab,
+                          training=False)["tokens"][0].tolist()
+    argv = ["-r", ckpt, "-s", work / "gen_run", "--prompt-ids",
+            ",".join(map(str, prompt)), "--max-new-tokens", GPT2_GEN_NEW,
+            "--set", "arch;args;bfloat16", "false"]
+    n_layer = int(cfg["arch"]["args"].get("n_layer", 12))
+    launches = dict.fromkeys(("flash_fwd", "paged_attn", "expert_ffn"), 0)
+    rows = {}
+    with _TF32(False, False):
+        for label, extra in (("cold", []), ("speculative",
+                                            ["--speculative",
+                                             GPT2_SPEC_DRAFT]),
+                             ("kv_int8", ["--set", "arch;args;kv_quant",
+                                          "int8"])):
+            resp, wall, counts = _gen_cli(argv + extra + ["--device",
+                                                          device])
+            _check_ids(resp["ids"], vocab, GPT2_GEN_NEW, f"(21b {label})")
+            if label != "speculative" and counts["flash_fwd"] != n_layer:
+                raise AssertionError(f"21b {label}: B1 launched "
+                                     f"{counts['flash_fwd']} times for one "
+                                     f"cold prefill of {n_layer} layers")
+            for k in launches:
+                launches[k] += counts[k]
+            rows[label] = {"ids": resp["ids"], "wall_s": wall,
+                           "launches": counts,
+                           "speculative": resp.get("speculative")}
+        cpu, _, _ = _gen_cli(argv + ["--device", "cpu"])
+    if rows["speculative"]["ids"] != rows["cold"]["ids"]:
+        raise AssertionError("21b: generate.py --speculative 4 ids differ "
+                             "from plain greedy ids")
+    if cpu["ids"] != rows["cold"]["ids"]:
+        raise AssertionError(f"21b: card ids {rows['cold']['ids']} differ "
+                             f"from CPU ids {cpu['ids']}")
+    log("[gpt2_generate] f32 " + json.dumps({
+        k: {kk: v for kk, v in r.items() if kk != "ids"}
+        for k, r in rows.items()}
+        | {"int8_ids_equal_dense": rows["kv_int8"]["ids"]
+           == rows["cold"]["ids"], "card_ids_equal_cpu": True,
+           "speculative_ids_equal_plain": True, "card": card}))
+    # bf16 (the config's dtype): the service's times
+    arch = {"type": cfg["arch"]["type"], "args": cfg["arch"]["args"]}
+    model = load_checkpoint_model(arch, ckpt, device)
+    svc = GenerationService.from_model(model, device=device)
+    _zero_counts()
+    timing = {"plain": _served_times(svc, prompt, GPT2_TIME_NEW),
+              "speculative": _served_times(svc, prompt, GPT2_TIME_NEW,
+                                           spec=GPT2_SPEC_DRAFT)}
+    counts = _launch_counts()
+    for k in launches:
+        launches[k] += counts[k]
+    int8 = load_checkpoint_model(
+        {"type": arch["type"], "args": dict(arch["args"], kv_quant="int8")},
+        ckpt, device)
+    timing["kv_int8"] = _served_times(
+        GenerationService.from_model(int8, device=device), prompt,
+        GPT2_TIME_NEW)
+    log("[gpt2_generate] bf16 " + json.dumps(dict(
+        timing, prompt_len=len(prompt), n_layer=n_layer,
+        timer="host wall clock around synchronised requests", card=card)))
+    del model, svc, int8
+    gc.collect()
+    _empty_cache(device)
+    return {"launches": launches, "timing": timing}
+
+
+def phase_gpt2_static_serve(card: str, base=GPT2_BASE, device="cuda",
+                            work=WORK, sizes=None, seed: int = 0) -> dict:
+    """21b, serve.py: the same checkpoint (f32 without TF32) behind the
+    port's ``serve.py`` with ``--scheduler auto`` (which must pick
+    ``BatchedGenerationService``, the GPT-2 family not being pad-capable)
+    and ``--prefix-cache on`` (the scatter arm). 8 concurrent greedy
+    requests of one prompt length and 2 of other lengths: each one's ids
+    equal its solo ids; a prompt sent alone twice: the second hits the
+    scatter arm and equals the cold ids. Reports the scheduler's stats.
+    Returns the launches."""
+    from pytorch_distributed_template_tpu_torch.engine.serving import (
+        BatchedGenerationService, GenerationService,
+    )
+
+    sizes = dict(STATIC_SERVE, **(sizes or {}))
+    ckpt = Path(base) / "checkpoint-epoch1"
+    gen = torch.Generator().manual_seed(seed + 16)
+    launches = dict.fromkeys(("flash_fwd", "paged_attn", "expert_ffn"), 0)
+    with _TF32(False, False):
+        run = ServeRun(["-r", str(ckpt), "-s", str(work / "static_run"),
+                        "--port", "0", "--device", str(device),
+                        "--scheduler", "auto", "--prefix-cache", "on",
+                        "--max-batch", str(sizes["batch"]),
+                        "--batch-window-ms", str(sizes["window_ms"]),
+                        "--set", "arch;args;bfloat16", "false"])
+        try:
+            svc = run.service
+            if not isinstance(svc, BatchedGenerationService):
+                raise AssertionError(f"21b: --scheduler auto picked "
+                                     f"{type(svc).__name__}")
+            vocab = svc.model.vocab_size
+            prompts = [torch.randint(0, vocab, (n,), generator=gen).tolist()
+                       for n in [sizes["prompt"]] * sizes["batch"]
+                       + list(sizes["others"])]
+            bodies = [{"prompt_ids": p, "max_new_tokens": sizes["new"]}
+                      for p in prompts]
+            _zero_counts()
+            t0 = time.perf_counter()
+            served = _concurrent(lambda b: stream_request(run, b), bodies)
+            wall = time.perf_counter() - t0
+            counts = _launch_counts()
+            for k in launches:
+                launches[k] += counts[k]
+            batches = dict(svc.stats)
+            solo = GenerationService.from_model(svc.model, device=device)
+            alone = [solo.generate(prompt_ids=p,
+                                   max_new_tokens=sizes["new"])["ids"]
+                     for p in prompts]
+            for i, (r, want) in enumerate(zip(served, alone)):
+                if r["ids"] != want:
+                    raise AssertionError(f"21b: request {i} served in a "
+                                         "batch differs from its solo run")
+            _zero_counts()
+            again = [stream_request(run, bodies[0]) for _ in range(2)]
+            counts = _launch_counts()
+            for k in launches:
+                launches[k] += counts[k]
+            pool = svc.prefix_cache_stats()
+            if not (pool["batch1_scatter_requests"] >= 2
+                    and pool["prefix_hit_tokens"] > 0
+                    and pool["warm_admit_copy_bytes"] > 0):
+                raise AssertionError(f"21b: the repeated request did not "
+                                     f"hit the scatter arm: {pool}")
+            if any(r["ids"] != alone[0] for r in again):
+                raise AssertionError("21b: the warm (scatter) request's "
+                                     "ids differ from the cold ids")
+            metrics = json.loads(_http_get(run, "/metrics?format=json"))
+            health = json.loads(_http_get(run, "/healthz"))
+            n_layer = svc.model.n_layer
+            if counts["flash_fwd"] != n_layer:
+                raise AssertionError(f"21b: B1 launched {counts['flash_fwd']}"
+                                     " times for the repeat pair (one cold "
+                                     f"prefill of {n_layer} layers)")
+            log("[static_serve] " + json.dumps({
+                "scheduler": health["scheduler"], "requests": len(bodies),
+                "new_tokens": sum(len(r["ids"]) for r in served),
+                "wall_s": wall,
+                "tokens_per_s": sum(len(r["ids"]) for r in served) / wall,
+                "ttft_ms": [r["ttft_s"] * 1e3 for r in served],
+                "stats_after_wave": batches,
+                "stats": metrics["stats"], "healthz_batching":
+                    health["batching"],
+                "pool": {k: pool[k] for k in (
+                    "prefix_hit_tokens", "batch1_scatter_requests",
+                    "warm_admit_copy_bytes", "prefix_inserted_blocks",
+                    "pool_fallback_gpt2_layout")},
+                "launches": launches, "solo_equal": True,
+                "warm_equal_cold": True, "card": card}))
+            if batches["max_batch_size"] < 2:
+                raise AssertionError(f"21b: no request shared a batch: "
+                                     f"{batches}")
+        finally:
+            run.close()
+    gc.collect()
+    _empty_cache(device)
+    return launches
+
+
+def _http_get(run, path: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{run.host}:{run.port}{path}",
+                                timeout=120) as r:
+        return r.read().decode()
+
+
+def _quantize(src, out, device="cuda") -> Path:
+    from pytorch_distributed_template_tpu_torch.tools import (
+        quantize_checkpoint,
+    )
+
+    return quantize_checkpoint.main(["-r", str(src), "-o", str(out),
+                                     "--device", str(device), "-s",
+                                     str(Path(out) / "log")])
+
+
+def phase_bytelm_quant(card: str, keep=BYTELM_KEEP, device="cuda",
+                       work=WORK) -> dict:
+    """21c: the JAX docstring's workflow on phase 12's ``bytelm_stdlib``
+    model: ``tools/quantize_checkpoint.py``, then ``generate.py --prompt
+    "def main(" --speculative 4`` on the w8a16 artifact (B1 once per cold
+    prefill phase, ``n_layer`` launches). Reports the weight bytes dense
+    and w8a16 and the acceptance rate. Returns the launches."""
+    from pytorch_distributed_template_tpu_torch.checkpoint import (
+        load_serving_meta,
+    )
+
+    n_layer = int(json.loads((Path(keep) / "config.json").read_text())[
+        "arch"]["args"]["n_layer"])
+    t0 = time.perf_counter()
+    art = _quantize(Path(keep) / "checkpoint", work / "bytelm_w8a16",
+                    device)
+    quant_s = time.perf_counter() - t0
+    meta = load_serving_meta(art)
+    resp, wall, counts = _gen_cli(["-r", art, "-s", work / "bytelm_gen",
+                                   "--prompt", "def main(",
+                                   "--max-new-tokens", 64,
+                                   "--speculative", GPT2_SPEC_DRAFT,
+                                   "--device", device])
+    st = resp["speculative"]
+    _check_ids(resp["ids"], 256, 64, "(21c)")
+    if counts["flash_fwd"] < n_layer or counts["flash_fwd"] % n_layer:
+        raise AssertionError(f"21c: B1 launched {counts['flash_fwd']} "
+                             f"times ({n_layer} per cold prefill)")
+    log("[bytelm_w8a16] " + json.dumps({
+        "dense_weight_bytes": meta["dense_bytes"],
+        "w8a16_weight_bytes": meta["w8a16_bytes"],
+        "ratio": meta["w8a16_bytes"] / meta["dense_bytes"],
+        "quantize_s": quant_s, "generate_wall_s": wall,
+        "text": resp.get("text"), "speculative": st,
+        "acceptance_rate": (st["tokens_emitted"] - st["model_calls"])
+        / max(st["model_calls"] * GPT2_SPEC_DRAFT, 1),
+        "launches": counts, "card": card}))
+    return counts
+
+
+def phase_moelm_generate(card: str, keep=MOELM_KEEP, device="cuda",
+                         work=WORK, new: int = 16) -> dict:
+    """21d: phase 7's ``moelm_stdlib`` model through ``generate.py`` in
+    f32 without TF32: B5 ``n_moe`` times per model call (at decode
+    capacities C = 1), B1 ``n_layer`` times for the cold prefill, card ids
+    == CPU ids for ``new`` tokens. Returns the launches."""
+    ckpt = Path(keep) / "checkpoint"
+    cfg = json.loads((Path(keep) / "config.json").read_text())
+    args = cfg["arch"]["args"]
+    n_layer = int(args["n_layer"])
+    n_moe = n_layer // int(args.get("moe_every", 2))
+    argv = ["-r", ckpt, "-s", work / "moe_gen", "--prompt", "def main(",
+            "--max-new-tokens", new, "--set", "arch;args;bfloat16", "false"]
+    with _TF32(False, False):
+        resp, wall, counts = _gen_cli(argv + ["--device", device])
+        cpu, _, _ = _gen_cli(argv + ["--device", "cpu"])
+    calls = new            # one prefill, new - 1 decode steps
+    if counts["expert_ffn"] != n_moe * calls:
+        raise AssertionError(f"21d: B5 launched {counts['expert_ffn']} "
+                             f"times for {calls} model calls of {n_moe} "
+                             "MoE blocks")
+    if counts["flash_fwd"] != n_layer:
+        raise AssertionError(f"21d: B1 launched {counts['flash_fwd']} "
+                             f"times for one cold prefill of {n_layer} "
+                             "layers")
+    if resp["ids"] != cpu["ids"]:
+        raise AssertionError(f"21d: card ids {resp['ids']} differ from CPU "
+                             f"ids {cpu['ids']}")
+    log("[moelm_generate] " + json.dumps({
+        "ids": resp["ids"], "text": resp.get("text"), "wall_s": wall,
+        "model_calls": calls, "launches": counts,
+        "card_ids_equal_cpu": True, "card": card}))
+    return counts
+
+
+def phase_mistral_w8a16(card: str, model_path, config=SERVE_CONFIG,
+                        device="cuda", work=WORK, sizes=None,
+                        seed: int = 0, arch=MAIN_ARCH,
+                        arch_args=None) -> int:
+    """21e: phase 4's Mistral-7B artifact (12 of 32 layers, ``MAIN_ARGS``)
+    quantized to w8a16, its bf16 prefill logits (1024 tokens) against the
+    dense model on the dequantized weights within ``W8A16_LOGIT_RTOL``,
+    while the control (``W8A16_CONTROL_PROJ``'s scale zeroed) lands at 2 x
+    ``W8A16_LOGIT_RTOL`` or more; reported beside them the same scale
+    rolled by one channel and the dense model on the artifact's own
+    weights (the quantization error). Then served by the continuous engine over the paged pool under cell
+    (e)'s traffic (ServeWave's exact B4 / B1 counts; weight bytes, peak
+    memory, TTFT and ms/token beside phase 5's). Returns B4's launches."""
+    from pytorch_distributed_template_tpu_torch.checkpoint import (
+        load_serving_meta,
+    )
+    from pytorch_distributed_template_tpu_torch.config.registry import (
+        MODELS,
+    )
+    from pytorch_distributed_template_tpu_torch.engine.serving import (
+        _assign, load_serving_model,
+    )
+    from pytorch_distributed_template_tpu_torch.models.quant import (
+        dequantize_params_w8,
+    )
+
+    sizes = dict(SERVE_SIZES, **(sizes or {}))
+    dense_args = dict(MAIN_ARGS if arch_args is None else arch_args)
+    t0 = time.perf_counter()
+    art = _quantize(model_path, work / "mistral_w8a16", device)
+    quant_s = time.perf_counter() - t0
+    meta = load_serving_meta(art)
+    args = dict(dense_args, quant="w8a16")
+    # the tool verified what it wrote; ServeRun's load verifies it again
+    qm = load_serving_model({"type": arch, "args": args}, art, device,
+                            verify=False)
+    ids = torch.randint(0, qm.vocab_size, (sizes["logit_prompt"],),
+                        generator=torch.Generator().manual_seed(seed + 21))
+
+    def prefill(m):
+        cache = m.new_cache(1, len(ids) + 1)
+        return m(ids[None].to(device), cache=cache, prefill=True)[:, -1]
+
+    with torch.no_grad():
+        got = prefill(qm)
+        # the controls: one projection's scale zeroed (the check must
+        # see it) and rolled by one channel (reported), then put back
+        proj = qm.get_submodule(W8A16_CONTROL_PROJ)
+        keep = proj.scale.clone()
+        proj.scale.zero_()
+        zeroed = prefill(qm)
+        proj.scale.copy_(keep.roll(1))
+        rolled = prefill(qm)
+        proj.scale.copy_(keep)
+        deq = dequantize_params_w8(qm.state_dict())
+        del qm
+        dm = _assign(MODELS.get(arch)(**dense_args, device="meta"),
+                     deq, arch, art, device)
+        del deq
+        ref = prefill(dm)
+        del dm
+        # the quantization error itself: the dense model on the
+        # artifact's own (unquantized) weights
+        om = load_serving_model({"type": arch, "args": dense_args},
+                                model_path, device, verify=False)
+        dense = prefill(om)
+        del om
+    scale = ref.abs().max().item()
+
+    def rel(x):
+        return (x - ref).abs().max().item() / scale
+
+    err = (got - ref).abs().max().item()
+    logit_row = {"prompt_len": len(ids), "logits_max_abs_diff": err,
+                 "logits_max_abs": scale, "rel": err / scale,
+                 "rtol": W8A16_LOGIT_RTOL,
+                 "same_argmax": bool(got.argmax() == ref.argmax()),
+                 "control_proj": W8A16_CONTROL_PROJ,
+                 "control_scale_zeroed_rel": rel(zeroed),
+                 "control_scale_rolled_rel": rel(rolled),
+                 "dense_unquantized_rel": rel(dense)}
+    if not (torch.isfinite(got).all() and err <= W8A16_LOGIT_RTOL * scale):
+        raise AssertionError(f"21e: the w8a16 prefill logits differ from "
+                             f"the dequantized dense model's: {logit_row}")
+    if logit_row["control_scale_zeroed_rel"] < 2 * W8A16_LOGIT_RTOL:
+        raise AssertionError(f"21e: the control (one projection's scale "
+                             f"zeroed) passes the check: {logit_row}")
+    del got, ref, zeroed, rolled, dense
+    gc.collect()
+    _empty_cache(device)
+    cfg = json.loads(Path(config).read_text())
+    cfg["arch"] = {"type": arch, "args": args}
+    (work / "serve_w8a16.json").write_text(json.dumps(cfg))
+    base = ["-r", str(art), "-c", str(work / "serve_w8a16.json"), "-s", str(work / "w8_run"),
+            "--port", "0", "--max-batch", str(sizes["slots"]),
+            "--decode-chunk", str(sizes["chunk"]), "--device", str(device)]
+    waves = ServeWave(card, device)
+    run = ServeRun(base)
+    try:
+        svc = run.service
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in svc.model.state_dict().values())
+        prompts = _cell_e_prompts(svc.model.vocab_size, sizes, seed)
+        _mix_e(run, waves, "e_w8a16", sizes, prompts)
+    finally:
+        run.close()
+    log("[mistral_w8a16] " + json.dumps({
+        "dense_weight_bytes": meta["dense_bytes"],
+        "w8a16_weight_bytes": meta["w8a16_bytes"],
+        "served_weight_bytes": weight_bytes, "quantize_s": quant_s,
+        "logits": logit_row, "card": card}))
+    del run
+    gc.collect()
+    _empty_cache(device)
+    return waves.b4_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -7027,14 +7739,15 @@ def main() -> int:
     paged_launches = timed("5", phase_serve, card, WORK / "art" / "model",
                            config=serve_cfg)
     train_launches = timed("6", phase_train, card, keep=GPT2_BASE)
-    moe_launches = timed("7", phase_moe_train, card)
+    moe_launches = timed("7", phase_moe_train, card, keep=MOELM_KEEP)
     timed("8", phase_lenet_reference)
     timed("9", phase_mnist, card)
     obs_launches = timed("10", phase_observe, card)
     res_launches = timed("11", phase_resilience, card)
     native.CALLS.reset()
     lm_launches = timed("12", phase_lm_configs, card,
-                        keep_data=WORK / "bert_keep" / "data")
+                        keep_data=WORK / "bert_keep" / "data",
+                        keep_byte=BYTELM_KEEP)
     gathers = {"12": native.CALLS.calls}
     native.CALLS.reset()
     timed("13", phase_digits, card)
@@ -7062,7 +7775,7 @@ def main() -> int:
     timed("17a", phase_pipe_reference)
     pp_launches = timed("17b", phase_pp_train, card)
     timed("17c", phase_pp_nccl, card)
-    timed("17d", phase_hf_import, card)
+    timed("17d", phase_hf_import, card, drop_base=False)
     rows += timed("18a", phase_kernel, TP_KERNEL_SHAPES)
     bwd_rows += timed("18a-bwd", phase_bwd_kernel, TP_BWD_SHAPES)
     tp_rows = timed("18b", phase_tp_nccl, card)
@@ -7090,6 +7803,22 @@ def main() -> int:
     for i, kern in enumerate(FLASH_KERNELS):
         tp_launches[kern] += sum(row["launches_per_rank"][0][i]
                                  for row in ep_rows.values())
+    t21 = time.perf_counter()
+    rows += timed("21a-kernels", phase_kernel, GPT2_SERVE_KERNEL_SHAPES)
+    ffn_rows += timed("21a-ffn", phase_expert_ffn_kernel, FFN_DECODE_SHAPES)
+    timed("21a", phase_gpt2_serve_reference)
+    gen21 = timed("21b", phase_gpt2_generate, card)["launches"]
+    static21 = timed("21b-serve", phase_gpt2_static_serve, card)
+    byte21 = timed("21c", phase_bytelm_quant, card)
+    moe21 = timed("21d", phase_moelm_generate, card)
+    paged_launches += timed("21e", phase_mistral_w8a16, card,
+                            WORK / "art" / "model")
+    slice16 = {k: gen21[k] + static21[k] + byte21[k] + moe21[k]
+               for k in ("flash_fwd", "expert_ffn")}
+    flash_launches += slice16["flash_fwd"]
+    moe_launches["expert_ffn"] += slice16["expert_ffn"]
+    log(f"[time] phase 21 in {time.perf_counter() - t21:.1f} s | {card}; "
+        f"launches " + json.dumps(slice16))
     if any(pp_launches.values()):
         raise AssertionError(f"the pipelined trunk launched a kernel: "
                              f"{pp_launches}")

@@ -45,10 +45,16 @@ and refcounts are the same for every rank, so warm admits stay pointer
 updates. ``stats["tp_degree"]`` reports the degree; ``tp_stats()`` is
 counted once at setup. DP groups are engine/dp.py.
 
+A request with ``speculative > 0`` bypasses the slots (the JAX engine's
+rule): it runs batch 1 through the parent service's speculative path
+under the engine's lock, between two scheduler ticks, warm-prefilling
+through the pool on a prefix hit. The brownout gate on such requests waits
+for ROADMAP A3a.5.
+
 Left to later slices: the non-paged shared-cache engine (eras, the scatter
-warm admit; ROADMAP A3a.1), brownout and SLOs (A3a.5, A3a.7), deadlines,
-tracing, anatomy, speculative decoding (A4) and roles/page shipping
-(A3a.4). Without a paged pool the constructor raises.
+warm admit; ROADMAP A3a.1's other half), brownout and SLOs (A3a.5, A3a.7),
+deadlines, tracing, anatomy and roles/page shipping (A3a.4). Without a
+paged pool the constructor raises.
 """
 from __future__ import annotations
 
@@ -87,8 +93,9 @@ class ContinuousBatchingService(GenerationService):
 
     def _setup(self, model, tokenizer=None, slots: int = 8, chunk: int = 8,
                window_ms: float = 5.0, prefix_cache=None,
-               prefill_chunk_tokens: int = 0):
-        super()._setup(model, tokenizer, prefix_cache=prefix_cache)
+               prefill_chunk_tokens: int = 0, spec_draft_layers: int = 0):
+        super()._setup(model, tokenizer, prefix_cache=prefix_cache,
+                       spec_draft_layers=spec_draft_layers)
         if self._prefix is None or not self._prefix.paged:
             raise NotImplementedError(
                 "the port's continuous engine runs over a paged KV pool "
@@ -156,9 +163,12 @@ class ContinuousBatchingService(GenerationService):
         ``stop_reason: "cancelled"`` and its slot and pages free; a
         request still queued is dropped)."""
         if int(speculative) > 0:
-            raise NotImplementedError(
-                "speculative decoding is a later slice of the port "
-                "(ROADMAP A4)")
+            # batch 1 under the engine's lock, between ticks
+            return super().generate(
+                prompt=prompt, prompt_ids=prompt_ids,
+                max_new_tokens=max_new_tokens, temperature=temperature,
+                top_k=top_k, top_p=top_p, seed=seed,
+                speculative=speculative, stop=stop)
         ids = self.encode_prompt(prompt, prompt_ids)
         stops = self.encode_stop(stop)
         max_new = int(max_new_tokens)

@@ -30,10 +30,22 @@ package's ``engine/kvcache.py``.
   means the same page on every rank. KV heads that T does not divide are
   refused (``kv_heads``), as in the JAX package.
 
-Left to later slices: the scatter arm (warm admits that copy cached
-blocks into a contiguous cache, ``scatter_blocks`` and the capture
-kernel; ROADMAP A3a.1; a pool that is not paged, or dry, has the serving
-layer serve the request cold, counted under its fallback reason), the
+- **Scatter arm** (a pool that is not paged: the GPT-2 family, whose
+  ``kv_cache_spec`` says ``paged: False``, or ``prefix_cache.paged:
+  false``; the JAX ``warm_prefill`` / ``scatter_blocks`` / ``capture``):
+  the pool's pages are plain storage ``[P, bt, H, D]`` (built from the
+  model's one-block cache). A batch-1 request's cached prefix blocks are
+  COPIED into a fresh contiguous cache at slots ``0 .. c - 1``
+  (:meth:`PrefixCache.warm_prefill`, counted in ``warm_admit_copy_bytes``),
+  the suffix is fed through the masked continuation path, and the prompt's
+  own new full blocks are captured back into freshly inserted pages. At
+  batch 1 the prompt starts at slot 0, so pool space is cache space: rows
+  copy verbatim, int8 bytes and scales included, and no K rotation is
+  needed (the JAX delta-0 rotation is the identity). A full miss takes the
+  cold flash prefill and is captured the same way.
+
+Left to later slices: the scatter arm of the continuous engine (a shared
+non-paged cache with per-slot rotation; ROADMAP A3a.1's other half), the
 spill tiers (``SpillTier``; A3a.3, refused by name) and page shipping
 (``serialize_pages``, ``export_pages``/``import_pages``; A3a.4).
 """
@@ -45,7 +57,7 @@ import threading
 import numpy as np
 import torch
 
-from ..models.llama import SCRATCH_BLOCK
+from ..models.llama import SCRATCH_BLOCK, PagedCache, PagedLayer
 from ..parallel.tp import model_geometry, tp_degree
 
 logger = logging.getLogger(__name__)
@@ -220,7 +232,7 @@ class PrefixCache:
                 raise PoolUnsupported(
                     "window",
                     f"window={self.window} needs the paged pool layout "
-                    "(the scatter arm's rolling cache is "
+                    "(the scatter fallback's rolling cache is "
                     "position-dependent)")
             if self.window % self.block or self.window < self.block:
                 raise PoolUnsupported(
@@ -281,7 +293,12 @@ class PrefixCache:
             self.paged = False
             self.fallback_reason = "undersized"
         with torch.no_grad():
-            self.pool = model.new_paged_cache(self.pool_blocks, self.block)
+            if spec.get("paged", False):
+                self.pool = model.new_paged_cache(self.pool_blocks,
+                                                  self.block)
+            else:
+                self.pool = _scatter_pool(model, self.pool_blocks,
+                                          self.block)
         self.page_bytes = int(sum(
             t[0].numel() * t.element_size()
             for layer in self.pool.layers
@@ -337,6 +354,23 @@ class PrefixCache:
         with self._lock:
             if key in self.stats:
                 self.stats[key] += 1
+
+    def plan_insert(self, ids):
+        """Allocate pages and index nodes for the full blocks of ``ids``
+        not cached yet: ``(page ids, first block index)`` for
+        :meth:`capture` (empty when nothing is new)."""
+        with self._lock:
+            _, blocks, start = self.index.insert(ids, self._alloc)
+            self.stats["prefix_inserted_blocks"] += len(blocks)
+            return blocks, start
+
+    def record_copy_bytes(self, n_blocks: int) -> None:
+        """Count one warm admit's device copy of ``n_blocks`` pool pages
+        into a contiguous cache (the scatter arm's cost)."""
+        if n_blocks:
+            with self._lock:
+                self.stats["warm_admit_copy_bytes"] += (
+                    int(n_blocks) * self.page_bytes)
 
     def count_batch1(self, paged: bool) -> None:
         """Tally which arm served one batch-1 request."""
@@ -452,6 +486,68 @@ class PrefixCache:
                 stack.append(child)
         return n
 
+    # ---- scatter arm ------------------------------------------------------
+
+    @torch.no_grad()
+    def capture(self, cache, start: int, block_ids) -> None:
+        """Copy the cache row-0 blocks ``start, start + 1, ..`` into the
+        pool pages ``block_ids`` (the JAX ``capture`` at batch 1: slot 0 is
+        the prompt's start, so rows copy verbatim)."""
+        bt = self.block
+        for layer, pl in zip(cache.layers, self.pool.layers):
+            for j, bid in enumerate(block_ids):
+                lo = (start + j) * bt
+                for src, dst in ((layer.k, pl.k), (layer.v, pl.v),
+                                 (layer.k_scale, pl.k_scale),
+                                 (layer.v_scale, pl.v_scale)):
+                    if dst is not None:
+                        dst[int(bid)] = src[0, lo:lo + bt]
+
+    @torch.no_grad()
+    def warm_prefill(self, ids, total: int, record: bool = True):
+        """Batch-1 prefill through the pool's scatter arm (the JAX
+        ``warm_prefill``): copy the cached chain into a fresh ``[1,
+        total]`` cache, feed only the suffix, then capture the prompt's new
+        full blocks. Returns ``(last logits [1, V], cache, cached
+        tokens)``, the cold prefill's contract. ``record=False`` when the
+        request's lookup was counted already (a paged dry-pool fall
+        through)."""
+        from .generate import _prefill_fresh
+
+        if self.window:
+            raise PoolUnsupported(
+                "window", "the scatter arm cannot serve a rolling-window "
+                "layout (paged ring only)")
+        model, bt = self.model, self.block
+        dev = model.device
+        nodes, blocks, c = self.lookup(ids, record=record)
+        try:
+            if c == 0:
+                prompt = torch.tensor([list(ids)], dtype=torch.long,
+                                      device=dev)
+                last, cache = _prefill_fresh(model, prompt, int(total))
+            else:
+                cache = model.new_cache(1, int(total))
+                idx = torch.tensor(blocks, dtype=torch.long, device=dev)
+                for layer, pl in zip(cache.layers, self.pool.layers):
+                    for dst, src in ((layer.k, pl.k), (layer.v, pl.v),
+                                     (layer.k_scale, pl.k_scale),
+                                     (layer.v_scale, pl.v_scale)):
+                        if dst is not None:
+                            rows = src[idx]
+                            dst[0, :c] = rows.reshape(c, *rows.shape[2:])
+                cache.pos_index = c
+                suffix = torch.tensor([list(ids[c:])], dtype=torch.long,
+                                      device=dev)
+                last = model(suffix, cache=cache)[:, -1]
+                self.record_copy_bytes(len(blocks))
+        finally:
+            self.release(nodes)
+        new_blocks, start = self.plan_insert(ids)
+        if new_blocks:
+            self.capture(cache, start, new_blocks)
+        return last, cache, c
+
     # ---- paged plans ------------------------------------------------------
 
     def paged_plan(self, ids, budget: int, record: bool = True):
@@ -559,6 +655,22 @@ class PrefixCache:
                           if b not in taken])
         self.release(plan["nodes"])
         self.release(plan.get("adopt_nodes") or [])
+
+
+def _scatter_pool(model, pool_blocks: int, block_tokens: int):
+    """The scatter arm's page storage: one zeroed ``[P, bt, ...]`` leaf per
+    leaf of the model's one-block decode cache (``[1, bt, H, D]`` K/V,
+    ``[1, bt, H]`` int8 scales), as JAX shapes its pool from a ``[1,
+    block]`` cache."""
+    one = model.new_cache(1, int(block_tokens))
+
+    def pages(t):
+        return None if t is None else t.new_zeros(
+            (int(pool_blocks),) + tuple(t.shape[1:]))
+
+    return PagedCache([PagedLayer(pages(layer.k), pages(layer.v),
+                                  pages(layer.k_scale), pages(layer.v_scale))
+                       for layer in one.layers])
 
 
 @torch.no_grad()

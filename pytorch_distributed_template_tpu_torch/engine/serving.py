@@ -1,11 +1,23 @@
-"""Request-level generation and model loading: the plain path of the JAX
-package's ``engine/serving.py``.
+"""Request-level generation and model loading: the port of the JAX
+package's ``engine/serving.py`` (the serialized service, the static
+micro-batch scheduler, speculative requests).
 
 ``GenerationService`` validates and encodes a request (prompt text or ids,
 stop tokens), runs ``engine.generate.generate`` for it with the request's
 own ``torch.Generator``, and decodes the response. ``load_generation_stack``
-turns ``config.resume`` (a params-only serving artifact) into the model on
-its device and the run's tokenizer.
+turns ``config.resume`` (a params-only serving artifact, a w8a16 one
+included, or a training checkpoint's ``model.pt``) into the model on its
+device and the run's tokenizer.
+
+``speculative: D`` (> 0) runs the request through prompt-lookup
+speculative decoding (engine/generate.py) with the JAX service's
+acceptance probe: the first ``SPEC_PROBE`` tokens speculate, then the rest
+speculate on while the probe's tokens per verify call reach
+``SPEC_MIN_TOKENS_PER_CALL``, else finish with plain decode
+(``speculation_disabled``). With a prefix pool and a prefix hit the prompt
+warm-prefills through the pool's scatter arm first. ``serving.
+speculative_draft_layers`` > 0 drafts with the model's first layers
+(Llama family). The response carries the ``speculative`` stats.
 
 With ``serving.prefix_cache`` enabled the service builds the paged KV
 block pool (engine/kvcache.py): a batch-1 request without stop tokens
@@ -25,14 +37,32 @@ runs on the CPU of the serving process exactly as over a local model
 (prefill B1 and the pool's B4 run on the ranks' local heads). ``tp`` and
 ``tp_stats()`` report the degree and one decode step's collectives.
 
-Left to later slices, each refused with a message naming it: speculative
-decoding (ROADMAP A4) and the scatter arm of the prefix cache (cached
-blocks copied into a contiguous cache, A3a.1).
+A pool that is not paged (the GPT-2 family, or ``prefix_cache.paged:
+false``) serves batch-1 requests through its scatter arm
+(``PrefixCache.warm_prefill``: cached blocks copied into a contiguous
+cache, the suffix prefilled, the prompt's blocks captured back).
+
+``BatchedGenerationService`` is the static micro-batch scheduler: one
+worker groups concurrent compatible requests (same prompt length for the
+GPT-2 family, the same 128-token bucket for pad-capable models, whose
+shorter rows are left-padded and masked; same budget and sampling) within
+a batching window into one batched prefill and decode loop. Each row keeps
+its own generator, so a request's output never depends on its batch;
+speculative requests bypass the batcher. A batch of one request without
+stop tokens runs the batch-1 pool path when a pool is attached (the JAX
+scheduler has none), so a repeated prompt is served warm.
+
+Tensor parallelism refuses speculative requests (ROADMAP A4's
+remainder) and serves a non-paged pool's requests cold. A config with
+LoRA adapters (``lora_rank > 0``) is refused at load: serving them
+unmerged is A4's remainder (``tools/merge_lora.py`` merges them).
 """
 from __future__ import annotations
 
 import logging
+import queue as queue_mod
 import threading
+import time
 
 import torch
 
@@ -49,7 +79,10 @@ from ..parallel.tp import (
     tp_degree,
 )
 from ..utils.util import resolve_device
-from .generate import generate, sample_logits
+from .generate import (
+    _check_draft_layers, _decode_step, generate, generate_speculative,
+    pad_capable, sample_logits, speculative_from_cache,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -68,8 +101,10 @@ class GenerationService:
         model, tokenizer = load_generation_stack(
             config, device=device, use_ema=use_ema,
             tensor_parallel=tensor_parallel)
-        kw.setdefault("prefix_cache",
-                      (config.get("serving") or {}).get("prefix_cache"))
+        serving = config.get("serving") or {}
+        kw.setdefault("prefix_cache", serving.get("prefix_cache"))
+        kw.setdefault("spec_draft_layers",
+                      int(serving.get("speculative_draft_layers") or 0))
         self._setup(model, tokenizer, **kw)
         self._owns_model = True
 
@@ -83,7 +118,8 @@ class GenerationService:
         obj._setup(model.to(resolve_device(device)), tokenizer, **kw)
         return obj
 
-    def _setup(self, model, tokenizer=None, prefix_cache=None):
+    def _setup(self, model, tokenizer=None, prefix_cache=None,
+               spec_draft_layers: int = 0):
         self.model, self.tokenizer = model.eval(), tokenizer
         self._owns_model = False
         self.device = model.device
@@ -93,6 +129,18 @@ class GenerationService:
         self._tp_stats = None
         self._tp_lock = threading.Lock()
         self._lock = threading.Lock()
+        # pad-capable: per-row left-pad masking over a non-rolling cache
+        # (mixed-length micro-batches, length-bucketed speculation)
+        self._pad_ok = pad_capable(model)
+        # early-exit draft depth of speculative requests (0: n-grams)
+        try:
+            self._spec_draft_layers = _check_draft_layers(
+                model, spec_draft_layers or 0)
+        except ValueError as e:
+            logger.warning("speculative_draft_layers=%s unusable: %s; "
+                           "falling back to n-gram drafting",
+                           spec_draft_layers, e)
+            self._spec_draft_layers = 0
         # the paged KV prefix pool: a prebuilt PrefixCache or a
         # ``serving.prefix_cache`` dict. A layout the pool refuses
         # disables it loudly (the reason is kept for /metrics) instead of
@@ -255,23 +303,34 @@ class GenerationService:
         ``stop``: stop ids and/or single-token strings; the stop token is
         left out of the response and reported as ``stop_reason: "stop"``.
         ``seed`` seeds the request's own generator, so the same request
-        samples the same tokens."""
-        if int(speculative) > 0:
-            raise NotImplementedError(
-                "speculative decoding is a later slice of the port "
-                "(ROADMAP A4)")
+        samples the same tokens. ``speculative`` > 0: the draft length of a
+        speculative request (module docstring); the response adds its
+        ``speculative`` stats."""
         ids = self.encode_prompt(prompt, prompt_ids)
         stops = self.encode_stop(stop)
         max_new = int(max_new_tokens)
         self._validate_budget(ids, max_new, stops)
+        if int(speculative) > 0:
+            if self.tp > 1:
+                raise NotImplementedError(
+                    "speculative decoding under tensor parallelism is "
+                    "ROADMAP A4's remainder, a later slice")
+            with self._lock:
+                new_ids, stats = self._adaptive_speculative(
+                    ids, max_new, int(speculative), float(temperature),
+                    int(top_k), float(top_p), int(seed), stops)
+            resp = self._response(new_ids, stops=stops,
+                                  emitted=len(new_ids))
+            resp["speculative"] = stats
+            return resp
         arr = torch.tensor([ids], dtype=torch.long, device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         emitted = None
         with self._lock:
             if self._prefix is not None and not stops and max_new >= 1:
-                # the paged pool: prefill only the uncached suffix, decode
-                # reading the pool in place. None = the pool cannot serve
-                # this request (not paged, or dry): the cold path below
+                # the pool: prefill only the uncached suffix (paged: decode
+                # reading the pool in place; else the scatter arm). None =
+                # the pool cannot serve this request: the cold path below
                 # serves it, counted as a pool fallback
                 new_ids = self._generate_prefix_cached(
                     ids, max_new, float(temperature), int(top_k),
@@ -296,24 +355,51 @@ class GenerationService:
     @torch.no_grad()
     def _generate_prefix_cached(self, ids, max_new: int, temperature: float,
                                 top_k: int, top_p: float, gen):
-        """Batch-1 decode through the paged pool (the JAX package's paged
-        arm of ``_generate_prefix_cached``): the cached prefix is a
-        block-table entry (zero admit copy), the suffix prefills into
-        private pages, each step feeds one token at its row-local position
-        and reads the pool in place, and the finished request's pages
-        adopt into the radix index. Same sampling ops and generator as the
-        cold path, so output matches it token for token (float-tolerance
-        exact). Returns the new ids, or None when the pool cannot serve
-        the request (the scatter arm is a later slice). Caller holds the
-        lock."""
-        from .kvcache import paged_forward
+        """Batch-1 decode through the prefix pool (the JAX
+        ``_generate_prefix_cached``), two arms:
 
+        - paged (the pool is paged and has pages): the cached prefix is a
+          block-table entry (zero admit copy), the suffix prefills into
+          private pages, each step feeds one token at its row-local
+          position and reads the pool in place, and the finished request's
+          pages adopt into the radix index;
+        - scatter (a pool that is not paged, or a dry paged pool):
+          ``PrefixCache.warm_prefill`` copies the cached blocks into a
+          contiguous cache, prefills the suffix and captures the prompt's
+          blocks; the normal decode steps follow.
+
+        Same sampling ops and generator as the cold path, so output
+        matches it token for token (float-tolerance exact). Returns the
+        new ids, or None when the pool cannot serve the request (a ring
+        layout's dry pool; a non-paged pool under tensor parallelism).
+        Caller holds the lock."""
         pf = self._prefix
         res = pf.paged_prefill(ids, max_new) if pf.paged else None
         if res is None:
             pf.count_batch1(paged=False)
             pf.count_fallback("dry_pool" if pf.paged else "")
-            return None
+            if pf.window or self.tp > 1:
+                return None
+            # a dry paged pool's fall-through counted its lookup already
+            last, cache, _ = pf.warm_prefill(ids, len(ids) + max_new,
+                                             record=not pf.paged)
+            gens = [gen]
+            token = sample_logits(last, temperature, top_k, top_p, gens)
+            out = [token]
+            for _ in range(1, max_new):
+                token = _decode_step(self.model, cache, token, temperature,
+                                     top_k, top_p, gens)
+                out.append(token)
+            return torch.cat(out).tolist()
+        return self._paged_decode(ids, max_new, temperature, top_k, top_p,
+                                  gen, res)
+
+    def _paged_decode(self, ids, max_new: int, temperature: float,
+                      top_k: int, top_p: float, gen, res):
+        """The paged arm's decode steps over a ``paged_prefill`` result."""
+        from .kvcache import paged_forward
+
+        pf = self._prefix
         last, tables, plan = res
         gens = [gen]
         token = sample_logits(last, temperature, top_k, top_p, gens)
@@ -332,6 +418,115 @@ class GenerationService:
         pf.count_batch1(paged=True)
         return row
 
+    # ---- speculative requests ---------------------------------------------
+
+    # The JAX service's acceptance probe: speculate over the first
+    # SPEC_PROBE tokens, then keep speculating only while the probe's
+    # tokens per verify call reach the bar (a verify call costs about one
+    # plain step at batch 1, decode being bound by the weight reads)
+    SPEC_PROBE = 32
+    SPEC_MIN_TOKENS_PER_CALL = 1.25
+
+    def _spec_pad_to(self, t0: int, budget: int, draft: int):
+        """The JAX length bucket of a speculative prompt on pad-capable
+        models (16, 32, ..., capped by what ``max_len`` leaves for the
+        budget and the draft slack), or None."""
+        if not self._pad_ok:
+            return None
+        bucket = 16
+        while bucket < t0:
+            bucket *= 2
+        limit = int(self.model.max_len) - budget - 2 * (draft + 1)
+        pad_to = min(bucket, limit)
+        return pad_to if pad_to > t0 else None
+
+    def _spec_generate(self, ids, budget: int, draft: int,
+                       temperature: float, top_k: int, top_p: float, gen,
+                       stops):
+        """One speculative phase: through the pool's scatter arm on a
+        prefix hit (target and early-exit draft skip the shared prefix's
+        prefill), else ``generate_speculative`` on a fresh cache.
+        Returns ``(out [1, T0 + budget], stats)``."""
+        t0 = len(ids)
+        dl, prefix = self._spec_draft_layers, self._prefix
+        total = t0 + int(budget) + 2 * (int(draft) + 1)
+        if (prefix is not None and total <= int(self.model.max_len)
+                and not prefix.window):
+            probe, _, c = prefix.lookup(ids, record=False)
+            prefix.release(probe)
+            if c:
+                last, cache, hit = prefix.warm_prefill(ids, total)
+                out, stats = speculative_from_cache(
+                    self.model, ids, cache, last, total, budget,
+                    draft_len=draft, temperature=temperature, top_k=top_k,
+                    top_p=top_p, generator=gen, stop_tokens=stops or None,
+                    draft_layers=dl)
+                stats["prefix_hit_tokens"] = hit
+                return out, stats
+        arr = torch.tensor([ids], dtype=torch.long, device=self.device)
+        return generate_speculative(
+            self.model, arr, budget, draft_len=draft, return_stats=True,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            generator=gen, pad_to=self._spec_pad_to(t0, budget, draft),
+            stop_tokens=stops or None, draft_layers=dl)
+
+    def _adaptive_speculative(self, ids, max_new: int, draft: int,
+                              temperature: float, top_k: int, top_p: float,
+                              seed: int, stops):
+        """Speculative decoding with the acceptance probe (the JAX
+        ``_adaptive_speculative``): returns ``(emitted ids, stats)``, the
+        stop token included when one fired. Greedy output equals plain
+        greedy either way; sampled output stays distribution-exact (one
+        generator, seeded ``seed``, runs through both phases)."""
+        t0 = len(ids)
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        probe = min(self.SPEC_PROBE, max_new)
+        out, stats = self._spec_generate(ids, probe, draft, temperature,
+                                         top_k, top_p, gen, stops)
+        emitted = stats["tokens_emitted"]
+        new = [int(t) for t in out[0, t0:t0 + emitted].tolist()]
+        stats = dict(stats, probe_tokens_per_call=stats["tokens_per_call"],
+                     speculation_disabled=False)
+        rest = max_new - probe
+        if stops and new and new[-1] in stops:
+            stats["stopped"] = True
+        if stats["stopped"] or rest <= 0:
+            return new, stats
+        ids2 = list(ids) + new
+        if stats["probe_tokens_per_call"] >= self.SPEC_MIN_TOKENS_PER_CALL:
+            out2, s2 = self._spec_generate(ids2, rest, draft, temperature,
+                                           top_k, top_p, gen, stops)
+            em2 = s2["tokens_emitted"]
+            calls = stats["model_calls"] + s2["model_calls"]
+            stopped = s2["stopped"]
+        else:
+            # under the bar: plain decode, one model call per token
+            arr2 = torch.tensor([ids2], dtype=torch.long,
+                                device=self.device)
+            if stops:
+                out2, lengths = generate(
+                    self.model, arr2, rest, temperature=temperature,
+                    top_k=top_k, top_p=top_p, generators=[gen],
+                    stop_tokens=stops, return_lengths=True)
+                em2 = int(lengths[0])
+            else:
+                out2 = generate(self.model, arr2, rest,
+                                temperature=temperature, top_k=top_k,
+                                top_p=top_p, generators=[gen])
+                em2 = rest
+            calls = stats["model_calls"] + em2
+            stopped = bool(stops) and em2 < rest
+            stats["speculation_disabled"] = True
+        t1 = len(ids2)
+        new += [int(t) for t in out2[0, t1:t1 + em2].tolist()]
+        if stops and new and new[-1] in stops:
+            stopped = True
+        stats.update(model_calls=calls, tokens_emitted=emitted + em2,
+                     stopped=stopped,
+                     tokens_per_call=round((emitted + em2)
+                                           / max(calls, 1), 3))
+        return new, stats
+
     def _response(self, new_ids, stops=(), emitted=None) -> dict:
         """Generated row -> wire response. ``emitted`` = tokens the model
         produced (stop token included, frozen tail excluded)."""
@@ -349,10 +544,178 @@ class GenerationService:
         return resp
 
 
+_STOP = object()           # batcher shutdown sentinel
+
+
+class BatchedGenerationService(GenerationService):
+    """``GenerationService`` with the static micro-batch scheduler (the JAX
+    ``BatchedGenerationService``; module docstring). ``stats``: requests,
+    batches, requests that shared a batch, the largest batch."""
+
+    PAD_BUCKET = 128
+
+    def _setup(self, model, tokenizer=None, max_batch: int = 8,
+               window_ms: float = 25.0, prefix_cache=None,
+               spec_draft_layers: int = 0):
+        super()._setup(model, tokenizer, prefix_cache=prefix_cache,
+                       spec_draft_layers=spec_draft_layers)
+        self._max_batch = int(max_batch)
+        self._window_s = float(window_ms) / 1e3
+        self._queue: "queue_mod.Queue" = queue_mod.Queue()
+        self.stats = {"requests": 0, "batches": 0, "batched_requests": 0,
+                      "max_batch_size": 0, "tokens_generated": 0}
+        self._worker_thread = threading.Thread(
+            target=self._worker, daemon=True, name="gen-batcher")
+        self._worker_thread.start()
+
+    def close(self, timeout: float = 60.0) -> None:
+        """Stop the worker (requests queued behind the sentinel are never
+        served), then the parent's close."""
+        self._queue.put(_STOP)
+        self._worker_thread.join(timeout)
+        super().close()
+
+    def generate(self, prompt=None, prompt_ids=None,
+                 max_new_tokens: int = 64, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 0.0, seed: int = 0,
+                 speculative: int = 0, stop=None) -> dict:
+        if int(speculative) > 0:
+            # batch 1 by construction: under the parent's lock
+            return super().generate(
+                prompt=prompt, prompt_ids=prompt_ids,
+                max_new_tokens=max_new_tokens, temperature=temperature,
+                top_k=top_k, top_p=top_p, seed=seed,
+                speculative=speculative, stop=stop)
+        # validated and keyed in the caller's thread: a bad request fails
+        # here and never reaches the worker
+        ids = self.encode_prompt(prompt, prompt_ids)
+        stops = self.encode_stop(stop)
+        if int(max_new_tokens) < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        self._validate_budget(ids, int(max_new_tokens), stops)
+        req = {"ids": ids, "max_new_tokens": int(max_new_tokens),
+               "temperature": float(temperature), "top_k": int(top_k),
+               "top_p": float(top_p), "seed": int(seed), "stop": stops,
+               "event": threading.Event()}
+        req["key"] = self._group_key(req)
+        self._queue.put(req)
+        req["event"].wait()
+        if "error" in req:
+            raise req["error"]
+        return req["result"]
+
+    def _group_key(self, req) -> tuple:
+        """Exact prompt length (absolute positions) or, pad-capable, its
+        128-token bucket; then the budget and the sampling triple."""
+        n = len(req["ids"])
+        length_key = -(-n // self.PAD_BUCKET) if self._pad_ok else n
+        return (length_key, req["max_new_tokens"], req["temperature"],
+                req["top_k"], req["top_p"])
+
+    def _worker(self) -> None:
+        stash: list = []
+        while True:
+            batch = []
+            try:
+                first = stash.pop(0) if stash else self._queue.get()
+                if first is _STOP:
+                    return
+                batch.append(first)
+                key = first["key"]
+                rest = []
+                for r in stash:
+                    (batch if r is not _STOP and r["key"] == key
+                     and len(batch) < self._max_batch else rest).append(r)
+                stash = rest
+                deadline = time.monotonic() + self._window_s
+                while len(batch) < self._max_batch and _STOP not in stash:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    try:
+                        nxt = self._queue.get(timeout=left)
+                    except queue_mod.Empty:
+                        break
+                    (batch if nxt is not _STOP and nxt["key"] == key
+                     else stash).append(nxt)
+                self._run_batch(batch)
+            except Exception as e:  # noqa: BLE001 — surfaced per request
+                logger.exception("batch worker error (batch of %d)",
+                                 len(batch))
+                for r in batch:
+                    r["error"] = e
+                    r["event"].set()
+
+    @torch.no_grad()
+    def _run_batch(self, batch: list) -> None:
+        """One group: a lone request without stops through the pool when
+        one is attached, else one batched ``generate`` (left-padded to the
+        JAX shape menu for pad-capable models)."""
+        first = batch[0]
+        budget = first["max_new_tokens"]
+        samp = dict(temperature=first["temperature"], top_k=first["top_k"],
+                    top_p=first["top_p"])
+        lengths = None
+        with self._lock:
+            if (len(batch) == 1 and self._prefix is not None
+                    and not first["stop"]):
+                gen = torch.Generator(device=self.device).manual_seed(
+                    first["seed"])
+                row = self._generate_prefix_cached(
+                    first["ids"], budget, samp["temperature"],
+                    samp["top_k"], samp["top_p"], gen)
+                if row is not None:
+                    self._finish(batch, [row], None)
+                    return
+            t0 = max(len(r["ids"]) for r in batch)
+            if self._pad_ok:
+                # the JAX shape menu: powers of two within the bucket, never
+                # past what max_len leaves for the budget
+                shape = 16
+                while shape < t0:
+                    shape *= 2
+                t0 = max(t0, min(shape, int(self.model.max_len) - budget))
+            arr = torch.tensor([[0] * (t0 - len(r["ids"])) + list(r["ids"])
+                                for r in batch], dtype=torch.long,
+                               device=self.device)
+            pads = [t0 - len(r["ids"]) for r in batch]
+            gens = [torch.Generator(device=self.device).manual_seed(
+                r["seed"]) for r in batch]
+            kw = dict(samp, generators=gens,
+                      pad_lens=pads if any(pads) else None)
+            if any(r["stop"] for r in batch):
+                out, lengths = generate(
+                    self.model, arr, budget,
+                    stop_tokens=[r["stop"] for r in batch],
+                    return_lengths=True, **kw)
+                lengths = lengths.tolist()
+            else:
+                out = generate(self.model, arr, budget, **kw)
+        self._finish(batch, out[:, t0:].tolist(), lengths)
+
+    def _finish(self, batch: list, rows: list, lengths) -> None:
+        """Count the group and hand each request its response."""
+        self.stats["requests"] += len(batch)
+        self.stats["batches"] += 1
+        if len(batch) > 1:
+            self.stats["batched_requests"] += len(batch)
+        self.stats["max_batch_size"] = max(self.stats["max_batch_size"],
+                                           len(batch))
+        for i, r in enumerate(batch):
+            r["result"] = self._response(
+                rows[i], stops=r["stop"],
+                emitted=None if lengths is None else int(lengths[i]))
+            self.stats["tokens_generated"] += len(r["result"]["ids"])
+            r["event"].set()
+
+
 def load_generation_stack(config, device=None, use_ema: bool = False,
                           tensor_parallel: int = 0, group: int = 0):
-    """``(model, tokenizer | None)`` for ``config.resume``, a params-only
-    serving artifact. At tensor parallelism T = ``tensor_parallel`` (or
+    """``(model, tokenizer | None)`` for ``config.resume``: a params-only
+    serving artifact (a w8a16 one builds the quant model from its
+    config's ``arch.args.quant``), or a training checkpoint's ``model.pt``
+    (``ema.pt`` over it with ``use_ema``; one card only). At tensor
+    parallelism T = ``tensor_parallel`` (or
     ``serving.tensor_parallel``) > 1 the model is a
     ``parallel.serving_ranks.TensorParallelModel`` on cards ``[group T,
     (group + 1) T)`` (gloo ranks on the CPU), the recorded geometry and
@@ -370,16 +733,26 @@ def load_generation_stack(config, device=None, use_ema: bool = False,
         # serving section switches it on over a full-precision arch
         config["arch"].setdefault("args", {})["kv_quant"] = kvq
     meta = load_serving_meta(config.resume)
+    arch = {"type": config["arch"]["type"],
+            "args": dict(config["arch"].get("args") or {})}
+    if int(arch["args"].get("lora_rank", 0) or 0) > 0:
+        raise NotImplementedError(
+            "serving LoRA adapters unmerged is ROADMAP A4's remainder, a "
+            "later slice: merge them first (tools/merge_lora.py)")
     if meta is None:
-        raise ValueError(
-            f"{config.resume} is not a params-only serving artifact; "
-            "training checkpoints are restored by the training slice "
-            "(make one with tools/make_serving_artifact.py)")
+        if tp > 1 or not (config.resume / "model.pt").exists():
+            raise ValueError(
+                f"{config.resume} is not a params-only serving artifact"
+                + ("" if tp <= 1 else " (tensor-parallel serving reads "
+                   "artifacts only)")
+                + "; make one with tools/make_serving_artifact.py or "
+                "tools/quantize_checkpoint.py")
+        dev = dp_group_devices(group, 1, device)[0] if group else device
+        return (load_checkpoint_model(arch, config.resume, dev, use_ema),
+                tokenizer_from_config(config))
     if use_ema:
         logger.warning("--ema ignored: %s is a params-only serving "
                        "artifact", config.resume)
-    arch = {"type": config["arch"]["type"],
-            "args": dict(config["arch"].get("args") or {})}
     if tp > 1:
         from ..parallel.serving_ranks import TensorParallelModel
 
@@ -395,6 +768,40 @@ def load_generation_stack(config, device=None, use_ema: bool = False,
     return model, tokenizer_from_config(config)
 
 
+def load_checkpoint_model(arch: dict, resume, device,
+                          use_ema: bool = False):
+    """The model of ``arch`` with a training checkpoint's weights
+    (``<resume>/model.pt``, ``ema.pt``'s params over it with ``use_ema``)
+    on ``device``: the JAX ``load_generation_stack``'s checkpoint arm."""
+    from ..checkpoint.manager import EMA_FILE
+
+    model = resolve(MODELS, arch["type"])(**dict(arch.get("args") or {}),
+                                          device="meta")
+    state = torch.load(resume / "model.pt", map_location="cpu",
+                       weights_only=True)
+    if use_ema and (resume / EMA_FILE).exists():
+        state.update(torch.load(resume / EMA_FILE, map_location="cpu",
+                                weights_only=True))
+    elif use_ema:
+        logger.warning("--ema ignored: %s holds no %s", resume, EMA_FILE)
+    return _assign(model, state, arch["type"], resume, device)
+
+
+def _assign(model, state: dict, what: str, resume, device):
+    """Load ``state`` into the meta-built ``model`` on ``device`` in the
+    model's dtypes; the names must match exactly."""
+    want = {k: p.dtype for k, p in model.state_dict().items()}
+    missing = sorted(set(want) - set(state))
+    unexpected = sorted(set(state) - set(want))
+    if missing or unexpected:
+        raise ValueError(f"{resume} does not match {what}: missing "
+                         f"{missing[:5]}, unexpected {unexpected[:5]}")
+    model.load_state_dict(
+        {k: t.to(device=device, dtype=want[k]) for k, t in state.items()},
+        assign=True)
+    return model.eval()
+
+
 def load_serving_model(arch: dict, resume, device, mesh=None,
                        verify: bool = True):
     """The model of ``arch`` (``{"type", "args"}``) with the artifact's
@@ -406,16 +813,6 @@ def load_serving_model(arch: dict, resume, device, mesh=None,
                                           device="meta")
     state = restore_serving_params(
         resume, "cpu" if mesh is not None else device, verify=verify)
-    want = {k: p.dtype for k, p in model.state_dict().items()}
-    missing = sorted(set(want) - set(state))
-    unexpected = sorted(set(state) - set(want))
-    if missing or unexpected:
-        raise ValueError(f"artifact {resume} does not match "
-                         f"{arch['type']}: missing {missing[:5]}, "
-                         f"unexpected {unexpected[:5]}")
-    if mesh is not None:
+    if mesh is not None and set(state) == set(model.state_dict()):
         state = shard_serving_params(model, state, mesh)
-    model.load_state_dict(
-        {k: t.to(device=device, dtype=want[k]) for k, t in state.items()},
-        assign=True)
-    return model.eval()
+    return _assign(model, state, arch["type"], resume, device)

@@ -1,5 +1,7 @@
 """Sampling CLI of the port: generate continuations from a serving
-artifact, the counterpart of the repository's root ``generate.py``.
+artifact (a w8a16 one from tools/quantize_checkpoint.py included) or a
+training checkpoint, the counterpart of the repository's root
+``generate.py``.
 
     python -m pytorch_distributed_template_tpu_torch.generate \\
         -r <artifact>/model --prompt-ids 1,2,3 --max-new-tokens 32
@@ -9,11 +11,15 @@ over T cards (T rank processes this command starts and stops:
 parallel/serving_ranks.py). ``--prompt`` treats the
 text as UTF-8 bytes for byte-vocab models (vocab <= 256) or encodes it
 with the run's BPE tokenizer; ``--prompt-ids`` takes comma-separated ids,
-and ids are printed back.
+and ids are printed back. ``--speculative D`` serves the request by
+prompt-lookup speculative decoding (engine/generate.py) and logs its
+acceptance stats; ``--set "arch;args;kv_quant" int8`` stores the decode
+cache int8.
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 from .config import ConfigParser
 from .engine.serving import GenerationService
@@ -40,8 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--ema", action="store_true",
                         help="Sample EMA weights (moot for artifacts).")
     parser.add_argument("--speculative", default=0, type=int, metavar="D",
-                        help="Speculative decoding (a later slice, ROADMAP "
-                             "A4).")
+                        help="Prompt-lookup speculative decoding with D "
+                             "draft tokens per verify call (greedy output "
+                             "is unchanged; batch 1).")
     parser.add_argument("--stop", action="append", default=None,
                         metavar="STR",
                         help="Stop STRING (must encode to one token); "
@@ -85,6 +92,8 @@ def main(argv=None) -> dict:
         service.close()
     if stop is not None:
         logger.info("stop_reason: %s", resp.get("stop_reason"))
+    if resp.get("speculative"):
+        logger.info("speculative: %s", json.dumps(resp["speculative"]))
     if args.prompt is not None:
         logger.info("prompt   : %s", args.prompt)
         logger.info("generated: %s", resp.get("text"))

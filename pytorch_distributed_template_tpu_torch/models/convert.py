@@ -26,6 +26,10 @@ translation:
   ``h_i/moe/router/{kernel, bias}`` like any dense layer;
 - the LoRA adapters ``*/lora_a`` ``[in, r]`` and ``*/lora_b`` ``[r, out]``
   as they are (``models/lora.py`` stores flax's layout);
+- a w8a16 Dense's ``*/kernel_q`` (int8 ``[in, out]``) and ``*/scale``
+  (f32 ``[out]``) as they are (``models.quant.W8A16Dense`` stores flax's
+  layout; its ``scale`` is told from a LayerNorm's by the ``kernel_q``
+  beside it), its ``bias`` like any bias;
 - the BERT tree: the trunk under ``encoder`` (``encoder/wte/embedding``,
   ``encoder/wpe``, ``encoder/h_i/...``, ``encoder/ln_f``) and
   ``classifier_head`` like any dense layer; a bare ``wpe`` under a module
@@ -66,7 +70,7 @@ _EMBEDDINGS = ("wte", "embed_tokens")
 _EXPERT_LEAVES = ("wi", "wg", "wo", "bi", "bo")  # MoeMlp's stacked leaves
 _TOP_LEVEL = ("wpe", "cls", "pos_embed")     # bare params (BERT's wpe
 #                                              sits under ``encoder``)
-_AS_IS = _TOP_LEVEL + ("lora_a", "lora_b")   # leaves that keep their name
+_AS_IS = _TOP_LEVEL + ("lora_a", "lora_b", "kernel_q")   # keep their name
 #: the pipelined families' flat top-level leaves (GPT-2, then Llama)
 _PIPELINED = ("wte", "ln1_g", "ln1_b", "qkv_k", "qkv_b", "out_k", "out_b",
               "ln2_g", "ln2_b", "up_k", "up_b", "down_k", "down_b", "lnf_g",
@@ -112,7 +116,9 @@ def flax_path(name: str) -> str:
     leaf = parts[-1]
     if not mods:
         return leaf
-    if leaf == "weight":
+    if leaf == "scale" and not _is_scale(mods[-1]):
+        pass                         # a W8A16Dense's per-channel scale
+    elif leaf == "weight":
         owner = mods[-1]
         if owner in _EMBEDDINGS:
             leaf = "embedding"
@@ -129,10 +135,16 @@ def flax_path(name: str) -> str:
 def params_from_flax(tree) -> dict:
     """Flax param tree (nested dicts of arrays) -> torch state dict."""
     out = {}
-    for path, leaf in _flatten(tree):
+    leaves = list(_flatten(tree))
+    quant_mods = {path[:-1] for path, _ in leaves if path[-1] == "kernel_q"}
+    for path, leaf in leaves:
         arr = np.asarray(leaf)
         parts = [_INDEXED.sub(r"\1.\2", p) for p in path[:-1]]
         last = path[-1]
+        if last == "scale" and path[:-1] in quant_mods:
+            out[".".join(parts + [last])] = torch.tensor(
+                np.ascontiguousarray(arr))
+            continue
         if not parts:
             if last not in _TOP_LEVEL + _PIPELINED:
                 raise KeyError(f"unexpected flax leaf {last}")
@@ -161,7 +173,9 @@ def flax_from_params(state_dict) -> dict:
         if name.rsplit(".", 1)[-1] in _STATS.values():
             continue
         path = flax_path(name).split("/")
-        arr = tensor.detach().to("cpu", torch.float32).numpy()
+        arr = tensor.detach().to("cpu")
+        arr = (arr if path[-1] == "kernel_q" else arr.to(torch.float32)
+               ).numpy()
         if path[-1] == "kernel":
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         node = tree

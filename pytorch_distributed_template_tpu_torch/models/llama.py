@@ -84,9 +84,26 @@ registry's defaults.
   claims expert capacity as JAX's does. Zigzag stays off for MoE, as in
   JAX (the routing keeps natural order).
 
-Left to later slices, each refused with a message naming it: w8a16
-weights, decoding on a seq axis, MoE blocks on a tensor axis (training:
-ROADMAP A11d's remainder; ``serve.py --tp``: A6c.3's remainder).
+- ``quant="w8a16"`` (serving): every projection and the head are
+  ``models.quant.W8A16Dense`` (int8 kernel, per-channel scale), as in the
+  JAX family; the embedding and the norms stay float. The sparse family
+  refuses it (``validate_quant_config``).
+- Mixed-length batches on the contiguous cache (``forward(...,
+  pad_lens=...)``, the static micro-batcher of engine/serving.py): row
+  ``b``'s prompt is LEFT-padded by ``pad_lens[b]`` slots, which its
+  attention hides; RoPE rotates by cache slot, a per-row constant shift
+  that leaves q-k offsets (all RoPE sees) unchanged. A padded prefill runs
+  the masked plain attention (the flash kernel has no pad mask), so the
+  logits match a solo run to float tolerance, as in JAX. A rolling cache
+  refuses pads.
+- ``forward(..., exit_layer=k)``: the early-exit forward of the
+  speculative draft (engine/generate.py ``draft_layers``), the first ``k``
+  blocks then the final norm and the head, sharing the cache.
+
+Left to later slices, each refused with a message naming it: decoding on a
+seq axis, MoE blocks on a tensor axis (training: ROADMAP A11d's
+remainder; ``serve.py --tp``: A6c.3's remainder), w8a16 under
+tensor-parallel serving (A4's remainder, ``parallel/tp.py``).
 """
 from __future__ import annotations
 
@@ -110,6 +127,7 @@ from .layers import embed, row_parallel, vocab_embed
 from .moe import MoeMlp
 from .quant import (
     check_lora_quant, dense_factory, dequantize_kv, quantize_kv,
+    validate_quant_config,
 )
 
 #: reserved pool page: pad lanes and unallocated table lanes write here
@@ -254,7 +272,8 @@ class LlamaAttention(nn.Module):
     def __init__(self, d_model: int, n_head: int, n_kv_head: int,
                  attn_impl: str = "xla", rope_base: float = 10000.0,
                  window: int = 0, dtype=torch.float32, device=None,
-                 kv_quant: str = "", param_dtype=None, lora: dict = None):
+                 kv_quant: str = "", param_dtype=None, lora: dict = None,
+                 quant: str = ""):
         super().__init__()
         self.n_head, self.n_kv_head = n_head, n_kv_head
         self.head_dim = d_model // n_head
@@ -264,7 +283,7 @@ class LlamaAttention(nn.Module):
         self.kv_quant = kv_quant
         hd = self.head_dim
         dense = dense_factory(dtype, param_dtype=param_dtype, device=device,
-                              **(lora or {}))
+                              quant=quant, **(lora or {}))
         self.q_proj = dense(d_model, n_head * hd)
         self.k_proj = dense(d_model, n_kv_head * hd)
         self.v_proj = dense(d_model, n_kv_head * hd)
@@ -272,7 +291,7 @@ class LlamaAttention(nn.Module):
         self.tp = None      # the tensor axis (``LlamaLM.use_tensor_axis``)
 
     def forward(self, x, cache=None, start: int = 0,
-                prefill: bool = False, paged=None, sp=None):
+                prefill: bool = False, paged=None, sp=None, pad_lens=None):
         """``sp``: ``(positions [T] of a seq shard or None, layout, mesh)``
         of the seq axis (``LlamaLM.forward``), or None."""
         b, t, _ = x.shape
@@ -287,7 +306,8 @@ class LlamaAttention(nn.Module):
         if isinstance(cache, PagedLayer):
             ctx = self._paged_attention(q, k, v, cache, paged)
         elif cache is not None:
-            ctx = self._cached_attention(q, k, v, cache, start, prefill)
+            ctx = self._cached_attention(q, k, v, cache, start, prefill,
+                                         pad_lens)
         else:
             pos, layout, mesh = sp or (None, "contig", None)
             if pos is None:
@@ -350,7 +370,7 @@ class LlamaAttention(nn.Module):
                                    v_scale=layer.v_scale)
 
     def _cached_attention(self, q, k, v, cache: LayerCache, cur: int,
-                          prefill: bool):
+                          prefill: bool, pad_lens=None):
         """Decode against the layer cache, writing this call's K/V rows
         into it IN PLACE (the cache tensors are the decode state, owned by
         the caller's DecodeCache; nothing else aliases them).
@@ -361,18 +381,25 @@ class LlamaAttention(nn.Module):
         attention goes through the flash kernel. Otherwise the grouped GQA
         read attends over the cache with the visibility mask. An int8
         cache (``k_scale`` set) stores quantized rows; history is read
-        dequantized and the call's own rows at full precision."""
+        dequantized and the call's own rows at full precision.
+        ``pad_lens`` ``[B]`` hides each row's left-pad slots (module
+        docstring); a padded prefill takes the masked path."""
         b, t, _, d = q.shape
         cache_len = cache.k.shape[1]
         window = self.window
         rolling = window > 0 and cache_len == window
+        if pad_lens is not None and rolling:
+            raise ValueError(
+                "pad_lens (mixed-length batching) is incompatible with a "
+                "rolling-window cache: ring eviction order would differ "
+                "per row")
         if not rolling and cur + t > cache_len:
             raise ValueError(f"decode input ends at {cur + t}, past the "
                              f"cache's {cache_len} slots")
         pos = torch.arange(cur, cur + t, device=q.device)
         cos, sin = rope_tables(pos, d, self.rope_base)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        fresh = prefill and t > 1
+        fresh = prefill and t > 1 and pad_lens is None
         kvq = cache.k_scale is not None
         if kvq:
             hist_k = dequantize_kv(cache.k, cache.k_scale, k.dtype)
@@ -442,16 +469,23 @@ class LlamaAttention(nn.Module):
         visible = k_pos <= pos[:, None]
         if window > 0:
             visible = visible & (pos[:, None] - k_pos < window)
+        if pad_lens is not None:
+            # [B, t, L]: row b also hides its left-pad slots
+            visible = visible[None] & (
+                k_pos[None] >= pad_lens.long()[:, None, None])
+            return grouped_query_attention(q, k_all, v_all,
+                                           mask=visible[:, None])
         return grouped_query_attention(q, k_all, v_all,
                                        mask=visible[None, None])
 
 
 class SwiGLU(nn.Module):
     def __init__(self, d_model: int, d_ff: int, dtype=torch.float32,
-                 device=None, param_dtype=None, lora: dict = None):
+                 device=None, param_dtype=None, lora: dict = None,
+                 quant: str = ""):
         super().__init__()
         dense = dense_factory(dtype, param_dtype=param_dtype, device=device,
-                              **(lora or {}))
+                              quant=quant, **(lora or {}))
         self.gate_proj = dense(d_model, d_ff)
         self.up_proj = dense(d_model, d_ff)
         self.down_proj = dense(d_ff, d_model)
@@ -475,14 +509,15 @@ class LlamaBlock(nn.Module):
     def __init__(self, d_model, n_head, n_kv_head, d_ff, attn_impl,
                  rope_base, rms_eps, window, dtype, device, kv_quant="",
                  param_dtype=None, lora: dict = None, moe: dict = None,
-                 n_layer: int = 1):
+                 n_layer: int = 1, quant: str = ""):
         super().__init__()
         self.input_layernorm = RMSNorm(d_model, rms_eps, device=device)
         self.self_attn = LlamaAttention(d_model, n_head, n_kv_head,
                                         attn_impl, rope_base, window,
                                         dtype=dtype, device=device,
                                         kv_quant=kv_quant,
-                                        param_dtype=param_dtype, lora=lora)
+                                        param_dtype=param_dtype, lora=lora,
+                                        quant=quant)
         self.post_attention_layernorm = RMSNorm(d_model, rms_eps,
                                                 device=device)
         if moe:
@@ -492,12 +527,13 @@ class LlamaBlock(nn.Module):
                               param_dtype=param_dtype or dtype, **moe)
         else:
             self.mlp = SwiGLU(d_model, d_ff, dtype=dtype, device=device,
-                              param_dtype=param_dtype, lora=lora)
+                              param_dtype=param_dtype, lora=lora,
+                              quant=quant)
 
     def forward(self, x, cache=None, start: int = 0, prefill: bool = False,
-                paged=None, sp=None, example_mask=None):
+                paged=None, sp=None, example_mask=None, pad_lens=None):
         x = x + self.self_attn(self.input_layernorm(x), cache, start,
-                               prefill, paged, sp)
+                               prefill, paged, sp, pad_lens)
         h = self.post_attention_layernorm(x)
         if hasattr(self, "moe"):
             y, aux = self.moe(h, example_mask,
@@ -520,8 +556,11 @@ class LlamaLM(nn.Module):
                  lora_rank: int = 0, lora_alpha: float = 16.0,
                  moe_experts: int = 0, moe_top_k: int = 2,
                  moe_every: int = 1, moe_capacity_factor: float = 1.25,
-                 moe_aux_loss_weight: float = 0.01):
+                 moe_aux_loss_weight: float = 0.01, quant: str = ""):
         super().__init__()
+        check_lora_quant(quant, lora_rank)
+        validate_quant_config(quant, fused_head, moe_experts)
+        self.quant = quant
         n_kv = n_kv_head or n_head
         if kv_quant not in ("", "int8"):
             raise ValueError(f"unknown kv_quant {kv_quant!r} (int8 is the "
@@ -553,14 +592,14 @@ class LlamaLM(nn.Module):
             LlamaBlock(d_model, n_head, n_kv, d_ff, attn_impl, rope_base,
                        rms_eps, window, dtype, device, kv_quant, param_dtype,
                        lora, moe if self._is_moe_layer(i) else None,
-                       n_layer)
+                       n_layer, quant)
             for i in range(n_layer))
         self.aux_loss = None
         self.norm = RMSNorm(d_model, rms_eps, device=device)
         # a fused head hands its plain kernel to the loss (JAX's
         # ``_HeadKernel``): no adapters there
         self.lm_head = dense_factory(
-            dtype, param_dtype=param_dtype, device=device,
+            dtype, param_dtype=param_dtype, device=device, quant=quant,
             **({} if fused_head else lora))(d_model, vocab_size)
         self.attn_impl, self.seq_layout = attn_impl, seq_layout
         # the parallel mesh whose seq axis the SP impls run over
@@ -620,7 +659,7 @@ class LlamaLM(nn.Module):
         # a window rides the contiguous banded ring; MoE routing keeps
         # natural order
         return seq_plan(self.mesh, self.attn_impl, self.seq_layout, t,
-                        self.lm_head.weight.device,
+                        self.device,
                         zigzag_ok=self.window == 0 and self.moe_experts <= 0)
 
     def seq_shard(self, t: int):
@@ -630,7 +669,7 @@ class LlamaLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.lm_head.weight.device
+        return self.norm.weight.device
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -641,7 +680,10 @@ class LlamaLM(nn.Module):
         LoRA ``lora_b``."""
         resid = 0.02 / (2 * self.n_layer) ** 0.5
         for name, p in self.named_parameters():
-            if name.endswith("layernorm.weight") or name == "norm.weight":
+            if not p.is_floating_point():
+                continue                 # w8a16 kernels: from a converter
+            if name.endswith(".scale") or name.endswith(
+                    "layernorm.weight") or name == "norm.weight":
                 p.fill_(1.0)
             elif name.endswith(("lora_b", "router.bias")):
                 p.zero_()
@@ -708,7 +750,7 @@ class LlamaLM(nn.Module):
 
     def forward(self, tokens, cache=None, prefill: bool = False,
                 block_tables=None, row_starts=None, pad_lens=None,
-                example_mask=None, write_rows=None):
+                example_mask=None, write_rows=None, exit_layer: int = 0):
         """tokens ``[B, T]`` -> f32 logits ``[B, T, V]`` (or, with no
         cache and ``fused_head``, ``(hidden, head_w [D, V])`` in the
         compute dtype); on a seq axis S > 1 the shard's ``[B, T / S,
@@ -723,7 +765,10 @@ class LlamaLM(nn.Module):
         model's device) place each row's lanes; ``prefill=True`` keeps the
         last position's logits only. ``write_rows`` (int) keeps the pool
         writes to the leading rows: the rest are copies of the last of them
-        that read its pages and write nothing.
+        that read its pages and write nothing. With a ``DecodeCache``,
+        ``pad_lens`` ``[B]`` are the rows' left-pad lengths (module
+        docstring). ``exit_layer > 0`` runs only the first ``exit_layer``
+        blocks before the norm and the head (the early-exit draft).
 
         ``example_mask`` ([B] bool, training and evaluation) marks the real
         rows of a padded batch for the MoE blocks (dense blocks ignore
@@ -763,15 +808,18 @@ class LlamaLM(nn.Module):
                                  f"(pos_index is {start})")
             cache.pos_index = start + t
         remat = self.remat and cache is None and torch.is_grad_enabled()
+        dense_pads = pad_lens if isinstance(cache, DecodeCache) else None
+        n_run = (min(int(exit_layer), self.n_layer) if exit_layer
+                 else self.n_layer)
         aux_total = None
-        for i, block in enumerate(self.layers):
+        for i, block in enumerate(self.layers[:n_run]):
             if remat:
                 x, aux = checkpoint(block, x, None, 0, False, None, sp,
                                     example_mask, use_reentrant=False)
             else:
                 layer_cache = cache.layers[i] if cache is not None else None
                 x, aux = block(x, layer_cache, start, prefill, paged, sp,
-                               example_mask)
+                               example_mask, dense_pads)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
         self.aux_loss = aux_total
@@ -791,9 +839,6 @@ class LlamaLM(nn.Module):
 
 def _refuse_later(quant="", lora_rank=0) -> None:
     check_lora_quant(quant, lora_rank)
-    if quant:
-        raise NotImplementedError(
-            f"quant={quant!r} (w8a16 serving weights) is a later slice")
 
 
 def _dtype(bfloat16: bool):
@@ -815,7 +860,7 @@ def llama(vocab_size: int = 32000, n_layer: int = 12, n_head: int = 12,
     return LlamaLM(vocab_size, n_layer, n_head, n_kv_head, d_model, d_ff,
                    max_len, _dtype(bfloat16), attn_impl, rope_base, rms_eps,
                    window, device, kv_quant, remat, fused_head, param_dtype,
-                   mesh, seq_layout, lora_rank, lora_alpha)
+                   mesh, seq_layout, lora_rank, lora_alpha, quant=quant)
 
 
 @MODELS.register("Mistral")
@@ -833,7 +878,8 @@ def mistral(vocab_size: int = 32000, n_layer: int = 32, n_head: int = 32,
     return LlamaLM(vocab_size, n_layer, n_head, n_kv_head, d_model, d_ff,
                    max_len, _dtype(bfloat16), attn_impl, rope_base, rms_eps,
                    window, device, kv_quant, remat, fused_head, param_dtype,
-                   mesh, lora_rank=lora_rank, lora_alpha=lora_alpha)
+                   mesh, lora_rank=lora_rank, lora_alpha=lora_alpha,
+                   quant=quant)
 
 
 @MODELS.register("MixtralMoE")
@@ -852,7 +898,7 @@ def mixtral_moe(vocab_size: int = 32000, n_layer: int = 32, n_head: int = 32,
     (models/moe.py, ``expert_act='swiglu'``); the expert weights shard over
     the ``expert`` mesh axis. ``overrides``: the other ``LlamaLM``
     arguments (``seq_layout``, ``kv_quant``, ``lora_rank``, ...)."""
-    _refuse_later(overrides.pop("quant", ""),
+    _refuse_later(overrides.get("quant", ""),
                   overrides.get("lora_rank", 0))
     return LlamaLM(vocab_size=vocab_size, n_layer=n_layer, n_head=n_head,
                    n_kv_head=n_kv_head, d_model=d_model, d_ff=d_ff,
@@ -880,4 +926,4 @@ def tiny_llama(vocab_size: int = 256, n_layer: int = 2, n_head: int = 4,
     return LlamaLM(vocab_size, n_layer, n_head, n_kv_head, d_model, d_ff,
                    max_len, _dtype(bfloat16), attn_impl, 10000.0, 1e-6,
                    window, device, kv_quant, remat, fused_head, param_dtype,
-                   mesh, seq_layout, lora_rank, lora_alpha)
+                   mesh, seq_layout, lora_rank, lora_alpha, quant=quant)

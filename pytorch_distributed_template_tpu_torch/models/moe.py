@@ -352,8 +352,7 @@ def _moe_lm(vocab_size, n_layer, n_head, d_model, max_len, dropout,
     )
 
     _check_param_dtype(param_dtype)
-    _refuse_later(overrides.pop("quant", ""), overrides.pop("kv_quant", ""),
-                  overrides.get("lora_rank", 0))
+    _refuse_later(overrides.get("quant", ""), overrides.get("lora_rank", 0))
     return TransformerLM(
         vocab_size=vocab_size, n_layer=n_layer, n_head=n_head,
         d_model=d_model, max_len=max_len, dropout=dropout,
@@ -387,10 +386,13 @@ def tiny_moe_lm(vocab_size: int = 256, n_layer: int = 2, n_head: int = 4,
                 capacity_factor: float = 2.0, aux_loss_weight: float = 0.01,
                 attn_impl: str = "xla", remat: bool = False, mesh=None,
                 bfloat16: bool = False, fused_head: bool = False,
-                d_ff: int = 0, device=None, param_dtype=None):
-    """Small MoE config for tests and dry runs (``fused_head`` and
-    ``d_ff`` beyond the JAX registry's, for the card-vs-CPU check)."""
+                d_ff: int = 0, kv_quant: str = "", device=None,
+                param_dtype=None):
+    """Small MoE config for tests and dry runs (``fused_head``, ``d_ff``
+    and ``kv_quant`` beyond the JAX registry's, for the card-vs-CPU
+    checks)."""
     return _moe_lm(vocab_size, n_layer, n_head, d_model, max_len, dropout,
                    num_experts, top_k, moe_every, capacity_factor,
                    aux_loss_weight, bfloat16, attn_impl, remat, mesh, device,
-                   param_dtype, fused_head=fused_head, d_ff=d_ff)
+                   param_dtype, fused_head=fused_head, d_ff=d_ff,
+                   kv_quant=kv_quant)

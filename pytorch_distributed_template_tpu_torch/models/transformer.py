@@ -76,10 +76,31 @@ as ``GPT2`` and ``TinyLM`` with the JAX registry's defaults.
   ``models.lora.LoRADense`` (``models.quant.dense_factory``), as in the
   JAX family; the MoE experts and router stay dense.
 
-Left to later slices, each refused with a message naming it: decode
-caches (serving the GPT-2 family and ``MoeLM``, A6c.3's remainder), MoE
-blocks on a seq or tensor axis (A11d's remainder), w8a16 weights and int8
-KV (serving).
+- Decoding (serving, the JAX ``decode=True`` path): :meth:`TransformerLM.
+  new_cache` allocates per-layer contiguous caches ``[B, L, H, D]`` in the
+  compute dtype (int8 with f32 ``[B, L, H]`` scales under
+  ``kv_quant="int8"``) and ``forward(tokens, cache=...)`` feeds ``tokens``
+  at the cache's ``pos_index`` (the learned ``wpe`` rows of those
+  positions), writing each layer's K/V rows in place. A fresh-cache
+  ``prefill=True`` call with T > 1 attends through the flash kernel (B1)
+  and returns the last position's logits only; every other cached call
+  runs the masked plain attention over the filled prefix. Under int8 KV
+  the history rows are read dequantized and the call's own rows exactly,
+  as in JAX. Positions past ``pos_index`` are invisible, so a
+  speculative rewind is setting ``pos_index`` back. MoE blocks route over
+  the call's own tokens (no mesh, no ``example_mask``), as JAX's decode
+  does. :meth:`TransformerLM.kv_cache_spec` is JAX's contract: no rotary,
+  no window, not paged (a prefix pool serves this family through its
+  scatter arm, engine/kvcache.py), K/V at ``n_head`` heads.
+- ``quant="w8a16"`` (serving): the biased projections and an untied
+  head are ``models.quant.W8A16Dense``; the tied head attends through the
+  float embedding, as in JAX. MoE and ``fused_head`` refuse it
+  (``validate_quant_config``).
+
+Left to later slices, each refused with a message naming it: MoE blocks on
+a seq or tensor axis (A11d's remainder), decoding on a seq axis, and
+tensor-parallel serving of this family (A6a.5's remainder,
+parallel/tp.py).
 """
 from __future__ import annotations
 
@@ -98,8 +119,10 @@ from ..parallel.sharding import P
 from .layers import (
     dropout, embed, fold_in, layer_norm_f32, row_parallel, vocab_embed,
 )
+from .llama import DecodeCache, LayerCache
 from .moe import MoeMlp
-from .quant import check_lora_quant, dense_factory
+from .quant import check_lora_quant, dense_factory, validate_quant_config
+from .quant import dequantize_kv, quantize_kv
 
 _ATTN_IMPLS = ("xla", "flash") + SP_IMPLS
 _SLICE_MOE_SEQ = ("MoE blocks on a seq axis need the routing over the "
@@ -107,8 +130,6 @@ _SLICE_MOE_SEQ = ("MoE blocks on a seq axis need the routing over the "
 #: folded into the dropout seed with the seq index: the shards of one row
 #: must not repeat one mask
 SEQ_DROPOUT_SALT = 0x5E0
-_SLICE_GPT2_SERVING = ("serving the GPT-2 family (its decode caches) is a "
-                       "later slice")
 _SLICE_MOE_TENSOR = ("MoE blocks on a tensor axis (MoeMlp's expert rules "
                      "over tensor, B5 on a split FFN): ROADMAP A11d's "
                      "remainder, a later slice")
@@ -132,19 +153,20 @@ class LayerNorm(nn.Module):
         return layer_norm_f32(x, self.weight, self.bias, self.eps)
 
 
-def _biased(dtype, lora: dict, device):
+def _biased(dtype, lora: dict, device, quant: str = ""):
     """The family's biased projections (``dense_factory``): float32 params,
-    LoRA per ``lora`` (``lora_rank``, ``lora_alpha``)."""
+    LoRA per ``lora`` (``lora_rank``, ``lora_alpha``), int8 under
+    ``quant="w8a16"``."""
     return dense_factory(dtype, use_bias=True, param_dtype=torch.float32,
-                         device=device, **(lora or {}))
+                         device=device, quant=quant, **(lora or {}))
 
 
 class MlpBlock(nn.Module):
     def __init__(self, d_model: int, d_ff: int, rate: float, dtype,
-                 device=None, lora: dict = None):
+                 device=None, lora: dict = None, quant: str = ""):
         super().__init__()
         self.rate = rate
-        dense = _biased(dtype, lora, device)
+        dense = _biased(dtype, lora, device, quant)
         self.up = dense(d_model, d_ff)
         self.down = dense(d_ff, d_model)
         self.tp = None      # the tensor axis (``use_tensor_axis``)
@@ -162,26 +184,30 @@ class MlpBlock(nn.Module):
 class SelfAttention(nn.Module):
     def __init__(self, d_model: int, n_head: int, rate: float, dtype,
                  attn_impl: str, device=None, causal: bool = True,
-                 lora: dict = None):
+                 lora: dict = None, quant: str = ""):
         super().__init__()
         self.n_head, self.rate, self.attn_impl = n_head, rate, attn_impl
         self.causal = causal
         self.head_dim = d_model // n_head
-        dense = _biased(dtype, lora, device)
+        dense = _biased(dtype, lora, device, quant)
         self.qkv = dense(d_model, 3 * d_model)
         self.out = dense(d_model, d_model)
         self.tp = None      # the tensor axis (``use_tensor_axis``)
 
-    def forward(self, x, seed=None, sp=None):
+    def forward(self, x, seed=None, sp=None, cache=None, start: int = 0,
+                prefill: bool = False):
         """``sp``: ``(positions, layout, mesh)`` of the seq axis
-        (``TransformerLM.forward``), or None."""
+        (``TransformerLM.forward``), or None; ``cache``: this layer's
+        ``LayerCache`` for a decode call at position ``start``."""
         b, t, d_model = x.shape
         tp, heads = self.tp, self.n_head
         if tp is not None:
             x, heads = copy_to(x, tp.group), heads // tp.size
         qkv = self.qkv(x).view(b, t, 3, heads, self.head_dim)
         q, k, v = (qkv[:, :, i].contiguous() for i in range(3))
-        if self.attn_impl in SP_IMPLS:
+        if cache is not None:
+            ctx = self._cached_attention(q, k, v, cache, start, prefill)
+        elif self.attn_impl in SP_IMPLS:
             _, layout, mesh = sp or (None, "contig", None)
             ctx = sequence_attention(q, k, v, self.attn_impl, mesh,
                                      causal=self.causal, layout=layout)
@@ -194,6 +220,47 @@ class SelfAttention(nn.Module):
                                                             tp)
         return dropout(out, self.rate, seed, self.training)
 
+    def _cached_attention(self, q, k, v, cache: LayerCache, cur: int,
+                          prefill: bool):
+        """Decode against the layer cache (the JAX ``_cached_attention``),
+        writing this call's K/V rows at ``cur ..`` IN PLACE. ``prefill``
+        asserts a fresh cache: with T > 1 the call's own tokens are the
+        whole context and attention runs through the flash kernel (B1).
+        Otherwise the masked plain attention reads slots ``<= cur + i``
+        for query ``i``. An int8 cache stores quantized rows; attention
+        reads the history dequantized and the call's own rows exactly."""
+        if not self.causal:
+            raise ValueError("decode is autoregressive by construction; "
+                             "bidirectional attention has no decode mode")
+        t = q.shape[1]
+        cache_len = cache.k.shape[1]
+        if cur + t > cache_len:
+            raise ValueError(f"decode input ends at {cur + t}, past the "
+                             f"cache's {cache_len} slots")
+        fresh = prefill and t > 1
+        if cache.k_scale is not None:
+            if not fresh:
+                k_all = dequantize_kv(cache.k, cache.k_scale, k.dtype)
+                v_all = dequantize_kv(cache.v, cache.v_scale, v.dtype)
+                k_all[:, cur:cur + t] = k
+                v_all[:, cur:cur + t] = v
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+            cache.k[:, cur:cur + t] = kq
+            cache.v[:, cur:cur + t] = vq
+            cache.k_scale[:, cur:cur + t] = ks
+            cache.v_scale[:, cur:cur + t] = vs
+        else:
+            cache.k[:, cur:cur + t] = k.to(cache.k.dtype)
+            cache.v[:, cur:cur + t] = v.to(cache.v.dtype)
+            k_all, v_all = cache.k, cache.v
+        if fresh:
+            return flash_attention(q, k, v, causal=True)
+        q_pos = torch.arange(cur, cur + t, device=q.device)
+        visible = (torch.arange(cache_len, device=q.device)[None, :]
+                   <= q_pos[:, None])
+        return multihead_attention(q, k_all, v_all, causal=False,
+                                   mask=visible[None, None])
+
 
 class Block(nn.Module):
     """Pre-LN block: attention, then the dense MLP or, with ``moe`` (the
@@ -203,21 +270,24 @@ class Block(nn.Module):
     def __init__(self, d_model: int, n_head: int, d_ff: int, rate: float,
                  dtype, attn_impl: str, ln_eps: float, n_layer: int = 1,
                  moe: dict = None, device=None, causal: bool = True,
-                 lora: dict = None):
+                 lora: dict = None, quant: str = ""):
         super().__init__()
         self.ln_1 = LayerNorm(d_model, ln_eps, device=device)
         self.attn = SelfAttention(d_model, n_head, rate, dtype, attn_impl,
-                                  device=device, causal=causal, lora=lora)
+                                  device=device, causal=causal, lora=lora,
+                                  quant=quant)
         self.ln_2 = LayerNorm(d_model, ln_eps, device=device)
         if moe:
             self.moe = MoeMlp(d_model, d_ff, dropout=rate, n_layer=n_layer,
                               dtype=dtype, device=device, **moe)
         else:
             self.mlp = MlpBlock(d_model, d_ff, rate, dtype, device=device,
-                                lora=lora)
+                                lora=lora, quant=quant)
 
-    def forward(self, x, seed=None, example_mask=None, sp=None):
-        x = x + self.attn(self.ln_1(x), _site(seed, 1), sp)
+    def forward(self, x, seed=None, example_mask=None, sp=None, cache=None,
+                start: int = 0, prefill: bool = False):
+        x = x + self.attn(self.ln_1(x), _site(seed, 1), sp, cache, start,
+                          prefill)
         if hasattr(self, "moe"):
             y, aux = self.moe(self.ln_2(x), example_mask, _site(seed, 2),
                               sp[2] if sp is not None else None)
@@ -238,8 +308,14 @@ class TransformerLM(nn.Module):
                  moe_every: int = 2, moe_capacity_factor: float = 1.25,
                  moe_aux_loss_weight: float = 0.01, mesh=None,
                  seq_layout: str = "natural", lora_rank: int = 0,
-                 lora_alpha: float = 16.0, device=None):
+                 lora_alpha: float = 16.0, quant: str = "",
+                 kv_quant: str = "", device=None):
         super().__init__()
+        check_lora_quant(quant, lora_rank)
+        validate_quant_config(quant, fused_head, moe_experts)
+        if kv_quant not in ("", "int8"):
+            raise ValueError(f"unknown kv_quant {kv_quant!r}")
+        self.quant, self.kv_quant = quant, kv_quant
         if attn_impl not in _ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r}; expected one of "
                              f"{_ATTN_IMPLS}")
@@ -265,7 +341,7 @@ class TransformerLM(nn.Module):
             Block(d_model, n_head, d_ff, dropout, dtype, attn_impl, ln_eps,
                   n_layer=n_layer,
                   moe=moe if self._is_moe_layer(i) else None, device=device,
-                  lora=lora)
+                  lora=lora, quant=quant)
             for i in range(n_layer))
         self.aux_loss = None
         self.ln_f = LayerNorm(d_model, ln_eps, device=device)
@@ -273,7 +349,7 @@ class TransformerLM(nn.Module):
             # a fused head hands its plain kernel to the loss (JAX's
             # ``_HeadKernel``): no adapters there
             self.lm_head = dense_factory(
-                dtype, param_dtype=torch.float32, device=device,
+                dtype, param_dtype=torch.float32, device=device, quant=quant,
                 **({} if fused_head else lora))(d_model, vocab_size)
         self.seq_layout = seq_layout
         # the parallel mesh whose seq axis the SP impls run over
@@ -354,7 +430,11 @@ class TransformerLM(nn.Module):
         """Random init from ``generator`` with the flax module's law."""
         resid = 0.02 / (2 * self.n_layer) ** 0.5
         for name, p in self.named_parameters():
-            if name == "wpe":
+            if not p.is_floating_point():
+                continue                 # w8a16 kernels: from a converter
+            if name.endswith(".scale"):
+                p.fill_(1.0)
+            elif name == "wpe":
                 p.normal_(0.0, 0.01, generator=generator)
             elif ".ln_" in name or name.startswith("ln_f."):
                 p.fill_(1.0 if name.endswith("weight") else 0.0)
@@ -366,26 +446,76 @@ class TransformerLM(nn.Module):
             else:
                 p.normal_(0.0, 0.02, generator=generator)
 
-    def new_cache(self, *args, **kwargs):
-        raise NotImplementedError(_SLICE_GPT2_SERVING)
+    def new_cache(self, batch: int, length: int) -> DecodeCache:
+        """Zeroed decode cache for a ``[batch, length]`` budget: per layer
+        K/V ``[B, L, H, D]`` in the compute dtype, or int8 with f32
+        ``[B, L, H]`` scales under ``kv_quant`` (zero rows decode to
+        zeros, as JAX's zeroed caches)."""
+        shape = (int(batch), int(length), self.n_head, self.head_dim)
+        dev = self.device
+        layers = []
+        for _ in range(self.n_layer):
+            if self.kv_quant:
+                layers.append(LayerCache(
+                    torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.zeros(shape, dtype=torch.int8, device=dev), None,
+                    torch.zeros(shape[:3], dtype=torch.float32, device=dev),
+                    torch.zeros(shape[:3], dtype=torch.float32,
+                                device=dev)))
+            else:
+                layers.append(LayerCache(
+                    torch.zeros(shape, dtype=self.dtype, device=dev),
+                    torch.zeros(shape, dtype=self.dtype, device=dev)))
+        return DecodeCache(layers)
 
     def kv_cache_spec(self) -> dict:
-        raise NotImplementedError(_SLICE_GPT2_SERVING)
+        """The decode-cache layout contract engine/kvcache.py reads (the
+        JAX ``kv_cache_spec``): positions live in the learned embedding, so
+        cached rows carry no rotation and copy verbatim; no paged call
+        path (a prefix pool serves through its scatter arm); K/V at all
+        ``n_head`` heads."""
+        return {"rotary": False, "rope_base": 0.0, "window": 0,
+                "kv_quant": self.kv_quant, "paged": False,
+                "kv_heads": int(self.n_head)}
 
-    def forward(self, tokens, dropout_seed=None, example_mask=None):
+    def forward(self, tokens, dropout_seed=None, example_mask=None,
+                cache=None, prefill: bool = False):
         """tokens ``[B, T]`` -> f32 logits ``[B, T, V]``, or ``(hidden,
         head_w)`` in the compute dtype with ``fused_head``; on a seq axis
         S > 1 the shard's ``[B, T / S, ...]`` (:meth:`seq_shard`).
         ``dropout_seed`` seeds every dropout mask of the call (needed in
         training mode when dropout > 0). ``example_mask`` ([B] bool) marks
         the real rows of a padded batch for the MoE blocks (dense blocks
-        are per token and ignore it). Sets ``self.aux_loss``."""
+        are per token and ignore it). Sets ``self.aux_loss``.
+
+        With a ``DecodeCache`` (:meth:`new_cache`): decode forward from
+        ``cache.pos_index``, which advances by ``T``; ``prefill=True``
+        asserts the cache is fresh and returns the last position's logits
+        only (``[B, 1, V]``)."""
         b, t = tokens.shape
         if t > self.max_len:
             raise ValueError(f"sequence {t} exceeds max_len {self.max_len}")
         dt = self.dtype
-        shard, layout = self._seq_plan(t)
-        if shard is None:
+        start = 0
+        if cache is not None:
+            if self.mesh is not None and self.mesh.axis_size("seq") > 1:
+                raise NotImplementedError("decoding on a seq axis is a "
+                                          "later slice (serving over "
+                                          "parallel axes)")
+            start = cache.pos_index
+            if prefill and start != 0:
+                raise ValueError("prefill=True needs a fresh cache "
+                                 f"(pos_index is {start})")
+            if start + t > self.max_len:
+                raise ValueError(f"decode positions end at {start + t}, "
+                                 f"past max_len {self.max_len}")
+            cache.pos_index = start + t
+            shard, layout = None, "contig"
+        else:
+            shard, layout = self._seq_plan(t)
+        if cache is not None:
+            pos = self.wpe[start:start + t]
+        elif shard is None:
             pos = self.wpe[:t]
         else:
             # this rank's shard: its tokens and its global positions' rows
@@ -394,7 +524,9 @@ class TransformerLM(nn.Module):
             if dropout_seed is not None:
                 dropout_seed = fold_in(dropout_seed, SEQ_DROPOUT_SALT,
                                        shard.index)
-        sp = (None if shard is None else shard.positions, layout, self.mesh)
+        sp = (None if cache is not None
+              else (None if shard is None else shard.positions, layout,
+                    self.mesh))
         tp = self.tp
         x = (embed(self.wte.weight, tokens, dt) if tp is None
              else vocab_embed(self.wte.weight, tokens, dt, tp))
@@ -403,7 +535,10 @@ class TransformerLM(nn.Module):
         aux_total = None
         for i, block in enumerate(self.h):
             seed = _site(dropout_seed, i + 1)
-            if self.remat and torch.is_grad_enabled():
+            if cache is not None:
+                x, aux = block(x, seed, example_mask, None, cache.layers[i],
+                               start, prefill)
+            elif self.remat and torch.is_grad_enabled():
                 x, aux = checkpoint(block, x, seed, example_mask, sp,
                                     use_reentrant=False)
             else:
@@ -412,14 +547,18 @@ class TransformerLM(nn.Module):
                 aux_total = aux if aux_total is None else aux_total + aux
         self.aux_loss = aux_total
         x = self.ln_f(x)
-        w = self.wte.weight if self.tie_embeddings else self.lm_head.weight
-        if self.fused_head:
+        if cache is not None and prefill and t > 1:
+            x = x[:, -1:]
+        if self.fused_head and cache is None:
+            w = (self.wte.weight if self.tie_embeddings
+                 else self.lm_head.weight)
             if tp is not None:
                 w = gather_replicated(w, 0, tp.group)
             return x.to(dt), w.t().to(dt)
         if tp is not None:
             x = copy_to(x, tp.group)
         if self.tie_embeddings:
+            w = self.wte.weight
             logits = (x.to(dt) @ w.to(dt).t()).float()
         else:
             logits = self.lm_head(x).float()
@@ -428,12 +567,8 @@ class TransformerLM(nn.Module):
         return logits
 
 
-def _refuse_later(quant="", kv_quant="", lora_rank=0) -> None:
+def _refuse_later(quant="", lora_rank=0) -> None:
     check_lora_quant(quant, lora_rank)
-    if quant or kv_quant:
-        raise NotImplementedError(
-            f"quant={quant!r} / kv_quant={kv_quant!r}: "
-            f"{_SLICE_GPT2_SERVING}")
 
 
 _GPT2_SIZES = {
@@ -465,8 +600,7 @@ def gpt2(size: str = "gpt2-small", vocab_size: int = 50257,
     _check_param_dtype(param_dtype)
     cfg = dict(_GPT2_SIZES[size])
     cfg.update(overrides)
-    _refuse_later(cfg.pop("quant", ""), cfg.pop("kv_quant", ""),
-                  cfg.get("lora_rank", 0))
+    _refuse_later(cfg.get("quant", ""), cfg.get("lora_rank", 0))
     return TransformerLM(vocab_size=vocab_size, max_len=max_len,
                          dropout=dropout, dtype=_dtype(bfloat16),
                          attn_impl=attn_impl, remat=remat,
@@ -484,7 +618,7 @@ def tiny_lm(vocab_size: int = 256, n_layer: int = 2, n_head: int = 4,
             lora_alpha: float = 16.0, device=None, param_dtype=None):
     """Small config for tests and dry runs."""
     _check_param_dtype(param_dtype)
-    _refuse_later(quant, kv_quant, lora_rank)
+    _refuse_later(quant, lora_rank)
     return TransformerLM(vocab_size=vocab_size, n_layer=n_layer,
                          n_head=n_head, d_model=d_model, max_len=max_len,
                          dropout=dropout, dtype=_dtype(bfloat16),
@@ -492,4 +626,5 @@ def tiny_lm(vocab_size: int = 256, n_layer: int = 2, n_head: int = 4,
                          fused_head=fused_head,
                          tie_embeddings=tie_embeddings, mesh=mesh,
                          seq_layout=seq_layout, lora_rank=lora_rank,
-                         lora_alpha=lora_alpha, device=device)
+                         lora_alpha=lora_alpha, quant=quant,
+                         kv_quant=kv_quant, device=device)

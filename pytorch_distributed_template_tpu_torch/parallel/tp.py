@@ -142,7 +142,8 @@ def validate_tp_geometry(model, tp: int) -> None:
     in one message, before any rank starts; a model without
     ``partition_rules()`` is refused at tp > 1 (an artifact's recorded
     geometry: ``checkpoint.check_artifact_tp_geometry``), and a sparse
-    model (MoE blocks) by name as ROADMAP A6c.3's remainder."""
+    model (MoE blocks) by name as ROADMAP A6c.3's remainder, the GPT-2
+    family as A6a.5's and w8a16 weights as A4's."""
     tp = int(tp)
     if tp <= 1:
         return
@@ -151,6 +152,15 @@ def validate_tp_geometry(model, tp: int) -> None:
             f"tensor_parallel={tp} on {type(model).__name__}'s MoE blocks: "
             "MoE under tensor-parallel serving is ROADMAP A6c.3's "
             "remainder, a later slice")
+    if not hasattr(model, "n_kv_head") and hasattr(model, "n_head"):
+        raise NotImplementedError(
+            f"tensor_parallel={tp} on the GPT-2 family "
+            f"({type(model).__name__}): tensor-parallel serving of the "
+            "GPT-2 family is ROADMAP A6a.5's remainder, a later slice")
+    if str(getattr(model, "quant", "") or ""):
+        raise NotImplementedError(
+            f"tensor_parallel={tp} on w8a16 weights: sharding the int8 "
+            "kernels is ROADMAP A4's remainder, a later slice")
     if not hasattr(model, "partition_rules"):
         raise ValueError(
             f"{type(model).__name__} declares no partition_rules(): "

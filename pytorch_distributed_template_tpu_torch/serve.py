@@ -1,6 +1,7 @@
 """HTTP serving CLI of the port: the counterpart of the repository's root
-``serve.py``, serving a params-only artifact on the continuous slot engine
-over the paged KV pool (or one request at a time).
+``serve.py``, serving a params-only artifact (or a training checkpoint)
+on the continuous slot engine over the paged KV pool, on the static
+micro-batch scheduler, or one request at a time.
 
     python -m pytorch_distributed_template_tpu_torch.serve \\
         -r <artifact>/model \\
@@ -12,7 +13,9 @@ over the paged KV pool (or one request at a time).
 Endpoints:
 
 - ``POST /generate``: ``prompt`` or ``prompt_ids``, ``max_new_tokens``,
-  ``temperature``, ``top_k``, ``top_p``, ``seed``, ``stop``, ``stream``.
+  ``temperature``, ``top_k``, ``top_p``, ``seed``, ``stop``,
+  ``speculative`` (draft length of a batch-1 speculative request; the
+  response adds its ``speculative`` stats), ``stream``.
   ``"stream": true`` answers with server-sent events: one ``data:`` line
   per absorbed batch of new ids (``{"ids": [...]}``, the deltas
   concatenate to the final ids), then the full response with ``"done":
@@ -21,8 +24,16 @@ Endpoints:
 - ``GET /metrics?format=json``: the engine's ``stats`` and the pool's
   ``stats_snapshot``.
 
-``--scheduler auto`` runs the continuous engine when the paged pool is
-enabled and ``--max-batch`` > 1, and the serialized service otherwise.
+``--scheduler auto`` is the JAX rule: the continuous engine when the model
+is pad-capable (the Llama family without a window) or has a window and a
+prefix pool, the static micro-batcher (engine/serving.py
+``BatchedGenerationService``) for other models (the GPT-2 family) when
+``--max-batch`` > 1, else one request at a time. The port's continuous
+engine runs over the paged pool only: when ``auto`` picks it and
+``--prefix-cache`` is ``auto`` with no pool configured, the pool is turned
+on with its default geometry. ``/healthz`` (``batching``) and
+``/metrics?format=json`` (``stats``) report the scheduler's counters
+(the static one's ``batches``, ``max_batch_size``, ...).
 Runs on CUDA unless ``--device cpu``. ``--port 0`` binds a free port,
 printed on the ``READY <url>`` line.
 
@@ -39,10 +50,10 @@ process stops serving and exits non-zero. ``/metrics?format=json`` adds
 ``tp_collective_floor_bytes``, ``tp_<op>_count_per_step`` /
 ``tp_<op>_bytes_per_step``).
 
-Left to later slices, each refused with a message naming it: the static
-micro-batch scheduler, ``--role`` (ROADMAP A3a.4), the spill tiers
-(A3a.3), ``POST /profile``, the page shipping endpoints (A3a.4),
-``/admin/*`` and the Prometheus text of ``/metrics``.
+Left to later slices, each refused with a message naming it: ``--role``
+(ROADMAP A3a.4), the spill tiers (A3a.3), ``POST /profile``, the page
+shipping endpoints (A3a.4), ``/admin/*`` and the Prometheus text of
+``/metrics``.
 """
 from __future__ import annotations
 
@@ -57,7 +68,10 @@ import torch
 from . import models  # noqa: F401  (registers the model families)
 from .config import ConfigParser
 from .engine.continuous import ContinuousBatchingService
-from .engine.serving import GenerationService, load_generation_stack
+from .engine.generate import pad_capable
+from .engine.serving import (
+    BatchedGenerationService, GenerationService, load_generation_stack,
+)
 from .parallel.tp import validate_dp_geometry
 
 logger = logging.getLogger(__name__)
@@ -93,9 +107,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="how long an idle engine waits to group arrivals")
     p.add_argument("--scheduler", default="auto",
                    choices=("auto", "continuous", "static", "none"),
-                   help="auto = continuous over the paged pool when it is "
-                        "enabled and --max-batch > 1, else none (one "
-                        "request at a time); static is a later slice")
+                   help="auto = continuous for pad-capable models (or a "
+                        "window with a pool), static for the others when "
+                        "--max-batch > 1, else none (one request at a "
+                        "time)")
     p.add_argument("--prefix-cache", default="auto",
                    choices=("auto", "on", "off"),
                    help="paged KV prefix pool: auto follows the config's "
@@ -124,10 +139,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_later(args) -> None:
-    if args.scheduler == "static":
-        raise NotImplementedError(
-            "--scheduler static (the micro-batch BatchedGenerationService) "
-            "is a later slice of the port")
     if args.role != "both":
         raise NotImplementedError(
             f"--role {args.role} (disaggregated prefill/decode with page "
@@ -153,9 +164,11 @@ def build_service(args, config) -> GenerationService:
         prefix_cfg["prefill_chunk_tokens"] = chunk
     tp = int(args.tp or 0) or int(serving.get("tensor_parallel") or 1)
     dp = max(int(args.dp), 1)
+    draft_layers = int(serving.get("speculative_draft_layers") or 0)
     continuous = dict(slots=args.max_batch, chunk=args.decode_chunk,
                       window_ms=args.batch_window_ms,
-                      prefix_cache=prefix_cfg, prefill_chunk_tokens=chunk)
+                      prefix_cache=prefix_cfg, prefill_chunk_tokens=chunk,
+                      spec_draft_layers=draft_layers)
     if dp > 1:
         # validated before any load: a geometry typo fails at once
         validate_dp_geometry(dp, tp, args.device or "cuda")
@@ -171,19 +184,40 @@ def build_service(args, config) -> GenerationService:
                                        tensor_parallel=tp)
     want = args.scheduler
     if want == "auto":
-        want = ("continuous" if prefix_cfg.get("enabled")
-                and prefix_cfg.get("paged", True) and args.max_batch > 1
-                else "none")
+        want = auto_scheduler(model, prefix_cfg, args.max_batch)
+        if (want == "continuous" and args.prefix_cache == "auto"
+                and not prefix_cfg.get("enabled")):
+            # the port's continuous engine runs over the paged pool
+            logger.info("scheduler auto: continuous engine over a default "
+                        "paged pool")
+            prefix_cfg.update(enabled=True, paged=True)
     try:
         if want == "continuous":
             return ContinuousBatchingService.from_model(
                 model, tok, device=model.device, **continuous)
+        if want == "static":
+            return BatchedGenerationService.from_model(
+                model, tok, device=model.device, max_batch=args.max_batch,
+                window_ms=args.batch_window_ms, prefix_cache=prefix_cfg,
+                spec_draft_layers=draft_layers)
         return GenerationService.from_model(model, tok, device=model.device,
-                                            prefix_cache=prefix_cfg)
+                                            prefix_cache=prefix_cfg,
+                                            spec_draft_layers=draft_layers)
     except BaseException:
         if hasattr(model, "close"):
             model.close()
         raise
+
+
+def auto_scheduler(model, prefix_cfg: dict, max_batch: int) -> str:
+    """The JAX ``--scheduler auto`` rule: ``"continuous"`` for a
+    pad-capable model, or a windowed one with a prefix pool enabled,
+    ``"static"`` for the others when ``max_batch`` > 1, else ``"none"``."""
+    ring_ok = (int(getattr(model, "window", 0) or 0) > 0
+               and bool(prefix_cfg.get("enabled")))
+    if (pad_capable(model) or ring_ok) and int(max_batch) > 1:
+        return "continuous"
+    return "static" if int(max_batch) > 1 else "none"
 
 
 def _groups(service) -> list:

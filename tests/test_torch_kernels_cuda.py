@@ -147,6 +147,24 @@ def test_flash_fwd_bf16_tile_edges(cuda, d, h, kvh, t, causal, window):
     torch.testing.assert_close(lse, ref_lse, atol=TOL_LSE, rtol=0.0)
 
 
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("t", [37, 512])
+def test_flash_fwd_at_gpt2_prefill_shapes(cuda, b, t):
+    """The GPT-2 family's fresh-cache prefill (GPT-2 small's 12 heads of
+    64, causal, bf16) alone and in a static batch of 8, a short and a
+    long prompt: one launch, against the plain version."""
+    q, k, v = _qkv(cuda, b, t, 12, 12, 64, torch.bfloat16, seed=b + t)
+    before = flash.FLASH_FWD.launches
+    out, lse = flash.flash_attention_lse(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash.FLASH_FWD.launches == before + 1
+    ref_out, ref_lse = flash.flash_attention_ref(
+        q.float(), k.float(), v.float(), causal=True)
+    atol, rtol = TOL_OUT[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out, atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=TOL_LSE, rtol=0.0)
+
+
 @pytest.mark.parametrize("b", [2, 16])
 def test_flash_vit_b16_attention(cuda, b):
     """ViT-B/16's attention: 12 heads x 197 tokens (196 patches and the
@@ -629,6 +647,26 @@ def test_expert_ffn_bf16_tile_edges(cuda, bias, e, c, d, f):
     assert bool(torch.isfinite(out).all())
     _assert_ffn_close(out, ffn.expert_ffn_ref(x, wi, wo, bi, bo),
                       torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [1, 3, 8])
+def test_expert_ffn_at_decode_capacities(cuda, dtype, c):
+    """MoeLM's decode calls (moelm_stdlib.json's E 8, D 512, F 1024 with
+    biases): C = ceil(2 B 1.25 / 8) slots per expert, 1 at batch 1, 3 at
+    batch 8, 8 at a 25-token prefill; one launch each, against the plain
+    version."""
+    from pytorch_distributed_template_tpu_torch.ops import expert_ffn as ffn
+
+    x, wi, wo, bi, bo = _ffn_inputs(cuda, 8, c, 512, 1024, dtype, True,
+                                    seed=c)
+    before = ffn.EXPERT_FFN.launches
+    out = ffn.expert_ffn(x, wi, wo, bi, bo)
+    torch.cuda.synchronize()
+    assert ffn.EXPERT_FFN.launches == before + 1
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    _assert_ffn_close(out, ffn.expert_ffn_ref(x, wi, wo, bi, bo), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

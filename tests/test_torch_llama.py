@@ -134,6 +134,17 @@ def test_later_slices_refuse(arg, value):
         assert cache.layers[0].k.dtype == torch.int8
         assert cache.layers[0].k_scale.dtype == torch.float32
         return
+    if arg == "quant":
+        # ported with w8a16 serving weights: every projection and the head
+        # hold an int8 kernel and a per-channel scale
+        from pytorch_distributed_template_tpu_torch.models.quant import (
+            W8A16Dense,
+        )
+
+        model = TMODELS.get("TinyLlama")(quant=value, device="cpu")
+        assert sum(isinstance(m, W8A16Dense)
+                   for m in model.modules()) == 2 * 7 + 1
+        return
     if arg == "lora_rank":
         # ported with LoRA: the projections and the head take adapters
         model = TMODELS.get("TinyLlama")(lora_rank=value, device="cpu")

@@ -8,8 +8,9 @@ HTTP to it.
   continuous engine over the paged pool, equal to the solo service;
 - ``GET /healthz`` and ``GET /metrics?format=json`` (engine stats + pool
   snapshot);
-- a bad request is a 400; the static scheduler and page shipping are
-  refused, naming the later slice.
+- a bad request is a 400; page shipping, roles and the spill tiers are
+  refused, naming the later slice (the static scheduler is served:
+  tests/test_torch_static_batch.py).
 """
 import json
 import threading
@@ -124,7 +125,8 @@ def test_bad_and_later_slice_requests(server):
 # --tp and --dp are served (tests/test_torch_tp_serving_ranks.py); beside
 # them the later slices' flags still refuse, before anything loads
 @pytest.mark.parametrize("flags", [
-    ["--scheduler", "static"], ["--tp", "2", "--role", "decode"],
+    ["--scheduler", "static", "--spill-blocks", "8"],
+    ["--tp", "2", "--role", "decode"],
     ["--dp", "2", "--spill-blocks", "8"],
     ["--role", "decode"], ["--spill-blocks", "8"],
 ])

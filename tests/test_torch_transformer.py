@@ -217,8 +217,22 @@ def test_later_slices_refuse_by_name(arg, value):
         model = TM.get("TinyLM")(lora_rank=value, device="cpu")
         assert sum(n.endswith("lora_a")
                    for n, _ in model.named_parameters()) == 2 * 4
+    elif arg == "quant":
+        # ported with w8a16 serving weights: the biased projections hold
+        # int8 kernels; the tied head stays the float embedding
+        from pytorch_distributed_template_tpu_torch.models.quant import (
+            W8A16Dense,
+        )
+
+        model = TM.get("TinyLM")(quant=value, device="cpu")
+        assert sum(isinstance(m, W8A16Dense)
+                   for m in model.modules()) == 2 * 4
     else:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TM.get("TinyLM")(**{arg: value}, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TM.get("TinyLM")(device="cpu").new_cache(1, 8)
+        # ported with the decode caches: int8 rows with f32 scales
+        cache = TM.get("TinyLM")(**{arg: value}, device="cpu").new_cache(
+            1, 8)
+        assert cache.layers[0].k.dtype == torch.int8
+        assert cache.layers[0].k_scale.shape == (1, 8, 4)
+    # the decode cache is ported: [B, L, H, D] per layer
+    cache = TM.get("TinyLM")(device="cpu").new_cache(1, 8)
+    assert cache.layers[0].k.shape == (1, 8, 4, 16)
