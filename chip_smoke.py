@@ -5,7 +5,7 @@
 
 Phases, in order (1, 2, 2b, 2c, 2d, 3, 3b, 3c, 3d, 3e, 4, 5, 6, 7, 8, 9,
 10, 11, 12, 13, 14a, 14b, 14c, 15a-15f, 16a-16g, 17a-17d, 18a-18c,
-19a-19c, 20a-20c, 21a-21e), each
+19a-19c, 20a-20c, 21a-21e, 22a, 22), each
 one's time
 printed beside the card line; any failure exits non-zero and no phase's
 exception is caught:
@@ -472,12 +472,44 @@ new kernel) adds, after 20c and before the work directory goes:
     counts): weight bytes, peak memory, TTFT and ms/token beside phase
     5's. Phase 21's total time is printed.
 
+Slice 17 (page shipping between a prefill-role and a decode-role server,
+the KV spill tiers, the SIGTERM drain; B4 over pages that came in by a
+host-to-device copy, no new kernel) adds:
+
+22a. phase 3b's small f32 Llama (its window off) on the card and the CPU,
+    f32 and int8 pools: pages exported on the card import into a CPU pool
+    and the other way, each decoding the colocated greedy ids; the card's
+    ``serialize_pages`` of a set of leaves byte-equal to the CPU's (f32,
+    bf16, int8); B4 over the imported pages against its plain version;
+22. phase 4's Mistral-7B artifact (loaded once for the bf16 pools, once
+    for the int8 ones) served by the port's ``serve.py`` as a ``--role
+    prefill``, a ``--role decode`` and a colocated server, each with its
+    own pool. 22b: cell (e)'s 8 prompts
+    ``POST /prefill`` -> ``/admit_pages``, then one ordered wave on the
+    decode server whose ids must equal the colocated warm repeat's (the
+    colocated pool computed with ``/prefill``); agreement with a cold (e)
+    wave reported; the prefill server's shipped bytes against the decode
+    server's imported plus already pooled ones, exactly; the TTFT of a
+    shipped 1024-token prompt against a colocated cold one; then the same
+    over int8 pools (cell (g); the first int8 server loads through
+    ``--set serving;kv_quant int8``, the other two serve its weights).
+    22c: a decode server of ``small_pool`` pages over a host tier and a
+    disk tier: the first prompts' pages, evicted to the tiers by the
+    others' imports, promote when those prompts come again, with their
+    first ids, some read back from disk and none failing its checksum; a
+    ``corrupt_spill`` fault
+    makes the tier's newest entry read as a miss, and the request gives
+    the ids of a server holding only the blocks that verified. Every wave
+    counts B4 = n_layer x model calls and B1 = 0, every prefill B4 on the
+    wgmma arm; demote and promote ms per block printed.
+
 The last three lines of standard output are the card's name and power
 limit as nvidia-smi gives them, the ``kernels`` JSON line (flash_fwd with
 the launches of slices 1, 3, 4, 6, 7, 8, 9, 10, 11 and 13 (rank 0's of
 18b/18c and 20b/20c), 14 and 16 (21b-21d), paged_attn with slice 2's,
 14's (the card-0 process's of 19b/19c: this process for the tp-1 runs,
-rank 0 of group 0 for the others), 15's (20a) and 16's (21e),
+rank 0 of group 0 for the others), 15's (20a), 16's (21e) and 17's
+(22),
 flash_bwd_dkv and flash_bwd_dq with slices 3, 4, 6, 7, 8, 9, 10, 11, 13
 and 15, expert_ffn with slice 4's and 16's (21d); phase 14a's block
 shapes, phase 15b's ViT shapes, phase 16b's BERT shape, phase 18a's
@@ -536,7 +568,7 @@ KERNEL_SHAPES = [
 TOL = {torch.bfloat16: (1e-2, 1.6e-2, 1e-3),
        torch.float32: (1e-4, 0.0, 1e-4)}
 # the main path: Mistral at the registry's (published) widths, cut to 12
-# of its 32 layers in the full script (phases 4, 5, 21e and, with four
+# of its 32 layers in the full script (phases 4, 5, 21e, 22 and, with four
 # cards, 19c serve this artifact) to pay for phases 20 and 21 within the
 # time limit (16 layers before; the full script from git archive took
 # 1,184 s of its 1,200 on a slow host with 16 on an H100)
@@ -1361,7 +1393,7 @@ class ServeRun:
     """The port's ``serve.py`` running in this process: ``main`` in a
     thread on a free port, stopped by :meth:`close`."""
 
-    def __init__(self, argv, timeout=900.0):
+    def __init__(self, argv, timeout=900.0, model=None):
         import threading
 
         from pytorch_distributed_template_tpu_torch import serve
@@ -1374,7 +1406,7 @@ class ServeRun:
 
         def target():
             try:
-                serve.main(argv, on_ready)
+                serve.main(argv, on_ready, model=model)
             except BaseException as e:  # noqa: BLE001 — raised below
                 self.errors.append(e)
                 ready.set()
@@ -1451,7 +1483,9 @@ class ServeWave:
         self.card, self.device = card, device
         self.b4_launches = 0
 
-    def run(self, label, service, drive, n_new: int):
+    def run(self, label, service, drive, n_new: int, copy_bytes: int = 0):
+        """``copy_bytes``: the warm-admit copy bytes the pool must show
+        after the wave (a decode server's: its imported pages' bytes)."""
         from pytorch_distributed_template_tpu_torch.ops.flash import (
             FLASH_FWD, PAGED_ARM_LAUNCHES, PAGED_ATTN,
         )
@@ -1497,9 +1531,10 @@ class ServeWave:
         for r in results:
             _check_ids(r["ids"], vocab, r.get("new", n_new), f"({label})")
         pool = service.prefix_cache_stats()
-        if pool["warm_admit_copy_bytes"] != 0:
+        if pool["warm_admit_copy_bytes"] != copy_bytes:
             raise AssertionError(f"({label}) warm admits copied "
-                                 f"{pool['warm_admit_copy_bytes']} bytes")
+                                 f"{pool['warm_admit_copy_bytes']} bytes "
+                                 f"(expected {copy_bytes})")
         peak = torch.cuda.max_memory_allocated() if is_cuda else 0
         for i, r in enumerate(results):
             n = len(r["ids"])
@@ -1612,13 +1647,15 @@ def _logit_check(service, n: int, seed: int) -> dict:
 
 
 def phase_serve(card: str, model_path, config=SERVE_CONFIG, device="cuda",
-                sizes=None, work=WORK, seed: int = 0) -> int:
+                sizes=None, work=WORK, seed: int = 0, record=None) -> int:
     """Slice 2's main path: the port's ``serve.py`` on the artifact with
     the paged config, driven over HTTP. (e) 8 concurrent greedy requests
     of 256-2048 tokens, half sharing a 1024-token prefix; one of them
     alone, twice; (f) a 6144-token prompt streamed in 512-token chunks
     while 4 short requests decode; (g) the mix of (e) again with an int8
-    pool. Returns B4's launches on the path."""
+    pool (``--set serving;kv_quant int8``). ``record``: a dict
+    that gets (e)'s ids (``"e_ids"``; phase 22's cold run). Returns B4's
+    launches on the path."""
     sizes = dict(SERVE_SIZES, **(sizes or {}))
     run_dir = work / "serve_run"
     base = ["-r", str(model_path), "-c", str(config), "-s", str(run_dir),
@@ -1644,6 +1681,8 @@ def phase_serve(card: str, model_path, config=SERVE_CONFIG, device="cuda",
     waves = ServeWave(card, device)
     try:
         e_out = _mix_e(run, waves, "e", sizes, prompts)
+        if record is not None:
+            record["e_ids"] = [r["ids"] for r in e_out]
         solo = [waves.run(f"e_alone_{i}", svc, lambda: [stream_request(
             run, {"prompt_ids": prompts[-1],
                   "max_new_tokens": sizes["new"]})], sizes["new"])[0]
@@ -3569,7 +3608,9 @@ def phase_optim_full(card: str, device="cuda",
     return rows
 
 
-LM_CORPUS_MB = 2.0
+# phase 12's corpus (and, kept, 16c-16d's): 1 MB since phase 22 (2 MB
+# before; its BPE fit took ~15 s of the host's time)
+LM_CORPUS_MB = 1.0
 BYTELM_CONFIG = REPO / "configs" / "bytelm_stdlib.json"
 BYTELM_SETS = [("trainer;epochs", 1)]
 BPELM_CONFIG = REPO / "configs" / "bpelm_stdlib.json"
@@ -7702,6 +7743,581 @@ def phase_mistral_w8a16(card: str, model_path, config=SERVE_CONFIG,
     return waves.b4_launches
 
 
+# ---------------------------------------------------------------------------
+# slice 17: page shipping between roles and the KV spill tiers (B4 over
+# pages that arrive by a host-to-device copy)
+# ---------------------------------------------------------------------------
+
+# 22a: phase 3b's small f32 Llama without its window (whole prompts stay in
+# the radix and ship), block 8, one request at a time
+SHIP_REF_ARCH = dict(REF_ARCH, window=0)
+SHIP_REF_PROMPTS = (29, 44, 70)
+SHIP_REF_NEW = 12
+# 22b / 22c over phase 4's artifact: 22c's decode server holds
+# ``small_pool`` pages (cell (e)'s prompts take ~250 with their decodes)
+# over a host tier of ``host_spill`` pages whose overflow goes to disk
+# (``disk_spill`` pages); its ``first`` prompts are asked again after the
+# others evicted them; ``ttft_prompt`` tokens for the TTFT pair
+SHIP_SIZES = {"small_pool": 160, "host_spill": 16, "disk_spill": 512,
+              "first": 2, "ttft_prompt": 1024}
+# a compared wave's batching window: the wave's requests, sent in order
+# SHIP_GAP_S apart, are all pending at the engine's first tick, so two
+# servers schedule one wave alike
+SHIP_WINDOW_S = 0.6
+SHIP_GAP_S = 0.05
+
+
+def _post(run: ServeRun, path: str, body, headers=None) -> tuple:
+    """One POST: ``(response headers, body bytes, seconds)``; any status
+    but 200 raises."""
+    import http.client
+
+    data = body if isinstance(body, bytes) else json.dumps(body).encode()
+    conn = http.client.HTTPConnection(run.host, run.port, timeout=1200)
+    t0 = time.perf_counter()
+    conn.request("POST", path, body=data, headers=dict(headers or {}))
+    resp = conn.getresponse()
+    out = resp.read()
+    dt = time.perf_counter() - t0
+    conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"POST {path}: {resp.status} {out[:500]!r}")
+    return dict(resp.getheaders()), out, dt
+
+
+def _admit(run: ServeRun, blob: bytes) -> tuple:
+    """``POST /admit_pages``: ``(receipt, seconds)``."""
+    _, out, dt = _post(run, "/admit_pages", blob,
+                       {"Content-Type": "application/octet-stream"})
+    return json.loads(out), dt
+
+
+def _metrics(run: ServeRun) -> dict:
+    return json.loads(_http_get(run, "/metrics?format=json"))
+
+
+def _ordered_wave(run: ServeRun, bodies) -> list:
+    """The bodies as one wave of streamed requests, sent in order
+    ``SHIP_GAP_S`` apart inside a ``SHIP_WINDOW_S`` batching window."""
+    import threading
+
+    svc = run.service
+    window, svc._window_s = svc._window_s, SHIP_WINDOW_S
+    out = [None] * len(bodies)
+
+    def one(i):
+        out[i] = stream_request(run, bodies[i])
+
+    try:
+        threads = []
+        for i in range(len(bodies)):
+            threads.append(threading.Thread(target=one, args=(i,),
+                                            daemon=True))
+            threads[-1].start()
+            time.sleep(SHIP_GAP_S)
+        for th in threads:
+            th.join(1200)
+    finally:
+        svc._window_s = window
+    if any(r is None for r in out):
+        raise AssertionError("a request of an ordered wave failed")
+    return out
+
+
+def _prefill_calls(pf, ids) -> int:
+    """Model calls the batch-1 paged prefill of ``ids`` makes on ``pf``
+    now: none when every full block is pooled, else one per ring-slack
+    chunk of the uncached suffix and one for the rest."""
+    cached = pf.cached_block_count(ids)
+    if cached >= len(ids) // pf.block:
+        return 0
+    left = len(ids) - min(cached, (len(ids) - 1) // pf.block) * pf.block
+    calls = 1
+    while pf.window and left > pf.ring_slack_tokens:
+        left -= pf.ring_slack_tokens
+        calls += 1
+    return calls
+
+
+def _counted_prefills(label, run: ServeRun, prompts, device) -> tuple:
+    """``POST /prefill`` of each prompt in order (the batch-1 paged prefill
+    of what is not pooled, then the export): B4 = n_layer x those model
+    calls, all on the wgmma arm on the card, and B1 0. Returns ``(bodies,
+    seconds, B4 launches)``."""
+    from pytorch_distributed_template_tpu_torch.ops.flash import (
+        FLASH_FWD, PAGED_ARM_LAUNCHES, PAGED_ATTN,
+    )
+
+    pf, n_layer = run.service._prefix, run.service.model.n_layer
+    _sync(device)
+    _zero_counts()
+    arms0 = dict(PAGED_ARM_LAUNCHES)
+    calls, blobs, secs = 0, [], []
+    for ids in prompts:
+        calls += _prefill_calls(pf, ids)
+        hdrs, blob, dt = _post(run, "/prefill", {"prompt_ids": ids})
+        if int(hdrs["X-Ship-Blocks"]) != len(ids) // pf.block:
+            raise AssertionError(f"({label}) {hdrs['X-Ship-Blocks']} blocks "
+                                 f"shipped of a {len(ids)}-token prompt")
+        blobs.append(blob)
+        secs.append(dt)
+    _sync(device)
+    arms = {a: PAGED_ARM_LAUNCHES[a] - arms0[a] for a in arms0}
+    want = n_layer * calls
+    is_cuda = torch.device(device).type == "cuda"
+    if (PAGED_ATTN.launches != want or FLASH_FWD.launches
+            or (is_cuda and arms != {"wgmma": want, "decode": 0,
+                                     "cuda_cores": 0})):
+        raise AssertionError(
+            f"({label}) prefills of {calls} model calls: B4 "
+            f"{PAGED_ATTN.launches} (arms {arms}), B1 {FLASH_FWD.launches}")
+    return blobs, secs, PAGED_ATTN.launches
+
+
+def _check_b4_over_pages(label, pf, ids, seed: int, t: int = 16) -> float:
+    """B4 over the pages ``pf`` holds for ``ids`` (pages that came in by a
+    host-to-device copy) against its plain version on the same inputs:
+    ``t`` random query lanes at the chain's end over layer 0's leaves,
+    within phase 2b's limits (``TOL``). Its launch is not the path's.
+    Returns the max abs error."""
+    from pytorch_distributed_template_tpu_torch.ops.flash import (
+        PAGED_ATTN, paged_attention, paged_attention_ref,
+    )
+
+    _, blocks = pf.index.match(ids)
+    layer, model = pf.pool.layers[0], pf.model
+    dev, dtype = layer.k.device, model.dtype
+    gen = torch.Generator().manual_seed(seed)
+    hq = layer.k.shape[2] * (model.n_head // model.n_kv_head)
+    q = torch.randn((1, t, hq, layer.k.shape[3]), generator=gen)
+    tables = torch.full((1, pf.nb_max), -1, dtype=torch.int32)
+    tables[0, :len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
+    starts = torch.tensor([len(blocks) * pf.block - t], dtype=torch.int32)
+    pads = torch.zeros((1,), dtype=torch.int32)
+    q = q.to(dev, dtype)
+    tables, starts, pads = (x.to(dev) for x in (tables, starts, pads))
+    kw = dict(window=pf.window, k_scale=layer.k_scale, v_scale=layer.v_scale)
+    launches = PAGED_ATTN.launches
+    with torch.no_grad():
+        out = paged_attention(q, layer.k, layer.v, tables, starts, pads,
+                              **kw)
+        f32 = ((lambda x: x) if layer.k_scale is not None
+               else (lambda x: x.float()))
+        ref = paged_attention_ref(q.float(), f32(layer.k), f32(layer.v),
+                                  tables, starts, pads, **kw)
+    PAGED_ATTN.launches = launches
+    atol, rtol, _ = TOL[dtype]
+    diff = (out.float() - ref).abs()
+    err = diff.max().item()
+    if not torch.isfinite(out).all() or (
+            diff - rtol * ref.abs()).max().item() > atol:
+        raise AssertionError(f"({label}) B4 over imported pages disagrees "
+                             f"with its plain version: max err {err:.3e}")
+    return err
+
+
+def phase_ship_reference(device="cuda") -> dict:
+    """22a: phase 3b's small f32 Llama (its window off) on ``device`` and
+    on the CPU, f32 and int8 pools, one request at a time. A payload
+    exported on the card imports into a CPU pool and one exported on the
+    CPU imports on the card; each decodes the colocated greedy ids (equal
+    on both sides). The card's ``serialize_pages`` of a set of leaves is
+    byte-equal to the CPU's (as they are, and cast to bf16); B4 over the
+    imported pages agrees with its plain version. Returns B4's max error
+    per pool."""
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.config.registry import MODELS
+    from pytorch_distributed_template_tpu_torch.engine.kvcache import (
+        deserialize_pages, serialize_pages,
+    )
+    from pytorch_distributed_template_tpu_torch.engine.serving import (
+        GenerationService,
+    )
+
+    rng = np.random.default_rng(22)
+    prompts = [[int(x) for x in rng.integers(
+        0, SHIP_REF_ARCH["vocab_size"], n)] for n in SHIP_REF_PROMPTS]
+    block = PAGED_REF_POOL["block_tokens"]
+    errs = {}
+    for kv_quant in ("", "int8"):
+        label = kv_quant or "f32"
+        cpu_model = MODELS.get("Llama")(**SHIP_REF_ARCH, kv_quant=kv_quant,
+                                        device="cpu")
+        cpu_model.init_weights(torch.Generator().manual_seed(2))
+        dev_model = MODELS.get("Llama")(**SHIP_REF_ARCH, kv_quant=kv_quant,
+                                        device=device)
+        dev_model.load_state_dict(cpu_model.state_dict())
+        models = {"card": (dev_model, device), "cpu": (cpu_model, "cpu")}
+
+        def service(side):
+            model, dev = models[side]
+            return GenerationService.from_model(
+                model, device=dev, prefix_cache=dict(PAGED_REF_POOL))
+
+        src = {side: service(side) for side in models}
+        dst = {side: service(side) for side in models}
+        for i, ids in enumerate(prompts):
+            colo = {side: s.generate(prompt_ids=ids,
+                                     max_new_tokens=SHIP_REF_NEW)["ids"]
+                    for side, s in src.items()}
+            if colo["card"] != colo["cpu"]:
+                raise AssertionError(f"22a ({label}): colocated ids differ "
+                                     f"on the card and the CPU: {colo}")
+            blobs = {side: serialize_pages(s._prefix.export_pages(ids))
+                     for side, s in src.items()}
+            for to, frm in (("cpu", "card"), ("card", "cpu")):
+                receipt = dst[to].import_remote_pages(blobs[frm])
+                if receipt["imported_blocks"] != len(ids) // block:
+                    raise AssertionError(f"22a ({label}): {frm} -> {to} "
+                                         f"imported {receipt}")
+                got = dst[to].generate(prompt_ids=ids,
+                                       max_new_tokens=SHIP_REF_NEW)["ids"]
+                if got != colo["cpu"]:
+                    raise AssertionError(
+                        f"22a ({label}): pages shipped {frm} -> {to} "
+                        f"decode {got}, colocated {colo['cpu']}")
+            # the same leaves serialized on the card and on the CPU
+            payload = deserialize_pages(blobs["cpu"])
+            for cast in (None, torch.bfloat16):
+                leaves = {k: v.to(cast) if cast is not None
+                          and v.dtype == torch.float32 else v
+                          for k, v in payload["leaves"].items()}
+                on_card = dict(payload, leaves={
+                    k: v.to(device) for k, v in leaves.items()})
+                if serialize_pages(on_card) != serialize_pages(
+                        dict(payload, leaves=leaves)):
+                    raise AssertionError(f"22a ({label}): serialize_pages "
+                                         f"differs on the card ({cast})")
+            errs[label] = max(errs.get(label, 0.0), _check_b4_over_pages(
+                f"22a {label}", dst["card"]._prefix, ids, seed=i))
+    log("[ship-reference] small f32 Llama (D 64, block 8), prompts "
+        f"{list(SHIP_REF_PROMPTS)}, {SHIP_REF_NEW} greedy tokens each: card "
+        "-> CPU and CPU -> card imports decode the colocated ids (f32 and "
+        "int8 pools); serialize_pages byte-equal on both sides (f32, bf16, "
+        "int8 leaves); B4 over imported pages, max abs err "
+        + json.dumps(errs))
+    return errs
+
+
+def _handoff(label, device, waves, servers, prompts, sizes) -> dict:
+    """22b over one pool layout, in order: every prompt ``POST /prefill``
+    to the prefill server and the body relayed to the decode server's
+    ``/admit_pages``; the colocated server computes the same pages
+    (``/prefill`` on a ``both`` replica runs the same batch-1 prefill in
+    the same order); then each of the two answers the prompts as one
+    ordered wave, and the decode server's ids must equal the colocated warm
+    repeat's. The bytes: every block the prefill server shipped is counted
+    out, each the decode pool lacked is counted in, the rest it held
+    already (the shared prefix)."""
+    pre, dec, colo = servers["prefill"], servers["decode"], servers["both"]
+    blobs, prefill_s, b4 = _counted_prefills(f"{label} prefill", pre,
+                                             prompts, device)
+    receipts, admit_s = zip(*[_admit(dec, blob) for blob in blobs])
+    _, _, b4c = _counted_prefills(f"{label} colocated prefill", colo,
+                                  prompts, device)
+    err = _check_b4_over_pages(f"{label} decode pool", dec.service._prefix,
+                               prompts[-1], seed=3)
+    bodies = [{"prompt_ids": p, "max_new_tokens": sizes["new"]}
+              for p in prompts]
+    dsvc = dec.service
+    pf = dsvc._prefix
+    shipped = waves.run(f"{label}_decode", dsvc,
+                        lambda: _ordered_wave(dec, bodies), sizes["new"],
+                        copy_bytes=pf.counter("page_ship_in_bytes"))
+    warm = waves.run(f"{label}_colocated_warm", colo.service,
+                     lambda: _ordered_wave(colo, bodies), sizes["new"])
+    bad = [i for i, (a, b) in enumerate(zip(shipped, warm))
+           if a["ids"] != b["ids"]]
+    if bad:
+        raise AssertionError(f"({label}) shipped ids differ from the "
+                             f"colocated warm repeat's for prompts {bad}")
+    pm, dm = _metrics(pre), _metrics(dec)
+    sent = sum(len(p) // pf.block for p in prompts) * pf.page_bytes
+    held = sum(r["cached_tokens"] // pf.block - r["imported_blocks"]
+               for r in receipts) * pf.page_bytes
+    got = sum(r["bytes"] for r in receipts)
+    if not (pm["page_ship_out_bytes_total"] == sent
+            and dm["page_ship_in_bytes_total"] == got
+            and got + held == sent):
+        raise AssertionError(
+            f"({label}) ship bytes: out {pm['page_ship_out_bytes_total']} "
+            f"(want {sent}), in {dm['page_ship_in_bytes_total']} + "
+            f"{held} already pooled (receipts {got})")
+    return {"shipped": [r["ids"] for r in shipped],
+            "warm": [r["ids"] for r in warm], "b4": b4 + b4c,
+            "b4_err": err, "prefill_ms": [s * 1e3 for s in prefill_s],
+            "admit_ms": [s * 1e3 for s in admit_s],
+            "out_bytes": pm["page_ship_out_bytes_total"],
+            "in_bytes": dm["page_ship_in_bytes_total"], "held_bytes": held,
+            "page_bytes": pf.page_bytes,
+            "payload_bytes": [len(b) for b in blobs]}
+
+
+def phase_ship(card: str, model_path, config=SERVE_CONFIG, device="cuda",
+               work=WORK, sizes=None, seed: int = 0, arch=MAIN_ARCH,
+               arch_args=None, cold=None) -> int:
+    """22b and 22c: phase 4's artifact (``MAIN_ARGS``), loaded once per KV
+    type and served by the port's ``serve.py`` in this process as a ``--role
+    prefill`` server, a ``--role decode`` server and a colocated one, each
+    with its own pool. 22b: cell (e)'s 8 prompts handed off (``_handoff``),
+    their agreement with a cold (e) wave reported (``cold``: phase 5's
+    ids of the same prompts; None runs the wave on a fourth server), the TTFT
+    of a shipped request against a colocated cold one, then cell (g)'s mix
+    over int8 pools (the scales ship with the pages; the first int8
+    server loads through ``serving.kv_quant``, the others serve its
+    weights). 22c: a decode server with ``small_pool`` pages over a host
+    tier and a disk tier under ``work``: the first prompts' pages, evicted
+    by the others' imports, are promoted when those prompts come again,
+    with their first ids, some read back from disk, none failing its
+    checksum; a
+    ``corrupt_spill`` fault makes the tier's latest entry read as a miss,
+    and the request then gives the ids of a server holding only the
+    blocks that verified. Returns B4's launches on the path."""
+    from pytorch_distributed_template_tpu_torch.engine.kvcache import (
+        deserialize_pages, serialize_pages,
+    )
+    from pytorch_distributed_template_tpu_torch.engine.serving import (
+        load_serving_model,
+    )
+    from pytorch_distributed_template_tpu_torch.resilience import faults
+
+    sizes = {**SERVE_SIZES, **SHIP_SIZES, **(sizes or {})}
+    args = dict(MAIN_ARGS if arch_args is None else arch_args)
+    t0 = time.perf_counter()
+    # phase 5's ServeRun verified the artifact's manifest already
+    model = load_serving_model({"type": arch, "args": args}, model_path,
+                               device, verify=False)
+    load_s = time.perf_counter() - t0
+    waves = ServeWave(card, device)
+    prompts = _cell_e_prompts(model.vocab_size, sizes, seed)
+    gen = torch.Generator().manual_seed(seed + 22)
+
+    def fresh(n):
+        return torch.randint(0, model.vocab_size, (n,),
+                             generator=gen).tolist()
+
+    def argv(name, *extra):
+        return ["-r", str(model_path), "-c", str(config), "-s",
+                str(work / "ship" / name), "--port", "0", "--max-batch",
+                str(sizes["slots"]), "--decode-chunk", str(sizes["chunk"]),
+                "--device", str(device)] + list(extra)
+
+    runs = []
+
+    def serve(name, m, *extra):
+        runs.append(ServeRun(argv(name, *extra), model=m))
+        return runs[-1]
+
+    report = {"load_s": load_s, "card": card}
+    b4 = 0
+    try:
+        # ---- 22b: the handoff, bf16 pool ---------------------------------
+        t22b = time.perf_counter()
+        servers = {"prefill": serve("prefill", model, "--role", "prefill"),
+                   "decode": serve("decode", model, "--role", "decode"),
+                   "both": serve("both", model)}
+        if cold is None:
+            cold = [r["ids"] for r in _mix_e(serve("cold", model), waves,
+                                              "22b_cold", sizes, prompts)]
+        out = _handoff("22b", device, waves, servers, prompts, sizes)
+        b4 += out.pop("b4")
+        agree = [a == c for a, c in zip(out["warm"], cold)]
+        same_tokens = sum(x == y for a, c in zip(out["warm"], cold)
+                          for x, y in zip(a, c))
+        report["22b"] = dict(
+            {k: v for k, v in out.items() if k not in ("shipped", "warm")},
+            prompts_equal_to_cold=sum(agree),
+            tokens_equal_to_cold=same_tokens,
+            tokens=sum(len(a) for a in out["warm"]))
+        # TTFT: a fresh prompt shipped (prefill + relay + admit + the
+        # decode server's first token) against a fresh one served cold
+        z_ship, z_cold = fresh(sizes["ttft_prompt"]), fresh(
+            sizes["ttft_prompt"])
+        (blob,), (pre_s,), n = _counted_prefills(
+            "22b ttft prefill", servers["prefill"], [z_ship], device)
+        b4 += n
+        receipt, admit_s = _admit(servers["decode"], blob)
+        dsvc = servers["decode"].service
+        first = waves.run(
+            "22b_ttft_shipped", dsvc, lambda: [stream_request(
+                servers["decode"], {"prompt_ids": z_ship,
+                                    "max_new_tokens": sizes["new"]})],
+            sizes["new"],
+            copy_bytes=dsvc._prefix.counter("page_ship_in_bytes"))[0]
+        colo = waves.run(
+            "22b_ttft_colocated", servers["both"].service,
+            lambda: [stream_request(servers["both"], {
+                "prompt_ids": z_cold, "max_new_tokens": sizes["new"]})],
+            sizes["new"])[0]
+        report["22b"]["ttft"] = {
+            "prompt_len": len(z_ship), "payload_bytes": len(blob),
+            "prefill_ms": pre_s * 1e3, "admit_ms": admit_s * 1e3,
+            "decode_ttft_ms": first["ttft_s"] * 1e3,
+            "shipped_ttft_ms": (pre_s + admit_s + first["ttft_s"]) * 1e3,
+            "colocated_ttft_ms": colo["ttft_s"] * 1e3,
+            "ship_mb_per_s": len(blob) / 2 ** 20 / admit_s}
+        report["22b"]["s"] = time.perf_counter() - t22b
+        # the bf16 prefill server stays: 22c's payloads are its exports
+        keep = servers["prefill"]
+        for run in runs[1:]:
+            run.close()
+        del runs[1:]
+        gc.collect()
+        _empty_cache(device)
+        # ---- 22b: cell (g)'s mix over int8 pools --------------------------
+        # the first server loads the int8-KV model through the config
+        # path (serving.kv_quant); the other two serve its weights
+        t22g = time.perf_counter()
+        int8 = ("--set", "serving;kv_quant", "int8")
+        first8 = serve("prefill8", None, "--role", "prefill", *int8)
+        model8 = first8.service.model
+        if model8.kv_quant != "int8" or \
+                first8.service._prefix.pool.layers[0].k_scale is None:
+            raise AssertionError("22b (g): the int8 pool was not configured")
+        servers = {"prefill": first8,
+                   "decode": serve("decode8", model8, "--role", "decode",
+                                   *int8),
+                   "both": serve("both8", model8, *int8)}
+        out = _handoff("22b_int8", device, waves, servers, prompts, sizes)
+        b4 += out.pop("b4")
+        report["22b_int8"] = dict(
+            {k: v for k, v in out.items() if k not in ("shipped", "warm")},
+            s=time.perf_counter() - t22g)
+        for run in runs[1:]:
+            run.close()
+        del runs[1:], servers, first8, model8
+        gc.collect()
+        _empty_cache(device)
+        # ---- 22c: the tiers -----------------------------------------------
+        # the prompts sharing no prefix come first: their pages are the
+        # oldest in the small pool, and the others' imports evict them
+        t22c = time.perf_counter()
+        n_shared = len(sizes["shared_suffix"])
+        order = prompts[n_shared:] + prompts[:n_shared]
+        blobs, _, n = _counted_prefills("22c prefill", keep, order, device)
+        b4 += n
+        dec = serve(
+            "decode_small", model, "--role", "decode",
+            "--set", "serving;prefix_cache;pool_blocks",
+            str(sizes["small_pool"]),
+            "--spill-blocks", str(sizes["host_spill"]),
+            "--spill-dir", str(work / "ship" / "spill"),
+            "--spill-disk-blocks", str(sizes["disk_spill"]))
+        dsvc = dec.service
+        pf = dsvc._prefix
+
+        def alone(label, ids):
+            return waves.run(
+                label, dsvc, lambda: [stream_request(dec, {
+                    "prompt_ids": ids, "max_new_tokens": sizes["new"]})],
+                sizes["new"],
+                copy_bytes=pf.counter("page_ship_in_bytes"))[0]["ids"]
+
+        k = sizes["first"]
+        firsts = []
+        for i in range(k):
+            _admit(dec, blobs[i])
+            firsts.append(alone(f"22c_first_{i}", order[i]))
+        for blob in blobs[k:]:
+            _admit(dec, blob)
+        st = pf.stats_snapshot()
+        evicted = [len(p) // pf.block - pf.cached_block_count(p)
+                   for p in order[:k]]
+        if not (st["tier_demoted_blocks"] > 0 and all(evicted)
+                and st["tier_disk_blocks"] > 0):
+            raise AssertionError(
+                f"22c: the others' imports did not evict the first prompts "
+                f"to the tiers ({evicted} blocks gone; demoted "
+                f"{st['tier_demoted_blocks']}, {st['tier_disk_blocks']} on "
+                "disk)")
+        disk0 = pf.spill.disk_hits
+        again = [alone(f"22c_again_{i}", order[i]) for i in range(k)]
+        st2 = pf.stats_snapshot()
+        promoted = st2["tier_promoted_blocks"] - st["tier_promoted_blocks"]
+        # the sound promotions read pages back from disk too, every one
+        # verified (a broken disk read would read as corrupt)
+        from_disk = pf.spill.disk_hits - disk0
+        sound_failures = (st2["tier_checksum_failures"]
+                          - st["tier_checksum_failures"])
+        if (again != firsts or promoted <= 0 or from_disk <= 0
+                or sound_failures):
+            raise AssertionError(
+                f"22c: promoted ids equal the first answers: "
+                f"{[a == b for a, b in zip(again, firsts)]}, "
+                f"{promoted} blocks promoted, {from_disk} read from disk, "
+                f"{sound_failures} checksum failures")
+        # corrupt_spill: the tier's latest entry is flipped at the next tier
+        # event (this request's promotion), which then reads it as a miss
+        key = list(next(reversed(pf.spill._host)))
+        q = key + fresh(5)
+        os.environ["PDT_FAULTS"] = "corrupt_spill@evt:1"
+        faults.reset()
+        try:
+            hit0 = pf.counter("prefix_hit_tokens")
+            fail0 = pf.counter("tier_checksum_failures")
+            got = alone("22c_corrupt", q)
+            held = (pf.counter("prefix_hit_tokens") - hit0) // pf.block
+            failures = pf.counter("tier_checksum_failures") - fail0
+        finally:
+            del os.environ["PDT_FAULTS"]
+            faults.reset()
+        if failures < 1 or held * pf.block >= len(key):
+            raise AssertionError(f"22c: the corrupt entry was not read as a "
+                                 f"miss ({failures} failures, {held} blocks "
+                                 f"served of {len(key) // pf.block})")
+        # the reference: a server holding only the blocks that verified
+        _, raw, _ = _post(dec, "/export_pages", {"prompt_ids": q})
+        payload = deserialize_pages(raw)
+        payload.update(n_blocks=held, token_ids=q[:held * pf.block],
+                       leaves={p: t[:held]
+                               for p, t in payload["leaves"].items()})
+        ref_run = serve("verified", model)
+        _admit(ref_run, serialize_pages(payload))
+        ref = waves.run(
+            "22c_verified_reference", ref_run.service,
+            lambda: [stream_request(ref_run, {
+                "prompt_ids": q, "max_new_tokens": sizes["new"]})],
+            sizes["new"],
+            copy_bytes=ref_run.service._prefix.counter(
+                "page_ship_in_bytes"))[0]["ids"]
+        if got != ref:
+            raise AssertionError("22c: after a corrupt spill the ids differ "
+                                 "from a server holding the verified blocks")
+        st3 = pf.stats_snapshot()
+        secs = pf.tier_seconds
+        report["22c"] = {
+            "pool_blocks": pf.pool_blocks,
+            "after_imports": {k2: st[k2] for k2 in (
+                "tier_demoted_blocks", "tier_host_blocks",
+                "tier_disk_blocks")},
+            "evicted_first_blocks": evicted, "promoted_blocks": promoted,
+            "promoted_from_disk": from_disk,
+            "promote_checksum_failures": sound_failures,
+            "again_equal_first": True, "corrupt_blocks_served": held,
+            "corrupt_checksum_failures": failures,
+            "corrupt_equal_verified_reference": True,
+            **{k2: st3[k2] for k2 in (
+                "tier_demoted_blocks", "tier_promoted_blocks",
+                "tier_checksum_failures", "tier_host_blocks",
+                "tier_disk_blocks", "tier_exhaust_drops",
+                "tier_demote_errors", "prefix_evictions")},
+            "demote_ms_per_block": secs["demote"] * 1e3 / max(
+                st3["tier_demoted_blocks"], 1),
+            "promote_ms_per_block": secs["promote"] * 1e3 / max(
+                st3["tier_promoted_blocks"], 1),
+            "page_bytes": pf.page_bytes, "s": time.perf_counter() - t22c}
+    finally:
+        for run in runs:
+            run.close()
+        runs.clear()
+    del model
+    gc.collect()
+    _empty_cache(device)
+    report["b4_launches"] = waves.b4_launches + b4
+    log("[ship] " + json.dumps(report))
+    return waves.b4_launches + b4
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -7736,8 +8352,9 @@ def main() -> int:
                            keep_artifact=True)
     # the serving config with the artifact's depth (``-c`` overlays arch)
     serve_cfg = _serve_config(SERVE_CONFIG, MAIN_ARGS, WORK / "serve.json")
+    served = {}
     paged_launches = timed("5", phase_serve, card, WORK / "art" / "model",
-                           config=serve_cfg)
+                           config=serve_cfg, record=served)
     train_launches = timed("6", phase_train, card, keep=GPT2_BASE)
     moe_launches = timed("7", phase_moe_train, card, keep=MOELM_KEEP)
     timed("8", phase_lenet_reference)
@@ -7813,6 +8430,9 @@ def main() -> int:
     moe21 = timed("21d", phase_moelm_generate, card)
     paged_launches += timed("21e", phase_mistral_w8a16, card,
                             WORK / "art" / "model")
+    timed("22a", phase_ship_reference)
+    paged_launches += timed("22", phase_ship, card, WORK / "art" / "model",
+                            config=serve_cfg, cold=served["e_ids"])
     slice16 = {k: gen21[k] + static21[k] + byte21[k] + moe21[k]
                for k in ("flash_fwd", "expert_ffn")}
     flash_launches += slice16["flash_fwd"]

@@ -51,10 +51,18 @@ under the engine's lock, between two scheduler ticks, warm-prefilling
 through the pool on a prefix hit. The brownout gate on such requests waits
 for ROADMAP A3a.5.
 
+Roles and the spill tiers: ``role="prefill"`` refuses budgets over one
+token and serves ``prefill_export`` (the parent's, under the engine's
+lock), ``role="decode"`` lands shipped pages (``import_remote_pages``,
+between ticks) that the next admission of the prompt reads as radix hits,
+B4 over them; ``stats`` count ``prefill_exports`` and ``remote_admits``.
+With a spill tier, pending requests whose prefix was demoted promote at the
+tick's start, before the tick reserves pages.
+
 Left to later slices: the non-paged shared-cache engine (eras, the scatter
 warm admit; ROADMAP A3a.1's other half), brownout and SLOs (A3a.5, A3a.7),
-deadlines, tracing, anatomy and roles/page shipping (A3a.4). Without a
-paged pool the constructor raises.
+deadlines, tracing and anatomy. Without a paged pool the constructor
+raises.
 """
 from __future__ import annotations
 
@@ -93,9 +101,10 @@ class ContinuousBatchingService(GenerationService):
 
     def _setup(self, model, tokenizer=None, slots: int = 8, chunk: int = 8,
                window_ms: float = 5.0, prefix_cache=None,
-               prefill_chunk_tokens: int = 0, spec_draft_layers: int = 0):
+               prefill_chunk_tokens: int = 0, spec_draft_layers: int = 0,
+               role: str = "both"):
         super()._setup(model, tokenizer, prefix_cache=prefix_cache,
-                       spec_draft_layers=spec_draft_layers)
+                       spec_draft_layers=spec_draft_layers, role=role)
         if self._prefix is None or not self._prefix.paged:
             raise NotImplementedError(
                 "the port's continuous engine runs over a paged KV pool "
@@ -130,7 +139,10 @@ class ContinuousBatchingService(GenerationService):
                       "deferred_admissions": 0, "model_calls": 0,
                       "prefill_chunks": 0, "streamed_prefill_tokens": 0,
                       "streamed_requests": 0, "admit_calls": 0,
-                      "decode_calls": 0, "tp_degree": self.tp}
+                      "decode_calls": 0, "tp_degree": self.tp,
+                      # page shipping: chains landed from prefill-role
+                      # replicas, chains exported to decode-role ones
+                      "remote_admits": 0, "prefill_exports": 0}
         # the per-step collective accounting runs a probe on the ranks:
         # once here, never on the scrape path
         self.tp_stats()
@@ -162,6 +174,7 @@ class ContinuousBatchingService(GenerationService):
         once set, the request finalizes at its next chunk absorb with
         ``stop_reason: "cancelled"`` and its slot and pages free; a
         request still queued is dropped)."""
+        self._check_role(max_new_tokens)
         if int(speculative) > 0:
             # batch 1 under the engine's lock, between ticks
             return super().generate(
@@ -221,7 +234,9 @@ class ContinuousBatchingService(GenerationService):
         counts toward the hit/lookup stats."""
         first = not r.get("_page_retry")
         r["_page_retry"] = True
-        return self._prefix.paged_plan(r["ids"], r["budget"], record=first)
+        # spilled prefixes promoted at the tick's start (_tick)
+        return self._prefix.paged_plan(r["ids"], r["budget"], record=first,
+                                       promote=False)
 
     def _needs_streaming(self, r) -> bool:
         """True while a reserved request's remaining uncached suffix is
@@ -601,6 +616,13 @@ class ContinuousBatchingService(GenerationService):
                 r["event"].set()
                 self.stats["cancelled"] += 1
                 self.stats["completed"] += 1
+        pf = self._prefix
+        pf.apply_pending_corruption()
+        # the spill tiers: pending requests whose prefix was demoted
+        # promote here, before any reservation of this tick looks it up
+        if pf.spill is not None:
+            for r in pending[:self._slots]:
+                pf.promote_spilled(r["ids"])
         # ONE chunk of ONE long pending prompt per tick: decode rows
         # interleave between chunks
         if self._prefill_chunk and pending:

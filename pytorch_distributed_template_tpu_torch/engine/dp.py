@@ -14,14 +14,21 @@ least-loaded, ties rotating. A request's tokens depend only on its own
 prompt, seed and sampling, and every group holds the same weights, so
 which group serves it does not change its output.
 
-Left to later slices, each refused naming its ROADMAP item: page shipping
-(``prefill_export``, ``export_cached_pages``, ``import_remote_pages``;
-A3a.4). Brownout and the SLO watcher (A3a.5, A3a.7) have no engine here to
-merge.
+Page shipping goes through the same picks: ``prefill_export`` to the
+group ``_pick`` gives the prompt (its affinity), ``export_cached_pages`` to
+the group holding the deepest chain (an export is a read: the load gate
+would send it to an idle group with an empty pool), ``import_remote_pages``
+to the least-loaded group, whose index the receipt names (``dp_group``):
+the follow-up request finds the pages through the same radix probe. At
+tp > 1 the groups' pools refuse the three, naming A3a.4's TP remainder
+(each rank would send its KV-head slice). A disk spill tier gets a
+directory per group (``<disk_spill_dir>/g<i>``). Brownout and the SLO
+watcher (A3a.5, A3a.7) have no engine here to merge.
 """
 from __future__ import annotations
 
 import logging
+import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
@@ -29,8 +36,6 @@ from ..utils.promtext import percentile
 
 logger = logging.getLogger(__name__)
 
-_SHIPPING = ("page shipping between replicas (disaggregated prefill/"
-             "decode) is a later slice of the port (ROADMAP A3a.4)")
 #: engine stats that are one value per group, not a count to add up
 _GAUGES = ("tp_degree",)
 #: how many more requests (queued + live) than the least-loaded group the
@@ -86,6 +91,7 @@ class DataParallelService:
         self.device = e0.device
         self.pool_refusal_reason = getattr(e0, "pool_refusal_reason", "")
         self.tp = e0.tp
+        self.role = getattr(e0, "role", "both")
         self.dp = len(self._engines)
         self.STREAM_DELTAS = bool(getattr(e0, "STREAM_DELTAS", False))
 
@@ -115,9 +121,17 @@ class DataParallelService:
             if errors:
                 raise errors[0]
             for g, model in enumerate(models):
+                kw = dict(service_kw or {})
+                spill = (kw.get("prefix_cache") or {}).get("disk_spill_dir")
+                if spill and dp > 1:
+                    # a directory per group: each group's tier numbers its
+                    # files from 1, and two groups demoting one shared
+                    # block would otherwise write and unlink one file
+                    kw["prefix_cache"] = dict(
+                        kw["prefix_cache"],
+                        disk_spill_dir=os.path.join(str(spill), f"g{g}"))
                 engines.append(service_cls.from_model(
-                    model, tokenizer, device=model.device,
-                    **dict(service_kw or {})))
+                    model, tokenizer, device=model.device, **kw))
                 logger.info("dp group %d/%d ready (tp=%d, %s)", g + 1, dp,
                             tp, getattr(model, "devices", model.device))
         except BaseException:
@@ -129,9 +143,11 @@ class DataParallelService:
 
     @classmethod
     def build_from_config(cls, config, service_cls, device=None, dp: int = 2,
-                          tp: int = 1, service_kw=None):
+                          tp: int = 1, use_ema: bool = False,
+                          service_kw=None):
         """The ``serve.py`` entry: each group loads the artifact onto its
-        own cards (``load_generation_stack(group=g)``)."""
+        own cards (``load_generation_stack(group=g)``; ``use_ema``: a
+        training checkpoint's EMA weights)."""
         from ..data.tokenizer import tokenizer_from_config
         from ..utils.util import resolve_device
         from .serving import load_generation_stack
@@ -140,7 +156,8 @@ class DataParallelService:
 
         def factory(g):
             model, _ = load_generation_stack(
-                config, device=device, tensor_parallel=tp, group=g)
+                config, device=device, use_ema=use_ema, tensor_parallel=tp,
+                group=g)
             return model
 
         return cls.from_model_factory(
@@ -197,14 +214,39 @@ class DataParallelService:
         return self._engines[self._pick(ids)].generate(
             prompt=prompt, prompt_ids=prompt_ids, **kw)
 
-    def prefill_export(self, *args, **kw) -> dict:
-        raise NotImplementedError(_SHIPPING)
+    def _ids_or_none(self, prompt, prompt_ids):
+        try:
+            return self._engines[0].encode_prompt(prompt, prompt_ids)
+        except ValueError:
+            return None       # the group's engine raises the real 400
 
-    def export_cached_pages(self, *args, **kw) -> dict:
-        raise NotImplementedError(_SHIPPING)
+    def prefill_export(self, prompt=None, prompt_ids=None) -> dict:
+        """The prompt's chain computed and exported by its affinity
+        group."""
+        g = self._pick(self._ids_or_none(prompt, prompt_ids))
+        return self._engines[g].prefill_export(prompt=prompt,
+                                               prompt_ids=prompt_ids)
 
-    def import_remote_pages(self, *args, **kw) -> dict:
-        raise NotImplementedError(_SHIPPING)
+    def export_cached_pages(self, prompt=None, prompt_ids=None) -> dict:
+        """Export-only, from the group holding the deepest chain."""
+        ids = self._ids_or_none(prompt, prompt_ids)
+        g = 0
+        if ids is not None:
+            depths = [e._prefix.cached_block_count(ids)
+                      if e._prefix is not None else 0
+                      for e in self._engines]
+            g = max(range(len(depths)), key=lambda i: depths[i])
+        return self._engines[g].export_cached_pages(prompt=prompt,
+                                                    prompt_ids=prompt_ids)
+
+    def import_remote_pages(self, payload, origin: str = "ship") -> dict:
+        """Shipped pages onto the least-loaded group's pool; the receipt's
+        ``dp_group`` names it."""
+        g = self._pick(None)
+        receipt = self._engines[g].import_remote_pages(payload,
+                                                       origin=origin)
+        receipt["dp_group"] = g
+        return receipt
 
     def validate_request(self, req: dict) -> None:
         self._engines[0].validate_request(req)

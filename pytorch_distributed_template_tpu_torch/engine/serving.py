@@ -52,8 +52,19 @@ speculative requests bypass the batcher. A batch of one request without
 stop tokens runs the batch-1 pool path when a pool is attached (the JAX
 scheduler has none), so a repeated prompt is served warm.
 
+Disaggregated serving: ``role`` (``"both"``, ``"prefill"``, ``"decode"``;
+a role needs the pool) gates budgets (:meth:`GenerationService.
+_check_role`); :meth:`prefill_export` computes a prompt's pages and exports
+its chain (concurrent calls coalesce under one lock acquisition),
+:meth:`export_cached_pages` ships what the pool holds (spilled pages
+promoted on the way out), :meth:`import_remote_pages` lands a payload or
+its wire bytes (engine/kvcache.py). A spill tier configured in
+``prefix_cache`` (``host_spill_blocks``, ``disk_spill_dir``,
+``disk_spill_blocks``) promotes a demoted prefix at the batch-1 lookup.
+
 Tensor parallelism refuses speculative requests (ROADMAP A4's
-remainder) and serves a non-paged pool's requests cold. A config with
+remainder), page shipping and spill (A3a.4's TP remainder), and serves a
+non-paged pool's requests cold. A config with
 LoRA adapters (``lora_rank > 0``) is refused at load: serving them
 unmerged is A4's remainder (``tools/merge_lora.py`` merges them).
 """
@@ -67,7 +78,8 @@ import time
 import torch
 
 from .. import models  # noqa: F401  (registers the model families)
-from .kvcache import PrefixCache
+from ..resilience import faults
+from .kvcache import PrefixCache, deserialize_pages, empty_payload
 from ..checkpoint import (
     check_artifact_tp_geometry, load_serving_meta, restore_serving_params,
     verify_artifact_manifest,
@@ -108,6 +120,16 @@ class GenerationService:
         self._setup(model, tokenizer, **kw)
         self._owns_model = True
 
+    #: serving roles (disaggregated prefill/decode): a "prefill" replica
+    #: computes prompt KV into its pool and ships the pages
+    #: (:meth:`prefill_export`) and refuses decode-scale budgets; a
+    #: "decode" replica lands shipped pages (:meth:`import_remote_pages`)
+    #: and serves everything; "both" is the colocated replica
+    ROLES = ("both", "prefill", "decode")
+    #: the largest budget a prefill-role replica serves on /generate (the
+    #: prefill and its first sample)
+    PREFILL_MAX_NEW = 1
+
     @classmethod
     def from_model(cls, model, tokenizer=None, device=None, **kw):
         """A service around an already built model, moved to ``device``
@@ -119,7 +141,11 @@ class GenerationService:
         return obj
 
     def _setup(self, model, tokenizer=None, prefix_cache=None,
-               spec_draft_layers: int = 0):
+               spec_draft_layers: int = 0, role: str = "both"):
+        if role not in self.ROLES:
+            raise ValueError(f"unknown serving role {role!r} (one of "
+                             f"{self.ROLES})")
+        self.role = role
         self.model, self.tokenizer = model.eval(), tokenizer
         self._owns_model = False
         self.device = model.device
@@ -167,6 +193,20 @@ class GenerationService:
                 logger.warning("prefix cache disabled: %s", e)
                 self.pool_refusal_reason = getattr(e, "reason",
                                                    "unsupported")
+        if self.role != "both" and self._prefix is None:
+            # a role IS page shipping: refuse at startup, not at the first
+            # handoff
+            raise ValueError(
+                f"role={self.role!r} needs a prefix cache (serving."
+                "prefix_cache.enabled / --prefix-cache on): page shipping "
+                "moves pool pages")
+        # concurrent prefill exports coalesce: callers enqueue, one leader
+        # drains the queue under one service-lock acquisition
+        self._export_mu = threading.Lock()        # guards the queue
+        self._export_leader = threading.Lock()    # one drainer at a time
+        self._export_q: list = []
+        # subclasses replace this with their scheduler's counters
+        self.stats = {}
 
     def prefix_cache_stats(self):
         """Prefix-cache counters + pool occupancy for /metrics, or None
@@ -258,6 +298,149 @@ class GenerationService:
             raise ValueError(f"stop id outside [0, {self.vocab})")
         return ids
 
+    # ---- roles and page shipping -------------------------------------------
+
+    def _check_role(self, max_new: int) -> None:
+        """The role gate: a prefill-role replica refuses decode-scale
+        budgets (decode and colocated replicas serve everything; a decode
+        replica prefills a miss cold)."""
+        if self.role == "prefill" and int(max_new) > self.PREFILL_MAX_NEW:
+            raise ValueError(
+                f"prefill-role replica serves max_new_tokens <= "
+                f"{self.PREFILL_MAX_NEW} (got {int(max_new)}): decode work "
+                "belongs on a decode-role replica (POST /prefill ships this "
+                "prompt's KV pages instead)")
+
+    def _shipping_pool(self, what: str):
+        if self._prefix is None:
+            raise ValueError(f"{what} needs a prefix cache "
+                             "(serving.prefix_cache.enabled)")
+        return self._prefix
+
+    def prefill_export(self, prompt=None, prompt_ids=None) -> dict:
+        """The prefill role's entry: compute the prompt's KV into this
+        replica's pool (the paged batch-1 prefill, or the scatter arm) and
+        export its full-block chain as a ship payload
+        (:func:`engine.kvcache.serialize_pages` makes the wire bytes). Only
+        pages and token ids ship: the decode replica's warm admit
+        recomputes the suffix (the final prompt token included), so its
+        output equals a colocated warm run's. A prompt shorter than one
+        block gives ``n_blocks == 0``.
+
+        Concurrent calls coalesce: each enqueues its chain, and the first
+        thread to take the leader lock drains the whole queue under one
+        service-lock acquisition (``prefill_export_batches`` and
+        ``prefill_export_max_batch`` count it)."""
+        pf = self._shipping_pool("prefill_export")
+        ids = self.encode_prompt(prompt, prompt_ids)
+        if len(ids) // pf.block == 0:
+            return empty_payload(pf)
+        item = {"ids": ids, "evt": threading.Event(), "result": None,
+                "error": None}
+        with self._export_mu:
+            self._export_q.append(item)
+        while not item["evt"].is_set():
+            if self._export_leader.acquire(blocking=False):
+                try:
+                    self._drain_export_queue()
+                finally:
+                    self._export_leader.release()
+            else:
+                # a leader drains until the queue is empty: it takes this
+                # item, or this thread leads on a later spin
+                item["evt"].wait(0.002)
+        if item["error"] is not None:
+            raise item["error"]
+        with self._export_mu:
+            self.stats["prefill_exports"] = self.stats.get(
+                "prefill_exports", 0) + 1
+        return item["result"] or empty_payload(pf)
+
+    def _drain_export_queue(self) -> None:
+        """The export leader's loop: take every queued chain and compute
+        and export the batch under one service-lock acquisition, until the
+        queue stays empty. One chain's failure is its own."""
+        while True:
+            with self._export_mu:
+                batch, self._export_q = self._export_q, []
+            if not batch:
+                return
+            with self._lock:
+                for it in batch:
+                    try:
+                        it["result"] = self._export_chain_locked(it["ids"])
+                    except Exception as e:  # noqa: BLE001 — per chain
+                        it["error"] = e
+            self.stats["prefill_export_batches"] = self.stats.get(
+                "prefill_export_batches", 0) + 1
+            self.stats["prefill_export_max_batch"] = max(
+                self.stats.get("prefill_export_max_batch", 0), len(batch))
+            for it in batch:
+                it["evt"].set()
+
+    @torch.no_grad()
+    def _export_chain_locked(self, ids):
+        """Compute what is missing of one chain and export it (the leader
+        holds the service lock): spilled blocks promote first; the paged
+        arm prefills into a 1-token plan finished at once, so the prompt's
+        blocks adopt in place; the scatter arm captures them."""
+        pf = self._prefix
+        if pf.spill is not None:
+            pf.promote_spilled(ids)
+        if pf.cached_block_count(ids) < len(ids) // pf.block:
+            done = False
+            if pf.paged:
+                res = pf.paged_prefill(ids, 1)
+                if res is not None:
+                    pf.paged_finish(res[2], [], 0)
+                    done = True
+            if not done and not pf.window:
+                # a dry ring pool exports whatever chain is resident
+                pf.warm_prefill(ids, len(ids) + 1)
+        return pf.export_pages(ids)
+
+    def export_cached_pages(self, prompt=None, prompt_ids=None) -> dict:
+        """Export-only: ship the full-block chain this replica holds for
+        the prompt (resident pages, plus spilled ones promoted and
+        checksum-verified on the way out) without computing anything
+        missing; a replica holding nothing answers ``n_blocks == 0``. Any
+        role with a pool serves it."""
+        pf = self._shipping_pool("export_cached_pages")
+        ids = self.encode_prompt(prompt, prompt_ids)
+        with self._lock:
+            if pf.spill is not None:
+                pf.promote_spilled(ids)
+            payload = pf.export_pages(ids)
+            self.stats["peer_exports"] = self.stats.get("peer_exports",
+                                                        0) + 1
+        return payload if payload is not None else empty_payload(pf)
+
+    def import_remote_pages(self, payload, origin: str = "ship") -> dict:
+        """The decode role's entry: land a shipped chain (a payload, or its
+        serialized bytes) in this replica's pool, so the prompt's next
+        request admits warm. ``origin`` tags the adopted radix nodes:
+        ``ship`` (the prefill -> decode handoff) or ``pull`` (a peer pull;
+        the ``peer_pull_timeout`` fault fires here, and the pull then
+        degrades to a dropped import: the request prefills cold). Runs
+        under the service lock, between scheduler ticks."""
+        pf = self._shipping_pool("import_remote_pages")
+        if isinstance(payload, (bytes, bytearray, memoryview)):
+            payload = deserialize_pages(bytes(payload))
+        if origin == "pull":
+            spec = faults.on_peer_pull()
+            if spec is not None:
+                time.sleep(spec.duration_s)
+                with self._lock:
+                    self.stats["peer_pull_timeouts"] = self.stats.get(
+                        "peer_pull_timeouts", 0) + 1
+                return {"imported_blocks": 0, "cached_tokens": 0,
+                        "bytes": 0, "dropped": True}
+        with self._lock:
+            receipt = pf.import_pages(payload, origin=origin)
+            self.stats["remote_admits"] = self.stats.get("remote_admits",
+                                                         0) + 1
+        return receipt
+
     def validate_request(self, req: dict) -> None:
         """Host-side validation of a wire request body (what serve.py
         reads off the socket): raises the ``ValueError`` the matching
@@ -273,6 +456,7 @@ class GenerationService:
         int(req.get("seed", 0))
         if max_new < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        self._check_role(max_new)
         self._validate_budget(ids, max_new, stops)
 
     def _validate_budget(self, ids, max_new: int, stops) -> None:
@@ -306,6 +490,7 @@ class GenerationService:
         samples the same tokens. ``speculative`` > 0: the draft length of a
         speculative request (module docstring); the response adds its
         ``speculative`` stats."""
+        self._check_role(max_new_tokens)
         ids = self.encode_prompt(prompt, prompt_ids)
         stops = self.encode_stop(stop)
         max_new = int(max_new_tokens)
@@ -709,6 +894,39 @@ class BatchedGenerationService(GenerationService):
             r["event"].set()
 
 
+def serving_arch(config) -> dict:
+    """``{"type", "args"}`` of the model ``config`` serves: its arch, with
+    ``serving.kv_quant`` switched on over it (a serving mode: the scales
+    are cache leaves, not params, so a full-precision arch takes it)."""
+    arch = {"type": config["arch"]["type"],
+            "args": dict(config["arch"].get("args") or {})}
+    kvq = str((config.get("serving") or {}).get("kv_quant") or "")
+    if kvq:
+        arch["args"]["kv_quant"] = kvq
+    return arch
+
+
+def check_served_model(model, config) -> None:
+    """Refuse a loaded ``model`` handed in to serve ``config`` unless it
+    is the model ``config`` would load: the same family and KV
+    quantization, and the same parameter names, shapes and dtypes (depth,
+    widths, weight quantization)."""
+    arch = serving_arch(config)
+    want = resolve(MODELS, arch["type"])(**arch["args"], device="meta")
+    shapes = {k: (tuple(t.shape), t.dtype)
+              for k, t in want.state_dict().items()}
+    got = {k: (tuple(t.shape), t.dtype)
+           for k, t in model.state_dict().items()}
+    kvq = (str(getattr(want, "kv_quant", "") or ""),
+           str(getattr(model, "kv_quant", "") or ""))
+    if type(model) is not type(want) or kvq[0] != kvq[1] or got != shapes:
+        raise ValueError(
+            f"the model handed in is not the one the config serves "
+            f"({arch['type']}, kv_quant {kvq[0]!r}): a "
+            f"{type(model).__name__} with kv_quant {kvq[1]!r}"
+            + ("" if got == shapes else " and other parameters"))
+
+
 def load_generation_stack(config, device=None, use_ema: bool = False,
                           tensor_parallel: int = 0, group: int = 0):
     """``(model, tokenizer | None)`` for ``config.resume``: a params-only
@@ -727,14 +945,8 @@ def load_generation_stack(config, device=None, use_ema: bool = False,
     serving = config.get("serving") or {}
     tp = int(tensor_parallel or 0) or int(serving.get("tensor_parallel")
                                           or 1)
-    kvq = str(serving.get("kv_quant") or "")
-    if kvq:
-        # a serving mode (the scales are cache leaves, not params): the
-        # serving section switches it on over a full-precision arch
-        config["arch"].setdefault("args", {})["kv_quant"] = kvq
     meta = load_serving_meta(config.resume)
-    arch = {"type": config["arch"]["type"],
-            "args": dict(config["arch"].get("args") or {})}
+    arch = serving_arch(config)
     if int(arch["args"].get("lora_rank", 0) or 0) > 0:
         raise NotImplementedError(
             "serving LoRA adapters unmerged is ROADMAP A4's remainder, a "

@@ -54,7 +54,12 @@ The KV block pool crosses the same way (:func:`pool_from_flax`,
 :func:`flax_from_pool`): the JAX pool's cache leaves
 ``layers_i/self_attn/cached_key`` / ``cached_value`` ``[P, bt, KVH, D]``
 (and ``cached_key_scale`` / ``cached_value_scale`` ``[P, bt, KVH]`` for the
-int8 layout) are the port's ``PagedLayer`` tensors, byte for byte.
+int8 layout) are the port's ``PagedLayer`` tensors, byte for byte; the
+GPT-2 family's scatter pool names its leaves ``h_i/attn/<leaf>``.
+:func:`pool_leaf_path` and :func:`pool_leaf_slot` map a leaf both ways, and
+:func:`pool_leaves` keys a pool's tensors by those paths: the leaf names
+of the page wire format (engine/kvcache.py ``serialize_pages``) and of the
+spill tier's entries.
 """
 from __future__ import annotations
 
@@ -217,6 +222,41 @@ def flax_batch_stats(state_dict) -> dict:
 _POOL_LEAVES = {"cached_key": "k", "cached_value": "v",
                 "cached_key_scale": "k_scale",
                 "cached_value_scale": "v_scale"}
+_POOL_ATTRS = {v: k for k, v in _POOL_LEAVES.items()}
+#: a family's layer scope -> the attention module holding its cache leaves
+#: (the Llama family's ``layers_i/self_attn``, the GPT-2 family's
+#: ``h_i/attn``)
+_POOL_SCOPES = {"layers": "self_attn", "h": "attn"}
+_POOL_PATH = re.compile(r"^(layers|h)_(\d+)/(self_attn|attn)/(\w+)$")
+
+
+def pool_leaf_path(scope: str, layer: int, attr: str) -> str:
+    """The JAX cache path of one pool leaf: ``pool_leaf_path("layers", 3,
+    "k_scale")`` -> ``layers_3/self_attn/cached_key_scale``."""
+    return f"{scope}_{int(layer)}/{_POOL_SCOPES[scope]}/{_POOL_ATTRS[attr]}"
+
+
+def pool_leaf_slot(path: str) -> tuple:
+    """Inverse of :func:`pool_leaf_path`: ``(scope, layer, attr)``; a path
+    that names no pool leaf raises ``KeyError``."""
+    m = _POOL_PATH.match(path)
+    if (m is None or m.group(3) != _POOL_SCOPES[m.group(1)]
+            or m.group(4) not in _POOL_LEAVES):
+        raise KeyError(f"not a pool leaf path: {path!r}")
+    return m.group(1), int(m.group(2)), _POOL_LEAVES[m.group(4)]
+
+
+def pool_leaves(pool, scope: str = "layers") -> dict:
+    """A ``PagedCache``'s tensors keyed by their JAX cache paths (the keys
+    of the JAX ``PrefixCache.pool``, the names on the page wire): the
+    tensors themselves, not copies."""
+    out = {}
+    for i, layer in enumerate(pool.layers):
+        for attr in _POOL_ATTRS:
+            t = getattr(layer, attr)
+            if t is not None:
+                out[pool_leaf_path(scope, i, attr)] = t
+    return out
 
 
 def pool_from_flax(tree):
@@ -227,26 +267,25 @@ def pool_from_flax(tree):
 
     layers: dict = {}
     for path, leaf in _flatten(tree):
-        parts = "/".join(path).split("/")
-        m = _LAYER.match(parts[0])
-        if m is None or parts[-1] not in _POOL_LEAVES:
+        try:
+            _, i, attr = pool_leaf_slot("/".join(path))
+        except KeyError:
             continue
-        layers.setdefault(int(m.group(1)), {})[_POOL_LEAVES[parts[-1]]] = \
-            torch.from_numpy(np.ascontiguousarray(np.asarray(leaf)))
+        layers.setdefault(i, {})[attr] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(leaf)))
     if sorted(layers) != list(range(len(layers))):
         raise KeyError(f"pool layers {sorted(layers)} are not 0..n-1")
     return PagedCache([PagedLayer(**layers[i]) for i in range(len(layers))])
 
 
-def flax_from_pool(pool) -> dict:
+def flax_from_pool(pool, scope: str = "layers") -> dict:
     """Inverse of :func:`pool_from_flax`: ``PagedCache`` -> nested JAX
     cache tree of numpy arrays (``layers_i/self_attn/<leaf>``)."""
     tree: dict = {}
-    for i, layer in enumerate(pool.layers):
-        attn = tree.setdefault(f"layers_{i}", {}).setdefault(
-            "self_attn", {})
-        for name, attr in _POOL_LEAVES.items():
-            t = getattr(layer, attr)
-            if t is not None:
-                attn[name] = t.detach().cpu().numpy().copy()
+    for path, t in pool_leaves(pool, scope).items():
+        node = tree
+        *mods, leaf = path.split("/")
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = t.detach().cpu().numpy().copy()
     return tree

@@ -5,8 +5,14 @@ since it imports nothing of the JAX package).
 The port wires the training hooks: ``on_step`` and ``nan_grad_step`` in
 ``engine/trainer.py`` (the NaN is added to the summed gradients by
 ``engine/steps.py``), ``on_loader_batch`` in ``data/loader.py`` and
-``on_checkpoint_save`` in ``checkpoint/manager.py``. The serving hooks are
-here with the grammar but nothing calls them yet (ROADMAP A3a, A13).
+``on_checkpoint_save`` in ``checkpoint/manager.py``; and the KV pool's:
+``on_tier_event`` (``slow_spill``, ``corrupt_spill``, ``tier_exhaust``) and
+``on_page_adopt`` (``corrupt_page``) in ``engine/kvcache.py``, and
+``on_peer_pull`` (``peer_pull_timeout``) where a service lands pages a peer
+pull sent (``engine/serving.py::import_remote_pages``, ``origin="pull"``;
+the JAX package fires it in its fleet manager, which the port has not
+yet). The other serving hooks are here with the grammar but nothing calls
+them yet (ROADMAP A3a, A13).
 
 Nothing in a training framework's recovery story is real until a test
 can *make* the failure happen: this module turns a one-line plan into

@@ -50,41 +50,63 @@ process stops serving and exits non-zero. ``/metrics?format=json`` adds
 ``tp_collective_floor_bytes``, ``tp_<op>_count_per_step`` /
 ``tp_<op>_bytes_per_step``).
 
-Left to later slices, each refused with a message naming it: ``--role``
-(ROADMAP A3a.4), the spill tiers (A3a.3), ``POST /profile``, the page
-shipping endpoints (A3a.4), ``/admin/*`` and the Prometheus text of
-``/metrics``.
+Disaggregated prefill/decode (the JAX ``serve.py``'s endpoints and flags):
+``--role prefill`` serves ``POST /prefill`` (``prompt`` or ``prompt_ids``:
+the prompt's KV computed into this replica's pool and its full-block chain
+answered as ``application/octet-stream`` page bytes, engine/kvcache.py's
+``PDTPAGES1`` format, with ``X-Ship-Blocks``) and refuses ``/generate``
+budgets over 1 token; ``--role decode`` serves ``POST /admit_pages`` (those
+bytes as the body; ``X-Page-Origin: ship`` or ``pull`` tags the adopted
+pages; a JSON receipt) and everything ``/generate`` asks; the wrong role
+answers 403, a torn or foreign payload 400. ``POST /export_pages`` ships
+the chain a replica already holds without computing anything, any role.
+A role needs the prefix pool. ``--spill-blocks N`` demotes evicted pages
+to a host tier of N blocks, ``--spill-dir D`` (with ``--spill-disk-blocks
+M``) its overflow to disk (``D/g<i>`` for DP group i); every read is
+checksummed. ``/metrics?format=json`` adds ``role``,
+``pages_shipped_total``, ``page_ship_out_bytes_total``,
+``page_ship_in_bytes_total``, ``page_ship_dropped_total`` and the tier
+counters and gauges. Shipping and spill at ``--tp`` > 1 are refused,
+naming A3a.4's TP remainder.
+
+SIGTERM drains: the server stops accepting, waits up to ``--drain-grace-s``
+(30) for the requests in flight, and exits with code 75 (the preemption
+path a supervisor classifies). ``--ema`` serves a training checkpoint's
+EMA weights.
+
+Left to later slices, each refused with a message naming it: ``POST
+/profile``, ``/admin/*`` and the Prometheus text of ``/metrics``.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import logging
+import signal
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
 from . import models  # noqa: F401  (registers the model families)
 from .config import ConfigParser
+from .data.tokenizer import tokenizer_from_config
 from .engine.continuous import ContinuousBatchingService
 from .engine.generate import pad_capable
+from .engine.kvcache import TP_LATER, serialize_pages
 from .engine.serving import (
-    BatchedGenerationService, GenerationService, load_generation_stack,
+    BatchedGenerationService, GenerationService, check_served_model,
+    load_generation_stack,
 )
 from .parallel.tp import validate_dp_geometry
+from .utils.preemption import EXIT_PREEMPTED
 
 logger = logging.getLogger(__name__)
 
 _LATER = {
     "/profile": "on-demand profiling (POST /profile) is a later slice of "
                 "the port",
-    "/prefill": "page shipping (disaggregated prefill/decode) is a later "
-                "slice of the port (ROADMAP A3a.4)",
-    "/export_pages": "page shipping is a later slice of the port (ROADMAP "
-                     "A3a.4)",
-    "/admit_pages": "page shipping is a later slice of the port (ROADMAP "
-                    "A3a.4)",
 }
 
 
@@ -130,45 +152,69 @@ def build_parser() -> argparse.ArgumentParser:
                         "--tp cards (continuous scheduler only)")
     p.add_argument("--role", default="both",
                    choices=("both", "prefill", "decode"),
-                   help="disaggregated serving role (a later slice)")
+                   help="disaggregated serving role: prefill ships prompt "
+                        "KV pages (POST /prefill), decode lands them (POST "
+                        "/admit_pages); both = colocated")
     p.add_argument("--spill-blocks", default=0, type=int,
-                   help="host KV spill tier (a later slice)")
+                   help="host KV spill tier: evicted pool pages demote to "
+                        "host memory (this many blocks; 0 = off)")
     p.add_argument("--spill-dir", default="", type=str,
-                   help="disk KV spill tier (a later slice)")
+                   help="disk KV spill tier under the host one (with "
+                        "--spill-disk-blocks)")
+    p.add_argument("--spill-disk-blocks", default=0, type=int,
+                   help="blocks the disk tier holds (0 = no disk tier)")
+    p.add_argument("--ema", action="store_true",
+                   help="serve a training checkpoint's EMA weights")
+    p.add_argument("--drain-grace-s", default=30.0, type=float,
+                   help="SIGTERM drain: how long to wait for in-flight "
+                        "requests before exiting (rc 75)")
     return p
 
 
-def _refuse_later(args) -> None:
-    if args.role != "both":
+def _refuse_later(args, tp: int) -> None:
+    """Shipping and spill under tensor parallelism, refused before any
+    load."""
+    if tp > 1 and (args.role != "both" or int(args.spill_blocks) > 0
+                   or args.spill_dir):
         raise NotImplementedError(
-            f"--role {args.role} (disaggregated prefill/decode with page "
-            "shipping) is a later slice of the port (ROADMAP A3a.4)")
-    if int(args.spill_blocks) > 0 or args.spill_dir:
-        raise NotImplementedError(
-            "KV spill tiers (--spill-blocks/--spill-dir) are a later slice "
-            "of the port (ROADMAP A3a.3)")
+            f"--role/--spill-* at --tp {tp}: {TP_LATER}")
 
 
-def build_service(args, config) -> GenerationService:
+def build_service(args, config, model=None) -> GenerationService:
     """The service the flags and config ask for, with its model loaded on
     ``args.device`` (CUDA unless asked otherwise): over ``--tp`` ranks per
-    group and ``--dp`` groups."""
-    _refuse_later(args)
-    serving = config.get("serving") or {}
+    group and ``--dp`` groups. ``model``: one already loaded (tp 1, dp 1),
+    served instead of loading the artifact again: in-process callers run
+    several roles on one set of weights, each service with its own pool.
+    It must be the model the config would load (``check_served_model``)."""
+    serving = (config.get("serving") or {}) if config is not None else {}
+    _refuse_later(args, int(args.tp or 0)
+                  or int(serving.get("tensor_parallel") or 1))
     prefix_cfg = dict(serving.get("prefix_cache") or {})
     if args.prefix_cache != "auto":
         prefix_cfg["enabled"] = args.prefix_cache == "on"
+    if int(args.spill_blocks) > 0:
+        prefix_cfg["host_spill_blocks"] = int(args.spill_blocks)
+    if args.spill_dir:
+        prefix_cfg["disk_spill_dir"] = args.spill_dir
+        if int(args.spill_disk_blocks) > 0:
+            prefix_cfg["disk_spill_blocks"] = int(args.spill_disk_blocks)
     chunk = int(args.prefill_chunk_tokens or 0) or int(
         serving.get("prefill_chunk_tokens") or 0)
     if chunk:
         prefix_cfg["prefill_chunk_tokens"] = chunk
     tp = int(args.tp or 0) or int(serving.get("tensor_parallel") or 1)
     dp = max(int(args.dp), 1)
+    if model is not None:
+        if tp > 1 or dp > 1:
+            raise ValueError("a model handed in serves one group at tp 1 "
+                             f"(got --tp {tp}, --dp {dp})")
+        check_served_model(model, config)
     draft_layers = int(serving.get("speculative_draft_layers") or 0)
     continuous = dict(slots=args.max_batch, chunk=args.decode_chunk,
                       window_ms=args.batch_window_ms,
                       prefix_cache=prefix_cfg, prefill_chunk_tokens=chunk,
-                      spec_draft_layers=draft_layers)
+                      spec_draft_layers=draft_layers, role=args.role)
     if dp > 1:
         # validated before any load: a geometry typo fails at once
         validate_dp_geometry(dp, tp, args.device or "cuda")
@@ -179,9 +225,14 @@ def build_service(args, config) -> GenerationService:
 
         return DataParallelService.build_from_config(
             config, ContinuousBatchingService, device=args.device, dp=dp,
-            tp=tp, service_kw=continuous)
-    model, tok = load_generation_stack(config, device=args.device,
-                                       tensor_parallel=tp)
+            tp=tp, use_ema=args.ema, service_kw=continuous)
+    owned = model is None
+    if owned:
+        model, tok = load_generation_stack(config, device=args.device,
+                                           use_ema=args.ema,
+                                           tensor_parallel=tp)
+    else:
+        tok = tokenizer_from_config(config)
     want = args.scheduler
     if want == "auto":
         want = auto_scheduler(model, prefix_cfg, args.max_batch)
@@ -192,6 +243,14 @@ def build_service(args, config) -> GenerationService:
                         "paged pool")
             prefix_cfg.update(enabled=True, paged=True)
     try:
+        if args.role != "both" and (want == "static"
+                                    or not prefix_cfg.get("enabled")):
+            # a role IS page shipping: it needs the pool, which the static
+            # scheduler's shared prefills do not consult
+            raise SystemExit(
+                f"--role {args.role} needs the prefix pool (--prefix-cache "
+                "on or a serving.prefix_cache block) and the continuous or "
+                "plain scheduler: page shipping moves pool pages")
         if want == "continuous":
             return ContinuousBatchingService.from_model(
                 model, tok, device=model.device, **continuous)
@@ -202,9 +261,10 @@ def build_service(args, config) -> GenerationService:
                 spec_draft_layers=draft_layers)
         return GenerationService.from_model(model, tok, device=model.device,
                                             prefix_cache=prefix_cfg,
-                                            spec_draft_layers=draft_layers)
+                                            spec_draft_layers=draft_layers,
+                                            role=args.role)
     except BaseException:
-        if hasattr(model, "close"):
+        if owned and hasattr(model, "close"):
             model.close()
         raise
 
@@ -251,8 +311,20 @@ def service_metrics(service) -> dict:
         out["queue_depth"] = service.queue_depth()
         out["live_slots"] = service.live_slots()
         out["latency"] = service.latency_percentiles()
-    out["prefix_cache"] = service.prefix_cache_stats()
+    pool = service.prefix_cache_stats()
+    out["prefix_cache"] = pool
     out["pool_refusal_reason"] = service.pool_refusal_reason
+    # disaggregated serving and the spill tiers, under the JAX server's
+    # flat names: the role, the handoff counters, the page and byte
+    # counters of shipping and the tiers, and the tiers' occupancy
+    stats = out["stats"]
+    out["role"] = str(getattr(service, "role", "both"))
+    out["prefill_exports_total"] = int(stats.get("prefill_exports", 0))
+    out["remote_admits_total"] = int(stats.get("remote_admits", 0))
+    out["peer_exports_total"] = int(stats.get("peer_exports", 0))
+    pool = pool or {}
+    for key, name in _POOL_METRICS.items():
+        out[name] = int(pool.get(key, 0))
     # DP x TP: the group count, the TP degree and one decode step's
     # collectives (counted once on the ranks; zeros at tp 1), flat
     out["dp_groups"] = int(out["stats"].get("dp_groups", 1) or 1)
@@ -270,7 +342,55 @@ def service_metrics(service) -> dict:
     return out
 
 
-def make_handler(service):
+#: pool snapshot key -> ``/metrics?format=json`` name (the JAX server's)
+_POOL_METRICS = {
+    "pages_exported": "pages_shipped_total",
+    "pages_imported": "pages_imported_total",
+    "page_ship_out_bytes": "page_ship_out_bytes_total",
+    "page_ship_in_bytes": "page_ship_in_bytes_total",
+    "page_ship_dropped": "page_ship_dropped_total",
+    "warm_admit_copy_bytes": "warm_admit_copy_bytes_total",
+    "tier_demoted_blocks": "tier_demoted_blocks_total",
+    "tier_promoted_blocks": "tier_promoted_blocks_total",
+    "tier_demote_bytes": "tier_demote_bytes_total",
+    "tier_promote_bytes": "tier_promote_bytes_total",
+    "tier_checksum_failures": "tier_checksum_failures_total",
+    "tier_exhaust_drops": "tier_exhaust_drops_total",
+    "tier_demote_errors": "tier_demote_errors_total",
+    "tier_host_blocks": "tier_host_blocks",
+    "tier_host_bytes": "tier_host_bytes",
+    "tier_disk_blocks": "tier_disk_blocks",
+    "tier_disk_bytes": "tier_disk_bytes",
+}
+
+
+class ActiveRequests:
+    """In-flight HTTP requests: the SIGTERM drain waits for zero (a
+    response completes only after its generate returns, SSE included)."""
+
+    def __init__(self):
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        with self._lock:
+            self._n += 1
+        return self
+
+    def __exit__(self, *exc):
+        with self._lock:
+            self._n -= 1
+        return False
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._n
+
+
+def make_handler(service, active=None):
+    active = active if active is not None else ActiveRequests()
+
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code: int, payload: dict) -> None:
             body = json.dumps(payload).encode("utf-8")
@@ -279,6 +399,19 @@ def make_handler(service):
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+
+        def _send_pages(self, payload: dict) -> None:
+            body = serialize_pages(payload)
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Content-Length", str(len(body)))
+            self.send_header("X-Ship-Blocks", str(int(payload["n_blocks"])))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _body(self) -> bytes:
+            return self.rfile.read(int(self.headers.get("Content-Length",
+                                                        0)))
 
         def do_GET(self):  # noqa: N802 (http.server API)
             path, _, query = self.path.partition("?")
@@ -304,15 +437,45 @@ def make_handler(service):
             return self._send(200, payload)
 
         def do_POST(self):  # noqa: N802
+            with active:
+                self._post()
+
+        def _post(self):
             path = self.path.partition("?")[0]
             if path in _LATER or path.startswith("/admin/"):
                 return self._send(501, {"error": _LATER.get(
                     path, "/admin/* is a later slice of the port")})
-            if path != "/generate":
+            role = getattr(service, "role", "both")
+            if path == "/prefill" and role == "decode":
+                return self._send(403, {
+                    "error": "decode-role replica: POST pages to "
+                             "/admit_pages, prompts to a prefill-role "
+                             "replica's /prefill"})
+            if path == "/admit_pages" and role == "prefill":
+                return self._send(403, {
+                    "error": "prefill-role replica does not ingest pages "
+                             "(ship them to a decode-role replica)"})
+            if path not in ("/generate", "/prefill", "/export_pages",
+                            "/admit_pages"):
                 return self._send(404, {"error": "unknown path"})
             try:
-                n = int(self.headers.get("Content-Length", 0))
-                req = json.loads(self.rfile.read(n) or b"{}")
+                if path == "/admit_pages":
+                    # who pushed the pages: the prefill handoff ("ship")
+                    # or a peer pull ("pull"); tags the adopted nodes
+                    origin = (self.headers.get("X-Page-Origin")
+                              or "ship").strip().lower()
+                    return self._send(200, service.import_remote_pages(
+                        self._body(),
+                        origin=origin if origin == "pull" else "ship"))
+                req = json.loads(self._body() or b"{}")
+                if path == "/prefill":
+                    return self._send_pages(service.prefill_export(
+                        prompt=req.get("prompt"),
+                        prompt_ids=req.get("prompt_ids")))
+                if path == "/export_pages":
+                    return self._send_pages(service.export_cached_pages(
+                        prompt=req.get("prompt"),
+                        prompt_ids=req.get("prompt_ids")))
                 if req.get("stream"):
                     return self._stream(req)
                 return self._send(200, _run_request(service, req))
@@ -382,21 +545,39 @@ def make_handler(service):
     return Handler
 
 
-def main(argv=None, on_ready=None):
+def main(argv=None, on_ready=None, model=None):
     """Parse ``argv`` (default ``sys.argv``), load the artifact, and serve
     until the server is shut down. ``on_ready(server, service)`` is
     called once the socket is bound (in-process callers stop the server
-    with ``server.shutdown()``)."""
+    with ``server.shutdown()``). ``model``: an already loaded model to
+    serve instead of loading ``-r`` again (:func:`build_service`). A
+    SIGTERM drains and exits with ``EXIT_PREEMPTED`` (75)."""
     args, config = ConfigParser.from_args(build_parser(), (),
                                           training=False, argv=argv)
     log = config.get_logger("serve")
-    service = build_service(args, config)
-    log.info("scheduler: %s on %s (dp %d, tp %d)", type(service).__name__,
-             service.device, getattr(service, "dp", 1), service.tp)
+    service = build_service(args, config, model=model)
+    log.info("scheduler: %s on %s (dp %d, tp %d, role %s)",
+             type(service).__name__, service.device,
+             getattr(service, "dp", 1), service.tp, service.role)
+    active = ActiveRequests()
     server = ThreadingHTTPServer((args.host, args.port),
-                                 make_handler(service))
+                                 make_handler(service, active))
     server.daemon_threads = True
     failed = []
+    # SIGTERM drains (the preemption path): stop accepting, let requests
+    # in flight finish within --drain-grace-s, exit EXIT_PREEMPTED
+    draining = threading.Event()
+
+    def on_sigterm(signum, frame):  # noqa: ARG001 (signal signature)
+        if not draining.is_set():
+            draining.set()
+            # shutdown() waits for serve_forever, which runs this handler
+            threading.Thread(target=server.shutdown, daemon=True).start()
+
+    try:
+        signal.signal(signal.SIGTERM, on_sigterm)
+    except ValueError:
+        pass                    # not the main thread (in-process callers)
 
     def on_failure(err):
         # the failing call has answered its requests with the error; stop
@@ -420,17 +601,26 @@ def main(argv=None, on_ready=None):
         on_ready(server, service)
     try:
         server.serve_forever()
+        if draining.is_set():
+            deadline = time.monotonic() + float(args.drain_grace_s)
+            while active.count and time.monotonic() < deadline:
+                time.sleep(0.05)
+            log.info("drained (%d request(s) still open); exiting via the "
+                     "preemption path", active.count)
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
         if hasattr(service, "close"):
             service.close()
-        for group in _groups(service):
-            group.close()
+        if model is None:
+            for group in _groups(service):
+                group.close()
         torch.set_num_threads(threads)
     if failed:
         raise RuntimeError(f"a serving rank failed: {failed[0]}")
+    if draining.is_set():
+        raise SystemExit(EXIT_PREEMPTED)
     return service
 
 

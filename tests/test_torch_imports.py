@@ -1,7 +1,8 @@
 """The port stands alone: importing it pulls in no JAX, nothing of the
-JAX package and nothing of ``scripts/``, no source file of it (nor
-``chip_smoke.py``) imports any of them, and ``chip_smoke.py`` refuses to
-run without a CUDA device.
+JAX package, nothing of ``scripts/`` and no ``ml_dtypes`` (the card
+machine has none: bf16 pages travel as raw bytes), no source file of it
+(nor ``chip_smoke.py``) imports any of them, and ``chip_smoke.py`` refuses
+to run without a CUDA device.
 """
 import ast
 import json
@@ -13,7 +14,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "pytorch_distributed_template_tpu_torch"
-FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "orbax",
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
                    "pytorch_distributed_template_tpu", "scripts"}
 ENTRY_MODULES = [
     "pytorch_distributed_template_tpu_torch",
@@ -26,6 +27,7 @@ ENTRY_MODULES = [
     "pytorch_distributed_template_tpu_torch.models.quant",
     "pytorch_distributed_template_tpu_torch.engine.kvcache",
     "pytorch_distributed_template_tpu_torch.engine.continuous",
+    "pytorch_distributed_template_tpu_torch.engine.dp",
     "pytorch_distributed_template_tpu_torch.serve",
     "pytorch_distributed_template_tpu_torch.utils.promtext",
     "pytorch_distributed_template_tpu_torch.train",

@@ -452,6 +452,68 @@ def test_paged_attn_refuses_what_it_does_not_take(cuda):
                               starts, pads)
 
 
+@pytest.mark.parametrize("t", [1, 37], ids=["decode_arm", "wgmma_arm"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_paged_attn_over_imported_pages(cuda, quant, t):
+    """B4 over pages that reached the pool as a serialized payload
+    (``serialize_pages`` -> ``deserialize_pages`` -> ``import_pages``: one
+    host-to-device copy, then the radix insert), Mistral's page geometry,
+    against the plain version; the pages hold the payload's bytes."""
+    import pytorch_distributed_template_tpu_torch.models  # noqa: F401
+    from pytorch_distributed_template_tpu_torch.config.registry import MODELS
+    from pytorch_distributed_template_tpu_torch.engine.kvcache import (
+        PrefixCache, deserialize_pages, serialize_pages,
+    )
+    from pytorch_distributed_template_tpu_torch.models.convert import (
+        pool_leaf_path,
+    )
+    from pytorch_distributed_template_tpu_torch.models.quant import (
+        quantize_kv,
+    )
+
+    bt, kvh, d, hq, nb = 32, 2, 128, 8, 6
+    model = MODELS.get("Llama")(
+        vocab_size=64, n_layer=1, n_head=hq, n_kv_head=kvh, d_model=hq * d,
+        max_len=1024, bfloat16=True, kv_quant="int8" if quant else "",
+        device=cuda)
+    pf = PrefixCache(model, block_tokens=bt, pool_blocks=2 * nb + 2)
+    gen = torch.Generator().manual_seed(t)
+    k = torch.randn(nb, bt, kvh, d, generator=gen)
+    v = torch.randn(nb, bt, kvh, d, generator=gen)
+    if quant:
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        pages = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        pages = {"k": k.bfloat16(), "v": v.bfloat16()}
+    leaves = {pool_leaf_path("layers", 0, a): x for a, x in pages.items()}
+    ids = [i % 63 + 1 for i in range(nb * bt)]
+    payload = {"version": 1, "block_tokens": bt, "n_blocks": nb,
+               "token_ids": ids, "tp_geometry": {"tp": 1}, "leaves": leaves}
+    receipt = pf.import_pages(deserialize_pages(serialize_pages(payload)))
+    assert receipt["imported_blocks"] == nb
+    _, blocks = pf.index.match(ids)
+    for path, x in leaves.items():
+        assert torch.equal(pf.leaves[path][blocks].cpu(), x)
+    layer = pf.pool.layers[0]
+    q = torch.randn(1, t, hq, d, generator=gen).bfloat16().to(cuda)
+    tables = torch.full((1, nb + 2), -1, dtype=torch.int32)
+    tables[0, :nb] = torch.tensor(blocks, dtype=torch.int32)
+    starts = torch.tensor([nb * bt - t], dtype=torch.int32)
+    pads = torch.zeros(1, dtype=torch.int32)
+    tables, starts, pads = (x.to(cuda) for x in (tables, starts, pads))
+    kw = dict(k_scale=layer.k_scale, v_scale=layer.v_scale)
+    before = flash.PAGED_ATTN.launches
+    out = flash.paged_attention(q, layer.k, layer.v, tables, starts, pads,
+                                **kw)
+    torch.cuda.synchronize()
+    assert flash.PAGED_ATTN.launches == before + 1
+    f32 = (lambda x: x) if quant else (lambda x: x.float())
+    ref = flash.paged_attention_ref(q.float(), f32(layer.k), f32(layer.v),
+                                    tables, starts, pads, **kw)
+    atol, rtol = TOL_OUT[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol)
+
+
 # ---------------------------------------------------------------------------
 # B2/B3: the flash backward (csrc/flash_bwd.cu) against flash_attention_bwd_ref
 # ---------------------------------------------------------------------------

@@ -187,7 +187,12 @@ def test_pool_refusals_match_jax(kw, reason):
 
 
 def test_spill_tiers_name_the_later_slice():
+    # the tiers are served at tp 1 (tests/test_torch_kvtier.py); under
+    # tensor parallelism they stay a later slice (A3a.4's TP remainder)
     tm = TMODELS.get("Llama")(**KW, device="cpu")
+    assert tkv.PrefixCache(tm, block_tokens=BT, pool_blocks=8,
+                           host_spill_blocks=4).spill is not None
+    tm.tensor_parallel = 2       # what a rank group's model reports
     with pytest.raises(NotImplementedError, match="later slice"):
         tkv.PrefixCache(tm, block_tokens=BT, pool_blocks=8,
                         host_spill_blocks=4)

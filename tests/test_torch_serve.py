@@ -8,9 +8,10 @@ HTTP to it.
   continuous engine over the paged pool, equal to the solo service;
 - ``GET /healthz`` and ``GET /metrics?format=json`` (engine stats + pool
   snapshot);
-- a bad request is a 400; page shipping, roles and the spill tiers are
-  refused, naming the later slice (the static scheduler is served:
-  tests/test_torch_static_batch.py).
+- a bad request is a 400; ``POST /profile``, and roles and the spill
+  tiers under tensor parallelism, are refused naming the later slice (the
+  static scheduler is served: tests/test_torch_static_batch.py; roles and
+  tiers at tp 1: tests/test_torch_disagg.py).
 """
 import json
 import threading
@@ -114,7 +115,7 @@ def test_bad_and_later_slice_requests(server):
         _post(server["url"], {"prompt_ids": [1, 2], "stream": True,
                               "max_new_tokens": 999})
     assert e.value.code == 400
-    req = urllib.request.Request(server["url"] + "/prefill", data=b"{}",
+    req = urllib.request.Request(server["url"] + "/profile", data=b"{}",
                                  method="POST")
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(req, timeout=60)
@@ -122,13 +123,14 @@ def test_bad_and_later_slice_requests(server):
     assert "later slice" in json.loads(e.value.read())["error"]
 
 
-# --tp and --dp are served (tests/test_torch_tp_serving_ranks.py); beside
-# them the later slices' flags still refuse, before anything loads
+# --tp and --dp are served (tests/test_torch_tp_serving_ranks.py), and so
+# are --role and the spill tiers at tp 1 (tests/test_torch_disagg.py); at
+# tp > 1 those still refuse, naming the later slice, before anything loads
 @pytest.mark.parametrize("flags", [
-    ["--scheduler", "static", "--spill-blocks", "8"],
+    ["--tp", "2", "--spill-blocks", "8"],
     ["--tp", "2", "--role", "decode"],
-    ["--dp", "2", "--spill-blocks", "8"],
-    ["--role", "decode"], ["--spill-blocks", "8"],
+    ["--dp", "2", "--tp", "2", "--spill-blocks", "8"],
+    ["--tp", "4", "--role", "prefill"], ["--tp", "2", "--spill-dir", "x"],
 ])
 def test_later_slice_flags_are_refused_by_name(flags):
     args = serve.build_parser().parse_args(["-r", "unused", "--device",

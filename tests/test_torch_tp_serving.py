@@ -59,7 +59,7 @@ from pytorch_distributed_template_tpu_torch.engine.dp import (
     DataParallelService,
 )
 from pytorch_distributed_template_tpu_torch.engine.kvcache import (
-    PrefixCache,
+    TP_LATER, PrefixCache,
 )
 from pytorch_distributed_template_tpu_torch.models.convert import (
     flax_path, params_from_flax,
@@ -364,6 +364,14 @@ class _Engine:
     def tp_stats(self):
         return {"tp_degree": 1}
 
+    def _ship(self, *args, **kw):
+        # a group's pool refuses page shipping at tp > 1
+        if self.tp > 1:
+            raise NotImplementedError(TP_LATER)
+        return {"group": self.g}
+
+    prefill_export = export_cached_pages = import_remote_pages = _ship
+
 
 def _facades(loads):
     depth = [{(1, 2): 3}, {(1, 2): 5, (7, 7): 1}, {}]
@@ -417,11 +425,14 @@ def test_dp_pick_and_stats_equal_jax_step_by_step():
 def test_dp_gauges_are_not_summed_and_shipping_refuses():
     (_, _), (svc, engines) = _facades([(0, 0)] * 3)
     for e in engines:
-        e.stats["tp_degree"] = 2
+        # shipping refuses at tp > 1 (A3a.4's TP remainder; served at tp 1:
+        # tests/test_torch_disagg.py)
+        e.stats["tp_degree"] = e.tp = 2
     assert svc.stats["tp_degree"] == 2
-    for call in (svc.prefill_export, svc.export_cached_pages,
-                 svc.import_remote_pages):
+    for call, kw in ((svc.prefill_export, {"prompt_ids": [1, 2]}),
+                     (svc.export_cached_pages, {"prompt_ids": [1, 2]}),
+                     (svc.import_remote_pages, {"payload": b""})):
         with pytest.raises(NotImplementedError, match="A3a.4"):
-            call(prompt_ids=[1, 2])
+            call(**kw)
     with pytest.raises(ValueError, match="needs >= 1 engine"):
         DataParallelService([])
