@@ -9,6 +9,8 @@ serving garbage weights is the one failure nothing downstream catches.
 The meta records the model's ``tp_geometry`` (``parallel.tp.
 model_geometry``), and :func:`check_artifact_tp_geometry` refuses a
 tensor-parallel degree that geometry cannot shard before a weight is read.
+The ``ckpt_corrupt`` fault (resilience/faults.py) fires in
+:func:`verify_artifact_manifest`, once per verification.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from ..resilience import faults
 
 logger = logging.getLogger(__name__)
 
@@ -64,6 +68,14 @@ def verify_artifact_manifest(path) -> bool:
         return False
     want = json.loads(mpath.read_text()).get("files") or {}
     got = _artifact_digests(path)
+    spec = faults.on_artifact_load()
+    if spec is not None and got:
+        # the ckpt_corrupt fault perturbs the OBSERVED digest of the first
+        # entry: the refusal path runs without destroying the artifact
+        first = sorted(got)[0]
+        got[first] = dict(got[first], sha256="0" * 64)
+        logger.warning("fault ckpt_corrupt: perturbed digest of %s (%s)",
+                       first, spec.describe())
     bad = []
     for rel, meta in want.items():
         have = got.get(rel)

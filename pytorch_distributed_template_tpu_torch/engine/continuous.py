@@ -48,8 +48,35 @@ counted once at setup. DP groups are engine/dp.py.
 A request with ``speculative > 0`` bypasses the slots (the JAX engine's
 rule): it runs batch 1 through the parent service's speculative path
 under the engine's lock, between two scheduler ticks, warm-prefilling
-through the pool on a prefix hit. The brownout gate on such requests waits
-for ROADMAP A3a.5.
+through the pool on a prefix hit.
+
+Observability and overload, as the JAX engine does them:
+
+- tracing (``tracer=``): per request ``queue_wait`` and ``admit`` spans
+  at its admission, ``prefill_chunk`` per streamed chunk, ``tier`` for a
+  promotion from a spill tier, events ``kv_evictions``, ``first_token``,
+  ``decode_chunk``, ``kv_adopt``, ``serve_path`` and ``complete``. Every
+  stamp is taken where the host already learns the tokens (the absorb's
+  device read) or does host work anyway: tracing adds no synchronisation.
+  TTFT / TPOT / e2e feed the ``hist`` histograms and the SLO watcher
+  (``slo=``); ``tsdb=`` (a ``TimeSeriesStore``) gets one observation per
+  absorbed chunk;
+- deadlines (``generate(deadline=)``): a queued request whose deadline
+  expires is dropped before it takes a slot, a decoding one finalizes at
+  its next absorb with ``stop_reason: "deadline"`` (its row frozen at
+  once, as a cancelled one's), both counted in ``deadline_expired``;
+- the brownout ladder (``brownout=``, a ``serving.brownout`` dict or a
+  ``BrownoutController``): pressure is the larger of the queue over
+  ``slots x queue_norm``, the pool's referenced fraction and an EWMA of
+  the SLO breach rate; level 1 strips speculation from requests, level 2
+  caps chunk growth at the base chunk, level 3 clamps admitted budgets to
+  ``max_new_cap``;
+- the fault hook ``faults.on_serve_tick`` runs once per scheduler round
+  (``slow_decode``, ``hang``, and ``pool_exhaust``'s dry-pool window, in
+  which reservations, promotions and streamed chunks defer);
+- each response carries its ``serve_path`` fingerprint (admit mode
+  ``paged`` or ``stream``, the pool events behind its prefix, ``wrap``,
+  the brownout level at admission).
 
 Roles and the spill tiers: ``role="prefill"`` refuses budgets over one
 token and serves ``prefill_export`` (the parent's, under the engine's
@@ -60,9 +87,8 @@ With a spill tier, pending requests whose prefix was demoted promote at the
 tick's start, before the tick reserves pages.
 
 Left to later slices: the non-paged shared-cache engine (eras, the scatter
-warm admit; ROADMAP A3a.1's other half), brownout and SLOs (A3a.5, A3a.7),
-deadlines, tracing and anatomy. Without a paged pool the constructor
-raises.
+warm admit; ROADMAP A3a.1's other half) and the step anatomy. Without a
+paged pool the constructor raises.
 """
 from __future__ import annotations
 
@@ -75,9 +101,11 @@ import numpy as np
 import torch
 
 from ..models.moe import MoeMlp
+from ..resilience import faults
+from ..utils.brownout import BrownoutController
 from ..utils.promtext import percentile
 from .generate import isin_stops, sample_rows
-from .kvcache import paged_forward
+from .kvcache import page_origin_flags, paged_forward
 from .serving import GenerationService
 
 logger = logging.getLogger(__name__)
@@ -102,9 +130,11 @@ class ContinuousBatchingService(GenerationService):
     def _setup(self, model, tokenizer=None, slots: int = 8, chunk: int = 8,
                window_ms: float = 5.0, prefix_cache=None,
                prefill_chunk_tokens: int = 0, spec_draft_layers: int = 0,
-               role: str = "both"):
+               role: str = "both", tracer=None, slo=None, brownout=None,
+               tsdb=None):
         super()._setup(model, tokenizer, prefix_cache=prefix_cache,
-                       spec_draft_layers=spec_draft_layers, role=role)
+                       spec_draft_layers=spec_draft_layers, role=role,
+                       tracer=tracer, slo=slo)
         if self._prefix is None or not self._prefix.paged:
             raise NotImplementedError(
                 "the port's continuous engine runs over a paged KV pool "
@@ -114,6 +144,11 @@ class ContinuousBatchingService(GenerationService):
         self._chunk = int(chunk)
         if self._slots < 1 or self._chunk < 1:
             raise ValueError("slots and chunk must be >= 1")
+        self._tsdb = tsdb
+        # the pool_exhaust fault window: until this monotonic instant the
+        # pool reads dry (0: no window)
+        self._pool_dry_until = 0.0
+        self._init_brownout(brownout)
         chunk_tok = int(prefill_chunk_tokens or 0)
         if chunk_tok and (chunk_tok & (chunk_tok - 1)):
             raise ValueError(
@@ -142,7 +177,8 @@ class ContinuousBatchingService(GenerationService):
                       "decode_calls": 0, "tp_degree": self.tp,
                       # page shipping: chains landed from prefill-role
                       # replicas, chains exported to decode-role ones
-                      "remote_admits": 0, "prefill_exports": 0}
+                      "remote_admits": 0, "prefill_exports": 0,
+                      "deadline_expired": 0, "brownout_clamped": 0}
         # the per-step collective accounting runs a probe on the ranks:
         # once here, never on the scrape path
         self.tp_stats()
@@ -160,28 +196,112 @@ class ContinuousBatchingService(GenerationService):
             raise RuntimeError("continuous scheduler did not stop")
         super().close()
 
+    # ---- the brownout ladder -----------------------------------------------
+
+    def _init_brownout(self, cfg) -> None:
+        """Attach the hysteresis ladder (utils/brownout.py) from a
+        ``serving.brownout`` dict (``{"enabled": true, ...}``) or a built
+        controller. Off by default: level 3 clamps budgets, which an
+        operator opts into."""
+        self._brownout = None
+        self._bo_queue_norm = 1.0
+        self._bo_max_new = 0
+        self._bo_breach_ewma = 0.0
+        self._bo_last = (0, 0)          # (breaches, completed) marks
+        self._bo_lock = threading.Lock()
+        if isinstance(cfg, BrownoutController):
+            self._brownout = cfg
+            return
+        cfg = dict(cfg or {})
+        if not cfg.get("enabled"):
+            return
+        # a queue of slots x queue_norm reads as pressure 1.0
+        self._bo_queue_norm = float(cfg.get("queue_norm", 1.0))
+        # level 3's budget cap (0: four base chunks)
+        self._bo_max_new = int(cfg.get("max_new_cap", 0)) or self._chunk * 4
+        kw = {k: tuple(cfg[k]) for k in ("enter", "exit") if k in cfg}
+        self._brownout = BrownoutController(
+            dwell_s=float(cfg.get("dwell_s", 2.0)),
+            on_change=self._on_brownout_change, **kw)
+
+    @staticmethod
+    def _on_brownout_change(old: int, new: int, pressure: float) -> None:
+        logger.warning("brownout level %d -> %d (pressure %.2f)", old, new,
+                       pressure)
+
+    @property
+    def brownout_level(self) -> int:
+        return self._brownout.level if self._brownout is not None else 0
+
+    def brownout_stats(self) -> dict:
+        """The ladder's gauges for /metrics. Each read feeds the controller
+        the current pressure (ticks run only under traffic, so an idle
+        engine's level would freeze otherwise; the dwell still holds)."""
+        if self._brownout is None:
+            return {"brownout_level": 0}
+        with self._bo_lock:
+            self._brownout.update(self._brownout_pressure())
+            return self._brownout.stats()
+
+    def _brownout_pressure(self, waiting: int = 0) -> float:
+        """Normalized pressure (1.0 ~ at capacity): the max of the waiting
+        requests (queued plus the tick's unadmitted pending) over ``slots x
+        queue_norm``, the pool's live-referenced page fraction, and an EWMA
+        of the SLO breaches per completion."""
+        p = (self._queue.qsize() + waiting) / max(
+            self._slots * self._bo_queue_norm, 1e-9)
+        snap = self._prefix.stats_snapshot()
+        p = max(p, snap["prefix_pool_blocks_referenced"]
+                / max(snap["prefix_pool_blocks"], 1))
+        if self._slo is not None:
+            breaches = self._slo.stats()["slo_breach_total"]
+            completed = self.stats["completed"]
+            db = breaches - self._bo_last[0]
+            dc = completed - self._bo_last[1]
+            if dc > 0:
+                self._bo_breach_ewma += 0.3 * (min(db / dc, 1.0)
+                                               - self._bo_breach_ewma)
+                self._bo_last = (breaches, completed)
+            p = max(p, self._bo_breach_ewma)
+        return p
+
+    def _pool_dry(self) -> bool:
+        """The pool_exhaust fault window is open: reservations defer."""
+        return (self._pool_dry_until > 0.0
+                and time.monotonic() < self._pool_dry_until)
+
     # ---- request entry ---------------------------------------------------
 
     def generate(self, prompt=None, prompt_ids=None,
                  max_new_tokens: int = 64, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 0.0, seed: int = 0,
                  speculative: int = 0, stop=None, on_tokens=None,
-                 cancel=None) -> dict:
+                 cancel=None, request_id=None, deadline=None) -> dict:
         """The parent's contract plus ``on_tokens`` (called on the
         scheduler thread with each absorbed batch of this request's new
         ids, stop ids filtered: the deltas concatenate to the response's
-        ``ids``; must not block) and ``cancel`` (a ``threading.Event``:
-        once set, the request finalizes at its next chunk absorb with
+        ``ids``; must not block), ``cancel`` (a ``threading.Event``: once
+        set, the request finalizes at its next chunk absorb with
         ``stop_reason: "cancelled"`` and its slot and pages free; a
-        request still queued is dropped)."""
+        request still queued is dropped) and ``deadline`` (a
+        ``reqtrace.Deadline``: a cancel the engine raises itself, with
+        ``stop_reason: "deadline"``). At brownout level 1 or more a
+        speculative request is served without speculation."""
         self._check_role(max_new_tokens)
+        if int(speculative) > 0 and self.brownout_level >= 1:
+            # level 1: the verify calls' extra work goes back to the batch
+            speculative = 0
         if int(speculative) > 0:
             # batch 1 under the engine's lock, between ticks
-            return super().generate(
+            result = super().generate(
                 prompt=prompt, prompt_ids=prompt_ids,
                 max_new_tokens=max_new_tokens, temperature=temperature,
                 top_k=top_k, top_p=top_p, seed=seed,
-                speculative=speculative, stop=stop)
+                speculative=speculative, stop=stop, request_id=request_id,
+                deadline=deadline)
+            if on_tokens is not None and result.get("ids"):
+                on_tokens(list(result["ids"]))   # one final delta
+            return result
         ids = self.encode_prompt(prompt, prompt_ids)
         stops = self.encode_stop(stop)
         max_new = int(max_new_tokens)
@@ -189,8 +309,9 @@ class ContinuousBatchingService(GenerationService):
         req = {"ids": ids, "budget": max_new,
                "temperature": float(temperature), "top_k": int(top_k),
                "top_p": float(top_p), "seed": int(seed), "stop": stops,
-               "on_tokens": on_tokens, "cancel": cancel,
-               "event": threading.Event(), "t0": time.monotonic()}
+               "on_tokens": on_tokens, "cancel": cancel, "rid": request_id,
+               "deadline": deadline, "event": threading.Event(),
+               "t0": time.monotonic()}
         self._queue.put(req)
         req["event"].wait()
         if "error" in req:
@@ -213,9 +334,11 @@ class ContinuousBatchingService(GenerationService):
     @classmethod
     def _grow_cap(cls, live) -> int:
         """Chunk-growth cap (x base chunk): full ``GROW_MAX`` only when no
-        live row can exit a chunk early (stop tokens, cancel events)."""
+        live row can exit a chunk early (stop tokens, cancel events,
+        deadlines)."""
         return (min(cls.GROW_MAX_STOPS, cls.GROW_MAX)
                 if any(m["req"]["stop"] or m["req"].get("cancel") is not None
+                       or m["req"].get("deadline") is not None
                        for m in live)
                 else cls.GROW_MAX)
 
@@ -231,7 +354,12 @@ class ContinuousBatchingService(GenerationService):
     def _reserve_pages(self, r):
         """Page reservation for one admission (``paged_plan``); ``None`` =
         dry pool, the caller defers. Only a request's first attempt
-        counts toward the hit/lookup stats."""
+        counts toward the hit/lookup stats. In the pool_exhaust fault's
+        window the pool reads dry (no lookup runs, so the first real
+        attempt still records)."""
+        r["_page_attempts"] = r.get("_page_attempts", 0) + 1
+        if self._pool_dry():
+            return None
         first = not r.get("_page_retry")
         r["_page_retry"] = True
         # spilled prefixes promoted at the tick's start (_tick)
@@ -273,6 +401,7 @@ class ContinuousBatchingService(GenerationService):
         if len(ids) - done <= chunk:
             return "skip"
         pf = self._prefix
+        t0 = time.monotonic()
         table = torch.from_numpy(pf.table_row(plan)[None]).to(self.device)
         try:
             paged_forward(self.model, pf.pool, ids[done:done + chunk], table,
@@ -296,6 +425,10 @@ class ContinuousBatchingService(GenerationService):
                 plan["shared"] = shared
                 # extend, never overwrite: each chunk's pins accumulate
                 plan["adopt_nodes"] = list(plan["adopt_nodes"]) + anodes
+        if self._tracer is not None and r.get("rid"):
+            # the chunk was only enqueued: the span is its host dispatch
+            self._tracer.add(r["rid"], "prefill_chunk", t0, time.monotonic(),
+                             tokens=chunk, done=plan["done"], total=len(ids))
         return "chunked"
 
     def _init_state(self) -> None:
@@ -320,6 +453,9 @@ class ContinuousBatchingService(GenerationService):
         prompt's full blocks into the radix index in place."""
         pf = self._prefix
         dev = self.device
+        t_admit0 = time.monotonic()
+        ev0 = (pf.counter("prefix_evictions")
+               if self._tracer is not None else 0)
         n, W = len(reqs), self.MAX_STOPS
         plans = [r["_pages"] for r in reqs]
         # "done" covers the radix-cached prefix AND chunks a streamed
@@ -396,11 +532,50 @@ class ContinuousBatchingService(GenerationService):
                 # extend, never overwrite: a streamed prefill's per-chunk
                 # pins are already here
                 plan["adopt_nodes"] = list(plan["adopt_nodes"]) + anodes
+            # serve-path provenance: "stream" when chunked streaming landed
+            # part of the prompt before this admit; the node origins name
+            # the pool events behind the cached prefix
+            streamed = plan.get("done", plan["c"]) > plan["c"]
+            path = {"mode": "stream" if streamed else "paged",
+                    "wrap": bool(plan.get("ring_wrap")),
+                    "brownout": self.brownout_level,
+                    **page_origin_flags(plan.get("nodes"))}
             self._meta[slot] = {"req": r, "emitted": 1, "out": [],
                                 "tok0_ref": (tok0, j), "done": False,
-                                "pages": plan, "gen": gens[j]}
+                                "pages": plan, "gen": gens[j], "path": path}
         self.stats["admissions"] += n
         self.stats["paged_admissions"] += n
+        if self._tracer is not None:
+            self._trace_admits(reqs, slots, feed, t_admit0,
+                               pf.counter("prefix_evictions") - ev0)
+
+    def _trace_admits(self, reqs, slots, feed: int, t_admit0: float,
+                      evictions: int) -> None:
+        """One admission group's spans: per request ``queue_wait``
+        (enqueue to this admit) and ``admit`` (the host dispatch), and the
+        pool evictions it paid as one ``kv_evictions`` event on the
+        group's first traced request."""
+        t_admit1 = time.monotonic()
+        for r, slot in zip(reqs, slots):
+            rid = r.get("rid")
+            if not rid:
+                continue
+            plan = self._meta[slot]["pages"]
+            bucket = self._bucket(len(r["ids"]))
+            self._tracer.add(rid, "queue_wait", r["t0"], t_admit0,
+                             bucket=bucket)
+            self._tracer.add(
+                rid, "admit", t_admit0, t_admit1, mode="paged",
+                bucket=bucket, feed=feed, group=len(reqs),
+                prefix_hit_tokens=plan["c"],
+                streamed_tokens=plan.get("done", plan["c"]) - plan["c"],
+                copy_blocks=0, private_pages=len(plan["private"]),
+                deferred=r.get("_page_attempts", 1) > 1)
+        if evictions:
+            rid = next((r.get("rid") for r in reqs if r.get("rid")), None)
+            if rid:
+                self._tracer.event(rid, "kv_evictions", blocks=evictions,
+                                   group=len(reqs))
 
     @torch.no_grad()
     def _dispatch_chunk(self, steps: int):
@@ -469,17 +644,34 @@ class ContinuousBatchingService(GenerationService):
             m["out"].extend(int(t) for t in toks[s, :fresh])
             m["emitted"] = int(emitted[s])
             m["done"] = bool(done[s])
+            rid = m["req"].get("rid")
             if "t_first" not in m and m["out"]:
+                # server-side TTFT: the first absorb that makes the row's
+                # first token servable
                 m["t_first"] = t_absorb
-                self._ttfts.append(t_absorb - m["req"]["t0"])
+                ttft = t_absorb - m["req"]["t0"]
+                self._ttfts.append(ttft)
                 if len(self._ttfts) > 1024:
                     del self._ttfts[:512]
+                self.hist["ttft_seconds"].observe(ttft)
+                if self._tracer is not None and rid:
+                    self._tracer.event(rid, "first_token",
+                                       ttft_s=round(ttft, 6))
+            elif self._tracer is not None and fresh > 0 and rid:
+                self._tracer.event(rid, "decode_chunk", tokens=fresh)
             ev = m["req"].get("cancel")
+            dl = m["req"].get("deadline")
             if ev is not None and not m["done"] and ev.is_set():
                 # cancelled mid-flight: finalize with what is decoded and
                 # freeze the device row now (in stream order, before any
                 # later chunk), so its pages can free at completion
                 m["done"] = True
+                self._done[s] = True
+            elif (dl is not None and not m["done"]
+                  and dl.expired(t_absorb)):
+                # the deadline expired mid-decode: a cancel the engine
+                # raises itself, classified "deadline" at completion
+                m["done"] = m["deadline"] = True
                 self._done[s] = True
             cb = m["req"].get("on_tokens")
             if cb is not None:
@@ -494,13 +686,43 @@ class ContinuousBatchingService(GenerationService):
             m = self._meta[s]
             if m is not None and m["done"]:
                 self._complete(s)
+        if self._tsdb is not None:
+            self._observe_tsdb()
+
+    def _observe_tsdb(self) -> None:
+        """One time-series observation per absorbed chunk: cumulative
+        counters (the store folds them into rates) and gauges."""
+        st = self.stats
+        snap = self._prefix.stats_snapshot()
+        self._tsdb.observe(
+            counters={
+                "tokens_generated_total": st["tokens_generated"],
+                "admissions_total": st["admissions"],
+                "chunks_total": st["chunks"],
+                "completed_total": st["completed"],
+                "cancelled_total": st["cancelled"],
+                "deadline_expired_total": st["deadline_expired"],
+                "prefix_hit_tokens_total": snap["prefix_hit_tokens"]},
+            gauges={
+                "queue_depth": self._queue.qsize(),
+                "live_slots": self.live_slots(),
+                "brownout_level": self.brownout_level,
+                "prefix_pool_blocks_used": snap["prefix_pool_blocks_used"]})
 
     def _complete(self, slot: int) -> None:
         m = self._meta[slot]
         req = m["req"]
+        rid = req.get("rid")
+        pf = self._prefix
+        ad0 = pf.counter("prefix_adopted_blocks")
         # adopt the written (prompt + decoded) blocks, free the tail,
         # release the slot's refs
-        self._prefix.paged_finish(m["pages"], m["out"], m["emitted"])
+        pf.paged_finish(m["pages"], m["out"], m["emitted"])
+        if self._tracer is not None and rid:
+            adopted = pf.counter("prefix_adopted_blocks") - ad0
+            if adopted:
+                # zero-copy radix adoption of this request's pages
+                self._tracer.event(rid, "kv_adopt", blocks=adopted)
         resp = self._response(m["out"], stops=req["stop"],
                               emitted=m["emitted"])
         ev = req.get("cancel")
@@ -509,14 +731,42 @@ class ContinuousBatchingService(GenerationService):
                 and m["emitted"] < req["budget"]):
             resp["stop_reason"] = "cancelled"
             self.stats["cancelled"] += 1
+        if (m.get("deadline") and resp["stop_reason"] == "length"
+                and m["emitted"] < req["budget"]):
+            # finalized by its own expired deadline, not by its budget
+            resp["stop_reason"] = "deadline"
+            self.stats["deadline_expired"] += 1
+        path = self._base_path()
+        path.update(m["path"])
+        self._finalize_path(resp, path, rid)
+        req["result"] = resp
+        req["event"].set()
         self._meta[slot] = None
         self.stats["completed"] += 1
         self.stats["tokens_generated"] += len(resp["ids"])
-        self._latencies.append(time.monotonic() - req["t0"])
+        t_done = time.monotonic()
+        lat = t_done - req["t0"]
+        self._latencies.append(lat)
         if len(self._latencies) > 1024:
             del self._latencies[:512]
-        req["result"] = resp
-        req["event"].set()
+        # cancelled and deadline-truncated requests stay out of the
+        # served-e2e histogram and the SLO: their latency is the client's
+        # or the deadline's choice. TPOT stays in: the cadence was real
+        if resp["stop_reason"] not in ("cancelled", "deadline"):
+            self.hist["e2e_seconds"].observe(lat)
+        t_first = m.get("t_first")
+        emitted = int(m["emitted"])
+        ttft = (t_first - req["t0"]) if t_first is not None else None
+        if t_first is not None and emitted > 1:
+            self.hist["tpot_seconds"].observe(
+                (t_done - t_first) / (emitted - 1))
+        if self._tracer is not None and rid:
+            self._tracer.event(rid, "complete", e2e_s=round(lat, 6),
+                               tokens=emitted,
+                               stop_reason=resp["stop_reason"])
+        if self._slo is not None and rid:
+            self._slo.observe(rid, ttft_s=ttft, e2e_s=lat, tokens=emitted,
+                              stop_reason=resp["stop_reason"])
 
     def queue_depth(self) -> int:
         """Requests waiting for a slot (not yet admitted)."""
@@ -598,34 +848,57 @@ class ContinuousBatchingService(GenerationService):
     def _tick(self, pending: list) -> None:
         """One scheduler round under the lock: drop cancelled queued
         requests, one streaming-prefill chunk, admissions, then one (or
-        two, pipelined) decode chunks."""
+        two, pipelined) decode chunks. The serving fault hook runs first
+        (``slow_decode`` sleeps, ``hang`` wedges this thread, a fired
+        ``pool_exhaust`` opens the dry-pool window, in which reservations,
+        promotions and streamed chunks defer), then the brownout ladder
+        reads the pressure."""
+        spec = faults.on_serve_tick(self.stats["chunks"])
+        if spec is not None:
+            self._pool_dry_until = time.monotonic() + spec.duration_s
+            logger.warning("fault pool_exhaust: the pool reads dry for "
+                           "%.2fs", spec.duration_s)
+        if self._brownout is not None:
+            with self._bo_lock:
+                self._brownout.update(
+                    self._brownout_pressure(waiting=len(pending)))
+        # drop queued requests whose cancel fired or whose deadline
+        # expired before they took a slot
         for r in list(pending):
-            ev = r.get("cancel")
-            if ev is not None and ev.is_set():
-                pending.remove(r)
-                plan = r.pop("_pages", None)
-                if plan is not None:
-                    # cancelled between streaming chunks: chunks already
-                    # adopted stay in the radix (valid content), the rest
-                    # of the plan frees
-                    self._prefix.paged_finish(plan, [], 0,
-                                              written=plan.get("done", 0))
-                resp = self._response([], stops=r["stop"], emitted=0)
-                resp["stop_reason"] = "cancelled"
-                r["result"] = resp
-                r["event"].set()
-                self.stats["cancelled"] += 1
-                self.stats["completed"] += 1
+            ev, dl = r.get("cancel"), r.get("deadline")
+            dead = ev is not None and ev.is_set()
+            if not (dead or (dl is not None and dl.expired())):
+                continue
+            pending.remove(r)
+            plan = r.pop("_pages", None)
+            if plan is not None:
+                # between streaming chunks: chunks already adopted stay in
+                # the radix (valid content), the rest of the plan frees
+                self._prefix.paged_finish(plan, [], 0,
+                                          written=plan.get("done", 0))
+            resp = self._response([], stops=r["stop"], emitted=0)
+            resp["stop_reason"] = "cancelled" if dead else "deadline"
+            r["result"] = resp
+            r["event"].set()
+            self.stats["cancelled" if dead else "deadline_expired"] += 1
+            self.stats["completed"] += 1
         pf = self._prefix
         pf.apply_pending_corruption()
+        dry = self._pool_dry()
         # the spill tiers: pending requests whose prefix was demoted
         # promote here, before any reservation of this tick looks it up
-        if pf.spill is not None:
+        if pf.spill is not None and not dry:
             for r in pending[:self._slots]:
-                pf.promote_spilled(r["ids"])
+                t_tier0 = time.monotonic()
+                n = pf.promote_spilled(r["ids"])
+                if n and self._tracer is not None and r.get("rid"):
+                    # the request's time pulling its prefix back up the
+                    # hierarchy (inside its queue wait)
+                    self._tracer.add(r["rid"], "tier", t_tier0,
+                                     time.monotonic(), blocks=n)
         # ONE chunk of ONE long pending prompt per tick: decode rows
         # interleave between chunks
-        if self._prefill_chunk and pending:
+        if self._prefill_chunk and pending and not dry:
             for r in pending:
                 if (len(r["ids"]) > self._prefill_chunk
                         or r.get("_pages") is not None):
@@ -636,6 +909,13 @@ class ContinuousBatchingService(GenerationService):
         for r in list(pending):
             if not free:
                 break
+            if (self.brownout_level >= 3
+                    and r["budget"] > self._bo_max_new):
+                # level 3: long generations finish short so slots recycle
+                # (the stop_reason stays "length": the browned-out budget
+                # was exhausted)
+                r["budget"] = self._bo_max_new
+                self.stats["brownout_clamped"] += 1
             if self._needs_streaming(r):
                 continue        # still streaming: later requests go by
             plan = r.get("_pages") or self._reserve_pages(r)
@@ -661,9 +941,10 @@ class ContinuousBatchingService(GenerationService):
         steps = self._chunk
         # adaptive growth: with every slot busy no slot can free before
         # min_left steps (unless a row stops early), so one longer chunk
-        # recycles slots as fast with fewer host round trips
-        if min_left > self._chunk and not any(m is None
-                                              for m in self._meta):
+        # recycles slots as fast with fewer host round trips. Brownout
+        # level 2 turns growth off: the queue's admission latency first
+        if (min_left > self._chunk and self.brownout_level < 2
+                and not any(m is None for m in self._meta)):
             limit = min(min_left, self._chunk * self._grow_cap(live))
             while steps * 2 <= limit:
                 steps *= 2

@@ -22,8 +22,14 @@ to the least-loaded group, whose index the receipt names (``dp_group``):
 the follow-up request finds the pages through the same radix probe. At
 tp > 1 the groups' pools refuse the three, naming A3a.4's TP remainder
 (each rank would send its KV-head slice). A disk spill tier gets a
-directory per group (``<disk_spill_dir>/g<i>``). Brownout and the SLO
-watcher (A3a.5, A3a.7) have no engine here to merge.
+directory per group (``<disk_spill_dir>/g<i>``).
+
+Observability merges over the groups: the fixed-bucket latency histograms
+sum bucket by bucket (``add_histograms``; percentile gauges do not add),
+the serve-path counts add, the SLO watcher is one object every group
+shares, the brownout level is the worst group's, and every fingerprint
+carries ``dp<D>``. Only group 0 feeds a time-series store
+(``service_kw_fn``), one writer per file.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
-from ..utils.promtext import percentile
+from ..utils.promtext import add_histograms, percentile, zero_histogram
 
 logger = logging.getLogger(__name__)
 
@@ -48,6 +54,19 @@ def _close(models) -> None:
     for model in models:
         if hasattr(model, "close"):
             model.close()
+
+
+class _MergedHist:
+    """A snapshot-time bucket sum over the groups' latency histograms."""
+
+    def __init__(self, hists):
+        self._hists = hists
+
+    def snapshot(self) -> dict:
+        out = zero_histogram()
+        for h in self._hists:
+            add_histograms(out, h.snapshot())
+        return out
 
 
 class _StatsView(dict):
@@ -99,10 +118,12 @@ class DataParallelService:
 
     @classmethod
     def from_model_factory(cls, factory, dp: int, tp: int, service_cls,
-                           tokenizer=None, device="cuda", service_kw=None):
+                           tokenizer=None, device="cuda", service_kw=None,
+                           service_kw_fn=None):
         """``dp`` group engines: ``factory(g)`` returns group ``g``'s model
         (on card ``g`` at tp 1, a TP group of its own at tp > 1; the
-        facade closes those it built)."""
+        facade closes those it built). ``service_kw_fn(g)``: extra
+        keywords for group ``g``'s engine alone."""
         from ..parallel.tp import validate_dp_geometry
 
         dp, tp = int(dp), int(tp)
@@ -121,7 +142,8 @@ class DataParallelService:
             if errors:
                 raise errors[0]
             for g, model in enumerate(models):
-                kw = dict(service_kw or {})
+                kw = dict(service_kw or {},
+                          **(service_kw_fn(g) if service_kw_fn else {}))
                 spill = (kw.get("prefix_cache") or {}).get("disk_spill_dir")
                 if spill and dp > 1:
                     # a directory per group: each group's tier numbers its
@@ -132,6 +154,8 @@ class DataParallelService:
                         disk_spill_dir=os.path.join(str(spill), f"g{g}"))
                 engines.append(service_cls.from_model(
                     model, tokenizer, device=model.device, **kw))
+                # the serve-path fingerprint's dp<D> token
+                engines[-1].dp_degree = dp
                 logger.info("dp group %d/%d ready (tp=%d, %s)", g + 1, dp,
                             tp, getattr(model, "devices", model.device))
         except BaseException:
@@ -144,7 +168,7 @@ class DataParallelService:
     @classmethod
     def build_from_config(cls, config, service_cls, device=None, dp: int = 2,
                           tp: int = 1, use_ema: bool = False,
-                          service_kw=None):
+                          service_kw=None, service_kw_fn=None):
         """The ``serve.py`` entry: each group loads the artifact onto its
         own cards (``load_generation_stack(group=g)``; ``use_ema``: a
         training checkpoint's EMA weights)."""
@@ -163,7 +187,7 @@ class DataParallelService:
         return cls.from_model_factory(
             factory, dp, tp, service_cls,
             tokenizer=tokenizer_from_config(config), device=device,
-            service_kw=service_kw)
+            service_kw=service_kw, service_kw_fn=service_kw_fn)
 
     def close(self) -> None:
         """Stop every group (its scheduler, and the ranks of the TP groups
@@ -220,12 +244,12 @@ class DataParallelService:
         except ValueError:
             return None       # the group's engine raises the real 400
 
-    def prefill_export(self, prompt=None, prompt_ids=None) -> dict:
+    def prefill_export(self, prompt=None, prompt_ids=None, **kw) -> dict:
         """The prompt's chain computed and exported by its affinity
         group."""
         g = self._pick(self._ids_or_none(prompt, prompt_ids))
         return self._engines[g].prefill_export(prompt=prompt,
-                                               prompt_ids=prompt_ids)
+                                               prompt_ids=prompt_ids, **kw)
 
     def export_cached_pages(self, prompt=None, prompt_ids=None) -> dict:
         """Export-only, from the group holding the deepest chain."""
@@ -323,3 +347,30 @@ class DataParallelService:
     def tp_stats(self) -> dict:
         # every group has the same geometry: group 0 speaks for all
         return self._engines[0].tp_stats()
+
+    @property
+    def hist(self) -> dict:
+        return {k: _MergedHist([e.hist[k] for e in self._engines])
+                for k in self._engines[0].hist}
+
+    def path_counts_snapshot(self) -> dict:
+        out: dict = {}
+        for e in self._engines:
+            for fp, n in e.path_counts_snapshot().items():
+                out[fp] = out.get(fp, 0) + n
+        return out
+
+    def slo_stats(self) -> dict:
+        # one watcher, shared by every group
+        return self._engines[0].slo_stats()
+
+    @property
+    def brownout_level(self) -> int:
+        return max(e.brownout_level for e in self._engines)
+
+    def brownout_stats(self) -> dict:
+        """The worst group's ladder gauges."""
+        stats = [e.brownout_stats() for e in self._engines]
+        out = dict(max(stats, key=lambda st: st["brownout_level"]))
+        out["brownout_level"] = max(st["brownout_level"] for st in stats)
+        return out

@@ -655,6 +655,8 @@ class PrefixCache:
         # host seconds of the demotes and promotes (device copies and
         # host work together), for their cost per block
         self.tier_seconds = {"demote": 0.0, "promote": 0.0}
+        # origin flags of the last scatter-arm hit (warm_prefill)
+        self.last_warm_flags: dict = {}
         self.nb_max = -(-int(model.max_len) // self.block)
         if self.window:
             nb_ring = (self.window // self.block + 1
@@ -1204,6 +1206,9 @@ class PrefixCache:
         dev = model.device
         self.apply_pending_corruption()
         nodes, blocks, c = self.lookup(ids, record=record)
+        # the origins of the nodes this request's hit consumed, for its
+        # serve-path fingerprint (the caller holds the service lock)
+        self.last_warm_flags = page_origin_flags(nodes) if c else {}
         try:
             if c == 0:
                 prompt = torch.tensor([list(ids)], dtype=torch.long,

@@ -62,6 +62,19 @@ its wire bytes (engine/kvcache.py). A spill tier configured in
 ``prefix_cache`` (``host_spill_blocks``, ``disk_spill_dir``,
 ``disk_spill_blocks``) promotes a demoted prefix at the batch-1 lookup.
 
+Request tracing, deadlines and SLOs (the JAX service's): ``tracer`` (an
+``observability.reqtrace.RequestTracer``) and ``slo`` (a ``SloWatcher``)
+are optional; with them each request keyed by ``request_id`` records its
+spans and events (``complete``, ``serve_path``, ``spec``,
+``prefill_export``) and its SLO observation. ``deadline`` (a
+``reqtrace.Deadline``) is checked at dispatch boundaries (entry, after the
+lock wait; the static batcher sheds expired members before forming a
+batch) and raises :class:`DeadlineExceeded`. Every response carries its
+``serve_path`` fingerprint (``reqtrace.path_fingerprint``: admit mode, KV
+layout, the pool events it consumed, TP / DP degree, brownout level),
+counted per fingerprint for ``/metrics``; ``hist`` holds the fixed-bucket
+TTFT / TPOT / e2e histograms.
+
 Tensor parallelism refuses speculative requests (ROADMAP A4's
 remainder), page shipping and spill (A3a.4's TP remainder), and serves a
 non-paged pool's requests cold. A config with
@@ -79,7 +92,10 @@ import torch
 
 from .. import models  # noqa: F401  (registers the model families)
 from ..resilience import faults
-from .kvcache import PrefixCache, deserialize_pages, empty_payload
+from ..observability.reqtrace import path_fingerprint
+from .kvcache import (
+    PrefixCache, deserialize_pages, empty_payload, page_origin_flags,
+)
 from ..checkpoint import (
     check_artifact_tp_geometry, load_serving_meta, restore_serving_params,
     verify_artifact_manifest,
@@ -90,6 +106,7 @@ from ..parallel.tp import (
     decode_step_collectives, dp_group_devices, shard_serving_params,
     tp_degree,
 )
+from ..utils.promtext import LatencyHistogram
 from ..utils.util import resolve_device
 from .generate import (
     _check_draft_layers, _decode_step, generate, generate_speculative,
@@ -97,6 +114,13 @@ from .generate import (
 )
 
 logger = logging.getLogger(__name__)
+
+
+class DeadlineExceeded(RuntimeError):
+    """A request's ``X-Deadline-Ms`` budget expired before (or while) it
+    could be served. ``serve.py`` answers 504 with ``X-Deadline-Expired``;
+    the continuous engine never raises it mid-flight (an expired decoding
+    row finalizes with its tokens and ``stop_reason: "deadline"``)."""
 
 
 class GenerationService:
@@ -141,7 +165,8 @@ class GenerationService:
         return obj
 
     def _setup(self, model, tokenizer=None, prefix_cache=None,
-               spec_draft_layers: int = 0, role: str = "both"):
+               spec_draft_layers: int = 0, role: str = "both", tracer=None,
+               slo=None):
         if role not in self.ROLES:
             raise ValueError(f"unknown serving role {role!r} (one of "
                              f"{self.ROLES})")
@@ -205,8 +230,80 @@ class GenerationService:
         self._export_mu = threading.Lock()        # guards the queue
         self._export_leader = threading.Lock()    # one drainer at a time
         self._export_q: list = []
+        # request tracing and the SLO watcher (None: nothing recorded)
+        self._tracer = tracer
+        self._slo = slo
+        # fixed-bucket latency histograms: TTFT and TPOT fill on the
+        # continuous engine (which observes first tokens), e2e everywhere
+        self.hist = {"ttft_seconds": LatencyHistogram(),
+                     "tpot_seconds": LatencyHistogram(),
+                     "e2e_seconds": LatencyHistogram()}
+        # serve-path fingerprint -> served requests (for /metrics)
+        self._path_counts: dict = {}
+        self._path_lock = threading.Lock()
+        # the DP degree of the facade this engine serves in (engine/dp.py)
+        self.dp_degree = 1
         # subclasses replace this with their scheduler's counters
         self.stats = {}
+
+    # ---- tracing, SLOs and serve-path provenance ----------------------------
+
+    def _observe_request(self, request_id, t0: float, resp: dict,
+                         ttft_s=None) -> None:
+        """One completed request's latency bookkeeping on the schedulers
+        without an engine-side observation point (plain and static; the
+        continuous engine observes in ``_complete``): the e2e histogram,
+        the SLO check and the tracer's ``complete`` event."""
+        e2e = time.monotonic() - t0
+        self.hist["e2e_seconds"].observe(e2e)
+        tokens = len(resp.get("ids") or ())
+        if self._tracer is not None and request_id:
+            self._tracer.event(request_id, "complete", e2e_s=round(e2e, 6),
+                               tokens=tokens,
+                               stop_reason=resp.get("stop_reason"))
+        if self._slo is not None and request_id:
+            self._slo.observe(request_id, ttft_s=ttft_s, e2e_s=e2e,
+                              tokens=tokens)
+
+    def _base_path(self, speculative: int = 0) -> dict:
+        """The request-independent half of a serve-path fingerprint: KV
+        layout, TP / DP geometry and speculative intent. Engines add the
+        admit mode and the pool events the request consumed."""
+        pf = self._prefix
+        kvq = str(getattr(pf, "kv_quant", "")
+                  or getattr(self.model, "kv_quant", "") or "")
+        window = int(getattr(pf, "window", 0)
+                     or getattr(self.model, "window", 0) or 0)
+        return {"mode": "cold", "tp": self.tp, "dp": self.dp_degree,
+                "int8": kvq == "int8", "ring": window > 0,
+                "spec": int(speculative) > 0}
+
+    def _finalize_path(self, resp: dict, path: dict,
+                       request_id=None) -> str:
+        """Render ``path`` to its fingerprint and attach it where a
+        completed request is observable: the response (``serve_path``;
+        ``serve.py`` echoes it as ``X-Serve-Path``), the per-fingerprint
+        counts and the request's trace."""
+        fp = path_fingerprint(path)
+        resp["serve_path"] = fp
+        with self._path_lock:
+            self._path_counts[fp] = self._path_counts.get(fp, 0) + 1
+        if self._tracer is not None and request_id:
+            self._tracer.event(request_id, "serve_path", fingerprint=fp)
+        return fp
+
+    def path_counts_snapshot(self) -> dict:
+        """fingerprint -> served requests (for /metrics)."""
+        with self._path_lock:
+            return dict(self._path_counts)
+
+    def slo_stats(self) -> dict:
+        """The SLO breach counters for /metrics (zeros without a
+        watcher)."""
+        if self._slo is None:
+            return {"slo_breach_total": 0, "slo_ttft_breach_total": 0,
+                    "slo_e2e_breach_total": 0, "slo_dumps_written": 0}
+        return self._slo.stats()
 
     def prefix_cache_stats(self):
         """Prefix-cache counters + pool occupancy for /metrics, or None
@@ -317,7 +414,8 @@ class GenerationService:
                              "(serving.prefix_cache.enabled)")
         return self._prefix
 
-    def prefill_export(self, prompt=None, prompt_ids=None) -> dict:
+    def prefill_export(self, prompt=None, prompt_ids=None, request_id=None,
+                       deadline=None) -> dict:
         """The prefill role's entry: compute the prompt's KV into this
         replica's pool (the paged batch-1 prefill, or the scatter arm) and
         export its full-block chain as a ship payload
@@ -330,7 +428,12 @@ class GenerationService:
         Concurrent calls coalesce: each enqueues its chain, and the first
         thread to take the leader lock drains the whole queue under one
         service-lock acquisition (``prefill_export_batches`` and
-        ``prefill_export_max_batch`` count it)."""
+        ``prefill_export_max_batch`` count it). A spent ``deadline`` raises
+        :class:`DeadlineExceeded` before any work; with a tracer the call
+        is the request's ``prefill_export`` span."""
+        t0 = time.monotonic()
+        if deadline is not None and deadline.expired(t0):
+            raise DeadlineExceeded("deadline expired before prefill")
         pf = self._shipping_pool("prefill_export")
         ids = self.encode_prompt(prompt, prompt_ids)
         if len(ids) // pf.block == 0:
@@ -354,7 +457,11 @@ class GenerationService:
         with self._export_mu:
             self.stats["prefill_exports"] = self.stats.get(
                 "prefill_exports", 0) + 1
-        return item["result"] or empty_payload(pf)
+        payload = item["result"] or empty_payload(pf)
+        if self._tracer is not None and request_id:
+            self._tracer.add(request_id, "prefill_export", t0,
+                             time.monotonic(), blocks=payload["n_blocks"])
+        return payload
 
     def _drain_export_queue(self) -> None:
         """The export leader's loop: take every queued chain and compute
@@ -481,37 +588,60 @@ class GenerationService:
     def generate(self, prompt=None, prompt_ids=None,
                  max_new_tokens: int = 64, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 0.0, seed: int = 0,
-                 speculative: int = 0, stop=None) -> dict:
-        """One validated request -> ``{"ids", "text"?, "stop_reason"}``.
+                 speculative: int = 0, stop=None, request_id=None,
+                 deadline=None) -> dict:
+        """One validated request -> ``{"ids", "text"?, "stop_reason",
+        "serve_path"}``.
 
         ``stop``: stop ids and/or single-token strings; the stop token is
         left out of the response and reported as ``stop_reason: "stop"``.
         ``seed`` seeds the request's own generator, so the same request
         samples the same tokens. ``speculative`` > 0: the draft length of a
         speculative request (module docstring); the response adds its
-        ``speculative`` stats."""
+        ``speculative`` stats. ``request_id`` keys the request's spans and
+        SLO observation; ``deadline`` (a ``reqtrace.Deadline``) is checked
+        at entry and after the lock wait (:class:`DeadlineExceeded`); a
+        generation already running runs out."""
+        t_req = time.monotonic()
+        if deadline is not None and deadline.expired(t_req):
+            raise DeadlineExceeded("deadline expired before dispatch")
         self._check_role(max_new_tokens)
         ids = self.encode_prompt(prompt, prompt_ids)
         stops = self.encode_stop(stop)
         max_new = int(max_new_tokens)
         self._validate_budget(ids, max_new, stops)
-        if int(speculative) > 0:
-            if self.tp > 1:
-                raise NotImplementedError(
-                    "speculative decoding under tensor parallelism is "
-                    "ROADMAP A4's remainder, a later slice")
-            with self._lock:
-                new_ids, stats = self._adaptive_speculative(
-                    ids, max_new, int(speculative), float(temperature),
-                    int(top_k), float(top_p), int(seed), stops)
-            resp = self._response(new_ids, stops=stops,
-                                  emitted=len(new_ids))
-            resp["speculative"] = stats
-            return resp
+        path = self._base_path(speculative)
+        if int(speculative) > 0 and self.tp > 1:
+            raise NotImplementedError(
+                "speculative decoding under tensor parallelism is ROADMAP "
+                "A4's remainder, a later slice")
         arr = torch.tensor([ids], dtype=torch.long, device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         emitted = None
         with self._lock:
+            if deadline is not None and deadline.expired():
+                # the lock wait ate the budget: shed before computing
+                raise DeadlineExceeded(
+                    "deadline expired waiting for the device")
+            if int(speculative) > 0:
+                new_ids, stats = self._adaptive_speculative(
+                    ids, max_new, int(speculative), float(temperature),
+                    int(top_k), float(top_p), int(seed), stops)
+                resp = self._response(new_ids, stops=stops,
+                                      emitted=len(new_ids))
+                resp["speculative"] = stats
+                if self._tracer is not None and request_id:
+                    self._tracer.event(
+                        request_id, "spec",
+                        tokens_per_call=stats.get("tokens_per_call"),
+                        model_calls=stats.get("model_calls"),
+                        disabled=stats.get("speculation_disabled"))
+                if self._prefix is not None and stats.get(
+                        "prefix_hit_tokens"):
+                    # warm-prefilled through the pool's scatter arm
+                    path["mode"] = "warm"
+                    path.update(self._prefix.last_warm_flags)
+                return self._finish_request(resp, path, request_id, t_req)
             if self._prefix is not None and not stops and max_new >= 1:
                 # the pool: prefill only the uncached suffix (paged: decode
                 # reading the pool in place; else the scatter arm). None =
@@ -521,7 +651,10 @@ class GenerationService:
                     ids, max_new, float(temperature), int(top_k),
                     float(top_p), gen)
                 if new_ids is not None:
-                    return self._response(new_ids, stops=stops)
+                    path.update(self._last_path_info)
+                    return self._finish_request(
+                        self._response(new_ids, stops=stops), path,
+                        request_id, t_req)
             if stops:
                 out, lengths = generate(
                     self.model, arr, max_new_tokens=int(max_new_tokens),
@@ -534,8 +667,15 @@ class GenerationService:
                     self.model, arr, max_new_tokens=int(max_new_tokens),
                     temperature=float(temperature), top_k=int(top_k),
                     top_p=float(top_p), generators=[gen])
-        return self._response(out[0, len(ids):].tolist(), stops=stops,
-                              emitted=emitted)
+        return self._finish_request(
+            self._response(out[0, len(ids):].tolist(), stops=stops,
+                           emitted=emitted), path, request_id, t_req)
+
+    def _finish_request(self, resp: dict, path: dict, request_id,
+                        t_req: float) -> dict:
+        self._finalize_path(resp, path, request_id)
+        self._observe_request(request_id, t_req, resp)
+        return resp
 
     @torch.no_grad()
     def _generate_prefix_cached(self, ids, max_new: int, temperature: float,
@@ -557,8 +697,10 @@ class GenerationService:
         matches it token for token (float-tolerance exact). Returns the
         new ids, or None when the pool cannot serve the request (a ring
         layout's dry pool; a non-paged pool under tensor parallelism).
-        Caller holds the lock."""
+        Caller holds the lock. ``_last_path_info`` gets the arm that served
+        the request and the pool events it consumed (its serve path)."""
         pf = self._prefix
+        self._last_path_info = {"mode": "cold"}
         res = pf.paged_prefill(ids, max_new) if pf.paged else None
         if res is None:
             pf.count_batch1(paged=False)
@@ -566,8 +708,11 @@ class GenerationService:
             if pf.window or self.tp > 1:
                 return None
             # a dry paged pool's fall-through counted its lookup already
-            last, cache, _ = pf.warm_prefill(ids, len(ids) + max_new,
-                                             record=not pf.paged)
+            last, cache, hit = pf.warm_prefill(ids, len(ids) + max_new,
+                                               record=not pf.paged)
+            if hit:
+                self._last_path_info = {"mode": "warm",
+                                        **pf.last_warm_flags}
             gens = [gen]
             token = sample_logits(last, temperature, top_k, top_p, gens)
             out = [token]
@@ -601,6 +746,9 @@ class GenerationService:
             raise
         pf.paged_finish(plan, row, max_new)
         pf.count_batch1(paged=True)
+        self._last_path_info = {"mode": "paged",
+                                "wrap": bool(plan.get("ring_wrap")),
+                                **page_origin_flags(plan["nodes"])}
         return row
 
     # ---- speculative requests ---------------------------------------------
@@ -741,9 +889,10 @@ class BatchedGenerationService(GenerationService):
 
     def _setup(self, model, tokenizer=None, max_batch: int = 8,
                window_ms: float = 25.0, prefix_cache=None,
-               spec_draft_layers: int = 0):
+               spec_draft_layers: int = 0, tracer=None, slo=None):
         super()._setup(model, tokenizer, prefix_cache=prefix_cache,
-                       spec_draft_layers=spec_draft_layers)
+                       spec_draft_layers=spec_draft_layers, tracer=tracer,
+                       slo=slo)
         self._max_batch = int(max_batch)
         self._window_s = float(window_ms) / 1e3
         self._queue: "queue_mod.Queue" = queue_mod.Queue()
@@ -763,14 +912,19 @@ class BatchedGenerationService(GenerationService):
     def generate(self, prompt=None, prompt_ids=None,
                  max_new_tokens: int = 64, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 0.0, seed: int = 0,
-                 speculative: int = 0, stop=None) -> dict:
+                 speculative: int = 0, stop=None, request_id=None,
+                 deadline=None) -> dict:
         if int(speculative) > 0:
             # batch 1 by construction: under the parent's lock
             return super().generate(
                 prompt=prompt, prompt_ids=prompt_ids,
                 max_new_tokens=max_new_tokens, temperature=temperature,
                 top_k=top_k, top_p=top_p, seed=seed,
-                speculative=speculative, stop=stop)
+                speculative=speculative, stop=stop, request_id=request_id,
+                deadline=deadline)
+        t_req = time.monotonic()
+        if deadline is not None and deadline.expired(t_req):
+            raise DeadlineExceeded("deadline expired before dispatch")
         # validated and keyed in the caller's thread: a bad request fails
         # here and never reaches the worker
         ids = self.encode_prompt(prompt, prompt_ids)
@@ -781,12 +935,14 @@ class BatchedGenerationService(GenerationService):
         req = {"ids": ids, "max_new_tokens": int(max_new_tokens),
                "temperature": float(temperature), "top_k": int(top_k),
                "top_p": float(top_p), "seed": int(seed), "stop": stops,
-               "event": threading.Event()}
+               "deadline": deadline, "event": threading.Event()}
         req["key"] = self._group_key(req)
         self._queue.put(req)
         req["event"].wait()
         if "error" in req:
             raise req["error"]
+        self._finalize_path(req["result"], req["path"], request_id)
+        self._observe_request(request_id, t_req, req["result"])
         return req["result"]
 
     def _group_key(self, req) -> tuple:
@@ -835,7 +991,22 @@ class BatchedGenerationService(GenerationService):
     def _run_batch(self, batch: list) -> None:
         """One group: a lone request without stops through the pool when
         one is attached, else one batched ``generate`` (left-padded to the
-        JAX shape menu for pad-capable models)."""
+        JAX shape menu for pad-capable models). Members whose deadline
+        expired in the batching window are shed first: a static group
+        decodes to the longest member's budget."""
+        live = []
+        for r in batch:
+            if r["deadline"] is not None and r["deadline"].expired():
+                r["error"] = DeadlineExceeded(
+                    "deadline expired in the batch queue")
+                r["event"].set()
+            else:
+                live.append(r)
+        if not live:
+            return
+        batch = live
+        for r in batch:
+            r["path"] = self._base_path()
         first = batch[0]
         budget = first["max_new_tokens"]
         samp = dict(temperature=first["temperature"], top_k=first["top_k"],
@@ -850,6 +1021,7 @@ class BatchedGenerationService(GenerationService):
                     first["ids"], budget, samp["temperature"],
                     samp["top_k"], samp["top_p"], gen)
                 if row is not None:
+                    first["path"].update(self._last_path_info)
                     self._finish(batch, [row], None)
                     return
             t0 = max(len(r["ids"]) for r in batch)

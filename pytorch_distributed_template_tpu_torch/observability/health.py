@@ -430,6 +430,14 @@ class HealthMonitor:
                 )
             except Exception:  # noqa: BLE001
                 pass
+        # the process's time-series window: the bundle carries the
+        # trailing trend, not just the offending instant (present only
+        # when a store is registered; the serving paths register one)
+        from .timeseries import default_store
+
+        ts = default_store()
+        if ts is not None:
+            anomaly["timeseries_window"] = ts.points(last_n=self.dump_last_n)
         self._write_dump(step, anomaly)
         # timeline note + tail fsync rate-limited by the SAME cooldown
         # as the dumps: a persistent NaN streak under skip_nonfinite

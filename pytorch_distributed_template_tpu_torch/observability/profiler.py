@@ -24,7 +24,10 @@ capture (the port of the JAX package's ``observability/profiler.py``).
   steps; ``request`` arms an on-demand window and :func:`install_sigusr2`
   wires it to SIGUSR2.
 
-The serving counterpart ``OnDemandProfiler`` waits for ROADMAP A3a.7.
+- ``OnDemandProfiler``: the serving counterpart (``serve.py``'s ``POST
+  /profile?steps=N``): a ``torch.profiler`` capture windowed on the
+  scheduler's progress counter, one at a time, written as a Chrome trace
+  under the run's save dir.
 """
 from __future__ import annotations
 
@@ -275,3 +278,83 @@ def install_sigusr2(trace: TraceCapture, default_steps: int = 5) -> bool:
         return True
     except ValueError:  # not the main thread
         return False
+
+
+class OnDemandProfiler:
+    """Progress-windowed on-demand capture for step-less processes
+    (``serve.py``'s ``POST /profile?steps=N``; the JAX package's class of
+    the same name, over ``torch.profiler``).
+
+    The serving schedulers have no global step counter, but they have
+    monotonic progress counters (continuous engine: ``chunks``; static:
+    ``batches``). ``capture()`` starts a ``torch.profiler`` trace (host ops
+    and, on CUDA, every kernel the process launches, the engine thread's
+    included), waits until ``progress_fn`` has advanced by ``steps`` (or
+    ``timeout_s`` passes: an idle server must not pin a request thread
+    forever), stops, and writes ``<out_dir>/profile/serve_<n>.pt.trace.
+    json``. One capture at a time: a concurrent caller gets ``busy``.
+    """
+
+    def __init__(self, out_dir):
+        import threading
+
+        self.dir = str(Path(out_dir) / "profile")
+        self._lock = threading.Lock()
+        self.captures = 0
+
+    def capture(self, steps: int = 0, progress_fn=None,
+                timeout_s: float = 30.0, poll_s: float = 0.05) -> dict:
+        from torch.profiler import ProfilerActivity, profile
+
+        if not self._lock.acquire(blocking=False):
+            return {"busy": True,
+                    "error": "a profile capture is already running"}
+        prof = None
+        try:
+            Path(self.dir).mkdir(parents=True, exist_ok=True)
+            activities = [ProfilerActivity.CPU]
+            cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+            if cuda:
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities)
+            prof.start()
+            t0 = time.monotonic()
+            base = progress_fn() if (progress_fn and steps > 0) else 0
+            seen, timed_out = 0, False
+            while progress_fn is not None and steps > 0:
+                seen = progress_fn() - base
+                if seen >= steps:
+                    break
+                if time.monotonic() - t0 > timeout_s:
+                    timed_out = True
+                    break
+                time.sleep(poll_s)
+            if cuda:
+                # the window's kernels were only enqueued: let them land
+                torch.cuda.synchronize()
+            prof.stop()
+            self.captures += 1
+            path = Path(self.dir) / f"serve_{self.captures}.pt.trace.json"
+            prof.export_chrome_trace(str(path))
+            prof = None
+            from .health import bump_counter
+
+            bump_counter("profile_captures_total")
+            return {
+                "profile_dir": self.dir,
+                "trace_file": str(path),
+                "steps_requested": int(steps),
+                "steps_observed": int(seen),
+                "duration_s": round(time.monotonic() - t0, 3),
+                "timed_out": timed_out,
+                "captures_total": self.captures,
+            }
+        except Exception as e:  # noqa: BLE001 — surface, don't kill serve
+            if prof is not None:
+                try:
+                    prof.stop()
+                except Exception:  # noqa: BLE001
+                    pass
+            return {"error": f"{type(e).__name__}: {e}"}
+        finally:
+            self._lock.release()

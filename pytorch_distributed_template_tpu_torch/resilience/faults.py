@@ -11,8 +11,13 @@ The port wires the training hooks: ``on_step`` and ``nan_grad_step`` in
 ``on_peer_pull`` (``peer_pull_timeout``) where a service lands pages a peer
 pull sent (``engine/serving.py::import_remote_pages``, ``origin="pull"``;
 the JAX package fires it in its fleet manager, which the port has not
-yet). The other serving hooks are here with the grammar but nothing calls
-them yet (ROADMAP A3a, A13).
+yet); and the serving ones: ``on_serve_tick`` (``slow_decode``, ``hang``,
+``pool_exhaust``) once per continuous-scheduler round in
+``engine/continuous.py``, ``on_serve_request`` (``stall_stream``) in
+``serve.py``'s streamed ``/generate``, and ``on_artifact_load``
+(``ckpt_corrupt``) in ``checkpoint/serving.py::verify_artifact_manifest``.
+The fleet's hooks (``on_proxy_request``) wait for the fleet (ROADMAP
+A13).
 
 Nothing in a training framework's recovery story is real until a test
 can *make* the failure happen: this module turns a one-line plan into
@@ -469,7 +474,7 @@ def nan_grad_step() -> Optional[int]:
 
 
 # ---------------------------------------------------------------------------
-# serving-path hook points (not wired in the port yet)
+# serving-path hook points
 # ---------------------------------------------------------------------------
 
 #: serving-artifact load ordinal (1-based) for the ``load`` unit

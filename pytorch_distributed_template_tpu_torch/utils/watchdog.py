@@ -191,6 +191,15 @@ class StepWatchdog:
                 )
             except Exception:
                 pass
+        # the process's time-series window: a stall dump carries the
+        # trend into the incident (was the queue growing for a minute,
+        # or did the world stop cold?) when a store is registered (the
+        # serving paths register one)
+        from ..observability.timeseries import default_store
+
+        ts = default_store()
+        if ts is not None:
+            report["timeseries_window"] = ts.points(last_n=self.dump_last_n)
         # memory probes: high-water marks make OOM-adjacent stalls
         # diagnosable post-mortem. Probes run on the monitor thread and
         # never block on the wedged device path (the caching

@@ -60,6 +60,10 @@ ENTRY_MODULES = [
     "pytorch_distributed_template_tpu_torch.observability.health",
     "pytorch_distributed_template_tpu_torch.observability.profiler",
     "pytorch_distributed_template_tpu_torch.observability.crosshost",
+    "pytorch_distributed_template_tpu_torch.observability.reqtrace",
+    "pytorch_distributed_template_tpu_torch.observability.timeseries",
+    "pytorch_distributed_template_tpu_torch.observability.audit",
+    "pytorch_distributed_template_tpu_torch.utils.brownout",
     "pytorch_distributed_template_tpu_torch.resilience.faults",
     "pytorch_distributed_template_tpu_torch.utils.compile_cache",
     "pytorch_distributed_template_tpu_torch.utils.preemption",

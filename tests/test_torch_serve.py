@@ -6,12 +6,14 @@ HTTP to it.
 - ``POST /generate`` plain, and with ``"stream": true`` (server-sent
   events whose deltas concatenate to the final ids), served by the
   continuous engine over the paged pool, equal to the solo service;
-- ``GET /healthz`` and ``GET /metrics?format=json`` (engine stats + pool
-  snapshot);
-- a bad request is a 400; ``POST /profile``, and roles and the spill
-  tiers under tensor parallelism, are refused naming the later slice (the
-  static scheduler is served: tests/test_torch_static_batch.py; roles and
-  tiers at tp 1: tests/test_torch_disagg.py).
+- ``GET /healthz``, ``GET /metrics?format=json`` (engine stats + pool
+  snapshot) and the Prometheus text of ``GET /metrics``;
+- a bad request is a 400, ``POST /profile?steps=0`` captures at once, and
+  roles and the spill tiers under tensor parallelism are refused naming
+  the later slice (the static scheduler is served:
+  tests/test_torch_static_batch.py; roles and tiers at tp 1:
+  tests/test_torch_disagg.py; the observability routes:
+  tests/test_torch_serve_observe.py).
 """
 import json
 import threading
@@ -102,9 +104,10 @@ def test_healthz_and_metrics(server):
     pool = metrics["prefix_cache"]
     assert pool["warm_admit_copy_bytes"] == 0
     assert pool["prefix_hit_tokens"] > 0
-    with pytest.raises(urllib.error.HTTPError) as e:
-        urllib.request.urlopen(server["url"] + "/metrics", timeout=60)
-    assert e.value.code == 501
+    with urllib.request.urlopen(server["url"] + "/metrics",
+                                timeout=60) as r:
+        text = r.read().decode()
+    assert "pdt_serve_requests_completed " in text
 
 
 def test_bad_and_later_slice_requests(server):
@@ -115,12 +118,10 @@ def test_bad_and_later_slice_requests(server):
         _post(server["url"], {"prompt_ids": [1, 2], "stream": True,
                               "max_new_tokens": 999})
     assert e.value.code == 400
-    req = urllib.request.Request(server["url"] + "/profile", data=b"{}",
-                                 method="POST")
-    with pytest.raises(urllib.error.HTTPError) as e:
-        urllib.request.urlopen(req, timeout=60)
-    assert e.value.code == 501
-    assert "later slice" in json.loads(e.value.read())["error"]
+    req = urllib.request.Request(server["url"] + "/profile?steps=0",
+                                 data=b"{}", method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert json.loads(r.read())["steps_requested"] == 0
 
 
 # --tp and --dp are served (tests/test_torch_tp_serving_ranks.py), and so
